@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of predictionio_tpu for one NVIDIA H100.
+
+The JAX package ``predictionio_tpu`` stays the reference; this package
+mirrors its layout and module names so each counterpart is easy to
+find, and imports nothing of it (nor of JAX). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA on
+a machine without a card raises (utils/device.py).
+
+Ported so far: sessionrec serving — ``templates/sessionrec.py`` →
+``models/seqrec.py`` → ``ops/flash_attention.py``, whose CUDA kernel
+(``csrc/flash_attention.cu``) replaces the JAX package's Pallas
+``_flash_kernel``.
+"""
+
+__version__ = "0.1.0"

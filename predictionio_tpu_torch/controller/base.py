@@ -1,0 +1,106 @@
+"""DASE component contracts used by serving: Preparator, Algorithm and
+Serving, plus Doer construction (port of the JAX package's
+``controller/base.py``, cut to what serving needs).
+
+Type vocabulary: TD training data, PD prepared data, Q query, P
+predicted result, M model. ``ctx`` is the workflow context a training
+slice will bring; serving never passes one.
+"""
+
+from __future__ import annotations
+
+import abc
+import inspect
+from typing import Any, Generic, Sequence, TypeVar
+
+from predictionio_tpu_torch.controller.params import EmptyParams
+
+TD = TypeVar("TD")
+PD = TypeVar("PD")
+Q = TypeVar("Q")
+P = TypeVar("P")
+M = TypeVar("M")
+
+
+class Doer:
+    """Reflective component construction from params: construct with
+    (params) when the __init__ accepts it, else no-arg. Components keep
+    their params on ``self.params``."""
+
+    @staticmethod
+    def create(cls: type, params: Any = None):
+        sig = inspect.signature(cls.__init__)
+        if len(sig.parameters) > 1:
+            return cls(params if params is not None else EmptyParams())
+        instance = cls()
+        instance.params = params if params is not None else EmptyParams()
+        return instance
+
+
+class BaseComponent:
+    """Common base: stores params, exposes the params class for JSON binding."""
+
+    #: dataclass bound to this component's engine.json "params" object
+    params_class: type = EmptyParams
+
+    #: dataclass the /queries.json body binds to (algorithms/servings)
+    query_class: type | None = None
+
+    def __init__(self, params: Any = None):
+        self.params = params if params is not None else EmptyParams()
+
+
+class Preparator(BaseComponent, Generic[TD, PD], abc.ABC):
+    """Transforms training data into prepared (model-ready) data."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: Any, td: TD) -> PD:
+        """Prepared data for the algorithms."""
+
+
+class IdentityPreparator(Preparator[TD, TD]):
+    """Passes training data through."""
+
+    def prepare(self, ctx: Any, td: TD) -> TD:
+        return td
+
+
+class Algorithm(BaseComponent, Generic[PD, M, Q, P], abc.ABC):
+    """Trains a model and answers queries."""
+
+    @abc.abstractmethod
+    def train(self, ctx: Any, pd: PD) -> M:
+        """The trained model."""
+
+    @abc.abstractmethod
+    def predict(self, model: M, query: Q) -> P:
+        """Serving-time single query."""
+
+    def batch_predict(self, model: M, queries: Sequence[tuple[int, Q]]) -> Sequence[tuple[int, P]]:
+        """Bulk predict over (index, query) pairs. The default maps
+        ``predict``; device algorithms override with one batched call."""
+        return [(i, self.predict(model, q)) for i, q in queries]
+
+    def load_model(self, directory: str, device: Any) -> M:
+        """The model saved in ``directory``, placed on ``device``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not load a saved model")
+
+
+class Serving(BaseComponent, Generic[Q, P], abc.ABC):
+    """Combines per-algorithm predictions into one response."""
+
+    def supplement(self, query: Q) -> Q:
+        """Pre-process the query before the algorithms see it."""
+        return query
+
+    @abc.abstractmethod
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        """Receives the ORIGINAL query and one prediction per algorithm."""
+
+
+class FirstServing(Serving[Q, P]):
+    """Serves the first algorithm's prediction."""
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return predictions[0]

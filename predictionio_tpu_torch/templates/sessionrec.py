@@ -1,0 +1,271 @@
+"""Session-based sequential recommendation engine template: the serving
+half of the JAX package's ``templates/sessionrec.py``.
+
+Query {"user": ..., "num": N} (or {"items": [recent ids], "num": N})
+answers with the N most likely next items, never one of the session's
+own items or the query's ``blackList``. The model is the transformer of
+``models/seqrec.py`` with its serving state (``item_index``: item id →
+dense index, 1-based; ``histories``: user → dense indices), saved as
+``params.npz`` + ``model.json``.
+
+Training comes in a later slice (ROADMAP.md queue 1, "sessionrec
+training"); until then a model comes from :func:`init_engine_model`
+(random weights from a seeded generator) or from a JAX-trained model's
+arrays (:meth:`SeqRecEngineModel.from_jax`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.controller import (
+    BaseComponent,
+    Engine,
+    FirstServing,
+    HostModelAlgorithm,
+    IdentityPreparator,
+    Params,
+)
+from predictionio_tpu_torch.models import seqrec
+from predictionio_tpu_torch.ops.topk import serving_k
+from predictionio_tpu_torch.utils.bimap import BiMap
+from predictionio_tpu_torch.utils.device import resolve_device
+
+_NEG = np.float32(-1e30)
+#: largest power-of-two batch one forward takes
+_MAX_BUCKET = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    user: str = ""
+    items: tuple = ()        # explicit recent-item history (overrides user)
+    num: int = 10
+    black_list: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemScore:
+    item: str
+    score: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictedResult:
+    item_scores: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    event_names: tuple = ("view", "buy")
+    entity_type: str = "user"
+    target_entity_type: str = "item"
+    min_sequence_len: int = 2
+    eval_k: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgorithmParams(Params):
+    """The JAX template's parameters, so one engine.json binds to both;
+    serving reads none of them (the model carries its config)."""
+
+    d_model: int = 64
+    n_heads: int = 2
+    n_layers: int = 2
+    max_len: int = 64
+    epochs: int = 20
+    batch_size: int = 64
+    lr: float = 1e-3
+    seed: int = 0
+    use_mesh: bool = True
+    remat: bool = False
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+
+
+_TRAIN_LATER = ("sessionrec training is not ported yet: it comes with "
+                "ROADMAP.md queue 1, 'sessionrec training'")
+
+
+class SessionDataSource(BaseComponent):
+    """Binds the datasource params of a sessionrec engine.json. Reading
+    events comes with the training slice."""
+
+    params_class = DataSourceParams
+
+    def read_training(self, ctx: Any):
+        raise NotImplementedError(_TRAIN_LATER)
+
+
+@dataclasses.dataclass
+class SeqRecEngineModel:
+    params: dict            # f32 state dict on the host (models/seqrec.py keys)
+    cfg: seqrec.SeqRecConfig
+    item_index: BiMap       # item id string -> dense index (1-based)
+    histories: dict         # user -> [dense item indices] (serving state)
+    device: torch.device = dataclasses.field(default_factory=lambda: resolve_device())
+    # the module on ``device``, built on first predict; never saved
+    module: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    def as_module(self) -> seqrec.SeqRec:
+        if self.module is None:
+            self.module = seqrec.SeqRec.from_state(self.cfg, self.params, self.device)
+        return self.module
+
+    @staticmethod
+    def from_jax(params_tree: Mapping, cfg_fields: Mapping[str, Any],
+                 item_index: Mapping[str, int], histories: Mapping[str, list],
+                 device: str | torch.device | None = None) -> "SeqRecEngineModel":
+        """From a JAX-trained model's arrays: its parameter pytree (numpy),
+        its config's fields, its item index and histories."""
+        return SeqRecEngineModel(
+            params=seqrec.params_from_jax(params_tree),
+            cfg=seqrec.SeqRecConfig.from_json(cfg_fields),
+            item_index=BiMap(dict(item_index)),
+            histories={u: [int(i) for i in h] for u, h in histories.items()},
+            device=resolve_device(device),
+        )
+
+
+def init_engine_model(cfg: seqrec.SeqRecConfig, item_ids: list[str],
+                      histories: Mapping[str, list[str]], *, seed: int = 0,
+                      device: str | torch.device | None = None) -> SeqRecEngineModel:
+    """A model with random weights from ``seed``: dense index i+1 for
+    ``item_ids[i]``; ``histories`` are given in item ids."""
+    if len(item_ids) + 1 != cfg.vocab:
+        raise ValueError(f"{len(item_ids)} items need vocab {len(item_ids) + 1}, "
+                         f"config has {cfg.vocab}")
+    item_index = BiMap({item: i + 1 for i, item in enumerate(item_ids)})
+    gen = torch.Generator().manual_seed(seed)
+    return SeqRecEngineModel(
+        params=seqrec.init_params(cfg, gen),
+        cfg=cfg,
+        item_index=item_index,
+        histories={u: [item_index[i] for i in h] for u, h in histories.items()},
+        device=resolve_device(device),
+    )
+
+
+def save_engine_model(model: SeqRecEngineModel, directory: str) -> None:
+    """``params.npz`` (f32 arrays by state-dict key) + ``model.json``
+    (config, item index, histories)."""
+    os.makedirs(directory, exist_ok=True)
+    np.savez(os.path.join(directory, "params.npz"),
+             **{k: v.detach().cpu().numpy() for k, v in model.params.items()})
+    doc = {"cfg": model.cfg.to_json(), "itemIndex": model.item_index.to_dict(),
+           "histories": model.histories}
+    with open(os.path.join(directory, "model.json"), "w") as f:
+        json.dump(doc, f)
+
+
+def load_engine_model(directory: str, device: str | torch.device | None = None
+                      ) -> SeqRecEngineModel:
+    with open(os.path.join(directory, "model.json")) as f:
+        doc = json.load(f)
+    with np.load(os.path.join(directory, "params.npz")) as arrays:
+        params = {k: torch.from_numpy(arrays[k]) for k in arrays.files}
+    return SeqRecEngineModel(
+        params=params,
+        cfg=seqrec.SeqRecConfig.from_json(doc["cfg"]),
+        item_index=BiMap(doc["itemIndex"]),
+        histories=doc["histories"],
+        device=resolve_device(device),
+    )
+
+
+class SeqRecAlgorithm(HostModelAlgorithm):
+    """Serves the causal transformer's top-k next items."""
+
+    params_class = AlgorithmParams
+    query_class = Query
+
+    def train(self, ctx: Any, pd: Any) -> SeqRecEngineModel:
+        raise NotImplementedError(_TRAIN_LATER)
+
+    def load_model(self, directory: str, device: torch.device) -> SeqRecEngineModel:
+        return load_engine_model(directory, device)
+
+    def _history_for(self, model: SeqRecEngineModel, query: Query):
+        if query.items:
+            return [
+                model.item_index.get(i)
+                for i in query.items
+                if model.item_index.get(i) is not None
+            ]
+        return model.histories.get(query.user, [])
+
+    def predict(self, model: SeqRecEngineModel, query: Query) -> PredictedResult:
+        # single-query serving is the B=1 case of the batched path
+        return self.batch_predict(model, [(0, query)])[0][1]
+
+    def batch_predict(self, model: SeqRecEngineModel, queries):
+        """Power-of-two batch buckets (up to 256 queries) through one
+        forward each, with a per-query logit mask: PAD, the session's own
+        items and the black list are excluded."""
+        S = model.cfg.max_len
+        base_mask = np.zeros((model.cfg.vocab,), np.float32)
+        base_mask[seqrec.PAD] = _NEG
+        prepared, out = [], []
+        for i, q in queries:
+            history = self._history_for(model, q)
+            if not history:
+                out.append((i, PredictedResult()))
+                continue
+            tail = history[-S:]
+            hist = np.zeros((S,), np.int64)
+            hist[: len(tail)] = tail
+            mask = base_mask.copy()
+            mask[np.asarray(tail, np.int64)] = _NEG   # don't repeat the session
+            for item in q.black_list:
+                di = model.item_index.get(item)
+                if di is not None:
+                    mask[di] = _NEG
+            prepared.append((i, q, hist, mask))
+        if not prepared:
+            return out
+
+        # menu-ized top-k width; results trim per query below
+        k = serving_k(max(q.num for _, q, _, _ in prepared), model.cfg.vocab - 1)
+        module = model.as_module()
+        inv = model.item_index.inverse
+        pos = 0
+        while pos < len(prepared):
+            remaining = len(prepared) - pos
+            bucket = 1
+            while bucket * 2 <= min(remaining, _MAX_BUCKET):
+                bucket *= 2
+            chunk = prepared[pos : pos + bucket]
+            pos += bucket
+            scores, ids = seqrec.predict_topk_batch(
+                module,
+                torch.from_numpy(np.stack([h for _, _, h, _ in chunk])),
+                k,
+                torch.from_numpy(np.stack([m for _, _, _, m in chunk])),
+            )
+            for (i, q, _, _), svals, sids in zip(
+                    chunk, scores.cpu().numpy(), ids.cpu().numpy()):
+                items = []
+                for v, ix in zip(svals[: q.num], sids[: q.num]):
+                    if v <= _NEG / 2:
+                        continue
+                    item = inv.get(int(ix))
+                    if item is not None:
+                        items.append(ItemScore(item=item, score=float(v)))
+                out.append((i, PredictedResult(item_scores=tuple(items))))
+        return out
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class_map=SessionDataSource,
+        preparator_class_map=IdentityPreparator,
+        algorithm_class_map={"seqrec": SeqRecAlgorithm},
+        serving_class_map=FirstServing,
+    )

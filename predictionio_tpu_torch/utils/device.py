@@ -1,0 +1,23 @@
+"""Device resolution for every entry point of the port.
+
+The default is the card: ``resolve_device()`` gives ``cuda``, and the
+CPU is used only when the caller asks for it (the tests do). A missing
+card raises instead of quietly running on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` → ``cuda``. Raises RuntimeError when CUDA is asked for
+    and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
