@@ -8,10 +8,14 @@ Phases, in order; any failure exits non-zero:
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, case by
    case, with the max abs difference and the tolerance;
-3. the kernel's time at the serving shape (CUDA events, median of 30
-   after warm-up) beside the plain version, the library call
-   (scaled_dot_product_attention, a yardstick the port never calls)
-   and the bound;
+3. the kernel's time at the serving shape and the batch bucket beside
+   the plain version, the library call (scaled_dot_product_attention
+   with the same mask, and with is_causal alone, yardsticks the port
+   never calls) and the bound: CUDA events around 100 back-to-back
+   launches on preallocated tensors, divided by 100 (inputs stay in
+   L2, as after the layer that wrote them), the kernel's device time
+   from torch.profiler, and the kernel against the library call at B=1
+   for S in {512, 8192};
 4. the sessionrec serving path end to end at the long-context serving
    config (vocab 50,000, max_len 2048, d_model 256, 4 heads, 4 layers,
    bf16, random weights from a seed): save the model, deploy it through
@@ -27,6 +31,7 @@ Exits non-zero, printing no result, when there is no card.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -51,8 +56,8 @@ DEVICE = "cuda"
 #: the CUDA cores, and device-memory bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-#: kernel vs plain: both compute in f32; f32 differs by summation order,
-#: bf16 by at most a rounding step of the output
+#: kernel vs plain: f32 differs by summation order; bf16 by a rounding
+#: step of the output and by the bf16 rounding of P before the PV product
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 8e-3)}  # (atol, rtol)
 SERVING = dict(vocab=50_000, max_len=2048, d_model=256, n_heads=4, n_layers=4)
 #: top-10 agreement, served (kernel) vs plain attention: logits are f32
@@ -69,20 +74,39 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, warmup: int = 5, reps: int = 30) -> float:
+LAUNCHES_TIMED = 100
+#: keys per K/V tile of the bf16 kernel (kKvTile in csrc/flash_attention.cu)
+KV_TILE = 64
+
+
+def time_ms(fn, warmup: int = 10, n: int = LAUNCHES_TIMED) -> float:
+    """ms per call: CUDA events around n back-to-back calls, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profiled_ms(fn, name: str, n: int = 20) -> float | None:
+    """The device time per call of the kernels whose name holds `name`,
+    from torch.profiler's CUDA activity; None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
+    return total_us / n / 1e3 if total_us > 0 else None
 
 
 def attention_bound_ms(B, H, S, D, dtype, causal) -> tuple[float, str]:
@@ -110,9 +134,13 @@ def phase_build() -> None:
     log(f"[build] {len(logs)} kernel(s) compiled in {time.perf_counter() - t0:.1f}s "
         f"into {_build.BUILD_DIR}")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build] {name}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = found.group(1)  # mangled: flash_fwd_bf16_wgmmaILi64EE... is D=64
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build] {name} {entry}: {line.strip()}")
 
 
 def phase_kernel_vs_plain() -> float:
@@ -123,6 +151,17 @@ def phase_kernel_vs_plain() -> float:
     # masked, so the first causal rows see no key at all
     cases = [
         ("causal f32 D64 padded", 2, 2, 256, 64, torch.float32, True, "pad"),
+        # bf16 (wgmma) edges: a tile of 17 keys, one past a tile, a ring
+        # wrapped many times, every head dim both ways, masked rows
+        ("S=17 causal bf16 D64", 1, 2, 17, 64, torch.bfloat16, True, None),
+        ("S=2049 causal bf16 D64 left-masked", 2, 2, 2049, 64, torch.bfloat16, True, "left"),
+        ("S=8192 causal bf16 D64", 1, 2, 8192, 64, torch.bfloat16, True, None),
+        ("causal bf16 D16 padded", 2, 2, 300, 16, torch.bfloat16, True, "pad"),
+        ("non-causal bf16 D16 left-masked", 2, 2, 300, 16, torch.bfloat16, False, "left"),
+        ("causal bf16 D32 left-masked", 2, 2, 300, 32, torch.bfloat16, True, "left"),
+        ("non-causal bf16 D32 padded", 2, 2, 300, 32, torch.bfloat16, False, "pad"),
+        ("causal bf16 D64 padded", 2, 2, 300, 64, torch.bfloat16, True, "pad"),
+        ("non-causal bf16 D64 left-masked", 2, 2, 300, 64, torch.bfloat16, False, "left"),
         ("non-causal f32 D64 padded", 2, 2, 256, 64, torch.float32, False, "pad"),
         ("causal f32 D16 left-masked", 2, 3, 192, 16, torch.float32, True, "left"),
         ("causal bf16 D16", 1, 2, 512, 16, torch.bfloat16, True, None),
@@ -158,13 +197,20 @@ def phase_kernel_vs_plain() -> float:
             fail(f"flash_attention kernel disagrees with its plain version: {label}")
         if kind == "pad" and B > 1 and got[1].abs().max().item() != 0.0:
             fail(f"fully-masked row not zero: {label}")
+        if kind == "left" and causal and got[:, :, : S // 4].abs().max().item() != 0.0:
+            fail(f"causal rows that see no key not zero: {label}")
         if label.startswith("serving"):
             serving_err = err
     return serving_err
 
 
 def phase_times() -> dict:
+    """Kernel, plain and library times at B=1 and B=8 (S=2048, D=64,
+    bf16, causal, every key real), then the B=1 envelope at S=512 and
+    8192. Returns the serving shape's numbers for the kernels line."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    atol, rtol = TOL[torch.bfloat16]
     out = {}
     for B in (1, 8):
         H, S, D, dtype = 4, 2048, 64, torch.bfloat16
@@ -172,17 +218,45 @@ def phase_times() -> dict:
         mask = torch.ones((B, S), device=DEVICE)
         bool_mask = (mask[:, None, None, :] > 0) & torch.ones(
             (S, S), dtype=torch.bool, device=DEVICE).tril()
-        kernel_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, causal=True, kv_mask=mask))
+        res = torch.empty_like(q)
+        want = flash_ops.flash_attention_reference(q, k, v, causal=True, kv_mask=mask)
+        kernel_ms = time_ms(lambda: flash_ops._launch(q, k, v, mask, res, True))
+        if not torch.allclose(res.float(), want.float(), atol=atol, rtol=rtol):
+            fail(f"the timed launches disagree with the plain version at ({B},{H},{S},{D})")
+        device_ms = profiled_ms(lambda: flash_ops._launch(q, k, v, mask, res, True),
+                                "flash_fwd_bf16_wgmma")
         plain_ms = time_ms(lambda: flash_ops.flash_attention_reference(
             q, k, v, causal=True, kv_mask=mask))
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=bool_mask))
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=bool_mask))
+        library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
         bound_ms, bound_by = attention_bound_ms(B, H, S, D, dtype, True)
-        log(f"[time] flash_attention ({B},{H},{S},{D}) bf16 causal: kernel_ms={kernel_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-            f"({bound_by}) roofline_share={bound_ms / kernel_ms:.4f}")
-        out[B] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[time] flash_attention ({B},{H},{S},{D}) bf16 causal, {LAUNCHES_TIMED} launches: "
+            f"kernel_ms={kernel_ms:.4f} "
+            f"kernel_device_ms={'not recorded' if device_ms is None else f'{device_ms:.4f}'} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"library_causal_ms={library_causal_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            f"roofline_share={bound_ms / kernel_ms:.4f}")
+        out[B] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=library_ms, library_causal_ms=library_causal_ms)
+        del bool_mask
+    for S in (512, 8192):
+        q, k, v = qkv(1, 4, S, 64, torch.bfloat16, gen)
+        mask = torch.ones((1, S), device=DEVICE)
+        bool_mask = torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()[None, None]
+        res = torch.empty_like(q)
+        kernel_ms = time_ms(lambda: flash_ops._launch(q, k, v, mask, res, True))
+        device_ms = profiled_ms(lambda: flash_ops._launch(q, k, v, mask, res, True),
+                                "flash_fwd_bf16_wgmma")
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=bool_mask))
+        library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+        log(f"[envelope] (1,4,{S},64) bf16 causal, {LAUNCHES_TIMED} launches: "
+            f"kernel_ms={kernel_ms:.4f} "
+            f"kernel_device_ms={'not recorded' if device_ms is None else f'{device_ms:.4f}'} "
+            f"library_ms={library_ms:.4f} "
+            f"library_causal_ms={library_causal_ms:.4f} "
+            f"kernel/library={kernel_ms / library_ms:.3f} "
+            f"kernel/library_causal={kernel_ms / library_causal_ms:.3f}")
+        del bool_mask
     return out[1]
 
 
@@ -315,6 +389,8 @@ def main() -> None:
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
+        "design": "cuda-wgmma",
+        "kv_tile": KV_TILE,
         "source": "predictionio_tpu_torch/csrc/flash_attention.cu",
         "replaces": "predictionio_tpu/ops/pallas_attention.py:78",
         "launches": launches,

@@ -5,10 +5,14 @@
 On a CUDA tensor it launches the hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` (built by ops/_build.py at first use) for
 every S, and raises if it cannot: there is no envelope on the card yet
-and no fallback. On a CPU tensor it runs ``flash_attention_reference``,
-the plain PyTorch version with the same semantics, which the tests hold
-against the JAX kernel in interpret mode and ``chip_smoke.py`` holds the
-CUDA kernel against on the card.
+and no fallback. bfloat16 goes through the tensor cores (wgmma, 64-key
+K/V tiles fed by TMA, so q, k and v must be 16-byte aligned; P is
+rounded to bf16 before the PV product); float32 through the CUDA cores,
+exactly. On a CPU tensor
+it runs ``flash_attention_reference``, the plain PyTorch version with
+the same semantics, which the tests hold against the JAX kernel in
+interpret mode and ``chip_smoke.py`` holds the CUDA kernel against on
+the card.
 
 Semantics (those of the Pallas ``_flash_kernel``): scale 1/sqrt(D); a
 per-key mask (B, S) shared by the heads; an optional causal mask;
@@ -20,6 +24,7 @@ instead). Output is in q's dtype. Forward only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -79,6 +84,7 @@ def flash_attention_reference(
     return torch.where(l > 0, out, 0.0).to(q.dtype)
 
 
+@functools.cache
 def _kernel_fn():
     """The kernel's C entry point, built and loaded at first use."""
     from predictionio_tpu_torch.ops._build import load_kernel_library
@@ -92,6 +98,15 @@ def _kernel_fn():
 
 
 def _launch(q, k, v, mask, out, causal: bool) -> None:
+    """One launch on preallocated tensors. Does not count in ``LAUNCHES``."""
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel reads q, k and v by TMA, which takes 16-byte
+        # aligned addresses; out is held to the same
+        names = ("q", "k", "v", "out")
+        odd = [n for n, t in zip(names, (q, k, v, out)) if t.data_ptr() % 16]
+        if odd:
+            raise ValueError(f"the bfloat16 flash_attention kernel needs 16-byte aligned "
+                             f"q, k, v and out; {', '.join(odd)} not aligned")
     fn = _kernel_fn()
     B, H, S, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -10,6 +10,8 @@ tests/test_torch_flash_attention_cuda.py).
 
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +87,99 @@ class TestFlashReferenceVsJax:
         np.testing.assert_allclose(got.float().numpy(), f32.numpy(), atol=1e-2, rtol=8e-3)
 
 
+def _emulate_bf16_kernel(q, k, v, kv_mask, *, causal: bool, kv_tile: int = 64,
+                         consumers: int = 2) -> torch.Tensor:
+    """The bf16 CUDA kernel's arithmetic, tile by tile: 64-row query
+    tiles; KV tiles of ``kv_tile`` keys (64 in the kernel) dealt in turn
+    to ``consumers``
+    warpgroups, each with an f32 running max (log2 domain) and
+    denominator summed from the f32 P; P rounded to bf16 before the PV
+    product, which accumulates in f32; the warpgroups' partial results
+    merged at the end; the output rounded to bf16."""
+    B, H, S, D = q.shape
+    scale = math.log2(math.e) / math.sqrt(D)
+    neg = -1e30
+    qf, kf, vf = q.float(), k.float(), v.float()
+    real = kv_mask > 0
+    out = torch.zeros((B, H, S, D))
+    for q0 in range(0, S, 64):
+        rows = torch.arange(q0, min(q0 + 64, S))
+        n_kv = -(-S // kv_tile)
+        if causal:
+            n_kv = min(n_kv, -(-(q0 + 64) // kv_tile))
+        parts = []
+        for g in range(consumers):
+            m = torch.full((B, H, len(rows), 1), neg)
+            l = torch.zeros((B, H, len(rows), 1))
+            acc = torch.zeros((B, H, len(rows), D))
+            for t in range(g, n_kv, consumers):
+                keys = torch.arange(t * kv_tile, min((t + 1) * kv_tile, S))
+                logits = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+                valid = real[:, None, None, keys]
+                if causal:
+                    valid = valid & (keys[None, :] <= rows[:, None])
+                logits = torch.where(valid, logits, -math.inf)
+                m_new = torch.maximum(m, logits.amax(-1, keepdim=True) * scale)
+                alpha = torch.where(m_new > neg / 2, torch.exp2(m - m_new), 0.0)
+                p = torch.exp2(logits * scale - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, keys]
+                m = m_new
+            parts.append((m, l, acc))
+        m, l, acc = parts[0]
+        for m1, l1, acc1 in parts[1:]:
+            mm = torch.maximum(m, m1)
+            a0 = torch.where(m > neg / 2, torch.exp2(m - mm), 0.0)
+            a1 = torch.where(m1 > neg / 2, torch.exp2(m1 - mm), 0.0)
+            m, l, acc = mm, l * a0 + l1 * a1, acc * a0 + acc1 * a1
+        out[:, :, rows] = torch.where(l > 0, acc / l.clamp_min(1e-20), 0.0)
+    return out.to(torch.bfloat16)
+
+
+class TestBf16KernelNumerics:
+    """The bf16 kernel rounds P to bf16 before PV, where the JAX kernel
+    and the plain version keep it f32. Its emulation, fed bf16 inputs at
+    (1, 2, 512, 64), causal, with left-masked and padded keys, stays
+    within the card's bf16 tolerance (atol 1e-2 + rtol 8e-3) of the JAX
+    kernel in interpret mode and of ``flash_attention_reference``, and
+    without the causal mask as well."""
+
+    TOL = dict(atol=1e-2, rtol=8e-3)
+
+    @pytest.fixture(scope="class")
+    def inputs(self):
+        rng = np.random.default_rng(7)
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 512, 64)).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(3))
+        mask = np.ones((1, 512), dtype=np.float32)
+        mask[0, :40] = 0.0       # left padding: causal rows 0..39 see no key
+        mask[0, 450:] = 0.0      # right padding
+        return q, k, v, torch.from_numpy(mask)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_emulation_vs_jax(self, inputs, causal):
+        q, k, v, mask = inputs
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+        want = jax_flash_attention(jq, jk, jv, causal=causal, kv_mask=jnp.asarray(mask.numpy()),
+                                   force=True)
+        got = _emulate_bf16_kernel(q, k, v, mask, causal=causal)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   **self.TOL)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_emulation_vs_reference(self, inputs, causal):
+        q, k, v, mask = inputs
+        got = _emulate_bf16_kernel(q, k, v, mask, causal=causal)
+        want = flash_ops.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **self.TOL)
+
+    def test_rows_without_a_key_are_zero(self, inputs):
+        q, k, v, mask = inputs
+        got = _emulate_bf16_kernel(q, k, v, mask, causal=True)
+        assert torch.all(got[:, :, :40] == 0)
+        assert torch.all(got[:, :, 40:].float().abs().sum(-1) > 0)
+
+
 class TestFullAttentionVsJax:
     """(b) port full_attention vs JAX full_attention, f32, atol 1e-5 —
     including its uniform average over V for fully-masked rows."""
@@ -115,6 +210,16 @@ class TestFullAttentionVsJax:
 
 class TestWrapperContract:
     """(f) what the wrapper refuses, and that the CPU path is not a launch."""
+
+    @pytest.mark.parametrize("odd", ["q", "k", "v", "out"])
+    def test_misaligned_bf16_launch_raises(self, odd):
+        shape = (1, 1, 64, 64)
+        ts = {n: torch.zeros(shape, dtype=torch.bfloat16) for n in ("q", "k", "v", "out")}
+        # a contiguous view one element (2 bytes) into its buffer
+        ts[odd] = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)[1:].view(shape)
+        assert ts[odd].is_contiguous() and ts[odd].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"16-byte aligned.*{odd} not aligned"):
+            flash_ops._launch(ts["q"], ts["k"], ts["v"], torch.ones((1, 64)), ts["out"], True)
 
     def test_cpu_path_does_not_count_launches(self):
         q, k, v, mask = _inputs(6)
