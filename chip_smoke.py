@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, case by
-   case, with the max abs difference and the tolerance;
+   case (among them the shapes of both serving paths), with the max abs
+   difference and the tolerance;
 3. the kernel's time at the serving shape and the batch bucket beside
    the plain version, the library call (scaled_dot_product_attention
    with the same mask, and with is_causal alone, yardsticks the port
@@ -22,7 +23,28 @@ Phases, in order; any failure exits non-zero:
    the port's engine server, POST queries, and check every answer, the
    kernel's launches per query, and the top-10 against the same model
    run with the plain attention;
-5. a `kernels` JSON line, then the result line
+5. sessionrec training at the JAX package's dense training config
+   (bench.py:1199-1200: vocab 50,000, max_len 256, d_model 256, 4 heads,
+   4 layers, batch 64, bf16): 1,024 users × 257 view events into the
+   port's memory event store, then `run_train` for one epoch (16 Adam
+   steps) into a model directory: stage seconds, step times, tokens/s,
+   peak memory, and the losses, which must be finite and fall;
+6. the long-context training config (bench.py:1261-1263: max_len 4096,
+   batch 4, blockwise attention): `run_train` on 13 users × 4,097
+   events (4 steps, the last batch padded with all-PAD rows); then, on
+   a seeded random batch as bench.py makes it, one step's loss and
+   gradients through blockwise attention against full attention, and 4
+   timed steps of `make_train_step`, and a profile of long-context steps
+   as in phase 7;
+7. the sequence-tiled loss forced at the dense shape against the flat
+   loss (loss and gradients), a torch.profiler trace of dense training
+   steps (the tied-logits product's share, and the device's busy share:
+   profiled device time over the step timed without the profiler),
+   and the logits product timed as the path computes it (f32 operands,
+   CUDA cores) beside the bf16 tensor-core product with f32 output, a
+   yardstick the path does not call;
+8. the model trained in phase 5, deployed and queried as in phase 4;
+9. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Exits non-zero, printing no result, when there is no card.
@@ -31,6 +53,7 @@ Exits non-zero, printing no result, when there is no card.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import statistics
@@ -40,15 +63,22 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+from datetime import datetime, timedelta, timezone
 
 import numpy as np
 import torch
 
 from predictionio_tpu_torch.api.engine_server import EngineServerConfig, create_engine_server
+from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.models import seqrec
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
+from predictionio_tpu_torch.ops.attention import full_attention
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import memory_storage
 from predictionio_tpu_torch.templates import sessionrec
+from predictionio_tpu_torch.workflow.context import EngineContext
+from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
 SEED = 0
 DEVICE = "cuda"
@@ -63,6 +93,28 @@ SERVING = dict(vocab=50_000, max_len=2048, d_model=256, n_heads=4, n_layers=4)
 #: top-10 agreement, served (kernel) vs plain attention: logits are f32
 #: sums over bf16 hidden states, which differ by bf16 rounding steps
 SCORE_TOL = 0.1
+#: the JAX package's training configs at full width, as engine.json
+#: algorithm params: dense (bench.py:1199-1200) and long context
+#: (bench.py:1261-1263); bf16 is the template's dtype
+TRAIN_DENSE = dict(d_model=256, n_heads=4, n_layers=4, max_len=256, batch_size=64,
+                   lr=1e-3, epochs=1, seed=SEED)
+TRAIN_LONG = dict(TRAIN_DENSE, max_len=4096, batch_size=4)
+#: items i1 .. i49999, so that with PAD the template derives vocab 50,000
+N_ITEMS = 49_999
+#: (users, events per user, start stride) of the event walks: user u views
+#: i{(stride·u + t) mod N_ITEMS + 1}, t < events. Starts 49 apart with
+#: walks of 257 (1,024 × 257 = 263,168 events: 16 steps of 64 rows of 256)
+#: and starts 3,847 apart with walks of 4,097 (13 users: 4 steps of 4 rows
+#: of 4,096, 3 of them all-PAD) both cover every item.
+DENSE_WALK = (1024, 257, 49)
+LONG_WALK = (13, 4097, 3847)
+#: bf16 training computed two ways (blockwise vs full attention, tiled vs
+#: flat loss): the same sums in another order, with every cast rounded to
+#: bf16 as in the tests' bf16 cases (tests/test_torch_seqrec_train.py):
+#: loss within 1e-3 relative, each gradient within 3e-2 relative
+#: Frobenius error
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 3e-2
 
 
 def log(msg: str) -> None:
@@ -148,8 +200,15 @@ def phase_kernel_vs_plain() -> float:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     # (label, B, H, S, D, dtype, causal, mask) — mask "pad": each row a
     # different real length, row 1 fully masked; "left": the first keys
-    # masked, so the first causal rows see no key at all
+    # masked, so the first causal rows see no key at all; an int n: the
+    # first n keys real and the rest right-padded, as a served history
     cases = [
+        # the trained dense model's serving shape (max_len 256): a short
+        # item-list query and a long user history
+        ("trained serving (1,4,256,64) bf16 causal, 3 real keys",
+         1, 4, 256, 64, torch.bfloat16, True, 3),
+        ("trained serving (1,4,256,64) bf16 causal, 200 real keys",
+         1, 4, 256, 64, torch.bfloat16, True, 200),
         ("causal f32 D64 padded", 2, 2, 256, 64, torch.float32, True, "pad"),
         # bf16 (wgmma) edges: a tile of 17 keys, one past a tile, a ring
         # wrapped many times, every head dim both ways, masked rows
@@ -184,6 +243,9 @@ def phase_kernel_vs_plain() -> float:
         elif kind == "left":
             mask = torch.ones((B, S), device=DEVICE)
             mask[:, : S // 4] = 0.0
+        elif isinstance(kind, int):
+            mask = torch.zeros((B, S), device=DEVICE)
+            mask[:, :kind] = 1.0
         got = flash_ops.flash_attention(q, k, v, causal=causal, kv_mask=mask)
         want = flash_ops.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
         torch.cuda.synchronize()
@@ -299,17 +361,11 @@ def phase_serving() -> int:
     t0 = time.perf_counter()
     model = sessionrec.init_engine_model(cfg, item_ids, histories, seed=SEED, device=DEVICE)
     model_dir = tempfile.mkdtemp(prefix="seqrec-model-")
-    server = None
     try:
         sessionrec.save_engine_model(model, model_dir)
-        server = create_engine_server(EngineServerConfig(
-            model_dir=model_dir, ip="127.0.0.1", port=0, device=DEVICE)).start()
-        port = server.port
-        log(f"[serve] model saved, deployed and listening on :{port} in "
-            f"{time.perf_counter() - t0:.1f}s")
-        deployed = server.deployed.models[0]
+        log(f"[serve] model saved in {time.perf_counter() - t0:.1f}s")
         pick = [item_ids[j] for j in rng.integers(0, len(item_ids), 300)]
-        queries = [
+        return serve_and_check(model_dir, [
             {"user": "u0", "num": 10},
             {"user": "u1", "num": 5},
             {"user": "u2", "num": 20, "blackList": pick[:30]},
@@ -320,9 +376,26 @@ def phase_serving() -> int:
             {"user": "u5", "num": 10},
             {"user": "u6", "num": 20},
             {"user": "u7", "num": 10},
-        ]
+        ], "serve")
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def serve_and_check(model_dir: str, queries: list[dict], tag: str) -> int:
+    """Deploy ``model_dir`` through the port's engine server, POST the
+    queries and check every answer: n_layers kernel launches each, no
+    history or black-listed item, the top-k within SCORE_TOL of the same
+    model run with the plain attention. Returns the kernel's launches."""
+    t0 = time.perf_counter()
+    server = create_engine_server(EngineServerConfig(
+        model_dir=model_dir, ip="127.0.0.1", port=0, device=DEVICE)).start()
+    try:
+        port = server.port
+        deployed = server.deployed.models[0]
+        cfg = deployed.cfg
+        log(f"[{tag}] deployed and listening on :{port} in {time.perf_counter() - t0:.1f}s")
         # warm-up (first CUDA calls, allocator): outside the counted run
-        status, _, _ = _post(port, {"user": "u0", "num": 10})
+        status, _, _ = _post(port, queries[0])
         if status != 200:
             fail(f"warm-up query answered {status}")
 
@@ -360,18 +433,280 @@ def phase_serving() -> int:
                             for s in scores[:k])
             swapped = set(served_top) - set(ref_top)
             worst_swap = min((ref[i].item() - kth for i in swapped), default=0.0)
-            log(f"[serve] {json.dumps(body)[:60]}...: launches={n} "
+            # the spread of the reference scores, to read SCORE_TOL against
+            valid = ref[ref > -1e29]
+            ref_std = valid.std().item()
+            ref_range = (valid.max() - valid.min()).item()
+            log(f"[{tag}] {json.dumps(body)[:60]}...: launches={n} "
                 f"top{k}_same_set={not swapped} max_score_err={score_err:.4f} "
-                f"worst_swap={worst_swap:.4f} rtt_ms={ms:.2f}")
+                f"worst_swap={worst_swap:.4f} ref_std={ref_std:.4f} "
+                f"ref_range={ref_range:.4f} ref_top{k}_gap={ref[ref_top[0]].item() - kth:.4f} "
+                f"rtt_ms={ms:.2f}")
             if score_err > SCORE_TOL or worst_swap < -SCORE_TOL:
                 fail(f"served top-{k} disagrees with the plain-attention model for {body}")
-        log(f"[serve] {len(queries)} queries, launches={launches} "
+        log(f"[{tag}] {len(queries)} queries, launches={launches} "
             f"({launches / len(queries):g} per query), http_p50_ms={statistics.median(rtts):.3f} "
             f"http_min_ms={min(rtts):.3f} http_max_ms={max(rtts):.3f}")
         return launches
     finally:
-        if server is not None:
-            server.stop()
+        server.stop()
+
+
+def _walk_storage(n_users: int, length: int, stride: int):
+    """A memory event store in which user u views item
+    i{(stride·u + t) mod 49,999 + 1} at second t, for t < length."""
+    storage = memory_storage()
+    app_id = storage.get_meta_data_apps().insert(App(0, "SmokeApp"))
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    events = [Event(event="view", entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item",
+                    target_entity_id=f"i{(stride * u + t) % N_ITEMS + 1}",
+                    event_time=t0 + timedelta(seconds=length * u + t))
+              for u in range(n_users) for t in range(length)]
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch(events, app_id)
+    return storage, len(events)
+
+
+def phase_run_train(tag: str, n_users: int, length: int, stride: int, params: dict,
+                    model_dir: str) -> seqrec.TrainRun:
+    """Events → run_train → model_dir, on the card; checks the derived
+    vocab, that no training path launched the flash kernel, and that
+    every loss is finite."""
+    t0 = time.perf_counter()
+    storage, n_events = _walk_storage(n_users, length, stride)
+    log(f"[{tag}] {n_events} events ingested in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.LAUNCHES = 0
+    outcome = run_train(variant={
+        "engineFactory": "predictionio_tpu_torch.templates.sessionrec.engine_factory",
+        "datasource": {"params": {"app_name": "SmokeApp"}},
+        "algorithms": [{"name": "seqrec", "params": params}],
+    }, ctx=EngineContext(storage=storage, device=DEVICE), model_dir=model_dir)
+    if flash_ops.LAUNCHES:
+        fail(f"training launched the forward-only flash kernel {flash_ops.LAUNCHES} times")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = outcome.models[0]
+    run = model.train_run
+    if model.cfg.vocab != N_ITEMS + 1 or outcome.status != "COMPLETED":
+        fail(f"{tag}: vocab {model.cfg.vocab}, status {outcome.status}")
+    step = statistics.median(run.step_seconds)
+    tokens = params["batch_size"] * params["max_len"]
+    log(f"[{tag}] vocab={model.cfg.vocab} steps={len(run.losses)} "
+        f"stages: {format_stage_times(outcome.stage_seconds)}")
+    log(f"[{tag}] stage_seconds={json.dumps(outcome.stage_seconds)}")
+    log(f"[{tag}] step_ms median={step * 1e3:.3f} min={min(run.step_seconds) * 1e3:.3f} "
+        f"max={max(run.step_seconds) * 1e3:.3f} (first step {run.step_seconds[0] * 1e3:.3f}) "
+        f"tokens_per_s={tokens / step:.0f} peak_mem_gb={peak_gb:.3f} "
+        f"loss_first={run.losses[0]:.5f} loss_last={run.losses[-1]:.5f}")
+    if not all(math.isfinite(x) for x in run.losses):
+        fail(f"{tag}: a loss is not finite: {run.losses}")
+    return run
+
+
+def _config(params: dict) -> seqrec.SeqRecConfig:
+    return seqrec.SeqRecConfig(vocab=N_ITEMS + 1, max_len=params["max_len"],
+                               d_model=params["d_model"], n_heads=params["n_heads"],
+                               n_layers=params["n_layers"], dtype=torch.bfloat16)
+
+
+def _random_batch(params: dict, seed: int):
+    """A trainable model at the config of ``params`` with init_params
+    from SEED, and a batch of item ids drawn as bench.py draws them."""
+    cfg, batch = _config(params), params["batch_size"]
+    model = seqrec.SeqRec(cfg, DEVICE)
+    model.load_state_dict(seqrec.init_params(cfg, torch.Generator().manual_seed(SEED)))
+    rng = np.random.default_rng(seed)
+    seqs, tgts = (torch.from_numpy(rng.integers(1, cfg.vocab, (batch, cfg.max_len))).to(DEVICE)
+                  for _ in range(2))
+    return model.requires_grad_(), seqs, tgts
+
+
+def _loss_and_grads(model, seqs, tgts, attention=None):
+    model.zero_grad(set_to_none=True)
+    loss = seqrec.next_item_loss(model, seqs, tgts, attention=attention)
+    loss.backward()
+    return loss.item(), [p.grad.clone() for p in model.parameters()]
+
+
+def _compare_training(tag: str, got, want) -> None:
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    grad_err = max((a - b).norm().item() / b.norm().item() for a, b in zip(got[1], want[1]))
+    finite = math.isfinite(got[0]) and all(bool(torch.isfinite(g).all()) for g in got[1])
+    log(f"[{tag}] loss {got[0]:.6f} vs {want[0]:.6f}: rel_err={loss_err:.3e} "
+        f"(tol {TRAIN_LOSS_RTOL:g}); worst gradient rel_err={grad_err:.3e} "
+        f"(tol {TRAIN_GRAD_RTOL:g})")
+    if not finite or loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL:
+        fail(f"{tag}: the two computations disagree")
+
+
+def _timed_steps(tag: str, model, seqs, tgts, n: int) -> None:
+    step = seqrec.make_train_step(model)
+    opt_m, opt_v = seqrec.adam_state(model)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for it in range(1, n + 1):
+        t0 = time.perf_counter()
+        losses.append(step(opt_m, opt_v, it, seqs, tgts, 1e-3).item())
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"[{tag}] {n} make_train_step steps: step_ms median={med * 1e3:.3f} "
+        f"all={[round(t * 1e3, 3) for t in times]} tokens_per_s={seqs.numel() / med:.0f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} losses={losses}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: a loss is not finite")
+
+
+def phase_long_context() -> None:
+    """One step's loss and gradients through the blockwise route against
+    the same step forced through full attention, then 4 timed steps."""
+    model, seqs, tgts = _random_batch(TRAIN_LONG, 6)
+    blockwise = _loss_and_grads(model, seqs, tgts)
+    full = _loss_and_grads(model, seqs, tgts, attention=full_attention)
+    _compare_training("long/blockwise-vs-full", blockwise, full)
+    del blockwise, full
+    _timed_steps("long/random-ids", model, seqs, tgts, 4)
+    _profile_steps("long/profile", model, seqs, tgts, 3)
+
+
+def phase_tiled_loss_and_profile() -> None:
+    """The tiled loss forced at the dense shape against the flat loss,
+    then a profiler trace of dense training steps."""
+    model, seqs, tgts = _random_batch(TRAIN_DENSE, 7)
+    (b, s), v = seqs.shape, model.cfg.vocab
+    flat = _loss_and_grads(model, seqs, tgts)
+    budget = seqrec._LOSS_TILE_BYTES
+    tile = s // 8                                           # 32 at S = 256
+    seqrec._LOSS_TILE_BYTES = b * tile * v * 4
+    try:
+        if seqrec._pick_loss_tile(b, s, v) != tile:
+            fail(f"the lowered budget did not force a loss tile of {tile}")
+        tiled = _loss_and_grads(model, seqs, tgts)
+    finally:
+        seqrec._LOSS_TILE_BYTES = budget
+    _compare_training("dense/tiled-vs-flat", tiled, flat)
+    del flat, tiled
+    _profile_steps("dense/profile", model, seqs, tgts, 3)
+
+
+def _profile_steps(tag: str, model, seqs, tgts, n: int) -> None:
+    """After two warm-up steps, n Adam steps each timed alone between CUDA
+    events without the profiler (the step's wall time as the card sees
+    it), then torch.profiler over n more: device time per step, the
+    device's busy share (device time over the unprofiled step, since the
+    profiler slows the host), the tied-logits products' share (the
+    aten::mm calls with a vocab-sized operand, forward and backward),
+    and the kernels that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    v = model.cfg.vocab
+    step = seqrec.make_train_step(model)
+    opt_m, opt_v = seqrec.adam_state(model)
+    for it in (1, 2):
+        step(opt_m, opt_v, it, seqs, tgts, 1e-3).item()
+    plain_ms = []
+    for it in range(3, 3 + n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        step(opt_m, opt_v, it, seqs, tgts, 1e-3)
+        end.record()
+        end.synchronize()
+        plain_ms.append(start.elapsed_time(end))
+    step_ms = statistics.median(plain_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for it in range(3 + n, 3 + 2 * n):
+            step(opt_m, opt_v, it, seqs, tgts, 1e-3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    logits_ms = sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key == "aten::mm" and any(isinstance(shape, list) and v in shape
+                                                   for shape in e.input_shapes)) / n / 1e3
+    log(f"[{tag}] per step (unprofiled, CUDA events, {n} steps): step_ms median={step_ms:.3f} "
+        f"all={[round(t, 3) for t in plain_ms]}")
+    if device_ms <= 0:
+        log(f"[{tag}] torch.profiler recorded no device time; wall_ms={wall_ms:.3f}")
+        return
+    log(f"[{tag}] per step (profiled, {n} steps): wall_ms={wall_ms:.3f} "
+        f"device_ms={device_ms:.3f} device_busy_share={device_ms / step_ms:.4f} "
+        f"(of the unprofiled step; {device_ms / wall_ms:.4f} of the profiled wall) "
+        f"kernel_launches={sum(e.count for e in kernels) // n} "
+        f"logits_mm_device_ms={logits_ms:.3f} logits_share_of_device={logits_ms / device_ms:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}]   {e.self_device_time_total / n / 1e3:9.3f} ms/step  "
+            f"{e.count // n:5d} launches/step  {e.key[:90]}")
+
+
+def phase_logits_product() -> None:
+    """The dense step's tied-logits product, (64·256, 256) × (256, 50,000),
+    as the path computes it (bf16-rounded operands as f32, TF32 off: the
+    CUDA cores) and as a bf16 tensor-core product with f32 output."""
+    p = TRAIN_DENSE
+    rows, d, v = p["batch_size"] * p["max_len"], p["d_model"], N_ITEMS + 1
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    h = torch.randn((rows, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    emb = (torch.randn((v, d), generator=gen, device=DEVICE) / 16).to(torch.bfloat16)
+    hf, ef = h.float(), emb.float()
+    flops = 2 * rows * d * v
+    f32_ms = time_ms(lambda: hf @ ef.T, warmup=3, n=20)
+    f32_bound = max(flops / PEAK_FLOPS[torch.float32],
+                    ((rows + v) * d * 4 + rows * v * 4) / PEAK_BYTES) * 1e3
+    line = (f"[logits] ({rows},{d})x({d},{v}) f32 path: ms={f32_ms:.4f} "
+            f"bound_ms={f32_bound:.4f} tflops={flops / f32_ms / 1e9:.1f}")
+    try:
+        tc = torch.mm(h, emb.T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        log(line + f"; bf16 tensor cores with f32 output: not available "
+            f"({str(e).splitlines()[0][:160]})")
+        return
+    err = (tc - hf @ ef.T).abs().max().item()
+    tc_ms = time_ms(lambda: torch.mm(h, emb.T, out_dtype=torch.float32), warmup=3, n=20)
+    tc_bound = max(flops / PEAK_FLOPS[torch.bfloat16],
+                   ((rows + v) * d * 2 + rows * v * 4) / PEAK_BYTES) * 1e3
+    log(line + f"; bf16 tensor cores, f32 out (yardstick): ms={tc_ms:.4f} "
+        f"bound_ms={tc_bound:.4f} tflops={flops / tc_ms / 1e9:.1f} "
+        f"max_abs_diff_vs_f32={err:.3e}")
+
+
+def phase_training() -> int:
+    """Phases 5-8; returns the flash kernel's launches in serving the
+    trained model."""
+    model_dir = tempfile.mkdtemp(prefix="seqrec-trained-")
+    try:
+        run = phase_run_train("train/dense", *DENSE_WALK, TRAIN_DENSE, model_dir)
+        steps = -(-DENSE_WALK[0] // TRAIN_DENSE["batch_size"])
+        if len(run.losses) != steps or not run.losses[-1] < run.losses[0]:
+            fail(f"train/dense: expected {steps} steps with a falling loss: {run.losses}")
+        long_dir = tempfile.mkdtemp(prefix="seqrec-trained-long-")
+        try:
+            phase_run_train("train/long", *LONG_WALK, TRAIN_LONG, long_dir)
+        finally:
+            shutil.rmtree(long_dir, ignore_errors=True)
+        phase_long_context()
+        phase_tiled_loss_and_profile()
+        phase_logits_product()
+        torch.cuda.empty_cache()
+        users, _, stride = DENSE_WALK
+        walk = [f"i{(stride * 300 + t) % N_ITEMS + 1}" for t in range(120)]
+        rng = np.random.default_rng(SEED + 3)
+        pick = [f"i{j}" for j in rng.integers(1, N_ITEMS + 1, 200)]
+        return serve_and_check(model_dir, [
+            {"user": "u0", "num": 10},
+            {"user": "u1", "num": 5},
+            {"user": f"u{users // 2}", "num": 20, "blackList": pick[:30]},
+            {"items": walk[:50], "num": 10},
+            {"items": pick[30:130], "num": 20, "blackList": walk[50:60]},
+            {"user": f"u{users - 1}", "num": 5, "blackList": pick[130:150]},
+            {"items": walk[60:63], "num": 10},
+            {"user": f"u{users // 13}", "num": 20},
+            {"user": f"u{users * 7 // 8}", "num": 10},
+        ], "serve-trained")
+    finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
@@ -386,6 +721,10 @@ def main() -> None:
     launches = phase_serving()
     if launches == 0:
         fail("the serving path never launched the flash_attention kernel")
+    trained_launches = phase_training()
+    if trained_launches == 0:
+        fail("serving the trained model never launched the flash_attention kernel")
+    launches += trained_launches
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

@@ -9,7 +9,12 @@ a machine without a card raises (utils/device.py).
 Ported so far: sessionrec serving — ``templates/sessionrec.py`` →
 ``models/seqrec.py`` → ``ops/flash_attention.py``, whose CUDA kernel
 (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
-``_flash_kernel``.
+``_flash_kernel`` — and sessionrec training: events in the memory event
+store (``storage/``, ``data/store.py``) → ``workflow/train.run_train`` →
+``controller/engine.Engine.train`` → ``models/seqrec.train`` (Adam over
+``next_item_loss``, attention through the differentiable
+``ops/attention.py``) → a model directory that ``workflow/deploy.py``
+serves. Training launches no hand-written kernel.
 """
 
 __version__ = "0.1.0"

@@ -2,15 +2,20 @@ from predictionio_tpu_torch.controller.algorithm import HostModelAlgorithm
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     BaseComponent,
+    DataSource,
     Doer,
     FirstServing,
     IdentityPreparator,
     Preparator,
+    SanityCheck,
     Serving,
 )
 from predictionio_tpu_torch.controller.engine import (
     Engine,
     EngineFactory,
+    StopAfterPrepareInterruption,
+    StopAfterReadInterruption,
+    TrainResult,
     resolve_engine_factory,
 )
 from predictionio_tpu_torch.controller.params import (
@@ -21,8 +26,9 @@ from predictionio_tpu_torch.controller.params import (
 )
 
 __all__ = [
-    "Algorithm", "BaseComponent", "Doer", "EmptyParams", "Engine",
+    "Algorithm", "BaseComponent", "DataSource", "Doer", "EmptyParams", "Engine",
     "EngineFactory", "EngineParams", "FirstServing", "HostModelAlgorithm",
-    "IdentityPreparator", "Params", "Preparator", "Serving",
+    "IdentityPreparator", "Params", "Preparator", "SanityCheck", "Serving",
+    "StopAfterPrepareInterruption", "StopAfterReadInterruption", "TrainResult",
     "params_from_json", "resolve_engine_factory",
 ]

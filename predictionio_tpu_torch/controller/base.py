@@ -1,10 +1,10 @@
-"""DASE component contracts used by serving: Preparator, Algorithm and
-Serving, plus Doer construction (port of the JAX package's
-``controller/base.py``, cut to what serving needs).
+"""DASE component contracts: DataSource, Preparator, Algorithm and
+Serving, SanityCheck, and Doer construction (port of the JAX package's
+``controller/base.py``, cut to what training and serving need).
 
 Type vocabulary: TD training data, PD prepared data, Q query, P
-predicted result, M model. ``ctx`` is the workflow context a training
-slice will bring; serving never passes one.
+predicted result, M model. ``ctx`` is the workflow context
+(``workflow/context.EngineContext``); serving never passes one.
 """
 
 from __future__ import annotations
@@ -50,6 +50,20 @@ class BaseComponent:
         self.params = params if params is not None else EmptyParams()
 
 
+class DataSource(BaseComponent, Generic[TD], abc.ABC):
+    """Reads training data from the event store."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: Any) -> TD:
+        """The training data."""
+
+    def read_eval(self, ctx: Any):
+        """Evaluation folds: not ported yet (ROADMAP.md queue 1 item 2,
+        sessionrec evaluation)."""
+        raise NotImplementedError(
+            "evaluation is not ported yet: ROADMAP.md queue 1 item 2, 'sessionrec evaluation'")
+
+
 class Preparator(BaseComponent, Generic[TD, PD], abc.ABC):
     """Transforms training data into prepared (model-ready) data."""
 
@@ -81,6 +95,12 @@ class Algorithm(BaseComponent, Generic[PD, M, Q, P], abc.ABC):
         ``predict``; device algorithms override with one batched call."""
         return [(i, self.predict(model, q)) for i, q in queries]
 
+    def save_model(self, model: M, directory: str) -> None:
+        """Write ``model`` to ``directory``, which :meth:`load_model`
+        reads back."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not save its model")
+
     def load_model(self, directory: str, device: Any) -> M:
         """The model saved in ``directory``, placed on ``device``."""
         raise NotImplementedError(
@@ -104,3 +124,12 @@ class FirstServing(Serving[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class SanityCheck(abc.ABC):
+    """Data classes may implement this to be checked between pipeline
+    stages."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise on inconsistent data."""

@@ -1,24 +1,65 @@
-"""The serving subset of the DASE Engine (port of the JAX package's
-``controller/engine.py``): component construction from typed params,
-params from the JSON blobs a stored engine instance carries, and
-engine-factory resolution. Training and evaluation come in a later
-slice.
+"""The DASE Engine (port of the JAX package's ``controller/engine.py``):
+component construction from typed params, the training pipeline, params
+from an engine.json variant or from the JSON blobs a stored engine
+instance carries, and engine-factory resolution. Evaluation comes with
+ROADMAP.md queue 1 item 2, sessionrec evaluation.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import importlib
 import json
-from typing import Any, Callable, Mapping
+import logging
+import time
+from typing import Any, Callable, Iterator, Mapping
 
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
-    BaseComponent,
+    DataSource,
     Doer,
     Preparator,
+    SanityCheck,
     Serving,
 )
 from predictionio_tpu_torch.controller.params import EngineParams, params_from_json
+
+logger = logging.getLogger(__name__)
+
+
+class StopAfterReadInterruption(Exception):
+    """Raised by :meth:`Engine.train` after the read, when asked."""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """Raised by :meth:`Engine.train` after the prepare, when asked."""
+
+
+def _sanity_check(obj: Any, name: str, enabled: bool) -> None:
+    """Run sanity_check() on data classes that opt in."""
+    if enabled and isinstance(obj, SanityCheck):
+        logger.info("%s: running sanity check", name)
+        obj.sanity_check()
+
+
+@contextlib.contextmanager
+def _stage(stage_seconds: dict[str, float] | None, name: str) -> Iterator[None]:
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if stage_seconds is not None:
+            stage_seconds[name] = stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """The trained models, one per algorithm, beside the algorithms that
+    trained them (and save them)."""
+
+    algorithms: list[Algorithm]
+    models: list[Any]
 
 
 class Engine:
@@ -54,7 +95,7 @@ class Engine:
         return Doer.create(class_map[name], params)
 
     def make_components(self, engine_params: EngineParams) -> tuple[
-        BaseComponent, Preparator, list[Algorithm], Serving
+        DataSource, Preparator, list[Algorithm], Serving
     ]:
         data_source = self._component(
             self.data_source_class_map, "datasource", engine_params.data_source_params
@@ -71,6 +112,72 @@ class Engine:
             self.serving_class_map, "serving", engine_params.serving_params
         )
         return data_source, preparator, algorithms, serving
+
+    def train(self, ctx: Any, engine_params: EngineParams,
+              stage_seconds: dict[str, float] | None = None) -> TrainResult:
+        """read → sanity → prepare → sanity → train each algorithm →
+        sanity, honouring the workflow's stop-after-read/prepare flags.
+        ``stage_seconds``, when given, receives the read, prepare and
+        train seconds (the training stage ends when every model is
+        back, which for the sessionrec template means on the host)."""
+        params = ctx.workflow_params
+        data_source, preparator, algorithms, _ = self.make_components(engine_params)
+        with _stage(stage_seconds, "read"):
+            td = data_source.read_training(ctx)
+        _sanity_check(td, "training data", not params.skip_sanity_check)
+        if params.stop_after_read:
+            raise StopAfterReadInterruption("stopping after read per workflow params")
+
+        with _stage(stage_seconds, "prepare"):
+            pd = preparator.prepare(ctx, td)
+        _sanity_check(pd, "prepared data", not params.skip_sanity_check)
+        if params.stop_after_prepare:
+            raise StopAfterPrepareInterruption("stopping after prepare per workflow params")
+
+        models: list[Any] = []
+        for i, algo in enumerate(algorithms):
+            logger.info("training algorithm %d: %s", i, type(algo).__name__)
+            with _stage(stage_seconds, "train"):
+                model = algo.train(ctx, pd)
+            _sanity_check(model, f"model[{i}]", not params.skip_sanity_check)
+            models.append(model)
+        return TrainResult(algorithms=algorithms, models=models)
+
+    def params_from_variant_json(self, variant: Mapping[str, Any]) -> EngineParams:
+        """Bind an engine.json variant: each of "datasource",
+        "preparator" and "serving" is ``{"name": ..., "params": {...}}``
+        (an omitted slot takes the one component of its map with default
+        params), "algorithms" a list of them (omitted: the one algorithm
+        with default params)."""
+
+        def only_name(class_map: Mapping[str, type], key: str) -> str:
+            if "" in class_map:
+                return ""
+            if len(class_map) == 1:
+                return next(iter(class_map))
+            raise ValueError(f"engine.json omits {key!r} but the engine has several "
+                             f"{key} components {sorted(class_map)}; name one")
+
+        def bind(spec: Mapping[str, Any] | None, class_map: Mapping[str, type],
+                 key: str) -> tuple[str, Any]:
+            name = only_name(class_map, key) if spec is None else spec.get("name", "")
+            if name not in class_map:
+                raise ValueError(f"engine.json {key} names unknown component {name!r} "
+                                 f"(available: {sorted(class_map)})")
+            return (name, params_from_json(class_map[name].params_class,
+                                           None if spec is None else spec.get("params")))
+
+        algorithms = [bind(spec, self.algorithm_class_map, "algorithms")
+                      for spec in variant.get("algorithms", [])]
+        return EngineParams(
+            data_source_params=bind(variant.get("datasource"), self.data_source_class_map,
+                                    "datasource"),
+            preparator_params=bind(variant.get("preparator"), self.preparator_class_map,
+                                   "preparator"),
+            algorithm_params_list=tuple(algorithms) or (
+                bind(None, self.algorithm_class_map, "algorithms"),),
+            serving_params=bind(variant.get("serving"), self.serving_class_map, "serving"),
+        )
 
     def params_from_instance_json(
         self,

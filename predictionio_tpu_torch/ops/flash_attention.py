@@ -18,7 +18,8 @@ Semantics (those of the Pallas ``_flash_kernel``): scale 1/sqrt(D); a
 per-key mask (B, S) shared by the heads; an optional causal mask;
 softmax statistics in f32; a row with no valid key gets ZERO output
 (``ops/attention.full_attention`` gives the uniform average of V there
-instead). Output is in q's dtype. Forward only.
+instead). Output is in q's dtype. Forward only: a call with grad enabled
+on a q, k or v that requires grad raises, on either device.
 """
 
 from __future__ import annotations
@@ -131,6 +132,13 @@ def flash_attention(
     other devices raise."""
     global LAUNCHES
     _check(q, k, v, kv_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # the kernel writes into a fresh tensor with no grad_fn: q, k and v
+        # would silently get no gradient from attention
+        raise RuntimeError(
+            "flash_attention is forward-only and q, k or v requires grad; train "
+            "through ops/attention.full_attention or blockwise_attention, or call "
+            "it under torch.no_grad() / torch.inference_mode()")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, kv_mask=kv_mask)
     if q.device.type != "cuda":

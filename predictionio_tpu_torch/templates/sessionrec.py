@@ -1,17 +1,25 @@
-"""Session-based sequential recommendation engine template: the serving
-half of the JAX package's ``templates/sessionrec.py``.
+"""Session-based sequential recommendation engine template: the port of
+the JAX package's ``templates/sessionrec.py``, training and serving.
 
+The data source reads each user's events from the event store into a
+time-ordered item sequence; the algorithm indexes the items (dense ids
+from 1 in string order), trains the transformer of ``models/seqrec.py``
+on the context's device and keeps each user's history as serving state.
 Query {"user": ..., "num": N} (or {"items": [recent ids], "num": N})
 answers with the N most likely next items, never one of the session's
-own items or the query's ``blackList``. The model is the transformer of
-``models/seqrec.py`` with its serving state (``item_index``: item id →
-dense index, 1-based; ``histories``: user → dense indices), saved as
-``params.npz`` + ``model.json``.
+own items or the query's ``blackList``. A model is saved as
+``params.npz`` + ``model.json``. Besides training, a model comes from
+:func:`init_engine_model` (random weights from a seeded generator) or
+from a JAX-trained model's arrays (:meth:`SeqRecEngineModel.from_jax`).
+Evaluation (``read_eval``, HitRate@K) is not ported yet.
 
-Training comes in a later slice (ROADMAP.md queue 1, "sessionrec
-training"); until then a model comes from :func:`init_engine_model`
-(random weights from a seeded generator) or from a JAX-trained model's
-arrays (:meth:`SeqRecEngineModel.from_jax`).
+Usage (engine.json):
+    {"engineFactory":
+       "predictionio_tpu_torch.templates.sessionrec.engine_factory",
+     "datasource": {"params": {"app_name": "MyApp"}},
+     "algorithms": [{"name": "seqrec",
+                     "params": {"d_model": 64, "n_layers": 2,
+                                "max_len": 64, "epochs": 20}}]}
 """
 
 from __future__ import annotations
@@ -25,12 +33,13 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.controller import (
-    BaseComponent,
+    DataSource,
     Engine,
     FirstServing,
     HostModelAlgorithm,
     IdentityPreparator,
     Params,
+    SanityCheck,
 )
 from predictionio_tpu_torch.models import seqrec
 from predictionio_tpu_torch.ops.topk import serving_k
@@ -73,8 +82,9 @@ class DataSourceParams(Params):
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmParams(Params):
-    """The JAX template's parameters, so one engine.json binds to both;
-    serving reads none of them (the model carries its config)."""
+    """The JAX template's parameters, so one engine.json binds to both.
+    Serving reads none of them (the model carries its config);
+    ``use_mesh`` has no effect on one card."""
 
     d_model: int = 64
     n_heads: int = 2
@@ -90,18 +100,42 @@ class AlgorithmParams(Params):
     checkpoint_every: int = 0
 
 
-_TRAIN_LATER = ("sessionrec training is not ported yet: it comes with "
-                "ROADMAP.md queue 1, 'sessionrec training'")
+@dataclasses.dataclass
+class TrainingData(SanityCheck):
+    sequences: dict  # user id -> [item ids, time-ordered]
+
+    def sanity_check(self) -> None:
+        if not self.sequences:
+            raise ValueError("no user event sequences found")
 
 
-class SessionDataSource(BaseComponent):
-    """Binds the datasource params of a sessionrec engine.json. Reading
-    events comes with the training slice."""
+class SessionDataSource(DataSource):
+    """Reads per-user time-ordered item sequences: each user's events of
+    ``event_names`` with a target item, stably sorted by event time
+    (events of one time keep the store's (time, id) order), users with
+    fewer than ``min_sequence_len`` items left out."""
 
     params_class = DataSourceParams
 
-    def read_training(self, ctx: Any):
-        raise NotImplementedError(_TRAIN_LATER)
+    def read_training(self, ctx: Any) -> TrainingData:
+        p = self.params
+        events = ctx.event_store().find(
+            p.app_name,
+            entity_type=p.entity_type,
+            event_names=list(p.event_names),
+            target_entity_type=p.target_entity_type,
+        )
+        per_user: dict[str, list] = {}
+        for ev in events:
+            if not ev.target_entity_id:
+                continue
+            per_user.setdefault(ev.entity_id, []).append((ev.event_time, ev.target_entity_id))
+        sequences = {
+            user: [item for _, item in sorted(pairs, key=lambda t: t[0])]
+            for user, pairs in per_user.items()
+        }
+        return TrainingData(sequences={
+            u: seq for u, seq in sequences.items() if len(seq) >= p.min_sequence_len})
 
 
 @dataclasses.dataclass
@@ -113,6 +147,9 @@ class SeqRecEngineModel:
     device: torch.device = dataclasses.field(default_factory=lambda: resolve_device())
     # the module on ``device``, built on first predict; never saved
     module: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # per-step losses and seconds of the run that trained it; never saved
+    train_run: seqrec.TrainRun | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def as_module(self) -> seqrec.SeqRec:
         if self.module is None:
@@ -181,13 +218,38 @@ def load_engine_model(directory: str, device: str | torch.device | None = None
 
 
 class SeqRecAlgorithm(HostModelAlgorithm):
-    """Serves the causal transformer's top-k next items."""
+    """Trains the causal transformer on the context's device; serves its
+    top-k next items."""
 
     params_class = AlgorithmParams
     query_class = Query
 
-    def train(self, ctx: Any, pd: Any) -> SeqRecEngineModel:
-        raise NotImplementedError(_TRAIN_LATER)
+    def train(self, ctx: Any, pd: TrainingData) -> SeqRecEngineModel:
+        p = self.params
+        items = sorted({i for seq in pd.sequences.values() for i in seq})
+        # dense ids start at 1: index 0 is the PAD token
+        item_index = BiMap({item: i + 1 for i, item in enumerate(items)})
+        dense = {u: [item_index[i] for i in seq] for u, seq in pd.sequences.items()}
+        cfg = seqrec.SeqRecConfig(
+            vocab=len(items) + 1,
+            max_len=p.max_len,
+            d_model=p.d_model,
+            n_heads=p.n_heads,
+            n_layers=p.n_layers,
+            remat=p.remat,
+        )
+        run = seqrec.train(
+            list(dense.values()), cfg,
+            epochs=p.epochs, batch_size=p.batch_size, lr=p.lr, seed=p.seed,
+            checkpoint_dir=p.checkpoint_dir or None,
+            checkpoint_every=p.checkpoint_every,
+            device=ctx.device,
+        )
+        return SeqRecEngineModel(params=run.params, cfg=cfg, item_index=item_index,
+                                 histories=dense, device=ctx.device, train_run=run)
+
+    def save_model(self, model: SeqRecEngineModel, directory: str) -> None:
+        save_engine_model(model, directory)
 
     def load_model(self, directory: str, device: torch.device) -> SeqRecEngineModel:
         return load_engine_model(directory, device)

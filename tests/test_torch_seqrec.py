@@ -191,8 +191,9 @@ class TestParams:
     def test_config_json_round_trip_and_jax_fields(self):
         _, tcfg = _configs(jnp.float32, torch.bfloat16)
         assert seqrec.SeqRecConfig.from_json(tcfg.to_json()) == tcfg
-        jcfg = dataclasses.replace(_configs(jnp.bfloat16, None)[0], remat=True)
-        assert seqrec.SeqRecConfig.from_json(dataclasses.asdict(jcfg)) == tcfg
+        jcfg = dataclasses.replace(_configs(jnp.bfloat16, None)[0], remat=True, dropout=0.1)
+        assert seqrec.SeqRecConfig.from_json(dataclasses.asdict(jcfg)) == \
+            dataclasses.replace(tcfg, remat=True)
 
     def test_module_defaults_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

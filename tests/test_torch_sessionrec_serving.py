@@ -266,8 +266,9 @@ class TestModelPersistenceAndDeploy:
         assert [s.item for s in out.item_scores] == ["b"]
         with pytest.raises(ValueError):
             sessionrec.init_engine_model(cfg, ["a"], {}, device="cpu")
+        # training is ported (tests/test_torch_sessionrec_train.py); evaluation is not
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sessionrec.SeqRecAlgorithm().train(None, None)
+            sessionrec.SessionDataSource().read_eval(None)
 
 
 class TestControllerCopies:
