@@ -44,7 +44,28 @@ Phases, in order; any failure exits non-zero:
    CUDA cores) beside the bf16 tensor-core product with f32 output, a
    yardstick the path does not call;
 8. the model trained in phase 5, deployed and queried as in phase 4;
-9. a `kernels` JSON line, then the result line
+9. ALS at the ML-20M shape (bench.py:95-99, 119-125: 138,493 users ×
+   26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
+   of `ladder_rows` and staging; 10 bf16 iterations after a one-iteration
+   warm-up, timed by CUDA events (ms per iteration, ratings/s, useful and
+   executed TFLOP/s, peak memory), one iteration under torch.profiler
+   (launches, device time, busy share against the unprofiled iteration);
+   the f32 route's 10 iterations; RMSE finite and below the first
+   iteration's, bf16 within 0.02 of f32; one f32 user half-step against
+   float64 Cholesky on the host on 4,096 sampled rows;
+10. rank 200 (bench.py:396-441): 2 iterations with the "auto" bf16 CG
+   matvec, and its half-step against float64 on 1,024 sampled rows;
+11. serving the phase-9 model: `ALSModel.save`, then the engine server
+   with the recommendation template; ~30 HTTP queries (num 10/100/1000,
+   white and black lists, an unknown user, a user with more than 512
+   seen items), each held against a float64 host top-k; 256 queries
+   through `DeployedEngine.query_batch` against the single path;
+12. batch top-k at B=256 × I=2M (bench.py:927): flat against chunked,
+   both timed;
+13. the recommendation template at the MovieLens-100k shape: events into
+   the memory store, `run_train` (rank 10, 10 iterations, λ 0.01, seed
+   3), deploy, HTTP queries checked as in phase 11;
+14. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Exits non-zero, printing no result, when there is no card.
@@ -69,14 +90,20 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.api.engine_server import EngineServerConfig, create_engine_server
+from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.models import seqrec
+from predictionio_tpu_torch.models.als import ALSModel
 from predictionio_tpu_torch.ops import _build
+from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
+from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
 from predictionio_tpu_torch.storage.base import App
 from predictionio_tpu_torch.storage.registry import memory_storage
+from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.templates import sessionrec
+from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
@@ -115,6 +142,30 @@ LONG_WALK = (13, 4097, 3847)
 #: Frobenius error
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 3e-2
+#: the JAX package's ALS benchmark at the MovieLens-20M shape
+#: (bench.py:95-99, make_ratings :119-125): users, items, power-law ratings
+ML20M = (138_493, 26_744, 20_000_000)
+ALS_RANK, ALS_LAM, ALS_ITERS = 32, 0.08, 10
+#: bench.py:396-441: rank 200, short runs
+RANK200, RANK200_ITERS = 200, 2
+#: rows whose f32 CG solutions are held against float64 Cholesky on the host
+CG_CHECK_ROWS = (4096, 1024)           # rank 32, rank 200
+#: relative error per row against float64: the f32 CG at rank 32; the bf16
+#: CG matvec on the JAX package's own rank-200 system families (it
+#: measured 2.4-2.6e-3 there); and any rank-200 half-step on ML-20M rows,
+#: whose systems are harder (the bf16 matvec measured 1.5e-2 on an H100:
+#: PERF.md), a bound that catches breakage. bf16 vs f32 training RMSE:
+#: tests/test_als.py:626
+CG_F32_RTOL, CG_BF16_RTOL, RANK200_ROWS_RTOL, RMSE_BF16_TOL = 1e-4, 5e-3, 5e-2, 0.02
+#: served scores vs the float64 host reference (f32 dot products of
+#: rank-32 rows of magnitude ~1): absolute
+ALS_SCORE_TOL = 1e-4
+#: bench.py:927: batch top-k against a 2M-item catalog
+TOPK_BATCH, TOPK_ITEMS = 256, 2_000_000
+#: the reference template's MovieLens-100k shape (BASELINE.md): users,
+#: items, rate events, buy events
+ML100K = (943, 1_682, 100_000, 2_000)
+REC_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine_factory"
 
 
 def log(msg: str) -> None:
@@ -710,11 +761,571 @@ def phase_training() -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
+def make_ratings(users: int, items: int, nnz: int, seed: int = 0):
+    """bench.py's power-law (user, item, rating) triples, ratings 0.5-5."""
+    rng = np.random.default_rng(seed)
+    u = (users * rng.random(nnz) ** 1.8).astype(np.int32)
+    i = (items * rng.random(nnz) ** 1.8).astype(np.int32)
+    v = rng.integers(1, 11, size=nnz).astype(np.float32) / 2.0
+    return u, i, v
+
+
+def _events_ms(fn) -> tuple[float, object]:
+    """(ms, result) of one call between CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _row_locator(bucketed: als.BucketedRatings):
+    """row -> (cols, vals) of its real ratings, from the host buckets."""
+    where = {}
+    for b in bucketed.buckets:
+        for slot, row in enumerate(b.row_ids):
+            where[int(row)] = (b, slot)
+
+    def rated(row: int):
+        b, slot = where[row]
+        d = int(b.deg[slot])
+        return b.cols[slot, :d], b.vals[slot, :d]
+    return rated, np.fromiter(where, dtype=np.int64)
+
+
+def _f64_half_step_err(V: torch.Tensor, X: torch.Tensor, rated, rows: np.ndarray,
+                       lam: float) -> np.ndarray:
+    """Per-row relative error of the solved rows X[rows] against float64
+    Cholesky solves of the ALS-WR normal equations built on the host from
+    the same V."""
+    Vd = V.double().cpu().numpy()
+    got = X[torch.from_numpy(rows).to(X.device)].double().cpu().numpy()
+    errs = np.empty(len(rows))
+    k = Vd.shape[1]
+    for j, row in enumerate(rows):
+        cols, vals = rated(int(row))
+        F = Vd[cols]
+        A = F.T @ F + lam * len(cols) * np.eye(k)
+        chol = np.linalg.cholesky(A)
+        want = np.linalg.solve(chol.T, np.linalg.solve(chol, F.T @ vals.astype(np.float64)))
+        errs[j] = np.linalg.norm(got[j] - want) / np.linalg.norm(want)
+    return errs
+
+
+def _normal_systems(rng, batch: int, rank: int, deg_lo: int, deg_hi: int, lam: float):
+    """ALS-WR normal systems as tests/test_als.py builds them:
+    A = FᵀF + λ·deg·I, b = Fᵀr, F standard normal over sqrt(rank)."""
+    A = np.empty((batch, rank, rank), dtype=np.float32)
+    b = np.empty((batch, rank), dtype=np.float32)
+    for j in range(batch):
+        deg = int(rng.integers(deg_lo, deg_hi))
+        F = (rng.standard_normal((deg, rank)) / np.sqrt(rank)).astype(np.float32)
+        r = rng.integers(1, 6, size=deg).astype(np.float32)
+        A[j] = F.T @ F + lam * deg * np.eye(rank, dtype=np.float32)
+        b[j] = F.T @ r
+    return A, b
+
+
+def _profile(fn, top: str | None = None) -> tuple[float, int]:
+    """(device ms, kernel launches) of one call of ``fn`` under
+    torch.profiler; with ``top``, the 8 kernels that take the most time
+    are logged under that tag."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms <= 0:
+        fail("torch.profiler recorded no device time")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8] if top else ():
+        log(f"[{top}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  "
+            f"{e.key[:90]}")
+    return device_ms, sum(e.count for e in kernels)
+
+
+def _bound_ms(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0) -> str:
+    """The least time for the work: bytes over the memory rate against
+    operations over the peak of their type (PEAK_FLOPS)."""
+    t_ops = bf16_flops / PEAK_FLOPS[torch.bfloat16] + f32_flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return f"{max(t_ops, t_bytes) * 1e3:.4f} ({by})"
+
+
+def _profile_programs(tag: str, iteration, V_item, V_user, dev_user, dev_item,
+                      iter_ms: float) -> None:
+    """Device time, launches and bound of the torch code that replaced each
+    XLA program of the fused ALS path, for one bf16 iteration at rank
+    ALS_RANK: the normal-equation build of every slab, the batched CG on
+    the systems it built, and the whole iteration (the fused loop, whose
+    remainder is the write-back and the masks); the busy share is the
+    iteration's device time over ``iter_ms``, timed without the profiler."""
+    K = ALS_RANK
+    halves = ((V_item, dev_user), (V_user, dev_item))
+
+    def build_all():
+        out = []
+        for V, buckets in halves:
+            Vm = V.to(torch.bfloat16)
+            for b in buckets.buckets:
+                for s in range(b.cols.shape[0]):
+                    out.append(als._normal_eq_build(Vm, b.cols[s], b.vals[s], b.deg[s],
+                                                    ALS_LAM, 40.0, None, False))
+        return out
+
+    systems = build_all()
+
+    def cg_all():
+        for A, b in systems:
+            als._cg_solve_batched(A, b)
+
+    entries = sum(b.cols.numel() for _, bk in halves for b in bk.buckets)
+    rows = sum(b.deg.numel() for _, bk in halves for b in bk.buckets)
+    tables = sum(V.numel() for V in (V_item, V_user)) * 4
+    steps = min(K + 4, 16)
+    build_ms, build_n = _profile(build_all)
+    cg_ms, cg_n = _profile(cg_all)
+    it_ms, it_n = _profile(iteration, top=tag)
+    log(f"[{tag}] normal-equation build (_normal_eq_build, every slab): device_ms={build_ms:.3f} "
+        f"launches={build_n} bound_ms="
+        f"{_bound_ms(entries * 8 + rows * (K * K + K) * 4, bf16_flops=entries * (2 * K * K + 2 * K))}")
+    log(f"[{tag}] batched CG (_cg_solve_batched, {steps} steps, every slab): "
+        f"device_ms={cg_ms:.3f} launches={cg_n} bound_ms="
+        f"{_bound_ms(rows * (K * K + 2 * K) * 4, f32_flops=rows * steps * (2 * K * K + 8 * K))}")
+    log(f"[{tag}] one iteration (_als_iterate_fused): device_ms={it_ms:.3f} launches={it_n} "
+        f"(rest of the loop: {it_ms - build_ms - cg_ms:.3f} ms, "
+        f"{it_n - build_n - cg_n} launches) device_busy_share={it_ms / iter_ms:.4f} "
+        f"(of the unprofiled {iter_ms:.3f} ms) bound_ms="
+        f"{_bound_ms(entries * 8 + 2 * tables, bf16_flops=entries * (2 * K * K + 2 * K), f32_flops=rows * steps * (2 * K * K + 8 * K))}")
+
+
+def phase_als_train() -> dict:
+    """Phases 9-10. Returns what serving needs: the ratings, the bf16
+    factors and the host user buckets."""
+    n_users, n_items, nnz = ML20M
+    t0 = time.perf_counter()
+    coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
+    log(f"[als] {nnz} ratings generated in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    by_user, by_item = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    t_ladder = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_user = als.stage_buckets(by_user, ALS_RANK, device=DEVICE)
+    dev_item = als.stage_buckets(by_item, ALS_RANK, device=DEVICE)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    slabs = sum(b.cols.shape[0] for b in dev_user.buckets + dev_item.buckets)
+    log(f"[als] ladder_rows {t_ladder:.2f}s ({len(by_user.buckets)} user + "
+        f"{len(by_item.buckets)} item buckets, {slabs} slabs at rank {ALS_RANK}), "
+        f"staging {t_stage:.2f}s")
+    z = torch.zeros(1024, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        z.add_(1.0)
+    torch.cuda.synchronize()
+    log(f"[als] host time per small eager launch (10,000 add_): "
+        f"{(time.perf_counter() - t0) * 100:.3f} us")
+    fl = [als.half_step_flops(b, ALS_RANK) for b in (by_user, by_item)]
+    useful = sum(f["useful_flops"] for f in fl)
+    executed = sum(f["executed_flops"] for f in fl)
+    item0 = als.init_item_factors(n_items, ALS_RANK, SEED).to(DEVICE)
+
+    def train(iters: int, bf16: bool):
+        return als._als_iterate_fused(item0, dev_user, dev_item, iters, ALS_LAM, 40.0, False,
+                                      bf16=bf16)
+
+    torch.cuda.reset_peak_memory_stats()
+    rmse_1 = als.rmse(als.ALSFactors(*train(1, True)), coo)      # warm-up
+    results = {}
+    for route, bf16 in (("bf16", True), ("f32", False)):
+        ms, (user, item) = _events_ms(lambda: train(ALS_ITERS, bf16))
+        per_iter = ms / ALS_ITERS
+        err = als.rmse(als.ALSFactors(user, item), coo)
+        results[route] = (per_iter, user, item, err)
+        log(f"[als] {route} route, {ALS_ITERS} iterations: ms_per_iteration={per_iter:.3f} "
+            f"ratings_per_s={nnz / (per_iter / 1e3):.0f} "
+            f"useful_tflops={useful / (per_iter / 1e3) / 1e12:.4f} "
+            f"executed_tflops={executed / (per_iter / 1e3) / 1e12:.4f} rmse={err:.5f}")
+    log(f"[als] peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+        f"rmse first iteration={rmse_1:.5f}")
+    bf16_ms, user, item, rmse_bf16 = results["bf16"]
+    rmse_f32 = results["f32"][3]
+    if not (math.isfinite(rmse_bf16) and rmse_bf16 < rmse_1):
+        fail(f"ALS RMSE {rmse_bf16} is not finite and below the first iteration's {rmse_1}")
+    if abs(rmse_bf16 - rmse_f32) > RMSE_BF16_TOL:
+        fail(f"bf16 RMSE {rmse_bf16} vs f32 {rmse_f32}: more than {RMSE_BF16_TOL} apart")
+    log(f"[als] |rmse bf16 - f32| = {abs(rmse_bf16 - rmse_f32):.3e} (tol {RMSE_BF16_TOL})")
+    _profile_programs("als/profile", lambda: train(1, True), item, user, dev_user, dev_item,
+                      bf16_ms)
+
+    rated, active = _row_locator(by_user)
+    rng = np.random.default_rng(SEED + 4)
+    f32_item = results["f32"][2]
+    X = als.solve_half(f32_item, dev_user, ALS_RANK, ALS_LAM, matmul_dtype="float32",
+                       cg_matvec_dtype="float32")
+    errs = _f64_half_step_err(f32_item, X, rated,
+                              rng.choice(active, CG_CHECK_ROWS[0], replace=False), ALS_LAM)
+    log(f"[als] f32 CG half-step vs float64 Cholesky on {CG_CHECK_ROWS[0]} rows: "
+        f"max_rel_err={errs.max():.3e} median={np.median(errs):.3e} (tol {CG_F32_RTOL:g})")
+    if not errs.max() <= CG_F32_RTOL:
+        fail("the f32 CG half-step disagrees with float64")
+    del X, results, dev_user, dev_item
+    torch.cuda.empty_cache()
+
+    # rank 200: the "auto" CG matvec streams A in bf16
+    dev_user = als.stage_buckets(by_user, RANK200, device=DEVICE)
+    dev_item = als.stage_buckets(by_item, RANK200, device=DEVICE)
+    item0_200 = als.init_item_factors(n_items, RANK200, SEED).to(DEVICE)
+
+    def train200(iters: int, cg_matvec: str = "auto"):
+        return als._als_iterate_fused(item0_200, dev_user, dev_item, iters, ALS_LAM, 40.0,
+                                      False, bf16=True,
+                                      cg_bf16=als._resolve_cg_matvec(cg_matvec, RANK200))
+
+    torch.cuda.reset_peak_memory_stats()
+    train200(1)
+    ms, (_, item200) = _events_ms(lambda: train200(RANK200_ITERS))
+    ms_f32, _ = _events_ms(lambda: train200(1, "float32"))
+    dev200_ms, launches200 = _profile(lambda: train200(1))
+    log(f"[als200] {RANK200_ITERS} iterations (bf16 CG matvec, the auto policy): "
+        f"ms_per_iteration={ms / RANK200_ITERS:.3f} "
+        f"ratings_per_s={nnz / (ms / RANK200_ITERS / 1e3):.0f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}; "
+        f"1 iteration with the f32 CG matvec: {ms_f32:.3f} ms; one profiled iteration "
+        f"(bf16 matvec): launches={launches200} device_ms={dev200_ms:.3f} "
+        f"device_busy_share={dev200_ms / (ms / RANK200_ITERS):.4f}")
+    # the bf16 matvec on the system families the JAX package measured it
+    # on (tests/test_als.py _normal_systems; ops/als.py:800-806)
+    for lo, hi, lam in ((800, 2000, 0.08), (100, 400, 0.01)):
+        A, b = _normal_systems(rng, 32, RANK200, lo, hi, lam)
+        exact = np.linalg.solve(A.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
+        x = als._cg_solve_batched(torch.from_numpy(A).to(DEVICE), torch.from_numpy(b).to(DEVICE),
+                                  bf16_matvec=True).double().cpu().numpy()
+        err = (np.linalg.norm(x - exact, axis=-1) / np.linalg.norm(exact, axis=-1)).max()
+        log(f"[als200] bf16 CG matvec on JAX's systems (degree {lo}-{hi}, lambda {lam}): "
+            f"max_rel_err={err:.3e} (tol {CG_BF16_RTOL:g})")
+        if not err <= CG_BF16_RTOL:
+            fail(f"the rank-{RANK200} bf16 CG matvec is more than {CG_BF16_RTOL} from float64")
+    # and on rows of the ML-20M shape: f32 build, either matvec
+    rows = rng.choice(active, CG_CHECK_ROWS[1], replace=False)
+    heavy = np.asarray([len(rated(int(r))[0]) >= 100 for r in rows])
+    for matvec in ("bfloat16", "float32"):
+        X = als.solve_half(item200, dev_user, RANK200, ALS_LAM, matmul_dtype="float32",
+                           cg_matvec_dtype=matvec)
+        errs = _f64_half_step_err(item200, X, rated, rows, ALS_LAM)
+        log(f"[als200] {matvec} CG matvec, ML-20M user half-step vs float64 on {len(rows)} "
+            f"rows: max_rel_err={errs.max():.3e} median={np.median(errs):.3e}; max over the "
+            f"{heavy.sum()} rows of degree >= 100: "
+            f"{errs[heavy].max() if heavy.any() else float('nan'):.3e}")
+        if not errs.max() <= RANK200_ROWS_RTOL:
+            fail(f"the rank-{RANK200} half-step is more than {RANK200_ROWS_RTOL} from float64")
+    del dev_user, dev_item, X
+    torch.cuda.empty_cache()
+    return {"coo": coo, "user": user, "item": item}
+
+
+def _seen_lists(coo: als.RatingsCOO, rows) -> dict[int, np.ndarray]:
+    """Sorted distinct items of each of ``rows``, from the COO."""
+    order = np.argsort(coo.rows, kind="stable")
+    su, si = coo.rows[order], coo.cols[order]
+    out = {}
+    for u in np.unique(np.asarray(rows)):
+        lo, hi = np.searchsorted(su, u), np.searchsorted(su, u, side="right")
+        out[int(u)] = np.unique(si[lo:hi]).astype(np.int32)
+    return out
+
+
+def _reference_topk(model: ALSModel, body: dict, item_f64: np.ndarray):
+    """float64 host top-k of one query: every item scored, seen ones and
+    those the white/black list rules out dropped. Returns (ids, scores)
+    sorted by score, the eligible count, and all eligible scores by id."""
+    uix = model.user_ids.get(body["user"])
+    if uix is None:
+        return [], {}
+    scores = item_f64 @ model.user_factors[uix].double().cpu().numpy()
+    ok = np.ones(len(scores), dtype=bool)
+    ok[model.seen_by_user.get(uix, np.empty(0, np.int64))] = False
+    if "whiteList" in body:
+        wl = np.zeros_like(ok)
+        wl[[model.item_ids[i] for i in body["whiteList"] if i in model.item_ids]] = True
+        ok &= wl
+    for i in body.get("blackList", []):
+        if i in model.item_ids:
+            ok[model.item_ids[i]] = False
+    inv = model.item_ids.inverse
+    eligible = {inv[int(j)]: float(scores[j]) for j in np.nonzero(ok)[0]}
+    ranked = sorted(eligible.items(), key=lambda kv: -kv[1])[: body.get("num", 10)]
+    return ranked, eligible
+
+
+def _check_answer(tag: str, body: dict, served: list[tuple[str, float]], model: ALSModel,
+                  item_f64: np.ndarray) -> float:
+    """The served (item, score) list against the float64 reference: as
+    many items, each eligible, scores within ALS_SCORE_TOL of the
+    reference, in order, and no item left out that beats a served one by
+    more than the tolerance. Returns the largest score difference."""
+    ranked, eligible = _reference_topk(model, body, item_f64)
+    if len(served) != len(ranked):
+        fail(f"{tag} {json.dumps(body)[:80]}: {len(served)} items served, "
+             f"reference has {len(ranked)}")
+    if not ranked:
+        return 0.0
+    bad = [i for i, _ in served if i not in eligible]
+    if bad:
+        fail(f"{tag} {json.dumps(body)[:80]}: served seen, black-listed or "
+             f"non-white-listed items {bad[:5]}")
+    err = max(abs(s - eligible[i]) for i, s in served)
+    scores = [s for _, s in served]
+    floor = min(eligible[i] for i, _ in served)
+    missed = [i for i, s in ranked if s > floor + ALS_SCORE_TOL and i not in dict(served)]
+    if err > ALS_SCORE_TOL or missed or any(a < b - ALS_SCORE_TOL
+                                            for a, b in zip(scores, scores[1:])):
+        fail(f"{tag} {json.dumps(body)[:80]}: differs from the float64 reference "
+             f"(score err {err:.3e}, missed {missed[:5]})")
+    return err
+
+
+def serve_als_and_check(model_dir: str, queries: list[dict], tag: str) -> dict:
+    """Deploy ``model_dir`` with the recommendation template behind the
+    engine server, POST the queries and hold every answer against the
+    float64 reference. Returns the server's deployed engine stats."""
+    t0 = time.perf_counter()
+    server = create_engine_server(EngineServerConfig(
+        model_dir=model_dir, ip="127.0.0.1", port=0, device=DEVICE,
+        engine_factory=REC_FACTORY)).start()
+    try:
+        port = server.port
+        model = server.deployed.models[0]
+        log(f"[{tag}] deployed and listening on :{port} in {time.perf_counter() - t0:.1f}s")
+        item_f64 = model.item_factors.double().cpu().numpy()
+        status, _, _ = _post(port, queries[0])               # warm-up
+        if status != 200:
+            fail(f"{tag}: warm-up query answered {status}")
+        rtts, worst = [], 0.0
+        for body in queries:
+            status, doc, ms = _post(port, body)
+            if status != 200:
+                fail(f"{tag}: query {body} answered {status}: {doc}")
+            rtts.append(ms)
+            served = [(s["item"], s["score"]) for s in doc.get("itemScores", [])]
+            worst = max(worst, _check_answer(tag, body, served, model, item_f64))
+        log(f"[{tag}] {len(queries)} queries equal to the float64 reference "
+            f"(max score err {worst:.3e}, tol {ALS_SCORE_TOL:g}); "
+            f"http_p50_ms={statistics.median(rtts):.3f} http_min_ms={min(rtts):.3f} "
+            f"http_max_ms={max(rtts):.3f}")
+        return {"server": server, "deployed": server.deployed}
+    except BaseException:
+        server.stop()
+        raise
+
+
+def _same_answer(a, b) -> bool:
+    """Two PredictedResults agree: scores within ALS_SCORE_TOL in order,
+    and items equal but for near-ties at the boundary."""
+    sa = [s.score for s in a.item_scores]
+    sb = [s.score for s in b.item_scores]
+    if len(sa) != len(sb) or any(abs(x - y) > ALS_SCORE_TOL for x, y in zip(sa, sb)):
+        return False
+    ia = {s.item: s.score for s in a.item_scores}
+    ib = {s.item: s.score for s in b.item_scores}
+    floor = min(sa, default=0.0)
+    return all(abs(s - floor) <= ALS_SCORE_TOL
+               for s in [ia[i] for i in set(ia) - set(ib)] + [ib[i] for i in set(ib) - set(ia)])
+
+
+def phase_als_serving(trained: dict) -> None:
+    """Phase 11: the ML-20M model saved, deployed and queried."""
+    coo, user, item = trained["coo"], trained["user"], trained["item"]
+    n_users, n_items, _ = ML20M
+    rng = np.random.default_rng(SEED + 5)
+    active = np.unique(coo.rows)
+    heavy = int(np.bincount(coo.rows).argmax())
+    asked = [int(u) for u in rng.choice(active, 20, replace=False)]
+    batch_users = [int(u) for u in rng.choice(active, 255, replace=False)] + [heavy]
+    seen = _seen_lists(coo, asked + batch_users + [heavy])
+    if len(seen[heavy]) <= 512:
+        fail(f"the heaviest user has only {len(seen[heavy])} seen items")
+    model = ALSModel(rank=ALS_RANK, user_factors=user, item_factors=item,
+                     user_ids=EntityIdIxMap(BiMap({f"u{i}": i for i in range(n_users)})),
+                     item_ids=EntityIdIxMap(BiMap({f"i{i}": i for i in range(n_items)})),
+                     seen_by_user=seen)
+    model_dir = tempfile.mkdtemp(prefix="als-model-")
+    try:
+        t0 = time.perf_counter()
+        model.save(model_dir)
+        log(f"[als-serve] model saved in {time.perf_counter() - t0:.2f}s "
+            f"({len(seen)} users with seen lists; heaviest user u{heavy}: "
+            f"{len(seen[heavy])} seen items)")
+        picks = [f"i{j}" for j in rng.integers(0, n_items, 400)]
+        queries = ([{"user": f"u{u}", "num": 10} for u in asked[:8]]
+                   + [{"user": f"u{u}", "num": 100} for u in asked[8:14]]
+                   + [{"user": f"u{u}", "num": 1000} for u in asked[14:18]]
+                   + [{"user": f"u{asked[18]}", "num": 10, "whiteList": picks[:50]},
+                      {"user": f"u{asked[19]}", "num": 100, "whiteList": picks[50:90]},
+                      {"user": f"u{asked[0]}", "num": 20, "blackList": picks[90:290]},
+                      {"user": f"u{asked[1]}", "num": 10, "whiteList": picks[290:390],
+                       "blackList": picks[290:300]},
+                      {"user": "nobody", "num": 10},
+                      {"user": f"u{heavy}", "num": 10},
+                      {"user": f"u{heavy}", "num": 1000},
+                      {"user": f"u{heavy}", "num": 10, "blackList": picks[:100]}])
+        # black-list each of a few users' own unfiltered top 5
+        top = {u: _reference_topk(model, {"user": f"u{u}", "num": 5},
+                                  item.double().cpu().numpy())[0] for u in asked[2:6]}
+        queries += [{"user": f"u{u}", "num": 10, "blackList": [i for i, _ in t]}
+                    for u, t in top.items()]
+        handle = serve_als_and_check(model_dir, queries, "als-serve")
+        server, deployed = handle["server"], handle["deployed"]
+        try:
+            batch = [rec.Query(user=f"u{u}", num=10) for u in batch_users]
+            t0 = time.perf_counter()
+            batched = deployed.query_batch(batch)
+            batch_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            single = [deployed.query(q) for q in batch]
+            single_s = time.perf_counter() - t0
+            differ = [q.user for q, a, b in zip(batch, batched, single) if not _same_answer(a, b)]
+            log(f"[als-serve] query_batch of {len(batch)}: {batch_s * 1e3:.3f} ms; the same "
+                f"queries one by one: {single_s * 1e3:.3f} ms; answers that differ: {len(differ)}")
+            if differ:
+                fail(f"query_batch differs from the single path for {differ[:5]}")
+            # the device work of one served query: the flat top-k at B=1
+            m = deployed.models[0]
+            uix = m.user_ids[f"u{asked[0]}"]
+            cols = torch.zeros((1, 512), dtype=torch.int32, device=DEVICE)
+            mask = torch.zeros((1, 512), device=DEVICE)
+            allow = torch.ones((n_items,), device=DEVICE)
+
+            def one_query():
+                return topk_ops.recommend_topk(m.user_factors[uix:uix + 1], m.item_factors,
+                                               cols, mask, allow, 10)
+
+            call_ms = time_ms(one_query)
+            dev_ms, n = _profile(lambda: [one_query() for _ in range(20)])
+            log(f"[als-serve] recommend_topk B=1, I={n_items}, k=10: call_ms={call_ms:.4f} "
+                f"device_ms={dev_ms / 20:.4f} launches={n // 20} bound_ms="
+                f"{_bound_ms(n_items * (ALS_RANK + 1) * 4, f32_flops=2 * n_items * ALS_RANK)}")
+        finally:
+            server.stop()
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def phase_topk_envelope() -> None:
+    """Phase 12: flat vs chunked top-k at B=256 × I=2M, k=10."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    item_f = torch.randn((TOPK_ITEMS, ALS_RANK), generator=gen, device=DEVICE)
+    uv = torch.randn((TOPK_BATCH, ALS_RANK), generator=gen, device=DEVICE)
+    cols = torch.randint(0, TOPK_ITEMS, (TOPK_BATCH, 32), generator=gen, device=DEVICE)
+    mask = (torch.rand((TOPK_BATCH, 32), generator=gen, device=DEVICE) < 0.5).float()
+    allow = torch.ones((TOPK_ITEMS,), device=DEVICE)
+    fv, fi = topk_ops.recommend_topk(uv, item_f, cols, mask, allow, 10)
+    cv, ci = topk_ops.recommend_topk_chunked(uv, item_f, cols, mask, allow, 10)
+    v_err = (fv - cv).abs().max().item()
+    gap = (fv[:, :-1] - fv[:, 1:]).abs()
+    clear = torch.cat([gap[:, :1], torch.minimum(gap[:, 1:], gap[:, :-1]), gap[:, -1:]], 1) > 1e-5
+    same = bool((fi[clear] == ci[clear]).all())
+    flat_ms = time_ms(lambda: topk_ops.recommend_topk(uv, item_f, cols, mask, allow, 10),
+                      warmup=3, n=20)
+    chunked_ms = time_ms(lambda: topk_ops.recommend_topk_chunked(uv, item_f, cols, mask,
+                                                                 allow, 10), warmup=3, n=20)
+    flops = 2 * TOPK_BATCH * TOPK_ITEMS * ALS_RANK
+    bound_ms = max(flops / PEAK_FLOPS[torch.float32],
+                   (TOPK_ITEMS * (ALS_RANK + 1) * 4) / PEAK_BYTES) * 1e3
+    for name, fn in (("flat", topk_ops.recommend_topk),
+                     ("chunked", topk_ops.recommend_topk_chunked)):
+        dev_ms, n = _profile(lambda: fn(uv, item_f, cols, mask, allow, 10))
+        log(f"[topk] {name}: device_ms={dev_ms:.4f} launches={n}")
+    log(f"[topk] B={TOPK_BATCH} I={TOPK_ITEMS} k=10: flat_ms={flat_ms:.4f} "
+        f"chunked_ms={chunked_ms:.4f} bound_ms={bound_ms:.4f} (operations, f32) "
+        f"max_value_diff={v_err:.3e} indices_equal_off_ties={same}")
+    if v_err > 1e-4 or not same:
+        fail("chunked top-k disagrees with the flat path")
+
+
+def phase_recommendation_template() -> None:
+    """Phase 13: the recommendation template end to end at the ML-100k shape."""
+    n_users, n_items, n_rate, n_buy = ML100K
+    rng = np.random.default_rng(SEED + 7)
+    # every user rates at least 20 items, as in MovieLens-100k; the rest
+    # of the events fall on power-law users and items
+    users = np.concatenate([np.repeat(np.arange(n_users), 20),
+                            (n_users * rng.random(n_rate - 20 * n_users) ** 1.5).astype(int)])
+    items = (n_items * rng.random(n_rate + n_buy) ** 1.5).astype(int)
+    stars = rng.integers(1, 6, n_rate)
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    events = [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item", target_entity_id=f"i{i}",
+                    properties=DataMap({"rating": float(r)}),
+                    event_time=t0 + timedelta(seconds=n))
+              for n, (u, i, r) in enumerate(zip(users, items, stars))]
+    events += [Event(event="buy", entity_type="user", entity_id=f"u{u}",
+                     target_entity_type="item", target_entity_id=f"i{i}",
+                     event_time=t0 + timedelta(seconds=n_rate + n))
+               for n, (u, i) in enumerate(zip(rng.integers(0, n_users, n_buy),
+                                              items[n_rate:]))]
+    t_ingest = time.perf_counter()
+    storage = memory_storage()
+    app_id = storage.get_meta_data_apps().insert(App(0, "ML100k"))
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch(events, app_id)
+    log(f"[rec] {len(events)} events ingested in {time.perf_counter() - t_ingest:.1f}s")
+    model_dir = tempfile.mkdtemp(prefix="rec-model-")
+    try:
+        outcome = run_train(variant={
+            "engineFactory": REC_FACTORY,
+            "datasource": {"params": {"appName": "ML100k"}},
+            "algorithms": [{"name": "als", "params": {"rank": 10, "numIterations": 10,
+                                                      "lambda": 0.01, "seed": 3}}],
+        }, ctx=EngineContext(storage=storage, device=DEVICE), model_dir=model_dir)
+        model = outcome.models[0]
+        log(f"[rec] run_train {outcome.status}: {len(model.user_ids)} users, "
+            f"{len(model.item_ids)} items; stages: {format_stage_times(outcome.stage_seconds)}")
+        log(f"[rec] stage_seconds={json.dumps(outcome.stage_seconds)}")
+        if outcome.status != "COMPLETED" or not bool(torch.isfinite(model.item_factors).all()):
+            fail("the recommendation template did not train to finite factors")
+        picks = [f"i{j}" for j in rng.integers(0, n_items, 300)]
+        queries = ([{"user": f"u{u}", "num": n} for u, n in
+                    zip(rng.integers(0, n_users, 12), (10, 20, 5, 50) * 3)]
+                   + [{"user": "u0", "num": 10, "blackList": picks[:100]},
+                      {"user": "u1", "num": 10, "whiteList": picks[100:200]},
+                      {"user": "u2", "num": 20, "whiteList": picks[200:300],
+                       "blackList": picks[200:230]},
+                      {"user": "stranger", "num": 10}])
+        handle = serve_als_and_check(model_dir, queries, "rec-serve")
+        handle["server"].stop()
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def phase_als() -> None:
+    """Phases 9-13."""
+    t0 = time.perf_counter()
+    trained = phase_als_train()
+    phase_als_serving(trained)
+    del trained
+    torch.cuda.empty_cache()
+    phase_topk_envelope()
+    torch.cuda.empty_cache()
+    phase_recommendation_template()
+    log(f"[als] phases 9-13 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
+    wall = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
+        phase_als()
+        return
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
     times = phase_times()
@@ -725,6 +1336,11 @@ def main() -> None:
     if trained_launches == 0:
         fail("serving the trained model never launched the flash_attention kernel")
     launches += trained_launches
+    flash_ops.LAUNCHES = 0
+    phase_als()
+    if flash_ops.LAUNCHES:
+        fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
+    log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

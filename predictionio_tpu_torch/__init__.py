@@ -15,6 +15,13 @@ store (``storage/``, ``data/store.py``) → ``workflow/train.run_train`` →
 ``next_item_loss``, attention through the differentiable
 ``ops/attention.py``) → a model directory that ``workflow/deploy.py``
 serves. Training launches no hand-written kernel.
+
+The ALS recommendation engine: ``templates/recommendation.py`` →
+``ops/als.als_train`` (the fused ladder layout, an eager loop over
+device-resident slabs) → ``models/als.ALSModel`` (brute-force masked
+top-k, ``ops/topk.py``), saved with the npz checkpoint of
+``utils/checkpoint.py``. The JAX package runs this path as XLA programs;
+the port runs it as torch code, with no hand-written kernel.
 """
 
 __version__ = "0.1.0"

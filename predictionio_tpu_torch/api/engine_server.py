@@ -6,7 +6,8 @@ Routes:
 
 - ``POST /queries.json``: bind the JSON body to the engine's query
   class → ``DeployedEngine.query`` → the prediction as camelCase JSON
-  (``{"itemScores": [{"item": ..., "score": ...}]}`` for sessionrec);
+  (``{"itemScores": [{"item": ..., "score": ...}]}`` for sessionrec and
+  recommendation);
 - ``GET /``: status, including the flash-attention kernel's launch count;
 - ``GET /healthz``.
 
@@ -14,7 +15,8 @@ Queries are answered one at a time (one device, and a launch count that
 must add up): the HTTP threads overlap parsing and encoding only.
 
 Run: ``python -m predictionio_tpu_torch.api.engine_server --model-dir D
---port P [--device cpu]``.
+--port P [--device cpu] [--engine-factory F]`` (default: the sessionrec
+template).
 """
 
 from __future__ import annotations
@@ -181,10 +183,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--ip", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--engine-factory", default=DEFAULT_ENGINE_FACTORY)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = create_engine_server(EngineServerConfig(
-        model_dir=args.model_dir, ip=args.ip, port=args.port, device=args.device))
+        model_dir=args.model_dir, ip=args.ip, port=args.port, device=args.device,
+        engine_factory=args.engine_factory))
     server.start()
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())

@@ -58,10 +58,11 @@ class DataSource(BaseComponent, Generic[TD], abc.ABC):
         """The training data."""
 
     def read_eval(self, ctx: Any):
-        """Evaluation folds: not ported yet (ROADMAP.md queue 1 item 2,
-        sessionrec evaluation)."""
+        """Evaluation folds: not ported yet (ROADMAP.md queue 1 item 2, one
+        evaluation slice for the sessionrec and recommendation templates)."""
         raise NotImplementedError(
-            "evaluation is not ported yet: ROADMAP.md queue 1 item 2, 'sessionrec evaluation'")
+            "evaluation is not ported yet: ROADMAP.md queue 1 item 2, one evaluation "
+            "slice for the sessionrec and recommendation templates")
 
 
 class Preparator(BaseComponent, Generic[TD, PD], abc.ABC):

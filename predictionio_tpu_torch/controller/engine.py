@@ -2,7 +2,8 @@
 component construction from typed params, the training pipeline, params
 from an engine.json variant or from the JSON blobs a stored engine
 instance carries, and engine-factory resolution. Evaluation comes with
-ROADMAP.md queue 1 item 2, sessionrec evaluation.
+ROADMAP.md queue 1 item 2, one evaluation slice for the sessionrec and
+recommendation templates.
 """
 
 from __future__ import annotations

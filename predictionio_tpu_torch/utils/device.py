@@ -7,6 +7,9 @@ card raises instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -21,3 +24,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_f32() -> Iterator[None]:
+    """f32 matrix products in true f32 inside the block (the JAX
+    package's ``Precision.HIGHEST``), whatever the process set for TF32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -307,8 +307,11 @@ class TestIndependence:
             "import chip_smoke\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
             "             or n == 'predictionio_tpu' or n.startswith('predictionio_tpu.'))\n"
-            "print('BAD', bad)\n"
-            "sys.exit(1 if bad else 0)\n")
+            "want = ['ops.als', 'ops.topk', 'models.als', 'utils.checkpoint',\n"
+            "        'templates.recommendation', 'templates.sessionrec', 'models.seqrec']\n"
+            "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
+            "print('BAD', bad, 'NOT IMPORTED', missing)\n"
+            "sys.exit(1 if bad or missing else 0)\n")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = str(REPO)
         p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
