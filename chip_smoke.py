@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, case by
-   case (among them the shapes of both serving paths), with the max abs
-   difference and the tolerance;
-3. the kernel's time at the serving shape and the batch bucket beside
+   case (among them the shapes of both serving paths and of the
+   evaluation bucket), with the max abs difference and the tolerance;
+3. the kernel's time at the serving shape, the batch bucket and the
+   evaluation bucket (64,4,2048,64) beside
    the plain version, the library call (scaled_dot_product_attention
    with the same mask, and with is_causal alone, yardsticks the port
    never calls) and the bound: CUDA events around 100 back-to-back
@@ -65,7 +66,23 @@ Phases, in order; any failure exits non-zero:
 13. the recommendation template at the MovieLens-100k shape: events into
    the memory store, `run_train` (rank 10, 10 iterations, λ 0.01, seed
    3), deploy, HTTP queries checked as in phase 11;
-14. a `kernels` JSON line, then the result line
+14. sessionrec evaluation at the serving width: 128 users × 2,049 view
+   events, `run_evaluation(SessionRecEvaluation(k=10), ...)` over two
+   grid points (lr 1e-3 and 3e-3, batch 8, one epoch) with eval_k 2:
+   each fold trains on the card and predicts its 64 held-out users in one
+   (64,4,2048,64) bucket through the flash kernel. Checks the instance
+   row, best.json, HitRate@10 against a host recomputation from the
+   returned triples, the kernel's launches (4 layers × the buckets), and
+   16 held-out queries batch against single and the plain attention;
+   logs the seconds of every stage and the peak memory;
+15. recommendation evaluation at the ML-100k shape: the JAX template's
+   4-point grid plus rank 32 / 10 iterations / λ 0.08, through
+   `run_evaluation(RecommendationEvaluation(k=10), ...)` with the
+   template's Engine and then with a FastEvalEngine: the instance rows,
+   best.json, Precision@10 and MAP@10 against the host, the same scores
+   under both engines, one read of the data source under FastEvalEngine
+   against one a point, and the best point again on the CPU;
+16. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Exits non-zero, printing no result, when there is no card.
@@ -75,6 +92,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -90,6 +108,14 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.api.engine_server import EngineServerConfig, create_engine_server
+from predictionio_tpu_torch.controller import (
+    Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
+    FastEvalEngine,
+)
+from predictionio_tpu_torch.controller.evaluation import best_json_variant
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.models import seqrec
@@ -105,6 +131,7 @@ from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.templates import sessionrec
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.workflow.context import EngineContext
+from predictionio_tpu_torch.workflow.evaluation import run_evaluation
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
 SEED = 0
@@ -166,6 +193,30 @@ TOPK_BATCH, TOPK_ITEMS = 256, 2_000_000
 #: items, rate events, buy events
 ML100K = (943, 1_682, 100_000, 2_000)
 REC_FACTORY = "predictionio_tpu_torch.templates.recommendation.engine_factory"
+#: the sessionrec evaluation at the serving width: 128 users × 2,049 view
+#: events, starts 391 apart so that every item occurs (each fold derives
+#: vocab 50,000); eval_k 2 holds out 64 users a fold, whose 2,048-item
+#: histories go through batch_predict as one bucket of 64 at S = 2048
+EVAL_WALK = (128, 2049, 391)
+EVAL_K, EVAL_TOPK = 2, 10
+#: the two grid points: the serving config's widths, batch 8, one epoch
+#: (16 Adam steps a fold), at each learning rate of EVAL_LRS
+EVAL_POINT = dict(d_model=256, n_heads=4, n_layers=4, max_len=2048, batch_size=8, epochs=1,
+                  seed=SEED)
+EVAL_LRS = (1e-3, 3e-3)
+#: held-out queries checked batch against single and the plain attention
+EVAL_SINGLE = 16
+#: Precision@10 and MAP@10 of one grid point, two runs apart (absolute).
+#: Each is a mean over ~1,880 queries (943 users × 2 folds); one item of
+#: a top 10 swapped at a near-tie moves a user's precision by
+#: 1/min(10, |held-out|), so the mean by ~5e-5 for the users who hold out
+#: 10 items or more (most: each rates 20 or more). Engine against
+#: FastEvalEngine: the same card, data and seeds, summed in the same order
+#: unless a library call is not repeatable: 1e-3, ~20 such swaps. The card
+#: against the CPU: the card sums the bf16 products in another order (f32
+#: accumulation on the tensor cores) and ten iterations carry the
+#: difference, so ties flip more often: 1e-2, ~200 swaps of ~18,800 slots
+REC_EVAL_RERUN_TOL, REC_EVAL_CPU_TOL = 1e-3, 1e-2
 
 
 def log(msg: str) -> None:
@@ -225,13 +276,18 @@ def qkv(B, H, S, D, dtype, gen):
             for _ in range(3)]
 
 
-def phase_build() -> None:
+def log_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
+
+
+def phase_build() -> None:
+    log_card()
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] {len(logs)} kernel(s) compiled in {time.perf_counter() - t0:.1f}s "
@@ -281,6 +337,9 @@ def phase_kernel_vs_plain() -> float:
         ("ragged S=1000 non-causal bf16 D64", 1, 4, 1000, 64, torch.bfloat16, False, None),
         ("serving (1,4,2048,64) bf16 causal", 1, 4, 2048, 64, torch.bfloat16, True, None),
         ("bucket (8,4,2048,64) bf16 causal padded", 8, 4, 2048, 64, torch.bfloat16, True, "pad"),
+        # the sessionrec evaluation's bucket: 64 held-out users, each with
+        # a full 2,048-item history (phase 14)
+        ("eval bucket (64,4,2048,64) bf16 causal", 64, 4, 2048, 64, torch.bfloat16, True, None),
     ]
     serving_err = None
     for label, B, H, S, D, dtype, causal, kind in cases:
@@ -318,14 +377,15 @@ def phase_kernel_vs_plain() -> float:
 
 
 def phase_times() -> dict:
-    """Kernel, plain and library times at B=1 and B=8 (S=2048, D=64,
-    bf16, causal, every key real), then the B=1 envelope at S=512 and
-    8192. Returns the serving shape's numbers for the kernels line."""
+    """Kernel, plain and library times at B=1, B=8 and B=64 (the
+    evaluation bucket) (S=2048, D=64, bf16, causal, every key real),
+    then the B=1 envelope at S=512 and 8192. Returns the serving shape's
+    numbers for the kernels line."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     atol, rtol = TOL[torch.bfloat16]
     out = {}
-    for B in (1, 8):
+    for B in (1, 8, 64):
         H, S, D, dtype = 4, 2048, 64, torch.bfloat16
         q, k, v = qkv(B, H, S, D, dtype, gen)
         mask = torch.ones((B, S), device=DEVICE)
@@ -402,6 +462,30 @@ def _reference_logits(model, tail: list[int], black: list[int]) -> torch.Tensor:
     return logits + vm
 
 
+def _check_against_plain(model, tail: list[int], black: list[int],
+                         served: list[tuple[int, float]], k: int, what: str) -> str:
+    """Served (dense id, score) pairs against the same model run with the
+    plain attention: no history or black-listed item, the top-k scores
+    within SCORE_TOL, and no item left out that beats a served one by
+    more. Returns the log fragment."""
+    if {i for i, _ in served} & set(tail + black):
+        fail(f"{what}: served a history or black-listed item")
+    ref = _reference_logits(model, tail, black)
+    ref_top = torch.topk(ref, k).indices.tolist()
+    kth = ref[ref_top[-1]].item()
+    score_err = max(abs(s - ref[i].item()) for i, s in served[:k])
+    swapped = {i for i, _ in served[:k]} - set(ref_top)
+    worst_swap = min((ref[i].item() - kth for i in swapped), default=0.0)
+    # the spread of the reference scores, to read SCORE_TOL against
+    valid = ref[ref > -1e29]
+    if score_err > SCORE_TOL or worst_swap < -SCORE_TOL:
+        fail(f"{what}: served top-{k} disagrees with the plain-attention model")
+    return (f"top{k}_same_set={not swapped} max_score_err={score_err:.4f} "
+            f"worst_swap={worst_swap:.4f} ref_std={valid.std().item():.4f} "
+            f"ref_range={(valid.max() - valid.min()).item():.4f} "
+            f"ref_top{k}_gap={ref[ref_top[0]].item() - kth:.4f}")
+
+
 def phase_serving() -> int:
     cfg = seqrec.SeqRecConfig(**SERVING, dtype=torch.bfloat16)
     rng = np.random.default_rng(SEED)
@@ -472,29 +556,10 @@ def serve_and_check(model_dir: str, queries: list[dict], tag: str) -> int:
             tail = ([index[i] for i in body["items"]] if "items" in body
                     else deployed.histories[body["user"]])[-cfg.max_len:]
             black = [index[i] for i in body.get("blackList", [])]
-            served = [index[s["item"]] for s in scores]
-            if set(served) & set(tail + black):
-                fail(f"query {body} served a history or black-listed item")
-            ref = _reference_logits(deployed, tail, black)
-            k = min(10, body["num"])
-            ref_top = torch.topk(ref, k).indices.tolist()
-            kth = ref[ref_top[-1]].item()
-            served_top = served[:k]
-            score_err = max(abs(s["score"] - ref[index[s["item"]]].item())
-                            for s in scores[:k])
-            swapped = set(served_top) - set(ref_top)
-            worst_swap = min((ref[i].item() - kth for i in swapped), default=0.0)
-            # the spread of the reference scores, to read SCORE_TOL against
-            valid = ref[ref > -1e29]
-            ref_std = valid.std().item()
-            ref_range = (valid.max() - valid.min()).item()
-            log(f"[{tag}] {json.dumps(body)[:60]}...: launches={n} "
-                f"top{k}_same_set={not swapped} max_score_err={score_err:.4f} "
-                f"worst_swap={worst_swap:.4f} ref_std={ref_std:.4f} "
-                f"ref_range={ref_range:.4f} ref_top{k}_gap={ref[ref_top[0]].item() - kth:.4f} "
-                f"rtt_ms={ms:.2f}")
-            if score_err > SCORE_TOL or worst_swap < -SCORE_TOL:
-                fail(f"served top-{k} disagrees with the plain-attention model for {body}")
+            agreement = _check_against_plain(
+                deployed, tail, black, [(index[s["item"]], s["score"]) for s in scores],
+                min(10, body["num"]), f"{tag} {body}")
+            log(f"[{tag}] {json.dumps(body)[:60]}...: launches={n} {agreement} rtt_ms={ms:.2f}")
         log(f"[{tag}] {len(queries)} queries, launches={launches} "
             f"({launches / len(queries):g} per query), http_p50_ms={statistics.median(rtts):.3f} "
             f"http_min_ms={min(rtts):.3f} http_max_ms={max(rtts):.3f}")
@@ -828,20 +893,31 @@ def _normal_systems(rng, batch: int, rank: int, deg_lo: int, deg_hi: int, lam: f
     return A, b
 
 
-def _profile(fn, top: str | None = None) -> tuple[float, int]:
+def _fmt(ms: float | None, digits: int = 3) -> str:
+    return "not recorded" if ms is None else f"{ms:.{digits}f}"
+
+
+def _profile(fn, top: str | None = None) -> tuple[float | None, int]:
     """(device ms, kernel launches) of one call of ``fn`` under
     torch.profiler; with ``top``, the 8 kernels that take the most time
-    are logged under that tag."""
+    are logged under that tag. A trace with no device time (it happened
+    once on one machine, in a phase that had profiled before) is taken
+    again, twice at most; then the device time is None, "not recorded",
+    and the CUDA-event times beside it stand alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if device_ms <= 0:
-        fail("torch.profiler recorded no device time")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if device_ms > 0:
+            break
+    else:
+        log("[profile] torch.profiler recorded no device time in 3 traces: not recorded")
+        return None, 0
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8] if top else ():
         log(f"[{top}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  "
             f"{e.key[:90]}")
@@ -891,6 +967,9 @@ def _profile_programs(tag: str, iteration, V_item, V_user, dev_user, dev_item,
     build_ms, build_n = _profile(build_all)
     cg_ms, cg_n = _profile(cg_all)
     it_ms, it_n = _profile(iteration, top=tag)
+    if None in (build_ms, cg_ms, it_ms):
+        log(f"[{tag}] device time by program: not recorded")
+        return
     log(f"[{tag}] normal-equation build (_normal_eq_build, every slab): device_ms={build_ms:.3f} "
         f"launches={build_n} bound_ms="
         f"{_bound_ms(entries * 8 + rows * (K * K + K) * 4, bf16_flops=entries * (2 * K * K + 2 * K))}")
@@ -998,8 +1077,8 @@ def phase_als_train() -> dict:
         f"ratings_per_s={nnz / (ms / RANK200_ITERS / 1e3):.0f} "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}; "
         f"1 iteration with the f32 CG matvec: {ms_f32:.3f} ms; one profiled iteration "
-        f"(bf16 matvec): launches={launches200} device_ms={dev200_ms:.3f} "
-        f"device_busy_share={dev200_ms / (ms / RANK200_ITERS):.4f}")
+        f"(bf16 matvec): launches={launches200} device_ms={_fmt(dev200_ms)} "
+        f"device_busy_share={_fmt(dev200_ms and dev200_ms / (ms / RANK200_ITERS), 4)}")
     # the bf16 matvec on the system families the JAX package measured it
     # on (tests/test_als.py _normal_systems; ops/als.py:800-806)
     for lo, hi, lam in ((800, 2000, 0.08), (100, 400, 0.01)):
@@ -1125,17 +1204,17 @@ def serve_als_and_check(model_dir: str, queries: list[dict], tag: str) -> dict:
         raise
 
 
-def _same_answer(a, b) -> bool:
-    """Two PredictedResults agree: scores within ALS_SCORE_TOL in order,
-    and items equal but for near-ties at the boundary."""
+def _same_answer(a, b, tol: float = ALS_SCORE_TOL) -> bool:
+    """Two PredictedResults agree: scores within ``tol`` in order, and
+    items equal but for near-ties at the boundary."""
     sa = [s.score for s in a.item_scores]
     sb = [s.score for s in b.item_scores]
-    if len(sa) != len(sb) or any(abs(x - y) > ALS_SCORE_TOL for x, y in zip(sa, sb)):
+    if len(sa) != len(sb) or any(abs(x - y) > tol for x, y in zip(sa, sb)):
         return False
     ia = {s.item: s.score for s in a.item_scores}
     ib = {s.item: s.score for s in b.item_scores}
     floor = min(sa, default=0.0)
-    return all(abs(s - floor) <= ALS_SCORE_TOL
+    return all(abs(s - floor) <= tol
                for s in [ia[i] for i in set(ia) - set(ib)] + [ib[i] for i in set(ib) - set(ia)])
 
 
@@ -1209,7 +1288,7 @@ def phase_als_serving(trained: dict) -> None:
             call_ms = time_ms(one_query)
             dev_ms, n = _profile(lambda: [one_query() for _ in range(20)])
             log(f"[als-serve] recommend_topk B=1, I={n_items}, k=10: call_ms={call_ms:.4f} "
-                f"device_ms={dev_ms / 20:.4f} launches={n // 20} bound_ms="
+                f"device_ms={_fmt(dev_ms and dev_ms / 20, 4)} launches={n // 20} bound_ms="
                 f"{_bound_ms(n_items * (ALS_RANK + 1) * 4, f32_flops=2 * n_items * ALS_RANK)}")
         finally:
             server.stop()
@@ -1241,7 +1320,7 @@ def phase_topk_envelope() -> None:
     for name, fn in (("flat", topk_ops.recommend_topk),
                      ("chunked", topk_ops.recommend_topk_chunked)):
         dev_ms, n = _profile(lambda: fn(uv, item_f, cols, mask, allow, 10))
-        log(f"[topk] {name}: device_ms={dev_ms:.4f} launches={n}")
+        log(f"[topk] {name}: device_ms={_fmt(dev_ms, 4)} launches={n}")
     log(f"[topk] B={TOPK_BATCH} I={TOPK_ITEMS} k=10: flat_ms={flat_ms:.4f} "
         f"chunked_ms={chunked_ms:.4f} bound_ms={bound_ms:.4f} (operations, f32) "
         f"max_value_diff={v_err:.3e} indices_equal_off_ties={same}")
@@ -1249,8 +1328,9 @@ def phase_topk_envelope() -> None:
         fail("chunked top-k disagrees with the flat path")
 
 
-def phase_recommendation_template() -> None:
-    """Phase 13: the recommendation template end to end at the ML-100k shape."""
+def _ml100k_storage():
+    """(memory storage, rng): the ML-100k-shaped events in app "ML100k",
+    and the generator that drew them, for the draws that follow."""
     n_users, n_items, n_rate, n_buy = ML100K
     rng = np.random.default_rng(SEED + 7)
     # every user rates at least 20 items, as in MovieLens-100k; the rest
@@ -1276,6 +1356,13 @@ def phase_recommendation_template() -> None:
     storage.get_events().init(app_id)
     storage.get_events().insert_batch(events, app_id)
     log(f"[rec] {len(events)} events ingested in {time.perf_counter() - t_ingest:.1f}s")
+    return storage, rng
+
+
+def phase_recommendation_template() -> None:
+    """Phase 13: the recommendation template end to end at the ML-100k shape."""
+    n_users, n_items, _, _ = ML100K
+    storage, rng = _ml100k_storage()
     model_dir = tempfile.mkdtemp(prefix="rec-model-")
     try:
         outcome = run_train(variant={
@@ -1317,6 +1404,246 @@ def phase_als() -> None:
     log(f"[als] phases 9-13 took {time.perf_counter() - t0:.1f}s")
 
 
+def _timed_engine(engine: Engine, stages: list, engine_cls: type = Engine) -> Engine:
+    """An ``engine_cls`` over subclasses of ``engine``'s components whose
+    read_eval, prepare, train and batch_predict append (name, seconds,
+    result) to ``stages``; the seconds end when the card is done."""
+
+    def timed(cls: type, names: tuple[str, ...]) -> type:
+        def wrap(name: str):
+            real = getattr(cls, name)
+
+            def method(self, *args):
+                t0 = time.perf_counter()
+                out = real(self, *args)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                stages.append((name, time.perf_counter() - t0, out))
+                return out
+            return method
+        return type(cls.__name__, (cls,), {n: wrap(n) for n in names})
+
+    def timed_map(class_map, *names):
+        return {k: timed(c, names) for k, c in class_map.items()}
+
+    return engine_cls(timed_map(engine.data_source_class_map, "read_eval"),
+                      timed_map(engine.preparator_class_map, "prepare"),
+                      timed_map(engine.algorithm_class_map, "train", "batch_predict"),
+                      engine.serving_class_map)
+
+
+def _bind_timed(evaluation: Evaluation, stages: list, engine_cls: type = Engine) -> list:
+    """Rebinds ``evaluation`` to a timed copy of its engine (see
+    :func:`_timed_engine`) whose batch_eval keeps what it returns: the
+    (EngineParams, folds of (Q, P, A)) pairs, in the list returned."""
+    engine = _timed_engine(evaluation.engine, stages, engine_cls)
+    evaluation.engine_evaluator = (engine, evaluation.evaluator)
+    kept: list = []
+    real = engine.batch_eval
+
+    def batch_eval(ctx, engine_params_list):
+        kept[:] = real(ctx, engine_params_list)
+        return kept
+    engine.batch_eval = batch_eval
+    return kept
+
+
+def _log_stages(tag: str, stages: list) -> None:
+    for name in ("read_eval", "prepare", "train", "batch_predict"):
+        secs = [s for n, s, _ in stages if n == name]
+        if secs:
+            log(f"[{tag}] {name}: {len(secs)} calls, {sum(secs):.3f}s in all, each "
+                f"{[round(s, 3) for s in secs]}")
+
+
+def _check_outcome(tag: str, storage, outcome, engine: Engine, best_path: str) -> None:
+    """The instance row is EVALCOMPLETED and its JSON holds the returned
+    result's best index and scores; best.json binds back to the best
+    EngineParams through the engine's params_from_variant_json."""
+    result = outcome.result
+    row = storage.get_meta_data_evaluation_instances().get(outcome.instance_id)
+    doc = json.loads(row.evaluator_results_json)
+    want = [[ms.score, *ms.other_scores] for _, ms in result.engine_params_scores]
+    got = [[p["score"], *p["otherScores"]] for p in doc["engineParamsScores"]]
+    if (outcome.status, row.status) != ("EVALCOMPLETED", "EVALCOMPLETED") or \
+            doc["bestIdx"] != result.best_idx or got != want or \
+            row.evaluator_results != result.to_one_liner():
+        fail(f"{tag}: the instance row ({row.status}, bestIdx {doc['bestIdx']}, scores {got}) "
+             f"disagrees with the result ({result.best_idx}, {want})")
+    with open(best_path) as f:
+        best = json.load(f)
+    if engine.params_from_variant_json(best_json_variant(best)) != result.best_engine_params:
+        fail(f"{tag}: best.json does not bind back to the best EngineParams")
+    log(f"[{tag}] instance {outcome.instance_id} EVALCOMPLETED, bestIdx={result.best_idx}, "
+        f"best.json binds back ({best['evaluation']})")
+
+
+def _buckets(n: int) -> int:
+    """Forward passes of sessionrec batch_predict for n queries: power-of-two
+    buckets of at most 256."""
+    return n // 256 + bin(n % 256).count("1")
+
+
+def phase_eval_sessionrec() -> int:
+    """Phase 14: run_evaluation of the sessionrec template at the serving
+    width on the card. Returns the flash kernel's launches in it."""
+    t0 = time.perf_counter()
+    storage, n_events = _walk_storage(*EVAL_WALK)
+    log(f"[eval-sess] {n_events} events ingested in {time.perf_counter() - t0:.1f}s")
+    out_dir = tempfile.mkdtemp(prefix="eval-sess-")
+    try:
+        best_path = os.path.join(out_dir, "best.json")
+        evaluation = sessionrec.SessionRecEvaluation(k=EVAL_TOPK, output_path=best_path)
+        stages: list = []
+        kept = _bind_timed(evaluation, stages)
+        grid = EngineParamsGenerator([EngineParams.of(
+            data_source=sessionrec.DataSourceParams(app_name="SmokeApp", eval_k=EVAL_K),
+            algorithms=[("seqrec", sessionrec.AlgorithmParams(**EVAL_POINT, lr=lr))])
+            for lr in EVAL_LRS])
+        torch.cuda.reset_peak_memory_stats()
+        flash_ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        outcome = run_evaluation(evaluation, grid, storage=storage,
+                                 ctx=EngineContext(storage=storage, device=DEVICE))
+        total = time.perf_counter() - t0
+        launches = flash_ops.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        result = outcome.result
+        _log_stages("eval-sess", stages)
+        models = [out for name, _, out in stages if name == "train"]
+        for j, m in enumerate(models):
+            steps = m.train_run.step_seconds
+            log(f"[eval-sess] train {j} (point {j // EVAL_K}, fold {j % EVAL_K}): "
+                f"vocab={m.cfg.vocab} steps={len(steps)} "
+                f"step_ms median={statistics.median(steps) * 1e3:.3f} "
+                f"min={min(steps) * 1e3:.3f} max={max(steps) * 1e3:.3f} "
+                f"loss_first={m.train_run.losses[0]:.5f} loss_last={m.train_run.losses[-1]:.5f}")
+            if m.cfg.vocab != N_ITEMS + 1 or not all(map(math.isfinite, m.train_run.losses)):
+                fail(f"eval-sess: fold model {j} has vocab {m.cfg.vocab} or a loss not finite")
+        log(f"[eval-sess] run_evaluation {total:.3f}s in all, peak_mem_gb={peak_gb:.3f}, "
+            f"scores {[ms.score for _, ms in result.engine_params_scores]}")
+        _check_outcome("eval-sess", storage, outcome, evaluation.engine, best_path)
+
+        # the metric, recomputed on the host from the triples Engine.eval returned
+        for (ep, folds), (_, ms) in zip(kept, result.engine_params_scores):
+            hits = [float(a in [s.item for s in p.item_scores[:EVAL_TOPK]])
+                    for _, qpa in folds for _, p, a in qpa]
+            if not 0.0 <= ms.score <= 1.0 or ms.score != math.fsum(hits) / len(hits):
+                fail(f"eval-sess: HitRate@{EVAL_TOPK} {ms.score} vs the host's "
+                     f"{math.fsum(hits) / len(hits)} (lr {ep.algorithm_params_list[0][1].lr})")
+        expected = EVAL_POINT["n_layers"] * sum(
+            _buckets(len(qpa)) for _, folds in kept for _, qpa in folds)
+        log(f"[eval-sess] flash_attention launches in the evaluation: {launches} "
+            f"(expected {expected}: {EVAL_POINT['n_layers']} layers x the buckets)")
+        if launches == 0 or launches != expected:
+            fail(f"eval-sess: {launches} kernel launches, expected {expected}")
+
+        # batch against single (B=1) and against the plain attention, on
+        # the first fold's model and held-out queries
+        model, algo = models[0], sessionrec.SeqRecAlgorithm()
+        queries = [q for q, _, _ in kept[0][1][0][1][:EVAL_SINGLE]]
+        batched = dict(algo.batch_predict(model, list(enumerate(queries))))
+        worst = ""
+        for i, q in enumerate(queries):
+            got = batched[i]
+            if len(got.item_scores) != q.num or not _same_answer(got, algo.predict(model, q),
+                                                                  SCORE_TOL):
+                fail(f"eval-sess: batch and single answers differ for {q.user}")
+            worst = _check_against_plain(
+                model, model.histories[q.user][-model.cfg.max_len:], [],
+                [(model.item_index[s.item], s.score) for s in got.item_scores],
+                EVAL_TOPK, f"eval-sess {q.user}")
+        log(f"[eval-sess] {len(queries)} held-out queries: batch == single (B=1) and the "
+            f"plain attention; last: {worst}")
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _precision_map(folds, k: int) -> tuple[float, float]:
+    """Precision@k and MAP@k of (Q, P, A) folds, on the host: users with
+    no held-out item left out, hits over min(k, |held-out|)."""
+    prec, aps = [], []
+    for _, qpa in folds:
+        for _, p, a in qpa:
+            relevant = set(a)
+            if not relevant:
+                continue
+            top = [s.item for s in p.item_scores[:k]]
+            ranks = [r for r, item in enumerate(top, start=1) if item in relevant]
+            prec.append(len(ranks) / min(k, len(relevant)) if top else 0.0)
+            aps.append(math.fsum((n + 1) / r for n, r in enumerate(ranks))
+                       / min(k, len(relevant)))
+    return math.fsum(prec) / len(prec), math.fsum(aps) / len(aps)
+
+
+def phase_eval_recommendation() -> None:
+    """Phase 15: run_evaluation of the recommendation template at the
+    ML-100k shape with its Engine, then with a FastEvalEngine, then the
+    best point again on the CPU."""
+    storage, _ = _ml100k_storage()
+    grid = rec.DefaultParamsList(app_name="ML100k", eval_k=EVAL_K).engine_params_list + [
+        EngineParams.of(data_source=rec.DataSourceParams(app_name="ML100k", eval_k=EVAL_K),
+                        algorithms=[("als", rec.ALSAlgorithmParams(
+                            rank=ALS_RANK, num_iterations=ALS_ITERS, lambda_=ALS_LAM,
+                            seed=3))])]
+    out_dir = tempfile.mkdtemp(prefix="eval-rec-")
+    runs = {}
+    try:
+        for engine_cls in (Engine, FastEvalEngine):
+            tag = f"eval-rec/{engine_cls.__name__}"
+            best_path = os.path.join(out_dir, f"{engine_cls.__name__}.json")
+            evaluation = rec.RecommendationEvaluation(k=EVAL_TOPK, output_path=best_path)
+            stages: list = []
+            kept = _bind_timed(evaluation, stages, engine_cls)
+            t0 = time.perf_counter()
+            outcome = run_evaluation(evaluation, EngineParamsGenerator(grid), storage=storage,
+                                     ctx=EngineContext(storage=storage, device=DEVICE))
+            wall = time.perf_counter() - t0
+            result = outcome.result
+            reads = sum(1 for name, _, _ in stages if name == "read_eval")
+            log(f"[{tag}] run_evaluation over {len(grid)} points: {wall:.3f}s, "
+                f"read_eval called {reads} times")
+            _log_stages(tag, stages)
+            _check_outcome(tag, storage, outcome, evaluation.engine, best_path)
+            for j, ((_, folds), (_, ms)) in enumerate(zip(kept, result.engine_params_scores)):
+                host = _precision_map(folds, EVAL_TOPK)
+                p = grid[j].algorithm_params_list[0][1]
+                log(f"[{tag}] point {j} (rank {p.rank}, {p.num_iterations} iterations, "
+                    f"lambda {p.lambda_}): "
+                    f"Precision@{EVAL_TOPK}={ms.score} MAP@{EVAL_TOPK}={ms.other_scores[0]} "
+                    f"queries={sum(len(q) for _, q in folds)}")
+                if max(abs(host[0] - ms.score), abs(host[1] - ms.other_scores[0])) > 1e-9:
+                    fail(f"{tag}: point {j} scores {ms} vs the host's {host}")
+            if reads != (1 if engine_cls is FastEvalEngine else len(grid)):
+                fail(f"{tag}: read_eval called {reads} times")
+            runs[engine_cls] = (result, wall)
+
+        plain, fast = runs[Engine][0], runs[FastEvalEngine][0]
+        gap = max(abs(a - b) for (_, x), (_, y) in zip(plain.engine_params_scores,
+                                                       fast.engine_params_scores)
+                  for a, b in zip([x.score, *x.other_scores], [y.score, *y.other_scores]))
+        log(f"[eval-rec] Engine {runs[Engine][1]:.3f}s vs FastEvalEngine "
+            f"{runs[FastEvalEngine][1]:.3f}s; largest score gap {gap:.3e} "
+            f"(tol {REC_EVAL_RERUN_TOL:g})")
+        if gap > REC_EVAL_RERUN_TOL:
+            fail("eval-rec: Engine and FastEvalEngine disagree")
+
+        best = plain.best_engine_params
+        t0 = time.perf_counter()
+        cpu = _precision_map(rec.engine_factory().eval(
+            EngineContext(storage=storage, device="cpu"), best), EVAL_TOPK)
+        card = (plain.best_score.score, plain.best_score.other_scores[0])
+        cpu_gap = max(abs(a - b) for a, b in zip(cpu, card))
+        log(f"[eval-rec] best point on the CPU ({time.perf_counter() - t0:.3f}s): "
+            f"Precision@{EVAL_TOPK}={cpu[0]} MAP@{EVAL_TOPK}={cpu[1]}; card {card[0]} / "
+            f"{card[1]}; gap {cpu_gap:.3e} (tol {REC_EVAL_CPU_TOL:g})")
+        if cpu_gap > REC_EVAL_CPU_TOL:
+            fail("eval-rec: the card's scores disagree with the CPU's")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -1325,6 +1652,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
+        return
+    if sys.argv[1:] == ["--eval-only"]:  # phases 14-15 alone; prints no result line
+        log_card()
+        phase_eval_sessionrec()
+        phase_eval_recommendation()
         return
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
@@ -1340,6 +1672,15 @@ def main() -> None:
     phase_als()
     if flash_ops.LAUNCHES:
         fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches += phase_eval_sessionrec()
+    torch.cuda.empty_cache()
+    flash_ops.LAUNCHES = 0
+    phase_eval_recommendation()
+    if flash_ops.LAUNCHES:
+        fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
+    log(f"[eval] phases 14-15 took {time.perf_counter() - t0:.1f}s")
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

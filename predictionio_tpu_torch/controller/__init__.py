@@ -18,11 +18,32 @@ from predictionio_tpu_torch.controller.engine import (
     TrainResult,
     resolve_engine_factory,
 )
+from predictionio_tpu_torch.controller.evaluation import (
+    BaseEvaluator,
+    BaseEvaluatorResult,
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+    MetricScores,
+)
+from predictionio_tpu_torch.controller.fast_eval import FastEvalEngine
+from predictionio_tpu_torch.controller.metrics import (
+    AverageMetric,
+    Metric,
+    OptionAverageMetric,
+    OptionStdevMetric,
+    QPAMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
+)
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     EngineParams,
     Params,
     params_from_json,
+    params_to_json,
 )
 
 __all__ = [
@@ -30,5 +51,10 @@ __all__ = [
     "EngineFactory", "EngineParams", "FirstServing", "HostModelAlgorithm",
     "IdentityPreparator", "Params", "Preparator", "SanityCheck", "Serving",
     "StopAfterPrepareInterruption", "StopAfterReadInterruption", "TrainResult",
-    "params_from_json", "resolve_engine_factory",
+    "params_from_json", "params_to_json", "resolve_engine_factory",
+    "Metric", "QPAMetric", "AverageMetric", "OptionAverageMetric",
+    "StdevMetric", "OptionStdevMetric", "SumMetric", "ZeroMetric",
+    "BaseEvaluator", "BaseEvaluatorResult", "Evaluation",
+    "EngineParamsGenerator", "MetricEvaluator", "MetricEvaluatorResult",
+    "MetricScores", "FastEvalEngine",
 ]

@@ -1,6 +1,7 @@
 """DASE component contracts: DataSource, Preparator, Algorithm and
 Serving, SanityCheck, and Doer construction (port of the JAX package's
-``controller/base.py``, cut to what training and serving need).
+``controller/base.py``, cut to what training, serving and evaluation
+need).
 
 Type vocabulary: TD training data, PD prepared data, Q query, P
 predicted result, M model. ``ctx`` is the workflow context
@@ -57,12 +58,10 @@ class DataSource(BaseComponent, Generic[TD], abc.ABC):
     def read_training(self, ctx: Any) -> TD:
         """The training data."""
 
-    def read_eval(self, ctx: Any):
-        """Evaluation folds: not ported yet (ROADMAP.md queue 1 item 2, one
-        evaluation slice for the sessionrec and recommendation templates)."""
-        raise NotImplementedError(
-            "evaluation is not ported yet: ROADMAP.md queue 1 item 2, one evaluation "
-            "slice for the sessionrec and recommendation templates")
+    def read_eval(self, ctx: Any) -> Sequence[tuple[TD, Any, Sequence[tuple[Q, Any]]]]:
+        """Evaluation folds, each ``(training data, evaluation info,
+        [(query, actual)])``; none by default."""
+        return []
 
 
 class Preparator(BaseComponent, Generic[TD, PD], abc.ABC):

@@ -1,9 +1,10 @@
 """The DASE Engine (port of the JAX package's ``controller/engine.py``):
 component construction from typed params, the training pipeline, params
 from an engine.json variant or from the JSON blobs a stored engine
-instance carries, and engine-factory resolution. Evaluation comes with
-ROADMAP.md queue 1 item 2, one evaluation slice for the sessionrec and
-recommendation templates.
+instance carries, engine-factory resolution, and the evaluation
+pipeline: ``eval`` trains on each fold of the data source's
+``read_eval`` and serves the fold's queries, every algorithm's
+``batch_predict`` aligned by query index before ``Serving.serve``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import importlib
 import json
 import logging
 import time
-from typing import Any, Callable, Iterator, Mapping
+from typing import Any, Callable, Iterator, Mapping, Sequence
 
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
@@ -52,6 +53,20 @@ def _stage(stage_seconds: dict[str, float] | None, name: str) -> Iterator[None]:
     finally:
         if stage_seconds is not None:
             stage_seconds[name] = stage_seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def serve_fold(algorithms: Sequence[Algorithm], models: Sequence[Any], serving: Serving,
+               qa_pairs: Sequence[tuple[Any, Any]]) -> list[tuple[Any, Any, Any]]:
+    """The (query, served, actual) triples of one evaluation fold: every
+    query through ``serving.supplement``, each algorithm's
+    ``batch_predict`` over the (index, query) pairs, the predictions
+    gathered by query index, and ``serving.serve`` given the original
+    query."""
+    supplemented = [(i, serving.supplement(q)) for i, (q, _) in enumerate(qa_pairs)]
+    per_algo = [dict(algo.batch_predict(model, supplemented))
+                for algo, model in zip(algorithms, models)]
+    return [(q, serving.serve(q, [preds[i] for preds in per_algo if i in preds]), a)
+            for i, (q, a) in enumerate(qa_pairs)]
 
 
 @dataclasses.dataclass
@@ -143,6 +158,26 @@ class Engine:
             _sanity_check(model, f"model[{i}]", not params.skip_sanity_check)
             models.append(model)
         return TrainResult(algorithms=algorithms, models=models)
+
+    def eval(self, ctx: Any, engine_params: EngineParams) -> list[tuple[Any, list[tuple]]]:
+        """Per fold of ``read_eval``: sanity check, prepare, train every
+        algorithm, then serve the fold's queries (:func:`serve_fold`).
+        Returns per fold ``(evaluation info, [(query, served, actual)])``."""
+        data_source, preparator, algorithms, serving = self.make_components(engine_params)
+        results = []
+        for fold, (td, ei, qa_pairs) in enumerate(data_source.read_eval(ctx)):
+            logger.info("evaluating fold %d (%d queries)", fold, len(qa_pairs))
+            _sanity_check(td, f"fold[{fold}] training data",
+                          not ctx.workflow_params.skip_sanity_check)
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            results.append((ei, serve_fold(algorithms, models, serving, qa_pairs)))
+        return results
+
+    def batch_eval(self, ctx: Any, engine_params_list: Sequence[EngineParams]
+                   ) -> list[tuple[EngineParams, list[tuple[Any, list[tuple]]]]]:
+        """:meth:`eval` of every grid point, in order."""
+        return [(ep, self.eval(ctx, ep)) for ep in engine_params_list]
 
     def params_from_variant_json(self, variant: Mapping[str, Any]) -> EngineParams:
         """Bind an engine.json variant: each of "datasource",

@@ -74,6 +74,18 @@ def params_from_json(params_class: Type[P], obj: dict[str, Any] | None) -> P:
     return params_class(**kwargs)
 
 
+def params_to_json(params: Any) -> dict[str, Any]:
+    """A Params dataclass (or a dict, or None) as a JSON object by field
+    name: what evaluation reports and ``best.json`` write."""
+    if params is None:
+        return {}
+    if dataclasses.is_dataclass(params):
+        return dataclasses.asdict(params)
+    if isinstance(params, dict):
+        return dict(params)
+    raise TypeError(f"cannot serialize params of type {type(params)}")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
     """The full parameter set of one engine variant: (name, params) per

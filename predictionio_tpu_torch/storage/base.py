@@ -1,8 +1,9 @@
 """Storage records and DAO interfaces: the subset of the JAX package's
-``storage/base.py`` that the memory backend and ``EventStore.find``
-need (apps, channels, the event filter, and the event, app and channel
-DAOs). Engine instances, access keys and the model repository come with
-storage-backed ``pio train``/``pio deploy`` (ROADMAP.md queue 1 item 3).
+``storage/base.py`` that the memory backend, ``EventStore.find`` and the
+evaluation workflow need (apps, channels, the event filter, evaluation
+instances, and their DAOs). Engine instances, access keys and the model
+repository come with storage-backed ``pio train``/``pio deploy``
+(ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import abc
 import dataclasses
 import string
 from datetime import datetime, timezone
-from typing import Iterator, Sequence
+from typing import Any, Iterator, Sequence
 
 from predictionio_tpu_torch.core.event import Event
 
@@ -76,6 +77,27 @@ class EventFilter:
         return True
 
 
+@dataclasses.dataclass(frozen=True)
+class EvaluationInstance:
+    """One row per evaluation run, with the JAX package's fields."""
+    id: str
+    #: INIT | EVALUATING | EVALCOMPLETED | FAILED. FAILED rows carry the
+    #: error; EVALUATING is written only by the parallel grid (ROADMAP.md
+    #: queue 1 item 17), which the port does not run yet
+    status: str
+    start_time: datetime
+    completion_time: datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict[str, str] = dataclasses.field(default_factory=dict)
+    #: the JAX package's mesh axes; empty on one card
+    mesh_conf: dict[str, Any] = dataclasses.field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 class Events(abc.ABC):
     """Event writes and filtered reads for one backend, keyed by
     (app_id, channel_id); channel_id None is the default channel."""
@@ -119,3 +141,27 @@ class Channels(abc.ABC):
 
     @abc.abstractmethod
     def get_by_app_id(self, app_id: int) -> list[Channel]: ...
+
+
+class EvaluationInstances(abc.ABC):
+    """Evaluation-instance DAO."""
+
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str:
+        """Insert; an empty id means auto-assign. Returns the id."""
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EvaluationInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> list[EvaluationInstance]:
+        """EVALCOMPLETED instances, newest first."""
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...

@@ -1,17 +1,18 @@
 """In-memory storage backend (the subset of the JAX package's
-``storage/memory.py`` that training reads through): events, apps and
-channels.
+``storage/memory.py`` that training and evaluation read through):
+events, apps, channels and evaluation instances.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import uuid
 from typing import Iterator, Sequence
 
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.storage import base
-from predictionio_tpu_torch.storage.base import App, Channel, EventFilter
+from predictionio_tpu_torch.storage.base import App, Channel, EvaluationInstance, EventFilter
 
 
 class MemoryEvents(base.Events):
@@ -93,6 +94,36 @@ class MemoryChannels(base.Channels):
         return [c for c in self._channels.values() if c.appid == app_id]
 
 
+class MemoryEvaluationInstances(base.EvaluationInstances):
+    def __init__(self):
+        self._instances: dict[str, EvaluationInstance] = {}
+        self._lock = threading.RLock()
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        instance_id = instance.id or uuid.uuid4().hex
+        with self._lock:
+            self._instances[instance_id] = dataclasses.replace(instance, id=instance_id)
+        return instance_id
+
+    def get(self, instance_id: str) -> EvaluationInstance | None:
+        return self._instances.get(instance_id)
+
+    def get_all(self) -> list[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def get_completed(self) -> list[EvaluationInstance]:
+        out = [i for i in self._instances.values() if i.status == "EVALCOMPLETED"]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+    def update(self, instance: EvaluationInstance) -> None:
+        with self._lock:
+            self._instances[instance.id] = instance
+
+    def delete(self, instance_id: str) -> None:
+        with self._lock:
+            self._instances.pop(instance_id, None)
+
+
 class MemoryStorageClient:
     """One memory source: its DAOs live as long as the client."""
 
@@ -100,3 +131,4 @@ class MemoryStorageClient:
         self.events = MemoryEvents()
         self.apps = MemoryApps()
         self.channels = MemoryChannels()
+        self.evaluation_instances = MemoryEvaluationInstances()

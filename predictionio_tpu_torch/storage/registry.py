@@ -4,7 +4,8 @@
 Sources are declared as ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` and the
 repositories bind to them with
 ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA}_SOURCE``. The port
-serves the metadata (apps, channels) and event repositories from a
+serves the metadata (apps, channels, evaluation instances) and event
+repositories from a
 source of TYPE ``memory``; any other TYPE, and the JAX package's default
 of sqlite + localfs when nothing is configured, raise until
 storage-backed ``pio train``/``pio deploy`` are ported (ROADMAP.md queue
@@ -18,7 +19,7 @@ import os
 import threading
 from typing import Mapping
 
-from predictionio_tpu_torch.storage.base import Apps, Channels, Events
+from predictionio_tpu_torch.storage.base import Apps, Channels, EvaluationInstances, Events
 from predictionio_tpu_torch.storage.memory import MemoryStorageClient
 
 EVENT_DATA = "EVENTDATA"
@@ -68,6 +69,9 @@ class Storage:
 
     def get_meta_data_channels(self) -> Channels:
         return self._client(META_DATA).channels
+
+    def get_meta_data_evaluation_instances(self) -> EvaluationInstances:
+        return self._client(META_DATA).evaluation_instances
 
 
 def memory_storage() -> Storage:

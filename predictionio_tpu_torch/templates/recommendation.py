@@ -1,5 +1,5 @@
 """Recommendation engine template: ALS over rate/buy events (port of the
-train and serve half of the JAX package's ``templates/recommendation.py``).
+JAX package's ``templates/recommendation.py``: train, serve, evaluate).
 
 The data source reads ``rate`` and ``buy`` events into rating triples
 (``rate`` takes ``properties.rating``, any other event is worth
@@ -9,7 +9,12 @@ the context's device and answers ``{"user": ..., "num": N}`` (with an
 optional ``whiteList``/``blackList``) with the N best unseen items. A
 model saves as ``models/als.ALSModel.save`` writes it.
 
-Evaluation (``read_eval``, Precision@K, MAP@K) is not ported yet.
+Evaluation splits the ratings into ``eval_k`` folds (``read_eval``) and
+scores Precision@K and MAP@K: ``run_evaluation(RecommendationEvaluation(),
+DefaultParamsList(app_name=...))``. The ratings are read as ``Event``
+objects from ``EventStore.find``; the JAX template's columnar
+``EventStore.scan``, which evaluation at the MovieLens-20M scale needs,
+comes with ROADMAP.md queue 1 item 3.
 
 Usage (engine.json):
     {"engineFactory":
@@ -32,7 +37,12 @@ from predictionio_tpu_torch.controller import (
     Algorithm,
     DataSource,
     Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
+    MetricEvaluator,
+    OptionAverageMetric,
     Params,
     Preparator,
     SanityCheck,
@@ -91,7 +101,7 @@ class PreparedData:
 @dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
     """The JAX template's fields, so one engine.json binds to both
-    (``eval_*`` and ``seed`` wait for the evaluation slice)."""
+    (``eval_*`` and ``seed`` are read by ``read_eval`` alone)."""
 
     app_name: str = ""
     event_names: tuple = ("rate", "buy")
@@ -131,6 +141,29 @@ class RecommendationDataSource(DataSource):
         return TrainingData(users=np.asarray(users, dtype=object),
                             items=np.asarray(items, dtype=object),
                             ratings=np.asarray(ratings, dtype=np.float32))
+
+    def read_eval(self, ctx: Any) -> list:
+        """``eval_k`` folds over the ratings in store order: rating j falls
+        in fold ``np.random.default_rng(seed).integers(0, eval_k, n)[j]``,
+        so the same events split as the JAX template splits them. Fold
+        k trains on the other folds' ratings; its queries are its users
+        in sorted order ({user, num: eval_query_num}), each answered by
+        the tuple of its items in the fold."""
+        p = self.params
+        full = self.read_training(ctx)
+        fold_of = np.random.default_rng(p.seed).integers(0, p.eval_k, size=len(full.users))
+        folds = []
+        for k in range(p.eval_k):
+            test = fold_of == k
+            td = TrainingData(users=full.users[~test], items=full.items[~test],
+                              ratings=full.ratings[~test])
+            by_user: dict[str, list[str]] = {}
+            for u, i in zip(full.users[test], full.items[test]):
+                by_user.setdefault(u, []).append(i)
+            qa = [(Query(user=u, num=p.eval_query_num), tuple(items))
+                  for u, items in sorted(by_user.items())]
+            folds.append((td, {"fold": k}, qa))
+        return folds
 
 
 class ALSPreparator(Preparator):
@@ -269,3 +302,77 @@ def engine_factory() -> Engine:
         algorithm_class_map={"als": ALSAlgorithm, "": ALSAlgorithm},
         serving_class_map=FirstServing,
     )
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Hits of the top k in the user's held-out items over
+    min(k, |held-out items|); None (left out of the mean) for a user with
+    no held-out item, 0.0 for an empty answer."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: tuple) -> float | None:
+        relevant = set(a)
+        if not relevant:
+            return None
+        top = [s.item for s in p.item_scores[: self.k]]
+        if not top:
+            return 0.0
+        return sum(1 for item in top if item in relevant) / min(self.k, len(relevant))
+
+
+class MAPAtK(OptionAverageMetric):
+    """Mean average precision at k: the sum of precision@i over the ranks
+    i of held-out items within the top k, over min(k, |held-out items|);
+    None for a user with no held-out item."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"MAP@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: tuple) -> float | None:
+        relevant = set(a)
+        if not relevant:
+            return None
+        hits, precision_sum = 0, 0.0
+        for rank, s in enumerate(p.item_scores[: self.k], start=1):
+            if s.item in relevant:
+                hits += 1
+                precision_sum += hits / rank
+        return precision_sum / min(self.k, len(relevant))
+
+
+class RecommendationEvaluation(Evaluation):
+    """Precision@k primary, MAP@k secondary, over ``read_eval``'s folds."""
+
+    def __init__(self, k: int = 10, output_path: str | None = "best.json"):
+        super().__init__()
+        self.engine_evaluator = (
+            engine_factory(),
+            MetricEvaluator(PrecisionAtK(k=k), other_metrics=[MAPAtK(k=k)],
+                            output_path=output_path),
+        )
+
+
+class DefaultParamsList(EngineParamsGenerator):
+    """The JAX template's grid: rank {8, 16} × iterations {5, 10}, λ 0.05,
+    seed 3."""
+
+    def __init__(self, app_name: str = "RecApp", eval_k: int = 2):
+        super().__init__([
+            EngineParams.of(
+                data_source=DataSourceParams(app_name=app_name, eval_k=eval_k),
+                algorithms=[("als", ALSAlgorithmParams(rank=rank, num_iterations=it,
+                                                       lambda_=0.05, seed=3))],
+            )
+            for rank in (8, 16)
+            for it in (5, 10)
+        ])

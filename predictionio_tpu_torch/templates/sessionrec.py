@@ -1,5 +1,6 @@
 """Session-based sequential recommendation engine template: the port of
-the JAX package's ``templates/sessionrec.py``, training and serving.
+the JAX package's ``templates/sessionrec.py``: training, serving and
+evaluation.
 
 The data source reads each user's events from the event store into a
 time-ordered item sequence; the algorithm indexes the items (dense ids
@@ -11,7 +12,10 @@ own items or the query's ``blackList``. A model is saved as
 ``params.npz`` + ``model.json``. Besides training, a model comes from
 :func:`init_engine_model` (random weights from a seeded generator) or
 from a JAX-trained model's arrays (:meth:`SeqRecEngineModel.from_jax`).
-Evaluation (``read_eval``, HitRate@K) is not ported yet.
+Evaluation holds out each user's last item (``read_eval``, leave-one-out
+over ``eval_k`` folds) and scores HitRate@K: ``run_evaluation(
+SessionRecEvaluation(), DefaultParamsList(app_name=...))``, each fold
+trained on the context's device and predicted through ``batch_predict``.
 
 Usage (engine.json):
     {"engineFactory":
@@ -35,9 +39,14 @@ import torch
 from predictionio_tpu_torch.controller import (
     DataSource,
     Engine,
+    EngineParams,
+    EngineParamsGenerator,
+    Evaluation,
     FirstServing,
     HostModelAlgorithm,
     IdentityPreparator,
+    MetricEvaluator,
+    OptionAverageMetric,
     Params,
     SanityCheck,
 )
@@ -136,6 +145,28 @@ class SessionDataSource(DataSource):
         }
         return TrainingData(sequences={
             u: seq for u, seq in sequences.items() if len(seq) >= p.min_sequence_len})
+
+    def read_eval(self, ctx: Any) -> list:
+        """Leave-one-out over ``max(eval_k, 1)`` folds: user i of the
+        sorted users is held out in fold ``i % k`` when its sequence is
+        longer than ``min_sequence_len``; a held-out user trains on all
+        but its last item, which is the query's answer."""
+        p = self.params
+        full = self.read_training(ctx).sequences
+        users = sorted(full)
+        k = max(p.eval_k, 1)
+        folds = []
+        for fold in range(k):
+            train_seqs, qa = {}, []
+            for i, u in enumerate(users):
+                seq = full[u]
+                if i % k == fold and len(seq) > p.min_sequence_len:
+                    train_seqs[u] = seq[:-1]
+                    qa.append((Query(user=u), seq[-1]))
+                else:
+                    train_seqs[u] = seq
+            folds.append((TrainingData(sequences=train_seqs), {"fold": fold}, qa))
+        return folds
 
 
 @dataclasses.dataclass
@@ -331,3 +362,48 @@ def engine_factory() -> Engine:
         algorithm_class_map={"seqrec": SeqRecAlgorithm},
         serving_class_map=FirstServing,
     )
+
+
+class HitRateAtK(OptionAverageMetric):
+    """1.0 when the held-out next item is among the top k, else 0.0."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    @property
+    def header(self) -> str:
+        return f"HitRate@{self.k}"
+
+    def calculate_qpa(self, q: Query, p: PredictedResult, a: str) -> float:
+        # the held-out item always exists, so an empty prediction is a
+        # miss (0.0), never a skip: None would inflate the average
+        return 1.0 if a in [s.item for s in p.item_scores[: self.k]] else 0.0
+
+
+class SessionRecEvaluation(Evaluation):
+    """HitRate@k over the leave-one-out folds of ``read_eval``."""
+
+    def __init__(self, k: int = 10, output_path: str | None = "best.json"):
+        super().__init__()
+        self.engine_evaluator = (
+            engine_factory(),
+            MetricEvaluator(HitRateAtK(k=k), output_path=output_path),
+        )
+
+
+class DefaultParamsList(EngineParamsGenerator):
+    """The JAX template's grid: d_model {32, 64} × n_layers {1, 2}."""
+
+    def __init__(self, app_name: str = "SessApp", eval_k: int = 2):
+        super().__init__([
+            EngineParams.of(
+                data_source=DataSourceParams(app_name=app_name, eval_k=eval_k),
+                algorithms=[(
+                    "seqrec",
+                    AlgorithmParams(d_model=d, n_layers=layers, max_len=32,
+                                    epochs=15, batch_size=32, lr=3e-3),
+                )],
+            )
+            for d in (32, 64)
+            for layers in (1, 2)
+        ])

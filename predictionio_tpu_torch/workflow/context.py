@@ -20,8 +20,10 @@ from predictionio_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class WorkflowParams:
-    """The JAX package's workflow flags that training reads."""
+    """The JAX package's workflow flags that training and evaluation read
+    (``batch`` is the run's label, which an evaluation instance records)."""
 
+    batch: str = ""
     save_model: bool = True
     skip_sanity_check: bool = False
     stop_after_read: bool = False

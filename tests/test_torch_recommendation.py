@@ -449,9 +449,14 @@ class TestTemplate:
 
     def test_evaluation_sharding_and_sanity_are_refused(self, stores, tmp_path, monkeypatch):
         port_storage, _ = stores
-        ds = prec.RecommendationDataSource(prec.DataSourceParams(app_name="RecApp"))
-        with pytest.raises(NotImplementedError, match="item 2"):
-            ds.read_eval(_ctx(port_storage))
+        # evaluation is ported (tests/test_torch_recommendation_eval.py): eval_k
+        # folds, and none asked for raises as in the JAX template
+        ds = prec.RecommendationDataSource(prec.DataSourceParams(app_name="RecApp", eval_k=2))
+        assert [ei for _, ei, _ in ds.read_eval(_ctx(port_storage))] == [{"fold": 0},
+                                                                          {"fold": 1}]
+        with pytest.raises(ValueError):
+            prec.RecommendationDataSource(prec.DataSourceParams(app_name="RecApp")).read_eval(
+                _ctx(port_storage))
         monkeypatch.setenv("PIO_TRAIN_SHARD_FACTORS", "1")
         with pytest.raises(NotImplementedError, match="item 15"):
             run_train(VARIANT, _ctx(port_storage), str(tmp_path / "a"))

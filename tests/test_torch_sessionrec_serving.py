@@ -266,9 +266,21 @@ class TestModelPersistenceAndDeploy:
         assert [s.item for s in out.item_scores] == ["b"]
         with pytest.raises(ValueError):
             sessionrec.init_engine_model(cfg, ["a"], {}, device="cpu")
-        # training is ported (tests/test_torch_sessionrec_train.py); evaluation is not
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sessionrec.SessionDataSource().read_eval(None)
+        # training and evaluation are ported (tests/test_torch_sessionrec_{train,eval}.py):
+        # read_eval holds out each user's last item
+        from predictionio_tpu_torch.core.event import Event
+        from predictionio_tpu_torch.storage.base import App
+        from predictionio_tpu_torch.storage.registry import memory_storage
+        from predictionio_tpu_torch.workflow.context import EngineContext
+
+        storage = memory_storage()
+        app_id = storage.get_meta_data_apps().insert(App(0, "A"))
+        storage.get_events().insert_batch(
+            [Event("view", "user", "u", "item", i, event_id=i) for i in "abc"], app_id)
+        (td, ei, qa), = sessionrec.SessionDataSource(
+            sessionrec.DataSourceParams(app_name="A")).read_eval(
+                EngineContext(storage=storage, device="cpu"))
+        assert td.sequences == {"u": ["a", "b"]} and qa == [(sessionrec.Query(user="u"), "c")]
 
 
 class TestControllerCopies:
@@ -308,7 +320,9 @@ class TestIndependence:
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
             "             or n == 'predictionio_tpu' or n.startswith('predictionio_tpu.'))\n"
             "want = ['ops.als', 'ops.topk', 'models.als', 'utils.checkpoint',\n"
-            "        'templates.recommendation', 'templates.sessionrec', 'models.seqrec']\n"
+            "        'templates.recommendation', 'templates.sessionrec', 'models.seqrec',\n"
+            "        'controller.metrics', 'controller.evaluation', 'controller.fast_eval',\n"
+            "        'workflow.evaluation']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")
