@@ -20,15 +20,15 @@ Phases, in order; any failure exits non-zero:
    for S in {512, 8192};
 4. the sessionrec serving path end to end at the long-context serving
    config (vocab 50,000, max_len 2048, d_model 256, 4 heads, 4 layers,
-   bf16, random weights from a seed): save the model, deploy it through
-   the port's engine server, POST queries, and check every answer, the
-   kernel's launches per query, and the top-10 against the same model
-   run with the plain attention;
+   bf16, random weights from a seed): save the model, deploy its
+   directory through the port's engine server, POST queries, and check
+   every answer, the kernel's launches per query, and the top-10 against
+   the same model run with the plain attention;
 5. sessionrec training at the JAX package's dense training config
    (bench.py:1199-1200: vocab 50,000, max_len 256, d_model 256, 4 heads,
    4 layers, batch 64, bf16): 1,024 users × 257 view events into the
    port's memory event store, then `run_train` for one epoch (16 Adam
-   steps) into a model directory: stage seconds, step times, tokens/s,
+   steps) into an engine instance: stage seconds, step times, tokens/s,
    peak memory, and the losses, which must be finite and fall;
 6. the long-context training config (bench.py:1261-1263: max_len 4096,
    batch 4, blockwise attention): `run_train` on 13 users × 4,097
@@ -44,7 +44,8 @@ Phases, in order; any failure exits non-zero:
    and the logits product timed as the path computes it (f32 operands,
    CUDA cores) beside the bf16 tensor-core product with f32 output, a
    yardstick the path does not call;
-8. the model trained in phase 5, deployed and queried as in phase 4;
+8. the instance trained in phase 5, deployed from the store and queried
+   as in phase 4;
 9. ALS at the ML-20M shape (bench.py:95-99, 119-125: 138,493 users ×
    26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
    of `ladder_rows` and staging; 10 bf16 iterations after a one-iteration
@@ -57,7 +58,7 @@ Phases, in order; any failure exits non-zero:
 10. rank 200 (bench.py:396-441): 2 iterations with the "auto" bf16 CG
    matvec, and its half-step against float64 on 1,024 sampled rows;
 11. serving the phase-9 model: `ALSModel.save`, then the engine server
-   with the recommendation template; ~30 HTTP queries (num 10/100/1000,
+   with the recommendation template on that directory; ~30 HTTP queries (num 10/100/1000,
    white and black lists, an unknown user, a user with more than 512
    seen items), each held against a float64 host top-k; 256 queries
    through `DeployedEngine.query_batch` against the single path;
@@ -65,7 +66,7 @@ Phases, in order; any failure exits non-zero:
    both timed;
 13. the recommendation template at the MovieLens-100k shape: events into
    the memory store, `run_train` (rank 10, 10 iterations, λ 0.01, seed
-   3), deploy, HTTP queries checked as in phase 11;
+   3), deploy of the instance, HTTP queries checked as in phase 11;
 14. sessionrec evaluation at the serving width: 128 users × 2,049 view
    events, `run_evaluation(SessionRecEvaluation(k=10), ...)` over two
    grid points (lr 1e-3 and 3e-3, batch 8, one epoch) with eval_k 2:
@@ -82,10 +83,31 @@ Phases, in order; any failure exits non-zero:
    best.json, Precision@10 and MAP@10 against the host, the same scores
    under both engines, one read of the data source under FastEvalEngine
    against one a point, and the best point again on the CPU;
-16. a `kernels` JSON line, then the result line
+16. `pio` as separate processes (`python -m predictionio_tpu_torch.cli.pio`)
+   over a fresh PIO_FS_BASEDIR (the default sqlite + localfs): (a)
+   sessionrec at the serving width: 128 users × 2,049 view events as
+   JSON lines, `app new`, `import`, `train` (one epoch at batch 8: 16
+   Adam steps at S=2048), `deploy`, 30 queries over HTTP; the deploy
+   process's `GET /` must count 4 × 30 kernel launches, every answer's
+   items must equal those of the same instance deployed in this process
+   from the same store, and the scores must hold against the plain
+   attention; the kernel timed on the q/k/v of a served query; (b) the
+   recommendation template at the ML-100k shape the same way (rank 10,
+   10 iterations, λ 0.01): the instance row COMPLETED with the JAX
+   package's algorithms_params text, the training read through
+   `EventStore.scan` on sqlite timed, and 30 answers equal to the
+   in-process deploy and the float64 reference; (c) the top-k tie order
+   on the card: item tables whose rows repeat, through `recommend_topk`,
+   `recommend_topk_chunked` (three tiles and an overlap tile),
+   `similar_topk` and `predict_topk_batch`, each against the host's
+   (value desc, index asc) order, and the tie rule's time beside bare
+   `torch.topk` at B=1 × 26,744 and B=256 × 2M;
+17. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
-Exits non-zero, printing no result, when there is no card.
+`--als-only`, `--eval-only` and `--pio-only` run phases 9-13, 14-15 and
+16 alone and print no result line. Exits non-zero, printing no result,
+when there is no card.
 """
 
 from __future__ import annotations
@@ -107,7 +129,7 @@ from datetime import datetime, timedelta, timezone
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.api.engine_server import EngineServerConfig, create_engine_server
+from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.controller import (
     Engine,
     EngineParams,
@@ -118,6 +140,7 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.controller.evaluation import best_json_variant
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
+from predictionio_tpu_torch.core.wire import from_wire
 from predictionio_tpu_torch.models import seqrec
 from predictionio_tpu_torch.models.als import ALSModel
 from predictionio_tpu_torch.ops import _build
@@ -126,11 +149,12 @@ from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
 from predictionio_tpu_torch.storage.base import App
-from predictionio_tpu_torch.storage.registry import memory_storage
+from predictionio_tpu_torch.storage.registry import Storage, memory_storage
 from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.templates import sessionrec
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.workflow.context import EngineContext
+from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.evaluation import run_evaluation
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
@@ -500,7 +524,7 @@ def phase_serving() -> int:
         sessionrec.save_engine_model(model, model_dir)
         log(f"[serve] model saved in {time.perf_counter() - t0:.1f}s")
         pick = [item_ids[j] for j in rng.integers(0, len(item_ids), 300)]
-        return serve_and_check(model_dir, [
+        return serve_and_check(_local(model_dir=model_dir), [
             {"user": "u0", "num": 10},
             {"user": "u1", "num": 5},
             {"user": "u2", "num": 20, "blackList": pick[:30]},
@@ -516,14 +540,20 @@ def phase_serving() -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
-def serve_and_check(model_dir: str, queries: list[dict], tag: str) -> int:
-    """Deploy ``model_dir`` through the port's engine server, POST the
+def _local(**fields) -> ServerConfig:
+    """A ServerConfig on a free local port, on the card."""
+    return ServerConfig(ip="127.0.0.1", port=0, device=DEVICE, **fields)
+
+
+def serve_and_check(config: ServerConfig, queries: list[dict], tag: str,
+                    storage=None) -> int:
+    """Deploy what ``config`` names (a model directory, or an engine
+    instance in ``storage``) through the port's engine server, POST the
     queries and check every answer: n_layers kernel launches each, no
     history or black-listed item, the top-k within SCORE_TOL of the same
     model run with the plain attention. Returns the kernel's launches."""
     t0 = time.perf_counter()
-    server = create_engine_server(EngineServerConfig(
-        model_dir=model_dir, ip="127.0.0.1", port=0, device=DEVICE)).start()
+    server = create_engine_server(storage, config).start()
     try:
         port = server.port
         deployed = server.deployed.models[0]
@@ -584,11 +614,11 @@ def _walk_storage(n_users: int, length: int, stride: int):
     return storage, len(events)
 
 
-def phase_run_train(tag: str, n_users: int, length: int, stride: int, params: dict,
-                    model_dir: str) -> seqrec.TrainRun:
-    """Events → run_train → model_dir, on the card; checks the derived
-    vocab, that no training path launched the flash kernel, and that
-    every loss is finite."""
+def phase_run_train(tag: str, n_users: int, length: int, stride: int, params: dict):
+    """Events → run_train → an engine instance in the memory store, on
+    the card; checks the derived vocab, that no training path launched
+    the flash kernel, and that every loss is finite. Returns (the
+    run's losses and step times, the storage, the instance id)."""
     t0 = time.perf_counter()
     storage, n_events = _walk_storage(n_users, length, stride)
     log(f"[{tag}] {n_events} events ingested in {time.perf_counter() - t0:.1f}s")
@@ -598,7 +628,7 @@ def phase_run_train(tag: str, n_users: int, length: int, stride: int, params: di
         "engineFactory": "predictionio_tpu_torch.templates.sessionrec.engine_factory",
         "datasource": {"params": {"app_name": "SmokeApp"}},
         "algorithms": [{"name": "seqrec", "params": params}],
-    }, ctx=EngineContext(storage=storage, device=DEVICE), model_dir=model_dir)
+    }, ctx=EngineContext(storage=storage, device=DEVICE))
     if flash_ops.LAUNCHES:
         fail(f"training launched the forward-only flash kernel {flash_ops.LAUNCHES} times")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -617,7 +647,7 @@ def phase_run_train(tag: str, n_users: int, length: int, stride: int, params: di
         f"loss_first={run.losses[0]:.5f} loss_last={run.losses[-1]:.5f}")
     if not all(math.isfinite(x) for x in run.losses):
         fail(f"{tag}: a loss is not finite: {run.losses}")
-    return run
+    return run, storage, outcome.instance_id
 
 
 def _config(params: dict) -> seqrec.SeqRecConfig:
@@ -792,38 +822,30 @@ def phase_logits_product() -> None:
 def phase_training() -> int:
     """Phases 5-8; returns the flash kernel's launches in serving the
     trained model."""
-    model_dir = tempfile.mkdtemp(prefix="seqrec-trained-")
-    try:
-        run = phase_run_train("train/dense", *DENSE_WALK, TRAIN_DENSE, model_dir)
-        steps = -(-DENSE_WALK[0] // TRAIN_DENSE["batch_size"])
-        if len(run.losses) != steps or not run.losses[-1] < run.losses[0]:
-            fail(f"train/dense: expected {steps} steps with a falling loss: {run.losses}")
-        long_dir = tempfile.mkdtemp(prefix="seqrec-trained-long-")
-        try:
-            phase_run_train("train/long", *LONG_WALK, TRAIN_LONG, long_dir)
-        finally:
-            shutil.rmtree(long_dir, ignore_errors=True)
-        phase_long_context()
-        phase_tiled_loss_and_profile()
-        phase_logits_product()
-        torch.cuda.empty_cache()
-        users, _, stride = DENSE_WALK
-        walk = [f"i{(stride * 300 + t) % N_ITEMS + 1}" for t in range(120)]
-        rng = np.random.default_rng(SEED + 3)
-        pick = [f"i{j}" for j in rng.integers(1, N_ITEMS + 1, 200)]
-        return serve_and_check(model_dir, [
-            {"user": "u0", "num": 10},
-            {"user": "u1", "num": 5},
-            {"user": f"u{users // 2}", "num": 20, "blackList": pick[:30]},
-            {"items": walk[:50], "num": 10},
-            {"items": pick[30:130], "num": 20, "blackList": walk[50:60]},
-            {"user": f"u{users - 1}", "num": 5, "blackList": pick[130:150]},
-            {"items": walk[60:63], "num": 10},
-            {"user": f"u{users // 13}", "num": 20},
-            {"user": f"u{users * 7 // 8}", "num": 10},
-        ], "serve-trained")
-    finally:
-        shutil.rmtree(model_dir, ignore_errors=True)
+    run, storage, instance_id = phase_run_train("train/dense", *DENSE_WALK, TRAIN_DENSE)
+    steps = -(-DENSE_WALK[0] // TRAIN_DENSE["batch_size"])
+    if len(run.losses) != steps or not run.losses[-1] < run.losses[0]:
+        fail(f"train/dense: expected {steps} steps with a falling loss: {run.losses}")
+    phase_run_train("train/long", *LONG_WALK, TRAIN_LONG)
+    phase_long_context()
+    phase_tiled_loss_and_profile()
+    phase_logits_product()
+    torch.cuda.empty_cache()
+    users, _, stride = DENSE_WALK
+    walk = [f"i{(stride * 300 + t) % N_ITEMS + 1}" for t in range(120)]
+    rng = np.random.default_rng(SEED + 3)
+    pick = [f"i{j}" for j in rng.integers(1, N_ITEMS + 1, 200)]
+    return serve_and_check(_local(engine_instance_id=instance_id), [
+        {"user": "u0", "num": 10},
+        {"user": "u1", "num": 5},
+        {"user": f"u{users // 2}", "num": 20, "blackList": pick[:30]},
+        {"items": walk[:50], "num": 10},
+        {"items": pick[30:130], "num": 20, "blackList": walk[50:60]},
+        {"user": f"u{users - 1}", "num": 5, "blackList": pick[130:150]},
+        {"items": walk[60:63], "num": 10},
+        {"user": f"u{users // 13}", "num": 20},
+        {"user": f"u{users * 7 // 8}", "num": 10},
+    ], "serve-trained", storage)
 
 
 def make_ratings(users: int, items: int, nnz: int, seed: int = 0):
@@ -1170,14 +1192,14 @@ def _check_answer(tag: str, body: dict, served: list[tuple[str, float]], model: 
     return err
 
 
-def serve_als_and_check(model_dir: str, queries: list[dict], tag: str) -> dict:
-    """Deploy ``model_dir`` with the recommendation template behind the
-    engine server, POST the queries and hold every answer against the
-    float64 reference. Returns the server's deployed engine stats."""
+def serve_als_and_check(config: ServerConfig, queries: list[dict], tag: str,
+                        storage=None) -> dict:
+    """Deploy what ``config`` names with the recommendation template
+    behind the engine server, POST the queries and hold every answer
+    against the float64 reference. Returns the server and its deployed
+    engine."""
     t0 = time.perf_counter()
-    server = create_engine_server(EngineServerConfig(
-        model_dir=model_dir, ip="127.0.0.1", port=0, device=DEVICE,
-        engine_factory=REC_FACTORY)).start()
+    server = create_engine_server(storage, config).start()
     try:
         port = server.port
         model = server.deployed.models[0]
@@ -1259,7 +1281,8 @@ def phase_als_serving(trained: dict) -> None:
                                   item.double().cpu().numpy())[0] for u in asked[2:6]}
         queries += [{"user": f"u{u}", "num": 10, "blackList": [i for i, _ in t]}
                     for u, t in top.items()]
-        handle = serve_als_and_check(model_dir, queries, "als-serve")
+        handle = serve_als_and_check(_local(model_dir=model_dir, engine_factory=REC_FACTORY),
+                                     queries, "als-serve")
         server, deployed = handle["server"], handle["deployed"]
         try:
             batch = [rec.Query(user=f"u{u}", num=10) for u in batch_users]
@@ -1363,32 +1386,35 @@ def phase_recommendation_template() -> None:
     """Phase 13: the recommendation template end to end at the ML-100k shape."""
     n_users, n_items, _, _ = ML100K
     storage, rng = _ml100k_storage()
-    model_dir = tempfile.mkdtemp(prefix="rec-model-")
-    try:
-        outcome = run_train(variant={
-            "engineFactory": REC_FACTORY,
-            "datasource": {"params": {"appName": "ML100k"}},
-            "algorithms": [{"name": "als", "params": {"rank": 10, "numIterations": 10,
-                                                      "lambda": 0.01, "seed": 3}}],
-        }, ctx=EngineContext(storage=storage, device=DEVICE), model_dir=model_dir)
-        model = outcome.models[0]
-        log(f"[rec] run_train {outcome.status}: {len(model.user_ids)} users, "
-            f"{len(model.item_ids)} items; stages: {format_stage_times(outcome.stage_seconds)}")
-        log(f"[rec] stage_seconds={json.dumps(outcome.stage_seconds)}")
-        if outcome.status != "COMPLETED" or not bool(torch.isfinite(model.item_factors).all()):
-            fail("the recommendation template did not train to finite factors")
-        picks = [f"i{j}" for j in rng.integers(0, n_items, 300)]
-        queries = ([{"user": f"u{u}", "num": n} for u, n in
-                    zip(rng.integers(0, n_users, 12), (10, 20, 5, 50) * 3)]
-                   + [{"user": "u0", "num": 10, "blackList": picks[:100]},
-                      {"user": "u1", "num": 10, "whiteList": picks[100:200]},
-                      {"user": "u2", "num": 20, "whiteList": picks[200:300],
-                       "blackList": picks[200:230]},
-                      {"user": "stranger", "num": 10}])
-        handle = serve_als_and_check(model_dir, queries, "rec-serve")
-        handle["server"].stop()
-    finally:
-        shutil.rmtree(model_dir, ignore_errors=True)
+    outcome = run_train(variant={
+        "engineFactory": REC_FACTORY,
+        "datasource": {"params": {"appName": "ML100k"}},
+        "algorithms": [{"name": "als", "params": {"rank": 10, "numIterations": 10,
+                                                  "lambda": 0.01, "seed": 3}}],
+    }, ctx=EngineContext(storage=storage, device=DEVICE))
+    model = outcome.models[0]
+    log(f"[rec] run_train {outcome.status}: {len(model.user_ids)} users, "
+        f"{len(model.item_ids)} items; stages: {format_stage_times(outcome.stage_seconds)}")
+    log(f"[rec] stage_seconds={json.dumps(outcome.stage_seconds)}")
+    if outcome.status != "COMPLETED" or not bool(torch.isfinite(model.item_factors).all()):
+        fail("the recommendation template did not train to finite factors")
+    handle = serve_als_and_check(_local(engine_instance_id=outcome.instance_id),
+                                 _ml100k_queries(rng), "rec-serve", storage)
+    handle["server"].stop()
+
+
+def _ml100k_queries(rng) -> list[dict]:
+    """16 queries at the ML-100k shape: known users at num 5-50, white
+    and black lists, and an unknown user."""
+    n_users, n_items, _, _ = ML100K
+    picks = [f"i{j}" for j in rng.integers(0, n_items, 300)]
+    return ([{"user": f"u{u}", "num": n} for u, n in
+             zip(rng.integers(0, n_users, 12), (10, 20, 5, 50) * 3)]
+            + [{"user": "u0", "num": 10, "blackList": picks[:100]},
+               {"user": "u1", "num": 10, "whiteList": picks[100:200]},
+               {"user": "u2", "num": 20, "whiteList": picks[200:300],
+                "blackList": picks[200:230]},
+               {"user": "stranger", "num": 10}])
 
 
 def phase_als() -> None:
@@ -1644,12 +1670,428 @@ def phase_eval_recommendation() -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+#: phase 16: `pio` as separate processes over a fresh store (the default
+#: sqlite + localfs under PIO_FS_BASEDIR). Sessionrec at the serving
+#: width: 128 users × 2,049 view events (starts 391 apart, so the
+#: template derives vocab 50,000), one epoch at batch 8 (16 Adam steps at
+#: S = 2048), 30 queries; the recommendation template at the ML-100k shape
+PIO_SESSION = (128, 2049, 391)
+PIO_SESSION_TRAIN = dict(d_model=256, n_heads=4, n_layers=4, max_len=2048, batch_size=8,
+                         epochs=1, lr=1e-3, seed=SEED)
+PIO_QUERIES = 30
+PIO_REC_ALGORITHMS = [{"name": "als", "params": {"rank": 10, "numIterations": 10,
+                                                 "lambda": 0.01, "seed": 3}}]
+#: the algorithms_params text the JAX package's run_train records for
+#: PIO_REC_ALGORITHMS (tests/test_torch_train_deploy.py holds it against
+#: that package's _algo_params_json)
+PIO_REC_ALGORITHMS_JSON = (
+    '[{"name": "als", "params": {"rank": 10, "num_iterations": 10, "lambda_": 0.01, '
+    '"seed": 3, "implicit_prefs": false, "alpha": 1.0, "use_mesh": true, '
+    '"exclude_seen": true, "shard_factors": false}}]')
+#: seconds a `pio` process may take (import of 262,272 events, a train)
+PIO_STEP_TIMEOUT = 600
+#: F1 on the card: item tables whose rows repeat (ML-20M's catalog), the
+#: chunked path in tiles of 8,192 (three tiles and an overlap tile)
+TIE_ITEMS, TIE_RANK, TIE_DISTINCT, TIE_CHUNK = 26_744, 10, 97, 8_192
+
+
+class _Pio:
+    """`python -m predictionio_tpu_torch.cli.pio` as separate processes
+    in one working directory over one PIO_FS_BASEDIR."""
+
+    def __init__(self, base: str):
+        self.base = base
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith("PIO_STORAGE_") and k != "PIO_MODEL_DIR"}
+        self.env["PIO_FS_BASEDIR"] = os.path.join(base, "store")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        self.cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.pio"]
+
+    def run(self, tag: str, *args: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        p = subprocess.run(self.cmd + list(args), cwd=self.base, env=self.env,
+                           capture_output=True, text=True, timeout=PIO_STEP_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if p.returncode != 0:
+            fail(f"[pio] `pio {' '.join(args)}` exited {p.returncode}:\n"
+                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        log(f"[{tag}] pio {args[0]}: {seconds:.3f}s")
+        return p.stdout, seconds
+
+    def new_app(self, tag: str, name: str) -> int:
+        out, _ = self.run(tag, "app", "new", name)
+        return int(re.search(r"ID: (\d+)", out).group(1))
+
+    def train(self, tag: str, engine_json: str) -> str:
+        out, seconds = self.run(tag, "train", "--engine-json", engine_json, "--device", DEVICE)
+        found = re.search(r"Training finished: engine instance (\w+) \((\w+)\)", out)
+        if found is None or found.group(2) != "COMPLETED":
+            fail(f"[{tag}] pio train did not complete: {out[-2000:]}")
+        log(f"[{tag}] {out.strip().splitlines()[-1]}")
+        return found.group(1)
+
+    def deploy(self, tag: str, engine_json: str):
+        """(the deploy process, its port, seconds to listening)."""
+        out_path = os.path.join(self.base, f"deploy-{tag}.log")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out:
+            proc = subprocess.Popen(
+                self.cmd + ["deploy", "--engine-json", engine_json, "--ip", "127.0.0.1",
+                            "--port", "0", "--device", DEVICE],
+                cwd=self.base, env=self.env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + PIO_STEP_TIMEOUT
+        while True:
+            with open(out_path) as f:
+                found = re.search(r"listening on 127\.0\.0\.1:(\d+)", f.read())
+            if found:
+                break
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                with open(out_path) as f:
+                    fail(f"[{tag}] pio deploy did not come up:\n{f.read()[-3000:]}")
+            time.sleep(0.1)
+        seconds = time.perf_counter() - t0
+        log(f"[{tag}] pio deploy: listening on :{found.group(1)} after {seconds:.3f}s")
+        return proc, int(found.group(1)), seconds
+
+
+def _status(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _write_json_lines(path: str, docs) -> int:
+    with open(path, "w") as f:
+        n = 0
+        for doc in docs:
+            f.write(json.dumps(doc) + "\n")
+            n += 1
+    return n
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def _serve_http(tag: str, port: int, queries: list[dict]) -> tuple[list[dict], list[float]]:
+    docs, rtts = [], []
+    for body in queries:
+        status, doc, ms = _post(port, body)
+        if status != 200:
+            fail(f"[{tag}] query {body} answered {status}: {doc}")
+        docs.append(doc)
+        rtts.append(ms)
+    return docs, rtts
+
+
+def _kernel_at_deploy(deployed, body: dict) -> dict:
+    """The flash kernel on the q/k/v of the first layer of one served
+    query (captured from the in-process deploy of the same instance):
+    kernel ms (CUDA events), device ms (torch.profiler), the plain
+    version, SDPA with is_causal alone, and the bound."""
+    captured = []
+    real = seqrec.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v, kw.get("kv_mask")))
+        return real(q, k, v, **kw)
+
+    seqrec.flash_attention = capture
+    try:
+        deployed.query(sessionrec.Query(**{"user": body["user"], "num": body["num"]}))
+    finally:
+        seqrec.flash_attention = real
+    q, k, v, kv_mask = captured[0]
+    mask = (torch.ones(q.shape[0], q.shape[2], device=DEVICE) if kv_mask is None
+            else kv_mask.float().contiguous())
+    res = torch.empty_like(q)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernel_ms = time_ms(lambda: flash_ops._launch(q, k, v, mask, res, True))
+    device_ms = profiled_ms(lambda: flash_ops._launch(q, k, v, mask, res, True),
+                            "flash_fwd_bf16_wgmma")
+    plain_ms = time_ms(lambda: flash_ops.flash_attention_reference(
+        q, k, v, causal=True, kv_mask=mask))
+    library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+    B, H, S, D = q.shape
+    bound_ms, bound_by = attention_bound_ms(B, H, S, D, q.dtype, True)
+    return dict(shape=(B, H, S, D), dtype=str(q.dtype), real_keys=int(mask.sum()),
+                ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_causal_ms=library_causal_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_pio_sessionrec(pio: _Pio) -> int:
+    """Phase 16a; returns the kernel's launches in the deploy process."""
+    n_users, length, stride = PIO_SESSION
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    events_path = os.path.join(pio.base, "sessions.jsonl")
+    n = _write_json_lines(events_path, (
+        {"event": "view", "entityType": "user", "entityId": f"u{u}",
+         "targetEntityType": "item", "targetEntityId": f"i{(stride * u + t) % N_ITEMS + 1}",
+         "eventTime": (t0 + timedelta(seconds=length * u + t)).strftime(
+             "%Y-%m-%dT%H:%M:%S.000Z")}
+        for u in range(n_users) for t in range(length)))
+    app_id = pio.new_app("pio-sess", "SessApp")
+    out, import_s = pio.run("pio-sess", "import", "--appid", str(app_id),
+                            "--input", events_path)
+    if f"Imported {n} events" not in out:
+        fail(f"[pio-sess] import: {out}")
+    engine_json = os.path.join(pio.base, "sessionrec.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "sessionrec", "engineFactory":
+                   "predictionio_tpu_torch.templates.sessionrec.engine_factory",
+                   "datasource": {"params": {"app_name": "SessApp"}},
+                   "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}]}, f)
+    instance_id = pio.train("pio-sess", engine_json)
+    proc, port, deploy_s = pio.deploy("pio-sess", engine_json)
+    try:
+        rng = np.random.default_rng(SEED + 11)
+        users = [int(u) for u in rng.choice(n_users, PIO_QUERIES, replace=False)]
+        picks = [f"i{j}" for j in rng.integers(1, N_ITEMS + 1, 200)]
+        queries = [{"user": f"u{u}", "num": (10, 20, 5)[j % 3]} for j, u in enumerate(users)]
+        for j in range(0, PIO_QUERIES, 5):
+            queries[j]["blackList"] = picks[j * 5:j * 5 + 20]
+        before = _status(port)
+        docs, rtts = _serve_http("pio-sess", port, queries)
+        after = _status(port)
+    finally:
+        _stop(proc)
+    launches = (after["kernelLaunches"]["flash_attention"]
+                - before["kernelLaunches"]["flash_attention"])
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    log(f"[pio-sess] {PIO_QUERIES} queries over HTTP: http_p50_ms={statistics.median(rtts):.3f} "
+        f"http_min_ms={min(rtts):.3f} http_max_ms={max(rtts):.3f}; the deploy process's "
+        f"GET /: engineInstanceId={after['engineInstanceId']} "
+        f"kernelLaunches.flash_attention={launches} (expected {layers} x {PIO_QUERIES})")
+    if launches != layers * PIO_QUERIES or after["engineInstanceId"] != instance_id:
+        fail(f"[pio-sess] the deploy process launched the kernel {launches} times, or serves "
+             f"instance {after['engineInstanceId']} instead of {instance_id}")
+
+    # the same instance, read back from the same store, deployed in this process
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    instance = storage.get_meta_data_engine_instances().get(instance_id)
+    t1 = time.perf_counter()
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    log(f"[pio-sess] instance {instance_id}: {instance.status}, in-process load "
+        f"{time.perf_counter() - t1:.3f}s")
+    model = deployed.models[0]
+    worst_diff = 0.0
+    for body, doc in zip(queries, docs):
+        want = deployed.query(sessionrec.Query(user=body["user"], num=body["num"],
+                                               black_list=tuple(body.get("blackList", ()))))
+        got = doc["itemScores"]
+        if [s["item"] for s in got] != [s.item for s in want.item_scores]:
+            fail(f"[pio-sess] {body}: HTTP answer differs from the in-process deploy")
+        worst_diff = max([worst_diff] + [abs(s["score"] - w.score)
+                                         for s, w in zip(got, want.item_scores)])
+        agreement = _check_against_plain(
+            model, model.histories[body["user"]][-model.cfg.max_len:],
+            [model.item_index[i] for i in body.get("blackList", [])],
+            [(model.item_index[s["item"]], s["score"]) for s in got],
+            min(10, body["num"]), f"pio-sess {body['user']}")
+    log(f"[pio-sess] every answer's items equal the in-process deploy's (max score diff "
+        f"{worst_diff:.3e}); the last against the plain attention: {agreement}")
+    at = _kernel_at_deploy(deployed, queries[0])
+    log(f"[pio-sess] flash_attention as launched under pio deploy {at['shape']} {at['dtype']} "
+        f"causal, {at['real_keys']} real keys, {LAUNCHES_TIMED} launches: "
+        f"kernel_ms={at['ms']:.4f} kernel_device_ms={_fmt(at['device_ms'], 4)} "
+        f"plain_ms={at['plain_ms']:.4f} library_causal_ms={at['library_causal_ms']:.4f} "
+        f"bound_ms={at['bound_ms']:.5f} ({at['bound_by']})")
+    log(f"[pio-sess] stages: import {import_s:.3f}s, deploy load {deploy_s:.3f}s, "
+        f"http_p50_ms={statistics.median(rtts):.3f}")
+    del deployed, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pio_recommendation(pio: _Pio) -> None:
+    """Phase 16b: the recommendation template at the ML-100k shape."""
+    n_users, n_items, n_rate, n_buy = ML100K
+    rng = np.random.default_rng(SEED + 12)
+    users = np.concatenate([np.repeat(np.arange(n_users), 20),
+                            (n_users * rng.random(n_rate - 20 * n_users) ** 1.5).astype(int)])
+    items = (n_items * rng.random(n_rate + n_buy) ** 1.5).astype(int)
+    stars = rng.integers(1, 6, n_rate)
+    buyers = rng.integers(0, n_users, n_buy)
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def stamp(n: int) -> str:
+        return (t0 + timedelta(seconds=n)).strftime("%Y-%m-%dT%H:%M:%S.000Z")
+
+    events_path = os.path.join(pio.base, "ml100k.jsonl")
+    n = _write_json_lines(events_path, [
+        {"event": "rate", "entityType": "user", "entityId": f"u{u}",
+         "targetEntityType": "item", "targetEntityId": f"i{i}",
+         "properties": {"rating": float(r)}, "eventTime": stamp(j)}
+        for j, (u, i, r) in enumerate(zip(users, items, stars))] + [
+        {"event": "buy", "entityType": "user", "entityId": f"u{u}",
+         "targetEntityType": "item", "targetEntityId": f"i{i}", "eventTime": stamp(n_rate + j)}
+        for j, (u, i) in enumerate(zip(buyers, items[n_rate:]))])
+    app_id = pio.new_app("pio-rec", "ML100k")
+    out, _ = pio.run("pio-rec", "import", "--appid", str(app_id), "--input", events_path)
+    if f"Imported {n} events" not in out:
+        fail(f"[pio-rec] import: {out}")
+    engine_json = os.path.join(pio.base, "recommendation.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "ml100k", "engineFactory": REC_FACTORY,
+                   "datasource": {"params": {"appName": "ML100k"}},
+                   "algorithms": PIO_REC_ALGORITHMS}, f)
+    instance_id = pio.train("pio-rec", engine_json)
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    instance = storage.get_meta_data_engine_instances().get(instance_id)
+    if instance.status != "COMPLETED" or instance.algorithms_params != PIO_REC_ALGORITHMS_JSON:
+        fail(f"[pio-rec] instance {instance_id}: {instance.status}, algorithms_params "
+             f"{instance.algorithms_params}")
+    log(f"[pio-rec] instance {instance_id}: COMPLETED, algorithms_params equal to the JAX "
+        f"package's text")
+    # the training read alone, in this process, through the columnar scan on sqlite
+    ctx = EngineContext(storage=storage, device=DEVICE)
+    t1 = time.perf_counter()
+    td = rec.RecommendationDataSource(rec.DataSourceParams(app_name="ML100k")).read_training(ctx)
+    log(f"[pio-rec] read through EventStore.scan on sqlite: {len(td.users)} ratings in "
+        f"{time.perf_counter() - t1:.4f}s")
+    queries = _ml100k_queries(rng) + [{"user": f"u{u}", "num": 10}
+                                      for u in rng.integers(0, n_users, 14)]
+    proc, port, _ = pio.deploy("pio-rec", engine_json)
+    try:
+        docs, rtts = _serve_http("pio-rec", port, queries)
+    finally:
+        _stop(proc)
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    model, item_f64 = deployed.models[0], deployed.models[0].item_factors.double().cpu().numpy()
+    for body, doc in zip(queries, docs):
+        served = [(s["item"], s["score"]) for s in doc["itemScores"]]
+        want = deployed.query(from_wire(rec.Query, body))
+        if served != [(s.item, s.score) for s in want.item_scores]:
+            fail(f"[pio-rec] {body}: HTTP answer differs from the in-process deploy")
+        _check_answer("pio-rec", body, served, model, item_f64)
+    log(f"[pio-rec] {len(queries)} queries over HTTP equal the in-process deploy and the "
+        f"float64 reference; http_p50_ms={statistics.median(rtts):.3f}")
+
+
+def _lexsort_topk(scores: np.ndarray, k: int) -> np.ndarray:
+    """Host reference of the tie rule: per row, indices by (value desc,
+    index asc), the first k."""
+    idx = np.arange(scores.shape[1])
+    return np.stack([np.lexsort((idx, -row))[:k] for row in scores])
+
+
+def phase_tie_order() -> None:
+    """Phase 16c: F1 on the card. Integer factors whose rows repeat every
+    TIE_DISTINCT items score in exact ties; every top-k path must return
+    the host's (value desc, index asc) order. Then the rule's device
+    cost beside bare torch.topk."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    base = torch.randint(-3, 4, (TIE_DISTINCT, TIE_RANK), generator=gen).float()
+    item_f = base[torch.arange(TIE_ITEMS) % TIE_DISTINCT].to(DEVICE)
+    uv = torch.randint(-3, 4, (4, TIE_RANK), generator=gen).float().to(DEVICE)
+    cols = torch.randint(0, TIE_ITEMS, (4, 32), generator=gen).to(DEVICE)
+    mask = (torch.rand((4, 32), generator=gen) < 0.5).float().to(DEVICE)
+    allow = (torch.rand((TIE_ITEMS,), generator=gen) < 0.9).float().to(DEVICE)
+    k = 100
+    host = (uv.double() @ item_f.double().T).cpu().numpy()
+    host[:, allow.cpu().numpy() == 0] = -np.inf
+    for r in range(4):
+        host[r, cols[r][mask[r] > 0].cpu().numpy()] = -np.inf
+    want = _lexsort_topk(host, k)
+    checks = {}
+    _, got = topk_ops.recommend_topk(uv, item_f, cols, mask, allow, k)
+    checks["recommend_topk"] = np.array_equal(got.cpu().numpy(), want)
+    cv, ci = topk_ops.recommend_topk_chunked(uv, item_f, cols, mask, allow, k, chunk=TIE_CHUNK)
+    finite = torch.isfinite(cv).cpu().numpy()
+    checks["recommend_topk_chunked"] = np.array_equal(ci.cpu().numpy()[finite], want[finite])
+    qn = item_f[:3] / item_f[:3].norm(dim=-1, keepdim=True).clamp_min(1e-9)
+    itn = item_f / item_f.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+    with torch.inference_mode():
+        sims = (qn @ itn.T).cpu().numpy().astype(np.float64)
+    sims[:, allow.cpu().numpy() == 0] = -np.inf
+    for r in range(3):
+        sims[r, cols[r][mask[r] > 0].cpu().numpy()] = -np.inf
+    _, got = topk_ops.similar_topk(item_f[:3], item_f, cols[:3], mask[:3], allow, k)
+    checks["similar_topk"] = np.array_equal(got.cpu().numpy(), _lexsort_topk(sims, k))
+    # predict_topk_batch: a seqrec model whose item embeddings repeat
+    cfg = seqrec.SeqRecConfig(vocab=2_001, max_len=128, d_model=64, n_heads=2, n_layers=2,
+                              dtype=torch.bfloat16)
+    params = seqrec.init_params(cfg, torch.Generator().manual_seed(SEED + 14))
+    params["item_emb"] = params["item_emb"][1 + torch.arange(cfg.vocab) % TIE_DISTINCT]
+    module = seqrec.SeqRec.from_state(cfg, params, torch.device(DEVICE))
+    hist = torch.randint(1, cfg.vocab, (4, cfg.max_len), generator=gen).to(DEVICE)
+    vmask = torch.zeros((4, cfg.vocab), device=DEVICE)
+    vmask[:, 0] = -1e30
+    with torch.inference_mode():
+        h = module(hist)[:, -1]
+        logits = (seqrec.logits_from_hidden(module, h) + vmask).cpu().numpy()
+        _, got = seqrec.predict_topk_batch(module, hist, k, vmask)
+    checks["predict_topk_batch"] = np.array_equal(got.cpu().numpy(), _lexsort_topk(
+        logits.astype(np.float64), k))
+    log(f"[ties] {TIE_ITEMS} items of {TIE_DISTINCT} distinct rows, k={k}: item ids and "
+        f"order equal to the host's (value desc, index asc): {checks}")
+    if not all(checks.values()):
+        fail(f"[ties] a top-k path breaks ties otherwise than lax.top_k: {checks}")
+    for B, n_items in ((1, TIE_ITEMS), (TOPK_BATCH, TOPK_ITEMS)):
+        x = torch.randn((B, n_items), generator=torch.Generator(device=DEVICE).manual_seed(
+            SEED + 15), device=DEVICE)
+        bare_ms = time_ms(lambda: torch.topk(x, 10), warmup=3, n=20)
+        rule_ms = time_ms(lambda: topk_ops.topk_lowest_index(x, 10), warmup=3, n=20)
+        bare_dev, _ = _profile(lambda: torch.topk(x, 10))
+        rule_dev, launches = _profile(lambda: topk_ops.topk_lowest_index(x, 10),
+                                      top=f"ties B={B}")
+        log(f"[ties] top-10 of ({B}, {n_items}) f32: torch.topk ms={bare_ms:.4f} "
+            f"device_ms={_fmt(bare_dev, 4)}; topk_lowest_index ms={rule_ms:.4f} "
+            f"device_ms={_fmt(rule_dev, 4)} launches={launches}")
+        # where the rule's time goes: its three passes over the row
+        bits = x.view(torch.int32)
+        keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+        t = torch.topk(keys, 10).values[:, -1:]
+        stages = {"keys": lambda: torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits),
+                  "int32_topk": lambda: torch.topk(keys, 10),
+                  "tie_count": lambda: torch.cumsum(keys == t, -1, dtype=torch.int32)}
+        log(f"[ties] ({B}, {n_items}) stages, CUDA events: " + " ".join(
+            f"{name}_ms={time_ms(fn, warmup=3, n=20):.4f}" for name, fn in stages.items()))
+        del x, bits, keys
+        torch.cuda.empty_cache()
+
+
+def phase_pio() -> int:
+    """Phase 16; returns the flash kernel's launches in the sessionrec
+    deploy process."""
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="pio-")
+    try:
+        pio = _Pio(base)
+        launches = phase_pio_sessionrec(pio)
+        phase_pio_recommendation(pio)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    phase_tie_order()
+    log(f"[pio] phase 16 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
     wall = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    # checkpoints of the in-process training runs (phases 5-15)
+    os.environ["PIO_MODEL_DIR"] = tempfile.mkdtemp(prefix="pio-models-")
+    try:
+        run_phases(wall)
+    finally:
+        shutil.rmtree(os.environ.pop("PIO_MODEL_DIR"), ignore_errors=True)
+
+
+def run_phases(wall: float) -> None:
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
         return
@@ -1657,6 +2099,10 @@ def main() -> None:
         log_card()
         phase_eval_sessionrec()
         phase_eval_recommendation()
+        return
+    if sys.argv[1:] == ["--pio-only"]:   # phase 16 alone; prints no result line
+        log_card()
+        phase_pio()
         return
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
@@ -1681,6 +2127,10 @@ def main() -> None:
     if flash_ops.LAUNCHES:
         fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
     log(f"[eval] phases 14-15 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    # the launches of phase 16 happen in the `pio deploy` process, which
+    # reports them on its GET /
+    launches += phase_pio()
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

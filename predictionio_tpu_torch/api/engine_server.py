@@ -8,21 +8,23 @@ Routes:
   class → ``DeployedEngine.query`` → the prediction as camelCase JSON
   (``{"itemScores": [{"item": ..., "score": ...}]}`` for sessionrec and
   recommendation);
-- ``GET /``: status, including the flash-attention kernel's launch count;
+- ``GET /``: status: the engine instance id and the flash-attention
+  kernel's launch count in this process;
 - ``GET /healthz``.
 
 Queries are answered one at a time (one device, and a launch count that
 must add up): the HTTP threads overlap parsing and encoding only.
 
-Run: ``python -m predictionio_tpu_torch.api.engine_server --model-dir D
---port P [--device cpu] [--engine-factory F]`` (default: the sessionrec
+The server deploys a stored engine instance (``pio deploy``,
+``workflow/deploy.load_deployed_engine``) or a model directory: ``python
+-m predictionio_tpu_torch.api.engine_server --model-dir D --port P
+[--device cpu] [--engine-factory F]`` (default: the sessionrec
 template).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import logging
 import signal
@@ -30,26 +32,17 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
-from predictionio_tpu_torch.controller.params import EngineParams
 from predictionio_tpu_torch.core.wire import from_wire, to_wire
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
+from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.workflow.deploy import (
     DEFAULT_ENGINE_FACTORY,
     DeployedEngine,
+    ServerConfig,
     load_deployed_engine,
 )
 
 logger = logging.getLogger(__name__)
-
-
-@dataclasses.dataclass(frozen=True)
-class EngineServerConfig:
-    model_dir: str
-    ip: str = "0.0.0.0"
-    port: int = 8000          # 0 binds a free port (``EngineServer.port``)
-    device: str | None = None  # None → cuda
-    engine_factory: str = DEFAULT_ENGINE_FACTORY
-    engine_params: EngineParams | None = None
 
 
 class _Reject(Exception):
@@ -59,7 +52,7 @@ class _Reject(Exception):
 
 
 class EngineServer:
-    def __init__(self, deployed: DeployedEngine, config: EngineServerConfig):
+    def __init__(self, deployed: DeployedEngine, config: ServerConfig):
         self.deployed = deployed
         self.config = config
         self._predict_lock = threading.Lock()
@@ -77,7 +70,8 @@ class EngineServer:
         return {
             "status": "alive",
             "engineInstanceId": d.instance_id,
-            "engineFactory": self.config.engine_factory,
+            "engineFactory": (d.instance.engine_factory if d.instance is not None
+                              else self.config.engine_factory),
             "device": str(d.device),
             "startTime": d.start_time,
             "requestCount": d.request_count,
@@ -168,13 +162,26 @@ class EngineServer:
         self._thread = None
 
 
-def create_engine_server(config: EngineServerConfig) -> EngineServer:
-    """Load the engine model in ``config.model_dir`` onto its device and
-    wrap it in a server; call ``start()`` to listen."""
-    deployed = load_deployed_engine(
-        config.model_dir, config.engine_params,
-        engine_factory=config.engine_factory, device=config.device)
-    return EngineServer(deployed, config)
+def create_engine_server(storage: Storage | None = None,
+                         config: ServerConfig | None = None) -> EngineServer:
+    """Load the engine instance (or model directory) ``config`` names
+    onto its device (``workflow/deploy.load_deployed_engine``) and wrap
+    it in a server; call ``start()`` to listen."""
+    config = config if config is not None else ServerConfig()
+    return EngineServer(load_deployed_engine(storage, config), config)
+
+
+def serve_until_stopped(server: EngineServer) -> None:
+    """Block a started server's process until SIGTERM or Ctrl-C, then
+    stop the server."""
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -186,18 +193,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--engine-factory", default=DEFAULT_ENGINE_FACTORY)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    server = create_engine_server(EngineServerConfig(
-        model_dir=args.model_dir, ip=args.ip, port=args.port, device=args.device,
-        engine_factory=args.engine_factory))
-    server.start()
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    try:
-        stop.wait()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.stop()
+    serve_until_stopped(create_engine_server(config=ServerConfig(
+        ip=args.ip, port=args.port, device=args.device, model_dir=args.model_dir,
+        engine_factory=args.engine_factory)).start())
 
 
 if __name__ == "__main__":

@@ -1,0 +1,333 @@
+"""`pio`: the command line over one store (port of the JAX package's
+``cli/pio.py`` and ``workflow/cli_commands.py``, for the commands this
+port serves).
+
+    python -m predictionio_tpu_torch.cli.pio <command> ...
+
+- ``version``; ``status`` (verifies every storage repository);
+- ``app new|list|show|delete`` (a new app gets an access key) and
+  ``accesskey new|list``;
+- ``import`` / ``export``: events as JSON lines;
+- ``train``: ``workflow/train.run_train`` of an engine.json variant,
+  recording an engine instance;
+- ``deploy``: the engine server over a stored instance (by
+  ``--engine-instance-id``, else the latest COMPLETED one), one process.
+
+``train`` and ``deploy`` run on the card unless ``--device cpu`` is
+given; the administrative commands do not import torch. Storage is
+configured as the JAX package configures it (the
+``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
+``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
+messages and exit codes are the JAX package's. Not ported yet: ``eval``
+(ROADMAP.md queue 1 item 18), ``eventserver`` (item 22), the serving
+flags of ``deploy`` (``--batching``, ``--workers``, the caches: item
+21), ``train --profile`` (item 12), ``build``/``run``, the router,
+``experiment`` and the admin tools (item 23), and Parquet import and
+export (item 25).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch.storage.base import AccessKey, App
+from predictionio_tpu_torch.storage.registry import Storage
+
+
+def find_channel(storage: Storage, app_id: int, channel_name: str):
+    """Channel-by-name within an app, or None."""
+    channels = storage.get_meta_data_channels().get_by_app_id(app_id)
+    return next((c for c in channels if c.name == channel_name), None)
+
+
+def _cmd_version(args, storage: Storage | None) -> int:
+    print(__version__)
+    return 0
+
+
+def _cmd_status(args, storage: Storage) -> int:
+    import torch
+
+    print("[INFO] Inspecting predictionio_tpu_torch...")
+    try:
+        storage.verify_all_data_objects()
+        print("[INFO] Storage: all repositories verified (metadata/eventdata/modeldata)")
+    except Exception as exc:
+        print(f"[ERROR] Storage check failed: {exc}")
+        return 1
+    if torch.cuda.is_available():
+        print(f"[INFO] PyTorch {torch.__version__}: {torch.cuda.get_device_name(0)} "
+              f"x{torch.cuda.device_count()}")
+    else:
+        print(f"[WARN] PyTorch {torch.__version__}: no CUDA device; "
+              "train and deploy need --device cpu")
+    print("[INFO] Your system is all ready to go.")
+    return 0
+
+
+def _cmd_app(args, storage: Storage) -> int:
+    apps = storage.get_meta_data_apps()
+    keys = storage.get_meta_data_access_keys()
+    channels = storage.get_meta_data_channels()
+    events = storage.get_events()
+    if args.app_command == "new":
+        if args.access_key and keys.get(args.access_key) is not None:
+            print(f"[ERROR] Access key {args.access_key} already exists.")
+            return 1
+        app_id = apps.insert(App(args.id or 0, args.name, args.description))
+        if app_id is None:
+            print(f"[ERROR] App {args.name} already exists.")
+            return 1
+        events.init(app_id)
+        key = keys.insert(AccessKey(args.access_key or "", app_id, ()))
+        if key is None:
+            print(f"[ERROR] Access key {args.access_key} already exists.")
+            return 1
+        print("[INFO] Created a new app:")
+        print(f"[INFO]         Name: {args.name}")
+        print(f"[INFO]           ID: {app_id}")
+        print(f"[INFO]   Access Key: {key}")
+        return 0
+    if args.app_command == "list":
+        for app in apps.get_all():
+            app_keys = keys.get_by_app_id(app.id)
+            key_str = app_keys[0].key if app_keys else ""
+            print(f"[INFO]   {app.name} (id={app.id}) key={key_str}")
+        return 0
+    app = apps.get_by_name(args.name)
+    if app is None:
+        print(f"[ERROR] App {args.name} does not exist.")
+        return 1
+    if args.app_command == "show":
+        print(f"[INFO]     App Name: {app.name}")
+        print(f"[INFO]       App ID: {app.id}")
+        print(f"[INFO]  Description: {app.description or ''}")
+        for k in keys.get_by_app_id(app.id):
+            allowed = ",".join(k.events) if k.events else "(all)"
+            print(f"[INFO]   Access Key: {k.key} | {allowed}")
+        for c in channels.get_by_app_id(app.id):
+            print(f"[INFO]      Channel: {c.name} (id={c.id})")
+        return 0
+    # delete
+    for c in channels.get_by_app_id(app.id):
+        events.remove(app.id, c.id)
+        channels.delete(c.id)
+    events.remove(app.id)
+    for k in keys.get_by_app_id(app.id):
+        keys.delete(k.key)
+    apps.delete(app.id)
+    print(f"[INFO] App {args.name} deleted.")
+    return 0
+
+
+def _cmd_accesskey(args, storage: Storage) -> int:
+    apps = storage.get_meta_data_apps()
+    keys = storage.get_meta_data_access_keys()
+    if args.ak_command == "new":
+        app = apps.get_by_name(args.app_name)
+        if app is None:
+            print(f"[ERROR] App {args.app_name} does not exist.")
+            return 1
+        key = keys.insert(AccessKey(args.access_key or "", app.id, tuple(args.event or ())))
+        if key is None:
+            print(f"[ERROR] Access key {args.access_key} already exists.")
+            return 1
+        print(f"[INFO] Created new access key: {key}")
+        return 0
+    # list
+    app = apps.get_by_name(args.app_name) if args.app_name else None
+    for k in keys.get_all():
+        if args.app_name and (app is None or k.appid != app.id):
+            continue
+        allowed = ",".join(k.events) if k.events else "(all)"
+        print(f"[INFO]   {k.key} | app={k.appid} | {allowed}")
+    return 0
+
+
+def _resolve_app_channel(storage: Storage, app_id: int, channel_name: str | None):
+    """(ok, channel id) for ``--appid``/``--channel``: an unknown app or
+    channel is an error, never a new orphan event table."""
+    if storage.get_meta_data_apps().get(app_id) is None:
+        print(f"[ERROR] App id {app_id} does not exist.")
+        return False, None
+    if channel_name is None:
+        return True, None
+    chan = find_channel(storage, app_id, channel_name)
+    if chan is None:
+        print(f"[ERROR] Channel {channel_name} does not exist.")
+        return False, None
+    return True, chan.id
+
+
+def _cmd_export(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.tools.export_import import export_events
+
+    ok, channel_id = _resolve_app_channel(storage, args.appid, args.channel)
+    if not ok:
+        return 1
+    with open(args.output, "w") as f:
+        n = export_events(storage, args.appid, f, channel_id)
+    print(f"[INFO] Exported {n} events to {args.output}")
+    return 0
+
+
+def _cmd_import(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.tools.export_import import ImportFormatError, import_events
+
+    ok, channel_id = _resolve_app_channel(storage, args.appid, args.channel)
+    if not ok:
+        return 1
+    if not os.path.exists(args.input):
+        print(f"[ERROR] {args.input} not found.")
+        return 1
+    try:
+        with open(args.input) as f:
+            n = import_events(storage, args.appid, f, channel_id)
+    except ImportFormatError as e:
+        print(f"[ERROR] {args.input}: {e}")
+        return 1
+    print(f"[INFO] Imported {n} events from {args.input}")
+    return 0
+
+
+def _cmd_train(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
+    from predictionio_tpu_torch.workflow.engine_json import load_variant
+    from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
+
+    try:
+        variant = load_variant(args.engine_json, args.engine_factory)
+    except FileNotFoundError:
+        print(f"[ERROR] {args.engine_json} not found and no --engine-factory given.")
+        return 1
+    except json.JSONDecodeError as exc:
+        print(f"[ERROR] {args.engine_json} is not valid JSON: {exc}")
+        return 1
+    except ValueError as exc:
+        print(f"[ERROR] {exc}")
+        return 1
+    wp = WorkflowParams(
+        batch=args.batch,
+        save_model=not args.no_save_model,
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+    )
+    outcome = run_train(variant=variant, workflow_params=wp, storage=storage,
+                        ctx=EngineContext(wp, storage, device=args.device))
+    print(f"[INFO] Training finished: engine instance {outcome.instance_id} "
+          f"({outcome.status})")
+    if outcome.stage_seconds:
+        print(f"[INFO] Stage times: {format_stage_times(outcome.stage_seconds)}")
+    return 0 if outcome.status in ("COMPLETED", "INTERRUPTED") else 1
+
+
+def _cmd_deploy(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.api.engine_server import create_engine_server, serve_until_stopped
+    from predictionio_tpu_torch.workflow.deploy import ServerConfig
+    from predictionio_tpu_torch.workflow.engine_json import read_variant
+
+    try:
+        variant = read_variant(args.engine_json)
+    except json.JSONDecodeError as exc:
+        print(f"[ERROR] {args.engine_json} is not valid JSON: {exc}")
+        return 1
+    config = ServerConfig(
+        ip=args.ip,
+        port=args.port,
+        engine_instance_id=args.engine_instance_id,
+        engine_id=variant.get("id"),
+        engine_version=variant.get("version"),
+        engine_variant=variant.get("variantId"),
+        device=args.device,
+    )
+    server = create_engine_server(storage=storage, config=config).start()
+    print(f"[INFO] Engine instance {server.deployed.instance_id} listening on "
+          f"{args.ip}:{server.port}", flush=True)
+    serve_until_stopped(server)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="pio", description=__doc__.split("\n\n")[0])
+    sub = parser.add_subparsers(dest="command")
+    sub.add_parser("version", help="show version")
+    sub.add_parser("status", help="verify environment and storage")
+
+    p = sub.add_parser("app", help="app administration")
+    app_sub = p.add_subparsers(dest="app_command", required=True)
+    pn = app_sub.add_parser("new")
+    pn.add_argument("name")
+    pn.add_argument("--id", type=int)
+    pn.add_argument("--description")
+    pn.add_argument("--access-key", dest="access_key")
+    app_sub.add_parser("list")
+    for name in ("show", "delete"):
+        app_sub.add_parser(name).add_argument("name")
+
+    p = sub.add_parser("accesskey", help="access key administration")
+    ak_sub = p.add_subparsers(dest="ak_command", required=True)
+    an = ak_sub.add_parser("new")
+    an.add_argument("app_name")
+    an.add_argument("--access-key", dest="access_key")
+    an.add_argument("--event", action="append")
+    ak_sub.add_parser("list").add_argument("app_name", nargs="?")
+
+    p = sub.add_parser("export", help="export an app's events to a JSON-lines file")
+    p.add_argument("--appid", type=int, required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--channel", default=None)
+    p = sub.add_parser("import", help="import events from a JSON-lines file")
+    p.add_argument("--appid", type=int, required=True)
+    p.add_argument("--input", required=True)
+    p.add_argument("--channel", default=None)
+
+    p = sub.add_parser("train", help="train an engine variant")
+    p.add_argument("--engine-json", default="engine.json",
+                   help="engine variant file (default: ./engine.json)")
+    p.add_argument("--engine-factory", default="",
+                   help="override engineFactory from engine.json")
+    p.add_argument("--batch", default="", help="batch label")
+    p.add_argument("--skip-sanity-check", action="store_true")
+    p.add_argument("--stop-after-read", action="store_true")
+    p.add_argument("--stop-after-prepare", action="store_true")
+    p.add_argument("--no-save-model", action="store_true", dest="no_save_model")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    p = sub.add_parser("deploy", help="deploy the latest trained engine instance")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--engine-instance-id", default=None)
+    p.add_argument("--engine-json", default="engine.json")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return parser
+
+
+_COMMANDS = {
+    "version": _cmd_version,
+    "status": _cmd_status,
+    "app": _cmd_app,
+    "accesskey": _cmd_accesskey,
+    "export": _cmd_export,
+    "import": _cmd_import,
+    "train": _cmd_train,
+    "deploy": _cmd_deploy,
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.command:
+        parser.print_help()
+        return 1
+    storage = None if args.command == "version" else Storage()
+    return _COMMANDS[args.command](args, storage)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,7 @@ from predictionio_tpu_torch.controller.base import (
     Doer,
     FirstServing,
     IdentityPreparator,
+    PersistentModelManifest,
     Preparator,
     SanityCheck,
     Serving,
@@ -49,7 +50,8 @@ from predictionio_tpu_torch.controller.params import (
 __all__ = [
     "Algorithm", "BaseComponent", "DataSource", "Doer", "EmptyParams", "Engine",
     "EngineFactory", "EngineParams", "FirstServing", "HostModelAlgorithm",
-    "IdentityPreparator", "Params", "Preparator", "SanityCheck", "Serving",
+    "IdentityPreparator", "Params", "PersistentModelManifest", "Preparator",
+    "SanityCheck", "Serving",
     "StopAfterPrepareInterruption", "StopAfterReadInterruption", "TrainResult",
     "params_from_json", "params_to_json", "resolve_engine_factory",
     "Metric", "QPAMetric", "AverageMetric", "OptionAverageMetric",

@@ -1,7 +1,7 @@
 """DASE component contracts: DataSource, Preparator, Algorithm and
 Serving, SanityCheck, and Doer construction (port of the JAX package's
-``controller/base.py``, cut to what training, serving and evaluation
-need).
+``controller/base.py``, cut to what training, persistence, serving and
+evaluation need).
 
 Type vocabulary: TD training data, PD prepared data, Q query, P
 predicted result, M model. ``ctx`` is the workflow context
@@ -11,6 +11,7 @@ predicted result, M model. ``ctx`` is the workflow context
 from __future__ import annotations
 
 import abc
+import dataclasses
 import inspect
 from typing import Any, Generic, Sequence, TypeVar
 
@@ -95,16 +96,31 @@ class Algorithm(BaseComponent, Generic[PD, M, Q, P], abc.ABC):
         ``predict``; device algorithms override with one batched call."""
         return [(i, self.predict(model, q)) for i, q in queries]
 
-    def save_model(self, model: M, directory: str) -> None:
-        """Write ``model`` to ``directory``, which :meth:`load_model`
-        reads back."""
-        raise NotImplementedError(
-            f"{type(self).__name__} does not save its model")
+    # -- persistence hooks (the reference's makePersistentModel) ----------
+    def make_persistent_model(self, ctx: Any, model: M) -> Any:
+        """What the train workflow persists for ``model``: the model
+        itself (the default: pickled into the MODELDATA repository,
+        tensors moved to host arrays first and back onto the deploy's
+        device at load), a
+        :class:`PersistentModelManifest` (the algorithm saved the model
+        itself, e.g. as a checkpoint directory), or ``None`` (nothing
+        persisted: the model is retrained at deploy)."""
+        return model
 
-    def load_model(self, directory: str, device: Any) -> M:
-        """The model saved in ``directory``, placed on ``device``."""
+    def load_model(self, ctx: Any, manifest: "PersistentModelManifest") -> M:
+        """The model a manifest of :meth:`make_persistent_model` names,
+        placed on ``ctx.device``."""
         raise NotImplementedError(
-            f"{type(self).__name__} does not load a saved model")
+            f"{type(self).__name__} stored a manifest but does not implement load_model")
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentModelManifest:
+    """Stored in place of a model when the algorithm persists the model
+    itself: the algorithm's class and where the model lies."""
+
+    class_name: str
+    location: str = ""
 
 
 class Serving(BaseComponent, Generic[Q, P], abc.ABC):

@@ -1,5 +1,6 @@
 """The DASE Engine (port of the JAX package's ``controller/engine.py``):
-component construction from typed params, the training pipeline, params
+component construction from typed params, the training pipeline and the
+deploy-time model restoration (``prepare_deploy``), params
 from an engine.json variant or from the JSON blobs a stored engine
 instance carries, engine-factory resolution, and the evaluation
 pipeline: ``eval`` trains on each fold of the data source's
@@ -21,6 +22,7 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     Doer,
+    PersistentModelManifest,
     Preparator,
     SanityCheck,
     Serving,
@@ -72,10 +74,12 @@ def serve_fold(algorithms: Sequence[Algorithm], models: Sequence[Any], serving: 
 @dataclasses.dataclass
 class TrainResult:
     """The trained models, one per algorithm, beside the algorithms that
-    trained them (and save them)."""
+    trained them and what each algorithm's ``make_persistent_model``
+    returned (all ``None`` when the workflow does not save)."""
 
     algorithms: list[Algorithm]
     models: list[Any]
+    persisted: list[Any]
 
 
 class Engine:
@@ -130,14 +134,19 @@ class Engine:
         return data_source, preparator, algorithms, serving
 
     def train(self, ctx: Any, engine_params: EngineParams,
-              stage_seconds: dict[str, float] | None = None) -> TrainResult:
+              stage_seconds: dict[str, float] | None = None,
+              algorithms: Sequence[Algorithm] | None = None) -> TrainResult:
         """read → sanity → prepare → sanity → train each algorithm →
-        sanity, honouring the workflow's stop-after-read/prepare flags.
-        ``stage_seconds``, when given, receives the read, prepare and
-        train seconds (the training stage ends when every model is
-        back, which for the sessionrec template means on the host)."""
+        sanity → ``make_persistent_model`` of each (when the workflow
+        saves), honouring the workflow's stop-after-read/prepare flags.
+        ``algorithms`` (default: fresh ones from the params) are the
+        instances that train. ``stage_seconds``, when given, receives
+        the read, prepare, train and persist seconds (the training stage
+        ends when every model is back, which for the sessionrec template
+        means on the host)."""
         params = ctx.workflow_params
-        data_source, preparator, algorithms, _ = self.make_components(engine_params)
+        data_source, preparator, made, _ = self.make_components(engine_params)
+        algorithms = made if algorithms is None else list(algorithms)
         with _stage(stage_seconds, "read"):
             td = data_source.read_training(ctx)
         _sanity_check(td, "training data", not params.skip_sanity_check)
@@ -157,7 +166,38 @@ class Engine:
                 model = algo.train(ctx, pd)
             _sanity_check(model, f"model[{i}]", not params.skip_sanity_check)
             models.append(model)
-        return TrainResult(algorithms=algorithms, models=models)
+        with _stage(stage_seconds, "persist"):
+            persisted = [
+                algo.make_persistent_model(ctx.with_workflow_params(algorithm_slot=i), model)
+                if params.save_model else None
+                for i, (algo, model) in enumerate(zip(algorithms, models))]
+        return TrainResult(algorithms=list(algorithms), models=models, persisted=persisted)
+
+    def prepare_deploy(self, ctx: Any, engine_params: EngineParams, persisted: Sequence[Any],
+                       algorithms: Sequence[Algorithm] | None = None) -> list[Any]:
+        """The deployable models from what training persisted: a
+        manifest loads through its algorithm's ``load_model`` (on
+        ``ctx.device``), a model serves as it is (``load_models`` has put
+        its tensors on the device), and ``None`` means retrain at deploy
+        (without saving). ``algorithms`` must be the
+        instances that will serve, since load and train hooks may keep
+        serve-time state on them."""
+        if algorithms is None:
+            _, _, algorithms, _ = self.make_components(engine_params)
+        retrained = None
+        if any(p is None for p in persisted):
+            logger.info("some models were not persisted; retraining for deploy")
+            retrained = self.train(ctx.with_workflow_params(save_model=False), engine_params,
+                                   algorithms=algorithms)
+        models = []
+        for i, (algo, blob) in enumerate(zip(algorithms, persisted)):
+            if blob is None:
+                models.append(retrained.models[i])
+            elif isinstance(blob, PersistentModelManifest):
+                models.append(algo.load_model(ctx, blob))
+            else:
+                models.append(blob)
+        return models
 
     def eval(self, ctx: Any, engine_params: EngineParams) -> list[tuple[Any, list[tuple]]]:
         """Per fold of ``read_eval``: sanity check, prepare, train every

@@ -1,5 +1,7 @@
 """EventStore: the engine-facing, name-based facade over the event DAOs
-(the training-read half of the JAX package's ``data/store.py``).
+(port of the JAX package's ``data/store.py``): the training reads
+``find`` and the columnar ``scan``, ``aggregate_properties``, and the
+serving-time single-entity read ``find_by_entity``.
 """
 
 from __future__ import annotations
@@ -7,8 +9,10 @@ from __future__ import annotations
 from datetime import datetime
 from typing import Iterator, Sequence
 
+from predictionio_tpu_torch.core.columns import EventColumns
+from predictionio_tpu_torch.core.datamap import PropertyMap
 from predictionio_tpu_torch.core.event import Event
-from predictionio_tpu_torch.storage.base import EventFilter
+from predictionio_tpu_torch.storage.base import EventFilter, Events
 from predictionio_tpu_torch.storage.registry import Storage
 
 
@@ -66,3 +70,78 @@ class EventStore:
                 reversed=reversed,
             ),
         )
+
+    def scan(
+        self,
+        app_name: str,
+        channel_name: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        limit: int | None = None,
+        reversed: bool = False,
+        batch_size: int | None = None,
+    ) -> Iterator[EventColumns]:
+        """:meth:`find` as columnar batches (``core/columns.EventColumns``):
+        the same filter, and the batches, concatenated, are exactly the
+        events ``find`` returns."""
+        app_id, channel_id = self.app_name_to_id(app_name, channel_name)
+        return self.storage.get_events().find_columnar(
+            app_id,
+            channel_id,
+            EventFilter(
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id,
+                limit=limit,
+                reversed=reversed,
+            ),
+            batch_size=Events.COLUMNAR_BATCH_SIZE if batch_size is None else batch_size,
+        )
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Per-entity properties folded from $set/$unset/$delete events
+        (``core/aggregation.py``); ``required`` keeps only entities that
+        have every named property."""
+        app_id, channel_id = self.app_name_to_id(app_name, channel_name)
+        return self.storage.get_events().aggregate_properties(
+            app_id, entity_type, channel_id, start_time=start_time, until_time=until_time,
+            required=required)
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> Iterator[Event]:
+        """Serving-time read of one entity's events, newest first unless
+        ``latest`` is False."""
+        app_id, channel_id = self.app_name_to_id(app_name, channel_name)
+        return self.storage.get_events().find_single_entity(
+            app_id, entity_type, entity_id, channel_id, event_names=event_names,
+            target_entity_type=target_entity_type, target_entity_id=target_entity_id,
+            start_time=start_time, until_time=until_time, limit=limit, latest=latest)

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from predictionio_tpu_torch.ops.attention import blockwise_attention, full_attention
 from predictionio_tpu_torch.ops.flash_attention import flash_attention
+from predictionio_tpu_torch.ops.topk import topk_lowest_index
 from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -272,7 +273,7 @@ def predict_topk_batch(
     h = model(history, attention=attention)
     hl = h[torch.arange(h.shape[0], device=h.device), last]         # (B, D)
     logits = logits_from_hidden(model, hl) + vocab_masks.to(model.device)
-    return torch.topk(logits, k, dim=-1)
+    return topk_lowest_index(logits, k)
 
 
 def predict_topk(

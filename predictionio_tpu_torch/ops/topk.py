@@ -3,8 +3,9 @@ JAX package's ``ops/topk.py``, single card).
 
 One product of the query vectors with the item-factor table, the
 eligibility mask, a scatter-min that hides each query's seen items, and
-``torch.topk``. Every function clamps ``k`` to the catalog and never
-asserts. Products run in true f32, whatever the process set for TF32.
+:func:`topk_lowest_index`, which orders equal scores as ``lax.top_k``
+does. Every function clamps ``k`` to the catalog and never asserts.
+Products run in true f32, whatever the process set for TF32.
 The sharded top-k of the JAX package is ROADMAP.md queue 1 item 15.
 """
 
@@ -19,10 +20,39 @@ _NEG_INF = float("-inf")
 _POS_INF = float("inf")
 
 
+def topk_lowest_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.topk`` over the last dim with ``lax.top_k``'s tie rule:
+    values descending, equal values by ascending index, which also
+    decides which tied slots make the cut (``torch.topk`` states no
+    order for ties). Every site of the port's top-k calls this.
+
+    The values' f32 bits are mapped to int32 keys that order as
+    ``lax.top_k`` orders the floats (+0.0 above -0.0), and one top-k of
+    the keys gives the k-th key ``t``. Every slot above ``t`` made the
+    cut; the slots equal to ``t`` that it kept (the last ``kept``) are
+    replaced by the first ``kept`` slots equal to ``t`` in index order,
+    found by a binary search of the running count of such slots, so no
+    host read is needed. Last, the k survivors are ordered by (key
+    descending, index ascending). Values come back in ``x``'s dtype;
+    indices are int64."""
+    bits = x.float().contiguous().view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    kv, idx = torch.topk(keys, k)
+    t = kv[..., -1:]
+    kept = (kv == t).sum(-1, keepdim=True)
+    ties_so_far = torch.cumsum(keys == t, -1, dtype=torch.int32)
+    j = torch.arange(k, device=x.device)
+    nth = (j - (k - kept) + 1).clamp(min=1).to(torch.int32)
+    idx = torch.where(j >= k - kept, torch.searchsorted(ties_so_far, nth), idx)
+    order = torch.argsort(kv.long() * (1 << 32) + (0xFFFFFFFF - idx), dim=-1, descending=True)
+    idx = idx.gather(-1, order)
+    return x.gather(-1, idx), idx
+
+
 def topk_scores(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the top-k per row, ``k`` clamped to the
     column count."""
-    return torch.topk(scores, min(k, scores.shape[-1]))
+    return topk_lowest_index(scores, min(k, scores.shape[-1]))
 
 
 def _hide(scores: torch.Tensor, cols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -44,7 +74,7 @@ def recommend_topk(user_vecs: torch.Tensor, item_f: torch.Tensor, seen_cols: tor
     with ieee_f32():
         scores = user_vecs @ item_f.T
     scores = torch.where(allow > 0, scores, _NEG_INF)
-    return torch.topk(_hide(scores, seen_cols, seen_mask), min(k, scores.shape[-1]))
+    return topk_lowest_index(_hide(scores, seen_cols, seen_mask), min(k, scores.shape[-1]))
 
 
 def recommend_topk_chunked(user_vecs: torch.Tensor, item_f: torch.Tensor,
@@ -59,7 +89,12 @@ def recommend_topk_chunked(user_vecs: torch.Tensor, item_f: torch.Tensor,
 
     Agrees with the flat path on every finite slot. Slots beyond the
     eligible items carry -inf and sentinel indices ``>= I``, never a
-    real item's."""
+    real item's: the merge concatenates the carry before the tile, so
+    the tie rule of :func:`topk_lowest_index` keeps the carry's -inf
+    sentinels ahead of the tile's masked slots, as ``lax.top_k`` does
+    in the JAX package's merge. Equal finite scores merge in global
+    index order: the carry holds lower indices than the tile, and in the
+    overlap tile the already-scored prefix is -inf."""
     B, I = user_vecs.shape[0], item_f.shape[0]
     k = min(k, I)
     if I <= chunk:
@@ -84,11 +119,9 @@ def recommend_topk_chunked(user_vecs: torch.Tensor, item_f: torch.Tensor,
         local = seen_cols - start
         in_tile = (local >= 0) & (local < chunk) & (seen_mask > 0)
         _hide(scores, local.clamp(0, chunk - 1), in_tile)
-        bv, sel = torch.topk(torch.cat([bv, scores], dim=1), k)
+        bv, sel = topk_lowest_index(torch.cat([bv, scores], dim=1), k)
         bi = torch.where(sel < k, bi.gather(1, sel.clamp(max=k - 1)), start + sel - k)
-    # torch.topk breaks ties in no stated order, so a -inf slot may hold a
-    # masked item's index (lax.top_k keeps the carried sentinel): reset them
-    return bv, torch.where(bv == _NEG_INF, I + torch.arange(k, device=dev), bi)
+    return bv, bi
 
 
 #: seen-array widths of ``batch_predict``'s menu
@@ -178,4 +211,5 @@ def similar_topk(query_vecs: torch.Tensor, item_f: torch.Tensor, exclude_cols: t
     with ieee_f32():
         scores = qn @ itn.T
     scores = torch.where(allow > 0, scores, _NEG_INF)
-    return torch.topk(_hide(scores, exclude_cols, exclude_mask), min(k, scores.shape[-1]))
+    return topk_lowest_index(_hide(scores, exclude_cols, exclude_mask),
+                             min(k, scores.shape[-1]))

@@ -7,14 +7,13 @@ The data source reads ``rate`` and ``buy`` events into rating triples
 each user's seen items; the algorithm trains ``ops/als.als_train`` on
 the context's device and answers ``{"user": ..., "num": N}`` (with an
 optional ``whiteList``/``blackList``) with the N best unseen items. A
-model saves as ``models/als.ALSModel.save`` writes it.
+trained model persists as ``models/als.ALSModel.save`` writes it, at the
+run's ``checkpoint_location``, behind a ``PersistentModelManifest``.
 
 Evaluation splits the ratings into ``eval_k`` folds (``read_eval``) and
 scores Precision@K and MAP@K: ``run_evaluation(RecommendationEvaluation(),
-DefaultParamsList(app_name=...))``. The ratings are read as ``Event``
-objects from ``EventStore.find``; the JAX template's columnar
-``EventStore.scan``, which evaluation at the MovieLens-20M scale needs,
-comes with ROADMAP.md queue 1 item 3.
+DefaultParamsList(app_name=...))``. The ratings are read through the
+columnar ``EventStore.scan``, as the JAX template reads them.
 
 Usage (engine.json):
     {"engineFactory":
@@ -31,7 +30,6 @@ import dataclasses
 from typing import Any
 
 import numpy as np
-import torch
 
 from predictionio_tpu_torch.controller import (
     Algorithm,
@@ -44,9 +42,11 @@ from predictionio_tpu_torch.controller import (
     MetricEvaluator,
     OptionAverageMetric,
     Params,
+    PersistentModelManifest,
     Preparator,
     SanityCheck,
 )
+from predictionio_tpu_torch.controller.persistent_model import checkpoint_location
 from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.als import RatingsCOO, als_train, resolve_shard_factors
@@ -113,34 +113,52 @@ class DataSourceParams(Params):
     seed: int = 3
 
 
+def ratings_from_columns(cols, buy_rating: float):
+    """One EventColumns batch → (users, items, ratings) arrays, or None
+    when nothing survives (the JAX template's function): rows need a
+    target entity, ``rate`` events take their properties' ``rating``
+    (rows whose rating is missing or not a number are dropped), any
+    other event is worth ``buy_rating``."""
+    n = len(cols)
+    if n == 0:
+        return None
+    none_code = cols.target_entity_id.code_of(None)
+    keep = np.ones(n, dtype=bool)
+    if none_code is not None:
+        keep &= cols.target_entity_id.codes != none_code
+    ratings = np.full(n, buy_rating, dtype=np.float32)
+    rate_code = cols.event.code_of("rate")
+    if rate_code is not None:
+        for i in np.nonzero(keep & (cols.event.codes == rate_code))[0]:
+            try:
+                ratings[i] = float(cols.properties_raw(int(i)).get("rating"))
+            except (KeyError, TypeError, ValueError):
+                keep[i] = False
+    idx = np.nonzero(keep)[0]
+    if len(idx) == 0:
+        return None
+    return cols.entity_id.decode()[idx], cols.target_entity_id.decode()[idx], ratings[idx]
+
+
 class RecommendationDataSource(DataSource):
-    """Reads rate/buy events into rating triples: an event with no target
-    entity is dropped; ``rate`` takes ``properties.rating`` and is dropped
-    when it is missing or not a number; any other event is worth
-    ``buy_rating``; duplicates are kept."""
+    """Reads rate/buy events into rating triples, in store order, through
+    the columnar ``EventStore.scan`` (:func:`ratings_from_columns` per
+    batch); duplicates are kept."""
 
     params_class = DataSourceParams
 
     def read_training(self, ctx: Any) -> TrainingData:
         p = self.params
-        users, items, ratings = [], [], []
-        for ev in ctx.event_store().find(p.app_name, entity_type=p.entity_type,
-                                         event_names=list(p.event_names),
-                                         target_entity_type=p.target_entity_type):
-            if ev.target_entity_id is None:
-                continue
-            rating = p.buy_rating
-            if ev.event == "rate":
-                try:
-                    rating = float(ev.properties.fields.get("rating"))
-                except (TypeError, ValueError):
-                    continue
-            users.append(ev.entity_id)
-            items.append(ev.target_entity_id)
-            ratings.append(rating)
-        return TrainingData(users=np.asarray(users, dtype=object),
-                            items=np.asarray(items, dtype=object),
-                            ratings=np.asarray(ratings, dtype=np.float32))
+        parts = [part for cols in ctx.event_store().scan(
+                     p.app_name, entity_type=p.entity_type, event_names=list(p.event_names),
+                     target_entity_type=p.target_entity_type)
+                 if (part := ratings_from_columns(cols, p.buy_rating)) is not None]
+        if not parts:
+            empty = np.asarray([], dtype=object)
+            return TrainingData(users=empty, items=empty.copy(),
+                                ratings=np.asarray([], dtype=np.float32))
+        users, items, ratings = (np.concatenate(col) for col in zip(*parts))
+        return TrainingData(users=users, items=items, ratings=ratings)
 
     def read_eval(self, ctx: Any) -> list:
         """``eval_k`` folds over the ratings in store order: rating j falls
@@ -288,11 +306,17 @@ class ALSAlgorithm(Algorithm):
             out.append((qi, PredictedResult(item_scores=tuple(scores))))
         return out
 
-    def save_model(self, model: ALSModel, directory: str) -> None:
-        model.save(directory)
+    def make_persistent_model(self, ctx: Any, model: ALSModel) -> PersistentModelManifest:
+        """Saves the model's npz checkpoint (``ALSModel.save``) at the
+        run's ``checkpoint_location`` and records a manifest there, as
+        the JAX template does."""
+        location = checkpoint_location(ctx, "als")
+        model.save(location)
+        return PersistentModelManifest(
+            class_name=f"{type(self).__module__}.{type(self).__qualname__}", location=location)
 
-    def load_model(self, directory: str, device: torch.device) -> ALSModel:
-        return ALSModel.load(directory, device)
+    def load_model(self, ctx: Any, manifest: PersistentModelManifest) -> ALSModel:
+        return ALSModel.load(manifest.location, ctx.device)
 
 
 def engine_factory() -> Engine:

@@ -9,7 +9,9 @@ on the context's device and keeps each user's history as serving state.
 Query {"user": ..., "num": N} (or {"items": [recent ids], "num": N})
 answers with the N most likely next items, never one of the session's
 own items or the query's ``blackList``. A model is saved as
-``params.npz`` + ``model.json``. Besides training, a model comes from
+``params.npz`` + ``model.json`` (:func:`save_engine_model`); a trained
+one at the run's ``checkpoint_location``, behind a
+``PersistentModelManifest``. Besides training, a model comes from
 :func:`init_engine_model` (random weights from a seeded generator) or
 from a JAX-trained model's arrays (:meth:`SeqRecEngineModel.from_jax`).
 Evaluation holds out each user's last item (``read_eval``, leave-one-out
@@ -48,8 +50,10 @@ from predictionio_tpu_torch.controller import (
     MetricEvaluator,
     OptionAverageMetric,
     Params,
+    PersistentModelManifest,
     SanityCheck,
 )
+from predictionio_tpu_torch.controller.persistent_model import checkpoint_location
 from predictionio_tpu_torch.models import seqrec
 from predictionio_tpu_torch.ops.topk import serving_k
 from predictionio_tpu_torch.utils.bimap import BiMap
@@ -279,11 +283,17 @@ class SeqRecAlgorithm(HostModelAlgorithm):
         return SeqRecEngineModel(params=run.params, cfg=cfg, item_index=item_index,
                                  histories=dense, device=ctx.device, train_run=run)
 
-    def save_model(self, model: SeqRecEngineModel, directory: str) -> None:
-        save_engine_model(model, directory)
+    def make_persistent_model(self, ctx: Any, model: SeqRecEngineModel
+                              ) -> PersistentModelManifest:
+        """Saves the model as :func:`save_engine_model` writes it, at the
+        run's ``checkpoint_location``, and records a manifest there."""
+        location = checkpoint_location(ctx, "seqrec")
+        save_engine_model(model, location)
+        return PersistentModelManifest(
+            class_name=f"{type(self).__module__}.{type(self).__qualname__}", location=location)
 
-    def load_model(self, directory: str, device: torch.device) -> SeqRecEngineModel:
-        return load_engine_model(directory, device)
+    def load_model(self, ctx: Any, manifest: PersistentModelManifest) -> SeqRecEngineModel:
+        return load_engine_model(manifest.location, ctx.device)
 
     def _history_for(self, model: SeqRecEngineModel, query: Query):
         if query.items:

@@ -21,13 +21,19 @@ from predictionio_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class WorkflowParams:
     """The JAX package's workflow flags that training and evaluation read
-    (``batch`` is the run's label, which an evaluation instance records)."""
+    (``batch`` is the run's label, which engine and evaluation instances
+    record)."""
 
     batch: str = ""
     save_model: bool = True
     skip_sanity_check: bool = False
     stop_after_read: bool = False
     stop_after_prepare: bool = False
+    #: set by ``run_train`` before the pipeline runs, so persistence hooks
+    #: key their checkpoints by training run
+    engine_instance_id: str = ""
+    #: the algorithm-list slot being persisted, set by ``Engine.train``
+    algorithm_slot: int = 0
 
 
 class EngineContext:
@@ -42,6 +48,12 @@ class EngineContext:
         self.workflow_params = workflow_params
         self._storage = storage
         self.device = resolve_device(device)
+
+    def with_workflow_params(self, **changes) -> "EngineContext":
+        """A context on the same storage and device with some workflow
+        params replaced."""
+        return EngineContext(dataclasses.replace(self.workflow_params, **changes),
+                             self._storage, self.device)
 
     @property
     def storage(self) -> Storage:

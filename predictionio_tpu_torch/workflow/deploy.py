@@ -1,14 +1,23 @@
-"""Deployment: load a saved engine model and answer queries (port of the
-query path of the JAX package's ``workflow/deploy.py``).
+"""Deployment: load a trained engine instance and answer queries (port of
+the query path of the JAX package's ``workflow/deploy.py``).
 
-``load_deployed_engine`` takes a model directory and the engine's
-params; the storage-backed instance lookup of ``pio deploy`` comes in a
-later slice. A deployed engine keeps its models resident on the device
-between requests.
+``load_deployed_engine(storage, config)`` looks up the engine instance
+(by id, else the latest COMPLETED one of the configured engine and
+variant), rebuilds its params from the instance row, reads and checks
+its model blob (``workflow/persistence.py``) and restores the models
+with ``Engine.prepare_deploy`` onto the configured device, on the same
+algorithm instances that then serve. A deployed engine keeps its models
+resident on the device between requests.
+
+A model directory, as the templates' ``save_engine_model`` /
+``ALSModel.save`` write it, deploys without storage through
+``ServerConfig.model_dir`` (:func:`load_model_dir`): the engine server's
+``--model-dir`` entry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -18,13 +27,37 @@ from typing import Any, Sequence
 
 import torch
 
+from predictionio_tpu_torch.controller.base import PersistentModelManifest
 from predictionio_tpu_torch.controller.engine import Engine, resolve_engine_factory
 from predictionio_tpu_torch.controller.params import EngineParams
-from predictionio_tpu_torch.utils.device import resolve_device
+from predictionio_tpu_torch.storage.base import EngineInstance
+from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.workflow.context import EngineContext
+from predictionio_tpu_torch.workflow.persistence import load_models
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_ENGINE_FACTORY = "predictionio_tpu_torch.templates.sessionrec.engine_factory"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """The JAX package's ``ServerConfig`` fields that this port serves,
+    plus the device."""
+
+    ip: str = "0.0.0.0"
+    port: int = 8000              # 0 binds a free port (``EngineServer.port``)
+    engine_instance_id: str | None = None
+    #: the engine.json identity (``id``/``version``/``variantId``); with
+    #: none of them the latest COMPLETED instance of any engine deploys
+    engine_id: str | None = None
+    engine_version: str | None = None
+    engine_variant: str | None = None
+    device: str | None = None     # None → cuda
+    #: deploy a model directory instead of a stored instance
+    model_dir: str | None = None
+    #: the engine of a ``model_dir`` deploy (a stored instance names its own)
+    engine_factory: str = DEFAULT_ENGINE_FACTORY
 
 
 class DeployedEngine:
@@ -38,9 +71,11 @@ class DeployedEngine:
         serving: Any,
         models: Sequence[Any],
         device: torch.device,
+        instance: EngineInstance | None = None,
     ):
         self.engine = engine
         self.instance_id = instance_id
+        self.instance = instance
         self.algorithms = list(algorithms)
         self.serving = serving
         self.models = list(models)
@@ -95,7 +130,65 @@ class DeployedEngine:
             self.last_serving_sec = dt
 
 
+def resolve_engine_instance(storage: Storage, config: ServerConfig) -> EngineInstance:
+    """By id when given, else the latest COMPLETED instance matching
+    (engine_id, engine_version, engine_variant), else the latest
+    COMPLETED one of any engine."""
+    instances = storage.get_meta_data_engine_instances()
+    if config.engine_instance_id:
+        instance = instances.get(config.engine_instance_id)
+        if instance is None:
+            raise LookupError(f"engine instance {config.engine_instance_id!r} not found")
+        return instance
+    if config.engine_id is not None:
+        instance = instances.get_latest_completed(
+            config.engine_id, config.engine_version or "1",
+            config.engine_variant or config.engine_id)
+    else:
+        completed = [i for i in instances.get_all() if i.status == "COMPLETED"]
+        instance = max(completed, key=lambda i: i.start_time, default=None)
+    if instance is None:
+        raise LookupError(
+            "no completed engine instance found; run `pio train` first "
+            f"(engine_id={config.engine_id}, variant={config.engine_variant!r})")
+    return instance
+
+
 def load_deployed_engine(
+    storage: Storage | None = None,
+    config: ServerConfig | None = None,
+    ctx: EngineContext | None = None,
+    engine: Engine | None = None,
+) -> DeployedEngine:
+    """The engine instance ``config`` names (see
+    :func:`resolve_engine_instance`), its models restored on
+    ``config.device`` (default ``cuda``); ``ctx`` defaults to one on that
+    device over ``storage`` (default ``Storage()`` from the
+    environment). A ``config.model_dir`` deploys that directory instead
+    (:func:`load_model_dir`). The algorithms that load the models are
+    the ones that serve them."""
+    config = config if config is not None else ServerConfig()
+    if config.model_dir is not None:
+        return load_model_dir(config.model_dir, engine_factory=config.engine_factory,
+                              device=config.device)
+    storage = storage or (ctx.storage if ctx is not None else Storage())
+    ctx = ctx or EngineContext(storage=storage, device=config.device)
+    instance = resolve_engine_instance(storage, config)
+    if engine is None:
+        engine = resolve_engine_factory(instance.engine_factory)()
+    engine_params = engine.params_from_instance_json(
+        instance.data_source_params, instance.preparator_params,
+        instance.algorithms_params, instance.serving_params)
+    persisted = load_models(storage, instance.id, ctx.device)
+    _, _, algorithms, serving = engine.make_components(engine_params)
+    models = engine.prepare_deploy(ctx, engine_params, persisted, algorithms=algorithms)
+    logger.info("deployed engine instance %s (%s; %d algorithm(s)) on %s",
+                instance.id, instance.engine_factory, len(algorithms), ctx.device)
+    return DeployedEngine(engine, instance.id, algorithms, serving, models, ctx.device,
+                          instance)
+
+
+def load_model_dir(
     model_dir: str,
     engine_params: EngineParams | None = None,
     *,
@@ -105,8 +198,9 @@ def load_deployed_engine(
     """The engine ``engine_factory`` names, built from ``engine_params``
     (default: its first algorithm with default params), serving the
     model saved in ``model_dir`` — or in ``model_dir/<i>`` for algorithm
-    i of several — on ``device`` (default ``cuda``)."""
-    dev = resolve_device(device)
+    i of several — on ``device`` (default ``cuda``): each directory
+    loads as a manifest through its algorithm's ``load_model``."""
+    ctx = EngineContext(device=device)
     engine = resolve_engine_factory(engine_factory)()
     if engine_params is None:
         name = next(iter(engine.algorithm_class_map))
@@ -115,8 +209,10 @@ def load_deployed_engine(
     _, _, algorithms, serving = engine.make_components(engine_params)
     dirs = ([model_dir] if len(algorithms) == 1 else
             [os.path.join(model_dir, str(i)) for i in range(len(algorithms))])
-    models = [algo.load_model(d, dev) for algo, d in zip(algorithms, dirs)]
+    manifests = [PersistentModelManifest(f"{type(a).__module__}.{type(a).__qualname__}", d)
+                 for a, d in zip(algorithms, dirs)]
+    models = engine.prepare_deploy(ctx, engine_params, manifests, algorithms=algorithms)
     logger.info("deployed %s from %s on %s (%d algorithm(s))",
-                engine_factory, model_dir, dev, len(algorithms))
-    return DeployedEngine(engine, os.path.abspath(model_dir), algorithms,
-                          serving, models, dev)
+                engine_factory, model_dir, ctx.device, len(algorithms))
+    return DeployedEngine(engine, os.path.abspath(model_dir), algorithms, serving, models,
+                          ctx.device)

@@ -1,27 +1,34 @@
 """The training workflow driver (port of the JAX package's
 ``workflow/train.py``): resolve the engine factory, bind the engine.json
-variant, run ``Engine.train`` and save each algorithm's model to a
-directory that ``workflow/deploy.load_deployed_engine`` reads.
-
-The engine-instance record and the model repository that ``pio train``
-keeps in storage come with ROADMAP.md queue 1 item 3; until then the
-model directory is the handle between training and deployment.
+variant, record an INIT ``EngineInstance``, run ``Engine.train`` on the
+context's device, persist the models (``workflow/persistence.py``) and
+mark the instance COMPLETED. A stop-after-read/prepare run ends
+INTERRUPTED; a run that raises ends FAILED and re-raises.
+``workflow/deploy.load_deployed_engine`` finds the instance by id or as
+the latest COMPLETED one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
-import os
-import time
+import traceback
+from datetime import datetime, timezone
 from typing import Any, Mapping
 
 from predictionio_tpu_torch.controller.engine import (
+    Engine,
     StopAfterPrepareInterruption,
     StopAfterReadInterruption,
+    _stage,
     resolve_engine_factory,
 )
-from predictionio_tpu_torch.workflow.context import EngineContext
+from predictionio_tpu_torch.controller.params import EngineParams, params_to_json
+from predictionio_tpu_torch.storage.base import EngineInstance
+from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
+from predictionio_tpu_torch.workflow.persistence import save_models
 
 logger = logging.getLogger(__name__)
 
@@ -32,46 +39,98 @@ def format_stage_times(stage_seconds: Mapping[str, float]) -> str:
     return " | ".join(f"{name} {secs:.2f}s" for name, secs in stage_seconds.items())
 
 
+def _now() -> datetime:
+    return datetime.now(timezone.utc)
+
+
+def _params_json(name_params: tuple[str, Any]) -> str:
+    name, params = name_params
+    return json.dumps({"name": name, "params": params_to_json(params)})
+
+
+def _algo_params_json(algorithm_params_list) -> str:
+    return json.dumps(
+        [{"name": n, "params": params_to_json(p)} for n, p in algorithm_params_list])
+
+
 @dataclasses.dataclass
 class TrainOutcome:
+    instance_id: str
     status: str                  # COMPLETED | INTERRUPTED
     models: list[Any]
     #: read / prepare / train / persist seconds, in that order
-    stage_seconds: dict[str, float]
+    stage_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
 
 
-def run_train(variant: Mapping[str, Any], ctx: EngineContext,
-              model_dir: str | None = None) -> TrainOutcome:
-    """Train one engine variant and save its models.
+def run_train(
+    engine: Engine | None = None,
+    engine_factory: str = "",
+    variant: Mapping[str, Any] | None = None,
+    engine_params: EngineParams | None = None,
+    workflow_params: WorkflowParams = WorkflowParams(),
+    storage: Storage | None = None,
+    ctx: EngineContext | None = None,
+) -> TrainOutcome:
+    """Train one engine variant and persist the results.
 
-    ``variant`` is the parsed engine.json: its "engineFactory" names the
-    engine and its slots bind the params. ``ctx`` carries the workflow
-    params, the storage and the device. Each algorithm's model is saved
-    to ``model_dir``, or to ``model_dir/<i>`` when there are several,
-    unless the workflow params turn saving off."""
-    engine_factory = variant.get("engineFactory", "")
-    if not engine_factory:
-        raise ValueError("run_train needs an engine.json variant with an engineFactory")
-    engine = resolve_engine_factory(engine_factory)()
-    engine_params = engine.params_from_variant_json(variant)
-    save = ctx.workflow_params.save_model
-    if save and model_dir is None:
-        raise ValueError("run_train needs a model_dir to save to (the model repository "
-                         "comes with ROADMAP.md queue 1 item 3)")
+    Pass a constructed ``engine`` or an ``engine_factory`` spec (default:
+    the variant's "engineFactory"). ``variant`` is the parsed
+    engine.json; ``engine_params`` overrides its binding. The instance
+    and the models go to ``storage`` (default: the context's, else
+    ``Storage()`` from the environment); ``ctx`` (default: one on the
+    card with ``workflow_params`` over that storage) carries the device
+    and the workflow params."""
+    storage = storage or (ctx.storage if ctx is not None else Storage())
+    variant = dict(variant or {})
+    if engine is None:
+        engine_factory = engine_factory or variant.get("engineFactory", "")
+        if not engine_factory:
+            raise ValueError("run_train needs an engine or an engineFactory spec")
+        engine = resolve_engine_factory(engine_factory)()
+    if engine_params is None:
+        engine_params = engine.params_from_variant_json(variant)
+    ctx = ctx or EngineContext(workflow_params=workflow_params, storage=storage)
+    wp = ctx.workflow_params
+
+    instances = storage.get_meta_data_engine_instances()
+    instance_id = instances.insert(EngineInstance(
+        id="",
+        status="INIT",
+        start_time=_now(),
+        completion_time=_now(),
+        engine_id=variant.get("id", "default"),
+        engine_version=variant.get("version", "1"),
+        engine_variant=variant.get("variantId", variant.get("id", "default")),
+        engine_factory=engine_factory or f"{type(engine).__module__}.{type(engine).__qualname__}",
+        batch=wp.batch,
+        data_source_params=_params_json(engine_params.data_source_params),
+        preparator_params=_params_json(engine_params.preparator_params),
+        algorithms_params=_algo_params_json(engine_params.algorithm_params_list),
+        serving_params=_params_json(engine_params.serving_params),
+    ))
+    logger.info("engine instance %s: INIT", instance_id)
+    ctx = ctx.with_workflow_params(engine_instance_id=instance_id)
+
+    def finish(status: str) -> None:
+        instances.update(dataclasses.replace(instances.get(instance_id), status=status,
+                                             completion_time=_now()))
 
     stage_seconds: dict[str, float] = {}
     try:
-        result = engine.train(ctx, engine_params, stage_seconds)
-    except (StopAfterReadInterruption, StopAfterPrepareInterruption) as stop:
-        logger.info("training interrupted (%s)", stop)
-        return TrainOutcome("INTERRUPTED", [], stage_seconds)
-
-    t0 = time.perf_counter()
-    if save:
-        n = len(result.algorithms)
-        dirs = [model_dir] if n == 1 else [os.path.join(model_dir, str(i)) for i in range(n)]
-        for algo, model, d in zip(result.algorithms, result.models, dirs):
-            algo.save_model(model, d)
-    stage_seconds["persist"] = time.perf_counter() - t0
-    logger.info("training COMPLETED (%s)", format_stage_times(stage_seconds))
-    return TrainOutcome("COMPLETED", result.models, stage_seconds)
+        try:
+            result = engine.train(ctx, engine_params, stage_seconds)
+        except (StopAfterReadInterruption, StopAfterPrepareInterruption) as stop:
+            finish("INTERRUPTED")
+            logger.info("engine instance %s: INTERRUPTED (%s)", instance_id, stop)
+            return TrainOutcome(instance_id, "INTERRUPTED", [], stage_seconds)
+        with _stage(stage_seconds, "persist"):
+            save_models(storage, instance_id, result.persisted)
+        finish("COMPLETED")
+    except Exception:
+        # a failed run never reads as COMPLETED
+        finish("FAILED")
+        logger.error("engine instance %s: FAILED\n%s", instance_id, traceback.format_exc())
+        raise
+    logger.info("engine instance %s: COMPLETED (%s)", instance_id,
+                format_stage_times(stage_seconds))
+    return TrainOutcome(instance_id, "COMPLETED", result.models, stage_seconds)

@@ -32,7 +32,7 @@ from predictionio_tpu.utils.bimap import BiMap as JaxBiMap
 from predictionio_tpu.utils.bimap import EntityIdIxMap as JaxEntityIdIxMap
 from predictionio_tpu.utils.testing import memory_storage as jax_memory_storage
 from predictionio_tpu.workflow.context import EngineContext as JaxEngineContext
-from predictionio_tpu_torch.api.engine_server import EngineServerConfig, create_engine_server
+from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.models import als as pmodels
@@ -42,7 +42,7 @@ from predictionio_tpu_torch.templates import recommendation as prec
 from predictionio_tpu_torch.utils import checkpoint as pckpt
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.workflow.context import EngineContext
-from predictionio_tpu_torch.workflow.deploy import load_deployed_engine
+from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.train import run_train
 
 FACTORY = "predictionio_tpu_torch.templates.recommendation.engine_factory"
@@ -322,6 +322,12 @@ def _ctx(storage):
     return EngineContext(storage=storage, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _model_dir(tmp_path, monkeypatch):
+    """Checkpoints land under the test's own directory."""
+    monkeypatch.setenv("PIO_MODEL_DIR", str(tmp_path))
+
+
 def _jax_train(jax_storage, variant=VARIANT):
     """JAX's template on the same events: read → prepare → train."""
     engine = jrec.engine_factory()
@@ -386,13 +392,12 @@ class TestTemplate:
 
         monkeypatch.setattr(prec.ALSPreparator, "prepare", spy_prepare)
         monkeypatch.setattr(prec, "als_train", with_jax_item0)
-        outcome = run_train(VARIANT, _ctx(port_storage), str(tmp_path / "m"))
+        outcome = run_train(variant=VARIANT, ctx=_ctx(port_storage))
         assert outcome.status == "COMPLETED"
         assert list(outcome.stage_seconds) == ["read", "prepare", "train", "persist"]
 
-        server = create_engine_server(EngineServerConfig(
-            model_dir=str(tmp_path / "m"), ip="127.0.0.1", port=0, device="cpu",
-            engine_factory=FACTORY)).start()
+        server = create_engine_server(port_storage, ServerConfig(
+            ip="127.0.0.1", port=0, device="cpu")).start()
         try:
             for body in ({"user": "u0", "num": 5}, {"user": "u1", "num": 10},
                          {"user": "u4", "num": 3, "blackList": ["i4", "i6"]},
@@ -410,8 +415,9 @@ class TestTemplate:
 
     def test_batch_predict_equals_predict_and_the_rules_hold(self, stores, tmp_path):
         port_storage, _ = stores
-        run_train(VARIANT, _ctx(port_storage), str(tmp_path))
-        deployed = load_deployed_engine(str(tmp_path), engine_factory=FACTORY, device="cpu")
+        outcome = run_train(variant=VARIANT, ctx=_ctx(port_storage))
+        deployed = load_deployed_engine(port_storage, ServerConfig(
+            engine_instance_id=outcome.instance_id, device="cpu"))
         model = deployed.models[0]
         Q = prec.Query
         queries = [Q(user=f"u{u}", num=n) for u, n in zip(range(24), [3, 5, 10, 16] * 6)]
@@ -459,12 +465,12 @@ class TestTemplate:
                 _ctx(port_storage))
         monkeypatch.setenv("PIO_TRAIN_SHARD_FACTORS", "1")
         with pytest.raises(NotImplementedError, match="item 15"):
-            run_train(VARIANT, _ctx(port_storage), str(tmp_path / "a"))
+            run_train(variant=VARIANT, ctx=_ctx(port_storage))
         monkeypatch.delenv("PIO_TRAIN_SHARD_FACTORS")
         empty = memory_storage()
         empty.get_meta_data_apps().insert(App(0, "RecApp"))
         with pytest.raises(ValueError, match="ratings are empty"):
-            run_train(VARIANT, _ctx(empty), str(tmp_path / "b"))
+            run_train(variant=VARIANT, ctx=_ctx(empty))
 
     def test_implicit_training_equals_jax(self, stores):
         """implicitPrefs through both templates, the port started from

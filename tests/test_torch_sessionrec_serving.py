@@ -29,15 +29,12 @@ import torch
 from predictionio_tpu.controller.params import params_from_json as jax_params_from_json
 from predictionio_tpu.core import wire as jax_wire
 from predictionio_tpu.templates import sessionrec as jsess
-from predictionio_tpu_torch.api.engine_server import (
-    EngineServerConfig,
-    create_engine_server,
-)
+from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.controller import EngineParams, params_from_json
 from predictionio_tpu_torch.core import wire
 from predictionio_tpu_torch.models import seqrec
 from predictionio_tpu_torch.templates import sessionrec
-from predictionio_tpu_torch.workflow.deploy import load_deployed_engine
+from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_model_dir
 
 REPO = Path(__file__).resolve().parent.parent
 CYCLE = 10
@@ -73,7 +70,7 @@ def serve(tmp_path):
     def start(model, name="model"):
         model_dir = tmp_path / name
         sessionrec.save_engine_model(model, str(model_dir))
-        srv = create_engine_server(EngineServerConfig(
+        srv = create_engine_server(config=ServerConfig(
             model_dir=str(model_dir), ip="127.0.0.1", port=0, device="cpu")).start()
         servers.append(srv)
         return srv
@@ -242,7 +239,7 @@ class TestModelPersistenceAndDeploy:
         sessionrec.save_engine_model(_port_model(jmodel), str(tmp_path))
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
-            load_deployed_engine(str(tmp_path))
+            load_model_dir(str(tmp_path))
 
     def test_deploy_with_engine_params(self, jax_trained, tmp_path):
         _, jmodel = jax_trained
@@ -250,7 +247,7 @@ class TestModelPersistenceAndDeploy:
         ep = EngineParams.of(algorithms=[("seqrec", sessionrec.AlgorithmParams(d_model=16))])
         ep = dataclasses.replace(
             ep, data_source_params=("", sessionrec.DataSourceParams(app_name="A")))
-        deployed = load_deployed_engine(str(tmp_path), ep, device="cpu")
+        deployed = load_model_dir(str(tmp_path), ep, device="cpu")
         assert deployed.query_class is sessionrec.Query
         out = deployed.query_batch([sessionrec.Query(user="u0", num=2),
                                     sessionrec.Query(user="none")])
@@ -322,7 +319,12 @@ class TestIndependence:
             "want = ['ops.als', 'ops.topk', 'models.als', 'utils.checkpoint',\n"
             "        'templates.recommendation', 'templates.sessionrec', 'models.seqrec',\n"
             "        'controller.metrics', 'controller.evaluation', 'controller.fast_eval',\n"
-            "        'workflow.evaluation']\n"
+            "        'workflow.evaluation', 'core.columns', 'core.aggregation',\n"
+            "        'core.json_codec', 'storage.sqlite', 'storage.localfs',\n"
+            "        'storage.memory', 'storage.registry', 'controller.persistent_model',\n"
+            "        'workflow.persistence', 'workflow.train', 'workflow.deploy',\n"
+            "        'workflow.engine_json', 'tools.export_import', 'cli.pio',\n"
+            "        'api.engine_server', 'data.store']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")

@@ -1,6 +1,7 @@
 """The port's sessionrec training slice on the CPU: events in the port's
-memory event store → ``run_train`` → a model directory →
-``load_deployed_engine`` → queries, held against the JAX package's
+memory event store → ``run_train`` → an engine instance and a checkpoint
+behind its manifest → ``load_deployed_engine`` → queries, held against
+the JAX package's
 template on the same events (read and index exactly; the trained model
 by what it answers, as tests/test_sessionrec_template.py holds the JAX
 one).
@@ -29,7 +30,7 @@ from predictionio_tpu_torch.storage.base import App, Channel
 from predictionio_tpu_torch.storage.registry import Storage, StorageError, memory_storage
 from predictionio_tpu_torch.templates import sessionrec
 from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
-from predictionio_tpu_torch.workflow.deploy import load_deployed_engine
+from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
 N_USERS = 48
@@ -96,6 +97,17 @@ def _ctx(storage, **wp):
     return EngineContext(WorkflowParams(**wp), storage=storage, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _model_dir(tmp_path, monkeypatch):
+    """Checkpoints land under the test's own directory."""
+    monkeypatch.setenv("PIO_MODEL_DIR", str(tmp_path))
+
+
+def _deploy(storage, instance_id):
+    return load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                      device="cpu"))
+
+
 class TestDataSourceVsJax:
     @pytest.mark.parametrize("min_len", [2, 8, 9])
     def test_read_training_equals_jax(self, stores, min_len):
@@ -138,16 +150,19 @@ class TestDataSourceVsJax:
 class TestRunTrainEndToEnd:
     def test_train_deploy_and_query(self, stores, tmp_path):
         port, _ = stores
-        outcome = run_train(variant=VARIANT, ctx=_ctx(port), model_dir=str(tmp_path / "m"))
+        outcome = run_train(variant=VARIANT, ctx=_ctx(port))
         assert outcome.status == "COMPLETED"
         assert list(outcome.stage_seconds) == ["read", "prepare", "train", "persist"]
         assert "train" in format_stage_times(outcome.stage_seconds)
         run = outcome.models[0].train_run
         assert len(run.losses) == 25 * 3 and run.losses[-1] < run.losses[0]
-        assert sorted(p.name for p in (tmp_path / "m").iterdir()) == ["model.json",
-                                                                     "params.npz"]
+        checkpoint = tmp_path / f"seqrec_{outcome.instance_id}_a0"
+        assert sorted(p.name for p in checkpoint.iterdir()) == ["model.json", "params.npz"]
+        instance = port.get_meta_data_engine_instances().get(outcome.instance_id)
+        assert (instance.status, instance.engine_id) == ("COMPLETED", "sess")
 
-        deployed = load_deployed_engine(str(tmp_path / "m"), device="cpu")
+        deployed = _deploy(port, outcome.instance_id)
+        assert deployed.instance == instance
         Query = sessionrec.Query
         # explicit history: ... i3 i4 i5 -> next should be i6
         result = deployed.query(Query(items=("i3", "i4", "i5"), num=3))
@@ -167,11 +182,11 @@ class TestRunTrainEndToEnd:
         variant = dict(VARIANT, algorithms=[
             {"name": "seqrec", "params": small},
             {"name": "seqrec", "params": dict(small, seed=1)}])
-        outcome = run_train(variant=variant, ctx=_ctx(port), model_dir=str(tmp_path))
-        assert sorted(p.name for p in tmp_path.iterdir()) == ["0", "1"]
-        engine = sessionrec.engine_factory()
-        deployed = load_deployed_engine(str(tmp_path), engine.params_from_variant_json(variant),
-                                        device="cpu")
+        outcome = run_train(variant=variant, ctx=_ctx(port))
+        iid = outcome.instance_id
+        assert sorted(p.name for p in tmp_path.iterdir()) == [f"seqrec_{iid}_a0",
+                                                              f"seqrec_{iid}_a1"]
+        deployed = _deploy(port, iid)
         assert len(deployed.models) == 2
         a, b = (m.params["item_emb"] for m in deployed.models)
         assert torch.equal(a, outcome.models[0].params["item_emb"]) and not torch.equal(a, b)
@@ -184,36 +199,41 @@ class TestRunTrainEndToEnd:
         port, _ = stores
         monkeypatch.setattr(sessionrec.SeqRecAlgorithm, "train",
                             lambda *a: pytest.fail("trained after a stop"))
-        outcome = run_train(variant=VARIANT, ctx=_ctx(port, **{flag: True}),
-                            model_dir=str(tmp_path / "m"))
+        outcome = run_train(variant=VARIANT, ctx=_ctx(port, **{flag: True}))
         assert outcome.status == "INTERRUPTED" and outcome.models == []
         assert list(outcome.stage_seconds) == stages
-        assert not (tmp_path / "m").exists()
+        assert not any(tmp_path.iterdir())
+        instance = port.get_meta_data_engine_instances().get(outcome.instance_id)
+        assert instance.status == "INTERRUPTED"
 
     def test_sanity_check_and_missing_app(self, tmp_path):
         storage = _fill(memory_storage(), App, Event, [])
         with pytest.raises(ValueError, match="no user event sequences"):
-            run_train(variant=VARIANT, ctx=_ctx(storage), model_dir=str(tmp_path))
+            run_train(variant=VARIANT, ctx=_ctx(storage))
         outcome = run_train(variant=VARIANT, ctx=_ctx(storage, skip_sanity_check=True,
-                                                       stop_after_read=True),
-                            model_dir=str(tmp_path))
+                                                       stop_after_read=True))
         assert outcome.status == "INTERRUPTED"
         with pytest.raises(AppNotFoundError):
             run_train(variant=dict(VARIANT, datasource={"params": {"app_name": "Nope"}}),
-                      ctx=_ctx(storage), model_dir=str(tmp_path))
+                      ctx=_ctx(storage))
+        statuses = sorted(i.status for i in
+                          storage.get_meta_data_engine_instances().get_all())
+        assert statuses == ["FAILED", "FAILED", "INTERRUPTED"]
 
     def test_model_dir_required_unless_not_saving(self, stores, tmp_path):
+        """Without saving, nothing is checkpointed and the instance's blob
+        holds None: the deploy retrains (on the serving algorithms)."""
         port, _ = stores
-        with pytest.raises(ValueError, match="model_dir"):
-            run_train(variant=VARIANT, ctx=_ctx(port))
         with pytest.raises(ValueError, match="engineFactory"):
             run_train(variant={k: v for k, v in VARIANT.items() if k != "engineFactory"},
-                      ctx=_ctx(port), model_dir=str(tmp_path))
+                      ctx=_ctx(port))
         small = dict(VARIANT, algorithms=[{"name": "seqrec", "params": {
             "d_model": 16, "n_heads": 1, "n_layers": 1, "max_len": 8, "epochs": 1}}])
         outcome = run_train(variant=small, ctx=_ctx(port, save_model=False))
         assert outcome.status == "COMPLETED" and outcome.models[0].train_run.losses
-        assert "persist" in outcome.stage_seconds
+        assert "persist" in outcome.stage_seconds and not any(tmp_path.iterdir())
+        deployed = _deploy(port, outcome.instance_id)
+        assert deployed.models[0].train_run.losses and not any(tmp_path.iterdir())
 
     def test_context_defaults_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -245,16 +265,29 @@ class TestBindingAndStorage:
             sessionrec.engine_factory().params_from_variant_json(
                 {"algorithms": [{"name": "seqrec", "params": {"dmodel": 2}}]})
 
-    @pytest.mark.parametrize("env, match", [
+    @pytest.mark.parametrize("env, want", [
+        ({"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+          "PIO_STORAGE_SOURCES_DB_PATH": "{tmp}/db.sqlite",
+          "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+          "PIO_STORAGE_SOURCES_FS_PATH": "{tmp}/models",
+          "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+          "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+          "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB"}, "db.sqlite"),
+        ({"PIO_FS_BASEDIR": "{tmp}"}, "pio.sqlite"),
         ({"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
-          "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB"}, "item 3"),
-        ({}, "item 3"),
-        ({"PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NOPE"}, "undefined"),
+          "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+          "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NOPE"}, "Undefined"),
     ], ids=["sqlite", "nothing_configured", "undefined_source"])
-    def test_only_memory_sources(self, env, match):
-        with pytest.raises(StorageError, match=match):
-            Storage(env).get_events()
+    def test_only_memory_sources(self, env, want, tmp_path):
+        """sqlite + localfs are ported (configured, or the JAX package's
+        default under PIO_FS_BASEDIR); an undefined source raises."""
+        storage = Storage({k: v.format(tmp=tmp_path) for k, v in env.items()})
+        if want == "Undefined":
+            with pytest.raises(StorageError, match=want):
+                storage.get_events()
+            return
+        assert storage.get_events().init(1) and (tmp_path / want).exists()
 
     def test_memory_store_find_filters_sorts_and_limits(self):
         storage = memory_storage()

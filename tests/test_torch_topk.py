@@ -6,9 +6,11 @@ nothing, the chunked path's empty slots carry -inf and sentinel indices
 >= I, ``allow`` is (I,) or (B, I).
 
 Scores are f32 products of the same inputs on both sides: values agree
-within 1e-5; ``torch.topk`` and ``lax.top_k`` may order equal scores
-differently, so indices are compared where the gap to each neighbour is
-above that tolerance.
+within 1e-5, and on random inputs indices are compared where the gap to
+each neighbour is above that tolerance. Exact ties (``TestTieOrder``:
+duplicated factor rows, an all-equal row, ties across the cut, integer
+factors whose products are exact on both sides) must come back in
+``lax.top_k``'s order: item ids and order equal to JAX's on every path.
 """
 
 from __future__ import annotations
@@ -170,3 +172,145 @@ class TestContracts:
         ptopk.recommend_topk_fused(torch.from_numpy(uv), torch.from_numpy(itf), cols, mask,
                                    torch.ones(4, 200), 5)
         assert calls == []
+
+
+def _tied(B, I, K=6, distinct=7, seed=0):
+    """Integer factors (exact f32 products on both sides) whose item rows
+    repeat every ``distinct`` items: every score ties with many others."""
+    rng = np.random.default_rng(seed)
+    uv = rng.integers(-3, 4, (B, K)).astype(np.float32)
+    itf = rng.integers(-3, 4, (distinct, K)).astype(np.float32)[np.arange(I) % distinct]
+    cols = rng.integers(0, I, (B, 8)).astype(np.int32)
+    mask = (rng.random((B, 8)) < 0.5).astype(np.float32)
+    allow = (rng.random(I) < 0.9).astype(np.float32)
+    return uv, itf, cols, mask, allow
+
+
+def _assert_equal_topk(got, want, value_tol=0.0):
+    """Ids and order equal; values equal (within ``value_tol`` where the
+    two packages round the scores' arithmetic differently)."""
+    (gv, gi), (wv, wi) = got, want
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gv, wv, rtol=value_tol, atol=value_tol)
+
+
+class TestTieOrder:
+    """F1: every top-k path breaks ties as ``lax.top_k`` does."""
+
+    @pytest.mark.parametrize("k", [1, 5, 64, 300])
+    def test_topk_lowest_index_equals_lax_top_k(self, k):
+        rng = np.random.default_rng(3)
+        x = rng.integers(-2, 3, (5, 300)).astype(np.float32)
+        x[0] = 0.0                                        # an all-equal row
+        x[1, [50, 100, 140, 200, 250]] = 9.0              # ties straddling k=4
+        x[2, ::3] = -np.inf
+        x[3, 10], x[3, 20] = -0.0, 0.0                    # +0.0 ranks above -0.0
+        import jax
+
+        got = ptopk.topk_lowest_index(torch.from_numpy(x), k)
+        want = jax.lax.top_k(jnp.asarray(x), k)
+        _assert_equal_topk([t.numpy() for t in got], [np.asarray(a) for a in want])
+        bf = torch.from_numpy(x).to(torch.bfloat16)       # other dtypes keep theirs
+        assert ptopk.topk_lowest_index(bf, 3)[0].dtype == torch.bfloat16
+
+    @pytest.mark.parametrize("allow_2d", [False, True], ids=["allow_1d", "allow_2d"])
+    def test_recommend_topk(self, allow_2d):
+        uv, itf, cols, mask, allow = _tied(4, 500)
+        if allow_2d:
+            allow = np.tile(allow, (4, 1))
+            allow[1, :250] = 0.0
+        for k in (3, 40, 500):
+            _assert_equal_topk(*_both("recommend_topk", uv, itf, cols, mask, allow, k=k))
+
+    @pytest.mark.parametrize("I, chunk", [(5000, 1024), (4096, 1024)],
+                             ids=["overlap_tile", "divides"])
+    def test_recommend_topk_chunked(self, I, chunk):
+        uv, itf, cols, mask, allow = _tied(3, I, distinct=11)
+        allow[:2000] = 0.0                    # ties that the carry meets in later tiles
+        for k in (10, 200):
+            _assert_equal_topk(*_both("recommend_topk_chunked", uv, itf, cols, mask, allow,
+                                      k=k, chunk=chunk))
+
+    def test_chunked_with_few_eligible_keeps_sentinels(self):
+        uv, itf, cols, mask, allow = _tied(2, 5000, distinct=3)
+        allow[:] = 0.0
+        allow[[4, 2500, 4999]] = 1.0
+        _assert_equal_topk(*_both("recommend_topk_chunked", uv, itf, cols, mask * 0, allow,
+                                  k=8, chunk=1024))
+
+    def test_similar_topk(self):
+        uv, itf, cols, mask, allow = _tied(3, 600)
+        # the cosines differ by an ulp between the packages; equal rows tie
+        # exactly within each
+        _assert_equal_topk(*_both("similar_topk", itf[:3], itf, cols[:3], mask[:3], allow,
+                                  k=50), value_tol=1e-6)
+
+    def test_topk_scores(self):
+        x = np.repeat(np.random.default_rng(4).integers(0, 4, (3, 10)), 5, axis=1)
+        got = [t.numpy() for t in ptopk.topk_scores(torch.from_numpy(x.astype(np.float32)), 17)]
+        want = [np.asarray(a) for a in jtopk.topk_scores(jnp.asarray(x.astype(np.float32)), 17)]
+        _assert_equal_topk(got, want)
+
+    def test_predict_topk_batch_equals_jax(self):
+        """A seqrec model (JAX's weights) whose item embeddings repeat:
+        the port's next-item top-k equals ``lax.top_k`` over the port's
+        own logits (equal rows give bitwise-equal logits), ids and order."""
+        import jax
+
+        from predictionio_tpu.models import seqrec as jseqrec
+        from predictionio_tpu_torch.models import seqrec as pseqrec
+
+        jcfg = jseqrec.SeqRecConfig(vocab=61, max_len=16, d_model=32, n_heads=2, n_layers=1,
+                                    dtype=jnp.float32)
+        params = jax.tree_util.tree_map(np.asarray, jseqrec.init_params(jax.random.PRNGKey(0),
+                                                                        jcfg))
+        params["item_emb"] = params["item_emb"][1 + np.arange(61) % 6]
+        model = pseqrec.SeqRec.from_state(
+            pseqrec.SeqRecConfig(vocab=61, max_len=16, d_model=32, n_heads=2, n_layers=1),
+            pseqrec.params_from_jax(params), torch.device("cpu"))
+        hist = torch.from_numpy(np.random.default_rng(5).integers(1, 61, (3, 16)))
+        hist[2, 9:] = 0
+        masks = torch.zeros((3, 61))
+        masks[:, 0] = -1e30
+        got_s, got_i = pseqrec.predict_topk_batch(model, hist, 25, masks)
+        with torch.inference_mode():
+            h = model(hist)
+            last = (hist != 0).sum(1) - 1
+            logits = pseqrec.logits_from_hidden(model, h[torch.arange(3), last]) + masks
+        want_s, want_i = jax.lax.top_k(jnp.asarray(logits.numpy()), 25)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+        assert len(set(got_s[0].tolist())) < 25          # the answer holds ties
+
+    def test_als_probe_900_answers_equal_jax(self):
+        """The re-anchor probe of ROADMAP queue 3's F1: JAX's ALS on 300
+        users × 200 items (items 197-199 rated 5.0 by user 7 only, so
+        they train to equal factor rows), the same factors in both
+        ALSModels, every user at num 10, 50 and 200: all 900 answers
+        equal, ids and order."""
+        from predictionio_tpu.models import als as jmodels
+        from predictionio_tpu.ops import als as jals
+        from predictionio_tpu.utils.bimap import BiMap as JaxBiMap
+        from predictionio_tpu.utils.bimap import EntityIdIxMap as JaxEntityIdIxMap
+        from predictionio_tpu_torch.models import als as pmodels
+
+        rng = np.random.default_rng(1)
+        rows = np.concatenate([rng.integers(0, 300, 4000), [7, 7, 7]]).astype(np.int32)
+        cols = np.concatenate([rng.integers(0, 197, 4000), [197, 198, 199]]).astype(np.int32)
+        vals = np.concatenate([rng.integers(1, 6, 4000), [5, 5, 5]]).astype(np.float32)
+        f = jals.als_train(jals.RatingsCOO(rows, cols, vals, 300, 200), rank=10, iterations=5,
+                           lam=0.05, seed=3)
+        U, V = np.asarray(f.user), np.asarray(f.item)
+        assert np.array_equal(V[197], V[198]) and np.array_equal(V[198], V[199])
+        seen = {int(u): np.unique(cols[rows == u]) for u in np.unique(rows)}
+        uids = {f"u{i}": i for i in range(300)}
+        iids = {f"i{i}": i for i in range(200)}
+        jax_model = jmodels.ALSModel(
+            rank=10, user_factors=jnp.asarray(U), item_factors=jnp.asarray(V),
+            user_ids=JaxEntityIdIxMap(JaxBiMap(uids)), item_ids=JaxEntityIdIxMap(JaxBiMap(iids)),
+            seen_by_user=seen)
+        port_model = pmodels.ALSModel.from_jax(U, V, uids, iids, seen, device="cpu")
+        differ = [(u, n) for u in range(300) for n in (10, 50, 200)
+                  if [i for i, _ in port_model.recommend(f"u{u}", n)]
+                  != [i for i, _ in jax_model.recommend(f"u{u}", n)]]
+        assert differ == []
