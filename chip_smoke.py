@@ -102,12 +102,35 @@ Phases, in order; any failure exits non-zero:
    `similar_topk` and `predict_topk_batch`, each against the host's
    (value desc, index asc) order, and the tie rule's time beside bare
    `torch.topk` at B=1 × 26,744 and B=256 × 2M;
-17. a `kernels` JSON line, then the result line
+17. serving under load: (a) phase 16a's instance behind two `pio deploy`
+   processes, `--batching --batch-max 64` and unbatched, both with
+   `--cache` and `--server-key`; closed-loop clients C in {1, 8, 64} send
+   distinct queries (no level may hit the cache) that mix stored users
+   with `items` sessions of 1 to 2,048 real items (every fifth with a
+   black list): p50, p99 and
+   queries/s per C and mode, the batch-size histogram, the dispatch ms
+   per batch and the queue-wait share; batches above 1 at C >= 8;
+   batched answers against unbatched ones, and the last answer of a
+   batch of each dispatched size (replayed in this process) against the
+   plain attention; (b) the ML-20M-shape model of phase 11, stored as an
+   engine instance, behind the in-process server, batching on and off,
+   at the same C; (c) a
+   repeated-query mix through the cache (hits launch nothing), then
+   `/reload` with the key: the cache generation moves, `/readyz` is 200
+   and the next repeat misses; (d) `X-PIO-Deadline-Ms` 1, then 20, at
+   C=64: 503s with Retry-After and no other error, and at 20 ms queries
+   the dispatcher expired at dequeue; (e) `pio undeploy --server-key`
+   stops both deploy processes with exit code 0. Each deploy process's
+   kernel launches must equal 4 x the sum over dispatched batch sizes n
+   of popcount(n) (4 a query that missed the cache unbatched), and no
+   failed batch may have been retried query by query;
+18. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
-`--als-only`, `--eval-only` and `--pio-only` run phases 9-13, 14-15 and
-16 alone and print no result line. Exits non-zero, printing no result,
-when there is no card.
+`--als-only`, `--eval-only`, `--pio-only` and `--serve-only` run phases
+9-13, 14-15, 16 and 17 alone (17 over 16a's instance and a random
+ML-20M-shape ALS model) and print no result line. Exits non-zero,
+printing no result, when there is no card.
 """
 
 from __future__ import annotations
@@ -136,6 +159,7 @@ from predictionio_tpu_torch.controller import (
     EngineParamsGenerator,
     Evaluation,
     FastEvalEngine,
+    PersistentModelManifest,
 )
 from predictionio_tpu_torch.controller.evaluation import best_json_variant
 from predictionio_tpu_torch.core.datamap import DataMap
@@ -148,7 +172,7 @@ from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
-from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.base import App, EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage, memory_storage
 from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.templates import sessionrec
@@ -156,6 +180,7 @@ from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.evaluation import run_evaluation
+from predictionio_tpu_torch.workflow.persistence import save_models
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
 SEED = 0
@@ -168,6 +193,9 @@ PEAK_BYTES = 3.35e12
 #: step of the output and by the bf16 rounding of P before the PV product
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 8e-3)}  # (atol, rtol)
 SERVING = dict(vocab=50_000, max_len=2048, d_model=256, n_heads=4, n_layers=4)
+#: buckets of batched serving (phase 17) checked and timed with rows of
+#: mixed real length, beside B = 1, 8 and 64 with every key real
+MIXED_BUCKETS = (2, 4, 16, 32)
 #: top-10 agreement, served (kernel) vs plain attention: logits are f32
 #: sums over bf16 hidden states, which differ by bf16 rounding steps
 SCORE_TOL = 0.1
@@ -287,9 +315,24 @@ def profiled_ms(fn, name: str, n: int = 20) -> float | None:
     return total_us / n / 1e3 if total_us > 0 else None
 
 
-def attention_bound_ms(B, H, S, D, dtype, causal) -> tuple[float, str]:
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * D * pairs * B * H                     # QK^T and PV
+def attention_pairs(B, S, causal, kv_mask=None) -> int:
+    """The (query, key) pairs attention needs: each key real under
+    ``kv_mask`` (B, S) and, causal, at or before its query. A key at
+    position j meets the S - j queries from j on."""
+    if kv_mask is None:
+        return B * (S * (S + 1) // 2 if causal else S * S)
+    real = (kv_mask > 0).double()
+    per_key = (S - torch.arange(S, device=real.device, dtype=torch.float64)
+               if causal else torch.full((S,), float(S), device=real.device,
+                                         dtype=torch.float64))
+    return int((real @ per_key).sum().item())
+
+
+def attention_bound_ms(B, H, S, D, dtype, causal, kv_mask=None) -> tuple[float, str]:
+    """The least time of a forward attention: its real pairs (see
+    attention_pairs) at 4·D flops each over the bf16/f32 peak, against
+    q/k/v/o and the mask read or written once over the memory rate."""
+    flops = 4 * D * attention_pairs(B, S, causal, kv_mask) * H   # QK^T and PV
     nbytes = 4 * B * H * S * D * torch.finfo(dtype).bits // 8 + B * S * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -298,6 +341,15 @@ def attention_bound_ms(B, H, S, D, dtype, causal) -> tuple[float, str]:
 def qkv(B, H, S, D, dtype, gen):
     return [torch.randn((B, H, S, D), generator=gen, device=DEVICE).to(dtype)
             for _ in range(3)]
+
+
+def mixed_length_mask(B: int, S: int) -> torch.Tensor:
+    """(B, S) key mask whose rows hold real lengths spread log-evenly
+    over 1..S, right-padded, in a seeded order."""
+    lengths = np.unique(np.geomspace(1, S, B).round().astype(int))
+    lengths = np.resize(lengths, B)
+    np.random.default_rng(SEED + B).shuffle(lengths)
+    return (torch.arange(S)[None, :] < torch.from_numpy(lengths)[:, None]).float().to(DEVICE)
 
 
 def log_card() -> None:
@@ -364,6 +416,12 @@ def phase_kernel_vs_plain() -> float:
         # the sessionrec evaluation's bucket: 64 held-out users, each with
         # a full 2,048-item history (phase 14)
         ("eval bucket (64,4,2048,64) bf16 causal", 64, 4, 2048, 64, torch.bfloat16, True, None),
+    ] + [
+        # the buckets batched serving dispatches (phase 17), each row with
+        # its own real length, right-padded, as served sessions of 1-2,048
+        # items give them
+        (f"serving bucket ({B},4,2048,64) bf16 causal, mixed lengths",
+         B, 4, 2048, 64, torch.bfloat16, True, "mixed") for B in MIXED_BUCKETS
     ]
     serving_err = None
     for label, B, H, S, D, dtype, causal, kind in cases:
@@ -380,6 +438,8 @@ def phase_kernel_vs_plain() -> float:
         elif isinstance(kind, int):
             mask = torch.zeros((B, S), device=DEVICE)
             mask[:, :kind] = 1.0
+        elif kind == "mixed":
+            mask = mixed_length_mask(B, S)
         got = flash_ops.flash_attention(q, k, v, causal=causal, kv_mask=mask)
         want = flash_ops.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
         torch.cuda.synchronize()
@@ -402,17 +462,21 @@ def phase_kernel_vs_plain() -> float:
 
 def phase_times() -> dict:
     """Kernel, plain and library times at B=1, B=8 and B=64 (the
-    evaluation bucket) (S=2048, D=64, bf16, causal, every key real),
+    evaluation bucket) (S=2048, D=64, bf16, causal, every key real), at
+    the serving buckets B in MIXED_BUCKETS with mixed real lengths
+    (the bound counts the pairs of real keys; the kernel computes every
+    causal pair, masked or not, and the log gives both bounds),
     then the B=1 envelope at S=512 and 8192. Returns the serving shape's
     numbers for the kernels line."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     atol, rtol = TOL[torch.bfloat16]
     out = {}
-    for B in (1, 8, 64):
+    for B in sorted((1, 8, 64) + MIXED_BUCKETS):
         H, S, D, dtype = 4, 2048, 64, torch.bfloat16
         q, k, v = qkv(B, H, S, D, dtype, gen)
-        mask = torch.ones((B, S), device=DEVICE)
+        mixed = B in MIXED_BUCKETS
+        mask = mixed_length_mask(B, S) if mixed else torch.ones((B, S), device=DEVICE)
         bool_mask = (mask[:, None, None, :] > 0) & torch.ones(
             (S, S), dtype=torch.bool, device=DEVICE).tril()
         res = torch.empty_like(q)
@@ -426,13 +490,18 @@ def phase_times() -> dict:
             q, k, v, causal=True, kv_mask=mask))
         library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=bool_mask))
         library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
-        bound_ms, bound_by = attention_bound_ms(B, H, S, D, dtype, True)
-        log(f"[time] flash_attention ({B},{H},{S},{D}) bf16 causal, {LAUNCHES_TIMED} launches: "
+        bound_ms, bound_by = attention_bound_ms(B, H, S, D, dtype, True, mask)
+        pairs = attention_pairs(B, S, True, mask)
+        full_ms, full_by = attention_bound_ms(B, H, S, D, dtype, True)
+        log(f"[time] flash_attention ({B},{H},{S},{D}) bf16 causal"
+            f"{', mixed lengths' if mixed else ''}, {LAUNCHES_TIMED} launches: "
             f"kernel_ms={kernel_ms:.4f} "
             f"kernel_device_ms={'not recorded' if device_ms is None else f'{device_ms:.4f}'} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"library_causal_ms={library_causal_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-            f"roofline_share={bound_ms / kernel_ms:.4f}")
+            f"roofline_share={bound_ms / kernel_ms:.4f} real_pairs={pairs} "
+            f"({pairs / attention_pairs(B, S, True):.4f} of causal; every causal pair: "
+            f"bound_ms={full_ms:.5f} ({full_by}))")
         out[B] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                       library_ms=library_ms, library_causal_ms=library_causal_ms)
         del bool_mask
@@ -1240,8 +1309,9 @@ def _same_answer(a, b, tol: float = ALS_SCORE_TOL) -> bool:
                for s in [ia[i] for i in set(ia) - set(ib)] + [ib[i] for i in set(ib) - set(ia)])
 
 
-def phase_als_serving(trained: dict) -> None:
-    """Phase 11: the ML-20M model saved, deployed and queried."""
+def phase_als_serving(trained: dict) -> ALSModel:
+    """Phase 11: the ML-20M model saved, deployed and queried. Returns
+    the model (phase 17b serves it under load)."""
     coo, user, item = trained["coo"], trained["user"], trained["item"]
     n_users, n_items, _ = ML20M
     rng = np.random.default_rng(SEED + 5)
@@ -1317,6 +1387,7 @@ def phase_als_serving(trained: dict) -> None:
             server.stop()
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    return model
 
 
 def phase_topk_envelope() -> None:
@@ -1417,17 +1488,18 @@ def _ml100k_queries(rng) -> list[dict]:
                {"user": "stranger", "num": 10}])
 
 
-def phase_als() -> None:
-    """Phases 9-13."""
+def phase_als() -> ALSModel:
+    """Phases 9-13; returns the ML-20M-shape model phase 11 served."""
     t0 = time.perf_counter()
     trained = phase_als_train()
-    phase_als_serving(trained)
+    model = phase_als_serving(trained)
     del trained
     torch.cuda.empty_cache()
     phase_topk_envelope()
     torch.cuda.empty_cache()
     phase_recommendation_template()
     log(f"[als] phases 9-13 took {time.perf_counter() - t0:.1f}s")
+    return model
 
 
 def _timed_engine(engine: Engine, stages: list, engine_cls: type = Engine) -> Engine:
@@ -1732,15 +1804,19 @@ class _Pio:
         log(f"[{tag}] {out.strip().splitlines()[-1]}")
         return found.group(1)
 
-    def deploy(self, tag: str, engine_json: str):
-        """(the deploy process, its port, seconds to listening)."""
+    def start_deploy(self, tag: str, engine_json: str, *flags: str):
+        """Start `pio deploy` on a free port; (the process, its log path,
+        its start time)."""
         out_path = os.path.join(self.base, f"deploy-{tag}.log")
-        t0 = time.perf_counter()
         with open(out_path, "w") as out:
             proc = subprocess.Popen(
                 self.cmd + ["deploy", "--engine-json", engine_json, "--ip", "127.0.0.1",
-                            "--port", "0", "--device", DEVICE],
+                            "--port", "0", "--device", DEVICE, *flags],
                 cwd=self.base, env=self.env, stdout=out, stderr=subprocess.STDOUT)
+        return proc, out_path, time.perf_counter()
+
+    def wait_listening(self, tag: str, proc, out_path: str, t0: float):
+        """(the deploy process, its port, seconds to listening)."""
         deadline = time.monotonic() + PIO_STEP_TIMEOUT
         while True:
             with open(out_path) as f:
@@ -1755,6 +1831,10 @@ class _Pio:
         seconds = time.perf_counter() - t0
         log(f"[{tag}] pio deploy: listening on :{found.group(1)} after {seconds:.3f}s")
         return proc, int(found.group(1)), seconds
+
+    def deploy(self, tag: str, engine_json: str, *flags: str):
+        """(the deploy process, its port, seconds to listening)."""
+        return self.wait_listening(tag, *self.start_deploy(tag, engine_json, *flags))
 
 
 def _status(port: int) -> dict:
@@ -1819,16 +1899,21 @@ def _kernel_at_deploy(deployed, body: dict) -> dict:
                             "flash_fwd_bf16_wgmma")
     plain_ms = time_ms(lambda: flash_ops.flash_attention_reference(
         q, k, v, causal=True, kv_mask=mask))
-    library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
     B, H, S, D = q.shape
-    bound_ms, bound_by = attention_bound_ms(B, H, S, D, q.dtype, True)
+    bool_mask = (mask[:, None, None, :] > 0) & torch.ones(
+        (S, S), dtype=torch.bool, device=DEVICE).tril()
+    library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=bool_mask))
+    library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+    bound_ms, bound_by = attention_bound_ms(B, H, S, D, q.dtype, True, mask)
     return dict(shape=(B, H, S, D), dtype=str(q.dtype), real_keys=int(mask.sum()),
-                ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
                 library_causal_ms=library_causal_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_pio_sessionrec(pio: _Pio) -> int:
-    """Phase 16a; returns the kernel's launches in the deploy process."""
+def pio_sessionrec_instance(pio: _Pio) -> tuple[str, str, float]:
+    """Phase 16a's stored instance: the events as JSON lines, `pio app
+    new`, `pio import`, `pio train`. Returns (instance id, engine.json
+    path, import seconds)."""
     n_users, length, stride = PIO_SESSION
     t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
     events_path = os.path.join(pio.base, "sessions.jsonl")
@@ -1849,7 +1934,13 @@ def phase_pio_sessionrec(pio: _Pio) -> int:
                    "predictionio_tpu_torch.templates.sessionrec.engine_factory",
                    "datasource": {"params": {"app_name": "SessApp"}},
                    "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}]}, f)
-    instance_id = pio.train("pio-sess", engine_json)
+    return pio.train("pio-sess", engine_json), engine_json, import_s
+
+
+def phase_pio_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
+                         import_s: float) -> int:
+    """Phase 16a; returns the kernel's launches in the deploy process."""
+    n_users = PIO_SESSION[0]
     proc, port, deploy_s = pio.deploy("pio-sess", engine_json)
     try:
         rng = np.random.default_rng(SEED + 11)
@@ -1903,7 +1994,8 @@ def phase_pio_sessionrec(pio: _Pio) -> int:
     log(f"[pio-sess] flash_attention as launched under pio deploy {at['shape']} {at['dtype']} "
         f"causal, {at['real_keys']} real keys, {LAUNCHES_TIMED} launches: "
         f"kernel_ms={at['ms']:.4f} kernel_device_ms={_fmt(at['device_ms'], 4)} "
-        f"plain_ms={at['plain_ms']:.4f} library_causal_ms={at['library_causal_ms']:.4f} "
+        f"plain_ms={at['plain_ms']:.4f} library_ms={at['library_ms']:.4f} "
+        f"library_causal_ms={at['library_causal_ms']:.4f} "
         f"bound_ms={at['bound_ms']:.5f} ({at['bound_by']})")
     log(f"[pio-sess] stages: import {import_s:.3f}s, deploy load {deploy_s:.3f}s, "
         f"http_p50_ms={statistics.median(rtts):.3f}")
@@ -2061,19 +2153,443 @@ def phase_tie_order() -> None:
         torch.cuda.empty_cache()
 
 
-def phase_pio() -> int:
+def phase_pio(pio: _Pio) -> tuple[int, tuple[str, str, float]]:
     """Phase 16; returns the flash kernel's launches in the sessionrec
-    deploy process."""
+    deploy process, and the sessionrec instance (phase 17 serves it)."""
     t0 = time.perf_counter()
-    base = tempfile.mkdtemp(prefix="pio-")
-    try:
-        pio = _Pio(base)
-        launches = phase_pio_sessionrec(pio)
-        phase_pio_recommendation(pio)
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
+    instance = pio_sessionrec_instance(pio)
+    launches = phase_pio_sessionrec(pio, *instance)
+    phase_pio_recommendation(pio)
     phase_tie_order()
     log(f"[pio] phase 16 took {time.perf_counter() - t0:.1f}s")
+    return launches, instance
+
+
+#: phase 17: closed-loop clients in flight, and the queries each level sends
+LOAD_CLIENTS = {1: 32, 8: 128, 64: 256}
+LOAD_BATCH_MAX = 64
+SERVER_KEY = "chip-smoke-key"
+#: batched against unbatched sessionrec answers: the same model, the
+#: same kernel (each row of a bucket is computed as at B=1); only the
+#: GEMMs see B·S rows instead of S, which may round a bf16 hidden value
+#: one step otherwise. Served against the plain attention the scores
+#: differ by 0.003-0.03 (phase 4); a fifth of SCORE_TOL bounds a
+#: rounding step while catching a row mixed up with another
+BATCH_SCORE_TOL = SCORE_TOL / 5
+#: the cache's repeated-query mix: distinct queries, each sent this often
+CACHE_DISTINCT, CACHE_REPEATS = 16, 4
+#: phase 17d: queries sent at C=64 at each budget: 1 ms, which most
+#: queries spend before they reach the batcher's queue, and 20 ms, which
+#: lets them queue behind a batch in flight (a batch of ~50 takes
+#: 80-110 ms), so that the dispatcher expires them at dequeue
+DEADLINE_QUERIES = 128
+DEADLINE_BUDGETS_MS = (1, 20)
+#: phase 17a's warm-up queries (stored user, num), kept out of the levels
+WARM_COMBOS = ((0, 5), (1, 10))
+
+
+def _get(port: int, path: str) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _closed_loop(port: int, bodies: list[dict], clients: int,
+                 headers: dict | None = None) -> tuple[list[tuple], float]:
+    """``clients`` threads, each on its own keep-alive connection, send
+    the next unsent body as soon as their last answer is in. Returns
+    ((status, doc, ms, Retry-After) per body, wall seconds)."""
+    import http.client
+    import itertools
+    import threading
+
+    results: list = [None] * len(bodies)
+    order = itertools.count()
+
+    def client() -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while (i := next(order)) < len(bodies):
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/queries.json", json.dumps(bodies[i]).encode(),
+                                 {"Content-Type": "application/json", **(headers or {})})
+                    resp = conn.getresponse()
+                    doc = json.loads(resp.read() or b"{}")
+                    results[i] = (resp.status, doc, (time.perf_counter() - t0) * 1e3,
+                                  resp.getheader("Retry-After"))
+                except (OSError, http.client.HTTPException) as e:
+                    results[i] = (0, {"message": repr(e)}, (time.perf_counter() - t0) * 1e3,
+                                  None)
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def _quantile(values: list[float], q: float) -> float:
+    return float(np.quantile(np.asarray(values), q))
+
+
+def _hist(stats: dict) -> dict[int, int]:
+    return {int(n): c for n, c in stats["serving"]["batchSizeHistogram"].items()}
+
+
+def _hist_delta(after: dict, before: dict) -> dict[int, int]:
+    a, b = _hist(after), _hist(before)
+    return {n: a[n] - b.get(n, 0) for n in sorted(a) if a[n] != b.get(n, 0)}
+
+
+def _sum_ms(stats: dict, name: str) -> tuple[int, float]:
+    """(count, total ms) of a /stats.json latency summary."""
+    h = stats["serving"][name]
+    return h["count"], h["count"] * (h["meanMs"] or 0.0)
+
+
+def _launches_for(hist: dict[int, int], layers: int) -> int:
+    """Flash launches of sessionrec batches: n_layers per power-of-two
+    bucket, popcount(n) buckets for a batch of n."""
+    return layers * sum(c * bin(n).count("1") for n, c in hist.items())
+
+
+def _retries(stats: dict) -> int:
+    return stats.get("resilience", {}).get("serving/query-batcher", {}).get("fallbacks", 0)
+
+
+def _as_result(doc: dict):
+    return rec.PredictedResult(tuple(rec.ItemScore(s["item"], s["score"])
+                                     for s in doc.get("itemScores", [])))
+
+
+def _drive_level(tag: str, port: int, bodies: list[dict], clients: int,
+                 batched: bool) -> dict:
+    """One closed-loop level of distinct queries; returns its numbers
+    (and the answers). A server with a result cache must hit nothing:
+    a hit would answer without the predict path being compared."""
+    before = _get(port, "/stats.json")[1]
+    results, wall = _closed_loop(port, bodies, clients)
+    after = _get(port, "/stats.json")[1]
+    bad = [(b, r[:2]) for b, r in zip(bodies, results) if r[0] != 200]
+    if bad:
+        fail(f"[{tag}] C={clients}: {len(bad)} queries failed, first {bad[0]}")
+    hits = after["serving"]["cacheHits"] - before["serving"]["cacheHits"]
+    if hits:
+        fail(f"[{tag}] C={clients}: {hits} of the level's distinct queries hit the cache")
+    ms = [r[2] for r in results]
+    row = dict(clients=clients, batching=batched, n=len(bodies),
+               p50_ms=_quantile(ms, 0.5), p99_ms=_quantile(ms, 0.99),
+               qps=len(bodies) / wall, answers=[r[1] for r in results])
+    if batched:
+        (n0, d0), (n1, d1) = _sum_ms(before, "deviceDispatch"), _sum_ms(after, "deviceDispatch")
+        (q0, w0), (q1, w1) = _sum_ms(before, "queueWait"), _sum_ms(after, "queueWait")
+        row.update(hist=_hist_delta(after, before),
+                   dispatch_ms_per_batch=(d1 - d0) / max(1, n1 - n0),
+                   queue_wait_share=(w1 - w0) / sum(ms))
+    log(f"[{tag}] C={clients} batching={'on' if batched else 'off'}: n={len(bodies)} "
+        f"p50_ms={row['p50_ms']:.3f} p99_ms={row['p99_ms']:.3f} qps={row['qps']:.2f}"
+        + (f" batch_hist={row['hist']} dispatch_ms_per_batch="
+           f"{row['dispatch_ms_per_batch']:.3f} queue_wait_share={row['queue_wait_share']:.4f}"
+           if batched else ""))
+    return row
+
+
+def _sess_mix(rng, n: int, combos: list) -> list[dict]:
+    """n distinct sessionrec queries: stored users and `items` sessions
+    in turn, sessions of 1-2,048 real items (log-uniform), every fifth
+    query with a black list."""
+    out = []
+    for j in range(n):
+        if j % 2 == 0:
+            u, num = combos.pop()
+            body = {"user": f"u{u}", "num": num}
+        else:
+            length = int(np.clip(round(math.exp(rng.uniform(0, math.log(2048)))), 1, 2048))
+            body = {"items": [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, length)],
+                    "num": (5, 10, 20)[j % 3]}
+        if j % 5 == 0:
+            body["blackList"] = [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, 20)]
+        out.append(body)
+    return out
+
+
+def _sess_tail(model, body: dict) -> list[int]:
+    if "items" in body:
+        return [model.item_index[i] for i in body["items"]][-model.cfg.max_len:]
+    return model.histories[body["user"]][-model.cfg.max_len:]
+
+
+def _load_table(tag: str, rows: list[dict]) -> None:
+    """The levels' numbers as one JSON line, for PERF.md."""
+    log(f"[{tag}] table " + json.dumps([{k: v for k, v in r.items() if k != "answers"}
+                                        for r in rows]))
+
+
+def _deadline_level(port: int, bodies: list[dict], budget_ms: int, fresh: dict) -> int:
+    """Phase 17d at one budget: the bodies at C=64 under
+    X-PIO-Deadline-Ms; 503s with Retry-After and no other error. Returns
+    the queries the dispatcher expired at dequeue: the `expired` count
+    beyond the 503s whose query was refused before the queue (their
+    message names a budget of 0.000 s), read after ``fresh``, a query
+    the cache does not hold, has queued behind any batch in flight."""
+    expired0 = _get(port, "/stats.json")[1]["serving"]["expired"]
+    results, _ = _closed_loop(port, bodies, 64, {"X-PIO-Deadline-Ms": str(budget_ms)})
+    _closed_loop(port, [fresh], 1)
+    expired = _get(port, "/stats.json")[1]["serving"]["expired"] - expired0
+    codes = sorted({r[0] for r in results})
+    shed = sum(1 for r in results if r[0] == 503 and r[3] is not None)
+    at_submit = sum(1 for r in results if r[0] == 503
+                    and "(0.000s budget)" in r[1].get("message", ""))
+    log(f"[serve-deadline] {len(bodies)} queries at C=64 with X-PIO-Deadline-Ms {budget_ms}: "
+        f"{shed} x 503 with Retry-After, {sum(r[0] == 200 for r in results)} x 200; "
+        f"statuses {codes}; expired {expired}: {at_submit} before the queue, "
+        f"{expired - at_submit} at dequeue")
+    if shed == 0 or set(codes) - {200, 503}:
+        fail(f"[serve-deadline] expected 503s with Retry-After and no other error: {codes}")
+    return expired - at_submit
+
+
+def phase_serve_sessionrec(pio: _Pio, instance: tuple[str, str, float]) -> int:
+    """Phase 17a, c, d, e: phase 16a's instance behind two `pio deploy`
+    processes, batched and unbatched, each with the result cache and the
+    server key. Returns the kernel's launches in both."""
+    instance_id, engine_json, _ = instance
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    procs = {}
+    try:
+        # both processes start together, then report their ports
+        for mode, flags in (("batched", ("--batching", "--batch-max", str(LOAD_BATCH_MAX))),
+                            ("unbatched", ("--no-batching",))):
+            procs[mode] = pio.start_deploy(f"serve-{mode}", engine_json, "--cache",
+                                           "--server-key", SERVER_KEY, *flags)
+        ports = {mode: pio.wait_listening(f"serve-{mode}", *started)[1]
+                 for mode, started in procs.items()}
+        bport, uport = ports["batched"], ports["unbatched"]
+
+        storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+        deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                              device=DEVICE))
+        model = deployed.models[0]
+        rng = np.random.default_rng(SEED + 17)
+        combos = [(u, num) for u in range(PIO_SESSION[0]) for num in (5, 10, 20)
+                  if (u, num) not in WARM_COMBOS]
+        rng.shuffle(combos)
+        for port in (bport, uport):                       # warm-up, outside the levels
+            _closed_loop(port, _sess_mix(np.random.default_rng(SEED + 18), 4,
+                                         list(WARM_COMBOS)), 1)
+
+        # 17a: each level's distinct queries to both servers
+        rows, worst, sizes = [], 0.0, {}
+        for clients, n in LOAD_CLIENTS.items():
+            bodies = _sess_mix(rng, n, combos)
+            off = _drive_level("serve-sess", uport, bodies, clients, False)
+            on = _drive_level("serve-sess", bport, bodies, clients, True)
+            rows += [off, on]
+            if clients >= 8 and max(on["hist"], default=1) <= 1:
+                fail(f"[serve-sess] C={clients}: no batch above 1 was dispatched: {on['hist']}")
+            for body, a, b in zip(bodies, on["answers"], off["answers"]):
+                if len(a["itemScores"]) != body["num"] or not _same_answer(
+                        _as_result(a), _as_result(b), BATCH_SCORE_TOL):
+                    fail(f"[serve-sess] batched and unbatched answers differ: "
+                         f"{json.dumps(body)[:200]}")
+                worst = max([worst] + [abs(x["score"] - y["score"]) for x, y in
+                                       zip(a["itemScores"], b["itemScores"])
+                                       if x["item"] == y["item"]])
+            for size in on["hist"]:
+                sizes.setdefault(size, bodies[:size])
+        _load_table("serve-sess", rows)
+        log(f"[serve-sess] every batched answer agrees with the unbatched one "
+            f"(max score diff {worst:.3e}, tol {BATCH_SCORE_TOL:g})")
+        # the last answer of a batch of each dispatched size, in this
+        # process, against the plain attention
+        agreement = ""
+        for size, bodies in sorted(sizes.items()):
+            queries = [from_wire(sessionrec.Query, b) for b in bodies]
+            last = deployed.query_batch(queries)[-1]
+            body = bodies[-1]
+            agreement = _check_against_plain(
+                model, _sess_tail(model, body),
+                [model.item_index[i] for i in body.get("blackList", [])],
+                [(model.item_index[x.item], x.score) for x in last.item_scores],
+                min(10, body["num"]), f"serve-sess batch of {size}")
+        log(f"[serve-sess] the last answer of a batch of each dispatched size "
+            f"{sorted(sizes)} holds against the plain attention; the last: {agreement}")
+
+        # 17c: the cache, then /reload
+        base = _sess_mix(rng, CACHE_DISTINCT, combos)
+        mix = [base[j % CACHE_DISTINCT] for j in range(CACHE_DISTINCT * CACHE_REPEATS)]
+        rng.shuffle(mix)
+        s0, l0 = _get(bport, "/stats.json")[1], _status(bport)["kernelLaunches"]["flash_attention"]
+        results, _ = _closed_loop(bport, mix, 8)
+        s1, l1 = _get(bport, "/stats.json")[1], _status(bport)["kernelLaunches"]["flash_attention"]
+        hits = s1["serving"]["cacheHits"] - s0["serving"]["cacheHits"]
+        misses = s1["serving"]["cacheMisses"] - s0["serving"]["cacheMisses"]
+        hist = _hist_delta(s1, s0)
+        log(f"[serve-cache] {len(mix)} queries ({CACHE_DISTINCT} distinct) at C=8: hits={hits} "
+            f"misses={misses} hit_ratio={hits / len(mix):.4f} batch_hist={hist} "
+            f"launches={l1 - l0} (expected {_launches_for(hist, layers)})")
+        if any(r[0] != 200 for r in results) or hits == 0 \
+                or l1 - l0 != _launches_for(hist, layers):
+            fail("[serve-cache] the repeated mix failed, hit nothing, or a hit launched")
+        repeat = base[0]
+        before = _status(bport)["kernelLaunches"]["flash_attention"]
+        _closed_loop(bport, [repeat], 1)
+        if _status(bport)["kernelLaunches"]["flash_attention"] != before:
+            fail("[serve-cache] a cache hit launched the kernel")
+        if _get(bport, "/reload")[0] != 401:
+            fail("[serve-cache] /reload without the key was not refused")
+        gen0 = _get(bport, "/stats.json")[1]["cache"]["generation"]
+        status, doc = _get(bport, f"/reload?accessKey={SERVER_KEY}")
+        ready = _get(bport, "/readyz")
+        s2 = _get(bport, "/stats.json")[1]
+        results, _ = _closed_loop(bport, [repeat], 1)
+        s3 = _get(bport, "/stats.json")[1]
+        missed = s3["serving"]["cacheMisses"] - s2["serving"]["cacheMisses"]
+        log(f"[serve-cache] /reload: {status} {doc}; cache generation {gen0} -> "
+            f"{s2['cache']['generation']}; /readyz {ready[0]} {ready[1]}; the next repeat: "
+            f"{'miss' if missed == 1 else 'hit'}")
+        if status != 200 or s2["cache"]["generation"] != gen0 + 1 or ready[0] != 200 \
+                or missed != 1 or results[0][0] != 200:
+            fail("[serve-cache] /reload did not swap, invalidate and come back ready")
+
+        # 17d: tight budgets at C=64; the longer one must reach the queue
+        # and be expired there
+        at_dequeue = [_deadline_level(bport, _sess_mix(rng, DEADLINE_QUERIES, combos), ms,
+                                      _sess_mix(rng, 1, combos)[0])
+                      for ms in DEADLINE_BUDGETS_MS]
+        if not at_dequeue[-1]:
+            fail(f"[serve-deadline] no query expired at dequeue at "
+                 f"{DEADLINE_BUDGETS_MS[-1]} ms")
+
+        # the launch identity and the retries, then 17e: pio undeploy
+        launches = {}
+        for mode, port in (("batched", bport), ("unbatched", uport)):
+            stats, status_doc = _get(port, "/stats.json")[1], _status(port)
+            launches[mode] = status_doc["kernelLaunches"]["flash_attention"]
+            # unbatched, each answered query that missed the cache ran alone
+            expected = (_launches_for(_hist(stats), layers) if mode == "batched"
+                        else layers * (status_doc["requestCount"]
+                                       - stats["serving"]["cacheHits"]))
+            log(f"[serve-sess] {mode}: kernelLaunches.flash_attention={launches[mode]} "
+                f"(expected {expected}); batch retries {_retries(stats)}; "
+                f"batch_hist={_hist(stats)}; requestCount={status_doc['requestCount']}")
+            if launches[mode] != expected or _retries(stats):
+                fail(f"[serve-sess] {mode}: launches {launches[mode]} != {expected}, "
+                     f"or a failed batch was retried ({_retries(stats)})")
+        for mode, port in (("batched", bport), ("unbatched", uport)):
+            pio.run("serve-undeploy", "undeploy", "--ip", "127.0.0.1", "--port", str(port),
+                    "--server-key", SERVER_KEY)
+            code = procs[mode][0].wait(timeout=60)
+            log(f"[serve-undeploy] pio undeploy stopped the {mode} deploy process: "
+                f"exit code {code}")
+            if code != 0:
+                fail(f"[serve-undeploy] the {mode} deploy process exited {code}")
+        del deployed, model
+        torch.cuda.empty_cache()
+        return launches["batched"] + launches["unbatched"]
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                _stop(proc)
+
+
+def random_als_model(n_queries: int = 512) -> ALSModel:
+    """An ALS model at the ML-20M shape from seeded random factors, with
+    seen lists of 10-600 items for the users phase 17b asks about (the
+    model of phase 11 when phases 9-13 did not run)."""
+    n_users, n_items, _ = ML20M
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    rng = np.random.default_rng(SEED + 19)
+    seen = {int(u): np.unique(rng.integers(0, n_items, int(rng.integers(10, 600)))).astype(
+        np.int32) for u in rng.choice(n_users, n_queries, replace=False)}
+    return ALSModel(rank=ALS_RANK,
+                    user_factors=(torch.randn((n_users, ALS_RANK), generator=gen)
+                                  / ALS_RANK ** 0.5).to(DEVICE),
+                    item_factors=(torch.randn((n_items, ALS_RANK), generator=gen)
+                                  / ALS_RANK ** 0.5).to(DEVICE),
+                    user_ids=EntityIdIxMap(BiMap({f"u{i}": i for i in range(n_users)})),
+                    item_ids=EntityIdIxMap(BiMap({f"i{i}": i for i in range(n_items)})),
+                    seen_by_user=seen)
+
+
+def _store_als_instance(storage, model: ALSModel, location: str) -> str:
+    """``model`` as a COMPLETED recommendation engine instance in
+    ``storage``: the model saved at ``location``, a manifest of it as the
+    instance's model blob. Returns the instance id."""
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    instance_id = storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status="COMPLETED", start_time=t0, completion_time=t0, engine_id="ml20m",
+        engine_version="1", engine_variant="ml20m", engine_factory=REC_FACTORY,
+        algorithms_params=json.dumps([{"name": "als", "params": {"rank": ALS_RANK}}])))
+    model.save(location)
+    save_models(storage, instance_id, [PersistentModelManifest(
+        "predictionio_tpu_torch.templates.recommendation.ALSAlgorithm", location)])
+    return instance_id
+
+
+def phase_serve_als(model: ALSModel) -> None:
+    """Phase 17b: the ML-20M-shape model, stored as an engine instance,
+    behind the in-process server, batching on and off, at the same
+    client counts (server and clients share this process)."""
+    from predictionio_tpu_torch.utils.resilience import registry_snapshot
+
+    n_items = model.item_factors.shape[0]
+    users = sorted(model.seen_by_user)
+    rng = np.random.default_rng(SEED + 20)
+    model_dir = tempfile.mkdtemp(prefix="als-serve-")
+    servers = []
+    try:
+        storage = memory_storage()
+        instance_id = _store_als_instance(storage, model, model_dir)
+        for batching in (True, False):
+            servers.append(create_engine_server(storage, _local(
+                engine_instance_id=instance_id, batching=batching,
+                batch_max=LOAD_BATCH_MAX)).start())
+        on, off = (s.port for s in servers)
+        for port in (on, off):
+            _closed_loop(port, [{"user": f"u{users[0]}", "num": 10}], 1)
+        rows = []
+        for clients, n in LOAD_CLIENTS.items():
+            bodies = []
+            for j in range(n):
+                body = {"user": f"u{rng.choice(users)}", "num": (10, 20, 100)[j % 3]}
+                if j % 5 == 0:
+                    body["blackList"] = [f"i{i}" for i in rng.integers(0, n_items, 20)]
+                bodies.append(body)
+            a = _drive_level("serve-als", off, bodies, clients, False)
+            b = _drive_level("serve-als", on, bodies, clients, True)
+            rows += [a, b]
+            differ = [body for body, x, y in zip(bodies, b["answers"], a["answers"])
+                      if not _same_answer(_as_result(x), _as_result(y))]
+            if differ:
+                fail(f"[serve-als] batched and unbatched answers differ for {differ[:3]}")
+        _load_table("serve-als", rows)
+        retries = registry_snapshot().get("serving/query-batcher", {}).get("fallbacks", 0)
+        log(f"[serve-als] every batched answer equals the unbatched one (tol "
+            f"{ALS_SCORE_TOL:g}); batch retries {retries}")
+        if retries:
+            fail(f"[serve-als] {retries} failed batches were retried query by query")
+    finally:
+        for server in servers:
+            server.stop()
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def phase_serve(pio: _Pio, instance: tuple[str, str, float], als_model: ALSModel) -> int:
+    """Phase 17; returns the flash kernel's launches in its deploy processes."""
+    t0 = time.perf_counter()
+    launches = phase_serve_sessionrec(pio, instance)
+    phase_serve_als(als_model)
+    log(f"[serve] phase 17 took {time.perf_counter() - t0:.1f}s")
     return launches
 
 
@@ -2100,9 +2616,15 @@ def run_phases(wall: float) -> None:
         phase_eval_sessionrec()
         phase_eval_recommendation()
         return
-    if sys.argv[1:] == ["--pio-only"]:   # phase 16 alone; prints no result line
-        log_card()
-        phase_pio()
+    if sys.argv[1:] in (["--pio-only"], ["--serve-only"]):
+        # phase 16, or phase 17 over 16a's instance, alone; no result line
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            if sys.argv[1] == "--pio-only":
+                phase_pio(pio)
+            else:
+                phase_serve(pio, pio_sessionrec_instance(pio), random_als_model())
         return
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
@@ -2115,7 +2637,7 @@ def run_phases(wall: float) -> None:
         fail("serving the trained model never launched the flash_attention kernel")
     launches += trained_launches
     flash_ops.LAUNCHES = 0
-    phase_als()
+    als_model = phase_als()
     if flash_ops.LAUNCHES:
         fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
     torch.cuda.empty_cache()
@@ -2128,9 +2650,16 @@ def run_phases(wall: float) -> None:
         fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
     log(f"[eval] phases 14-15 took {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
-    # the launches of phase 16 happen in the `pio deploy` process, which
-    # reports them on its GET /
-    launches += phase_pio()
+    # the launches of phases 16 and 17 happen in `pio deploy` processes,
+    # which report them on their GET /
+    with tempfile.TemporaryDirectory(prefix="pio-") as base:
+        pio = _Pio(base)
+        pio_launches, instance = phase_pio(pio)
+        launches += pio_launches
+        serve_launches = phase_serve(pio, instance, als_model)
+        if serve_launches == 0:
+            fail("batched serving never launched the flash_attention kernel")
+        launches += serve_launches
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

@@ -22,6 +22,12 @@ device-resident slabs) → ``models/als.ALSModel`` (brute-force masked
 top-k, ``ops/topk.py``), saved with the npz checkpoint of
 ``utils/checkpoint.py``. The JAX package runs this path as XLA programs;
 the port runs it as torch code, with no hand-written kernel.
+
+Both deploy behind ``api/engine_server.py``, the JAX package's serving
+layer: the micro-batcher (``serving/batcher.py``, one
+``DeployedEngine.query_batch`` per batch), the result cache
+(``serving/result_cache.py``), plugins, ``/reload``, ``/readyz``,
+``/stats.json`` and request deadlines.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,47 @@
-"""Engine server: the REST face of a deployed engine (port of the query
-path of the JAX package's ``api/engine_server.py``, without its cache,
-batcher or plugins).
+"""Engine server: the REST face of a deployed engine (port of the JAX
+package's ``api/engine_server.py``: ``EngineService``, the transport-free
+request logic, under ``EngineServer``, its HTTP lifecycle).
 
 Routes:
 
-- ``POST /queries.json``: bind the JSON body to the engine's query
-  class → ``DeployedEngine.query`` → the prediction as camelCase JSON
-  (``{"itemScores": [{"item": ..., "score": ...}]}`` for sessionrec and
-  recommendation);
-- ``GET /``: status: the engine instance id and the flash-attention
-  kernel's launch count in this process;
-- ``GET /healthz``.
+- ``POST /queries.json``: bind the JSON body to the engine's query class
+  → the canonical key → a result-cache lookup → the micro-batcher, or
+  the deadline pool, or a direct ``DeployedEngine.query`` → output
+  blockers (a raising blocker answers 403) and sniffers → camelCase JSON
+  → the experiment attribution headers echoed; a blown deadline or
+  unavailable storage answers 503 with ``Retry-After``;
+- ``GET /``: status: the engine instance, request bookkeeping, the
+  batcher's counters and policy, and the flash-attention kernel's launch
+  count in this process (``kernelLaunches``);
+- ``GET /healthz``; ``GET /readyz`` (a deployed model and reachable
+  storage; 503 "reloading" during a ``/reload``);
+- ``GET /stats.json``: the batch-size histogram, the queue-wait and
+  device-dispatch histograms, the cache counters, resilience counters;
+- ``GET /plugins.json``;
+- ``GET|POST /reload``: swap to the latest COMPLETED instance, then
+  invalidate the cache; a failed reload keeps serving the last-known-good
+  instance (503); ``POST /stop``. Both need ``?accessKey=<server_key>``
+  when ``ServerConfig.server_key`` is set.
 
-Queries are answered one at a time (one device, and a launch count that
-must add up): the HTTP threads overlap parsing and encoding only.
+Port-specific decisions:
+
+- **Unbatched mode answers one query at a time** (a lock around
+  ``DeployedEngine.query``), where the JAX server answers concurrently:
+  one device, and a kernel launch count that must add up. Under a
+  deadline the query waits for the lock on a pool thread; one whose
+  budget ran out while it waited is not run (counted as ``expired``).
+- **Batched mode: the batcher's dispatcher thread is the only caller of
+  the device.**
+- **A failed batch is retried query by query**, as in the JAX package,
+  and each retry is counted under ``resilience["serving/query-batcher"]
+  ["fallbacks"]`` in ``/stats.json``; ``chip_smoke.py`` fails on any, so
+  a kernel failing at B > 1 cannot hide behind B = 1 retries.
+- ``GET /`` is JSON only (no HTML page).
+
+Left to later slices (ROADMAP.md queue 1): the feedback loop (item 22);
+``--workers``, the shared-memory cache and ``/drain`` (item 23);
+``/retrieval`` (item 10); ``--online`` (item 11); ``/metrics``,
+``/traces.json`` and compile accounting (item 12).
 
 The server deploys a stored engine instance (``pio deploy``,
 ``workflow/deploy.load_deployed_engine``) or a model directory: ``python
@@ -24,17 +52,53 @@ template).
 
 from __future__ import annotations
 
+import abc
 import argparse
+import contextlib
+import contextvars
+import dataclasses
 import json
 import logging
+import queue
 import signal
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any
+import time
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeoutError
+from http.server import BaseHTTPRequestHandler
+from typing import Any, Mapping
+from urllib.parse import parse_qs, urlparse
 
-from predictionio_tpu_torch.core.wire import from_wire, to_wire
+from predictionio_tpu_torch.api.http_base import (
+    REQUEST_ID_HEADER,
+    RestServer,
+    access_log_enabled,
+    bounded_probe,
+    emit_access_log,
+    ensure_access_log_handler,
+    parse_deadline_budget,
+    resolve_request_id,
+    retry_after_header,
+    undeploy,
+)
+from predictionio_tpu_torch.api.stats import ServingStats, resilience_snapshot
+from predictionio_tpu_torch.core.json_codec import (
+    canonical_json,
+    compile_wire_decoder,
+    encode_wire,
+)
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
+from predictionio_tpu_torch.serving.batch_policy import make_batch_policy
+from predictionio_tpu_torch.serving.batcher import QueryBatcher, QueryDeadlineExceeded
+from predictionio_tpu_torch.serving.result_cache import ResultCache
 from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.utils.resilience import (
+    STORAGE_UNAVAILABLE_ERRORS,
+    deadline_scope,
+    record_fallback,
+    retry_after_hint,
+)
+from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.deploy import (
     DEFAULT_ENGINE_FACTORY,
     DeployedEngine,
@@ -44,140 +108,552 @@ from predictionio_tpu_torch.workflow.deploy import (
 
 logger = logging.getLogger(__name__)
 
+OUTPUT_BLOCKER = "outputblocker"
+OUTPUT_SNIFFER = "outputsniffer"
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryInfo:
+    """What engine-server plugins observe per query."""
+    query: Any
+    prediction: Any
+    engine_instance_id: str
+
+
+class EngineServerPlugin(abc.ABC):
+    """Output blockers run synchronously and may transform (or reject, by
+    raising) the prediction; sniffers observe on a worker thread."""
+
+    plugin_name: str = "plugin"
+    plugin_description: str = ""
+    plugin_type: str = OUTPUT_SNIFFER
+
+    @abc.abstractmethod
+    def process(self, info: QueryInfo, context: "EngineServerPluginContext") -> Any:
+        """Blockers return the (possibly transformed) prediction."""
+
+
+class EngineServerPluginContext:
+    """The plugins of one server; sniffer notifications drain on one
+    daemon thread, off the serving path."""
+
+    def __init__(self, plugins: list[EngineServerPlugin] | None = None):
+        plugins = list(plugins or [])
+        self.output_blockers = {
+            p.plugin_name: p for p in plugins if p.plugin_type == OUTPUT_BLOCKER}
+        self.output_sniffers = {
+            p.plugin_name: p for p in plugins if p.plugin_type == OUTPUT_SNIFFER}
+        self._queue: queue.Queue[QueryInfo | None] = queue.Queue()
+        self._worker: threading.Thread | None = None
+        if self.output_sniffers:
+            self._worker = threading.Thread(target=self._drain, name="pio-output-sniffers",
+                                            daemon=True)
+            self._worker.start()
+
+    def run_blockers(self, info: QueryInfo) -> Any:
+        """Fold the prediction through every blocker. An exception
+        propagates and rejects the query."""
+        prediction = info.prediction
+        for blocker in self.output_blockers.values():
+            prediction = blocker.process(dataclasses.replace(info, prediction=prediction), self)
+        return prediction
+
+    def notify_sniffers(self, info: QueryInfo) -> None:
+        if self._worker is not None:
+            self._queue.put(info)
+
+    def _drain(self) -> None:
+        while True:
+            info = self._queue.get()
+            if info is None:
+                return
+            for sniffer in self.output_sniffers.values():
+                try:
+                    sniffer.process(info, self)
+                except Exception:
+                    logger.exception("output sniffer %s failed", sniffer.plugin_name)
+
+    def close(self) -> None:
+        if self._worker is not None:
+            self._queue.put(None)
+            self._worker.join(timeout=5)
+            self._worker = None
+
+    def describe(self) -> dict:
+        def block(plugins: dict[str, EngineServerPlugin]) -> dict:
+            return {name: {"name": p.plugin_name, "description": p.plugin_description,
+                           "class": type(p).__qualname__}
+                    for name, p in plugins.items()}
+
+        return {"plugins": {"outputblockers": block(self.output_blockers),
+                            "outputsniffers": block(self.output_sniffers)}}
+
 
 class _Reject(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str, headers: dict[str, str] | None = None):
         super().__init__(message)
         self.status = status
+        self.message = message
+        self.headers = headers
 
 
-class EngineServer:
-    def __init__(self, deployed: DeployedEngine, config: ServerConfig):
+class EngineService:
+    """Transport-free request logic: ``handle`` returns ``(status,
+    payload)`` or ``(status, payload, headers)``."""
+
+    def __init__(
+        self,
+        deployed: DeployedEngine,
+        config: ServerConfig | None = None,
+        storage: Storage | None = None,
+        ctx: EngineContext | None = None,
+        plugin_context: EngineServerPluginContext | None = None,
+    ):
+        config = config if config is not None else ServerConfig()
         self.deployed = deployed
         self.config = config
+        self.storage = storage
+        self.ctx = ctx
+        self.plugins = plugin_context or EngineServerPluginContext()
+        #: set by the HTTP wrapper: called on an authorized POST /stop,
+        #: and the count of clients gone mid-request
+        self.on_stop = lambda: None
+        self.client_disconnects = lambda: 0
+        #: one counter set shared by the batcher and the cache
+        self.serving_stats = ServingStats()
+        self.cache = (ResultCache(max_entries=config.cache_max_entries,
+                                  ttl_s=config.cache_ttl_s, stats=self.serving_stats)
+                      if config.cache_enabled else None)
+        self.batcher = (QueryBatcher(lambda: self.deployed,
+                                     policy=make_batch_policy(config.batch_policy,
+                                                              config.batch_max,
+                                                              config.batch_wait_ms),
+                                     stats=self.serving_stats)
+                        if config.batching else None)
+        self._query_decoder = self._decoder_for(deployed)
+        self.access_log = access_log_enabled()
+        if self.access_log:
+            ensure_access_log_handler()
+        #: unbatched mode: one query on the device at a time
         self._predict_lock = threading.Lock()
-        self._httpd: ThreadingHTTPServer | None = None
-        self._thread: threading.Thread | None = None
+        #: unbatched mode under a deadline: the query waits for the lock
+        #: on a pool thread, so a blown budget answers 503 at once
+        self._query_pool = ThreadPoolExecutor(max_workers=64,
+                                              thread_name_prefix="pio-query-deadline")
+        #: /reload in flight: /readyz answers 503 "reloading" meanwhile
+        self._reload_lock = threading.Lock()
+        self._reloads_in_flight = 0
 
-    @property
-    def port(self) -> int:
-        if self._httpd is None:
-            raise RuntimeError("server not started")
-        return self._httpd.server_address[1]
+    @staticmethod
+    def _decoder_for(deployed: DeployedEngine):
+        qc = deployed.query_class
+        return compile_wire_decoder(qc) if qc is not None else None
 
-    def status_doc(self) -> dict[str, Any]:
+    def close(self) -> None:
+        if self.batcher is not None:
+            self.batcher.close()
+        self._query_pool.shutdown(wait=False)
+        self.plugins.close()
+
+    def _check_server_key(self, params: Mapping[str, str]) -> None:
+        if self.config.server_key is None:
+            return
+        if params.get("accessKey") != self.config.server_key:
+            raise _Reject(401, "invalid accessKey")
+
+    def handle(self, method: str, path: str, params: Mapping[str, str],
+               headers: Mapping[str, str], body: Any) -> tuple:
+        try:
+            if method == "GET" and path == "/":
+                return (200, self.status_doc())
+            if method == "POST" and path == "/queries.json":
+                return self.handle_query(body, headers)
+            if method == "GET" and path == "/plugins.json":
+                return (200, self.plugins.describe())
+            if method == "GET" and path == "/stats.json":
+                return (200, self.stats_doc())
+            if method == "GET" and path == "/healthz":
+                return (200, {"status": "ok"})
+            if method == "GET" and path == "/readyz":
+                return self.readyz()
+            if path == "/reload" and method in ("GET", "POST"):
+                self._check_server_key(params)
+                try:
+                    self.reload()
+                except LookupError as e:
+                    raise _Reject(404, str(e))
+                except Exception as e:
+                    # the last-known-good instance stays deployed
+                    keep = self.deployed.instance_id
+                    logger.exception("reload failed; still serving instance %s", keep)
+                    record_fallback("serving/reload")
+                    raise _Reject(503, f"reload failed ({e}); still serving instance {keep}",
+                                  {"Retry-After": retry_after_header(retry_after_hint(e))})
+                return (200, {"message": "Reloading"})
+            if method == "POST" and path == "/stop":
+                self._check_server_key(params)
+                threading.Thread(target=self.on_stop, daemon=True).start()
+                return (200, {"message": "Shutting down"})
+            return (404, {"message": f"no route for {method} {path}"})
+        except _Reject as r:
+            if r.headers:
+                return (r.status, {"message": r.message}, r.headers)
+            return (r.status, {"message": r.message})
+        except STORAGE_UNAVAILABLE_ERRORS as e:
+            logger.warning("storage unavailable in %s %s: %s", method, path, e)
+            return (503, {"message": f"storage unavailable: {e}"},
+                    {"Retry-After": retry_after_header(retry_after_hint(e))})
+        except Exception as e:
+            logger.exception("unhandled error in %s %s", method, path)
+            return (500, {"message": f"internal error: {e}"})
+
+    def readyz(self) -> tuple:
+        """A deployed model and reachable storage; 503 with
+        ``Retry-After`` otherwise, and while a /reload swaps models."""
+        with self._reload_lock:
+            reloading = self._reloads_in_flight > 0
+        if reloading:
+            return (503, {"status": "reloading", "model": self.deployed.instance_id},
+                    {"Retry-After": retry_after_header(1.0)})
+        checks = {"model": self.deployed.instance_id}
+        ready = True
+        if self.storage is not None:
+            def probe() -> None:
+                with deadline_scope(1.0):
+                    self.storage.get_meta_data_engine_instances().get(checks["model"])
+
+            err = bounded_probe(probe, timeout=1.0)
+            if err is None:
+                checks["storage"] = "ok"
+            else:
+                checks["storage"] = f"unavailable: {err}"
+                ready = False
+        else:
+            checks["storage"] = "skipped"
+        if ready:
+            return (200, {"status": "ready", **checks})
+        return (503, {"status": "unavailable", **checks},
+                {"Retry-After": retry_after_header(1.0)})
+
+    def status_doc(self) -> dict:
+        """GET /: the JAX server's status fields, plus the device and the
+        flash kernel's launches in this process."""
         d = self.deployed
+        inst = d.instance
         return {
             "status": "alive",
             "engineInstanceId": d.instance_id,
-            "engineFactory": (d.instance.engine_factory if d.instance is not None
+            "engineFactory": (inst.engine_factory if inst is not None
                               else self.config.engine_factory),
-            "device": str(d.device),
+            "engineVariant": inst.engine_variant if inst is not None else None,
             "startTime": d.start_time,
+            "algorithms": [type(a).__name__ for a in d.algorithms],
+            "serving": type(d.serving).__name__,
+            "device": str(d.device),
             "requestCount": d.request_count,
             "avgServingSec": d.avg_serving_sec,
             "lastServingSec": d.last_serving_sec,
+            "clientDisconnects": self.client_disconnects(),
             "kernelLaunches": {"flash_attention": flash_ops.LAUNCHES},
+            **({"batching": {
+                "batches": self.batcher.batches,
+                "batchedQueries": self.batcher.batched_queries,
+                "batchWaitMs": self.config.batch_wait_ms,
+                **self.batcher.policy.snapshot(),
+            }} if self.batcher is not None else {}),
+            **({"resilience": snap} if (snap := resilience_snapshot()) else {}),
         }
 
-    def handle_query(self, body: Any) -> dict[str, Any]:
-        if not isinstance(body, dict):
-            raise _Reject(400, "the request body must be a JSON object")
-        qc = self.deployed.query_class
+    def stats_doc(self) -> dict:
+        """GET /stats.json: the serving hot path's counters, each read
+        under its own lock."""
+        d = self.deployed
+        return {
+            "engineInstanceId": d.instance_id,
+            "requestCount": d.request_count,
+            "avgServingSec": d.avg_serving_sec,
+            "lastServingSec": d.last_serving_sec,
+            "clientDisconnects": self.client_disconnects(),
+            "serving": self.serving_stats.snapshot(),
+            "batching": ({"enabled": True, **self.batcher.policy.snapshot()}
+                         if self.batcher is not None else {"enabled": False}),
+            "cache": ({"enabled": True, **self.cache.snapshot()}
+                      if self.cache is not None else {"enabled": False}),
+            **({"resilience": snap} if (snap := resilience_snapshot()) else {}),
+        }
+
+    def _deadline_budget(self, headers: Mapping[str, str]) -> float | None:
+        """Seconds of budget: ``request_deadline_ms``, which an
+        X-PIO-Deadline-Ms header may only tighten; a malformed header is
+        a 400."""
         try:
-            query = from_wire(qc, body) if qc is not None else body
+            return parse_deadline_budget(self.config.request_deadline_ms, headers)
+        except ValueError as exc:
+            raise _Reject(400, str(exc))
+
+    def handle_query(self, body: Any, headers: Mapping[str, str] = {}) -> tuple[int, Any]:
+        """POST /queries.json."""
+        if body is None or not isinstance(body, dict):
+            raise _Reject(400, "the request body must be a JSON object")
+        # prId is feedback-loop metadata, not a query field
+        body = dict(body)
+        body.pop("prId", None)
+        decoder = self._query_decoder
+        try:
+            query = decoder(body) if decoder is not None else body
         except (ValueError, TypeError) as e:
             raise _Reject(400, f"invalid query: {e}")
+
+        budget = self._deadline_budget(headers)
+        # one key serves the cache and the batcher's dedup pass: the
+        # bound query's wire form, so camelCase and snake_case spellings
+        # of one query share it
+        key = (canonical_json(encode_wire(query))
+               if (self.cache is not None or self.batcher is not None) else None)
+        hit, generation = False, None
+        if self.cache is not None:
+            t0 = time.perf_counter()
+            hit, cached, generation = self.cache.lookup(key)
+        if hit:
+            prediction = cached
+            # a hit is an answered query
+            self.deployed.record_served(time.perf_counter() - t0)
+        else:
+            try:
+                with (deadline_scope(budget) if budget is not None
+                      else contextlib.nullcontext()):
+                    if self.batcher is not None:
+                        prediction = self.batcher.submit(
+                            query, timeout=budget if budget is not None else 300.0, key=key)
+                    elif budget is not None:
+                        prediction = self._query_with_deadline(query, budget)
+                    else:
+                        with self._predict_lock:
+                            prediction = self.deployed.query(query)
+            except QueryDeadlineExceeded as e:
+                raise _Reject(503, str(e), {"Retry-After": retry_after_header(1.0)})
+            except STORAGE_UNAVAILABLE_ERRORS as e:
+                logger.warning("query failed on unavailable storage: %s", e)
+                raise _Reject(503, f"storage unavailable: {e}",
+                              {"Retry-After": retry_after_header(retry_after_hint(e))})
+            except Exception as e:
+                logger.exception("query failed")
+                raise _Reject(500, f"query failed: {e}")
+            if self.cache is not None:
+                # a result computed against a model that /reload swapped
+                # out meanwhile is dropped, not cached
+                self.cache.put(key, prediction, generation=generation)
+
+        info = QueryInfo(query=query, prediction=prediction,
+                         engine_instance_id=self.deployed.instance_id)
         try:
-            with self._predict_lock:
-                prediction = self.deployed.query(query)
+            prediction = self.plugins.run_blockers(info)
         except Exception as e:
-            logger.exception("query failed")
-            raise _Reject(500, f"query failed: {e}")
-        response = to_wire(prediction)
-        return response if isinstance(response, dict) else {"result": response}
+            logger.warning("output blocker rejected query: %s", e)
+            raise _Reject(403, f"prediction rejected: {e}")
+        self.plugins.notify_sniffers(info)
 
-    def _handler(self) -> type[BaseHTTPRequestHandler]:
-        server = self
+        response = encode_wire(prediction)
+        if not isinstance(response, dict):
+            response = {"result": response}
+        # experiment attribution: the router stamps the assigned variant
+        # on the request; echo it for the client's conversion events
+        experiment_id = headers.get("x-pio-experiment")
+        if experiment_id:
+            response.update({"experimentId": experiment_id,
+                             "variantId": headers.get("x-pio-variant", "")})
+        return (200, response)
 
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
+    def _query_with_deadline(self, query: Any, budget: float) -> Any:
+        """The unbatched predict under a budget: the query waits for the
+        lock on a pool thread (this request's contextvars copied, so the
+        deadline reaches storage), and is not run if its budget ran out
+        meanwhile; a wait past the budget answers 503."""
+        deadline = time.monotonic() + budget
 
-            def _send(self, status: int, doc: Any) -> None:
-                data = json.dumps(doc).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json; charset=utf-8")
-                self.send_header("Content-Length", str(len(data)))
-                self.end_headers()
-                self.wfile.write(data)
+        def run() -> Any:
+            with self._predict_lock:
+                if time.monotonic() >= deadline:
+                    self.serving_stats.bump("expired")
+                    raise QueryDeadlineExceeded(budget)
+                return self.deployed.query(query)
 
-            def do_GET(self):
-                path = self.path.split("?", 1)[0]
-                if path == "/":
-                    self._send(200, server.status_doc())
-                elif path == "/healthz":
-                    self._send(200, {"status": "ok"})
-                else:
-                    self._send(404, {"message": f"no route {path}"})
+        fut = self._query_pool.submit(contextvars.copy_context().run, run)
+        try:
+            return fut.result(timeout=budget)
+        except FuturesTimeoutError:
+            if not fut.done():
+                fut.cancel()
+                raise QueryDeadlineExceeded(budget) from None
+            raise  # the work itself raised a TimeoutError
 
-            def do_POST(self):
-                path = self.path.split("?", 1)[0]
-                length = int(self.headers.get("Content-Length") or 0)
-                raw = self.rfile.read(length) if length else b""
-                if path != "/queries.json":
-                    self._send(404, {"message": f"no route {path}"})
-                    return
-                try:
-                    try:
-                        body = json.loads(raw or b"null")
-                    except ValueError as e:
-                        raise _Reject(400, f"invalid JSON: {e}")
-                    self._send(200, server.handle_query(body))
-                except _Reject as r:
-                    self._send(r.status, {"message": str(r)})
+    def reload(self) -> None:
+        """Swap to the latest COMPLETED instance, then invalidate the
+        cache. /readyz answers 503 "reloading" meanwhile; on failure the
+        old instance keeps serving and the caller answers 503."""
+        with self._reload_lock:
+            self._reloads_in_flight += 1
+        try:
+            new = load_deployed_engine(
+                storage=self.storage,
+                config=dataclasses.replace(self.config, engine_instance_id=None),
+                ctx=self.ctx, engine=self.deployed.engine)
+            old_id = self.deployed.instance_id
+            self.deployed = new
+            self._query_decoder = self._decoder_for(new)
+            if self.cache is not None:
+                # after the swap: entries of the old model die with its
+                # generation; a failed reload never gets here
+                self.cache.invalidate()
+            logger.info("reloaded: instance %s -> %s", old_id, new.instance_id)
+        finally:
+            with self._reload_lock:
+                self._reloads_in_flight -= 1
 
-            def log_message(self, fmt, *args):
-                logger.debug("%s - %s", self.address_string(), fmt % args)
 
-        return Handler
+class _Handler(BaseHTTPRequestHandler):
+    service: EngineService  # bound per server
 
-    def start(self) -> "EngineServer":
-        if self._httpd is not None:
-            raise RuntimeError("server already started")
-        self._httpd = ThreadingHTTPServer((self.config.ip, self.config.port), self._handler())
-        self._httpd.daemon_threads = True
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        name="engine-server", daemon=True)
-        self._thread.start()
-        logger.info("engine server on %s:%d", self.config.ip, self.port)
-        return self
+    # HTTP/1.1 keep-alive: one long-lived handler thread per connection
+    # instead of a TCP connect and a thread per request; every response
+    # carries Content-Length
+    protocol_version = "HTTP/1.1"
+    # an idle keep-alive connection is hung up on after this, instead of
+    # pinning its thread for the life of the process
+    timeout = 30
+    # one buffered write per response, and no Nagle delay
+    wbufsize = 64 * 1024
+    disable_nagle_algorithm = True
 
-    def stop(self) -> None:
-        if self._httpd is None:
+    def _params(self) -> dict[str, str]:
+        return {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
+
+    def _dispatch(self, method: str) -> None:
+        t_start = time.perf_counter()
+        path = urlparse(self.path).path
+        self._request_id = resolve_request_id(self.headers)
+        self._last_status = 0
+        try:
+            self._dispatch_inner(method, path)
+        finally:
+            if self.service.access_log:
+                emit_access_log("engine", method, path, self._last_status,
+                                time.perf_counter() - t_start, self._request_id,
+                                client=self.address_string())
+
+    def _dispatch_inner(self, method: str, path: str) -> None:
+        if self.headers.get("Transfer-Encoding"):
+            # chunked bodies are not decoded; unread chunks would desync
+            # every later request on a keep-alive connection: 411 and close
+            self.close_connection = True
+            self._respond(411, {"message": "chunked request bodies are not supported; "
+                                           "send Content-Length"},
+                          {"Connection": "close"})
             return
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        self._thread.join(timeout=10)
-        self._httpd = None
-        self._thread = None
+        # drain a Content-Length body for every method (unread bytes would
+        # be parsed as the next request); a malformed or negative length
+        # cannot be drained: 400 and close
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            length = -1
+        if length < 0:
+            self.close_connection = True
+            self._respond(400, {"message": "invalid Content-Length"}, {"Connection": "close"})
+            return
+        raw = self.rfile.read(length) if length else b""
+        body: Any = None
+        if method == "POST" and raw:
+            try:
+                body = json.loads(raw)
+            except json.JSONDecodeError:
+                self._respond(400, {"message": "the request body is not valid JSON"})
+                return
+        headers = {k.lower(): v for k, v in self.headers.items()}
+        self._respond(*self.service.handle(method, path, self._params(), headers, body))
+
+    def _respond(self, status: int, payload: Any,
+                 extra_headers: Mapping[str, str] | None = None) -> None:
+        self._last_status = status
+        data = json.dumps(payload).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json; charset=UTF-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.send_header(REQUEST_ID_HEADER, self._request_id)
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self) -> None:  # noqa: N802
+        self._dispatch("GET")
+
+    def do_POST(self) -> None:  # noqa: N802
+        self._dispatch("POST")
+
+    def log_message(self, format: str, *args) -> None:
+        logger.debug("%s - %s", self.address_string(), format % args)
 
 
-def create_engine_server(storage: Storage | None = None,
-                         config: ServerConfig | None = None) -> EngineServer:
+class EngineServer(RestServer):
+    """HTTP lifecycle around EngineService: undeploys a previous server
+    on the port, binds with retry ×3, owns shutdown."""
+
+    log_label = "Engine Server"
+    thread_name = "pio-engineserver"
+    bind_retries = 3
+
+    def __init__(
+        self,
+        deployed: DeployedEngine,
+        config: ServerConfig | None = None,
+        storage: Storage | None = None,
+        ctx: EngineContext | None = None,
+        plugin_context: EngineServerPluginContext | None = None,
+    ):
+        config = config if config is not None else ServerConfig()
+        self.config = config
+        super().__init__(_Handler, EngineService(deployed, config, storage, ctx, plugin_context),
+                         config.ip, config.port)
+        self.service.on_stop = self.stop
+        self.service.client_disconnects = lambda: self.client_disconnects
+
+    @property
+    def deployed(self) -> DeployedEngine:
+        return self.service.deployed
+
+    def _on_bind_failure(self, attempt: int, ip: str, port: int) -> None:
+        if attempt == 0 and port:
+            # a previous server may hold the port: undeploy it
+            undeploy(ip, port, self.config.server_key)
+
+    def _on_close(self) -> None:
+        self.service.close()
+
+
+def create_engine_server(
+    storage: Storage | None = None,
+    config: ServerConfig | None = None,
+    ctx: EngineContext | None = None,
+    engine: Any = None,
+    plugin_context: EngineServerPluginContext | None = None,
+) -> EngineServer:
     """Load the engine instance (or model directory) ``config`` names
     onto its device (``workflow/deploy.load_deployed_engine``) and wrap
     it in a server; call ``start()`` to listen."""
     config = config if config is not None else ServerConfig()
-    return EngineServer(load_deployed_engine(storage, config), config)
+    if config.model_dir is None:
+        storage = storage or (ctx.storage if ctx is not None else Storage())
+    deployed = load_deployed_engine(storage, config, ctx=ctx, engine=engine)
+    return EngineServer(deployed, config, storage, ctx, plugin_context)
 
 
 def serve_until_stopped(server: EngineServer) -> None:
-    """Block a started server's process until SIGTERM or Ctrl-C, then
-    stop the server."""
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    """Block a started server's process until POST /stop, SIGTERM or
+    Ctrl-C, then stop the server."""
+    signal.signal(signal.SIGTERM, lambda *_: server.stop())
     try:
-        stop.wait()
+        server.stopped.wait()
     except KeyboardInterrupt:
         pass
     finally:

@@ -11,7 +11,12 @@ port serves).
 - ``train``: ``workflow/train.run_train`` of an engine.json variant,
   recording an engine instance;
 - ``deploy``: the engine server over a stored instance (by
-  ``--engine-instance-id``, else the latest COMPLETED one), one process.
+  ``--engine-instance-id``, else the latest COMPLETED one), one process,
+  with the serving flags ``--server-key``, ``--batching/--no-batching``,
+  ``--batch-policy``, ``--batch-max``, ``--batch-wait-ms``,
+  ``--cache/--no-cache``, ``--cache-max-entries``, ``--cache-ttl-s`` and
+  ``--request-deadline-ms`` (an absent flag leaves the
+  ``PIO_SERVING_*`` default); ``undeploy``: POST /stop to a running one.
 
 ``train`` and ``deploy`` run on the card unless ``--device cpu`` is
 given; the administrative commands do not import torch. Storage is
@@ -19,11 +24,11 @@ configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet: ``eval``
-(ROADMAP.md queue 1 item 18), ``eventserver`` (item 22), the serving
-flags of ``deploy`` (``--batching``, ``--workers``, the caches: item
-21), ``train --profile`` (item 12), ``build``/``run``, the router,
-``experiment`` and the admin tools (item 23), and Parquet import and
-export (item 25).
+(ROADMAP.md queue 1 item 18), ``eventserver`` and ``deploy --feedback``
+(item 22), ``deploy --workers/--shm-cache`` (item 23), ``--retrieval``
+(item 10), ``--online`` (item 11), ``--tracing`` and ``train --profile``
+(item 12), ``build``/``run``, the router, ``experiment`` and the admin
+tools (item 23), and Parquet import and export (item 25).
 """
 
 from __future__ import annotations
@@ -244,12 +249,34 @@ def _cmd_deploy(args, storage: Storage) -> int:
         engine_version=variant.get("version"),
         engine_variant=variant.get("variantId"),
         device=args.device,
+        server_key=args.server_key,
+        # an absent flag leaves ServerConfig's PIO_SERVING_* default
+        **{k: v for k, v in {
+            "batching": args.batching,
+            "batch_policy": args.batch_policy,
+            "batch_max": args.batch_max,
+            "batch_wait_ms": args.batch_wait_ms,
+            "cache_enabled": args.cache,
+            "cache_max_entries": args.cache_max_entries,
+            "cache_ttl_s": args.cache_ttl_s,
+            "request_deadline_ms": args.request_deadline_ms,
+        }.items() if v is not None},
     )
     server = create_engine_server(storage=storage, config=config).start()
     print(f"[INFO] Engine instance {server.deployed.instance_id} listening on "
           f"{args.ip}:{server.port}", flush=True)
     serve_until_stopped(server)
     return 0
+
+
+def _cmd_undeploy(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.api.http_base import undeploy
+
+    if undeploy(args.ip, args.port, args.server_key):
+        print(f"[INFO] Undeployed engine server at {args.ip}:{args.port}")
+        return 0
+    print(f"[ERROR] No engine server running at {args.ip}:{args.port}")
+    return 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -304,6 +331,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine-instance-id", default=None)
     p.add_argument("--engine-json", default="engine.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--server-key", default=None,
+                   help="when set, /stop and /reload require this key")
+    p.add_argument("--batching", action=argparse.BooleanOptionalAction, default=None,
+                   help="coalesce concurrent queries into one device dispatch")
+    p.add_argument("--batch-policy", choices=("adaptive", "fixed"), default=None)
+    p.add_argument("--batch-max", type=int, default=None)
+    p.add_argument("--batch-wait-ms", type=float, default=None,
+                   help="adaptive: wait cap; fixed: the constant window")
+    p.add_argument("--cache", action=argparse.BooleanOptionalAction, default=None,
+                   help="LRU+TTL result cache over canonical query JSON, "
+                        "invalidated on /reload")
+    p.add_argument("--cache-max-entries", type=int, default=None)
+    p.add_argument("--cache-ttl-s", type=float, default=None)
+    p.add_argument("--request-deadline-ms", type=float, default=None,
+                   help="per-query time budget (0: none); a blown budget answers 503")
+
+    p = sub.add_parser("undeploy", help="stop a deployed engine server")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--server-key", default=None)
     return parser
 
 
@@ -316,6 +363,7 @@ _COMMANDS = {
     "import": _cmd_import,
     "train": _cmd_train,
     "deploy": _cmd_deploy,
+    "undeploy": _cmd_undeploy,
 }
 
 

@@ -1,0 +1,334 @@
+"""The query micro-batcher (a copy of the JAX package's
+``serving/batcher.py``): coalesces concurrent queries into one device
+dispatch.
+
+Handler threads ``submit()`` and block on a future; one dispatcher
+thread drains the queue. After a batch's first query arrives the
+configured ``serving/batch_policy.BatchPolicy``
+decides how long to wait for companions and how many to take (the
+adaptive policy waits near-zero when idle, coalesces under load; the
+fixed policy is the legacy constant window), then the whole batch runs
+through ``DeployedEngine.query_batch``.
+
+Hot-path guarantees, each carried by a counter in
+``api/stats.ServingStats``:
+
+- queries whose resilience deadline already expired are FAILED at
+  dequeue time (``QueryDeadlineExceeded`` → the server's 503) instead
+  of being scored and discarded — a timed-out client must not consume
+  a device slot;
+- identical concurrent queries (same canonical-JSON key) dedup to ONE
+  slot in the dispatched batch, every waiter sharing the result;
+- a failing batch is retried query-by-query so one poisoned query 500s
+  alone, skipping entries whose deadline expired during the batch
+  attempt; each such retry is counted by
+  ``record_fallback("serving/query-batcher")``, which ``GET /stats.json``
+  shows as ``resilience["serving/query-batcher"]["fallbacks"]``.
+
+The dispatcher thread is the only caller of the deployed engine, so the
+device sees one batch at a time.
+
+``get_deployed`` is read fresh per batch, so /reload hot-swaps apply
+from the next batch on.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeoutError
+from typing import Any, NamedTuple
+
+from predictionio_tpu_torch.api.stats import ServingStats
+from predictionio_tpu_torch.serving.batch_policy import BatchPolicy, FixedBatchPolicy
+from predictionio_tpu_torch.utils.resilience import (
+    deadline_scope,
+    record_fallback,
+    remaining_deadline,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class QueryDeadlineExceeded(RuntimeError):
+    """A query's time budget expired while WAITING for its result — as
+    distinct from the work itself raising TimeoutError (which, on
+    Python 3.11+, is the same class as concurrent.futures.TimeoutError
+    and must not be misreported as a blown deadline)."""
+
+    def __init__(self, budget: float):
+        super().__init__(f"query deadline exceeded ({budget:.3f}s budget)")
+        self.budget = budget
+
+
+class _Pending(NamedTuple):
+    query: Any
+    fut: Future
+    #: absolute monotonic deadline (None = unbounded)
+    deadline: float | None
+    #: the budget that produced the deadline, for error messages
+    budget: float | None
+    #: canonical dedup key (None = never deduped)
+    key: str | None
+    #: perf_counter at enqueue: the queue wait runs from here to the
+    #: dispatch
+    t_enq: float
+
+
+class QueryBatcher:
+    """Policy-driven coalescing dispatcher (module docstring)."""
+
+    def __init__(self, get_deployed, policy: BatchPolicy | None = None,
+                 stats: ServingStats | None = None):
+        self._get_deployed = get_deployed
+        self._policy = policy or FixedBatchPolicy()
+        self.stats = stats or ServingStats()
+        self._queue: queue.Queue = queue.Queue()
+        self._stopped = False
+        # callers currently blocked in submit — the closed-loop load
+        # signal the policy uses to avoid holding the door for
+        # companions that cannot exist (BatchPolicy.plan docstring)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._run, name="pio-query-batcher", daemon=True)
+        self._thread.start()
+
+    @property
+    def policy(self) -> BatchPolicy:
+        return self._policy
+
+    # counters kept as read-only views for the status page (the writers
+    # live in ServingStats, lock-guarded at both ends)
+    @property
+    def batches(self) -> int:
+        return self.stats.count("dispatches")
+
+    @property
+    def batched_queries(self) -> int:
+        return self.stats.count("batched_queries")
+
+    def submit(self, query: Any, timeout: float = 300.0,
+               key: str | None = None) -> Any:
+        """Enqueue and wait; raises whatever the predict path raised.
+
+        The caller's ambient resilience deadline (deadline_scope) rides
+        along into the dispatcher thread — contextvars do not cross
+        threads, so the remaining budget is captured here and re-entered
+        around the batch dispatch and any per-query fallbacks. A budget
+        that is already exhausted fails here, before the queue."""
+        if self._stopped:
+            raise RuntimeError("query batcher is stopped")
+        rem = remaining_deadline()
+        if rem is not None and rem <= 0:
+            self.stats.bump("expired")
+            raise QueryDeadlineExceeded(max(rem, 0.0))
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            self._policy.observe_arrival()
+            deadline = time.monotonic() + rem if rem is not None else None
+            fut: Future = Future()
+            self._queue.put(_Pending(query, fut, deadline, rem, key,
+                                     time.perf_counter()))
+            if self._stopped and not fut.done():
+                # close() raced the enqueue: the dispatcher (or close's
+                # drain) may never see this entry — fail fast instead of
+                # letting the handler hang out the timeout (done() guards
+                # the benign double-completion race)
+                try:
+                    fut.set_exception(
+                        RuntimeError("query batcher is stopped"))
+                except Exception:
+                    pass
+            try:
+                return fut.result(timeout=timeout)
+            except FuturesTimeoutError:
+                if not fut.done():
+                    # the WAIT expired (a blown budget) — not an
+                    # exception from the predict path, which fut.done()
+                    # distinguishes even on 3.11 where the two classes
+                    # are aliased
+                    raise QueryDeadlineExceeded(timeout) from None
+                raise
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def close(self) -> None:
+        self._stopped = True
+        self._queue.put(None)
+        self._thread.join(timeout=5)
+        self._fail_pending()
+
+    def _fail_pending(self) -> None:
+        """Fail anything still queued after the dispatcher exited —
+        a blocked submit must get its 500 now, not at timeout."""
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is None:
+                continue
+            if not item.fut.done():
+                try:
+                    item.fut.set_exception(
+                        RuntimeError("query batcher is stopped"))
+                except Exception:
+                    pass
+
+    # -- dispatcher ---------------------------------------------------------
+    def _run(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            batch = [item]
+            # the policy decides how long to hold the door for future
+            # arrivals and how many to wait for (snapped to the serving
+            # menu); queries that already queued while
+            # the previous batch dispatched always ride along for free
+            # (up to the menu cap) — under closed-loop load the queue
+            # depth, not the inter-arrival EWMA, carries the signal
+            # (blocked clients space their arrivals out exactly when
+            # coalescing pays most)
+            with self._inflight_lock:
+                inflight = self._inflight
+            wait_s, target = self._policy.plan(inflight=inflight)
+            stop = False
+            while len(batch) < self._policy.batch_max:
+                try:
+                    nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True
+                    break
+                batch.append(nxt)
+            if not stop:
+                deadline = time.perf_counter() + wait_s
+                while len(batch) < target:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        stop = True
+                        break
+                    batch.append(nxt)
+            self._finish(batch)
+            if stop:
+                return
+
+    @staticmethod
+    def _scope(deadline_abs: float | None):
+        """Re-enter a caller's deadline (absolute monotonic) on the
+        dispatcher thread; nested scopes only ever shrink."""
+        if deadline_abs is None:
+            return contextlib.nullcontext()
+        return deadline_scope(max(0.0, deadline_abs - time.monotonic()))
+
+    def _expire(self, entry: _Pending) -> None:
+        self.stats.bump("expired")
+        if not entry.fut.done():
+            try:
+                entry.fut.set_exception(QueryDeadlineExceeded(
+                    entry.budget if entry.budget is not None else 0.0))
+            except Exception:
+                pass
+
+    def _finish(self, batch: list[_Pending]) -> None:
+        # 1. fail anything already past its deadline — dispatching it
+        # would burn a device slot on a client that stopped waiting
+        now = time.monotonic()
+        live: list[_Pending] = []
+        for entry in batch:
+            if entry.deadline is not None and now >= entry.deadline:
+                self._expire(entry)
+            else:
+                live.append(entry)
+        if not live:
+            return
+        # 2. dedup identical concurrent queries (same canonical key):
+        # one device slot, every waiter shares the result
+        groups: list[list[_Pending]] = []
+        by_key: dict[str, int] = {}
+        for entry in live:
+            if entry.key is not None and entry.key in by_key:
+                groups[by_key[entry.key]].append(entry)
+            else:
+                if entry.key is not None:
+                    by_key[entry.key] = len(groups)
+                groups.append([entry])
+        deployed = self._get_deployed()
+        deadlines = [e.deadline for e in live if e.deadline is not None]
+        try:
+            # the batch shares one dispatch: honor its tightest deadline
+            t0 = time.perf_counter()
+            # queue wait (enqueue -> dispatch start), one lock
+            # acquisition for the whole batch
+            self.stats.observe_queue_waits([t0 - e.t_enq for e in live])
+            with self._scope(min(deadlines) if deadlines else None):
+                results = deployed.query_batch([g[0].query for g in groups])
+            dt = time.perf_counter() - t0
+            self.stats.observe_device_time(dt)
+            # query_batch records request bookkeeping only for the
+            # group leaders it saw; the deduped waiters were answered
+            # by the same dispatch and must count as served requests
+            # too (same invariant the server applies to cache hits)
+            for _ in range(len(live) - len(groups)):
+                deployed.record_served(dt)
+            for group, served in zip(groups, results):
+                for entry in group:
+                    if not entry.fut.done():
+                        try:
+                            entry.fut.set_result(served)
+                        except Exception:
+                            pass
+            self.stats.record_batch(len(groups), len(live))
+        except Exception:
+            logger.exception(
+                "batched predict failed; retrying %d quer(ies) individually",
+                len(groups))
+            record_fallback("serving/query-batcher")
+            for group in groups:
+                self._fallback_group(group)
+
+    _UNSET = object()
+
+    def _fallback_group(self, group: list[_Pending]) -> None:
+        """Per-query retry of one dedup group after a failed batch: one
+        predict shared by the group's waiters; entries whose deadline
+        expired during the batch attempt are failed, not retried."""
+        outcome: Any = self._UNSET
+        err: Exception | None = None
+        for entry in group:
+            if entry.fut.done():
+                continue
+            if entry.deadline is not None and time.monotonic() >= entry.deadline:
+                self._expire(entry)
+                continue
+            if outcome is self._UNSET and err is None:
+                try:
+                    # re-resolve per query: a /reload mid-batch must not
+                    # pin the whole fallback pass to the dead instance
+                    # the batch dispatch captured
+                    with self._scope(entry.deadline):
+                        outcome = self._get_deployed().query(entry.query)
+                except Exception as e:          # noqa: BLE001
+                    err = e
+            try:
+                if err is not None:
+                    entry.fut.set_exception(err)
+                else:
+                    entry.fut.set_result(outcome)
+            except Exception:
+                pass

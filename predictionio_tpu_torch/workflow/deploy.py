@@ -13,6 +13,11 @@ A model directory, as the templates' ``save_engine_model`` /
 ``ALSModel.save`` write it, deploys without storage through
 ``ServerConfig.model_dir`` (:func:`load_model_dir`): the engine server's
 ``--model-dir`` entry.
+
+``ServerConfig`` also carries the serving layer's knobs (micro-batching,
+the result cache, the request deadline, the server key); each default
+reads its ``PIO_SERVING_<KEY>`` variable when the config is built, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -40,10 +45,42 @@ logger = logging.getLogger(__name__)
 DEFAULT_ENGINE_FACTORY = "predictionio_tpu_torch.templates.sessionrec.engine_factory"
 
 
+def _env_field(key: str, default: Any, cast: Callable[[str], Any]):
+    """A frozen-dataclass field whose default reads ``PIO_SERVING_<KEY>``
+    when the config is built (never at import); a malformed value falls
+    back to ``default`` with a warning."""
+    def read() -> Any:
+        raw = os.environ.get(f"PIO_SERVING_{key}")
+        if raw is None:
+            return default
+        try:
+            return cast(raw)
+        except (TypeError, ValueError):
+            logger.warning("ignoring malformed PIO_SERVING_%s=%r (using %r)",
+                           key, raw, default)
+            return default
+
+    return dataclasses.field(default_factory=read)
+
+
+def _cast_bool(raw: str) -> bool:
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _cast_policy(raw: str) -> str:
+    # validated here, so a misspelt value falls back to the default
+    value = raw.strip().lower()
+    if value not in ("adaptive", "fixed"):
+        raise ValueError(value)
+    return value
+
+
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """The JAX package's ``ServerConfig`` fields that this port serves,
-    plus the device."""
+    plus the device. The feedback loop, ``--workers``, the shared-memory
+    cache, retrieval, tracing and ``--online`` stay with ROADMAP.md
+    queue 1 items 22, 23, 10, 12 and 11."""
 
     ip: str = "0.0.0.0"
     port: int = 8000              # 0 binds a free port (``EngineServer.port``)
@@ -58,6 +95,26 @@ class ServerConfig:
     model_dir: str | None = None
     #: the engine of a ``model_dir`` deploy (a stored instance names its own)
     engine_factory: str = DEFAULT_ENGINE_FACTORY
+    #: when set, /stop and /reload require ?accessKey=<server_key>
+    server_key: str | None = None
+    #: micro-batching: concurrent queries coalesce into one
+    #: ``DeployedEngine.query_batch`` (serving/batcher.py)
+    batching: bool = _env_field("BATCHING", False, _cast_bool)
+    #: "adaptive" (EWMA-driven wait) or "fixed" (a constant window)
+    batch_policy: str = _env_field("BATCH_POLICY", "adaptive", _cast_policy)
+    batch_max: int = _env_field("BATCH_MAX", 64, int)
+    #: adaptive: the cap on the coalescing wait; fixed: the window
+    batch_wait_ms: float = _env_field("BATCH_WAIT_MS", 5.0, float)
+    #: result cache (serving/result_cache.py): LRU + TTL over canonical
+    #: query JSON, invalidated on /reload. Only for engines whose answer
+    #: depends on nothing but the query and the deployed model
+    cache_enabled: bool = _env_field("CACHE_ENABLED", False, _cast_bool)
+    cache_max_entries: int = _env_field("CACHE_MAX_ENTRIES", 4096, int)
+    cache_ttl_s: float = _env_field("CACHE_TTL_S", 30.0, float)
+    #: per-request time budget for /queries.json (0: none); a client may
+    #: lower it with an X-PIO-Deadline-Ms header; a blown budget answers
+    #: 503 + Retry-After
+    request_deadline_ms: float = _env_field("REQUEST_DEADLINE_MS", 0.0, float)
 
 
 class DeployedEngine:
