@@ -124,13 +124,38 @@ Phases, in order; any failure exits non-zero:
    kernel launches must equal 4 x the sum over dispatched batch sizes n
    of popcount(n) (4 a query that missed the cache unbatched), and no
    failed batch may have been retried query by query;
-18. a `kernels` JSON line, then the result line
+18. the event server and the loop events → train → serve → feedback,
+   in the store of phase 16: (a) `pio app new ingest`, a full key and
+   one whitelisted to `view`, `pio app channel-new ingest side`, `pio
+   eventserver --stats` as a process (seconds to listening), `GET /`
+   and `/readyz`; (b) the view events of 32 of 16a's users (every 4th:
+   65,568 events, the walks still cover all 50,000 items) over `POST
+   /batch/events.json`, 50 a request from 8 keep-alive clients: every
+   status 201, the `/stats.json` ingest counters, the app's columnar
+   read equal to 16a's import of those users (ids and creation times
+   aside), events/s; 200 single `POST /events.json` (p50); (c) 401, 403,
+   400, a channel POST read back only from its channel, `GET`/`DELETE
+   /events/{id}.json`, a filtered `GET /events.json` with a limit, and a
+   SegmentIO and a MailChimp webhook; (d) `pio train` from app `ingest`
+   (S = 2048, 4 Adam steps), `pio deploy --feedback --no-batching`, 30
+   queries (half with a prId) answered as the in-process deploy and
+   the plain attention answer them, 4 kernel launches a query, exactly
+   one `predict` event per query (its query and prediction, entityId =
+   the answer's prId) readable within 10 s, `pio undeploy`; (e) the
+   event server again over a binevents event store with `--wal-dir
+   --wal-policy write-through --wal-fsync interval`: the first 20,000 of
+   16b's events all 202, drained (`pio wal status`: 0 pending) and read
+   back equal through the native scanner, events/s and drain seconds;
+   then SIGKILL during a second burst, a restart, and every
+   acknowledged event read back;
+19. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
-`--als-only`, `--eval-only`, `--pio-only` and `--serve-only` run phases
-9-13, 14-15, 16 and 17 alone (17 over 16a's instance and a random
-ML-20M-shape ALS model) and print no result line. Exits non-zero,
-printing no result, when there is no card.
+`--als-only`, `--eval-only`, `--pio-only`, `--serve-only` and
+`--ingest-only` run phases 9-13, 14-15, 16, 17 and 18 alone (17 over
+16a's instance and a random ML-20M-shape ALS model, 18 over 16a's
+import) and print no result line. Exits non-zero, printing no result,
+when there is no card.
 """
 
 from __future__ import annotations
@@ -1826,11 +1851,23 @@ class _Pio:
             if proc.poll() is not None or time.monotonic() > deadline:
                 proc.kill()
                 with open(out_path) as f:
-                    fail(f"[{tag}] pio deploy did not come up:\n{f.read()[-3000:]}")
-            time.sleep(0.1)
+                    fail(f"[{tag}] the server did not come up:\n{f.read()[-3000:]}")
+            time.sleep(0.02)
         seconds = time.perf_counter() - t0
-        log(f"[{tag}] pio deploy: listening on :{found.group(1)} after {seconds:.3f}s")
+        command = os.path.basename(out_path).split("-")[0]
+        log(f"[{tag}] pio {command}: listening on :{found.group(1)} after {seconds:.3f}s")
         return proc, int(found.group(1)), seconds
+
+    def eventserver(self, tag: str, *flags: str, env: dict | None = None):
+        """`pio eventserver` on a free port: (the process, its port,
+        seconds to listening)."""
+        out_path = os.path.join(self.base, f"eventserver-{tag}.log")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out:
+            proc = subprocess.Popen(
+                self.cmd + ["eventserver", "--ip", "127.0.0.1", "--port", "0", *flags],
+                cwd=self.base, env=env or self.env, stdout=out, stderr=subprocess.STDOUT)
+        return self.wait_listening(tag, proc, out_path, t0)
 
     def deploy(self, tag: str, engine_json: str, *flags: str):
         """(the deploy process, its port, seconds to listening)."""
@@ -1910,24 +1947,35 @@ def _kernel_at_deploy(deployed, body: dict) -> dict:
                 library_causal_ms=library_causal_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def pio_sessionrec_instance(pio: _Pio) -> tuple[str, str, float]:
-    """Phase 16a's stored instance: the events as JSON lines, `pio app
-    new`, `pio import`, `pio train`. Returns (instance id, engine.json
-    path, import seconds)."""
-    n_users, length, stride = PIO_SESSION
+def _session_docs(users):
+    """Phase 16a's view events of ``users``, as event JSON."""
+    _, length, stride = PIO_SESSION
     t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    return ({"event": "view", "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{(stride * u + t) % N_ITEMS + 1}",
+             "eventTime": (t0 + timedelta(seconds=length * u + t)).strftime(
+                 "%Y-%m-%dT%H:%M:%S.000Z")}
+            for u in users for t in range(length))
+
+
+def import_sessions(pio: _Pio) -> float:
+    """Phase 16a's events, as JSON lines, into app SessApp through `pio
+    import`; returns the import's seconds."""
     events_path = os.path.join(pio.base, "sessions.jsonl")
-    n = _write_json_lines(events_path, (
-        {"event": "view", "entityType": "user", "entityId": f"u{u}",
-         "targetEntityType": "item", "targetEntityId": f"i{(stride * u + t) % N_ITEMS + 1}",
-         "eventTime": (t0 + timedelta(seconds=length * u + t)).strftime(
-             "%Y-%m-%dT%H:%M:%S.000Z")}
-        for u in range(n_users) for t in range(length)))
+    n = _write_json_lines(events_path, _session_docs(range(PIO_SESSION[0])))
     app_id = pio.new_app("pio-sess", "SessApp")
     out, import_s = pio.run("pio-sess", "import", "--appid", str(app_id),
                             "--input", events_path)
     if f"Imported {n} events" not in out:
         fail(f"[pio-sess] import: {out}")
+    return import_s
+
+
+def pio_sessionrec_instance(pio: _Pio) -> tuple[str, str, float]:
+    """Phase 16a's stored instance: the events as JSON lines, `pio app
+    new`, `pio import`, `pio train`. Returns (instance id, engine.json
+    path, import seconds)."""
+    import_s = import_sessions(pio)
     engine_json = os.path.join(pio.base, "sessionrec.json")
     with open(engine_json, "w") as f:
         json.dump({"id": "sessionrec", "engineFactory":
@@ -2004,8 +2052,9 @@ def phase_pio_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
     return launches
 
 
-def phase_pio_recommendation(pio: _Pio) -> None:
-    """Phase 16b: the recommendation template at the ML-100k shape."""
+def _ml100k_docs():
+    """(phase 16b's ML-100k-shape events as event JSON, the generator
+    that drew them, for the draws that follow)."""
     n_users, n_items, n_rate, n_buy = ML100K
     rng = np.random.default_rng(SEED + 12)
     users = np.concatenate([np.repeat(np.arange(n_users), 20),
@@ -2018,15 +2067,22 @@ def phase_pio_recommendation(pio: _Pio) -> None:
     def stamp(n: int) -> str:
         return (t0 + timedelta(seconds=n)).strftime("%Y-%m-%dT%H:%M:%S.000Z")
 
-    events_path = os.path.join(pio.base, "ml100k.jsonl")
-    n = _write_json_lines(events_path, [
-        {"event": "rate", "entityType": "user", "entityId": f"u{u}",
-         "targetEntityType": "item", "targetEntityId": f"i{i}",
-         "properties": {"rating": float(r)}, "eventTime": stamp(j)}
-        for j, (u, i, r) in enumerate(zip(users, items, stars))] + [
+    docs = [{"event": "rate", "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{i}",
+             "properties": {"rating": float(r)}, "eventTime": stamp(j)}
+            for j, (u, i, r) in enumerate(zip(users, items, stars))] + [
         {"event": "buy", "entityType": "user", "entityId": f"u{u}",
          "targetEntityType": "item", "targetEntityId": f"i{i}", "eventTime": stamp(n_rate + j)}
-        for j, (u, i) in enumerate(zip(buyers, items[n_rate:]))])
+        for j, (u, i) in enumerate(zip(buyers, items[n_rate:]))]
+    return docs, rng
+
+
+def phase_pio_recommendation(pio: _Pio) -> None:
+    """Phase 16b: the recommendation template at the ML-100k shape."""
+    n_users = ML100K[0]
+    docs, rng = _ml100k_docs()
+    events_path = os.path.join(pio.base, "ml100k.jsonl")
+    n = _write_json_lines(events_path, docs)
     app_id = pio.new_app("pio-rec", "ML100k")
     out, _ = pio.run("pio-rec", "import", "--appid", str(app_id), "--input", events_path)
     if f"Imported {n} events" not in out:
@@ -2593,6 +2649,446 @@ def phase_serve(pio: _Pio, instance: tuple[str, str, float], als_model: ALSModel
     return launches
 
 
+#: phase 18: the event server. 18b sends the view events of 32 of phase
+#: 16a's 128 users (2,049 each, 65,568 events) over REST, 50 a request from
+#: 8 keep-alive clients: every 4th user, whose walks still cover every
+#: item, so the model trained from them keeps vocab 50,000 (the user count
+#: is the depth cut; the widths stay). 32 users at batch 8 are 4 Adam steps
+#: at S = 2048. 18e sends the first 20,000 of phase 16b's ML-100k events
+INGEST_USERS = tuple(range(0, PIO_SESSION[0], 4))
+INGEST_BATCH, INGEST_CLIENTS, INGEST_SINGLES = 50, 8, 200
+INGEST_QUERIES = 30
+INGEST_WAL_EVENTS = 20_000
+#: seconds within which the deploy's feedback events must be readable
+FEEDBACK_WAIT_S = 10.0
+#: events acknowledged in 18e's second burst before the server is killed
+KILL_AFTER_ACKS = 2_000
+
+
+def _http(port: int, method: str, path: str, body=None,
+          content_type: str = "application/json") -> tuple[int, object, float]:
+    """One request on a fresh connection: (status, JSON body, ms)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    data = None
+    if body is not None:
+        data = body.encode() if isinstance(body, str) else json.dumps(body).encode()
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, data, {"Content-Type": content_type} if data else {})
+        resp = conn.getresponse()
+        doc = json.loads(resp.read() or b"null")
+        return resp.status, doc, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _send_batches(port: int, key: str, docs: list[dict], clients: int,
+                  acked: list | None = None) -> tuple[list, float]:
+    """``docs`` over POST /batch/events.json, INGEST_BATCH a request, from
+    ``clients`` keep-alive connections, each taking the next unsent
+    batch. Returns (the per-event status entries in the order of
+    ``docs``, None where no answer came; wall seconds). With ``acked``,
+    each answered batch appends its size there, and a failed connection
+    ends its client quietly (the server is being killed) rather than the
+    run."""
+    import http.client
+    import itertools
+    import threading
+
+    batches = [docs[i:i + INGEST_BATCH] for i in range(0, len(docs), INGEST_BATCH)]
+    results: list = [None] * len(docs)
+    order = itertools.count()
+    errors: list[str] = []
+    path = f"/batch/events.json?accessKey={key}"
+
+    def client() -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while (b := next(order)) < len(batches):
+                try:
+                    conn.request("POST", path, json.dumps(batches[b]).encode(),
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    doc = json.loads(resp.read())
+                except (OSError, http.client.HTTPException, ValueError) as e:
+                    if acked is None:
+                        errors.append(f"batch {b}: {e!r}")
+                    return
+                if resp.status != 200 or len(doc) != len(batches[b]):
+                    errors.append(f"batch {b}: {resp.status} {str(doc)[:300]}")
+                    return
+                results[b * INGEST_BATCH:b * INGEST_BATCH + len(doc)] = doc
+                if acked is not None:
+                    acked.append(len(doc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail("[ingest] " + "; ".join(errors[:5]))
+    return results, time.perf_counter() - t0
+
+
+def _event_fields(e) -> tuple:
+    """An event's fields as the client sent them (ids and creation
+    times are the server's)."""
+    return (e.event, e.entity_type, e.entity_id, e.target_entity_type, e.target_entity_id,
+            dict(e.properties.fields), e.event_time, tuple(e.tags), e.pr_id)
+
+
+def _doc_fields(doc: dict) -> tuple:
+    return _event_fields(Event(
+        event=doc["event"], entity_type=doc["entityType"], entity_id=doc["entityId"],
+        target_entity_type=doc.get("targetEntityType"),
+        target_entity_id=doc.get("targetEntityId"),
+        properties=DataMap(doc.get("properties", {})),
+        event_time=datetime.strptime(doc["eventTime"], "%Y-%m-%dT%H:%M:%S.000Z").replace(
+            tzinfo=timezone.utc)))
+
+
+def _app_events(storage, app_id: int, channel_id=None) -> list:
+    """The app's events through the columnar scan of the training read."""
+    return [e for batch in storage.get_events().find_columnar(app_id, channel_id)
+            for e in batch.to_events()]
+
+
+def _binevents_env(pio: _Pio) -> dict:
+    """The `pio` environment with event data on a binevents source;
+    metadata stays in the same sqlite, models in the same localfs."""
+    store = pio.env["PIO_FS_BASEDIR"]
+    return {**pio.env,
+            "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(store, "pio.sqlite"),
+            "PIO_STORAGE_SOURCES_BIN_TYPE": "binevents",
+            "PIO_STORAGE_SOURCES_BIN_PATH": os.path.join(pio.base, "binevents"),
+            "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+            "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(store, "models"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "BIN",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS"}
+
+
+def ingest_setup(pio: _Pio) -> tuple[int, str, str]:
+    """18a: app `ingest`, a full key and a key whitelisted to `view`, the
+    channel `side`. Returns (app id, full key, whitelisted key)."""
+    out, _ = pio.run("ingest", "app", "new", "ingest")
+    app_id = int(re.search(r"ID: (\d+)", out).group(1))
+    key = re.search(r"Access Key: (\S+)", out).group(1)
+    out, _ = pio.run("ingest", "accesskey", "new", "ingest", "--event", "view")
+    view_key = re.search(r"Created new access key: (\S+)", out).group(1)
+    pio.run("ingest", "app", "channel-new", "ingest", "side")
+    return app_id, key, view_key
+
+
+def phase_ingest_rest(pio: _Pio, port: int, app_id: int, key: str) -> None:
+    """18b: 65,568 events over POST /batch/events.json, every status 201,
+    the ingest counters, the app's read against 16a's import; then 200
+    single POSTs (to the channel `side`, so the training read stays
+    16a's)."""
+    docs = list(_session_docs(INGEST_USERS))
+    results, seconds = _send_batches(port, key, docs, INGEST_CLIENTS)
+    bad = [r for r in results if r is None or r["status"] != 201]
+    if bad:
+        fail(f"[ingest-rest] {len(bad)} events without a 201, first {bad[:3]}")
+    log(f"[ingest-rest] {len(docs)} events over POST /batch/events.json, {INGEST_BATCH} a "
+        f"request, {INGEST_CLIENTS} keep-alive clients: {seconds:.3f}s, "
+        f"events_per_s={len(docs) / seconds:.1f}, every status 201")
+    status, stats, _ = _http(port, "GET", f"/stats.json?accessKey={key}")
+    ingest = stats["ingest"]
+    if status != 200 or ingest["events"] != len(docs) or ingest["batchSizeHistogram"] != {
+            str(INGEST_BATCH): len(docs) // INGEST_BATCH, str(len(docs) % INGEST_BATCH): 1}:
+        fail(f"[ingest-rest] /stats.json ingest counters {ingest} for {len(docs)} events")
+    log(f"[ingest-rest] /stats.json ingest: events={ingest['events']} "
+        f"batches={ingest['batches']} insertLatency={ingest['insertLatency']} "
+        f"statusCode={stats['currentHour']['statusCode']}")
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    t0 = time.perf_counter()
+    got = sorted(_event_fields(e) for e in _app_events(storage, app_id))
+    read_s = time.perf_counter() - t0
+    sess_app = storage.get_meta_data_apps().get_by_name("SessApp").id
+    users = {f"u{u}" for u in INGEST_USERS}
+    want = sorted(_event_fields(e) for e in _app_events(storage, sess_app)
+                  if e.entity_id in users)
+    if got != want or len(got) != len(docs):
+        fail(f"[ingest-rest] the app's read ({len(got)} events) differs from 16a's import "
+             f"of the same users ({len(want)})")
+    log(f"[ingest-rest] the app's columnar read ({read_s:.3f}s) equals 16a's imported events "
+        f"of those {len(users)} users, field for field (ids and creation times aside)")
+    storage.close()
+    rtts = []
+    for n in range(INGEST_SINGLES):
+        status, doc, ms = _http(port, "POST", f"/events.json?accessKey={key}&channel=side",
+                                {"event": "view", "entityType": "user", "entityId": f"s{n}",
+                                 "targetEntityType": "item", "targetEntityId": f"i{n + 1}"})
+        if status != 201:
+            fail(f"[ingest-rest] single POST answered {status}: {doc}")
+        rtts.append(ms)
+    log(f"[ingest-rest] {INGEST_SINGLES} single POST /events.json: "
+        f"p50_ms={statistics.median(rtts):.3f} p99_ms={_quantile(rtts, 0.99):.3f} "
+        f"min_ms={min(rtts):.3f}")
+
+
+def phase_ingest_refusals(port: int, key: str, view_key: str) -> None:
+    """18c: the refusals and the other routes, each with the reference's
+    status; everything written goes to the channel `side`."""
+    ev = {"event": "view", "entityType": "user", "entityId": "c1",
+          "targetEntityType": "item", "targetEntityId": "i7"}
+    side = f"accessKey={key}&channel=side"
+    checks = [
+        ("no key", 401, "POST", "/events.json", ev),
+        ("bad key", 401, "POST", "/events.json?accessKey=nope", ev),
+        ("whitelisted key, other event", 403, "POST",
+         f"/events.json?accessKey={view_key}&channel=side", {**ev, "event": "buy"}),
+        ("whitelisted key, its event", 201, "POST",
+         f"/events.json?accessKey={view_key}&channel=side", ev),
+        ("malformed", 400, "POST", f"/events.json?{side}", {"event": "view"}),
+        ("batch over the cap", 400, "POST", f"/batch/events.json?{side}", [ev] * 51),
+        ("unknown channel", 401, "POST", f"/events.json?accessKey={key}&channel=nope", ev),
+    ]
+    for name, want, method, path, body in checks:
+        status, doc, _ = _http(port, method, path, body)
+        if status != want:
+            fail(f"[ingest-api] {name}: {status} {doc}, expected {want}")
+    status, doc, _ = _http(port, "POST", f"/events.json?{side}", {**ev, "entityId": "only-side"})
+    eid = doc["eventId"]
+    in_side = _http(port, "GET", f"/events.json?{side}&entityType=user&entityId=only-side")
+    in_default = _http(port, "GET", f"/events.json?accessKey={key}&entityType=user"
+                                    f"&entityId=only-side")
+    if status != 201 or in_side[0] != 200 or len(in_side[1]) != 1 or in_default[0] != 404:
+        fail(f"[ingest-api] channel POST read back: {in_side[:2]}, default {in_default[:2]}")
+    steps = [_http(port, "GET", f"/events/{eid}.json?{side}")[0],
+             _http(port, "DELETE", f"/events/{eid}.json?{side}")[0],
+             _http(port, "GET", f"/events/{eid}.json?{side}")[0]]
+    if steps != [200, 200, 404]:
+        fail(f"[ingest-api] GET/DELETE/GET /events/{{id}}.json: {steps}")
+    user = f"u{INGEST_USERS[1]}"
+    status, found, _ = _http(port, "GET", f"/events.json?accessKey={key}&event=view"
+                                          f"&entityType=user&entityId={user}&limit=5&reversed=true")
+    want = sorted(_session_docs([INGEST_USERS[1]]), key=lambda d: d["eventTime"])[-5:][::-1]
+    if status != 200 or [(d["targetEntityId"], d["eventTime"]) for d in found] != [
+            (d["targetEntityId"], d["eventTime"]) for d in want]:
+        fail(f"[ingest-api] filtered GET /events.json of {user}: {status} {str(found)[:300]}")
+    seg = _http(port, "POST", f"/webhooks/segmentio.json?{side}",
+                {"version": "2", "type": "track", "userId": "seg-1", "event": "Played",
+                 "properties": {"song": "a"}, "timestamp": "2026-01-02T00:00:00.000Z"})
+    mail = _http(port, "POST", f"/webhooks/mailchimp.form?{side}",
+                 "type=subscribe&fired_at=2026-01-02+00%3A00%3A00&data%5Bemail%5D=a%40b.c",
+                 content_type="application/x-www-form-urlencoded")
+    if seg[0] != 201 or mail[0] != 201:
+        fail(f"[ingest-api] webhooks: segmentio {seg[:2]}, mailchimp {mail[:2]}")
+    log(f"[ingest-api] {len(checks)} refusals and writes with the reference's statuses "
+        f"(401 x3, 403, 201, 400 x2); a channel POST read back only from its channel; "
+        f"GET/DELETE/GET /events/{{id}}.json {steps}; filtered GET with limit 5 and "
+        f"reversed; SegmentIO and MailChimp webhooks 201")
+
+
+def phase_feedback_loop(pio: _Pio, es_port: int, key: str) -> int:
+    """18d: `pio train` from the REST-ingested app, `pio deploy
+    --feedback`, 30 queries through the flash kernel, one `predict` event
+    per query back in the event store, `pio undeploy`. Returns the deploy
+    process's kernel launches."""
+    engine_json = os.path.join(pio.base, "ingest.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "ingest", "engineFactory":
+                   "predictionio_tpu_torch.templates.sessionrec.engine_factory",
+                   "datasource": {"params": {"app_name": "ingest"}},
+                   "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}]}, f)
+    instance_id = pio.train("ingest-loop", engine_json)
+    proc, port, _ = pio.deploy("ingest-loop", engine_json, "--engine-instance-id", instance_id,
+                               "--no-batching", "--feedback", "--event-server-ip",
+                               "127.0.0.1", "--event-server-port", str(es_port),
+                               "--accesskey", key)
+    try:
+        rng = np.random.default_rng(SEED + 18)
+        users = [int(u) for u in rng.choice(INGEST_USERS, INGEST_QUERIES, replace=False)]
+        queries = [{"user": f"u{u}", "num": (10, 20, 5)[j % 3]} for j, u in enumerate(users)]
+        for j in range(0, INGEST_QUERIES, 2):
+            queries[j]["prId"] = f"pr-{j}"
+        before = _status(port)
+        docs, rtts = _serve_http("ingest-loop", port, queries)
+        after = _status(port)
+        t_sent = time.perf_counter()
+        predict = []
+        while time.perf_counter() - t_sent < FEEDBACK_WAIT_S:
+            status, predict, _ = _http(es_port, "GET", f"/events.json?accessKey={key}"
+                                                       "&event=predict&entityType=pio_pr&limit=-1")
+            if status == 200 and len(predict) >= INGEST_QUERIES:
+                break
+            time.sleep(0.1)
+        feedback_s = time.perf_counter() - t_sent
+        pio.run("ingest-loop", "undeploy", "--ip", "127.0.0.1", "--port", str(port))
+        if proc.wait(timeout=30) != 0:
+            fail(f"[ingest-loop] the deploy process exited {proc.returncode} after undeploy")
+    finally:
+        if proc.poll() is None:
+            _stop(proc)
+    launches = (after["kernelLaunches"]["flash_attention"]
+                - before["kernelLaunches"]["flash_attention"])
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    if launches != layers * INGEST_QUERIES or after["engineInstanceId"] != instance_id:
+        fail(f"[ingest-loop] {launches} kernel launches for {INGEST_QUERIES} queries, or "
+             f"instance {after['engineInstanceId']} instead of {instance_id}")
+    by_pr = {}
+    for e in predict:
+        by_pr.setdefault(e["entityId"], []).append(e)
+    for body, doc in zip(queries, docs):
+        pr_id = doc.get("prId")
+        if not pr_id or ("prId" in body and pr_id != body["prId"]):
+            fail(f"[ingest-loop] {body}: the answer's prId is {pr_id!r}")
+        got = by_pr.get(pr_id, [])
+        query = {k: v for k, v in body.items() if k != "prId"}
+        if len(got) != 1 or got[0]["properties"] != {"query": query, "prediction": doc}:
+            fail(f"[ingest-loop] {body}: {len(got)} predict events for prId {pr_id}: "
+                 f"{str(got)[:500]}")
+    if len(predict) != INGEST_QUERIES:
+        fail(f"[ingest-loop] {len(predict)} predict events for {INGEST_QUERIES} queries")
+    log(f"[ingest-loop] {INGEST_QUERIES} queries (half with a prId): "
+        f"http_p50_ms={statistics.median(rtts):.3f}; kernelLaunches.flash_attention={launches} "
+        f"({layers} a query); exactly one predict event per query, carrying its query and "
+        f"prediction, readable {feedback_s:.3f}s after the last answer; `pio undeploy` exit 0")
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    model = deployed.models[0]
+    if model.cfg.vocab != N_ITEMS + 1 or model.cfg.max_len != PIO_SESSION_TRAIN["max_len"]:
+        fail(f"[ingest-loop] the trained model has vocab {model.cfg.vocab}, "
+             f"max_len {model.cfg.max_len}")
+    for body, doc in zip(queries, docs):
+        want = deployed.query(sessionrec.Query(user=body["user"], num=body["num"]))
+        if [s["item"] for s in doc["itemScores"]] != [s.item for s in want.item_scores]:
+            fail(f"[ingest-loop] {body}: HTTP answer differs from the in-process deploy")
+        agreement = _check_against_plain(
+            model, model.histories[body["user"]][-model.cfg.max_len:], [],
+            [(model.item_index[s["item"]], s["score"]) for s in doc["itemScores"]],
+            min(10, body["num"]), f"ingest-loop {body['user']}")
+    log(f"[ingest-loop] instance {instance_id} (vocab {model.cfg.vocab}, S "
+        f"{model.cfg.max_len}): every answer equals the in-process deploy; the last against "
+        f"the plain attention: {agreement}")
+    del deployed, model
+    storage.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _drain(pio: _Pio, wal_dir: str, t0: float) -> float:
+    """Seconds from ``t0`` until the journal has nothing pending."""
+    from predictionio_tpu_torch.data.wal import scan_status
+
+    deadline = time.monotonic() + PIO_STEP_TIMEOUT
+    while scan_status(wal_dir)["depth"] > 0:
+        if time.monotonic() > deadline:
+            fail(f"[ingest-wal] the journal did not drain: {scan_status(wal_dir)}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def phase_durable_ingest(pio: _Pio, app_id: int, key: str) -> None:
+    """18e: the event server over binevents with the write-through WAL:
+    20,000 events all 202, drained into the store and read back through
+    the native scanner; then SIGKILL during a second burst, a restart,
+    and every acknowledged event read back."""
+    from predictionio_tpu_torch.storage import binevents
+
+    env = _binevents_env(pio)
+    wal_dir = os.path.join(pio.base, "wal")
+    flags = ("--stats", "--wal-dir", wal_dir, "--wal-policy", "write-through",
+             "--wal-fsync", "interval")
+    docs = _ml100k_docs()[0]
+    proc, port, start_s = pio.eventserver("ingest-wal", *flags, env=env)
+    try:
+        results, seconds = _send_batches(port, key, docs[:INGEST_WAL_EVENTS], INGEST_CLIENTS)
+        t_sent = time.perf_counter()
+        bad = [r for r in results if r is None or r["status"] != 202]
+        if bad:
+            fail(f"[ingest-wal] {len(bad)} events without a 202, first {bad[:3]}")
+        drain_s = _drain(pio, wal_dir, t_sent)
+        out, _ = pio.run("ingest-wal", "wal", "status", "--wal-dir", wal_dir)
+        if "pending: 0 record(s)" not in out:
+            fail(f"[ingest-wal] pio wal status: {out}")
+        log(f"[ingest-wal] {INGEST_WAL_EVENTS} events into binevents through the write-through "
+            f"WAL: {seconds:.3f}s, events_per_s={INGEST_WAL_EVENTS / seconds:.1f}, every "
+            f"status 202; drained {drain_s:.3f}s after the last 202 (`pio wal status`: 0 "
+            f"pending)")
+        storage = Storage(env)
+        events = storage.get_events()
+        scans = binevents.NATIVE_SCANS
+        t0 = time.perf_counter()
+        stored = {e.event_id: e for e in events.find(app_id)}
+        read_s = time.perf_counter() - t0
+        if not events.native_active or binevents.NATIVE_SCANS != scans + 1:
+            fail("[ingest-wal] the binevents read did not go through the native scanner")
+        sent = {r["eventId"]: d for r, d in zip(results, docs)}
+        if stored.keys() != sent.keys() or any(
+                _event_fields(stored[i]) != _doc_fields(d) for i, d in sent.items()):
+            fail(f"[ingest-wal] the store holds {len(stored)} events, not the "
+                 f"{len(sent)} sent")
+        log(f"[ingest-wal] the app's read equals what was sent ({len(stored)} events, "
+            f"{read_s:.3f}s, served by the native scanner)")
+        # a second burst, killed under load
+        import threading
+
+        box: list = []
+        progress: list[int] = []
+        burst = threading.Thread(target=lambda: box.append(_send_batches(
+            port, key, docs[INGEST_WAL_EVENTS:], INGEST_CLIENTS, acked=progress)))
+        burst.start()
+        deadline = time.monotonic() + 60
+        while (sum(progress) < KILL_AFTER_ACKS and burst.is_alive()
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        proc.kill()
+        proc.wait(timeout=30)
+        burst.join(timeout=120)
+        acked = {r["eventId"] for r in box[0][0] if r is not None and r["status"] == 202}
+        log(f"[ingest-wal] SIGKILL after {len(acked)} acknowledged events of the second burst")
+        if not acked:
+            fail("[ingest-wal] no event of the second burst was acknowledged before the kill")
+        proc, port, restart_s = pio.eventserver("ingest-wal-restart", *flags, env=env)
+        drain_s = _drain(pio, wal_dir, time.perf_counter())
+        after = {e.event_id for e in events.find(app_id)}
+        lost = acked - after
+        if lost or not set(sent) <= after:
+            fail(f"[ingest-wal] {len(lost)} acknowledged events lost after the kill")
+        log(f"[ingest-wal] restart {restart_s:.3f}s, drained {drain_s:.3f}s: every one of the "
+            f"{len(acked)} acknowledged events read back ({len(after) - len(sent)} stored in "
+            f"all from the burst)")
+        storage.close()
+    finally:
+        _stop(proc)
+    log(f"[ingest-wal] event server start {start_s:.3f}s")
+
+
+def phase_ingest(pio: _Pio) -> int:
+    """Phase 18 over phase 16a's import; returns the flash kernel's
+    launches in 18d's deploy process."""
+    t0 = time.perf_counter()
+    app_id, key, view_key = ingest_setup(pio)
+    proc, port, start_s = pio.eventserver("ingest", "--stats")
+    try:
+        for path in ("/", "/readyz"):
+            status, doc, _ = _http(port, "GET", path)
+            if status != 200:
+                fail(f"[ingest] GET {path}: {status} {doc}")
+        log(f"[ingest] pio eventserver: listening after {start_s:.3f}s; GET / and /readyz 200")
+        phase_ingest_rest(pio, port, app_id, key)
+        phase_ingest_refusals(port, key, view_key)
+        launches = phase_feedback_loop(pio, port, key)
+    finally:
+        _stop(proc)
+    if proc.returncode != 0:
+        fail(f"[ingest] the event server exited {proc.returncode} on SIGTERM")
+    phase_durable_ingest(pio, app_id, key)
+    log(f"[ingest] phase 18 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -2616,15 +3112,19 @@ def run_phases(wall: float) -> None:
         phase_eval_sessionrec()
         phase_eval_recommendation()
         return
-    if sys.argv[1:] in (["--pio-only"], ["--serve-only"]):
-        # phase 16, or phase 17 over 16a's instance, alone; no result line
+    if sys.argv[1:] in (["--pio-only"], ["--serve-only"], ["--ingest-only"]):
+        # phase 16, or phase 17 over 16a's instance, or phase 18 over 16a's
+        # import, alone; no result line
         phase_build()
         with tempfile.TemporaryDirectory(prefix="pio-") as base:
             pio = _Pio(base)
             if sys.argv[1] == "--pio-only":
                 phase_pio(pio)
-            else:
+            elif sys.argv[1] == "--serve-only":
                 phase_serve(pio, pio_sessionrec_instance(pio), random_als_model())
+            else:
+                import_sessions(pio)
+                phase_ingest(pio)
         return
     phase_build()
     max_abs_err = phase_kernel_vs_plain()
@@ -2660,6 +3160,10 @@ def run_phases(wall: float) -> None:
         if serve_launches == 0:
             fail("batched serving never launched the flash_attention kernel")
         launches += serve_launches
+        ingest_launches = phase_ingest(pio)
+        if ingest_launches == 0:
+            fail("the feedback loop's deploy never launched the flash_attention kernel")
+        launches += ingest_launches
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

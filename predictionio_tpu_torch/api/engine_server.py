@@ -38,10 +38,15 @@ Port-specific decisions:
   a kernel failing at B > 1 cannot hide behind B = 1 retries.
 - ``GET /`` is JSON only (no HTML page).
 
-Left to later slices (ROADMAP.md queue 1): the feedback loop (item 22);
-``--workers``, the shared-memory cache and ``/drain`` (item 23);
-``/retrieval`` (item 10); ``--online`` (item 11); ``/metrics``,
-``/traces.json`` and compile accounting (item 12).
+With ``ServerConfig.feedback`` every answer carries a ``prId`` (the
+query's own, else a new one) and the (query, prediction) pair is posted
+to the event server as a ``predict`` event of entity ``pio_pr``, on a
+daemon thread; a failed post is logged and never reaches the query.
+
+Left to later slices (ROADMAP.md queue 1): ``--workers``, the
+shared-memory cache and ``/drain`` (item 23); ``/retrieval`` (item 10);
+``--online`` (item 11); ``/metrics``, ``/traces.json``, the feedback
+post's trace headers and compile accounting (item 12).
 
 The server deploys a stored engine instance (``pio deploy``,
 ``workflow/deploy.load_deployed_engine``) or a model directory: ``python
@@ -60,9 +65,10 @@ import dataclasses
 import json
 import logging
 import queue
-import signal
 import threading
 import time
+import urllib.request
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from http.server import BaseHTTPRequestHandler
@@ -79,6 +85,7 @@ from predictionio_tpu_torch.api.http_base import (
     parse_deadline_budget,
     resolve_request_id,
     retry_after_header,
+    serve_until_stopped,
     undeploy,
 )
 from predictionio_tpu_torch.api.stats import ServingStats, resilience_snapshot
@@ -98,6 +105,7 @@ from predictionio_tpu_torch.utils.resilience import (
     record_fallback,
     retry_after_hint,
 )
+from predictionio_tpu_torch.utils.ssl_config import client_transport
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.deploy import (
     DEFAULT_ENGINE_FACTORY,
@@ -397,7 +405,7 @@ class EngineService:
             raise _Reject(400, "the request body must be a JSON object")
         # prId is feedback-loop metadata, not a query field
         body = dict(body)
-        body.pop("prId", None)
+        pr_id_in = body.pop("prId", None)
         decoder = self._query_decoder
         try:
             query = decoder(body) if decoder is not None else body
@@ -458,11 +466,51 @@ class EngineService:
             response = {"result": response}
         # experiment attribution: the router stamps the assigned variant
         # on the request; echo it for the client's conversion events
+        attribution = None
         experiment_id = headers.get("x-pio-experiment")
         if experiment_id:
-            response.update({"experimentId": experiment_id,
-                             "variantId": headers.get("x-pio-variant", "")})
+            attribution = {"experimentId": experiment_id,
+                           "variantId": headers.get("x-pio-variant", "")}
+            response.update(attribution)
+        if self.config.feedback:
+            # the feedback loop: tag the response with a prId (the one
+            # sent, else a new one) and post (query, prediction) back
+            pr_id = pr_id_in or uuid.uuid4().hex
+            response["prId"] = pr_id
+            self._post_feedback(pr_id, body, response, attribution)
         return (200, response)
+
+    def _post_feedback(self, pr_id: str, query_json: dict, response: dict,
+                       attribution: dict | None = None) -> None:
+        """Fire-and-forget ``POST /events.json`` of a ``predict`` event
+        to the event server, on a daemon thread bounded by
+        ``feedback_timeout_s``; a failure is logged and never reaches
+        the query."""
+        cfg = self.config
+        event = {
+            "event": "predict",
+            "entityType": "pio_pr",
+            "entityId": pr_id,
+            "properties": {"query": query_json, "prediction": response,
+                           **(attribution or {})},
+        }
+        data = json.dumps(event).encode()
+
+        def post() -> None:
+            scheme, ssl_ctx = client_transport()
+            url = (f"{scheme}://{cfg.event_server_ip}:{cfg.event_server_port}"
+                   f"/events.json?accessKey={cfg.access_key}")
+            try:
+                req = urllib.request.Request(
+                    url, data=data, headers={"Content-Type": "application/json"},
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=cfg.feedback_timeout_s,
+                                            context=ssl_ctx):
+                    pass
+            except Exception as e:
+                logger.warning("feedback event POST failed: %s", e)
+
+        threading.Thread(target=post, name="pio-feedback", daemon=True).start()
 
     def _query_with_deadline(self, query: Any, budget: float) -> Any:
         """The unbatched predict under a budget: the query waits for the
@@ -646,18 +694,6 @@ def create_engine_server(
         storage = storage or (ctx.storage if ctx is not None else Storage())
     deployed = load_deployed_engine(storage, config, ctx=ctx, engine=engine)
     return EngineServer(deployed, config, storage, ctx, plugin_context)
-
-
-def serve_until_stopped(server: EngineServer) -> None:
-    """Block a started server's process until POST /stop, SIGTERM or
-    Ctrl-C, then stop the server."""
-    signal.signal(signal.SIGTERM, lambda *_: server.stop())
-    try:
-        server.stopped.wait()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.stop()
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -30,6 +30,7 @@ import math
 import os
 import random
 import re
+import signal
 import sys
 import threading
 import time
@@ -312,3 +313,15 @@ class RestServer:
                 self._thread.join(timeout=5)
                 self._thread = None
             self.stopped.set()
+
+
+def serve_until_stopped(server: RestServer) -> None:
+    """Block a started server's process until it stops (POST /stop),
+    SIGTERM or Ctrl-C, then stop the server."""
+    signal.signal(signal.SIGTERM, lambda *_: server.stop())
+    try:
+        server.stopped.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()

@@ -5,9 +5,15 @@ port serves).
     python -m predictionio_tpu_torch.cli.pio <command> ...
 
 - ``version``; ``status`` (verifies every storage repository);
-- ``app new|list|show|delete`` (a new app gets an access key) and
-  ``accesskey new|list``;
+- ``app new|list|show|delete|data-delete|channel-new|channel-delete``
+  (a new app gets an access key) and ``accesskey new|list|delete``
+  (``new --event E`` whitelists event names);
 - ``import`` / ``export``: events as JSON lines;
+- ``eventserver``: the event server (``api/event_server.py``) in this
+  process, with ``--stats`` and the write-ahead journal flags
+  ``--wal-dir``, ``--wal-fsync``, ``--wal-max-bytes``, ``--wal-policy``
+  (an absent flag leaves the ``PIO_EVENTSERVER_WAL_*`` default);
+  ``wal status|replay|dead-letter``: operate that journal;
 - ``train``: ``workflow/train.run_train`` of an engine.json variant,
   recording an engine instance;
 - ``deploy``: the engine server over a stored instance (by
@@ -16,18 +22,19 @@ port serves).
   ``--batch-policy``, ``--batch-max``, ``--batch-wait-ms``,
   ``--cache/--no-cache``, ``--cache-max-entries``, ``--cache-ttl-s`` and
   ``--request-deadline-ms`` (an absent flag leaves the
-  ``PIO_SERVING_*`` default); ``undeploy``: POST /stop to a running one.
+  ``PIO_SERVING_*`` default), and the feedback loop ``--feedback
+  --event-server-ip --event-server-port --accesskey``; ``undeploy``:
+  POST /stop to a running one.
 
 ``train`` and ``deploy`` run on the card unless ``--device cpu`` is
-given; the administrative commands do not import torch. Storage is
-configured as the JAX package configures it (the
+given; the other commands, ``eventserver`` among them, do not import
+torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet: ``eval``
-(ROADMAP.md queue 1 item 18), ``eventserver`` and ``deploy --feedback``
-(item 22), ``deploy --workers/--shm-cache`` (item 23), ``--retrieval``
-(item 10), ``--online`` (item 11), ``--tracing`` and ``train --profile``
-(item 12), ``build``/``run``, the router, ``experiment`` and the admin
+(ROADMAP.md queue 1 item 18), ``deploy --workers/--shm-cache`` (item
+23), ``--retrieval`` (item 10), ``--online`` (item 11), ``--tracing``
+and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
 tools (item 23), and Parquet import and export (item 25).
 """
 
@@ -39,7 +46,7 @@ import os
 import sys
 
 from predictionio_tpu_torch import __version__
-from predictionio_tpu_torch.storage.base import AccessKey, App
+from predictionio_tpu_torch.storage.base import AccessKey, App, Channel
 from predictionio_tpu_torch.storage.registry import Storage
 
 
@@ -117,15 +124,44 @@ def _cmd_app(args, storage: Storage) -> int:
         for c in channels.get_by_app_id(app.id):
             print(f"[INFO]      Channel: {c.name} (id={c.id})")
         return 0
-    # delete
-    for c in channels.get_by_app_id(app.id):
-        events.remove(app.id, c.id)
-        channels.delete(c.id)
-    events.remove(app.id)
-    for k in keys.get_by_app_id(app.id):
-        keys.delete(k.key)
-    apps.delete(app.id)
-    print(f"[INFO] App {args.name} deleted.")
+    if args.app_command == "delete":
+        for c in channels.get_by_app_id(app.id):
+            events.remove(app.id, c.id)
+            channels.delete(c.id)
+        events.remove(app.id)
+        for k in keys.get_by_app_id(app.id):
+            keys.delete(k.key)
+        apps.delete(app.id)
+        print(f"[INFO] App {args.name} deleted.")
+        return 0
+    if args.app_command == "data-delete":
+        channel_id = None
+        if args.channel:
+            chan = find_channel(storage, app.id, args.channel)
+            if chan is None:
+                print(f"[ERROR] Channel {args.channel} does not exist.")
+                return 1
+            channel_id = chan.id
+        events.remove(app.id, channel_id)
+        events.init(app.id, channel_id)
+        print(f"[INFO] Data of app {args.name} deleted.")
+        return 0
+    if args.app_command == "channel-new":
+        channel_id = channels.insert(Channel(0, args.channel, app.id))
+        if channel_id is None:
+            print(f"[ERROR] Invalid channel name: {args.channel}")
+            return 1
+        events.init(app.id, channel_id)
+        print(f"[INFO] Channel {args.channel} (id={channel_id}) created.")
+        return 0
+    # channel-delete
+    chan = find_channel(storage, app.id, args.channel)
+    if chan is None:
+        print(f"[ERROR] Channel {args.channel} does not exist.")
+        return 1
+    events.remove(app.id, chan.id)
+    channels.delete(chan.id)
+    print(f"[INFO] Channel {args.channel} deleted.")
     return 0
 
 
@@ -142,6 +178,10 @@ def _cmd_accesskey(args, storage: Storage) -> int:
             print(f"[ERROR] Access key {args.access_key} already exists.")
             return 1
         print(f"[INFO] Created new access key: {key}")
+        return 0
+    if args.ak_command == "delete":
+        keys.delete(args.key)
+        print(f"[INFO] Deleted access key {args.key}")
         return 0
     # list
     app = apps.get_by_name(args.app_name) if args.app_name else None
@@ -199,6 +239,115 @@ def _cmd_import(args, storage: Storage) -> int:
     return 0
 
 
+def _cmd_eventserver(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.api.event_server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.api.http_base import serve_until_stopped
+
+    # an absent flag leaves the PIO_EVENTSERVER_WAL_* default
+    wal_overrides = {k: v for k, v in {
+        "wal_dir": args.wal_dir,
+        "wal_fsync": args.wal_fsync,
+        "wal_max_bytes": args.wal_max_bytes,
+        "wal_policy": args.wal_policy,
+    }.items() if v is not None}
+    server = EventServer(storage, EventServerConfig(
+        ip=args.ip, port=args.port, stats=args.stats, **wal_overrides)).start()
+    print(f"[INFO] Event Server listening on {args.ip}:{server.port}", flush=True)
+    if server.service.wal is not None:
+        cfg = server.service.config
+        print(f"[INFO] Durable ingest: WAL at {cfg.wal_dir} "
+              f"(fsync={cfg.wal_fsync}, budget={cfg.wal_max_bytes} bytes, "
+              f"policy={cfg.wal_policy}, "
+              f"{server.service.wal.pending_records()} pending)", flush=True)
+    serve_until_stopped(server)
+    return 0
+
+
+def _cmd_wal(args, storage: Storage | None) -> int:
+    """``status``: a scan that changes nothing (safe against a running
+    server); ``replay``: drain into storage in the foreground (with the
+    owning event server stopped: opening the journal recovers it);
+    ``dead-letter``: show or requeue quarantined records."""
+    from predictionio_tpu_torch.data.wal import WalDrainer, WalError, WriteAheadLog, scan_status
+
+    wal_dir = args.wal_dir or os.environ.get("PIO_EVENTSERVER_WAL_DIR") or None
+    if not wal_dir:
+        print("[ERROR] --wal-dir (or PIO_EVENTSERVER_WAL_DIR) is required.")
+        return 1
+    try:
+        if args.wal_command == "status":
+            doc = scan_status(wal_dir)
+            if args.format == "json":
+                print(json.dumps(doc, indent=2))
+                return 0
+            print(f"[INFO] WAL at {doc['dir']}")
+            print(f"[INFO]   pending: {doc['depth']} record(s), "
+                  f"{doc['bytes']} byte(s) in {doc['segments']} segment(s)")
+            print(f"[INFO]   cursor: segment {doc['cursor']['segment']} "
+                  f"offset {doc['cursor']['offset']} "
+                  f"({doc['replayedTotal']} replayed lifetime)")
+            print(f"[INFO]   dead letters: {doc['deadLetterPending']} "
+                  f"pending ({doc['deadLetterTotal']} lifetime), "
+                  f"corrupt: {doc['corruptRecords']}")
+            if doc["tornTail"]:
+                print("[WARN]   torn tail detected (crash artifact; "
+                      "recovered on next server start or replay)")
+            return 0
+        if args.wal_command == "replay":
+            storage = storage or Storage()
+            wal = WriteAheadLog(wal_dir)
+            drainer = WalDrainer(wal, storage.get_events().insert_batch,
+                                 max_replay_attempts=args.max_attempts)
+            print(f"[INFO] replaying {wal.pending_records()} journaled record(s) "
+                  f"from {wal_dir} ...")
+            while True:
+                verdict = drainer.drain_once()
+                if verdict == "empty":
+                    break
+                if verdict == "unavailable":
+                    print("[ERROR] storage unavailable "
+                          f"({wal.pending_records()} record(s) still "
+                          "pending) — fix the backend and re-run.")
+                    return 1
+                # "progress" and "blocked" go on: a blocked record moves
+                # to the dead-letter series after --max-attempts passes
+            stats = wal.stats()
+            wal.close()
+            print(f"[INFO] replay complete: {stats['replayedTotal']} "
+                  f"replayed lifetime, {stats['deadLetterTotal']} "
+                  f"dead-letter record(s).")
+            return 0
+        # dead-letter
+        wal = WriteAheadLog(wal_dir)
+        try:
+            if args.requeue:
+                n, kept = wal.requeue_dead_letters()
+                print(f"[INFO] requeued {n} dead-letter record(s) "
+                      "into the journal; run `pio wal replay` (or "
+                      "start the event server) to drain them.")
+                if kept:
+                    print(f"[WARN] kept {kept} undecodable "
+                          "envelope(s) in the dead-letter series "
+                          "(inspect with `pio wal dead-letter`).")
+                return 0
+            shown = 0
+            for env_doc in wal.dead_letters():
+                if shown >= args.show:
+                    print(f"[INFO] ... (--show {args.show} cap; "
+                          "use --show N for more)")
+                    break
+                print(json.dumps(env_doc))
+                shown += 1
+            if shown == 0:
+                print("[INFO] no dead-letter records.")
+            return 0
+        finally:
+            wal.close()
+    except WalError as exc:
+        print(f"[ERROR] {exc}")
+        return 1
+
+
 def _cmd_train(args, storage: Storage) -> int:
     from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
     from predictionio_tpu_torch.workflow.engine_json import load_variant
@@ -232,7 +381,8 @@ def _cmd_train(args, storage: Storage) -> int:
 
 
 def _cmd_deploy(args, storage: Storage) -> int:
-    from predictionio_tpu_torch.api.engine_server import create_engine_server, serve_until_stopped
+    from predictionio_tpu_torch.api.engine_server import create_engine_server
+    from predictionio_tpu_torch.api.http_base import serve_until_stopped
     from predictionio_tpu_torch.workflow.deploy import ServerConfig
     from predictionio_tpu_torch.workflow.engine_json import read_variant
 
@@ -249,6 +399,10 @@ def _cmd_deploy(args, storage: Storage) -> int:
         engine_version=variant.get("version"),
         engine_variant=variant.get("variantId"),
         device=args.device,
+        feedback=args.feedback,
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        access_key=args.accesskey,
         server_key=args.server_key,
         # an absent flag leaves ServerConfig's PIO_SERVING_* default
         **{k: v for k, v in {
@@ -295,6 +449,13 @@ def build_parser() -> argparse.ArgumentParser:
     app_sub.add_parser("list")
     for name in ("show", "delete"):
         app_sub.add_parser(name).add_argument("name")
+    pdd = app_sub.add_parser("data-delete")
+    pdd.add_argument("name")
+    pdd.add_argument("--channel")
+    for name in ("channel-new", "channel-delete"):
+        pc = app_sub.add_parser(name)
+        pc.add_argument("name")
+        pc.add_argument("channel")
 
     p = sub.add_parser("accesskey", help="access key administration")
     ak_sub = p.add_subparsers(dest="ak_command", required=True)
@@ -303,6 +464,49 @@ def build_parser() -> argparse.ArgumentParser:
     an.add_argument("--access-key", dest="access_key")
     an.add_argument("--event", action="append")
     ak_sub.add_parser("list").add_argument("app_name", nargs="?")
+    ak_sub.add_parser("delete").add_argument("key")
+
+    p = sub.add_parser("eventserver", help="launch the event server")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7070)
+    p.add_argument("--stats", action="store_true")
+    p.add_argument("--wal-dir", default=None, dest="wal_dir",
+                   help="write-ahead journal directory: storage outages ride "
+                        "through as 202-journaled events replayed by a background "
+                        "drainer (default: WAL off, outages shed 503s)")
+    p.add_argument("--wal-fsync", default=None, dest="wal_fsync",
+                   choices=("always", "interval", "off"),
+                   help="journal fsync policy: always = every 202 is crash-durable; "
+                        "interval (default) = bounded loss window; off = OS page "
+                        "cache only")
+    p.add_argument("--wal-max-bytes", type=int, default=None, dest="wal_max_bytes",
+                   help="journal disk budget; past it ingest reverts to 503 "
+                        "backpressure with a drain-aware Retry-After")
+    p.add_argument("--wal-policy", default=None, dest="wal_policy",
+                   choices=("ride-through", "write-through"),
+                   help="ride-through (default) journals only during a storage "
+                        "outage; write-through journals every event (202) and "
+                        "leaves storage to the drainer")
+
+    p = sub.add_parser("wal", help="operate the durable-ingest write-ahead journal")
+    wal_sub = p.add_subparsers(dest="wal_command", required=True)
+    ws = wal_sub.add_parser("status", help="journal scan that changes nothing "
+                                           "(safe against a running event server)")
+    ws.add_argument("--wal-dir", default=None, dest="wal_dir",
+                    help="journal directory (default: PIO_EVENTSERVER_WAL_DIR)")
+    ws.add_argument("--format", choices=("text", "json"), default="text")
+    wr = wal_sub.add_parser("replay", help="drain into storage in the foreground, "
+                                           "with the owning event server stopped")
+    wr.add_argument("--wal-dir", default=None, dest="wal_dir")
+    wr.add_argument("--max-attempts", type=int, default=5, dest="max_attempts",
+                    help="application-failure passes per record before "
+                         "dead-letter quarantine")
+    wd = wal_sub.add_parser("dead-letter", help="inspect or requeue quarantined records")
+    wd.add_argument("--wal-dir", default=None, dest="wal_dir")
+    wd.add_argument("--show", type=int, default=20,
+                    help="print at most this many envelopes")
+    wd.add_argument("--requeue", action="store_true",
+                    help="move every dead-letter record back into the live journal")
 
     p = sub.add_parser("export", help="export an app's events to a JSON-lines file")
     p.add_argument("--appid", type=int, required=True)
@@ -331,6 +535,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine-instance-id", default=None)
     p.add_argument("--engine-json", default="engine.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--feedback", action="store_true",
+                   help="post each query and prediction to the event server")
+    p.add_argument("--event-server-ip", default="0.0.0.0")
+    p.add_argument("--event-server-port", type=int, default=7070)
+    p.add_argument("--accesskey", default="", help="access key for feedback events")
     p.add_argument("--server-key", default=None,
                    help="when set, /stop and /reload require this key")
     p.add_argument("--batching", action=argparse.BooleanOptionalAction, default=None,
@@ -359,6 +568,8 @@ _COMMANDS = {
     "status": _cmd_status,
     "app": _cmd_app,
     "accesskey": _cmd_accesskey,
+    "eventserver": _cmd_eventserver,
+    "wal": _cmd_wal,
     "export": _cmd_export,
     "import": _cmd_import,
     "train": _cmd_train,
@@ -373,7 +584,9 @@ def main(argv: list[str] | None = None) -> int:
     if not args.command:
         parser.print_help()
         return 1
-    storage = None if args.command == "version" else Storage()
+    # `wal` works on the journal directory alone; its replay builds the
+    # storage itself
+    storage = None if args.command in ("version", "wal") else Storage()
     return _COMMANDS[args.command](args, storage)
 
 

@@ -165,6 +165,47 @@ class _JsonRows:
         return parse_datetime(self.creation_raw[i])
 
 
+class _EventJsonRows:
+    """Cold fields inside full event-JSON payloads (the binevents frame
+    carries the filterable fields in binary and the rest as one JSON
+    blob; a scan that never touches properties never parses it)."""
+
+    __slots__ = ("payloads", "_cache")
+
+    def __init__(self, payloads: Sequence[bytes | str]):
+        self.payloads = payloads
+        self._cache: dict[int, dict] = {}
+
+    def _doc(self, i: int) -> dict:
+        doc = self._cache.get(i)
+        if doc is None:
+            doc = self._cache[i] = json.loads(self.payloads[i])
+        return doc
+
+    def properties(self, i: int) -> DataMap:
+        return DataMap.from_json(self._doc(i).get("properties") or {})
+
+    def properties_raw(self, i: int) -> dict:
+        return self._doc(i).get("properties") or {}
+
+    def tags(self, i: int) -> tuple[str, ...]:
+        return tuple(self._doc(i).get("tags") or ())
+
+    def pr_id(self, i: int) -> str | None:
+        return self._doc(i).get("prId")
+
+    def creation_time(self, i: int) -> datetime:
+        raw = self._doc(i).get("creationTime")
+        return parse_datetime(raw) if raw else us_to_datetime(0)
+
+    def event_time(self, i: int) -> datetime:
+        """Payload eventTime — the wire format truncates to
+        milliseconds, and materialized Events must match what the row
+        path (``find``) returns; the µs-exact instant stays in the
+        batch's ``event_time_us`` column."""
+        return parse_datetime(self._doc(i)["eventTime"])
+
+
 # ---------------------------------------------------------------------------
 # The batch type
 # ---------------------------------------------------------------------------
@@ -214,6 +255,10 @@ class EventColumns:
         tets = self.target_entity_type.decode()
         teis = self.target_entity_id.decode()
         rows = self._rows
+        # a provider whose payload carries its own event-time spelling
+        # (the binary log's ms-truncated wire JSON) overrides the column,
+        # so materialized Events match find() exactly
+        row_time = getattr(rows, "event_time", None)
         return [
             Event(
                 event=ev_names[i],
@@ -222,7 +267,8 @@ class EventColumns:
                 target_entity_type=tets[i],
                 target_entity_id=teis[i],
                 properties=rows.properties(i),
-                event_time=us_to_datetime(self.event_time_us[i]),
+                event_time=(row_time(i) if row_time is not None
+                            else us_to_datetime(self.event_time_us[i])),
                 tags=rows.tags(i),
                 pr_id=rows.pr_id(i),
                 creation_time=rows.creation_time(i),
@@ -277,6 +323,25 @@ class EventColumns:
             target_entity_id=target_entity_id,
             event_ids=tuple(event_ids),
             _rows=_JsonRows(props_json, tags_json, pr_ids, creation_raw),
+        )
+
+
+    @staticmethod
+    def from_event_json(times_us: np.ndarray,
+                        event: DictColumn, entity_type: DictColumn,
+                        entity_id: DictColumn, target_entity_type: DictColumn,
+                        target_entity_id: DictColumn,
+                        event_ids: Sequence[str | None],
+                        payloads: Sequence[bytes | str]) -> "EventColumns":
+        """Binary-log frames: hot fields decoded straight from the frame
+        header, cold fields left inside the event-JSON payload."""
+        return EventColumns(
+            event_time_us=np.asarray(times_us, dtype=np.int64),
+            event=event, entity_type=entity_type, entity_id=entity_id,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            event_ids=tuple(event_ids),
+            _rows=_EventJsonRows(payloads),
         )
 
 

@@ -1,0 +1,888 @@
+"""Segmented write-ahead event journal: the ingest plane's outage
+ride-through (a copy of the JAX package's ``data/wal.py``; the on-disk
+format is byte-identical, so a journal written by either package
+replays through the other, as one sqlite file serves both).
+
+Before the journal, a storage outage mapped straight to ``503 +
+Retry-After``, making durability during the outage entirely the
+client's problem. The WAL moves that burden server-side: when the
+backend is down accepted events are journaled to local disk and
+acknowledged ``202``, and a background drainer replays them into
+storage through the idempotent pre-assigned-id ``insert_batch`` path
+(every backend honors caller-set event ids with upsert semantics), so
+replay after a partial failure is exactly-once-effective. Under the
+``write-through`` policy every accepted event is journaled and only the
+drainer writes storage.
+
+Layout (one directory per event server):
+
+- ``wal-<seq>.seg``  — journal segments: framed records, each
+  ``<u32 payload length><u32 crc32><payload>`` (little-endian header).
+  The active segment is the highest sequence number; rotation closes
+  it (always fsynced — a segment boundary is a durability point) and
+  creates the next sequence with ``O_EXCL``.
+- ``dead-<seq>.seg`` — the dead-letter series: records the drainer
+  gave up on after ``max_replay_attempts`` application-level failures,
+  wrapped in a JSON envelope carrying the reason. Same framing, so
+  ``pio wal dead-letter`` replays/requeues with the same reader.
+- ``wal.cursor``     — the replay cursor ``{segment, offset}`` plus
+  lifetime counters, written via tmp+fsync+``os.replace`` (atomic).
+  The cursor commits AFTER storage acknowledged a replayed run; a crash
+  between insert and commit only re-inserts — idempotent by the
+  pre-assigned ids.
+
+Recovery (``WriteAheadLog.__init__``) truncates a torn tail of the
+last segment (a ``kill -9`` mid-append leaves a partial frame; the
+un-acknowledged record it held was never 202'd under ``fsync=always``)
+and counts-and-skips CRC-corrupt records instead of crashing: one
+flipped bit must cost one record, never the journal.
+
+fsync policy (``always | interval | off``): ``always`` fsyncs every
+append (every 202 is crash-durable), ``interval`` fsyncs at most every
+``fsync_interval_s`` on the appending thread (a bounded loss window on
+power failure; the default), ``off`` leaves it to the OS (bulk loads).
+
+The journal is bounded honestly: past ``max_bytes`` of pending frames
+``append`` raises :class:`WalFullError` and the server reverts to
+``503`` backpressure, with a Retry-After hint derived from observed
+drain progress (:meth:`WalDrainer.backpressure_hint`).
+
+The port leaves out the JAX package's replay traces (``trace_factory``
+/ ``trace_sink``): request tracing is ROADMAP.md queue 1 item 12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import random
+import struct
+import threading
+import zlib
+from typing import Any, Callable, Iterator, Sequence
+
+from predictionio_tpu_torch.core.event import Event
+from predictionio_tpu_torch.core.json_codec import event_from_json, event_to_json
+from predictionio_tpu_torch.utils.resilience import (
+    STORAGE_UNAVAILABLE_ERRORS,
+    SYSTEM_CLOCK,
+    Clock,
+    RetryPolicy,
+    StorageUnavailableError,
+)
+
+logger = logging.getLogger(__name__)
+
+#: frame header: <u32 payload length><u32 crc32(payload)>
+_HEADER = struct.Struct("<II")
+#: sanity bound — a corrupt length field must not allocate gigabytes
+MAX_RECORD_BYTES = 16 << 20
+
+FSYNC_POLICIES = ("always", "interval", "off")
+
+_SEGMENT_PREFIX = "wal-"
+_DEAD_PREFIX = "dead-"
+_SEGMENT_SUFFIX = ".seg"
+_CURSOR_FILE = "wal.cursor"
+
+
+class WalError(Exception):
+    """A journal-level failure (I/O, malformed directory)."""
+
+
+class WalFullError(WalError):
+    """The journal is at its disk budget: the caller must shed
+    (``503`` backpressure) instead of journaling."""
+
+    def __init__(self, pending_bytes: int, max_bytes: int):
+        super().__init__(
+            f"write-ahead journal at disk budget "
+            f"({pending_bytes} of {max_bytes} bytes pending)")
+        self.pending_bytes = pending_bytes
+        self.max_bytes = max_bytes
+
+
+#: (segment sequence, byte offset of the next frame) — totally ordered
+Position = tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class WalEntry:
+    """One pending record as the drainer sees it."""
+
+    position: Position        # frame start
+    next_position: Position   # first byte after the frame
+    payload: bytes
+
+
+def encode_record(event: Event, app_id: int,
+                  channel_id: int | None) -> bytes:
+    """One journal payload: the event's API JSON (id pre-assigned by
+    the caller — replay idempotency depends on it) plus its routing.
+    Unlike the ms-truncated wire format, timestamps keep FULL µs
+    precision — a replayed event must sort exactly where its direct
+    insert would have (find() orders by (eventTime, id))."""
+    if not event.event_id:
+        raise ValueError("journaled events must carry a pre-assigned "
+                         "event id (replay idempotency)")
+    doc = event_to_json(event)
+    doc["eventTime"] = event.event_time.isoformat()
+    doc["creationTime"] = event.creation_time.isoformat()
+    return json.dumps({"e": doc, "a": app_id, "c": channel_id},
+                      separators=(",", ":")).encode()
+
+
+def decode_record(payload: bytes) -> tuple[Event, int, int | None]:
+    """Inverse of :func:`encode_record`. Raises on malformed payloads
+    (the drainer quarantines those as undecodable)."""
+    doc = json.loads(payload)
+    # validate=False: the event passed ingest validation before it was
+    # journaled; replay must not re-litigate (a validation-rule change
+    # between journal and drain must not strand accepted events)
+    event = event_from_json(doc["e"], validate=False)
+    return event, int(doc["a"]), doc["c"]
+
+
+def _segment_path(wal_dir: str, seq: int, dead: bool = False) -> str:
+    prefix = _DEAD_PREFIX if dead else _SEGMENT_PREFIX
+    return os.path.join(wal_dir, f"{prefix}{seq:08d}{_SEGMENT_SUFFIX}")
+
+
+def _list_segments(wal_dir: str, dead: bool = False) -> list[int]:
+    prefix = _DEAD_PREFIX if dead else _SEGMENT_PREFIX
+    out = []
+    for name in os.listdir(wal_dir):
+        if name.startswith(prefix) and name.endswith(_SEGMENT_SUFFIX):
+            try:
+                out.append(int(name[len(prefix):-len(_SEGMENT_SUFFIX)]))
+            except ValueError:
+                continue
+    return sorted(out)
+
+
+def _scan_frames(path: str,
+                 start: int = 0) -> Iterator[tuple[int, int, bytes | None]]:
+    """Yield ``(offset, frame_length, payload-or-None)`` for each frame
+    in one segment file from byte ``start`` (which must sit on a frame
+    boundary — the cursor only ever commits to boundaries); ``None``
+    payload marks a CRC-corrupt record. A torn tail (incomplete
+    header/payload or an insane length) stops iteration — the caller
+    decides between truncating (recovery) and waiting (a live reader
+    racing the appender's buffered write). Reading from ``start``
+    instead of 0 keeps a long outage's retry loop from re-reading and
+    re-CRCing the consumed prefix of the cursor segment every pass."""
+    with open(path, "rb") as f:
+        if start:
+            f.seek(start)
+        data = f.read()
+    offset = start
+    n = start + len(data)
+    while offset + _HEADER.size <= n:
+        length, crc = _HEADER.unpack_from(data, offset - start)
+        if length > MAX_RECORD_BYTES:
+            # an insane length is indistinguishable from a torn/mangled
+            # header — resync is impossible without a record boundary
+            return
+        end = offset + _HEADER.size + length
+        if end > n:
+            return  # torn tail
+        payload = data[offset + _HEADER.size - start:end - start]
+        if zlib.crc32(payload) != crc:
+            yield offset, end - offset, None
+        else:
+            yield offset, end - offset, payload
+        offset = end
+
+
+class WriteAheadLog:
+    """The segmented journal. Thread-safe: one lock guards the active
+    segment handle, the cursor, and every counter (writers and readers
+    — the lock-discipline contract)."""
+
+    def __init__(
+        self,
+        wal_dir: str,
+        fsync: str = "interval",
+        fsync_interval_s: float = 0.05,
+        segment_max_bytes: int = 8 << 20,
+        max_bytes: int = 256 << 20,
+        clock: Clock = SYSTEM_CLOCK,
+    ):
+        if fsync not in FSYNC_POLICIES:
+            raise ValueError(
+                f"unknown fsync policy {fsync!r} "
+                f"(choose from {FSYNC_POLICIES})")
+        self.wal_dir = wal_dir
+        self.fsync = fsync
+        self.fsync_interval_s = fsync_interval_s
+        self.segment_max_bytes = segment_max_bytes
+        self.max_bytes = max_bytes
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._closed = False
+        os.makedirs(wal_dir, exist_ok=True)
+
+        # -- cursor ----------------------------------------------------
+        self._cursor: Position = (1, 0)
+        self._replayed_total = 0
+        self._dead_letter_total = 0
+        cursor_path = os.path.join(wal_dir, _CURSOR_FILE)
+        if os.path.exists(cursor_path):
+            try:
+                with open(cursor_path) as f:
+                    doc = json.load(f)
+                self._cursor = (int(doc["segment"]), int(doc["offset"]))
+                self._replayed_total = int(doc.get("replayedTotal", 0))
+                self._dead_letter_total = int(doc.get("deadLetterTotal", 0))
+            except (OSError, ValueError, KeyError) as exc:
+                # an unreadable cursor restarts replay from the oldest
+                # retained segment: idempotent re-inserts, never loss
+                logger.warning("unreadable WAL cursor %s (%s); replaying "
+                               "from the oldest segment", cursor_path, exc)
+
+        # -- recovery --------------------------------------------------
+        self.corrupt_records = 0
+        self.torn_bytes_truncated = 0
+        segments = _list_segments(wal_dir)
+        if segments:
+            self._recover_tail(segments[-1])
+            # a cursor pointing before the oldest retained segment
+            # (segments already reaped) snaps forward
+            if self._cursor[0] < segments[0]:
+                self._cursor = (segments[0], 0)
+        else:
+            segments = [self._cursor[0]]
+        self._active_seq = segments[-1]
+        self._active = open(_segment_path(wal_dir, self._active_seq), "ab")
+        self._last_fsync = clock.monotonic()
+
+        # -- pending accounting ---------------------------------------
+        self._pending_records = 0
+        self._pending_bytes = 0
+        self._full = False
+        self.journaled_total = 0
+        for seq in segments:
+            path = _segment_path(wal_dir, seq)
+            if seq < self._cursor[0]:
+                continue
+            start = self._cursor[1] if seq == self._cursor[0] else 0
+            size = os.path.getsize(path)
+            self._pending_bytes += max(0, size - start)
+            for _, _, payload in _scan_frames(path, start=start):
+                if payload is None:
+                    self.corrupt_records += 1
+                else:
+                    self._pending_records += 1
+
+    def _recover_tail(self, seq: int) -> None:
+        """Truncate a torn tail of the last segment: the bytes after
+        the last whole frame are a crash artifact (kill -9 mid-append)
+        and were never acknowledged under ``fsync=always``."""
+        path = _segment_path(self.wal_dir, seq)
+        size = os.path.getsize(path)
+        end = 0
+        for off, frame_len, _ in _scan_frames(path):
+            end = off + frame_len
+        if end < size:
+            self.torn_bytes_truncated = size - end
+            logger.warning(
+                "WAL recovery: truncating %d torn tail byte(s) of %s "
+                "(crash mid-append; the partial record was never "
+                "acknowledged)", size - end, path)
+            with open(path, "r+b") as f:
+                f.truncate(end)
+                f.flush()
+                os.fsync(f.fileno())
+
+    # -- appends ------------------------------------------------------
+    def append(self, payload: bytes) -> Position:
+        """Journal one record; returns its position. Raises
+        :class:`WalFullError` past the disk budget."""
+        frame = _HEADER.pack(len(payload), zlib.crc32(payload)) + payload
+        with self._lock:
+            if self._closed:
+                raise WalError("journal is closed")
+            if self._pending_bytes + len(frame) > self.max_bytes:
+                # latched until commit drains below the resume mark:
+                # the mode gauge and /readyz read backpressure from
+                # this, not from guessing a typical frame size
+                self._full = True
+                raise WalFullError(self._pending_bytes, self.max_bytes)
+            offset = self._active.tell()
+            position = (self._active_seq, offset)
+            # ONE buffered write + flush per frame: a concurrent reader
+            # sees whole frames except for a short racing window, which
+            # read_pending treats as "stop and retry", never truncates
+            self._active.write(frame)
+            self._active.flush()
+            if self.fsync == "always":
+                os.fsync(self._active.fileno())
+            elif self.fsync == "interval":
+                now = self._clock.monotonic()
+                if now - self._last_fsync >= self.fsync_interval_s:
+                    os.fsync(self._active.fileno())
+                    self._last_fsync = now
+            self._pending_records += 1
+            self._pending_bytes += len(frame)
+            self.journaled_total += 1
+            if offset + len(frame) >= self.segment_max_bytes:
+                self._rotate_locked()
+            return position
+
+    def _rotate_locked(self) -> None:
+        """Close the active segment (fsynced — a durability point) and
+        open the next sequence with O_EXCL (atomic create)."""
+        self._active.flush()
+        os.fsync(self._active.fileno())
+        self._active.close()
+        self._active_seq += 1
+        path = _segment_path(self.wal_dir, self._active_seq)
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL | os.O_APPEND,
+                     0o644)
+        self._active = os.fdopen(fd, "ab")
+        self._fsync_dir()
+        self._last_fsync = self._clock.monotonic()
+
+    def _fsync_dir(self) -> None:
+        """Directory entry durability for newly created files (skipped
+        under fsync=off: the operator opted out of crash durability)."""
+        if self.fsync == "off":
+            return
+        try:
+            dfd = os.open(self.wal_dir, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:  # pragma: no cover — platform-specific
+            pass
+
+    # -- reads --------------------------------------------------------
+    def read_pending(self, max_records: int = 256) -> list[WalEntry]:
+        """Up to ``max_records`` pending records from the cursor, in
+        journal order. CRC-corrupt frames are skipped (counted once at
+        recovery — in-process appends can't corrupt); a torn tail of
+        the ACTIVE segment stops the read (it may be an append racing
+        this reader — recovery, not the live reader, truncates)."""
+        with self._lock:
+            cursor = self._cursor
+            active_seq = self._active_seq
+            # the reader below re-opens the files; flush so every
+            # fully-appended frame is visible to it
+            self._active.flush()
+        entries: list[WalEntry] = []
+        for seq in range(cursor[0], active_seq + 1):
+            path = _segment_path(self.wal_dir, seq)
+            if not os.path.exists(path):
+                continue
+            start = cursor[1] if seq == cursor[0] else 0
+            size = os.path.getsize(path)
+            for off, frame_len, payload in _scan_frames(path, start=start):
+                if payload is None:
+                    continue
+                # a record closing a ROTATED segment advances the
+                # cursor into the next one, so commit() can reap the
+                # finished file
+                end = off + frame_len
+                end_pos = ((seq, end) if seq == active_seq or end < size
+                           else (seq + 1, 0))
+                entries.append(WalEntry((seq, off), end_pos, payload))
+                if len(entries) >= max_records:
+                    return entries
+        return entries
+
+    # -- commit -------------------------------------------------------
+    def commit(self, next_position: Position, records: int,
+               replayed: int | None = None) -> None:
+        """Advance the cursor past ``records`` consumed records (the
+        drainer calls this AFTER storage acknowledged them — or after a
+        quarantine), reap fully-consumed segments, persist the cursor
+        atomically."""
+        with self._lock:
+            if next_position <= self._cursor:
+                return
+            consumed = self._bytes_between_locked(self._cursor,
+                                                  next_position)
+            self._cursor = next_position
+            self._pending_bytes = max(0, self._pending_bytes - consumed)
+            self._pending_records = max(0, self._pending_records - records)
+            if self._full and self._pending_bytes <= self.max_bytes * 0.9:
+                # hysteresis: un-latch only once real room exists, so
+                # the 503/202 boundary doesn't flap per-append
+                self._full = False
+            self._replayed_total += (replayed if replayed is not None
+                                     else records)
+            for seq in _list_segments(self.wal_dir):
+                if seq < self._cursor[0] and seq != self._active_seq:
+                    try:
+                        os.unlink(_segment_path(self.wal_dir, seq))
+                    except OSError:  # pragma: no cover
+                        pass
+            self._write_cursor_locked()
+
+    def _bytes_between_locked(self, a: Position, b: Position) -> int:
+        if a >= b:
+            return 0
+        if a[0] == b[0]:
+            return b[1] - a[1]
+        total = 0
+        for seq in range(a[0], b[0]):
+            path = _segment_path(self.wal_dir, seq)
+            if os.path.exists(path):
+                total += os.path.getsize(path)
+        return total - a[1] + b[1]
+
+    def _write_cursor_locked(self) -> None:
+        doc = {"segment": self._cursor[0], "offset": self._cursor[1],
+               "replayedTotal": self._replayed_total,
+               "deadLetterTotal": self._dead_letter_total}
+        path = os.path.join(self.wal_dir, _CURSOR_FILE)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            if self.fsync != "off":
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    # -- dead letters -------------------------------------------------
+    def quarantine(self, entry: WalEntry, reason: str,
+                   attempts: int) -> None:
+        """Append one poison record to the dead-letter series. The
+        caller commits past it afterwards (consumed, not replayed)."""
+        try:
+            record: Any = json.loads(entry.payload)
+        except ValueError:
+            record = {"undecodable": entry.payload.hex()}
+        envelope = json.dumps(
+            {"reason": reason[:500], "attempts": attempts,
+             "record": record}, separators=(",", ":")).encode()
+        frame = _HEADER.pack(len(envelope), zlib.crc32(envelope)) + envelope
+        with self._lock:
+            dead = _list_segments(self.wal_dir, dead=True)
+            seq = dead[-1] if dead else 1
+            path = _segment_path(self.wal_dir, seq, dead=True)
+            if (os.path.exists(path)
+                    and os.path.getsize(path) >= self.segment_max_bytes):
+                seq += 1
+                path = _segment_path(self.wal_dir, seq, dead=True)
+            with open(path, "ab") as f:
+                f.write(frame)
+                f.flush()
+                if self.fsync != "off":
+                    os.fsync(f.fileno())
+            self._dead_letter_total += 1
+            self._write_cursor_locked()
+
+    def dead_letters(self) -> Iterator[dict[str, Any]]:
+        """Yield dead-letter envelopes oldest first (corrupt frames in
+        the dead series are skipped — they are already quarantine)."""
+        for seq in _list_segments(self.wal_dir, dead=True):
+            for _, _, payload in _scan_frames(
+                    _segment_path(self.wal_dir, seq, dead=True)):
+                if payload is None:
+                    continue
+                try:
+                    yield json.loads(payload)
+                except ValueError:
+                    continue
+
+    def requeue_dead_letters(self) -> tuple[int, int]:
+        """Move every decodable dead-letter record back into the live
+        journal (after the operator fixed the cause — the runbook
+        path) and reap the consumed dead segments. Envelopes that
+        CANNOT be requeued (quarantined-as-undecodable records,
+        malformed envelopes) are preserved in a fresh dead segment —
+        the quarantine series must never silently destroy evidence.
+        Returns ``(requeued, kept)``."""
+        requeued = 0
+        kept: list[bytes] = []
+        for env in self.dead_letters():
+            record = env.get("record")
+            if not isinstance(record, dict) or "e" not in record:
+                kept.append(json.dumps(env, separators=(",", ":")).encode())
+                continue
+            self.append(json.dumps(record, separators=(",", ":")).encode())
+            requeued += 1
+        for seq in _list_segments(self.wal_dir, dead=True):
+            try:
+                os.unlink(_segment_path(self.wal_dir, seq, dead=True))
+            except OSError:  # pragma: no cover
+                pass
+        if kept:
+            path = _segment_path(self.wal_dir, 1, dead=True)
+            with self._lock, open(path, "ab") as f:
+                for envelope in kept:
+                    f.write(_HEADER.pack(len(envelope),
+                                         zlib.crc32(envelope)) + envelope)
+                f.flush()
+                if self.fsync != "off":
+                    os.fsync(f.fileno())
+        return requeued, len(kept)
+
+    # -- introspection ------------------------------------------------
+    def pending_records(self) -> int:
+        with self._lock:
+            return self._pending_records
+
+    def pending_bytes(self) -> int:
+        with self._lock:
+            return self._pending_bytes
+
+    def is_full(self) -> bool:
+        """Backpressure latched: an append hit the disk budget and the
+        backlog has not yet drained below the resume mark (90%) — the
+        mode-2 definition shared by the gauge and ``/readyz``."""
+        with self._lock:
+            return self._full or self._pending_bytes >= self.max_bytes
+
+    def counters(self) -> dict[str, int]:
+        with self._lock:
+            return {
+                "depth": self._pending_records,
+                "bytes": self._pending_bytes,
+                "journaledTotal": self.journaled_total,
+                "replayedTotal": self._replayed_total,
+                "deadLetterTotal": self._dead_letter_total,
+                "corruptRecords": self.corrupt_records,
+                "tornBytesTruncated": self.torn_bytes_truncated,
+            }
+
+    def stats(self) -> dict[str, Any]:
+        out = self.counters()
+        out.update({
+            "dir": self.wal_dir,
+            "fsync": self.fsync,
+            "maxBytes": self.max_bytes,
+            "segments": len(_list_segments(self.wal_dir)),
+            "deadLetterSegments": len(
+                _list_segments(self.wal_dir, dead=True)),
+        })
+        return out
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._active.flush()
+            if self.fsync != "off":
+                os.fsync(self._active.fileno())
+            self._active.close()
+
+
+def scan_status(wal_dir: str) -> dict[str, Any]:
+    """A NON-mutating status scan for ``pio wal status``: unlike
+    constructing :class:`WriteAheadLog` it neither truncates a torn
+    tail nor creates files — safe to run against a LIVE server's
+    directory."""
+    if not os.path.isdir(wal_dir):
+        raise WalError(f"no journal directory at {wal_dir}")
+    cursor: Position = (1, 0)
+    replayed = dead_total = 0
+    cursor_path = os.path.join(wal_dir, _CURSOR_FILE)
+    if os.path.exists(cursor_path):
+        try:
+            with open(cursor_path) as f:
+                doc = json.load(f)
+            cursor = (int(doc["segment"]), int(doc["offset"]))
+            replayed = int(doc.get("replayedTotal", 0))
+            dead_total = int(doc.get("deadLetterTotal", 0))
+        except (OSError, ValueError, KeyError):
+            pass
+    depth = corrupt = 0
+    pending_bytes = 0
+    torn = False
+    segments = _list_segments(wal_dir)
+    for seq in segments:
+        path = _segment_path(wal_dir, seq)
+        size = os.path.getsize(path)
+        if seq < cursor[0]:
+            continue
+        start = cursor[1] if seq == cursor[0] else 0
+        pending_bytes += max(0, size - start)
+        end = 0
+        for off, frame_len, payload in _scan_frames(path):
+            end = off + frame_len
+            if off < start:
+                continue
+            if payload is None:
+                corrupt += 1
+            else:
+                depth += 1
+        if seq == segments[-1] and end < size:
+            torn = True
+    dead_pending = 0
+    for seq in _list_segments(wal_dir, dead=True):
+        dead_pending += sum(
+            1 for _, _, p in _scan_frames(
+                _segment_path(wal_dir, seq, dead=True)) if p is not None)
+    return {
+        "dir": wal_dir,
+        "segments": len(segments),
+        "depth": depth,
+        "bytes": pending_bytes,
+        "cursor": {"segment": cursor[0], "offset": cursor[1]},
+        "replayedTotal": replayed,
+        "corruptRecords": corrupt,
+        "deadLetterTotal": dead_total,
+        "deadLetterPending": dead_pending,
+        "tornTail": torn,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the drainer
+# ---------------------------------------------------------------------------
+
+#: drain_once verdicts
+EMPTY, PROGRESS, UNAVAILABLE, BLOCKED = (
+    "empty", "progress", "unavailable", "blocked")
+
+
+class WalDrainer:
+    """Background replay of journaled events into storage.
+
+    Strictly in journal order; consecutive records sharing an
+    ``(app_id, channel_id)`` key ride ONE ``insert_batch`` call (one
+    storage transaction). A transient storage failure backs
+    off with full jitter (``RetryPolicy.backoff`` on the injected
+    clock — the outage is ridden out, never given up on); an
+    application-level failure isolates per record and quarantines the
+    poison record to the dead-letter series after
+    ``max_replay_attempts``.
+
+    The loop waits on Events, never a bare ``time.sleep``: ``notify()``
+    from the append path wakes an idle drainer immediately.
+    """
+
+    def __init__(
+        self,
+        wal: WriteAheadLog,
+        insert_batch: Callable[[Sequence[Event], int, int | None],
+                               Sequence[str]],
+        policy: RetryPolicy | None = None,
+        clock: Clock = SYSTEM_CLOCK,
+        rng=None,
+        max_replay_attempts: int = 5,
+        batch_max: int = 256,
+        idle_wait_s: float = 0.25,
+    ):
+        self.wal = wal
+        self._insert_batch = insert_batch
+        self.policy = policy or RetryPolicy(base_delay=0.05, max_delay=5.0)
+        self._clock = clock
+        self._rng = rng or random.Random()
+        self.max_replay_attempts = max(1, max_replay_attempts)
+        self.batch_max = batch_max
+        self.idle_wait_s = idle_wait_s
+        self._lock = threading.Lock()
+        #: per-position application-failure counts (in-memory: a
+        #: restart resets the attempt clock, documented in the runbook)
+        self._attempts: dict[Position, int] = {}
+        self._rate_ewma: float | None = None
+        self._last_drain_t: float | None = None
+        self._stop = threading.Event()
+        self._work = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle ----------------------------------------------------
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._run, name="pio-wal-drainer", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._work.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def notify(self) -> None:
+        """Wake the drainer: a record was just journaled."""
+        self._work.set()
+
+    def _run(self) -> None:
+        retry_index = 0
+        while not self._stop.is_set():
+            try:
+                verdict = self.drain_once()
+            except Exception:  # noqa: BLE001 — the loop must survive
+                logger.exception("WAL drain pass failed")
+                verdict = UNAVAILABLE
+            if verdict == PROGRESS:
+                retry_index = 0
+                continue
+            if verdict == EMPTY:
+                retry_index = 0
+                self._work.wait(self.idle_wait_s)
+                self._work.clear()
+                continue
+            # UNAVAILABLE / BLOCKED: full-jitter backoff, capped index
+            # so the delay saturates at policy.max_delay instead of
+            # overflowing the multiplier
+            delay = self.policy.backoff(min(retry_index, 16), self._rng)
+            retry_index += 1
+            self._stop.wait(delay)
+
+    # -- one pass ------------------------------------------------------
+    def drain_once(self) -> str:
+        """One bounded replay pass; see class docstring for verdicts.
+        Public: ``pio wal replay`` and the unit tests drive it
+        synchronously."""
+        entries = self.wal.read_pending(self.batch_max)
+        if not entries:
+            return EMPTY
+        return self._drain_entries(entries)
+
+    def _drain_entries(self, entries: list[WalEntry]) -> str:
+        # decode up front but quarantine ONLY in journal order below:
+        # committing past an undecodable record before the records
+        # AHEAD of it replayed would advance the cursor over them
+        decoded: list[tuple[WalEntry, Event | None, Any, Any]] = []
+        for entry in entries:
+            try:
+                event, app_id, channel_id = decode_record(entry.payload)
+                decoded.append((entry, event, app_id, channel_id))
+            except Exception as exc:  # noqa: BLE001 — poison record
+                decoded.append((entry, None, None, repr(exc)))
+        progressed = False
+        i = 0
+        while i < len(decoded):
+            if decoded[i][1] is None:  # undecodable, now at the head
+                entry, _, _, reason = decoded[i]
+                self.wal.quarantine(entry, f"undecodable: {reason}",
+                                    attempts=1)
+                self.wal.commit(entry.next_position, records=1, replayed=0)
+                progressed = True
+                i += 1
+                continue
+            # one consecutive (app, channel) run -> one insert_batch
+            j = i
+            key = decoded[i][2], decoded[i][3]
+            while (j < len(decoded) and decoded[j][1] is not None
+                   and (decoded[j][2], decoded[j][3]) == key):
+                j += 1
+            run = decoded[i:j]
+            events = [e for _, e, _, _ in run]
+            try:
+                self._insert_batch(events, key[0], key[1])
+            except STORAGE_UNAVAILABLE_ERRORS:
+                return PROGRESS if progressed else UNAVAILABLE
+            except Exception:
+                verdict = self._drain_run_per_record(run)
+                if verdict is not None:
+                    return PROGRESS if progressed else verdict
+                progressed = True
+                i = j
+                continue
+            self.wal.commit(run[-1][0].next_position, records=len(run))
+            for entry, _, _, _ in run:
+                self._attempts.pop(entry.position, None)
+            self._record_rate(len(run))
+            progressed = True
+            i = j
+        return PROGRESS
+
+    def _drain_run_per_record(self, run) -> str | None:
+        """Per-record isolation after a failed batch: replay each
+        record alone so ONE poison record cannot hold the run hostage.
+        Returns None when the whole run was consumed (replayed or
+        quarantined), else the verdict to surface."""
+        for entry, event, app_id, channel_id in run:
+            try:
+                self._insert_batch([event], app_id, channel_id)
+            except STORAGE_UNAVAILABLE_ERRORS:
+                return UNAVAILABLE
+            except Exception as exc:  # noqa: BLE001 — application error
+                attempts = self._attempts.get(entry.position, 0) + 1
+                if attempts >= self.max_replay_attempts:
+                    logger.warning(
+                        "WAL record %s quarantined to dead-letter after "
+                        "%d attempts: %s", entry.position, attempts, exc)
+                    self.wal.quarantine(entry, str(exc), attempts)
+                    self.wal.commit(entry.next_position, records=1,
+                                    replayed=0)
+                    self._attempts.pop(entry.position, None)
+                    continue
+                self._attempts[entry.position] = attempts
+                return BLOCKED
+            self.wal.commit(entry.next_position, records=1)
+            self._attempts.pop(entry.position, None)
+            self._record_rate(1)
+        return None
+
+    # -- drain-rate observability -------------------------------------
+    _RATE_ALPHA = 0.3
+
+    def _record_rate(self, n: int) -> None:
+        now = self._clock.monotonic()
+        with self._lock:
+            if self._last_drain_t is not None:
+                dt = now - self._last_drain_t
+                if dt > 1e-6:
+                    inst = n / dt
+                    self._rate_ewma = (
+                        inst if self._rate_ewma is None
+                        else self._RATE_ALPHA * inst
+                        + (1 - self._RATE_ALPHA) * self._rate_ewma)
+            self._last_drain_t = now
+
+    def drain_rate(self) -> float | None:
+        """Recent replay throughput (events/sec EWMA), None before the
+        first two drained batches."""
+        with self._lock:
+            return self._rate_ewma
+
+    #: backpressure hint targets draining this fraction of the backlog
+    #: — enough freed budget for a client retry to land, not the whole
+    #: outage's worth of waiting
+    HINT_DRAIN_FRACTION = 0.25
+
+    def backpressure_hint(self) -> float | None:
+        """Retry-After seconds for a journal-at-budget 503, derived
+        from observed drain progress: the hint SHRINKS as the backlog
+        drains (time to free ~25% of the depth at the current rate),
+        clamped to [0.5, 30]. None while no drain progress has been
+        observed (backend still down — the caller falls back to the
+        storage hint)."""
+        with self._lock:
+            rate = self._rate_ewma
+        if rate is None or rate <= 0:
+            return None
+        depth = self.wal.pending_records()
+        if depth <= 0:
+            return None
+        return min(30.0, max(0.5, depth * self.HINT_DRAIN_FRACTION / rate))
+
+    def mode(self) -> int:
+        """The ``pio_ingest_wal_mode`` gauge: 0 idle (journal empty,
+        inserts going straight to storage), 1 draining (ride-through
+        active: a backlog is replaying), 2 backpressure (journal at its
+        disk budget; ingest is shedding 503s)."""
+        if self.wal.is_full():
+            return 2
+        return 1 if self.wal.pending_records() > 0 else 0
+
+    def snapshot(self) -> dict[str, Any]:
+        """The ``wal`` section of ``GET /stats.json``."""
+        out = self.wal.stats()
+        rate = self.drain_rate()
+        out.update({
+            "mode": {0: "idle", 1: "draining",
+                     2: "backpressure"}[self.mode()],
+            "drainEventsPerSec": round(rate, 2) if rate else None,
+        })
+        return out
+
+
+def make_storage_unavailable(exc: WalFullError,
+                             hint: float | None) -> StorageUnavailableError:
+    """Map a journal-at-budget condition onto the one exception class
+    the serving plane turns into ``503 + Retry-After``, carrying the
+    drain-aware hint when one exists."""
+    return StorageUnavailableError(
+        "wal", str(exc), retry_after=hint if hint is not None else 1.0)

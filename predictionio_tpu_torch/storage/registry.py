@@ -12,8 +12,9 @@ applies: sqlite metadata + events (``pio.sqlite``) and a localfs model
 repository (``models/``) under ``$PIO_FS_BASEDIR``, else
 ``~/.pio_store``. Both packages read and write the same files.
 
-Backend TYPEs: ``memory``, ``sqlite`` (alias ``jdbc``) and ``localfs``.
-The JAX package's other TYPEs raise :class:`StorageError` naming the
+Backend TYPEs: ``memory``, ``sqlite`` (alias ``jdbc``), ``localfs``, and
+the event-only ``binevents`` (alias ``hbase``) and ``fileevents``. The
+JAX package's other TYPEs raise :class:`StorageError` naming the
 ROADMAP.md item that ports them; there is no fall back to another
 backend.
 """
@@ -36,6 +37,8 @@ from predictionio_tpu_torch.storage.base import (
     Models,
     StorageClientConfig,
 )
+from predictionio_tpu_torch.storage.binevents import BinEventsStorageClient
+from predictionio_tpu_torch.storage.fileevents import FileEventsStorageClient
 from predictionio_tpu_torch.storage.localfs import LocalFSStorageClient
 from predictionio_tpu_torch.storage.memory import MemoryStorageClient
 from predictionio_tpu_torch.storage.sqlite import SQLiteStorageClient
@@ -55,15 +58,16 @@ BACKENDS: dict[str, Callable[[StorageClientConfig], BaseStorageClient]] = {
     # reference pio-env.sh files say TYPE=jdbc for the SQL store
     "jdbc": SQLiteStorageClient,
     "localfs": LocalFSStorageClient,
+    "binevents": BinEventsStorageClient,
+    # the reference's HBase role: event data only
+    "hbase": BinEventsStorageClient,
+    "fileevents": FileEventsStorageClient,
 }
 
 #: the JAX package's backend TYPEs the port does not serve yet, with the
 #: ROADMAP.md queue 1 item that ports each
-NOT_PORTED = {
-    **dict.fromkeys(("binevents", "hbase", "fileevents"), "item 25"),
-    **dict.fromkeys(("postgres", "pg", "elasticsearch", "elasticsearch1", "s3", "hdfs",
-                     "chaos"), "item 23"),
-}
+NOT_PORTED = dict.fromkeys(
+    ("postgres", "pg", "elasticsearch", "elasticsearch1", "s3", "hdfs", "chaos"), "item 23")
 
 
 class StorageError(RuntimeError):

@@ -78,9 +78,9 @@ def _cast_policy(raw: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """The JAX package's ``ServerConfig`` fields that this port serves,
-    plus the device. The feedback loop, ``--workers``, the shared-memory
-    cache, retrieval, tracing and ``--online`` stay with ROADMAP.md
-    queue 1 items 22, 23, 10, 12 and 11."""
+    plus the device. ``--workers``, the shared-memory cache, retrieval,
+    tracing and ``--online`` stay with ROADMAP.md queue 1 items 23, 10,
+    12 and 11."""
 
     ip: str = "0.0.0.0"
     port: int = 8000              # 0 binds a free port (``EngineServer.port``)
@@ -95,6 +95,15 @@ class ServerConfig:
     model_dir: str | None = None
     #: the engine of a ``model_dir`` deploy (a stored instance names its own)
     engine_factory: str = DEFAULT_ENGINE_FACTORY
+    #: feedback loop: POST each (query, prediction) to the event server
+    #: as a ``predict`` event of entity type ``pio_pr``
+    feedback: bool = False
+    event_server_ip: str = "0.0.0.0"
+    event_server_port: int = 7070
+    access_key: str = ""
+    #: socket timeout of the fire-and-forget feedback POST: bounds how
+    #: long a stalled event server can hold a feedback thread
+    feedback_timeout_s: float = 10.0
     #: when set, /stop and /reload require ?accessKey=<server_key>
     server_key: str | None = None
     #: micro-batching: concurrent queries coalesce into one

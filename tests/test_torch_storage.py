@@ -2,7 +2,8 @@
 ``tools/export_import.py``, ``data/store.py``) on the CPU, against the JAX
 package's: the columnar/row conformance of tests/test_storage_conformance.py
 (``TestColumnarRowEquivalence``: the batches, concatenated, equal ``find()``
-exactly) on memory, sqlite ``:memory:`` and a sqlite file; one sqlite
+exactly) on memory, sqlite ``:memory:``, a sqlite file, and the event-only
+binevents (native and pure-Python codecs) and fileevents; one sqlite
 file written by either package and read by the other; an export file of
 either package imported by the other; ``aggregate_properties`` equal to
 JAX's on the cases of tests/test_aggregation.py; and the registry: the
@@ -40,6 +41,8 @@ from predictionio_tpu_torch.storage.base import (
     Model,
     StorageClientConfig,
 )
+from predictionio_tpu_torch.storage.binevents import BinEventsStorageClient
+from predictionio_tpu_torch.storage.fileevents import FileEventsStorageClient
 from predictionio_tpu_torch.storage.localfs import LocalFSStorageClient
 from predictionio_tpu_torch.storage.memory import MemoryStorageClient
 from predictionio_tpu_torch.storage.registry import Storage, StorageError
@@ -99,15 +102,36 @@ def _jax_filter(f: EventFilter) -> jbase.EventFilter:
                                 for fl in dataclasses.fields(EventFilter)})
 
 
+def _make_client(kind: str, tmp_path):
+    if kind == "memory":
+        return MemoryStorageClient()
+    if kind == "sqlite":
+        return SQLiteStorageClient(StorageClientConfig(test=True))
+    if kind == "sqlite_file":
+        return SQLiteStorageClient(StorageClientConfig(properties={
+            "PATH": str(tmp_path / "pio.sqlite")}))
+    if kind.startswith("binevents"):
+        return BinEventsStorageClient(StorageClientConfig(properties={
+            "PATH": str(tmp_path / "bin"), "NATIVE": str(kind == "binevents").lower()}))
+    return FileEventsStorageClient(StorageClientConfig(properties={
+        "PATH": str(tmp_path / "jsonl")}))
+
+
 @pytest.fixture(params=["memory", "sqlite", "sqlite_file"])
 def client(request, tmp_path):
-    if request.param == "memory":
-        c = MemoryStorageClient()
-    elif request.param == "sqlite":
-        c = SQLiteStorageClient(StorageClientConfig(test=True))
-    else:
-        c = SQLiteStorageClient(StorageClientConfig(properties={
-            "PATH": str(tmp_path / "pio.sqlite")}))
+    c = _make_client(request.param, tmp_path)
+    yield c
+    c.close()
+
+
+#: the event-only stores join the event cases: ``binevents`` through the
+#: native scanner, ``binevents_py`` through the pure-Python codec
+@pytest.fixture(params=["memory", "sqlite", "sqlite_file", "binevents", "binevents_py",
+                        "fileevents"])
+def events_client(request, tmp_path):
+    c = _make_client(request.param, tmp_path)
+    if request.param == "binevents":
+        assert c.events().native_active
     yield c
     c.close()
 
@@ -123,8 +147,8 @@ class TestColumnarRowEquivalence:
     """The port's copy of tests/test_storage_conformance.py's gate."""
 
     @pytest.mark.parametrize("batch_size", [1, 3, 100])
-    def test_native_path_matches_rows(self, client, batch_size):
-        events = client.events()
+    def test_native_path_matches_rows(self, events_client, batch_size):
+        events = events_client.events()
         events.init(1)
         events.insert_batch(_seed_events(), 1)
         for flt in FILTERS:
@@ -136,24 +160,24 @@ class TestColumnarRowEquivalence:
                 got.extend(batch.to_events())
             assert got == rows, f"filter {flt} diverged"
 
-    def test_generic_fallback_matches_rows(self, client):
-        events = client.events()
+    def test_generic_fallback_matches_rows(self, events_client):
+        events = events_client.events()
         events.insert_batch(_seed_events(), 1)
         for flt in FILTERS:
             got = [e for batch in base.Events.find_columnar(events, 1, None, flt, batch_size=2)
                    for e in batch.to_events()]
             assert got == list(events.find(1, None, flt)), f"fallback filter {flt} diverged"
 
-    def test_empty_table_and_batch_size(self, client):
-        events = client.events()
+    def test_empty_table_and_batch_size(self, events_client):
+        events = events_client.events()
         events.init(1)
         assert list(events.find_columnar(1)) == []
         assert list(events.find_columnar(7)) == []       # no table at all
         with pytest.raises(ValueError):
             events.find_columnar(1, batch_size=0)
 
-    def test_lazy_columns_match_rows(self, client):
-        events = client.events()
+    def test_lazy_columns_match_rows(self, events_client):
+        events = events_client.events()
         events.insert_batch(_seed_events(), 1)
         flt = EventFilter(event_names=["rate", "note"])
         rows = list(events.find(1, None, flt))
@@ -164,24 +188,32 @@ class TestColumnarRowEquivalence:
         assert list(batch.entity_id.decode()) == [e.entity_id for e in rows]
         assert batch.target_entity_id.code_of("nope") is None
 
-    def test_find_equals_jax_backend(self, client, tmp_path):
+    def test_find_equals_jax_backend(self, events_client, tmp_path):
         """The same events and filters through the JAX package's backend
         of the same kind give the same sequences."""
+        from predictionio_tpu.storage.binevents import BinEventsStorageClient as JB
+        from predictionio_tpu.storage.fileevents import FileEventsStorageClient as JF
         from predictionio_tpu.storage.memory import MemoryStorageClient as JM
         from predictionio_tpu.storage.sqlite import SQLiteStorageClient as JS
 
-        jax_client = (JM() if isinstance(client, MemoryStorageClient)
-                      else JS(jbase.StorageClientConfig(test=True)))
-        client.events().insert_batch(_seed_events(), 1)
+        jax_path = {"PATH": str(tmp_path / "jax")}
+        jax_client = (
+            JM() if isinstance(events_client, MemoryStorageClient)
+            else JS(jbase.StorageClientConfig(test=True))
+            if isinstance(events_client, SQLiteStorageClient)
+            else JB(jbase.StorageClientConfig(properties=jax_path))
+            if isinstance(events_client, BinEventsStorageClient)
+            else JF(jbase.StorageClientConfig(properties=jax_path)))
+        events_client.events().insert_batch(_seed_events(), 1)
         jax_client.events().insert_batch(_seed_events(JaxEvent, JaxDataMap), 1)
         for flt in FILTERS:
-            assert [_key(e) for e in client.events().find(1, None, flt)] == \
+            assert [_key(e) for e in events_client.events().find(1, None, flt)] == \
                 [_key(e) for e in jax_client.events().find(1, None, _jax_filter(flt))]
 
 
 class TestDAOs:
-    def test_events_crud_and_single_entity(self, client):
-        events = client.events()
+    def test_events_crud_and_single_entity(self, events_client):
+        events = events_client.events()
         eid = events.insert(_ev(Event, DataMap, props={"rating": 4.5, "note": "good"},
                                 target="i1"), 1)
         assert events.get(eid, 1).properties.fields == {"rating": 4.5, "note": "good"}
@@ -399,7 +431,6 @@ class TestRegistry:
         assert (tmp_path / "pio.sqlite").exists() and (tmp_path / "models" / "x").exists()
 
     @pytest.mark.parametrize("type_name, item", [
-        ("binevents", "item 25"), ("hbase", "item 25"), ("fileevents", "item 25"),
         ("postgres", "item 23"), ("elasticsearch", "item 23"), ("s3", "item 23"),
         ("hdfs", "item 23"), ("chaos", "item 23"),
     ])
