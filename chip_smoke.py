@@ -48,7 +48,9 @@ Phases, in order; any failure exits non-zero:
    as in phase 4;
 9. ALS at the ML-20M shape (bench.py:95-99, 119-125: 138,493 users ×
    26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
-   of `ladder_rows` and staging; 10 bf16 iterations after a one-iteration
+   of `ladder_rows` through the native packer beside the NumPy path's on
+   the same COO (the layouts equal array for array; `NATIVE_LADDERS` must
+   move) and of staging; 10 bf16 iterations after a one-iteration
    warm-up, timed by CUDA events (ms per iteration, ratings/s, useful and
    executed TFLOP/s, peak memory), one iteration under torch.profiler
    (launches, device time, busy share against the unprofiled iteration);
@@ -148,13 +150,40 @@ Phases, in order; any failure exits non-zero:
    back equal through the native scanner, events/s and drain seconds;
    then SIGKILL during a second burst, a restart, and every
    acknowledged event read back;
-19. a `kernels` JSON line, then the result line
+19. similar product and e-commerce at the ML-20M shape: phase 9's
+   138,493 × 26,744 × 20M power-law pairs as implicit views, each item
+   in 1-3 of 20 categories; each template's algorithm trained at the JAX
+   package's defaults (rank 10, 20 iterations, λ 0.01, α 1.0, seed 3)
+   from prepared data built from the COO (both layouts by the native
+   packer); 64 queries a template (categories, white and black lists,
+   a live `unavailableItems` constraint and newcomers' recent views read
+   from a small store) held against float64 on the host with the tie
+   rule; train seconds, ms per iteration, device ms and launches per
+   query, peak memory;
+20. the ALS-family templates through a store: an ML-100k-shape shop
+   (100,000 views, 2,000 buys, categories, a constraint) through `pio
+   import` → `pio train` → `pio deploy` of e-commerce, HTTP queries,
+   then a new `unavailableItems` and a newcomer's views POSTed to `pio
+   eventserver`: the next answers must exclude those items and serve
+   the newcomer; similar product through `run_train` → the engine
+   server, every answer against the deployed engine and float64;
+21. classification at the UCI Covertype shape (581,012 × 54, 7 classes,
+   seeded): multinomial naive Bayes trained and scored on every row,
+   300 logreg Adam steps (lr 0.1, l2 1e-4; ms and launches a step
+   against the bytes bound), a 10-tree depth-5 forest grown on the host
+   on 58,101 sampled rows and its votes walked on the card over every
+   row, each against float64 on the host (the votes exactly); then the
+   template: 20,000 entities' `$set` properties in sqlite, `run_train`
+   with naive Bayes and logreg under BlendedServing, HTTP queries, and
+   the Accuracy grid through `run_evaluation` on the card equal to the
+   same folds on the CPU;
+22. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
-`--als-only`, `--eval-only`, `--pio-only`, `--serve-only` and
-`--ingest-only` run phases 9-13, 14-15, 16, 17 and 18 alone (17 over
-16a's instance and a random ML-20M-shape ALS model, 18 over 16a's
-import) and print no result line. Exits non-zero, printing no result,
+`--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
+`--ingest-only` and `--templates-only` run phases 9-13, 14-15, 16, 17,
+18 and 19-21 alone (17 over 16a's instance and a random ML-20M-shape
+ALS model, 18 over 16a's import) and print no result line. Exits non-zero, printing no result,
 when there is no card.
 """
 
@@ -190,8 +219,8 @@ from predictionio_tpu_torch.controller.evaluation import best_json_variant
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.core.wire import from_wire
-from predictionio_tpu_torch.models import seqrec
-from predictionio_tpu_torch.models.als import ALSModel
+from predictionio_tpu_torch.models import logreg, naive_bayes, random_forest, seqrec
+from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
@@ -199,9 +228,11 @@ from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
 from predictionio_tpu_torch.storage.base import App, EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage, memory_storage
+from predictionio_tpu_torch.templates import classification, ecommerce, similarproduct
 from predictionio_tpu_torch.templates import recommendation as rec
 from predictionio_tpu_torch.templates import sessionrec
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
+from predictionio_tpu_torch.utils.device import ieee_f32
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.evaluation import run_evaluation
@@ -962,6 +993,35 @@ def _events_ms(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
+def ladder_native_vs_numpy(tag: str, coo: als.RatingsCOO):
+    """Both orientations of ``coo`` packed by ``ladder_rows`` through the
+    native packer (it must serve both: ``als.NATIVE_LADDERS`` moves by 2),
+    then by the NumPy path on the same COO; the two layouts must be equal
+    array for array. Returns (by user, by item, native seconds)."""
+    before = als.NATIVE_LADDERS
+    t0 = time.perf_counter()
+    native = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    t_native = time.perf_counter() - t0
+    if als.NATIVE_LADDERS != before + 2:
+        fail(f"[{tag}] the native packer served {als.NATIVE_LADDERS - before} of 2 layouts")
+    t0 = time.perf_counter()
+    numpy_path = (als.ladder_rows(coo, use_native=False),
+                  als.ladder_rows(coo.transpose(), use_native=False))
+    t_numpy = time.perf_counter() - t0
+    for side, got, want in zip(("user", "item"), native, numpy_path):
+        if len(got.buckets) != len(want.buckets) or any(
+                not np.array_equal(getattr(g, f), getattr(w, f)) or
+                getattr(g, f).dtype != getattr(w, f).dtype
+                for g, w in zip(got.buckets, want.buckets)
+                for f in ("row_ids", "cols", "vals", "deg")):
+            fail(f"[{tag}] the native {side} layout differs from the NumPy path's")
+    log(f"[{tag}] ladder_rows of {coo.nnz} ratings, both orientations: native "
+        f"{t_native:.3f}s, NumPy {t_numpy:.3f}s on the same COO "
+        f"({t_numpy / t_native:.1f}x); layouts equal array for array "
+        f"({len(native[0].buckets)} + {len(native[1].buckets)} buckets)")
+    return native[0], native[1], t_native
+
+
 def _row_locator(bucketed: als.BucketedRatings):
     """row -> (cols, vals) of its real ratings, from the host buckets."""
     where = {}
@@ -1106,16 +1166,14 @@ def phase_als_train() -> dict:
     t0 = time.perf_counter()
     coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
     log(f"[als] {nnz} ratings generated in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    by_user, by_item = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
-    t_ladder = time.perf_counter() - t0
+    by_user, by_item, t_ladder = ladder_native_vs_numpy("als", coo)
     t0 = time.perf_counter()
     dev_user = als.stage_buckets(by_user, ALS_RANK, device=DEVICE)
     dev_item = als.stage_buckets(by_item, ALS_RANK, device=DEVICE)
     torch.cuda.synchronize()
     t_stage = time.perf_counter() - t0
     slabs = sum(b.cols.shape[0] for b in dev_user.buckets + dev_item.buckets)
-    log(f"[als] ladder_rows {t_ladder:.2f}s ({len(by_user.buckets)} user + "
+    log(f"[als] ladder_rows (native) {t_ladder:.2f}s ({len(by_user.buckets)} user + "
         f"{len(by_item.buckets)} item buckets, {slabs} slabs at rank {ALS_RANK}), "
         f"staging {t_stage:.2f}s")
     z = torch.zeros(1024, device=DEVICE)
@@ -3089,6 +3147,696 @@ def phase_ingest(pio: _Pio) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: the rest of the template gallery
+# ---------------------------------------------------------------------------
+
+#: item categories at the ML-20M shape: ML-20M has 20 genre labels; each
+#: item gets 1-3 of them, seeded
+N_CATEGORIES = 20
+#: phase 20's ML-100k-shape shop: users, items, view events, buy events
+SHOP = (943, 1_682, 100_000, 2_000)
+SIM_FACTORY = "predictionio_tpu_torch.templates.similarproduct.engine_factory"
+ECOMM_FACTORY = "predictionio_tpu_torch.templates.ecommerce.engine_factory"
+CLASS_FACTORY = "predictionio_tpu_torch.templates.classification.engine_factory"
+#: UCI Covertype's shape: rows, features (10 integer-valued + 44 binary),
+#: classes; its class shares (covtype.info), which the data keeps
+COVTYPE = (581_012, 54, 7)
+COVTYPE_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0354)
+#: rows the host grows the forest on (a depth cut: CART over all rows is
+#: minutes of NumPy) and the forest: 10 trees, depth 5, sqrt features
+FOREST_SAMPLE, FOREST_TREES, FOREST_DEPTH = 58_101, 10, 5
+#: logreg at the JAX template's defaults
+LOGREG_STEPS, LOGREG_LR, LOGREG_L2 = 300, 0.1, 1e-4
+#: entities of the classification template in sqlite (a depth cut of
+#: the 581,012 rows) and its HTTP queries
+CLASS_ENTITIES, CLASS_QUERIES = 20_000, 32
+#: the f32 card against float64 on the host: naive Bayes logs (sums of
+#: integer counts, exact in f32 below 2^24), the logreg trajectory on
+#: the forest's sample (relative Frobenius distance of W after 300 steps,
+#: and the loss), the full-data loss at the trained W (relative)
+NB_LOG_TOL, LOGREG_W_RTOL, LOGREG_LOSS_RTOL = 1e-4, 1e-3, 1e-4
+
+
+def _ids(prefix: str, n: int) -> EntityIdIxMap:
+    return EntityIdIxMap(BiMap({f"{prefix}{i}": i for i in range(n)}))
+
+
+def _all_seen(coo: als.RatingsCOO) -> dict[int, np.ndarray]:
+    """Every row's sorted distinct columns, from the COO."""
+    order = np.argsort(coo.rows, kind="stable")
+    su, si = coo.rows[order], coo.cols[order]
+    bounds = np.searchsorted(su, np.arange(coo.num_rows + 1))
+    return {u: np.unique(si[bounds[u]:bounds[u + 1]]).astype(np.int32)
+            for u in range(coo.num_rows) if bounds[u + 1] > bounds[u]}
+
+
+def _categories(n_items: int, seed: int) -> dict[str, tuple]:
+    rng = np.random.default_rng(seed)
+    return {f"i{j}": tuple(f"g{c}" for c in sorted(rng.choice(N_CATEGORIES, k, replace=False)))
+            for j, k in enumerate(rng.integers(1, 4, n_items))}
+
+
+def _train_timed(tag: str, algo, ctx: EngineContext, pd) -> tuple[object, dict]:
+    """``algo.train`` on the card: seconds, the iterations' ms (CUDA events
+    around ``_als_iterate_fused``), peak memory; both layouts must come
+    from the native packer."""
+    real, timed = als._als_iterate_fused, {}
+
+    def iterate(*args, **kw):
+        timed["ms"], out = _events_ms(lambda: real(*args, **kw))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = als.NATIVE_LADDERS
+    als._als_iterate_fused = iterate
+    t0 = time.perf_counter()
+    try:
+        model = algo.train(ctx, pd)
+        torch.cuda.synchronize()
+    finally:
+        als._als_iterate_fused = real
+    seconds = time.perf_counter() - t0
+    if als.NATIVE_LADDERS != before + 2:
+        fail(f"[{tag}] training packed {als.NATIVE_LADDERS - before} of 2 layouts natively")
+    p = algo.params
+    stats = dict(train_s=seconds, ms_per_iteration=timed["ms"] / p.num_iterations,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{tag}] train (rank {p.rank}, {p.num_iterations} iterations, lambda {p.lambda_}, "
+        f"alpha {p.alpha}, implicit): train_s={seconds:.3f} "
+        f"ms_per_iteration={stats['ms_per_iteration']:.3f} (layout and staging "
+        f"{seconds - timed['ms'] / 1e3:.3f}s) peak_mem_gb={stats['peak_mem_gb']:.3f}")
+    if not bool(torch.isfinite(model.als.item_factors).all()):
+        fail(f"[{tag}] the factors are not finite")
+    return model, stats
+
+
+def _hold(tag: str, body: dict, served: list, ref: np.ndarray, ok: np.ndarray, num: int,
+          item_ids: EntityIdIxMap) -> tuple[float, bool]:
+    """A served [(item, score)] against float64 scores of every item
+    (``ref``) where ``ok``, ranked by the tie rule (score desc, index
+    asc) and cut to ``num``: as many items, each eligible, each score
+    within ALS_SCORE_TOL, and at every position the reference's item or
+    one whose reference score is within ALS_SCORE_TOL of it (a near-tie
+    f32 cannot order). Returns (largest score error, ids and order
+    exactly the reference's)."""
+    idx = np.nonzero(ok)[0]
+    order = idx[np.lexsort((idx, -ref[idx]))][:num]
+    if len(served) != len(order):
+        fail(f"[{tag}] {json.dumps(body)[:90]}: {len(served)} items served, the float64 "
+             f"reference has {len(order)}")
+    err, exact = 0.0, True
+    for (item, score), want in zip(served, order):
+        j = item_ids.get(item)
+        if j is None or not ok[j]:
+            fail(f"[{tag}] {json.dumps(body)[:90]}: served {item}, which the rules exclude")
+        err = max(err, abs(score - ref[j]))
+        if j != want:
+            exact = False
+            if abs(ref[j] - ref[want]) > ALS_SCORE_TOL:
+                fail(f"[{tag}] {json.dumps(body)[:90]}: {item} where the float64 reference "
+                     f"ranks {item_ids.inverse[int(want)]} ({ref[j]} vs {ref[want]})")
+    if err > ALS_SCORE_TOL:
+        fail(f"[{tag}] {json.dumps(body)[:90]}: score error {err:.3e} > {ALS_SCORE_TOL}")
+    return err, exact
+
+
+def _allow_ok(n_items: int, allow) -> np.ndarray:
+    return np.ones(n_items, dtype=bool) if allow is None else np.asarray(allow) > 0
+
+
+def _similar_ref(als_model: ALSModel, items: list, allow, item_f64: np.ndarray):
+    """float64 cosine scores of every item against the mean of the known
+    query items, and the eligible mask (the query items excluded); None
+    when no query item is known."""
+    ixs = [als_model.item_ids.get(i) for i in items]
+    ixs = [i for i in ixs if i is not None]
+    if not ixs:
+        return None
+    q = item_f64[ixs].mean(0)
+    itn = item_f64 / np.maximum(np.linalg.norm(item_f64, axis=1, keepdims=True), 1e-9)
+    ref = itn @ (q / max(np.linalg.norm(q), 1e-9))
+    ok = _allow_ok(len(ref), allow)
+    ok[ixs[:512]] = False
+    return ref, ok
+
+
+def _recommend_ref(als_model: ALSModel, user: str, allow, exclude_seen: bool,
+                   item_f64: np.ndarray):
+    uix = als_model.user_ids[user]
+    ref = item_f64 @ als_model.user_factors[uix].double().cpu().numpy()
+    ok = _allow_ok(len(ref), allow)
+    if exclude_seen:
+        ok[als_model.seen_by_user.get(uix, np.empty(0, np.int64))] = False
+    return ref, ok
+
+
+def _sim_queries(rng, n_items: int, category_map: dict) -> list[dict]:
+    """64 similar-product queries: 1-5 query items; categories, white and
+    black lists; an empty category set and unknown items (empty
+    answers)."""
+    pick = lambda n: [f"i{j}" for j in rng.choice(n_items, min(n, n_items), replace=False)]
+    cats = lambda: [f"g{c}" for c in rng.choice(N_CATEGORIES, int(rng.integers(1, 3)),
+                                                replace=False)]
+    qs = [{"items": pick(1), "num": 10} for _ in range(16)]
+    qs += [{"items": pick(int(rng.integers(2, 6))), "num": 20} for _ in range(16)]
+    qs += [{"items": pick(2), "num": 10, "categories": cats()} for _ in range(8)]
+    qs += [{"items": pick(1), "num": 10, "whiteList": pick(300)} for _ in range(8)]
+    qs += [{"items": pick(3), "num": 10, "blackList": pick(200)} for _ in range(8)]
+    qs += [{"items": pick(1), "num": 25, "categories": cats(), "blackList": pick(500)}
+           for _ in range(4)]
+    qs += [{"items": pick(2), "num": 10, "categories": []},
+           {"items": pick(1), "num": 10, "whiteList": []},
+           {"items": ["nope"], "num": 10}, {"items": [], "num": 10}]
+    return qs
+
+
+def _ecomm_queries(rng, n_users: int, n_items: int, newcomers: list) -> list[dict]:
+    """64 e-commerce queries: known users at num 10, 100 and 1000; categories,
+    white and black lists; newcomers who fall back to their recent views;
+    a user with no views and an empty category set (empty answers)."""
+    pick = lambda n: [f"i{j}" for j in rng.choice(n_items, min(n, n_items), replace=False)]
+    user = lambda: f"u{int(rng.integers(0, n_users))}"
+    cats = lambda: [f"g{c}" for c in rng.choice(N_CATEGORIES, int(rng.integers(1, 3)),
+                                                replace=False)]
+    qs = [{"user": user(), "num": 10} for _ in range(20)]
+    qs += [{"user": user(), "num": 100} for _ in range(8)]
+    qs += [{"user": user(), "num": 10, "categories": cats()} for _ in range(8)]
+    qs += [{"user": user(), "num": 10, "whiteList": pick(300)} for _ in range(8)]
+    qs += [{"user": user(), "num": 10, "blackList": pick(200)} for _ in range(8)]
+    qs += [{"user": user(), "num": 20, "categories": cats(), "whiteList": pick(2000),
+            "blackList": pick(100)} for _ in range(4)]
+    qs += [{"user": u, "num": 10} for u in newcomers[:2]]
+    qs += [{"user": u, "num": 10, "categories": cats()} for u in newcomers[2:4]]
+    qs += [{"user": newcomers[0], "num": 25, "blackList": pick(100)},
+           {"user": user(), "num": 1000}]
+    qs += [{"user": "nobody", "num": 10}, {"user": user(), "num": 10, "categories": []}]
+    return qs
+
+
+def _serve_checked(tag: str, algo, model, queries: list[dict], query_cls, reference) -> dict:
+    """Every query through ``algo.predict`` on the card, held against
+    ``reference(body) -> (scores, ok) | None`` (None: an empty answer);
+    then device ms and launches per query (torch.profiler over 16)."""
+    worst, exact, empty = 0.0, 0, 0
+    for body in queries:
+        served = [(s.item, s.score) for s in algo.predict(model, from_wire(query_cls,
+                                                                             body)).item_scores]
+        ref = reference(body)
+        if ref is None:
+            if served:
+                fail(f"[{tag}] {json.dumps(body)[:90]}: expected no answer, got {served[:3]}")
+            empty += 1
+            continue
+        err, same = _hold(tag, body, served, *ref, body["num"], model.als.item_ids)
+        worst, exact = max(worst, err), exact + same
+    sample = [from_wire(query_cls, b) for b in queries[:16]]
+    dev_ms, n = _profile(lambda: [algo.predict(model, q) for q in sample])
+    out = dict(queries=len(queries), exact=exact, empty=empty, max_score_err=worst,
+               device_ms_per_query=dev_ms and dev_ms / len(sample),
+               launches_per_query=n / len(sample))
+    log(f"[{tag}] {len(queries)} queries held against float64 ({exact} equal in ids and "
+        f"order, {len(queries) - exact - empty} within near-ties, {empty} empty as expected; "
+        f"max score err {worst:.3e}, tol {ALS_SCORE_TOL:g}); device_ms_per_query="
+        f"{_fmt(out['device_ms_per_query'], 4)} launches_per_query={out['launches_per_query']:.1f}")
+    return out
+
+
+def phase_als_templates() -> None:
+    """Phase 19: similar product and e-commerce at the ML-20M shape."""
+    n_users, n_items, nnz = ML20M
+    t0 = time.perf_counter()
+    u, i, _ = make_ratings(n_users, n_items, nnz, SEED)
+    coo = als.RatingsCOO(u, i, np.ones(nnz, dtype=np.float32), n_users, n_items)
+    category_map = _categories(n_items, SEED + 19)
+    seen = _all_seen(coo)
+    base = dict(coo=coo, user_ids=_ids("u", n_users), item_ids=_ids("i", n_items),
+                seen_by_user=seen, categories=category_map)
+    log(f"[templates] {nnz} views of {n_users} users x {n_items} items as implicit "
+        f"feedback, {N_CATEGORIES} categories, prepared in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(SEED + 19)
+    # the e-commerce algorithm's live reads: a small store holding the
+    # constraint and the recent views of four users the model never saw
+    store = memory_storage()
+    app_id = store.get_meta_data_apps().insert(App(0, "ML20M"))
+    store.get_events().init(app_id)
+    t_ev = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    newcomers = [f"new{k}" for k in range(4)]
+    recent = {u: [f"i{j}" for j in rng.choice(n_items, 12, replace=False)] for u in newcomers}
+    unavailable = [f"i{j}" for j in rng.choice(n_items, 50, replace=False)]
+    store.get_events().insert_batch(
+        [Event(event="view", entity_type="user", entity_id=u, target_entity_type="item",
+               target_entity_id=item, event_time=t_ev + timedelta(seconds=k))
+         for u in newcomers for k, item in enumerate(recent[u])]
+        + [Event(event="$set", entity_type="constraint", entity_id="unavailableItems",
+                 properties=DataMap({"items": unavailable}),
+                 event_time=t_ev + timedelta(seconds=100))], app_id)
+    ctx = EngineContext(storage=store, device=DEVICE)
+
+    sim_algo = similarproduct.SimilarALSAlgorithm(similarproduct.ALSAlgorithmParams())
+    sim_model, sim_stats = _train_timed("similarproduct", sim_algo, ctx,
+                                        similarproduct.SimilarPreparedData(**base))
+    item_f64 = sim_model.als.item_factors.double().cpu().numpy()
+
+    def sim_reference(body):
+        q = from_wire(similarproduct.Query, body)
+        return _similar_ref(sim_model.als, list(q.items), sim_algo._allow_vector(sim_model, q),
+                            item_f64)
+
+    _serve_checked("similarproduct", sim_algo, sim_model,
+                   _sim_queries(rng, n_items, category_map), similarproduct.Query,
+                   sim_reference)
+    del sim_model
+    torch.cuda.empty_cache()
+
+    ecomm_algo = ecommerce.ECommAlgorithm(ecommerce.ECommAlgorithmParams(app_name="ML20M"))
+    ecomm_model, ecomm_stats = _train_timed("ecommerce", ecomm_algo, ctx,
+                                            ecommerce.ECommPreparedData(**base))
+    als_model = ecomm_model.als
+    item_f64 = als_model.item_factors.double().cpu().numpy()
+    gone = {als_model.item_ids[i] for i in unavailable}
+
+    def ecomm_reference(body):
+        q = from_wire(ecommerce.Query, body)
+        allow = build_allow_vector(als_model.item_ids, categories=q.categories,
+                                   category_map=ecomm_model.categories,
+                                   white_list=q.white_list, black_list=q.black_list)
+        allow = np.ones(n_items, np.float32) if allow is None else allow
+        allow[list(gone)] = 0.0
+        if q.user in als_model.user_ids:
+            return _recommend_ref(als_model, q.user, allow, True, item_f64)
+        views = recent.get(q.user)
+        return None if not views else _similar_ref(als_model, views[::-1][:10], allow,
+                                                   item_f64)
+
+    queries = _ecomm_queries(rng, n_users, n_items, newcomers)
+    _serve_checked("ecommerce", ecomm_algo, ecomm_model, queries, ecommerce.Query,
+                   ecomm_reference)
+    del ecomm_model, als_model
+    torch.cuda.empty_cache()
+    log(f"[templates] phase 19 took {time.perf_counter() - t0:.1f}s")
+
+
+def _shop_docs():
+    """Phase 20's ML-100k-shape shop as event JSON: view events (every
+    user views at least 20 items), 2,000 buys, each item's categories
+    and an ``unavailableItems`` constraint; and the generator."""
+    n_users, n_items, n_view, n_buy = SHOP
+    rng = np.random.default_rng(SEED + 20)
+    users = np.concatenate([np.repeat(np.arange(n_users), 20),
+                            (n_users * rng.random(n_view - 20 * n_users) ** 1.5).astype(int)])
+    items = (n_items * rng.random(n_view + n_buy) ** 1.5).astype(int)
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def stamp(n: int) -> str:
+        return (t0 + timedelta(seconds=n)).strftime("%Y-%m-%dT%H:%M:%S.000Z")
+
+    docs = [{"event": "$set", "entityType": "item", "entityId": item,
+             "properties": {"categories": list(cats)}, "eventTime": stamp(0)}
+            for item, cats in _categories(n_items, SEED + 20).items()]
+    docs += [{"event": "view", "entityType": "user", "entityId": f"u{u}",
+              "targetEntityType": "item", "targetEntityId": f"i{i}", "eventTime": stamp(1 + j)}
+             for j, (u, i) in enumerate(zip(users, items))]
+    docs += [{"event": "buy", "entityType": "user", "entityId": f"u{u}",
+              "targetEntityType": "item", "targetEntityId": f"i{i}",
+              "eventTime": stamp(1 + n_view + j)}
+             for j, (u, i) in enumerate(zip(rng.integers(0, n_users, n_buy), items[n_view:]))]
+    docs.append({"event": "$set", "entityType": "constraint", "entityId": "unavailableItems",
+                 "properties": {"items": [f"i{j}" for j in range(0, 40, 2)]},
+                 "eventTime": stamp(2 + n_view + n_buy)})
+    return docs, rng
+
+
+def _items_of(doc: dict) -> list[str]:
+    return [s["item"] for s in doc.get("itemScores", [])]
+
+
+def phase_shop_end_to_end(pio: _Pio) -> None:
+    """Phase 20: e-commerce through `pio import` → `pio train` → `pio
+    deploy` → HTTP, with an ``unavailableItems`` $set and a newcomer's
+    views POSTed to the event server after deploy; then similar product
+    in process: `run_train` → stored instance → engine server."""
+    n_users, n_items, _, _ = SHOP
+    t_phase = time.perf_counter()
+    docs, rng = _shop_docs()
+    events_path = os.path.join(pio.base, "shop.jsonl")
+    n = _write_json_lines(events_path, docs)
+    out, _ = pio.run("shop", "app", "new", "shop")
+    app_id = int(re.search(r"ID: (\d+)", out).group(1))
+    key = re.search(r"Access Key: (\S+)", out).group(1)
+    out, _ = pio.run("shop", "import", "--appid", str(app_id), "--input", events_path)
+    if f"Imported {n} events" not in out:
+        fail(f"[shop] import: {out}")
+    engine_json = os.path.join(pio.base, "ecommerce.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "shop", "engineFactory": ECOMM_FACTORY,
+                   "datasource": {"params": {"appName": "shop"}},
+                   "algorithms": [{"name": "ecomm", "params": {"appName": "shop"}}]}, f)
+    instance_id = pio.train("shop", engine_json)
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    model = deployed.models[0].als
+    pick = lambda k: [f"i{j}" for j in rng.choice(n_items, min(k, n_items), replace=False)]
+    users = [f"u{u}" for u in rng.choice(n_users, 24, replace=False)]
+    queries = ([{"user": u, "num": 10} for u in users[:12]]
+               + [{"user": u, "num": 10, "categories": [f"g{int(rng.integers(0, 20))}"]}
+                  for u in users[12:16]]
+               + [{"user": u, "num": 10, "whiteList": pick(400)} for u in users[16:20]]
+               + [{"user": u, "num": 10, "blackList": pick(100)} for u in users[20:24]]
+               + [{"user": "newbie", "num": 10}])
+    proc, port, _ = pio.deploy("shop", engine_json)
+    es_proc = None
+    try:
+        first, rtts = _serve_http("shop", port, queries)
+        old = {f"i{j}" for j in range(0, 40, 2)}
+        if any(set(_items_of(d)) & old for d in first) or _items_of(first[-1]):
+            fail("[shop] an answer holds an unavailable item, or the newcomer was answered")
+        # the items the first answers ranked highest become unavailable
+        new = sorted({_items_of(d)[0] for d in first[:12] if _items_of(d)})
+        es_proc, es_port, _ = pio.eventserver("shop-es")
+        later = [{"event": "$set", "entityType": "constraint", "entityId": "unavailableItems",
+                  "properties": {"items": new}},
+                 *({"event": "view", "entityType": "user", "entityId": "newbie",
+                    "targetEntityType": "item", "targetEntityId": f"i{j}"} for j in (1, 3, 5))]
+        for body in later:
+            status, doc, _ = _http(es_port, "POST", f"/events.json?accessKey={key}", body)
+            if status != 201:
+                fail(f"[shop] POST /events.json answered {status}: {doc}")
+        second, more = _serve_http("shop", port, queries)
+        rtts += more
+        moved = sum(a != b for a, b in zip(first, second))
+        if any(set(_items_of(d)) & set(new) for d in second) or not _items_of(second[-1]):
+            fail("[shop] the answers after the POSTed constraint hold a newly unavailable "
+                 "item, or the newcomer got no answer")
+        for body, doc in zip(queries, second):
+            want = deployed.query(from_wire(ecommerce.Query, body))
+            if [(s["item"], s["score"]) for s in doc["itemScores"]] != [
+                    (s.item, s.score) for s in want.item_scores]:
+                fail(f"[shop] {body}: the HTTP answer differs from the in-process deploy")
+        log(f"[shop] {len(queries)} queries before and after POSTing a new unavailableItems "
+            f"({len(new)} items) and a newcomer's views: {moved} answers moved, none holds an "
+            f"unavailable item, all equal the in-process deploy of the instance; "
+            f"http_p50_ms={statistics.median(rtts):.3f}")
+    finally:
+        _stop(proc)
+        if es_proc is not None:
+            _stop(es_proc)
+    item_f64 = model.item_factors.double().cpu().numpy()
+    worst = 0.0
+    for body in queries[:-1]:
+        q = from_wire(ecommerce.Query, body)
+        allow = build_allow_vector(model.item_ids, categories=q.categories,
+                                   category_map=deployed.models[0].categories,
+                                   white_list=q.white_list, black_list=q.black_list)
+        allow = np.ones(n_items, np.float32) if allow is None else allow
+        allow[[model.item_ids[i] for i in new if i in model.item_ids]] = 0.0
+        served = [(s.item, s.score) for s in deployed.query(q).item_scores]
+        worst = max(worst, _hold("shop", body, served,
+                                 *_recommend_ref(model, q.user, allow, True, item_f64), q.num,
+                                 model.item_ids)[0])
+    log(f"[shop] the known users' answers held against float64 (max score err {worst:.3e})")
+
+    # similar product in process over the same store
+    t0 = time.perf_counter()
+    outcome = run_train(variant={
+        "engineFactory": SIM_FACTORY, "datasource": {"params": {"appName": "shop"}},
+        "algorithms": [{"name": "als", "params": {}}]},
+        ctx=EngineContext(storage=storage, device=DEVICE))
+    log(f"[shop-sim] run_train {outcome.status} in {time.perf_counter() - t0:.3f}s: "
+        f"{format_stage_times(outcome.stage_seconds)}")
+    server = create_engine_server(storage, _local(engine_instance_id=outcome.instance_id)).start()
+    try:
+        sim = server.deployed.models[0]
+        item_f64 = sim.als.item_factors.double().cpu().numpy()
+        mix = _sim_queries(rng, n_items, sim.categories)
+        sim_queries = mix[:8] + mix[16:24] + mix[32:48] + mix[60:]
+        worst, docs_ = 0.0, _serve_http("shop-sim", server.port, sim_queries)[0]
+        for body, doc in zip(sim_queries, docs_):
+            served = [(s["item"], s["score"]) for s in doc["itemScores"]]
+            q = from_wire(similarproduct.Query, body)
+            if served != [(s.item, s.score) for s in server.deployed.query(q).item_scores]:
+                fail(f"[shop-sim] {body}: the HTTP answer differs from the deployed engine")
+            ref = _similar_ref(sim.als, list(q.items),
+                               server.deployed.algorithms[0]._allow_vector(sim, q), item_f64)
+            if ref is None:
+                if served:
+                    fail(f"[shop-sim] {body}: expected no answer, got {served[:3]}")
+                continue
+            worst = max(worst, _hold("shop-sim", body, served, *ref, q.num,
+                                     sim.als.item_ids)[0])
+        log(f"[shop-sim] {len(sim_queries)} HTTP queries equal the deployed engine and the "
+            f"float64 reference (max score err {worst:.3e})")
+    finally:
+        server.stop()
+    log(f"[shop] phase 20 took {time.perf_counter() - t_phase:.1f}s")
+
+
+def covtype_data(rows: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Covertype-shaped rows: 10 integer-valued features (class-conditional
+    Poisson means around 1-50) then 44 binary ones (class-conditional
+    Bernoulli), 7 classes in Covertype's shares; f32 / int32."""
+    n_feat, n_cls = COVTYPE[1], COVTYPE[2]
+    rng = np.random.default_rng(seed)
+    y = rng.choice(n_cls, rows, p=np.asarray(COVTYPE_SHARES) / sum(COVTYPE_SHARES))
+    # classes overlap as Covertype's do: each class moves a shared
+    # profile by ~20-30 %
+    means = rng.uniform(1.0, 50.0, 10) * np.exp(0.2 * rng.standard_normal((n_cls, 10)))
+    probs = np.clip(rng.uniform(0.05, 0.5, n_feat - 10)
+                    * np.exp(0.3 * rng.standard_normal((n_cls, n_feat - 10))), 0.01, 0.95)
+    X = np.empty((rows, n_feat), dtype=np.float32)
+    X[:, :10] = rng.poisson(means[y])
+    X[:, 10:] = rng.random((rows, n_feat - 10)) < probs[y]
+    return X, y.astype(np.int32)
+
+
+def _host_adam(X: np.ndarray, y: np.ndarray, n_cls: int, steps: int) -> tuple[np.ndarray, float]:
+    """The logreg fit in float64 NumPy: (W, the last step's loss)."""
+    Xb = np.concatenate([X, np.ones((len(X), 1))], axis=1).astype(np.float64)
+    onehot = np.eye(n_cls)[y]
+    W, m, v = (np.zeros((Xb.shape[1], n_cls)) for _ in range(3))
+    loss = 0.0
+    for t in range(1, steps + 1):
+        z = Xb @ W
+        z -= z.max(1, keepdims=True)
+        logp = z - np.log(np.exp(z).sum(1, keepdims=True))
+        reg = W.copy()
+        reg[-1] = 0.0
+        loss = -(onehot * logp).sum() / len(X) + LOGREG_L2 * (reg * reg).sum()
+        g = Xb.T @ (np.exp(logp) - onehot) / len(X) + 2 * LOGREG_L2 * reg
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        W = W - LOGREG_LR * (m / (1 - 0.9 ** t)) / (np.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+    return W, loss
+
+
+def _host_loss(X: np.ndarray, y: np.ndarray, W: np.ndarray) -> float:
+    Xb = np.concatenate([X, np.ones((len(X), 1), np.float32)], axis=1).astype(np.float64)
+    z = Xb @ W
+    z -= z.max(1, keepdims=True)
+    logp = z - np.log(np.exp(z).sum(1, keepdims=True))
+    reg = W.copy()
+    reg[-1] = 0.0
+    return float(-logp[np.arange(len(y)), y].mean() + LOGREG_L2 * (reg * reg).sum())
+
+
+def _host_votes(forest, X: np.ndarray) -> np.ndarray:
+    """The forest's votes walked on the host (f32 comparisons, as on the
+    card)."""
+    votes = np.zeros((len(X), forest.num_classes), dtype=np.float32)
+    rows = np.arange(len(X))
+    for t in range(forest.num_trees):
+        idx = np.zeros(len(X), dtype=np.int64)
+        for _ in range(forest.max_depth + 1):
+            f = forest.feature[t][idx]
+            nxt = np.where(X[rows, np.maximum(f, 0)] <= forest.threshold[t][idx],
+                           forest.left[t][idx], forest.right[t][idx])
+            idx = np.where(f < 0, idx, nxt)
+        np.add.at(votes, (rows, forest.leaf_class[t][idx]), 1.0)
+    return votes
+
+
+def phase_classification_models() -> None:
+    """Phase 21a-c: naive Bayes, logreg and the forest at the Covertype
+    shape, each against float64 on the host."""
+    rows, n_feat, n_cls = COVTYPE
+    t0 = time.perf_counter()
+    X, y = covtype_data(rows, SEED + 21)
+    Xd, yd = torch.from_numpy(X).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    log(f"[class] {rows} x {n_feat} rows, {n_cls} classes, made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # (a) multinomial naive Bayes: train, score every row
+    nb_ms, nb = _events_ms(lambda: naive_bayes.train_multinomial(Xd, yd, n_cls))
+    score_ms, scores = _events_ms(lambda: naive_bayes.predict_multinomial_scores(
+        nb.log_prior, nb.log_theta, Xd))
+    counts = np.bincount(y, minlength=n_cls).astype(np.float64)
+    sums = np.zeros((n_cls, n_feat))
+    np.add.at(sums, y, X.astype(np.float64))
+    prior = np.log(counts + 1.0) - np.log(counts.sum() + n_cls)
+    theta = np.log(sums + 1.0) - np.log(sums.sum(1, keepdims=True) + n_feat)
+    err = max(np.abs(nb.log_prior.double().cpu().numpy() - prior).max(),
+              np.abs(nb.log_theta.double().cpu().numpy() - theta).max())
+    ref_scores = prior[None, :] + X.astype(np.float64) @ theta.T
+    got = scores.cpu().numpy()
+    ref_sorted = np.sort(ref_scores, 1)
+    decided = ref_sorted[:, -1] - ref_sorted[:, -2] > NB_LOG_TOL * np.abs(ref_scores).max()
+    flips = int((got.argmax(1) != ref_scores.argmax(1))[decided].sum())
+    nb_dev, nb_n = _profile(lambda: naive_bayes.train_multinomial(Xd, yd, n_cls))
+    nb_bound = _bound_ms(X.nbytes + rows * 4, f32_flops=2 * rows * n_cls * n_feat)
+    log(f"[class-nb] train_multinomial: ms={nb_ms:.3f} device_ms={_fmt(nb_dev, 4)} "
+        f"launches={nb_n} bound_ms={nb_bound}; "
+        f"scores of all rows: ms={score_ms:.3f}; log prior and log theta vs float64: max abs "
+        f"err {err:.3e} (tol {NB_LOG_TOL:g}); argmax flips where float64 decides: {flips}; "
+        f"accuracy {(got.argmax(1) == y).mean():.4f}")
+    if err > NB_LOG_TOL or flips:
+        fail("[class-nb] naive Bayes disagrees with float64")
+
+    # (b) logreg: 300 full-batch Adam steps over every row
+    torch.cuda.reset_peak_memory_stats()
+    losses: list = []
+    fit = lambda steps, out=None: logreg._fit(Xd, yd, torch.ones(rows, device=DEVICE), n_cls,
+                                              steps, LOGREG_LR, LOGREG_L2, out)
+    fit_ms, W = _events_ms(lambda: fit(LOGREG_STEPS, losses))
+    step_ms = fit_ms / LOGREG_STEPS
+    dev10, n10 = _profile(lambda: fit(10))
+    dev20, n20 = _profile(lambda: fit(20))
+    bound = _bound_ms(2 * rows * (n_feat + 1) * 4,
+                      f32_flops=2 * 2 * rows * (n_feat + 1) * n_cls)
+    per_step_dev = None if None in (dev10, dev20) else (dev20 - dev10) / 10
+    with ieee_f32():
+        full_loss = float(logreg._loss_and_grad(
+            logreg._add_bias(Xd), torch.nn.functional.one_hot(yd.long(), n_cls).float(),
+            torch.ones(rows, device=DEVICE), torch.tensor(float(rows), device=DEVICE), W,
+            LOGREG_L2)[0])
+    host_full = _host_loss(X, y, W.double().cpu().numpy())
+    log(f"[class-lr] {LOGREG_STEPS} Adam steps (lr {LOGREG_LR}, l2 {LOGREG_L2}) over "
+        f"{rows} rows: ms_per_step={step_ms:.4f} device_ms_per_step={_fmt(per_step_dev, 4)} "
+        f"launches_per_step={(n20 - n10) / 10:.1f} bound_ms_per_step={bound} (X read twice a "
+        f"step: {2 * rows * (n_feat + 1) * 4 / 1e6:.1f} MB) peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}; final loss {full_loss:.6f}, float64 "
+        f"loss at the same W {host_full:.6f}")
+    if not abs(full_loss - host_full) <= LOGREG_LOSS_RTOL * abs(host_full):
+        fail("[class-lr] the card's loss disagrees with float64 at the trained W")
+    sample = np.random.default_rng(SEED + 22).choice(rows, FOREST_SAMPLE, replace=False)
+    Xs, ys = X[sample], y[sample]
+    t1 = time.perf_counter()
+    W64, loss64 = _host_adam(Xs, ys, n_cls, LOGREG_STEPS)
+    host_s = time.perf_counter() - t1
+    s_losses: list = []
+    Ws = logreg._fit(torch.from_numpy(Xs).to(DEVICE), torch.from_numpy(ys).to(DEVICE),
+                     torch.ones(len(ys), device=DEVICE), n_cls, LOGREG_STEPS, LOGREG_LR,
+                     LOGREG_L2, s_losses).double().cpu().numpy()
+    w_err = np.linalg.norm(Ws - W64) / np.linalg.norm(W64)
+    l_err = abs(float(s_losses[-1]) - loss64) / abs(loss64)
+    log(f"[class-lr] on {FOREST_SAMPLE} sampled rows against float64 Adam on the host "
+        f"({host_s:.1f}s): W rel err {w_err:.3e} (tol {LOGREG_W_RTOL:g}), loss rel err "
+        f"{l_err:.3e} (tol {LOGREG_LOSS_RTOL:g})")
+    if w_err > LOGREG_W_RTOL or l_err > LOGREG_LOSS_RTOL:
+        fail("[class-lr] the Adam trajectory disagrees with float64")
+
+    # (c) the forest: grown on the host, votes walked on the card
+    t1 = time.perf_counter()
+    forest = random_forest.train_forest(Xs, ys, n_cls, num_trees=FOREST_TREES,
+                                        max_depth=FOREST_DEPTH, feature_subset="sqrt", seed=SEED)
+    grow_s = time.perf_counter() - t1
+    tables = random_forest.device_tables(forest, DEVICE)
+    walk = lambda: random_forest._forest_votes(*tables, Xd, FOREST_DEPTH, n_cls)
+    walk_ms = time_ms(walk, warmup=2, n=10)
+    walk_dev, walk_n = _profile(walk)
+    votes = walk().cpu().numpy()
+    want = _host_votes(forest, X)
+    nodes = forest.feature.shape[1]
+    log(f"[class-rf] {FOREST_TREES} trees of depth {FOREST_DEPTH} ({nodes} nodes a tree at "
+        f"most) grown on the host in {grow_s:.2f}s on {FOREST_SAMPLE} rows; the vote walk "
+        f"over {rows} rows: ms={walk_ms:.4f} device_ms={_fmt(walk_dev, 4)} "
+        f"launches={walk_n} bound_ms={_bound_ms(X.nbytes + rows * n_cls * 4)}; votes equal "
+        f"to the host walk: {np.array_equal(votes, want)}; accuracy "
+        f"{(votes.argmax(1) == y).mean():.4f}")
+    if not np.array_equal(votes, want):
+        fail("[class-rf] the card's votes differ from the host walk")
+
+
+def phase_classification_template(pio: _Pio) -> None:
+    """Phase 21d: 20,000 entities' ``$set`` properties in sqlite →
+    `run_train` with naive Bayes and logreg under BlendedServing → the
+    engine server → HTTP queries; the Accuracy grid through
+    `run_evaluation` on the card and on the CPU."""
+    rows, n_feat, _ = COVTYPE
+    X, y = covtype_data(CLASS_ENTITIES, SEED + 23)
+    attrs = tuple(f"a{j}" for j in range(n_feat))
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    app_id = storage.get_meta_data_apps().insert(App(0, "covtype"))
+    storage.get_events().init(app_id)
+    t0 = time.perf_counter()
+    t_ev = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    storage.get_events().insert_batch([
+        Event(event="$set", entity_type="user", entity_id=f"e{n:05d}",
+              properties=DataMap({**{a: float(v) for a, v in zip(attrs, X[n])},
+                                  "cover": f"t{int(y[n]) + 1}"}),
+              event_time=t_ev + timedelta(seconds=n)) for n in range(CLASS_ENTITIES)], app_id)
+    log(f"[class-tmpl] {CLASS_ENTITIES} entities x {n_feat + 1} properties into sqlite in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ds_params = {"appName": "covtype", "attrs": list(attrs), "label": "cover"}
+    outcome = run_train(variant={
+        "engineFactory": CLASS_FACTORY, "datasource": {"params": ds_params},
+        "algorithms": [{"name": "naive", "params": {}}, {"name": "logreg", "params": {}}],
+        "serving": {"name": "blended"}}, ctx=EngineContext(storage=storage, device=DEVICE))
+    log(f"[class-tmpl] run_train {outcome.status}: "
+        f"{format_stage_times(outcome.stage_seconds)}")
+    if outcome.status != "COMPLETED":
+        fail("[class-tmpl] training did not complete")
+    server = create_engine_server(storage, _local(engine_instance_id=outcome.instance_id)).start()
+    try:
+        picks = np.random.default_rng(SEED + 24).choice(CLASS_ENTITIES, CLASS_QUERIES,
+                                                        replace=False)
+        queries = [{"attrs": [float(v) for v in X[j]]} for j in picks]
+        docs, rtts = _serve_http("class-tmpl", server.port, queries)
+        right = 0
+        for j, body, doc in zip(picks, queries, docs):
+            want = server.deployed.query(from_wire(classification.Query, body))
+            if doc["label"] != want.label or doc["scores"] != want.scores or \
+                    doc["label"] != max(doc["scores"], key=doc["scores"].get):
+                fail(f"[class-tmpl] {j}: the HTTP answer {doc} differs from the deployed "
+                     f"engine's {want}")
+            right += doc["label"] == f"t{int(y[j]) + 1}"
+        log(f"[class-tmpl] {CLASS_QUERIES} HTTP queries (blended naive Bayes + logreg) equal "
+            f"the deployed engine; {right} labels right; http_p50_ms="
+            f"{statistics.median(rtts):.3f}")
+    finally:
+        server.stop()
+    reports = {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        result = run_evaluation(
+            classification.ClassificationEvaluation(output_path=None),
+            classification.DefaultParamsList(app_name="covtype", eval_k=3, attrs=attrs,
+                                             label="cover"),
+            storage=storage, ctx=EngineContext(storage=storage, device=device)).result
+        reports[device] = [s.score for _, s in result.engine_params_scores]
+        log(f"[class-eval] Accuracy grid (smoothing 0.5 / 1.0 / 2.0, 3 folds) on {device}: "
+            f"{reports[device]} best {result.best_idx} in {time.perf_counter() - t0:.1f}s")
+    if reports[DEVICE] != reports["cpu"]:
+        fail("[class-eval] the card's Accuracy report differs from the CPU's")
+
+
+def phase_templates(pio: _Pio) -> None:
+    """Phases 19-21; none launches the flash kernel."""
+    before = flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    phase_als_templates()
+    torch.cuda.empty_cache()
+    phase_shop_end_to_end(pio)
+    torch.cuda.empty_cache()
+    phase_classification_models()
+    torch.cuda.empty_cache()
+    phase_classification_template(pio)
+    if flash_ops.LAUNCHES != before:
+        fail(f"the template gallery launched the flash kernel {flash_ops.LAUNCHES - before} "
+             "times")
+    log(f"[templates] phases 19-21 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3111,6 +3859,11 @@ def run_phases(wall: float) -> None:
         log_card()
         phase_eval_sessionrec()
         phase_eval_recommendation()
+        return
+    if sys.argv[1:] == ["--templates-only"]:   # phases 19-21 alone; no result line
+        log_card()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            phase_templates(_Pio(base))
         return
     if sys.argv[1:] in (["--pio-only"], ["--serve-only"], ["--ingest-only"]):
         # phase 16, or phase 17 over 16a's instance, or phase 18 over 16a's
@@ -3164,6 +3917,7 @@ def run_phases(wall: float) -> None:
         if ingest_launches == 0:
             fail("the feedback loop's deploy never launched the flash_attention kernel")
         launches += ingest_launches
+        phase_templates(pio)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

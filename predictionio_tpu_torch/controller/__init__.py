@@ -1,4 +1,8 @@
-from predictionio_tpu_torch.controller.algorithm import HostModelAlgorithm
+from predictionio_tpu_torch.controller.algorithm import (
+    HostModelAlgorithm,
+    LocalAlgorithm,
+    ShardedAlgorithm,
+)
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     BaseComponent,
@@ -50,8 +54,8 @@ from predictionio_tpu_torch.controller.params import (
 __all__ = [
     "Algorithm", "BaseComponent", "DataSource", "Doer", "EmptyParams", "Engine",
     "EngineFactory", "EngineParams", "FirstServing", "HostModelAlgorithm",
-    "IdentityPreparator", "Params", "PersistentModelManifest", "Preparator",
-    "SanityCheck", "Serving",
+    "IdentityPreparator", "LocalAlgorithm", "Params", "PersistentModelManifest",
+    "Preparator", "SanityCheck", "Serving", "ShardedAlgorithm",
     "StopAfterPrepareInterruption", "StopAfterReadInterruption", "TrainResult",
     "params_from_json", "params_to_json", "resolve_engine_factory",
     "Metric", "QPAMetric", "AverageMetric", "OptionAverageMetric",

@@ -87,6 +87,11 @@ class ALSModel:
         raise NotImplementedError(
             "the online freshness overlay is not ported: ROADMAP.md queue 1 item 11")
 
+    def online_delta(self, user_id: str):
+        """The user's fold-in delta: None, since no overlay can be set in
+        this slice (the JAX package's answer with no overlay)."""
+        return None
+
     def needs_online_path(self, user_id: str) -> bool:
         """No overlay in this slice: every query may take the batch path."""
         return False

@@ -18,12 +18,15 @@ runs the whole training as one program, the port runs an eager Python
 loop over iterations, buckets and slabs on tensors already on the
 device; the loop never reads a device value on the host.
 
-The JAX package's chunked and bucketed layouts, its native packer and
-its mesh sharding are not ported (ROADMAP.md queue 1 items 16 and 15).
+The host layout packs in C++ (``native/bucketize.cc`` ``pio_ladder``,
+built with g++ at first use), with the NumPy path as the fallback and
+the oracle. The JAX package's chunked and bucketed layouts and its mesh
+sharding are not ported (ROADMAP.md queue 1 items 16 and 15).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import logging
 import math
@@ -32,9 +35,15 @@ import os
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import native
 from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
+
+#: layouts packed by the native ``pio_ladder`` in this process (the
+#: NumPy path counts none): ``chip_smoke.py`` reads it to show that the
+#: native packer served
+NATIVE_LADDERS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -95,16 +104,62 @@ LADDER_COUNTS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
                  192, 256, 384, 512, 768, 1024, 1536, 2048)
 
 
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _ladder_rows_native(coo: RatingsCOO, width: int, small: int) -> BucketedRatings | None:
+    """The C++ packing path (``native/bucketize.cc`` ``pio_ladder``: one
+    counting sort and one fill, behind the ``pio_bucketize_*`` handle
+    calls); None when the library cannot be built or refuses the input."""
+    global NATIVE_LADDERS
+    lib = native.load_bucketize()
+    if lib is None or coo.nnz == 0:
+        return None
+    i32, f32 = ctypes.c_int32, ctypes.c_float
+    # the inputs stay referenced while the handle lives
+    rows = np.ascontiguousarray(coo.rows, dtype=np.int32)
+    cols = np.ascontiguousarray(coo.cols, dtype=np.int32)
+    vals = np.ascontiguousarray(coo.vals, dtype=np.float32)
+    ladder = np.ascontiguousarray(LADDER_COUNTS, dtype=np.int64)
+    handle = lib.pio_ladder(coo.nnz, _ptr(rows, i32), _ptr(cols, i32), _ptr(vals, f32),
+                            coo.num_rows, width, small, _ptr(ladder, ctypes.c_int64),
+                            len(ladder))
+    if not handle:
+        return None
+    try:
+        buckets = []
+        for b in range(lib.pio_bucketize_num_buckets(handle)):
+            pad_len, n = ctypes.c_int32(), ctypes.c_int64()
+            if lib.pio_bucketize_bucket_info(handle, b, ctypes.byref(pad_len), ctypes.byref(n)):
+                return None
+            pl, nn = int(pad_len.value), int(n.value)
+            bucket = Bucket(np.empty((nn,), dtype=np.int32), np.empty((nn, pl), dtype=np.int32),
+                            np.empty((nn, pl), dtype=np.float32), np.empty((nn,), dtype=np.int32))
+            if lib.pio_bucketize_fill(handle, b, _ptr(bucket.row_ids, i32),
+                                      _ptr(bucket.cols, i32), _ptr(bucket.vals, f32),
+                                      _ptr(bucket.deg, i32)):
+                return None
+            buckets.append(bucket)
+    finally:
+        lib.pio_bucketize_free(handle)
+    NATIVE_LADDERS += 1
+    return BucketedRatings(tuple(buckets), coo.num_rows, coo.num_cols, coo.nnz)
+
+
 def ladder_rows(coo: RatingsCOO, width: int = 128, small: int = 64,
                 use_native: bool = True) -> BucketedRatings:
     """Whole-row buckets padded to the ladder — the layout of
     ``layout="fused"``. A row of degree ``<= small`` pads to ``small``;
     any other to ``width * c``, ``c`` the smallest :data:`LADDER_COUNTS`
     entry covering ``ceil(deg / width)`` (doubling past the end). No
-    rating is dropped. This is the JAX package's NumPy path, which
-    builds the same slabs as its native packer; ``use_native`` is
-    accepted for call compatibility and ignored."""
-    del use_native
+    rating is dropped. With ``use_native`` the C++ packer
+    (:func:`_ladder_rows_native`) builds it where it can be built; the
+    NumPy path below, the JAX package's, builds the same slabs."""
+    if use_native:
+        packed = _ladder_rows_native(coo, width, small)
+        if packed is not None:
+            return packed
     if coo.nnz == 0:
         return BucketedRatings((), coo.num_rows, coo.num_cols, 0)
     order = np.argsort(coo.rows, kind="stable")

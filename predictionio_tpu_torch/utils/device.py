@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator
 
+import numpy as np
 import torch
 
 
@@ -24,6 +25,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def as_device_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``x`` (NumPy, a sequence or a tensor) as a ``dtype`` tensor on
+    ``device``; ``device=None`` keeps a tensor where it is and puts
+    anything else on the card."""
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=resolve_device(device))
 
 
 @contextlib.contextmanager
