@@ -177,14 +177,43 @@ Phases, in order; any failure exits non-zero:
    with naive Bayes and logreg under BlendedServing, HTTP queries, and
    the Accuracy grid through `run_evaluation` on the card equal to the
    same folds on the CPU;
-22. a `kernels` JSON line, then the result line
+22. ANN retrieval (`ops/ann.py`) at the JAX package's own ANN point
+   (bench_serving.py:1563-1623): 1,000,000 items at rank 32 from its
+   factor mixture (256 clusters, noise 0.5, seeds 7/8), 2,048 users with
+   8 seen items; `ALSModel.save` builds the IVF index at persist time
+   (auto nlist 4,096; the build seconds logged), `ALSModel.load` on the
+   card and `configure_retrieval("ann")`; at nprobe = nlist 64 answers
+   equal brute force, ids and order; at the auto nprobe each answer
+   equals a float64 rescore of its shortlist; recall and MAP@10 at
+   nprobe auto, 2x and 4x; `ann_topk` at B = 1 and 32 (CUDA events,
+   profiled device time, launches) beside brute `recommend_topk` and the
+   probe's bytes bound, and at B = 32 beside a row-at-a-time loop; then
+   the ML-20M-shape model of phase 17 behind the engine server with
+   retrieval=ann: `annShortlistHistogram` counts its queries, `POST
+   /retrieval` switches to brute and back, and at full probe the HTTP
+   answers equal brute force;
+23. online freshness (`online/`): phase 16b's ML-100k instance behind
+   `pio deploy --online --online-interval-s 0.2 --cache` and `pio
+   eventserver` over the same sqlite store: 32 known users each rate
+   their first answer over `POST /events.json`, and each answer changes
+   with no retrain (the seconds from the 201, p50 and max); a new user
+   and a new item are served; 32 other users' cache entries survive
+   (hits, no misses); the same events folded in this process on the card
+   give vectors within 1e-4 of a float64 solve of each user's full
+   history and the deploy process's answers (ms per user folded), with
+   the device ms and launches of `_gather_rows`; `/reload` moves the
+   overlay's generation and the folded users are refolded, and a delta
+   computed against the old generation is discarded;
+24. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
-`--ingest-only` and `--templates-only` run phases 9-13, 14-15, 16, 17,
-18 and 19-21 alone (17 over 16a's instance and a random ML-20M-shape
-ALS model, 18 over 16a's import) and print no result line. Exits non-zero, printing no result,
-when there is no card.
+`--ingest-only`, `--templates-only`, `--ann-only` and `--online-only` run
+phases 9-13, 14-15, 16, 17, 18, 19-21, 22 and 23 alone (17 over 16a's
+instance and a random ML-20M-shape ALS model, 18 over 16a's import, 22
+over a random ML-20M-shape model, 23 over 16b's import and train) and
+print no result line. Phases 22 and 23 launch no flash kernel. Exits
+non-zero, printing no result, when there is no card.
 """
 
 from __future__ import annotations
@@ -223,6 +252,7 @@ from predictionio_tpu_torch.models import logreg, naive_bayes, random_forest, se
 from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import als
+from predictionio_tpu_torch.ops import ann as ann_ops
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
@@ -1087,17 +1117,25 @@ def _profile(fn, top: str | None = None) -> tuple[float | None, int]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        # the trace's device events summed by kernel name, as key_averages()
+        # sums them (same ms and counts, measured on the card) without its
+        # event tree: 0.6 s instead of 9 s for a 33,000-launch trace
+        kernels: dict[str, list] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                entry = kernels.setdefault(e.name(), [0, 0])
+                entry[0] += 1
+                entry[1] += e.duration_ns()
+        device_ms = sum(ns for _, ns in kernels.values()) / 1e6
         if device_ms > 0:
             break
     else:
         log("[profile] torch.profiler recorded no device time in 3 traces: not recorded")
         return None, 0
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8] if top else ():
-        log(f"[{top}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} launches  "
-            f"{e.key[:90]}")
-    return device_ms, sum(e.count for e in kernels)
+    for name, (count, ns) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8] if top \
+            else ():
+        log(f"[{top}]   {ns / 1e6:9.3f} ms  {count:6d} launches  {name[:90]}")
+    return device_ms, sum(count for count, _ in kernels.values())
 
 
 def _bound_ms(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0) -> str:
@@ -1287,11 +1325,12 @@ def _seen_lists(coo: als.RatingsCOO, rows) -> dict[int, np.ndarray]:
     """Sorted distinct items of each of ``rows``, from the COO."""
     order = np.argsort(coo.rows, kind="stable")
     su, si = coo.rows[order], coo.cols[order]
-    out = {}
-    for u in np.unique(np.asarray(rows)):
-        lo, hi = np.searchsorted(su, u), np.searchsorted(su, u, side="right")
-        out[int(u)] = np.unique(si[lo:hi]).astype(np.int32)
-    return out
+    # the probes in the table's own dtype: a mixed-dtype search casts
+    # the whole 20M-row table on every call
+    users = np.unique(np.asarray(rows)).astype(su.dtype)
+    los, his = np.searchsorted(su, users), np.searchsorted(su, users, side="right")
+    return {int(u): np.unique(si[lo:hi]).astype(np.int32)
+            for u, lo, hi in zip(users, los, his)}
 
 
 def _reference_topk(model: ALSModel, body: dict, item_f64: np.ndarray):
@@ -2135,9 +2174,10 @@ def _ml100k_docs():
     return docs, rng
 
 
-def phase_pio_recommendation(pio: _Pio) -> None:
-    """Phase 16b: the recommendation template at the ML-100k shape."""
-    n_users = ML100K[0]
+def pio_recommendation_instance(pio: _Pio):
+    """Phase 16b's `pio app new` → `import` → `train` of the ML-100k
+    shape: (engine.json path, instance id, the store, the generator of
+    the events, for the draws that follow)."""
     docs, rng = _ml100k_docs()
     events_path = os.path.join(pio.base, "ml100k.jsonl")
     n = _write_json_lines(events_path, docs)
@@ -2158,6 +2198,14 @@ def phase_pio_recommendation(pio: _Pio) -> None:
              f"{instance.algorithms_params}")
     log(f"[pio-rec] instance {instance_id}: COMPLETED, algorithms_params equal to the JAX "
         f"package's text")
+    return engine_json, instance_id, storage, rng
+
+
+def phase_pio_recommendation(pio: _Pio) -> tuple[str, str]:
+    """Phase 16b: the recommendation template at the ML-100k shape;
+    returns (engine.json path, instance id) for phase 23."""
+    n_users = ML100K[0]
+    engine_json, instance_id, storage, rng = pio_recommendation_instance(pio)
     # the training read alone, in this process, through the columnar scan on sqlite
     ctx = EngineContext(storage=storage, device=DEVICE)
     t1 = time.perf_counter()
@@ -2182,6 +2230,7 @@ def phase_pio_recommendation(pio: _Pio) -> None:
         _check_answer("pio-rec", body, served, model, item_f64)
     log(f"[pio-rec] {len(queries)} queries over HTTP equal the in-process deploy and the "
         f"float64 reference; http_p50_ms={statistics.median(rtts):.3f}")
+    return engine_json, instance_id
 
 
 def _lexsort_topk(scores: np.ndarray, k: int) -> np.ndarray:
@@ -2267,16 +2316,17 @@ def phase_tie_order() -> None:
         torch.cuda.empty_cache()
 
 
-def phase_pio(pio: _Pio) -> tuple[int, tuple[str, str, float]]:
+def phase_pio(pio: _Pio) -> tuple[int, tuple[str, str, float], tuple[str, str]]:
     """Phase 16; returns the flash kernel's launches in the sessionrec
-    deploy process, and the sessionrec instance (phase 17 serves it)."""
+    deploy process, the sessionrec instance (phase 17 serves it) and the
+    ML-100k recommendation instance (phase 23 serves it)."""
     t0 = time.perf_counter()
     instance = pio_sessionrec_instance(pio)
     launches = phase_pio_sessionrec(pio, *instance)
-    phase_pio_recommendation(pio)
+    rec_instance = phase_pio_recommendation(pio)
     phase_tie_order()
     log(f"[pio] phase 16 took {time.perf_counter() - t0:.1f}s")
-    return launches, instance
+    return launches, instance, rec_instance
 
 
 #: phase 17: closed-loop clients in flight, and the queries each level sends
@@ -3837,6 +3887,503 @@ def phase_templates(pio: _Pio) -> None:
     log(f"[templates] phases 19-21 took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: ANN retrieval
+# ---------------------------------------------------------------------------
+
+#: the JAX package's own ANN point (bench_serving.py:1563-1623): 1,000,000
+#: items at rank 32 from its factor mixture (256 taste clusters, noise 0.5,
+#: seeds 7 and 8), 2,048 users with 8 seen items each
+ANN_ITEMS, ANN_RANK, ANN_CLUSTERS, ANN_USERS, ANN_SEEN, ANN_SEED = (
+    1_000_000, 32, 256, 2_048, 8, 7)
+#: queries held against brute force at full probe and against a float64
+#: rescore of their shortlist at the auto probe; the quality sample (the
+#: JAX bench's quality_queries)
+ANN_CHECK_QUERIES = 64
+ANN_BATCHES = (1, 32)
+#: f32 rescore against float64: |err| <= this × Σ_k |u_k v_k| (a 32-term
+#: f32 dot product errs by at most ~32 × 2^-24 of that sum)
+ANN_RESCORE_RTOL = 1e-5
+#: the ML-20M-shape model over HTTP: users queried a round
+ANN_HTTP_USERS = 32
+
+
+def _clustered_factors(n: int, rank: int, clusters: int, seed: int,
+                       noise: float = 0.5) -> np.ndarray:
+    """The JAX bench's factor mixture (bench_serving._clustered_factors,
+    copied): cluster centres × 2.0 plus gaussian noise."""
+    rng = np.random.default_rng(seed)
+    centers = (rng.standard_normal((clusters, rank)) * 2.0).astype(np.float32)
+    asg = rng.integers(0, clusters, size=n)
+    out = centers[asg] + rng.standard_normal((n, rank)).astype(np.float32) * noise
+    return np.ascontiguousarray(out, dtype=np.float32)
+
+
+def _ann_model() -> ALSModel:
+    """22a: the catalog saved through ALSModel.save (the index built at
+    persist time, its build seconds logged), loaded on the card, with
+    retrieval=ann."""
+    t0 = time.perf_counter()
+    item_f = _clustered_factors(ANN_ITEMS, ANN_RANK, ANN_CLUSTERS, ANN_SEED)
+    user_f = _clustered_factors(ANN_USERS, ANN_RANK, ANN_CLUSTERS, ANN_SEED + 1)
+    rng = np.random.default_rng(ANN_SEED)
+    seen = {u: np.unique(rng.integers(0, ANN_ITEMS, ANN_SEEN)).astype(np.int32)
+            for u in range(ANN_USERS)}
+    model = ALSModel(rank=ANN_RANK, user_factors=torch.from_numpy(user_f).to(DEVICE),
+                     item_factors=torch.from_numpy(item_f).to(DEVICE),
+                     user_ids=EntityIdIxMap(BiMap({f"u{i}": i for i in range(ANN_USERS)})),
+                     item_ids=EntityIdIxMap(BiMap({f"i{i}": i for i in range(ANN_ITEMS)})),
+                     seen_by_user=seen)
+    log(f"[ann] {ANN_ITEMS} items x rank {ANN_RANK} ({ANN_CLUSTERS} clusters), {ANN_USERS} "
+        f"users x {ANN_SEEN} seen: made in {time.perf_counter() - t0:.2f}s")
+    real_build, build_s = ann_ops.build_index, []
+
+    def timed_build(*args, **kwargs):
+        t = time.perf_counter()
+        out = real_build(*args, **kwargs)
+        build_s.append(time.perf_counter() - t)
+        return out
+
+    model_dir = tempfile.mkdtemp(prefix="ann-")
+    try:
+        ann_ops.build_index = timed_build
+        t = time.perf_counter()
+        model.save(model_dir)
+        save_s = time.perf_counter() - t
+        ann_ops.build_index = real_build
+        with open(os.path.join(model_dir, "model.json")) as f:
+            meta = json.load(f)
+        if len(build_s) != 1 or meta.get("ann", {}).get("nlist") != ann_ops.auto_nlist(
+                ANN_ITEMS):
+            fail(f"[ann] save built {len(build_s)} indexes, model.json ann={meta.get('ann')}")
+        index = model.ann_index
+        log(f"[ann] ALSModel.save built the IVF index at persist time: build_s={build_s[0]:.2f} "
+            f"(host NumPy k-means, nlist={index.nlist}, max cell {index.max_cell}, mean "
+            f"{ANN_ITEMS / index.nlist:.1f}); save_s={save_s:.2f} in all")
+        t = time.perf_counter()
+        loaded = ALSModel.load(model_dir, device=DEVICE)
+        loaded.configure_retrieval("ann")
+        load_s = time.perf_counter() - t
+    finally:
+        ann_ops.build_index = real_build
+        shutil.rmtree(model_dir, ignore_errors=True)
+    for name, arr in index.to_arrays().items():
+        if not np.array_equal(loaded.ann_index.to_arrays()[name], arr):
+            fail(f"[ann] the loaded index's {name} differs from the saved one")
+    if not loaded.ann_enabled or loaded.device.type != torch.device(DEVICE).type:
+        fail("[ann] the loaded model does not serve through its index on the card")
+    log(f"[ann] ALSModel.load on the card + configure_retrieval('ann'): {load_s:.2f}s; the "
+        f"index arrays equal the saved ones")
+    return loaded
+
+
+def _ann_inputs(model: ALSModel, b: int):
+    """(user vectors, seen cols, seen mask) of the first ``b`` users."""
+    cols = np.zeros((b, ANN_SEEN), dtype=np.int64)
+    mask = np.zeros((b, ANN_SEEN), dtype=np.float32)
+    for u in range(b):
+        s = model.seen_by_user[u]
+        cols[u, : len(s)] = s
+        mask[u, : len(s)] = 1.0
+    return (model.user_factors[:b], torch.from_numpy(cols).to(DEVICE),
+            torch.from_numpy(mask).to(DEVICE))
+
+
+def _fullest_profile(fn, top: str | None = None) -> tuple[float | None, int]:
+    """Of three traces of ``fn``, the one that kept the most launches:
+    late in a long run the profiler has kept only part of a trace (§7 of
+    PERF.md), and a trace never holds more launches than ran."""
+    return max((_profile(fn, top=top if i == 0 else None) for i in range(3)),
+               key=lambda r: (r[1], r[0] or 0.0))
+
+
+def phase_ann_exact(model: ALSModel) -> None:
+    """22b: full probe against brute force, the auto probe against a
+    float64 rescore of its shortlist, and recall/MAP@10 at three probe
+    counts."""
+    index, itf = model.ann_index, model.item_factors
+    arrays = index.device_arrays(model.device)
+    nprobe = index.clamp_nprobe(0)
+    allow = model._allow_or_default(None)
+    uv, cols, mask = _ann_inputs(model, ANN_CHECK_QUERIES)
+    # a full probe's shortlist is the whole catalog: one query at a time
+    differ, worst = [], 0.0
+    for r in range(ANN_CHECK_QUERIES):
+        one = (uv[r:r + 1], cols[r:r + 1], mask[r:r + 1])
+        av, ai = ann_ops.ann_topk(one[0], itf, *arrays, one[1], one[2], allow, 10,
+                                  index.nlist)
+        bv, bi = topk_ops.recommend_topk(one[0], itf, one[1], one[2], allow, 10)
+        if not torch.equal(ai, bi):
+            differ.append(r)
+        worst = max(worst, float((av - bv).abs().max()))
+    if differ:
+        fail(f"[ann] full probe (nprobe={index.nlist}) differs from brute force for queries "
+             f"{differ[:8]}")
+    log(f"[ann] nprobe=nlist={index.nlist}: {ANN_CHECK_QUERIES} answers equal brute force, "
+        f"ids and order; max |value diff| {worst:.3g}")
+    cand, pad, _ = ann_ops._shortlist(uv, *arrays, nprobe, 0)
+    av, ai = ann_ops.ann_topk(uv, itf, *arrays, cols, mask, allow, 10, nprobe)
+    cand_h, pad_h = cand.long().cpu().numpy(), pad.cpu().numpy()
+    av_h, ai_h = av.cpu().numpy(), ai.cpu().numpy()
+    item64 = itf.double().cpu().numpy()
+    u64 = uv.double().cpu().numpy()
+    worst_ratio = 0.0
+    for r in range(ANN_CHECK_QUERIES):
+        vecs = item64[cand_h[r]]
+        s64 = vecs @ u64[r]
+        s64[pad_h[r] == 0] = -np.inf
+        s64[np.isin(cand_h[r], model.seen_by_user[r])] = -np.inf
+        order = np.lexsort((np.arange(len(s64)), -s64))[:10]
+        if not np.array_equal(ai_h[r], cand_h[r][order]):
+            fail(f"[ann] query {r} at nprobe={nprobe}: ids {ai_h[r].tolist()} differ from the "
+                 f"float64 rescore of its shortlist {cand_h[r][order].tolist()}")
+        scale = np.abs(vecs[order]) @ np.abs(u64[r])
+        worst_ratio = max(worst_ratio, float((np.abs(av_h[r] - s64[order]) / scale).max()))
+    if worst_ratio > ANN_RESCORE_RTOL:
+        fail(f"[ann] rescore error {worst_ratio:.3g} x sum|u v| over {ANN_RESCORE_RTOL:g}")
+    log(f"[ann] nprobe={nprobe} (auto), shortlist width {index.shortlist_width(nprobe)}: "
+        f"{ANN_CHECK_QUERIES} answers equal a float64 rescore of their shortlists, ids and "
+        f"order; max |err| / sum|u v| = {worst_ratio:.3g} (tol {ANN_RESCORE_RTOL:g})")
+    for p in (nprobe, 2 * nprobe, 4 * nprobe):
+        q = ann_ops.quality_vs_brute(index, uv, itf, k=10, nprobe=p)
+        log(f"[ann] quality nprobe={p}: recall_at_shortlist={q['recall_at_shortlist']:.4f} "
+            f"map_at_10={q['map_at_k']:.4f} width={q['shortlist_width']} "
+            f"queries={q['queries']}")
+
+
+def phase_ann_times(model: ALSModel) -> None:
+    """22c: ann_topk's CUDA-event and profiled device time and launches at
+    B = 1 and 32 beside brute recommend_topk (with the tie rule), the
+    probe's bytes bound, and at B = 32 the row-at-a-time loop (the JAX
+    package's lax.map order) beside the vectorized batch."""
+    index, itf = model.ann_index, model.item_factors
+    arrays = index.device_arrays(model.device)
+    nprobe = index.clamp_nprobe(0)
+    width = index.shortlist_width(nprobe)
+    allow = model._allow_or_default(None)
+    rows = []
+    for b in ANN_BATCHES:
+        uv, cols, mask = _ann_inputs(model, b)
+
+        def ann_fn():
+            return ann_ops.ann_topk(uv, itf, *arrays, cols, mask, allow, 10, nprobe)
+
+        def brute_fn():
+            return topk_ops.recommend_topk(uv, itf, cols, mask, allow, 10)
+
+        ann_ms, brute_ms = time_ms(ann_fn, n=50), time_ms(brute_fn, n=50)
+        ann_dev, ann_launches = _fullest_profile(ann_fn, top=f"ann B={b}")
+        brute_dev, brute_launches = _fullest_profile(brute_fn)
+        # each probed candidate's vector and id read once, the centroids once
+        probe_bytes = b * width * (ANN_RANK * 4 + 4) + index.nlist * ANN_RANK * 4
+        brute_bytes = ANN_ITEMS * ANN_RANK * 4
+        row = dict(b=b, width=width, ann_ms=ann_ms, ann_device_ms=ann_dev,
+                   ann_launches=ann_launches, bound_ms=probe_bytes / PEAK_BYTES * 1e3,
+                   brute_ms=brute_ms, brute_device_ms=brute_dev,
+                   brute_launches=brute_launches, brute_bound_ms=brute_bytes / PEAK_BYTES * 1e3)
+        if b > 1:
+            def loop():
+                for i in range(b):
+                    ann_ops.ann_topk(uv[i:i + 1], itf, *arrays, cols[i:i + 1],
+                                     mask[i:i + 1], allow, 10, nprobe)
+            row["row_loop_ms"] = time_ms(loop, warmup=3, n=10)
+        rows.append(row)
+        log(f"[ann] B={b}: ann_topk ms={ann_ms:.4f} device_ms={_fmt(ann_dev, 4)} "
+            f"launches={ann_launches} bound_ms={row['bound_ms']:.4f} (bytes: width {width} x "
+            f"(K x 4 + 4) + centroids); brute recommend_topk ms={brute_ms:.4f} "
+            f"device_ms={_fmt(brute_dev, 4)} launches={brute_launches} "
+            f"bound_ms={row['brute_bound_ms']:.4f}"
+            + (f"; row-at-a-time loop ms={row['row_loop_ms']:.4f}" if b > 1 else ""))
+    log("[ann] " + json.dumps({"ann_topk": rows}))
+
+
+def phase_ann_http(als_model: ALSModel) -> None:
+    """22d: the ML-20M-shape model of phase 17 behind the engine server
+    with retrieval=ann: annShortlistHistogram counts its queries, POST
+    /retrieval switches to brute and back, and at full probe the answers
+    equal brute force."""
+    users = sorted(als_model.seen_by_user)[:ANN_HTTP_USERS]
+    bodies = [{"user": f"u{u}", "num": 10} for u in users]
+    model_dir = tempfile.mkdtemp(prefix="ann-http-")
+    server = None
+    try:
+        storage = memory_storage()
+        instance_id = _store_als_instance(storage, als_model, model_dir)
+        server = create_engine_server(storage, _local(
+            engine_instance_id=instance_id, retrieval="ann", server_key=SERVER_KEY,
+            cache_enabled=True)).start()
+        port, key = server.port, f"?accessKey={SERVER_KEY}"
+        index = server.deployed.models[0].ann_index
+        nprobe = index.clamp_nprobe(0)
+
+        def one_round(tag: str) -> list:
+            answers = []
+            for body in bodies:
+                status, doc, _ = _post(port, body)
+                if status != 200:
+                    fail(f"[ann-http] {tag} {body} answered {status}: {doc}")
+                answers.append(_as_result(doc))
+            return answers
+
+        def switch(doc: dict, enabled: bool) -> None:
+            status, out, _ = _http(port, "POST", f"/retrieval{key}", doc)
+            if status != 200 or out.get("annEnabled") is not enabled:
+                fail(f"[ann-http] POST /retrieval {doc}: {status} {out}")
+
+        auto = one_round("ann")
+        stats = _get(port, "/stats.json")[1]
+        hist = stats["serving"]["annShortlistHistogram"]
+        if not stats["annEnabled"] or hist != {str(index.shortlist_width(nprobe)): len(bodies)}:
+            fail(f"[ann-http] annEnabled={stats['annEnabled']} annShortlistHistogram={hist}")
+        switch({"retrieval": "brute"}, False)
+        brute = one_round("brute")
+        switch({"retrieval": "ann", "annNprobe": index.nlist}, True)
+        full = one_round("full probe")
+        differ = [b for b, x, y in zip(bodies, full, brute) if not _same_answer(x, y)]
+        if differ:
+            fail(f"[ann-http] full-probe answers differ from brute force for {differ[:3]}")
+        switch({"retrieval": "ann", "annNprobe": 0}, True)
+        stats = _get(port, "/stats.json")[1]["serving"]
+        want = {}
+        for p in (nprobe, index.nlist):
+            width = str(index.shortlist_width(p))
+            want[width] = want.get(width, 0) + len(bodies)
+        if stats["annShortlistHistogram"] != want or stats["annQueries"] != 2 * len(bodies):
+            fail(f"[ann-http] annShortlistHistogram {stats['annShortlistHistogram']} after "
+                 f"an auto and a full-probe round (want {want})")
+        agree = sum(_same_answer(x, y) for x, y in zip(auto, brute))
+        served = server.deployed.models[0]
+        uv = served.user_factors[torch.as_tensor(users, device=served.device)]
+        for p in (nprobe, 4 * nprobe):
+            q = ann_ops.quality_vs_brute(index, uv, served.item_factors, k=10, nprobe=p)
+            log(f"[ann-http] quality nprobe={p}: recall_at_shortlist="
+                f"{q['recall_at_shortlist']:.4f} map_at_10={q['map_at_k']:.4f} "
+                f"width={q['shortlist_width']} queries={q['queries']}")
+        log(f"[ann-http] {len(index.flat_items)} items, nlist={index.nlist}: POST /retrieval "
+            f"ann -> brute -> ann (nprobe {index.nlist}) -> ann (auto); annShortlistHistogram "
+            f"{stats['annShortlistHistogram']}; full-probe answers equal brute force for all "
+            f"{len(bodies)} users; auto-probe answers equal brute for {agree}/{len(bodies)}")
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def phase_ann(als_model: ALSModel) -> None:
+    """Phase 22; launches no flash kernel."""
+    before = flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    model = _ann_model()
+    phase_ann_exact(model)
+    phase_ann_times(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_ann_http(als_model)
+    if flash_ops.LAUNCHES != before:
+        fail(f"the ANN phase launched the flash kernel {flash_ops.LAUNCHES - before} times")
+    log(f"[ann] phase 22 took {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the online freshness plane
+# ---------------------------------------------------------------------------
+
+#: known users whose rating is folded, users whose cache entries must
+#: survive, the tail interval, the longest a fold may take to reach an
+#: answer
+ONLINE_USERS, ONLINE_BYSTANDERS, ONLINE_INTERVAL_S, ONLINE_WAIT_S = 32, 32, 0.2, 15.0
+#: a folded vector against the float64 solve of the same normal
+#: equations: max |diff| / max(1, max |ref|)
+ONLINE_VEC_TOL = 1e-4
+
+
+def _query_items(port: int, user: str, num: int = 10) -> list[str]:
+    status, doc, _ = _post(port, {"user": user, "num": num})
+    if status != 200:
+        fail(f"[online] query of {user} answered {status}: {doc}")
+    return [s["item"] for s in doc["itemScores"]]
+
+
+def _until(port: int, user: str, done, num: int = 10) -> tuple[list[str], float]:
+    """Query ``user`` until ``done(items)``: (items, seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        items = _query_items(port, user, num)
+        if done(items):
+            return items, time.perf_counter() - t0
+        if time.perf_counter() - t0 > ONLINE_WAIT_S:
+            fail(f"[online] {user}'s answer did not change within {ONLINE_WAIT_S}s")
+        time.sleep(0.01)
+
+
+def _history(storage, app_id: int, user: str) -> list:
+    from predictionio_tpu_torch.storage.base import EventFilter
+
+    return list(storage.get_events().find(app_id, None, EventFilter(
+        entity_type="user", entity_id=user, event_names=["rate", "buy"])))
+
+
+def _f64_fold(storage, app_id: int, model: ALSModel, user: str, lam: float) -> np.ndarray:
+    """The user's ALS-WR normal equations over the full history in the
+    store (rate: its rating; buy: 4.0), solved in float64."""
+    ixs, ratings = [], []
+    for e in _history(storage, app_id, user):
+        ix = model.item_ids.get(e.target_entity_id)
+        if ix is None:
+            continue
+        ixs.append(ix)
+        ratings.append(float(e.properties.fields["rating"]) if e.event == "rate" else 4.0)
+    Y = model.item_factors.double().cpu().numpy()[np.asarray(ixs)]
+    A = Y.T @ Y + lam * len(ixs) * np.eye(Y.shape[1])
+    return np.linalg.solve(A, np.asarray(ratings) @ Y)
+
+
+def phase_online(pio: _Pio, rec_instance: tuple[str, str]) -> None:
+    """Phase 23: phase 16b's instance behind `pio deploy --online
+    --online-interval-s 0.2 --cache` (entries live 600 s, so that only an
+    invalidation ends one), `pio eventserver` on the same sqlite store."""
+    from predictionio_tpu_torch.online.follower import TailCursor
+    from predictionio_tpu_torch.online.service import OnlineFoldIn
+
+    before_launches = flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    engine_json, instance_id = rec_instance
+    out, _ = pio.run("online", "accesskey", "new", "ML100k")
+    key = re.search(r"Created new access key: (\S+)", out).group(1)
+    es_proc, es_port, _ = pio.eventserver("online")
+    proc, port, _ = pio.deploy("online", engine_json, "--online", "--online-interval-s",
+                               str(ONLINE_INTERVAL_S), "--cache", "--cache-ttl-s", "600")
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    twin = None
+    try:
+        # the same fold in this process, on the card: vectors to check
+        deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                              device=DEVICE))
+        model = deployed.models[0]
+        app_id = storage.get_meta_data_apps().get_by_name("ML100k").id
+        twin = OnlineFoldIn(storage=storage, deployed_fn=lambda: deployed,
+                            generation_fn=lambda: 0, interval_s=3600,
+                            initial_cursor=TailCursor(int(time.time() * 1_000_000), ""))
+        twin.start()
+        if not twin.enabled:
+            fail("[online] the in-process fold-in did not bind to the ML-100k deployment")
+        folded = [f"u{u}" for u in range(ONLINE_USERS)]
+        bystanders = [f"u{u}" for u in range(100, 100 + ONLINE_BYSTANDERS)]
+        before = {u: _query_items(port, u) for u in folded + bystanders}
+
+        def post(user: str, item: str, rating: float = 5.0) -> None:
+            status, doc, _ = _http(es_port, "POST", f"/events.json?accessKey={key}", {
+                "event": "rate", "entityType": "user", "entityId": user,
+                "targetEntityType": "item", "targetEntityId": item,
+                "properties": {"rating": rating}})
+            if status != 201:
+                fail(f"[online] POST /events.json answered {status}: {doc}")
+
+        lags = []
+        for u in folded:
+            target = before[u][0]
+            post(u, target)
+            after, lag = _until(port, u, lambda items, b=before[u]: items != b)
+            if target in after:
+                fail(f"[online] {u} rated {target}, and it is still served to {u}")
+            lags.append(lag)
+        log(f"[online] {len(folded)} known users each rated their first answer: seconds from "
+            f"the 201 to a changed answer p50={statistics.median(lags):.3f} "
+            f"max={max(lags):.3f} (tail interval {ONLINE_INTERVAL_S}s, no retrain)")
+        for item in ("i0", "i1", "i2"):
+            post("newbie", item)
+        for u in range(200, 204):
+            post(f"u{u}", "fresh-item")
+        posted = time.perf_counter()
+        newbie, lag_new = _until(port, "newbie", bool)
+        # a new item invalidates no one's cache entries: query u300 (not
+        # queried before) once the overlay holds the item
+        while _get(port, "/stats.json")[1]["online"]["overlayItems"] < 1:
+            if time.perf_counter() - posted > ONLINE_WAIT_S:
+                fail(f"[online] fresh-item was not folded within {ONLINE_WAIT_S}s")
+            time.sleep(0.01)
+        if "fresh-item" not in _query_items(port, "u300", num=2000):
+            fail("[online] the new item is not served to u300")
+        lag_item = time.perf_counter() - posted
+        log(f"[online] cold start: the new user served {newbie[:3]}... after {lag_new:.3f}s; "
+            f"the new item fresh-item served to u300 {lag_item:.3f}s after its last 201")
+        c0 = _get(port, "/stats.json")[1]["serving"]
+        again = {u: _query_items(port, u) for u in bystanders}
+        c1 = _get(port, "/stats.json")[1]
+        hits = c1["serving"]["cacheHits"] - c0["cacheHits"]
+        misses = c1["serving"]["cacheMisses"] - c0["cacheMisses"]
+        if (hits, misses) != (len(bystanders), 0) or again != {u: before[u]
+                                                                for u in bystanders}:
+            fail(f"[online] bystanders after the folds: {hits} hits, {misses} misses")
+        if c1["serving"]["cacheUserInvalidations"] < len(folded):
+            fail(f"[online] cacheUserInvalidations={c1['serving']['cacheUserInvalidations']}")
+        section = {k: c1["online"][k] for k in ("generation", "overlayUsers", "overlayItems",
+                                                "foldedEventsTotal", "foldCycles",
+                                                "lagSeconds")}
+        log(f"[online] {len(bystanders)} users who posted nothing: {hits} cache hits, "
+            f"{misses} misses after the folds (hit ratio {c1['serving']['cacheHitRatio']}, "
+            f"cacheUserInvalidations {c1['serving']['cacheUserInvalidations']}); online "
+            f"section {json.dumps(section)}")
+        # the twin folds the same events: its vectors against float64, its
+        # answers against the deploy process's
+        t = time.perf_counter()
+        n_events = twin.tick()
+        fold_s = time.perf_counter() - t
+        users_folded = twin.metrics()["usersFoldedTotal"]
+        lam = twin._binding.lam
+        worst = 0.0
+        for u in folded + ["newbie"]:
+            ref = _f64_fold(storage, app_id, model, u, lam)
+            got = twin.overlay.user(u).vector
+            worst = max(worst, float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max())))
+            # fresh-item's vector is solved from the raters of the cycle
+            # that tailed them, which may differ between the two folds:
+            # compare the catalog items, one slot short
+            served = [i for i in _query_items(port, u) if i != "fresh-item"][:9]
+            mine = [i for i, _ in model.recommend(u, 10) if i != "fresh-item"][:9]
+            if served != mine:
+                fail(f"[online] {u}: the deploy process serves {served}, the same fold in "
+                     f"this process {mine}")
+        if worst > ONLINE_VEC_TOL:
+            fail(f"[online] a folded vector is {worst:.3g} from its float64 solve")
+        log(f"[online] in-process fold of the same {n_events} events: {users_folded} users in "
+            f"{fold_s * 1e3:.2f} ms ({fold_s * 1e3 / max(1, users_folded):.3f} ms per user); "
+            f"every folded vector within {worst:.3g} (tol {ONLINE_VEC_TOL:g}) of the float64 "
+            f"solve over the user's history in the store; answers equal the deploy process's")
+        ixs = [i for i in (model.item_ids.get(e.target_entity_id)
+                           for e in _history(storage, app_id, "u0")) if i is not None]
+        gather_ms = time_ms(lambda: twin._gather_rows(model.item_factors, ixs), n=50)
+        gather_dev, gather_launches = _fullest_profile(
+            lambda: twin._gather_rows(model.item_factors, ixs))
+        log(f"[online] _gather_rows of {len(ixs)} rows x rank {model.rank}: ms={gather_ms:.4f} "
+            f"(index_select + copy to the host) device_ms={_fmt(gather_dev, 4)} "
+            f"launches={gather_launches}")
+        # /reload: the generation moves, the overlay refolds
+        status, doc, _ = _http(port, "GET", "/reload")
+        online = _get(port, "/stats.json")[1]["online"]
+        if status != 200 or online["generation"] != 1:
+            fail(f"[online] /reload {status} {doc}; online generation {online['generation']}")
+        for u in folded[:4]:
+            _until(port, u, lambda items, t=before[u][0]: t not in items)
+        stale = twin.overlay.user(folded[0])
+        twin.on_model_swapped(1)
+        if twin.overlay.put_user(folded[0], stale, generation=0) or \
+                twin.metrics()["fenced"] != 1:
+            fail("[online] a delta computed against generation 0 was applied after a reload")
+        log(f"[online] /reload: overlay generation 0 -> {online['generation']}, the folded "
+            f"users' answers still hide what they rated (refolded); a generation-0 delta "
+            f"offered after the swap is discarded (fenced={twin.metrics()['fenced']})")
+    finally:
+        if twin is not None:
+            twin.close()
+        storage.close()
+        _stop(proc)
+        _stop(es_proc)
+    if flash_ops.LAUNCHES != before_launches:
+        fail("the online phase launched the flash kernel")
+    log(f"[online] phase 23 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3859,6 +4406,18 @@ def run_phases(wall: float) -> None:
         log_card()
         phase_eval_sessionrec()
         phase_eval_recommendation()
+        return
+    if sys.argv[1:] == ["--ann-only"]:   # phase 22 alone, over a random ML-20M-shape model
+        log_card()
+        phase_ann(random_als_model())
+        return
+    if sys.argv[1:] == ["--online-only"]:   # phase 23 alone, over 16b's import and train
+        log_card()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            engine_json, instance_id, storage, _ = pio_recommendation_instance(pio)
+            storage.close()
+            phase_online(pio, (engine_json, instance_id))
         return
     if sys.argv[1:] == ["--templates-only"]:   # phases 19-21 alone; no result line
         log_card()
@@ -3907,7 +4466,7 @@ def run_phases(wall: float) -> None:
     # which report them on their GET /
     with tempfile.TemporaryDirectory(prefix="pio-") as base:
         pio = _Pio(base)
-        pio_launches, instance = phase_pio(pio)
+        pio_launches, instance, rec_instance = phase_pio(pio)
         launches += pio_launches
         serve_launches = phase_serve(pio, instance, als_model)
         if serve_launches == 0:
@@ -3918,6 +4477,10 @@ def run_phases(wall: float) -> None:
             fail("the feedback loop's deploy never launched the flash_attention kernel")
         launches += ingest_launches
         phase_templates(pio)
+        torch.cuda.empty_cache()
+        phase_ann(als_model)
+        torch.cuda.empty_cache()
+        phase_online(pio, rec_instance)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

@@ -19,9 +19,20 @@ Routes:
   device-dispatch histograms, the cache counters, resilience counters;
 - ``GET /plugins.json``;
 - ``GET|POST /reload``: swap to the latest COMPLETED instance, then
-  invalidate the cache; a failed reload keeps serving the last-known-good
-  instance (503); ``POST /stop``. Both need ``?accessKey=<server_key>``
-  when ``ServerConfig.server_key`` is set.
+  invalidate the cache and advance the model generation that fences the
+  online overlay; a failed reload keeps serving the last-known-good
+  instance (503);
+- ``POST /retrieval``: ``{"retrieval": "ann"|"brute"[, "annNprobe",
+  "annRescore", "annNlist"]}`` switches retrieval at run time (409 when
+  a model has no index to switch to) and invalidates the cache;
+- ``POST /stop``. It, ``/reload`` and ``/retrieval`` need
+  ``?accessKey=<server_key>`` when ``ServerConfig.server_key`` is set.
+
+With ``ServerConfig.online`` an ``online/service.OnlineFoldIn`` folds new
+events into the deployed ALS model between retrains; each folded user's
+result-cache entries are invalidated, and ``/stats.json`` carries an
+``online`` section. The ALS models report their ANN queries into
+``/stats.json`` (``annQueries``, ``annShortlistHistogram``).
 
 Port-specific decisions:
 
@@ -44,9 +55,10 @@ to the event server as a ``predict`` event of entity ``pio_pr``, on a
 daemon thread; a failed post is logged and never reaches the query.
 
 Left to later slices (ROADMAP.md queue 1): ``--workers``, the
-shared-memory cache and ``/drain`` (item 23); ``/retrieval`` (item 10);
-``--online`` (item 11); ``/metrics``, ``/traces.json``, the feedback
-post's trace headers and compile accounting (item 12).
+shared-memory cache, ``/drain`` and the online plane across workers
+(item 23); ``/metrics`` (the ANN and online collectors among them),
+``/traces.json``, the feedback post's trace headers and compile
+accounting (item 12).
 
 The server deploys a stored engine instance (``pio deploy``,
 ``workflow/deploy.load_deployed_engine``) or a model directory: ``python
@@ -111,7 +123,9 @@ from predictionio_tpu_torch.workflow.deploy import (
     DEFAULT_ENGINE_FACTORY,
     DeployedEngine,
     ServerConfig,
+    apply_retrieval_config,
     load_deployed_engine,
+    retrieval_targets,
 )
 
 logger = logging.getLogger(__name__)
@@ -197,6 +211,11 @@ class EngineServerPluginContext:
                             "outputsniffers": block(self.output_sniffers)}}
 
 
+_NO_INDEX = ("no persisted ANN index on the deployed model: build it at train/persist "
+             "time (PIO_SERVING_ANN_BUILD) or deploy with --retrieval ann; the runtime "
+             "switch only flips between ready modes")
+
+
 class _Reject(Exception):
     def __init__(self, status: int, message: str, headers: dict[str, str] | None = None):
         super().__init__(message)
@@ -251,6 +270,92 @@ class EngineService:
         #: /reload in flight: /readyz answers 503 "reloading" meanwhile
         self._reload_lock = threading.Lock()
         self._reloads_in_flight = 0
+        #: ANN-capable models count their queries into serving_stats;
+        #: re-wired on every /reload, which brings new model objects
+        self._wire_ann_observers()
+        #: the base model's generation, advanced by every successful
+        #: /reload: a fold computed against generation G is discarded
+        #: once G+1 serves (online/overlay.py)
+        self.model_generation = 0
+        self.online = None
+        if config.online:
+            from predictionio_tpu_torch.online.service import OnlineFoldIn
+
+            self.online = OnlineFoldIn(
+                storage=storage,
+                deployed_fn=lambda: self.deployed,
+                generation_fn=lambda: self.model_generation,
+                interval_s=config.online_interval_s,
+                overlay_max=config.online_overlay_max,
+                state_dir=config.online_state_dir or None,
+                invalidate_user=self._invalidate_user_results)
+            self.online.start()
+
+    def _invalidate_user_results(self, user_id: str) -> None:
+        """Drop one user's result-cache entries after their vector was
+        folded; every other user's entries stay warm."""
+        if self.cache is not None:
+            from predictionio_tpu_torch.online.service import user_key_fragment
+
+            self.cache.invalidate_matching(user_key_fragment(user_id))
+
+    # -- retrieval (ops/ann) -------------------------------------------------
+    def _wire_ann_observers(self) -> None:
+        for target in retrieval_targets(getattr(self.deployed, "models", ())):
+            if hasattr(target, "set_ann_observer"):
+                target.set_ann_observer(self.serving_stats.record_ann)
+
+    def _missing_index_targets(self) -> list:
+        """ANN-capable models without a ready index: a run-time switch
+        would run a full k-means on the request thread, so it is refused."""
+        return [t for t in retrieval_targets(getattr(self.deployed, "models", ()))
+                if getattr(t, "ann_index", None) is None]
+
+    def _apply_retrieval_doc(self, doc: Mapping[str, Any]) -> None:
+        """Push a retrieval reconfiguration onto every ANN-capable model,
+        re-wire the observers, invalidate the cache (the two modes may
+        rank one query differently) and only then commit the new config."""
+        mode = str(doc.get("retrieval", self.config.retrieval))
+        if mode not in ("brute", "ann"):
+            raise ValueError(f"invalid retrieval mode {mode!r}")
+
+        def _int(key: str, current: int) -> int:
+            value = doc.get(key, current)
+            if not isinstance(value, int) or value < 0:
+                raise ValueError(f"invalid {key}: {value!r}")
+            return value
+
+        if mode == "ann" and self._missing_index_targets():
+            raise ValueError(_NO_INDEX)
+        candidate = dataclasses.replace(
+            self.config, retrieval=mode,
+            ann_nprobe=_int("annNprobe", self.config.ann_nprobe),
+            ann_rescore=_int("annRescore", self.config.ann_rescore),
+            ann_nlist=_int("annNlist", self.config.ann_nlist))
+        apply_retrieval_config(getattr(self.deployed, "models", ()), candidate)
+        self._wire_ann_observers()
+        if self.cache is not None:
+            self.cache.invalidate()
+        self.config = candidate
+
+    def retrieval_admin(self, body: Any) -> tuple:
+        """POST /retrieval."""
+        if not isinstance(body, dict) or "retrieval" not in body:
+            raise _Reject(400, 'expected {"retrieval": "ann"|"brute", ...}')
+        if body.get("retrieval") == "ann" and self._missing_index_targets():
+            raise _Reject(409, _NO_INDEX)
+        try:
+            self._apply_retrieval_doc(body)
+        except ValueError as exc:
+            raise _Reject(400, str(exc))
+        logger.info("retrieval reconfigured: %s (nprobe=%d rescore=%d)",
+                    self.config.retrieval, self.config.ann_nprobe, self.config.ann_rescore)
+        return (200, {"retrieval": self.config.retrieval, "annEnabled": self.ann_enabled()})
+
+    def ann_enabled(self) -> bool:
+        """True when a deployed model answers through its ANN index."""
+        return any(getattr(t, "ann_enabled", False)
+                   for t in retrieval_targets(getattr(self.deployed, "models", ())))
 
     @staticmethod
     def _decoder_for(deployed: DeployedEngine):
@@ -258,6 +363,9 @@ class EngineService:
         return compile_wire_decoder(qc) if qc is not None else None
 
     def close(self) -> None:
+        # the fold thread first: it calls into the cache
+        if self.online is not None:
+            self.online.close()
         if self.batcher is not None:
             self.batcher.close()
         self._query_pool.shutdown(wait=False)
@@ -298,6 +406,9 @@ class EngineService:
                     raise _Reject(503, f"reload failed ({e}); still serving instance {keep}",
                                   {"Retry-After": retry_after_header(retry_after_hint(e))})
                 return (200, {"message": "Reloading"})
+            if method == "POST" and path == "/retrieval":
+                self._check_server_key(params)
+                return self.retrieval_admin(body)
             if method == "POST" and path == "/stop":
                 self._check_server_key(params)
                 threading.Thread(target=self.on_stop, daemon=True).start()
@@ -382,11 +493,14 @@ class EngineService:
             "avgServingSec": d.avg_serving_sec,
             "lastServingSec": d.last_serving_sec,
             "clientDisconnects": self.client_disconnects(),
+            "annEnabled": self.ann_enabled(),
+            "retrieval": self.config.retrieval,
             "serving": self.serving_stats.snapshot(),
             "batching": ({"enabled": True, **self.batcher.policy.snapshot()}
                          if self.batcher is not None else {"enabled": False}),
             "cache": ({"enabled": True, **self.cache.snapshot()}
                       if self.cache is not None else {"enabled": False}),
+            **({"online": self.online.stats_doc()} if self.online is not None else {}),
             **({"resilience": snap} if (snap := resilience_snapshot()) else {}),
         }
 
@@ -537,8 +651,10 @@ class EngineService:
 
     def reload(self) -> None:
         """Swap to the latest COMPLETED instance, then invalidate the
-        cache. /readyz answers 503 "reloading" meanwhile; on failure the
-        old instance keeps serving and the caller answers 503."""
+        cache and advance the model generation (before the online plane
+        hears of the swap, so a fold racing it is discarded). /readyz
+        answers 503 "reloading" meanwhile; on failure the old instance
+        keeps serving and the caller answers 503."""
         with self._reload_lock:
             self._reloads_in_flight += 1
         try:
@@ -548,11 +664,15 @@ class EngineService:
                 ctx=self.ctx, engine=self.deployed.engine)
             old_id = self.deployed.instance_id
             self.deployed = new
+            self._wire_ann_observers()
             self._query_decoder = self._decoder_for(new)
             if self.cache is not None:
                 # after the swap: entries of the old model die with its
                 # generation; a failed reload never gets here
                 self.cache.invalidate()
+            self.model_generation += 1
+            if self.online is not None:
+                self.online.on_model_swapped(self.model_generation)
             logger.info("reloaded: instance %s -> %s", old_id, new.instance_id)
         finally:
             with self._reload_lock:

@@ -3,7 +3,8 @@
 
 - :class:`ServingStats`: the engine server's hot-path counters (the
   batch-size histogram, dedup, expiries, result-cache hits, misses,
-  evictions, expirations and invalidations) and the queue-wait and
+  evictions, expirations and invalidations, ANN queries and rescored
+  candidates with the shortlist-width histogram) and the queue-wait and
   device-dispatch histograms, for ``GET /stats.json``;
 - :class:`IngestStats`: the event server's ingest path (inserted batch
   sizes, an events/s EWMA, a windowed events/s over complete seconds,
@@ -14,8 +15,6 @@
   hour's :class:`Stats`;
 - :func:`resilience_snapshot`: the fallback counters of
   ``utils/resilience``.
-
-The ANN shortlist counters stay with ROADMAP.md queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ class ServingStats:
         "cache_hits", "cache_misses", "cache_evictions",
         "cache_expirations", "cache_invalidations",
         "cache_user_invalidations",
+        "ann_queries", "ann_rescored",
     )
 
     def __init__(self):
@@ -56,6 +56,9 @@ class ServingStats:
         self._counts = dict.fromkeys(self.COUNTER_FIELDS, 0)
         #: dispatched (deduplicated) batch size -> count
         self._batch_hist: Counter[int] = Counter()
+        #: ANN shortlist width (candidates rescored per query, pad
+        #: included) -> query count
+        self._ann_hist: Counter[int] = Counter()
         #: enqueue → dispatch, per query; ``query_batch`` wall time, per batch
         self.queue_wait = LatencyHistogram()
         self.device_time = LatencyHistogram()
@@ -82,6 +85,19 @@ class ServingStats:
             self._counts["deduped"] += coalesced - dispatched
             self._batch_hist[dispatched] += 1
 
+    def record_ann(self, shortlist_width: int, queries: int = 1) -> None:
+        """``queries`` queries answered through the ANN index, each from a
+        ``shortlist_width``-candidate rescore (the ALSModel observer)."""
+        with self._lock:
+            self._counts["ann_queries"] += queries
+            self._counts["ann_rescored"] += shortlist_width * queries
+            self._ann_hist[shortlist_width] += queries
+
+    def ann_histogram(self) -> dict[int, int]:
+        """Shortlist width -> query count."""
+        with self._lock:
+            return dict(self._ann_hist)
+
     def count(self, field: str) -> int:
         with self._lock:
             return self._counts[field]
@@ -95,11 +111,13 @@ class ServingStats:
         with self._lock:
             counts = dict(self._counts)
             hist = {str(k): v for k, v in sorted(self._batch_hist.items())}
+            ann_hist = {str(k): v for k, v in sorted(self._ann_hist.items())}
         hits, misses = counts["cache_hits"], counts["cache_misses"]
         looked = hits + misses
         return {
             **{snake_to_camel(k): v for k, v in counts.items()},
             "batchSizeHistogram": hist,
+            "annShortlistHistogram": ann_hist,
             "cacheHitRatio": round(hits / looked, 4) if looked else None,
             "queueWait": self.queue_wait.snapshot().summary_ms(),
             "deviceDispatch": self.device_time.snapshot().summary_ms(),

@@ -21,8 +21,12 @@ port serves).
   with the serving flags ``--server-key``, ``--batching/--no-batching``,
   ``--batch-policy``, ``--batch-max``, ``--batch-wait-ms``,
   ``--cache/--no-cache``, ``--cache-max-entries``, ``--cache-ttl-s`` and
-  ``--request-deadline-ms`` (an absent flag leaves the
-  ``PIO_SERVING_*`` default), and the feedback loop ``--feedback
+  ``--request-deadline-ms``, the retrieval flags ``--retrieval
+  {brute,ann}``, ``--ann-nlist``, ``--ann-nprobe``, ``--ann-rescore`` and
+  the freshness plane's ``--online/--no-online``,
+  ``--online-interval-s``, ``--online-overlay-max``,
+  ``--online-state-dir`` (an absent flag leaves the ``PIO_SERVING_*`` or
+  ``PIO_ONLINE_*`` default), and the feedback loop ``--feedback
   --event-server-ip --event-server-port --accesskey``; ``undeploy``:
   POST /stop to a running one.
 
@@ -33,8 +37,7 @@ torch. Storage is configured as the JAX package configures it (the
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet: ``eval``
 (ROADMAP.md queue 1 item 18), ``deploy --workers/--shm-cache`` (item
-23), ``--retrieval`` (item 10), ``--online`` (item 11), ``--tracing``
-and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
+23), ``--tracing`` and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
 tools (item 23), and Parquet import and export (item 25).
 """
 
@@ -414,6 +417,14 @@ def _cmd_deploy(args, storage: Storage) -> int:
             "cache_max_entries": args.cache_max_entries,
             "cache_ttl_s": args.cache_ttl_s,
             "request_deadline_ms": args.request_deadline_ms,
+            "retrieval": args.retrieval,
+            "ann_nlist": args.ann_nlist,
+            "ann_nprobe": args.ann_nprobe,
+            "ann_rescore": args.ann_rescore,
+            "online": args.online,
+            "online_interval_s": args.online_interval_s,
+            "online_overlay_max": args.online_overlay_max,
+            "online_state_dir": args.online_state_dir,
         }.items() if v is not None},
     )
     server = create_engine_server(storage=storage, config=config).start()
@@ -555,6 +566,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-ttl-s", type=float, default=None)
     p.add_argument("--request-deadline-ms", type=float, default=None,
                    help="per-query time budget (0: none); a blown budget answers 503")
+    p.add_argument("--retrieval", choices=("brute", "ann"), default=None,
+                   help="'ann' probes the IVF index saved beside the model (built at "
+                        "deploy when missing) and rescores the shortlist exactly; "
+                        "'brute' scores the whole item table per query")
+    p.add_argument("--ann-nlist", type=int, default=None, dest="ann_nlist",
+                   help="IVF cell count of a deploy-time build (0: auto ~4*sqrt(catalog))")
+    p.add_argument("--ann-nprobe", type=int, default=None, dest="ann_nprobe",
+                   help="cells probed per query (0: auto nlist/64, floored at 16)")
+    p.add_argument("--ann-rescore", type=int, default=None, dest="ann_rescore",
+                   help="cap on the candidates rescored per query (0: all probed)")
+    p.add_argument("--online", action=argparse.BooleanOptionalAction, default=None,
+                   help="fold new events into the deployed ALS model between retrains")
+    p.add_argument("--online-interval-s", type=float, default=None,
+                   dest="online_interval_s",
+                   help="tail polling interval (the freshness lag floor; default 1.0)")
+    p.add_argument("--online-overlay-max", type=int, default=None,
+                   dest="online_overlay_max",
+                   help="max folded users held in the serving overlay (LRU)")
+    p.add_argument("--online-state-dir", default=None, dest="online_state_dir",
+                   help="directory of the durable tail cursor (default: in memory)")
 
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="0.0.0.0")

@@ -1,0 +1,502 @@
+"""The online fold-in service: tail → solve → publish, on a loop (port of
+the JAX package's ``online/service.py`` for one server process).
+
+One :class:`OnlineFoldIn` runs inside an engine server deployed with
+``pio deploy --online``. Per cycle, paced by ``Event.wait`` on the
+configured interval:
+
+1. **tail**: read everything past the durable ``(eventTime, id)`` cursor
+   (:mod:`~predictionio_tpu_torch.online.follower`);
+2. **solve**: give brand-new items a popularity-prior or symmetric-solve
+   vector, then recompute every touched user's vector with the
+   closed-form rank x rank solve over their full interaction set
+   (:mod:`~predictionio_tpu_torch.online.foldin`: idempotent, so the
+   at-least-once cursor commit is safe). The factor rows a solve needs
+   are gathered on the factor table's device and copied to the host in
+   f32; the solve is host NumPy, on this background thread;
+3. **publish**: install the deltas into the serving overlay
+   (generation-fenced: a fold computed against model generation G is
+   discarded once ``/reload`` lands G+1), invalidate exactly the touched
+   users' result-cache entries, and commit the cursor.
+
+Not in this port yet: the worker-pool half (the tail lease, the pool
+snapshot document and its sync: ROADMAP.md queue 1 item 23, so a
+``worker_hub`` raises) and the fold cycle's trace span (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+import time
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.online.follower import (
+    CursorStore,
+    EventTailFollower,
+    TailCursor,
+    TailRow,
+)
+from predictionio_tpu_torch.online.foldin import (
+    item_gramian,
+    popularity_prior,
+    solve_item,
+    solve_user,
+)
+from predictionio_tpu_torch.online.overlay import ItemDelta, OnlineOverlay, UserDelta
+from predictionio_tpu_torch.storage.base import EventFilter
+
+logger = logging.getLogger(__name__)
+
+
+def user_key_fragment(user_id: str) -> str:
+    """The canonical-JSON fragment a recommendation-family query for
+    ``user_id`` carries in its result-cache key, derived through
+    ``canonical_json`` itself so the spelling cannot drift from the
+    cache's keys."""
+    from predictionio_tpu_torch.core.json_codec import canonical_json
+
+    return canonical_json({"user": user_id})[1:-1]
+
+
+@dataclasses.dataclass
+class OnlineBinding:
+    """What the fold-in needs, resolved from a deployment: the event
+    stream's coordinates, the rating rule, and the ALS model and the
+    hyperparameters the closed-form solve must mirror."""
+
+    events: Any
+    app_id: int
+    channel_id: int | None
+    entity_type: str
+    target_entity_type: str
+    event_names: tuple[str, ...] | None
+    buy_rating: float | None
+    model: Any                      # ALSModel (the fold-in target)
+    lam: float
+    implicit: bool
+    alpha: float
+
+    def rating_of(self, event: str, props: Mapping[str, Any]) -> float | None:
+        """The template family's rating rule: ``rate`` events carry their
+        rating property (malformed → dropped); anything else is worth
+        ``buy_rating`` when the template defines one, else 1.0."""
+        if event == "rate":
+            try:
+                return float(props["rating"])
+            except (KeyError, TypeError, ValueError):
+                return None
+        if self.buy_rating is not None:
+            return float(self.buy_rating)
+        return 1.0
+
+    def tail_filter(self) -> EventFilter:
+        return EventFilter(
+            entity_type=self.entity_type,
+            event_names=(list(self.event_names)
+                         if self.event_names else None),
+        )
+
+
+def resolve_online_binding(deployed: Any, storage: Any) -> OnlineBinding | None:
+    """The fold-in binding of a deployed engine, or None when the
+    deployment has no ALS-family model or no resolvable app (the service
+    then stays inert with a warning: ``--online`` on a classification
+    engine must not kill the deploy)."""
+    from predictionio_tpu_torch.workflow.deploy import retrieval_targets
+
+    instance = getattr(deployed, "instance", None)
+    if instance is None or storage is None:
+        logger.warning("online fold-in: the deployment has no engine instance or store")
+        return None
+    try:
+        params = deployed.engine.params_from_instance_json(
+            instance.data_source_params, instance.preparator_params,
+            instance.algorithms_params, instance.serving_params)
+    except Exception:
+        logger.warning("online fold-in: engine params unresolvable", exc_info=True)
+        return None
+    ds = params.data_source_params[1]
+    app_name = getattr(ds, "app_name", "")
+    if not app_name:
+        logger.warning("online fold-in: data source names no app")
+        return None
+    app = storage.get_meta_data_apps().get_by_name(app_name)
+    if app is None:
+        logger.warning("online fold-in: app %r not found", app_name)
+        return None
+    model = algo_params = algo = None
+    for (_, ap), a, m in zip(params.algorithm_params_list, deployed.algorithms,
+                             deployed.models):
+        targets = list(retrieval_targets([m]))
+        if targets:
+            model, algo_params, algo = targets[0], ap, a
+            break
+    if model is None:
+        logger.warning("online fold-in: no ALS-family model in this deployment")
+        return None
+    implicit = bool(getattr(algo_params, "implicit_prefs",
+                            getattr(algo, "implicit_prefs", False)))
+    return OnlineBinding(
+        events=storage.get_events(),
+        app_id=app.id,
+        channel_id=None,
+        entity_type=getattr(ds, "entity_type", "user"),
+        target_entity_type=getattr(ds, "target_entity_type", "item"),
+        event_names=(tuple(getattr(ds, "event_names", ()) or ()) or None),
+        buy_rating=getattr(ds, "buy_rating", None),
+        model=model,
+        lam=float(getattr(algo_params, "lambda_", 0.01)),
+        implicit=implicit,
+        alpha=float(getattr(algo_params, "alpha", 1.0)),
+    )
+
+
+def _host_table(factors: torch.Tensor) -> np.ndarray:
+    """A whole factor table on the host in f32 (once per generation)."""
+    return factors.detach().to(torch.float32).cpu().numpy()
+
+
+class OnlineFoldIn:
+    """The per-server fold-in loop (module docstring)."""
+
+    def __init__(
+        self,
+        *,
+        storage: Any,
+        deployed_fn: Callable[[], Any],
+        generation_fn: Callable[[], int],
+        interval_s: float = 1.0,
+        overlay_max: int = 4096,
+        state_dir: str | None = None,
+        invalidate_user: Callable[[str], None] | None = None,
+        worker_hub: Any = None,
+        initial_cursor: TailCursor | None = None,
+    ):
+        if worker_hub is not None:
+            raise NotImplementedError(
+                "online fold-in across a worker pool (the tail lease and the pool "
+                "snapshot) is not ported: ROADMAP.md queue 1 item 23")
+        self.storage = storage
+        self._deployed_fn = deployed_fn
+        self._generation_fn = generation_fn
+        self.interval_s = max(0.05, float(interval_s))
+        self._invalidate_user = invalidate_user
+        self._state_dir = state_dir
+        self._initial_cursor = initial_cursor
+        self.overlay = OnlineOverlay(
+            max_users=overlay_max,
+            max_items=max(64, overlay_max // 4),
+            generation=generation_fn())
+        self.enabled = False
+        self._binding: OnlineBinding | None = None
+        self._follower: EventTailFollower | None = None
+        #: users to re-solve against a freshly reloaded model (the
+        #: overlay cleared at the generation fence)
+        self._pending_refold: set[str] = set()
+        #: per-generation solve constants (implicit gramian, item prior):
+        #: one full-table host read per model generation
+        self._gram: tuple[int, np.ndarray] | None = None
+        self._prior: tuple[int, np.ndarray] | None = None
+        self._lock = threading.Lock()
+        self._stats = {
+            "foldedEvents": 0, "foldCycles": 0, "usersFolded": 0,
+            "itemsAdded": 0, "errors": 0, "lagSeconds": None,
+        }
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        self._rebind()
+        if self._binding is None:
+            logger.warning(
+                "--online requested but this deployment cannot fold in (no ALS model / "
+                "unresolvable app); the freshness plane stays inert")
+            return
+        cursor_path = (os.path.join(self._state_dir, "online.cursor")
+                       if self._state_dir else None)
+        if cursor_path:
+            os.makedirs(self._state_dir, exist_ok=True)
+        self._follower = EventTailFollower(
+            self._binding.events, self._binding.app_id, self._binding.channel_id,
+            self._binding.tail_filter(), store=CursorStore(cursor_path))
+        if self._follower.cursor is None:
+            # tail from now: history up to deploy time is the trained
+            # model's; back-dated events wait for the next retrain
+            self._follower.cursor = (self._initial_cursor
+                                     or TailCursor(int(time.time() * 1_000_000), ""))
+        self.enabled = True
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, name="pio-online-foldin",
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def _run(self) -> None:
+        # Event.wait paces the loop and stops it promptly
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001: a failed cycle is the next one's problem
+                with self._lock:
+                    self._stats["errors"] += 1
+                logger.exception("online fold-in cycle failed")
+
+    # -- model-swap hook (EngineService.reload) -----------------------------
+    def on_model_swapped(self, generation: int) -> None:
+        """A ``/reload`` landed: fence the overlay (deltas computed
+        against the old model are discarded), rebind to the new model,
+        and queue every folded user for a refold against it."""
+        # under _lock: the fold thread swaps this set out concurrently
+        with self._lock:
+            self._pending_refold |= set(self.overlay.touched_users())
+        self.overlay.advance_generation(generation)
+        # both caches key on the generation captured at cycle start, so a
+        # cycle that refills them after this clear heals at its next check
+        self._gram = None
+        self._prior = None
+        self._rebind()
+        if self._follower is not None and self._binding is not None:
+            self._follower.events = self._binding.events
+
+    def _rebind(self) -> None:
+        self._binding = resolve_online_binding(self._deployed_fn(), self.storage)
+        if self._binding is not None:
+            self._install_overlay()
+
+    def _install_overlay(self) -> None:
+        from predictionio_tpu_torch.workflow.deploy import retrieval_targets
+
+        for target in retrieval_targets(getattr(self._deployed_fn(), "models", ())):
+            if hasattr(target, "set_online_overlay"):
+                target.set_online_overlay(self.overlay)
+
+    # -- one cycle ---------------------------------------------------------
+    def tick(self) -> int:
+        """One loop pass; the number of events folded."""
+        if not self.enabled:
+            return 0
+        return self._fold_once()
+
+    def _fold_once(self) -> int:
+        # generation first, then the binding: a /reload completing during
+        # the tail poll leaves `generation` stale, which the overlay's
+        # fence rejects at publish
+        generation = self._generation_fn()
+        binding = self._binding
+        rows, new_cursor = self._follower.poll_once()
+        with self._lock:
+            refold, self._pending_refold = self._pending_refold, set()
+        if not rows and not refold:
+            return 0
+        try:
+            return self._solve_and_publish(binding, generation, rows, new_cursor, refold)
+        except Exception:
+            # the cursor was not committed, so the rows replay; the refold
+            # queue was swapped out and its users' events are behind the
+            # cursor: restore it
+            with self._lock:
+                self._pending_refold |= refold
+            raise
+
+    def _solve_and_publish(self, binding: OnlineBinding, generation: int,
+                           rows: list[TailRow], new_cursor: TailCursor | None,
+                           refold: set[str]) -> int:
+        by_user: dict[str, list[TailRow]] = {}
+        by_item: dict[str, list[TailRow]] = {}
+        for row in rows:
+            if row.target_entity_id is None:
+                continue
+            by_user.setdefault(row.entity_id, []).append(row)
+            by_item.setdefault(row.target_entity_id, []).append(row)
+        model = binding.model
+        new_items = {
+            iid: ItemDelta(vector=self._solve_new_item(binding, evs, generation))
+            for iid, evs in by_item.items()
+            if model.item_ids.get(iid) is None
+        }
+        deltas: dict[str, UserDelta] = {}
+        for uid in set(by_user) | refold:
+            delta = self._fold_user(binding, uid, by_user.get(uid, ()), new_items,
+                                    generation)
+            if delta is not None:
+                deltas[uid] = delta
+        applied = 0
+        fenced = False
+        for iid, delta in new_items.items():
+            if not self.overlay.put_item(iid, delta, generation=generation):
+                fenced = True
+        for uid, delta in deltas.items():
+            if self.overlay.put_user(uid, delta, generation=generation):
+                applied += 1
+                if self._invalidate_user is not None:
+                    self._invalidate_user(uid)
+            else:
+                fenced = True
+        if fenced:
+            # a /reload raced this cycle: keep the cursor, so the next
+            # cycle re-reads these events against the new model
+            with self._lock:
+                self._pending_refold |= set(deltas)
+        else:
+            self._follower.commit(new_cursor)
+        lag = (time.time() - min(r.time_us for r in rows) / 1e6) if rows else None
+        with self._lock:
+            self._stats["foldCycles"] += 1
+            if not fenced:
+                # a fenced cycle applied nothing and will re-read its rows
+                self._stats["foldedEvents"] += len(rows)
+                self._stats["usersFolded"] += applied
+                self._stats["itemsAdded"] += len(new_items)
+                if lag is not None:
+                    self._stats["lagSeconds"] = lag
+        return len(rows)
+
+    # -- solves ------------------------------------------------------------
+    def _item_prior(self, model: Any, gen: int) -> np.ndarray:
+        # keyed on the generation captured at cycle start: a /reload
+        # mid-cycle must not cache the old model's centroid as the new's
+        if self._prior is None or self._prior[0] != gen:
+            self._prior = (gen, popularity_prior(_host_table(model.item_factors)))
+        return self._prior[1]
+
+    def _gramian(self, factors: torch.Tensor, gen: int) -> np.ndarray:
+        if self._gram is None or self._gram[0] != gen:
+            self._gram = (gen, item_gramian(_host_table(factors)))
+        return self._gram[1]
+
+    def _gather_rows(self, factors: torch.Tensor, ixs: list[int]) -> np.ndarray:
+        """The rows ``ixs`` of a factor table: an ``index_select`` on the
+        table's device and a copy of those rows alone to the host, in
+        f32."""
+        index = torch.as_tensor(np.asarray(ixs, dtype=np.int64), device=factors.device)
+        return factors.index_select(0, index).to(torch.float32).cpu().numpy()
+
+    def _solve_new_item(self, binding: OnlineBinding, events: list[TailRow],
+                        generation: int) -> np.ndarray:
+        """A vector for an item outside the base catalog: the symmetric
+        solve over its known raters when there are any, else the
+        popularity prior."""
+        model = binding.model
+        uixs: list[int] = []
+        ratings: list[float] = []
+        for row in events:
+            uix = model.user_ids.get(row.entity_id)
+            rating = binding.rating_of(row.event, row.properties)
+            if uix is not None and rating is not None:
+                uixs.append(uix)
+                ratings.append(rating)
+        if uixs:
+            vec = solve_item(
+                self._gather_rows(model.user_factors, uixs),
+                np.asarray(ratings, dtype=np.float32),
+                lam=binding.lam, implicit=binding.implicit, alpha=binding.alpha,
+                gram=(self._gramian(model.user_factors, generation)
+                      if binding.implicit else None))
+            if vec is not None:
+                return vec
+        return self._item_prior(model, generation)
+
+    def _fold_user(self, binding: OnlineBinding, uid: str,
+                   tail_rows: list[TailRow] | tuple,
+                   new_items: Mapping[str, ItemDelta],
+                   generation: int) -> UserDelta | None:
+        """Recompute one user's vector over their full interaction set
+        (read back from the event store: a recomputation, not an
+        accumulation)."""
+        model = binding.model
+        history = binding.events.find(
+            binding.app_id, binding.channel_id,
+            EventFilter(entity_type=binding.entity_type, entity_id=uid,
+                        event_names=(list(binding.event_names)
+                                     if binding.event_names else None)))
+        base_ixs: list[int] = []
+        base_ratings: list[float] = []
+        delta_vecs: list[np.ndarray] = []
+        delta_ratings: list[float] = []
+        delta_seen: list[str] = []
+        for event in history:
+            tid = event.target_entity_id
+            if tid is None:
+                continue
+            rating = binding.rating_of(event.event, event.properties.fields)
+            if rating is None:
+                continue
+            ix = model.item_ids.get(tid)
+            if ix is not None:
+                base_ixs.append(ix)
+                base_ratings.append(rating)
+                continue
+            delta = new_items.get(tid) or self.overlay.item(tid)
+            if delta is not None:
+                delta_vecs.append(delta.vector)
+                delta_ratings.append(rating)
+                if tid not in delta_seen:
+                    delta_seen.append(tid)
+        if not base_ixs and not delta_vecs:
+            return None
+        parts = []
+        if base_ixs:
+            parts.append(self._gather_rows(model.item_factors, base_ixs))
+        if delta_vecs:
+            parts.append(np.stack(delta_vecs))
+        vecs = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        ratings = np.asarray(base_ratings + delta_ratings, dtype=np.float32)
+        vector = solve_user(
+            vecs, ratings, lam=binding.lam, implicit=binding.implicit, alpha=binding.alpha,
+            gram=(self._gramian(model.item_factors, generation)
+                  if binding.implicit else None))
+        if vector is None:
+            return None
+        times = [r.time_us for r in tail_rows]
+        return UserDelta(
+            vector=vector,
+            extra_seen=tuple(sorted(set(base_ixs))),
+            delta_seen=tuple(delta_seen),
+            folded_events=len(tail_rows),
+            event_time_us=max(times) if times else 0,
+        )
+
+    # -- observability ------------------------------------------------------
+    def metrics(self) -> dict:
+        """The fold counters and the overlay's occupancy (the JAX
+        package's keys; one process is always its own leader)."""
+        counters = self.overlay.counters()
+        with self._lock:
+            stats = dict(self._stats)
+        return {
+            "enabled": self.enabled,
+            "leader": True,
+            "generation": counters["generation"],
+            "overlayUsers": counters["users"],
+            "overlayItems": counters["items"],
+            "overlaySize": counters["users"] + counters["items"],
+            "evictions": counters["evictions"],
+            "fenced": counters["fenced"],
+            "foldedEventsTotal": stats["foldedEvents"],
+            "foldCycles": stats["foldCycles"],
+            "usersFoldedTotal": stats["usersFolded"],
+            "itemsAddedTotal": stats["itemsAdded"],
+            "errorsTotal": stats["errors"],
+            "lagSeconds": stats["lagSeconds"],
+            "appliedSeq": 0,
+        }
+
+    def stats_doc(self) -> dict:
+        """The ``/stats.json`` ``online`` section."""
+        doc = self.metrics()
+        doc["intervalS"] = self.interval_s
+        cursor = self._follower.cursor if self._follower is not None else None
+        doc["cursor"] = cursor.to_doc() if cursor is not None else None
+        return doc

@@ -214,6 +214,10 @@ class Events(abc.ABC):
     ) -> Iterator[Event]:
         """Filtered scan (LEvents.futureFind, LEvents.scala:188-214)."""
 
+    #: the granularity (µs) this backend orders equal event times at:
+    #: the tail follower's cursor compares at it (online/follower.py)
+    CURSOR_TIME_RESOLUTION_US = 1
+
     #: default ``find_columnar`` batch size — large enough that the
     #: per-batch fixed cost (vocab build, array allocation) amortizes,
     #: small enough that a batch stays cache- and memory-friendly

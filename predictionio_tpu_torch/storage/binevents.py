@@ -205,6 +205,10 @@ def _py_scan(path: str, flt: EventFilter) -> list[bytes]:
 # ---------------------------------------------------------------------------
 
 class BinEvents(base.Events):
+    #: find()/find_columnar order by the payload's ms-truncated eventTime
+    #: (and the id), so the tail cursor compares at ms too
+    CURSOR_TIME_RESOLUTION_US = 1000
+
     def __init__(self, path: str, use_native: bool = True):
         self._path = path
         self._lock = threading.RLock()

@@ -15,9 +15,11 @@ A model directory, as the templates' ``save_engine_model`` /
 ``--model-dir`` entry.
 
 ``ServerConfig`` also carries the serving layer's knobs (micro-batching,
-the result cache, the request deadline, the server key); each default
-reads its ``PIO_SERVING_<KEY>`` variable when the config is built, as in
-the JAX package.
+the result cache, the request deadline, the server key, the retrieval
+mode and its ANN knobs) and the online freshness plane's; each default
+reads its ``PIO_SERVING_<KEY>`` or ``PIO_ONLINE_<KEY>`` variable when the
+config is built, as in the JAX package. The retrieval knobs are applied
+to every ALS-family model on each load (:func:`apply_retrieval_config`).
 """
 
 from __future__ import annotations
@@ -45,22 +47,32 @@ logger = logging.getLogger(__name__)
 DEFAULT_ENGINE_FACTORY = "predictionio_tpu_torch.templates.sessionrec.engine_factory"
 
 
-def _env_field(key: str, default: Any, cast: Callable[[str], Any]):
-    """A frozen-dataclass field whose default reads ``PIO_SERVING_<KEY>``
-    when the config is built (never at import); a malformed value falls
-    back to ``default`` with a warning."""
+def _prefixed_field(prefix: str, key: str, default: Any, cast: Callable[[str], Any]):
+    """A frozen-dataclass field whose default reads ``<prefix><KEY>`` when
+    the config is built (never at import); a malformed value falls back
+    to ``default`` with a warning."""
     def read() -> Any:
-        raw = os.environ.get(f"PIO_SERVING_{key}")
+        raw = os.environ.get(f"{prefix}{key}")
         if raw is None:
             return default
         try:
             return cast(raw)
         except (TypeError, ValueError):
-            logger.warning("ignoring malformed PIO_SERVING_%s=%r (using %r)",
-                           key, raw, default)
+            logger.warning("ignoring malformed %s%s=%r (using %r)",
+                           prefix, key, raw, default)
             return default
 
     return dataclasses.field(default_factory=read)
+
+
+def _env_field(key: str, default: Any, cast: Callable[[str], Any]):
+    """A ``PIO_SERVING_<KEY>``-overridable default."""
+    return _prefixed_field("PIO_SERVING_", key, default, cast)
+
+
+def _online_field(key: str, default: Any, cast: Callable[[str], Any]):
+    """A ``PIO_ONLINE_<KEY>``-overridable default of the freshness plane."""
+    return _prefixed_field("PIO_ONLINE_", key, default, cast)
 
 
 def _cast_bool(raw: str) -> bool:
@@ -75,12 +87,19 @@ def _cast_policy(raw: str) -> str:
     return value
 
 
+def _cast_retrieval(raw: str) -> str:
+    # validated here, so a misspelt value serves brute force with a warning
+    value = raw.strip().lower()
+    if value not in ("brute", "ann"):
+        raise ValueError(value)
+    return value
+
+
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """The JAX package's ``ServerConfig`` fields that this port serves,
-    plus the device. ``--workers``, the shared-memory cache, retrieval,
-    tracing and ``--online`` stay with ROADMAP.md queue 1 items 23, 10,
-    12 and 11."""
+    plus the device. ``--workers``, the shared-memory cache and tracing
+    stay with ROADMAP.md queue 1 items 23 and 12."""
 
     ip: str = "0.0.0.0"
     port: int = 8000              # 0 binds a free port (``EngineServer.port``)
@@ -124,6 +143,29 @@ class ServerConfig:
     #: lower it with an X-PIO-Deadline-Ms header; a blown budget answers
     #: 503 + Retry-After
     request_deadline_ms: float = _env_field("REQUEST_DEADLINE_MS", 0.0, float)
+    #: "brute" scores the whole item table per query; "ann" probes the
+    #: IVF index saved beside the model (built at deploy when missing)
+    #: and rescores the shortlist exactly (ops/ann.py). Applies to every
+    #: model with ``configure_retrieval`` (the ALS family); others ignore it
+    retrieval: str = _env_field("RETRIEVAL", "brute", _cast_retrieval)
+    #: IVF cell count of a deploy-time build (0: auto, ~4*sqrt(catalog))
+    ann_nlist: int = _env_field("ANN_NLIST", 0, int)
+    #: cells probed per query (0: auto, nlist/64 floored at 16)
+    ann_nprobe: int = _env_field("ANN_NPROBE", 0, int)
+    #: cap on the candidates rescored per query (0: every probed one)
+    ann_rescore: int = _env_field("ANN_RESCORE", 0, int)
+    #: the freshness plane (online/): tail the event store between
+    #: retrains and fold touched users' ALS vectors into the deployed
+    #: model. ALS-family engines only; others warn and serve batch-only
+    online: bool = _online_field("ENABLED", False, _cast_bool)
+    #: tail polling interval: the floor of the freshness lag
+    online_interval_s: float = _online_field("INTERVAL_S", 1.0, float)
+    #: at most this many folded users in the overlay (items: a quarter);
+    #: LRU-evicted users fall back to their base vector
+    online_overlay_max: int = _online_field("OVERLAY_MAX", 4096, int)
+    #: directory of the durable tail cursor; empty: in memory, re-tailed
+    #: from deploy time after a restart
+    online_state_dir: str = _online_field("STATE_DIR", "", str)
 
 
 class DeployedEngine:
@@ -196,6 +238,24 @@ class DeployedEngine:
             self.last_serving_sec = dt
 
 
+def retrieval_targets(models: Sequence[Any]):
+    """The models a deployment's retrieval knobs apply to: those with
+    ``configure_retrieval`` (ALSModel) or with it on an ``als`` attribute
+    (the similar-product and e-commerce models)."""
+    for model in models:
+        if hasattr(model, "configure_retrieval"):
+            yield model
+        elif hasattr(getattr(model, "als", None), "configure_retrieval"):
+            yield model.als
+
+
+def apply_retrieval_config(models: Sequence[Any], config: ServerConfig) -> None:
+    """Push the retrieval knobs onto every capable model (none: a no-op)."""
+    for target in retrieval_targets(models):
+        target.configure_retrieval(config.retrieval, nprobe=config.ann_nprobe,
+                                   rescore=config.ann_rescore, nlist=config.ann_nlist)
+
+
 def resolve_engine_instance(storage: Storage, config: ServerConfig) -> EngineInstance:
     """By id when given, else the latest COMPLETED instance matching
     (engine_id, engine_version, engine_variant), else the latest
@@ -232,11 +292,15 @@ def load_deployed_engine(
     device over ``storage`` (default ``Storage()`` from the
     environment). A ``config.model_dir`` deploys that directory instead
     (:func:`load_model_dir`). The algorithms that load the models are
-    the ones that serve them."""
+    the ones that serve them. The retrieval knobs are applied on every
+    load, ``/reload`` included: the mode is deployment config, not model
+    data."""
     config = config if config is not None else ServerConfig()
     if config.model_dir is not None:
-        return load_model_dir(config.model_dir, engine_factory=config.engine_factory,
-                              device=config.device)
+        deployed = load_model_dir(config.model_dir, engine_factory=config.engine_factory,
+                                  device=config.device)
+        apply_retrieval_config(deployed.models, config)
+        return deployed
     storage = storage or (ctx.storage if ctx is not None else Storage())
     ctx = ctx or EngineContext(storage=storage, device=config.device)
     instance = resolve_engine_instance(storage, config)
@@ -248,6 +312,7 @@ def load_deployed_engine(
     persisted = load_models(storage, instance.id, ctx.device)
     _, _, algorithms, serving = engine.make_components(engine_params)
     models = engine.prepare_deploy(ctx, engine_params, persisted, algorithms=algorithms)
+    apply_retrieval_config(models, config)
     logger.info("deployed engine instance %s (%s; %d algorithm(s)) on %s",
                 instance.id, instance.engine_factory, len(algorithms), ctx.device)
     return DeployedEngine(engine, instance.id, algorithms, serving, models, ctx.device,

@@ -170,3 +170,58 @@ def test_import_bad_line_and_status(both, capsys, tmp_path):
     assert port == jax and port[0] == 1 and "line 2" in port[1]
     port, _ = both(capsys, "status")
     assert port[0] == 0 and "all repositories verified" in port[1]
+
+
+class _Captured(Exception):
+    pass
+
+
+DEPLOY_FIELDS = ("retrieval", "ann_nlist", "ann_nprobe", "ann_rescore", "online",
+                 "online_interval_s", "online_overlay_max", "online_state_dir")
+
+
+@pytest.mark.parametrize("flags,env", [
+    ([], {}),
+    (["--retrieval", "ann", "--ann-nlist", "64", "--ann-nprobe", "32", "--ann-rescore",
+      "500", "--online", "--online-interval-s", "0.2", "--online-overlay-max", "100",
+      "--online-state-dir", "state"], {}),
+    (["--no-online", "--retrieval", "brute"],
+     {"PIO_ONLINE_ENABLED": "1", "PIO_SERVING_RETRIEVAL": "ann"}),
+    ([], {"PIO_SERVING_RETRIEVAL": "ANN", "PIO_SERVING_ANN_NPROBE": "8",
+          "PIO_ONLINE_ENABLED": "true", "PIO_ONLINE_INTERVAL_S": "0.5",
+          "PIO_ONLINE_OVERLAY_MAX": "12", "PIO_ONLINE_STATE_DIR": "/s"}),
+    ([], {"PIO_SERVING_RETRIEVAL": "fast", "PIO_ONLINE_INTERVAL_S": "soon"}),
+], ids=["defaults", "flags", "flags_over_env", "env", "malformed_env"])
+def test_deploy_retrieval_and_online_flags_equal_jax(tmp_path, monkeypatch, flags, env):
+    """`pio deploy`'s retrieval and online flags (and their environment
+    defaults) build the ServerConfig the JAX package's `pio deploy`
+    builds from the same arguments."""
+    import predictionio_tpu.api.engine_server as jserver_mod
+
+    import predictionio_tpu_torch.api.engine_server as pserver_mod
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "store"))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    (tmp_path / "engine.json").write_text(json.dumps(
+        {"id": "e", "engineFactory": "x.engine_factory"}))
+    configs = {}
+
+    def capture(name):
+        def create(storage=None, config=None, **kw):
+            configs[name] = config
+            raise _Captured()
+        return create
+
+    monkeypatch.setattr(pserver_mod, "create_engine_server", capture("port"))
+    monkeypatch.setattr(jserver_mod, "create_engine_server", capture("jax"))
+    args = ["deploy", "--ip", "127.0.0.1", "--port", "0", *flags]
+    for name, main in (("port", pio.main), ("jax", jpio.main)):
+        JaxStorage.reset_default()
+        with pytest.raises(_Captured):
+            main(args + (["--device", "cpu"] if name == "port" else []))
+    JaxStorage.reset_default()
+    got = {f: getattr(configs["port"], f) for f in DEPLOY_FIELDS}
+    want = {f: getattr(configs["jax"], f) for f in DEPLOY_FIELDS}
+    assert got == want

@@ -42,6 +42,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from predictionio_tpu.api import engine_server as jserver_mod
 from predictionio_tpu.controller import FirstServing as JaxFirstServing
@@ -70,10 +71,9 @@ from predictionio_tpu_torch.workflow.persistence import save_models
 REPO = Path(__file__).resolve().parent.parent
 KEY = "sekrit"
 SCORE_TOL = 1e-5
-#: /stats.json keys of the JAX server that this slice leaves out: ANN
-#: retrieval (ROADMAP.md queue 1 item 10) and compile accounting (item 12)
-STATS_LEFT_OUT = {"annEnabled", "retrieval", "compile", "serving.annQueries",
-                  "serving.annRescored", "serving.annShortlistHistogram"}
+#: /stats.json keys of the JAX server that the port leaves out: compile
+#: accounting (ROADMAP.md queue 1 item 12)
+STATS_LEFT_OUT = {"compile"}
 #: a query that the wrapped algorithms hold for SLOW_S (the deadline case)
 SLOW_NUM, SLOW_S = 17, 0.4
 #: a query whose prediction the test blocker rejects
@@ -689,3 +689,101 @@ class TestStopAndUndeploy:
                 proc.kill()
                 proc.wait(timeout=30)
             log.close()
+
+
+# -- retrieval (ANN) side by side, through ``handle`` --------------------------
+
+def _retrieval_pair(with_index: bool, retrieval: str):
+    """(port EngineService, JAX EngineService) over one 1,500-item ALS
+    model, with the same persisted-style index in both when
+    ``with_index``, and ``retrieval`` applied as a deploy applies it."""
+    from predictionio_tpu.ops import ann as jann
+    from predictionio_tpu.workflow.deploy import apply_retrieval_config as japply
+
+    from predictionio_tpu_torch.controller import FirstServing
+    from predictionio_tpu_torch.ops import ann as pann
+    from predictionio_tpu_torch.workflow.deploy import DeployedEngine, apply_retrieval_config
+
+    pmodel, jmodel = _als_models(seed=3, items=1500)
+    if with_index:
+        jmodel.ann_index = jann.build_index(np.asarray(jmodel.item_factors))
+        pmodel.ann_index = pann.build_index(pmodel.item_factors)
+    common = dict(server_key=KEY, cache_enabled=True, retrieval=retrieval)
+    pconfig = ServerConfig(device="cpu", **common)
+    jconfig = JaxServerConfig(**common)
+    pdep = DeployedEngine(prec.engine_factory(), "p", [prec.ALSAlgorithm(
+        prec.ALSAlgorithmParams())], FirstServing(), [pmodel], torch.device("cpu"))
+    jdep = JaxDeployedEngine(jrec.engine_factory(), JaxEngineInstance(
+        id="j", status="COMPLETED", start_time=T0, completion_time=T0, engine_id="e",
+        engine_version="1", engine_variant="e", engine_factory="jax"),
+        [jrec.ALSAlgorithm(jrec.ALSAlgorithmParams())], JaxFirstServing(), [jmodel])
+    apply_retrieval_config(pdep.models, pconfig)
+    japply(jdep.models, jconfig)
+    return (pserver_mod.EngineService(pdep, pconfig),
+            jserver_mod.EngineService(jdep, jconfig))
+
+
+def _post_both(services, path, body, params=None):
+    port, jax = ((svc.handle("POST", path, params or {}, {}, body)) for svc in services)
+    return port, jax
+
+
+class TestRetrieval:
+    def test_ann_answers_and_shortlist_histogram_equal_jax(self):
+        services = _retrieval_pair(with_index=True, retrieval="ann")
+        try:
+            for svc in services:
+                assert svc.ann_enabled()
+            for u in range(12):
+                body = {"user": f"u{u}", "num": (5, 10, 100)[u % 3]}
+                if u % 4 == 0:
+                    body["blackList"] = [f"i{j}" for j in range(0, 1500, 11)]
+                port, jax = _post_both(services, "/queries.json", body)
+                assert port[0] == jax[0] == 200
+                _same_ranking([(s["item"], s["score"]) for s in port[1]["itemScores"]],
+                              [(s["item"], s["score"]) for s in jax[1]["itemScores"]])
+            pdoc, jdoc = (svc.handle("GET", "/stats.json", {}, {}, None)[1]
+                          for svc in services)
+            assert pdoc["annEnabled"] is jdoc["annEnabled"] is True
+            assert pdoc["retrieval"] == jdoc["retrieval"] == "ann"
+            for key in ("annQueries", "annRescored", "annShortlistHistogram"):
+                assert pdoc["serving"][key] == jdoc["serving"][key], key
+            assert pdoc["serving"]["annQueries"] == 12
+            assert _key_paths(pdoc) == _key_paths(jdoc) - STATS_LEFT_OUT
+        finally:
+            for svc in services:
+                svc.batcher is None or svc.batcher.close()
+
+    def test_post_retrieval_statuses_and_bodies_equal_jax(self):
+        services = _retrieval_pair(with_index=True, retrieval="ann")
+        key = {"accessKey": KEY}
+        cases = [({}, {"retrieval": "brute"}), (key, [1]), (key, {"nprobe": 3}),
+                 (key, {"retrieval": "fast"}), (key, {"retrieval": "brute"}),
+                 (key, {"retrieval": "ann", "annNprobe": -1}),
+                 (key, {"retrieval": "ann", "annNprobe": "4"}),
+                 (key, {"retrieval": "ann", "annNprobe": 4, "annRescore": 64})]
+        query = {"user": "u2", "num": 10}
+        for params, body in cases:
+            _post_both(services, "/queries.json", query)       # warm the cache
+            gens = [svc.cache.generation for svc in services]
+            port, jax = _post_both(services, "/retrieval", body, params)
+            assert port[:2] == jax[:2], (params, body)
+            moved = [svc.cache.generation != g for svc, g in zip(services, gens)]
+            assert moved[0] == moved[1] == (port[0] == 200)
+            assert services[0].config.retrieval == services[1].config.retrieval
+            assert services[0].config.ann_nprobe == services[1].config.ann_nprobe
+            port, jax = _post_both(services, "/queries.json", query)
+            _same_ranking([(s["item"], s["score"]) for s in port[1]["itemScores"]],
+                          [(s["item"], s["score"]) for s in jax[1]["itemScores"]])
+        assert [c[0] for c in (_post_both(services, "/retrieval", {"retrieval": "brute"},
+                                          key))] == [200, 200]
+        width = services[0].deployed.models[0].ann_index.shortlist_width(4, 64)
+        hist = services[0].serving_stats.ann_histogram()
+        assert hist == services[1].serving_stats.ann_histogram() and hist[width] >= 1
+
+    def test_switch_to_ann_without_an_index_is_409_in_both(self):
+        services = _retrieval_pair(with_index=False, retrieval="brute")
+        port, jax = _post_both(services, "/retrieval", {"retrieval": "ann"},
+                               {"accessKey": KEY})
+        assert port[:2] == jax[:2] and port[0] == 409
+        assert not services[0].ann_enabled() and services[0].config.retrieval == "brute"

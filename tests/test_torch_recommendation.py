@@ -168,13 +168,20 @@ class TestALSModel:
             np.testing.assert_array_equal(got, want)
 
     def test_later_slices_raise_and_brute_is_the_retrieval(self):
-        port, _ = _models()
+        """Brute force is the default retrieval; ANN (ROADMAP.md queue 1
+        item 10) and the online overlay (item 11) are ported now and
+        covered by tests/test_torch_ann.py and tests/test_torch_online.py."""
+        port, jax_model = _models()
         port.configure_retrieval("brute")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port.configure_retrieval("ann", nprobe=4)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            port.set_online_overlay(object())
+        assert port.retrieval == "brute" and not port.ann_enabled
+        port.configure_retrieval("ann", nprobe=4)
+        jax_model.configure_retrieval("ann", nprobe=4)
+        assert port.ann_enabled and port.ann_index.nlist == jax_model.ann_index.nlist
+        for u in ("u0", "u3"):
+            _same_ranking(port.recommend(u, 30), jax_model.recommend(u, 30))
         assert port.needs_online_path("u0") is False
+        port.set_online_overlay(None)
+        assert port.online_delta("u0") is None
 
 
 class TestPersistence:
@@ -208,8 +215,12 @@ class TestPersistence:
     def test_jax_loads_a_port_saved_model(self, tmp_path):
         port, _ = _models(seed=1)
         port.save(str(tmp_path))
-        assert "ann" not in json.loads((tmp_path / "model.json").read_text())
+        # 1,100 items: the index is built at persist time, as JAX builds it
+        assert json.loads((tmp_path / "model.json").read_text())["ann"] == {
+            "nlist": port.ann_index.nlist, "n_items": 1100}
         jax_model = jmodels.ALSModel.load(str(tmp_path))
+        np.testing.assert_array_equal(jax_model.ann_index.flat_items,
+                                      port.ann_index.flat_items)
         np.testing.assert_array_equal(np.asarray(jax_model.user_factors),
                                       port.user_factors.numpy())
         assert jax_model.seen_by_user.keys() == port.seen_by_user.keys()
