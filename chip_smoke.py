@@ -204,16 +204,41 @@ Phases, in order; any failure exits non-zero:
    the device ms and launches of `_gather_rows`; `/reload` moves the
    overlay's generation and the folded users are refolded, and a delta
    computed against the old generation is discarded;
-24. a `kernels` JSON line, then the result line
+24. the parallel evaluation grid: phase 14's two grid points (the
+   serving widths, eval_k 2, one epoch) over 16a's sqlite store through
+   `pio eval chip_smoke.GridEvaluation chip_smoke.GridParams --parallel 2`
+   as a process, whose forked workers each train a point's folds on the
+   card and predict them through the flash kernel; the evaluation row is
+   polled every 20 ms (EVALUATING mid-run); each fold logs its process,
+   its launches and whether it rebuilt the kernel library; the forked
+   scores and best point against the serial grid (`--parallel 1`) within
+   the spread of two serial runs (phase 14's and `pio eval`'s; two `pio
+   eval` runs alone), floored at one user's hit; a poisoned grid (3
+   heads over d_model 256) completes as one FAILED and one COMPLETED
+   point, EVALUATING with one point landed while the other runs; a
+   FakeRun through `pio eval` sees the card; wall seconds of each;
+25. e2 and the quality parity: `compare_quality` at the ML-100k
+   reconstruction (rank 10, 10 iterations, λ 0.05, 5 folds) with the
+   ALS on the card, held-out RMSE within 0.05 of the NumPy ALS-WR's and
+   MAP@10 inside its seed band; the implicit path against popularity on
+   examples/data/sample_movielens.txt; `MarkovChain.train` over 26,744
+   states (a 2.86 GB dense f32 table) from phase 9's ratings as per-user
+   consecutive transitions against float64 on the host, ids exact with
+   ties lowest index first; `CategoricalNaiveBayes.train` on phase 21's
+   Covertype-shape rows as categorical strings, the counts exactly
+   against NumPy bincount; each device program's CUDA-event ms, device
+   ms and launches;
+26. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
-`--ingest-only`, `--templates-only`, `--ann-only` and `--online-only` run
-phases 9-13, 14-15, 16, 17, 18, 19-21, 22 and 23 alone (17 over 16a's
-instance and a random ML-20M-shape ALS model, 18 over 16a's import, 22
-over a random ML-20M-shape model, 23 over 16b's import and train) and
-print no result line. Phases 22 and 23 launch no flash kernel. Exits
-non-zero, printing no result, when there is no card.
+`--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
+`--grid-only` and `--e2-only` run phases 9-13, 14-15, 16, 17, 18, 19-21,
+22, 23, 24 and 25 alone (17 over 16a's instance and a random
+ML-20M-shape ALS model, 18 and 24 over 16a's import, 22 over a random
+ML-20M-shape model, 23 over 16b's import and train) and print no result
+line. Phases 22, 23 and 25 launch no flash kernel. Exits non-zero,
+printing no result, when there is no card.
 """
 
 from __future__ import annotations
@@ -237,6 +262,7 @@ import torch
 
 from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.controller import (
+    AverageMetric,
     Engine,
     EngineParams,
     EngineParamsGenerator,
@@ -244,10 +270,13 @@ from predictionio_tpu_torch.controller import (
     FastEvalEngine,
     PersistentModelManifest,
 )
-from predictionio_tpu_torch.controller.evaluation import best_json_variant
+from predictionio_tpu_torch.controller.evaluation import MetricEvaluator, best_json_variant
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.core.wire import from_wire
+from predictionio_tpu_torch.data import movielens
+from predictionio_tpu_torch.e2 import engine as e2
+from predictionio_tpu_torch.e2 import quality
 from predictionio_tpu_torch.models import logreg, naive_bayes, random_forest, seqrec
 from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
 from predictionio_tpu_torch.ops import _build
@@ -266,6 +295,7 @@ from predictionio_tpu_torch.utils.device import ieee_f32
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
 from predictionio_tpu_torch.workflow.evaluation import run_evaluation
+from predictionio_tpu_torch.workflow.fake import FakeRun
 from predictionio_tpu_torch.workflow.persistence import save_models
 from predictionio_tpu_torch.workflow.train import format_stage_times, run_train
 
@@ -1704,9 +1734,11 @@ def _buckets(n: int) -> int:
     return n // 256 + bin(n % 256).count("1")
 
 
-def phase_eval_sessionrec() -> int:
+def phase_eval_sessionrec() -> tuple[int, tuple[int, list, list]]:
     """Phase 14: run_evaluation of the sessionrec template at the serving
-    width on the card. Returns the flash kernel's launches in it."""
+    width on the card. Returns the flash kernel's launches in it, and the
+    grid's best index, scores and mean top-1 scores (phase 24's first
+    serial run)."""
     t0 = time.perf_counter()
     storage, n_events = _walk_storage(*EVAL_WALK)
     log(f"[eval-sess] {n_events} events ingested in {time.perf_counter() - t0:.1f}s")
@@ -1775,7 +1807,9 @@ def phase_eval_sessionrec() -> int:
                 EVAL_TOPK, f"eval-sess {q.user}")
         log(f"[eval-sess] {len(queries)} held-out queries: batch == single (B=1) and the "
             f"plain attention; last: {worst}")
-        return launches
+        tops = [MeanTopScore().calculate(folds) for _, folds in kept]
+        return launches, (result.best_idx, [ms.score for _, ms in result.engine_params_scores],
+                          tops)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -3012,7 +3046,9 @@ def phase_feedback_loop(pio: _Pio, es_port: int, key: str) -> int:
     proc, port, _ = pio.deploy("ingest-loop", engine_json, "--engine-instance-id", instance_id,
                                "--no-batching", "--feedback", "--event-server-ip",
                                "127.0.0.1", "--event-server-port", str(es_port),
-                               "--accesskey", key)
+                               # one key in 64 starts with "-", which argparse
+                               # takes for an option unless it is joined by "="
+                               f"--accesskey={key}")
     try:
         rng = np.random.default_rng(SEED + 18)
         users = [int(u) for u in rng.choice(INGEST_USERS, INGEST_QUERIES, replace=False)]
@@ -4384,6 +4420,433 @@ def phase_online(pio: _Pio, rec_instance: tuple[str, str]) -> None:
     log(f"[online] phase 23 took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the parallel evaluation grid through `pio eval`
+# ---------------------------------------------------------------------------
+
+#: the JSON-lines file a grid process appends one row to per fold it
+#: predicts (the environment variable is set by phase 24 only)
+GRID_LOG_ENV = "PIO_SMOKE_GRID_LOG"
+#: HitRate@10 of one grid point counts 2 folds × 64 held-out users: one
+#: user's hit moves it by 1/128, the floor of the tolerance between the
+#: forked and the serial grid (the spread of two serial runs, when wider).
+#: The mean top-1 score (a secondary metric that moves with every weight,
+#: where one epoch at vocab 50,000 leaves HitRate@10 at 0) is held to the
+#: spread of two serial runs, floored at GRID_TOP_TOL (absolute, on
+#: scores of order 1-10 summed in f32 over bf16 hidden states)
+GRID_USER_STEP = 1 / (2 * 64)
+GRID_TOP_TOL = 1e-3
+GRID_SPEC = "chip_smoke.GridEvaluation"
+
+
+class _LoggedSeqRec(sessionrec.SeqRecAlgorithm):
+    """The template's algorithm; each ``batch_predict`` (one fold of a
+    grid point) appends the process id, its flash launches, its device,
+    and whether the kernel library was built before and left unchanged
+    (a process that rebuilt it would have replaced the file) to the file
+    named by ``PIO_SMOKE_GRID_LOG``."""
+
+    def batch_predict(self, model, queries):
+        lib = _build.library_path("flash_attention")
+        mtime = lib.stat().st_mtime_ns if lib.exists() else None
+        before = flash_ops.LAUNCHES
+        out = super().batch_predict(model, queries)
+        path = os.environ.get(GRID_LOG_ENV)
+        if path:
+            with open(path, "a") as f:
+                f.write(json.dumps({
+                    "pid": os.getpid(), "queries": len(queries),
+                    "launches": flash_ops.LAUNCHES - before, "device": str(model.device),
+                    "lib_built_before": mtime is not None,
+                    "lib_rebuilt": (lib.stat().st_mtime_ns if lib.exists() else None) != mtime,
+                }) + "\n")
+        return out
+
+
+class MeanTopScore(AverageMetric):
+    """The mean of each held-out query's top-1 score."""
+
+    def calculate_qpa(self, q, p, a) -> float:
+        return p.item_scores[0].score if p.item_scores else 0.0
+
+
+class GridEvaluation(Evaluation):
+    """Phase 14's HitRate@10 evaluation of sessionrec, with the mean top-1
+    score beside it, as a `pio eval` spec (no best.json)."""
+
+    def __init__(self):
+        super().__init__()
+        engine = sessionrec.engine_factory()
+        engine.algorithm_class_map = {"seqrec": _LoggedSeqRec}
+        self.engine_evaluator = (engine, MetricEvaluator(sessionrec.HitRateAtK(k=EVAL_TOPK),
+                                                         [MeanTopScore()]))
+
+
+def _grid_point(lr: float, **changes) -> EngineParams:
+    return EngineParams.of(
+        data_source=sessionrec.DataSourceParams(app_name="SessApp", eval_k=EVAL_K),
+        algorithms=[("seqrec", sessionrec.AlgorithmParams(**{**EVAL_POINT, "lr": lr,
+                                                            **changes}))])
+
+
+class GridParams(EngineParamsGenerator):
+    """Phase 14's two grid points, over 16a's app."""
+
+    def __init__(self):
+        super().__init__([_grid_point(lr) for lr in EVAL_LRS])
+
+
+class PoisonedGridParams(EngineParamsGenerator):
+    """The first point, and one with 3 heads, which do not divide
+    d_model 256: its eval worker raises."""
+
+    def __init__(self):
+        super().__init__([_grid_point(EVAL_LRS[0]), _grid_point(EVAL_LRS[1], n_heads=3)])
+
+
+def _fake_on_card(ctx) -> None:
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"FakeRun got device {ctx.device}, not the card")
+    total = float(torch.arange(1024, dtype=torch.float32, device=ctx.device).sum())
+    print(f"[INFO] FakeRun on {torch.cuda.get_device_name(ctx.device)}: sum {total}")
+
+
+class SmokeFakeRun(FakeRun):
+    """A FakeRun whose function must see the card."""
+
+    def __init__(self):
+        super().__init__(_fake_on_card)
+
+
+def _pio_eval(pio: _Pio, tag: str, evaluation: str, generator: str, *flags: str) -> dict:
+    """`pio eval` as a process over ``pio``'s store, polling its
+    evaluation row every 20 ms while it runs. Returns its exit code,
+    output, seconds, pid, the (status, points landed) pairs the row went
+    through, its final row and the grid log's rows."""
+    log_path = os.path.join(pio.base, f"grid-{tag}.jsonl")
+    out_path = os.path.join(pio.base, f"eval-{tag}.log")
+    env = dict(pio.env, **{GRID_LOG_ENV: log_path})
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    instances = storage.get_meta_data_evaluation_instances()
+    known = {i.id for i in instances.get_all()}
+    seen: list[tuple[str, int | None]] = []
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(pio.cmd + ["eval", evaluation, generator, "--device", DEVICE,
+                                           *flags],
+                                cwd=pio.base, env=env, stdout=out, stderr=subprocess.STDOUT)
+    row = None
+    try:
+        while True:
+            done = proc.poll() is not None
+            rows = [i for i in instances.get_all() if i.id not in known]
+            if rows:
+                row = rows[0]
+                landed = (json.loads(row.evaluator_results_json).get("gridDone")
+                          if row.status == "EVALUATING" else None)
+                if not seen or seen[-1] != (row.status, landed):
+                    seen.append((row.status, landed))
+            if done:
+                break
+            if time.perf_counter() - t0 > PIO_STEP_TIMEOUT:
+                fail(f"[{tag}] pio eval ran past {PIO_STEP_TIMEOUT}s")
+            time.sleep(0.02)
+    finally:
+        if proc.poll() is None:
+            _stop(proc)
+        storage.close()
+    seconds = time.perf_counter() - t0
+    with open(out_path) as f:
+        output = f.read()
+    grid_rows = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            grid_rows = [json.loads(line) for line in f]
+    log(f"[{tag}] pio eval {generator.rsplit('.', 1)[-1]} {' '.join(flags)}: exit "
+        f"{proc.returncode} in {seconds:.3f}s; rows seen {seen}")
+    return dict(rc=proc.returncode, output=output, seconds=seconds, pid=proc.pid, seen=seen,
+                row=row, grid_rows=grid_rows)
+
+
+def _grid_scores(tag: str, run: dict) -> tuple[int, list, list]:
+    """(best index, scores, mean top-1 scores) of a completed grid's
+    evaluation row; the point docs and exit codes are logged."""
+    if run["rc"] != 0 or run["row"] is None or run["row"].status != "EVALCOMPLETED":
+        fail(f"[{tag}] pio eval exited {run['rc']}, row "
+             f"{run['row'] and run['row'].status}:\n{run['output'][-3000:]}")
+    doc = json.loads(run["row"].evaluator_results_json)
+    scores = [p["score"] for p in doc["engineParamsScores"]]
+    tops = [p["otherScores"][0] for p in doc["engineParamsScores"]]
+    for p in doc.get("points", []):
+        log(f"[{tag}]   point {p['idx']}: {p['status']} score={p['score']} "
+            f"in {p['durationS']}s (child exit "
+            f"{0 if p['status'] == 'COMPLETED' else p.get('error')})")
+    log(f"[{tag}] best point {doc['bestIdx']}, HitRate@{EVAL_TOPK} {scores}, mean top-1 "
+        f"score {tops}")
+    return doc["bestIdx"], scores, tops
+
+
+def _check_fold_rows(tag: str, rows: list, pids: set) -> int:
+    """Every fold predicted on the card in ``pids``, with 4 launches per
+    layer bucket and the kernel library loaded as built; returns the
+    launches."""
+    per_layer = EVAL_POINT["n_layers"]
+    for r in rows:
+        want = per_layer * _buckets(r["queries"])
+        if (r["pid"] not in pids or not r["device"].startswith("cuda")
+                or r["launches"] != want or not r["lib_built_before"] or r["lib_rebuilt"]):
+            fail(f"[{tag}] fold row {r}: expected pid in {pids}, cuda, {want} launches, the "
+                 "library built before and not rebuilt")
+    launches = sum(r["launches"] for r in rows)
+    log(f"[{tag}] {len(rows)} folds in {len({r['pid'] for r in rows})} process(es) "
+        f"{sorted({r['pid'] for r in rows})}: flash launches {[r['launches'] for r in rows]} "
+        f"= {launches}; kernel library rebuilt by none")
+    return launches
+
+
+def phase_grid(pio: _Pio, phase14: tuple[int, list, list] | None) -> int:
+    """Phase 24: phase 14's grid through `pio eval --parallel 2` over 16a's
+    store (SessApp imported), then serially, then poisoned, then a
+    FakeRun. Returns the flash launches of every grid process."""
+    t0 = time.perf_counter()
+    gen = "chip_smoke.GridParams"
+    forked = _pio_eval(pio, "grid-par", GRID_SPEC, gen, "--parallel", "2")
+    best_par, par_scores, par_tops = _grid_scores("grid-par", forked)
+    children = {r["pid"] for r in forked["grid_rows"]}
+    if len(children) != 2 or forked["pid"] in children or len(forked["grid_rows"]) != 2 * EVAL_K:
+        fail(f"[grid-par] expected {2 * EVAL_K} folds in 2 forked workers, got "
+             f"{forked['grid_rows']} (pio eval pid {forked['pid']})")
+    launches = _check_fold_rows("grid-par", forked["grid_rows"], children)
+    log(f"[grid-par] EVALUATING seen mid-run: "
+        f"{any(s == 'EVALUATING' for s, _ in forked['seen'])}")
+
+    serial_runs = [_pio_eval(pio, f"grid-ser{j}", GRID_SPEC, gen, "--parallel", "1")
+                   for j in range(1 if phase14 is not None else 2)]
+    serial = []
+    for j, run in enumerate(serial_runs):
+        serial.append(_grid_scores(f"grid-ser{j}", run))
+        launches += _check_fold_rows(f"grid-ser{j}", run["grid_rows"], {run["pid"]})
+        if any(s == "EVALUATING" for s, _ in run["seen"]):
+            fail(f"[grid-ser{j}] a serial grid wrote an EVALUATING row")
+    if phase14 is not None:
+        serial.insert(0, phase14)
+    first = "phase 14 in process" if phase14 is not None else "`pio eval --parallel 1`"
+    serial_s = ", ".join(f"{r['seconds']:.3f}s" for r in serial_runs)
+    log(f"[grid] wall: forked {forked['seconds']:.3f}s, serial {serial_s}; serial runs: "
+        f"{first} and `pio eval --parallel 1`")
+    for name, k, got, floor in (("HitRate", 1, par_scores, GRID_USER_STEP),
+                                ("mean top-1 score", 2, par_tops, GRID_TOP_TOL)):
+        spread = max(abs(a - b) for a, b in zip(serial[0][k], serial[1][k]))
+        tol = max(spread, floor)
+        worst = max(abs(a - b) for a, b in zip(got, serial[-1][k]))
+        log(f"[grid] {name}: forked {got} against serial {serial[-1][k]}: max diff "
+            f"{worst:.6g}; tolerance {tol:.6g} = max(spread of the two serial runs "
+            f"{spread:.6g}, floor {floor:.6g})")
+        if worst > tol:
+            fail(f"[grid] the forked grid's {name} differs from the serial one's by {worst} "
+                 f"> {tol}")
+    if best_par != serial[-1][0] and max(abs(a - b) for a, b in zip(par_scores,
+                                                                     serial[-1][1])) > 0:
+        fail(f"[grid] the forked grid's best point {best_par} is not the serial one's "
+             f"{serial[-1][0]}")
+
+    poisoned = _pio_eval(pio, "grid-poison", GRID_SPEC, "chip_smoke.PoisonedGridParams",
+                         "--parallel", "2")
+    doc = json.loads(poisoned["row"].evaluator_results_json) if poisoned["row"] else {}
+    statuses = [p["status"] for p in doc.get("points", [])]
+    if (poisoned["rc"] != 0 or poisoned["row"].status != "EVALCOMPLETED"
+            or statuses != ["COMPLETED", "FAILED"] or doc.get("bestIdx") != 0
+            or "exited with code 1" not in doc["points"][1].get("error", "")):
+        fail(f"[grid-poison] expected one COMPLETED and one FAILED point: rc "
+             f"{poisoned['rc']}, {doc}\n{poisoned['output'][-3000:]}")
+    if ("EVALUATING", 1) not in poisoned["seen"]:
+        fail(f"[grid-poison] no EVALUATING row with one point landed: {poisoned['seen']}")
+    log(f"[grid-poison] point 1 FAILED: {doc['points'][1]['error'][:300]}")
+    launches += _check_fold_rows("grid-poison", poisoned["grid_rows"],
+                                 {r["pid"] for r in poisoned["grid_rows"]})
+    log(f"[grid-poison] the EVALUATING row held 1 of 2 points mid-run; point 0 score "
+        f"{doc['points'][0]['score']}")
+
+    fake_run = _pio_eval(pio, "grid-fake", "chip_smoke.SmokeFakeRun",
+                         "predictionio_tpu_torch.workflow.fake.FakeEngineParamsGenerator",
+                         "--parallel", "2")
+    if (fake_run["rc"] != 0 or "[INFO] FakeRun completed" not in fake_run["output"]
+            or "[INFO] FakeRun on " not in fake_run["output"]
+            or fake_run["row"] is None or fake_run["row"].status != "INIT"):
+        fail(f"[grid-fake] rc {fake_run['rc']}:\n{fake_run['output'][-3000:]}")
+    log(f"[grid-fake] "
+        f"{[l for l in fake_run['output'].splitlines() if 'FakeRun on' in l][0]}; row INIT")
+    log(f"[grid] phase 24 took {time.perf_counter() - t0:.1f}s; flash launches in the grid "
+        f"processes: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the e2 library and the quality-parity harness
+# ---------------------------------------------------------------------------
+
+#: the JAX package's quality point (bench.py:1115-1121) and the tolerances
+#: of tests/test_quality_parity.py: held-out RMSE within 0.05 of the NumPy
+#: reference estimator's, MAP@10 inside the reference's seed band widened
+#: by its width
+QUALITY_POINT = dict(rank=10, iterations=10, lam=0.05, k_fold=5)
+QUALITY_RMSE_TOL = 0.05
+QUALITY_SEEDS = (11, 12, 13)
+SAMPLE_RATINGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "data",
+                              "sample_movielens.txt")
+#: the Markov build: ML-20M's item count and the template's top 10;
+#: probabilities against float64 (an f32 quotient of integer counts)
+MARKOV_TOP, MARKOV_PROB_TOL = 10, 1e-6
+
+
+def phase_quality() -> None:
+    """Phase 25a-b: compare_quality at the ML-100k reconstruction with the
+    ALS on the card, and the implicit path against popularity on the
+    sample ratings file."""
+    t0 = time.perf_counter()
+    ds = movielens.synthesize_ml100k()
+    got = quality.compare_quality(ds, **QUALITY_POINT)
+    took = time.perf_counter() - t0
+    train, test = quality.kfold_split(ds, k_fold=QUALITY_POINT["k_fold"])
+    maps = []
+    for seed in QUALITY_SEEDS:
+        U, V = quality.numpy_als_wr(train, rank=10, iterations=10, lam=0.05, seed=seed)
+        maps.append(quality.ranking_eval(quality.factor_score_fn(U, V), train, test)["map@10"])
+    lo, hi = min(maps), max(maps)
+    width = max(hi - lo, 1e-4)
+    log(f"[quality] compare_quality (ALS on the card) in {took:.3f}s: {json.dumps(got)}")
+    log(f"[quality] reference MAP@10 over seeds {QUALITY_SEEDS}: {maps}; band "
+        f"[{lo - width:.4f}, {hi + width:.4f}]")
+    if (abs(got["rmse_tpu"] - got["rmse_ref"]) > QUALITY_RMSE_TOL
+            or not lo - width <= got["map10_tpu"] <= hi + width
+            or not got["map10_implicit"] > got["map10_popularity"]):
+        fail(f"[quality] the card's ALS is off the reference: {got}")
+    t0 = time.perf_counter()
+    real = quality.implicit_vs_popularity_kfold(movielens.load_ratings_file(SAMPLE_RATINGS))
+    log(f"[quality] sample_movielens.txt, 5 folds, implicit ALS on the card in "
+        f"{time.perf_counter() - t0:.3f}s: {real}")
+    if not real["map10_implicit"] > real["map10_popularity"]:
+        fail(f"[quality] implicit ALS does not beat popularity on the sample file: {real}")
+
+
+def _markov_reference(rows: np.ndarray, cols: np.ndarray, n: int, k: int):
+    """The top-k transitions per row in float64 on the host, from the
+    sparse counts: (ids, probabilities), probability descending, index
+    ascending among equals, -1 past a row's transitions."""
+    key = rows.astype(np.int64) * n + cols
+    uniq, counts = np.unique(key, return_counts=True)
+    r, c = uniq // n, uniq % n
+    p = counts / np.bincount(r, weights=counts, minlength=n)[r]
+    order = np.lexsort((c, -p, r))
+    r, c, p = r[order], c[order], p[order]
+    rank = np.arange(len(r)) - np.searchsorted(r, np.arange(n))[r]
+    keep = rank < k
+    ids, probs = np.full((n, k), -1, np.int64), np.zeros((n, k))
+    ids[r[keep], rank[keep]] = c[keep]
+    probs[r[keep], rank[keep]] = p[keep]
+    return ids, probs
+
+
+def phase_markov() -> None:
+    """Phase 25c: MarkovChain.train over ML-20M's 26,744 items (a 2.86 GB
+    dense f32 table on the card) from phase 9's power-law ratings as
+    per-user consecutive transitions, against float64 on the host."""
+    n_users, n_items, nnz = ML20M
+    t0 = time.perf_counter()
+    u, i, _ = make_ratings(n_users, n_items, nnz, SEED)
+    order = np.argsort(u, kind="stable")
+    u, i = u[order], i[order]
+    same = u[1:] == u[:-1]
+    rows, cols = i[:-1][same], i[1:][same]
+    transitions = list(zip(rows.tolist(), cols.tolist(), [1.0] * len(rows)))
+    host_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = e2.MarkovChain.train(n_items, transitions, top_n=MARKOV_TOP)
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del transitions
+    args = [torch.from_numpy(a).to(DEVICE) for a in (rows, cols, np.ones(len(rows), np.float32))]
+    build = lambda: e2.markov_top_transitions(n_items, *args, MARKOV_TOP)  # noqa: E731
+    build()
+    ms, _ = _events_ms(build)
+    device_ms, launches = _profile(build, top="markov")
+    nbytes = len(rows) * 12 + n_items * MARKOV_TOP * 12
+    t0 = time.perf_counter()
+    ids, probs = _markov_reference(rows, cols, n_items, MARKOV_TOP)
+    ref_s = time.perf_counter() - t0
+    ties = int(((probs[:, 1:] == probs[:, :-1]) & (probs[:, 1:] > 0)).sum())
+    err = float(np.abs(model.transition_prob - probs).max())
+    log(f"[markov] {len(rows)} transitions over {n_items} states (host list {host_s:.1f}s); "
+        f"MarkovChain.train {train_s:.3f}s, peak_mem_gb={peak_gb:.3f}; the build "
+        f"{_fmt(ms)} ms by CUDA events, {_fmt(device_ms)} ms device in {launches} launches, "
+        f"bound {_bound_ms(nbytes)} ms; float64 reference {ref_s:.1f}s; max |p - p64| "
+        f"{err:.3e} (tol {MARKOV_PROB_TOL}); {ties} tied neighbour slots in the top "
+        f"{MARKOV_TOP}")
+    if not np.array_equal(model.transition_index, ids) or err > MARKOV_PROB_TOL:
+        bad = int((model.transition_index != ids).sum())
+        fail(f"[markov] {bad} ids differ from the float64 reference, or max error {err}")
+
+
+def phase_categorical_nb() -> None:
+    """Phase 25d: CategoricalNaiveBayes.train on phase 21's Covertype-shape
+    rows as categorical strings on the card; the counts exactly against
+    NumPy bincount."""
+    rows, n_feat, n_cls = COVTYPE
+    X, y = covtype_data(rows, SEED + 21)
+    t0 = time.perf_counter()
+    values = X.astype(np.int32).astype(str).tolist()
+    points = [e2.LabeledPoint(f"c{c}", tuple(r)) for c, r in zip(y.tolist(), values)]
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = e2.CategoricalNaiveBayes.train(points)
+    train_s = time.perf_counter() - t0
+    del points, values
+    # the model's encoding of every row, and the counts it stands for
+    label_ix = np.asarray([model.labels[f"c{c}"] for c in range(n_cls)])[y]
+    codes = [np.asarray([-1 if (ix := m.get(str(v))) is None else ix
+                         for v in range(int(X[:, f].max()) + 1)])
+             for f, m in enumerate(model.value_maps)]
+    feat_ix = np.stack([codes[f][X[:, f].astype(np.int64)] for f in range(n_feat)], axis=1)
+    vocab = model.log_likelihoods.shape[2]
+    want_labels = np.bincount(label_ix, minlength=n_cls)
+    want_values = np.stack([np.stack([np.bincount(feat_ix[label_ix == lab, f], minlength=vocab)
+                                      for f in range(n_feat)]) for lab in range(n_cls)])
+    dev_l, dev_f = torch.from_numpy(label_ix).to(DEVICE), torch.from_numpy(feat_ix).to(DEVICE)
+    count = lambda: e2._nb_count(dev_l, dev_f, n_cls, n_feat, vocab, device=DEVICE)  # noqa: E731
+    got_labels, got_values = count()
+    ms, _ = _events_ms(count)
+    device_ms, launches = _profile(count, top="nb-count")
+    nbytes = label_ix.size * 8 + feat_ix.size * 8 + (n_cls + n_cls * n_feat * vocab) * 4
+    exact = (np.array_equal(got_labels.cpu().numpy(), want_labels)
+             and np.array_equal(got_values.cpu().numpy(), want_values))
+    with np.errstate(divide="ignore"):
+        want_ll = (np.log(want_values.astype(np.float32))
+                   - np.log(want_labels.astype(np.float32))[:, None, None])
+    for f, m in enumerate(model.value_maps):
+        want_ll[:, f, len(m):] = -np.inf
+    log(f"[nb] {rows} x {n_feat} categorical rows, {n_cls} labels, vocab {vocab} (strings "
+        f"built in {host_s:.1f}s); CategoricalNaiveBayes.train {train_s:.3f}s; _nb_count "
+        f"{_fmt(ms)} ms by CUDA events, {_fmt(device_ms)} ms device in {launches} launches, "
+        f"bound {_bound_ms(nbytes)} ms; counts equal to NumPy bincount: {exact}")
+    if not exact or not np.array_equal(model.log_likelihoods, want_ll):
+        fail("[nb] the card's counts or log tables differ from NumPy bincount's")
+
+
+def phase_e2() -> None:
+    """Phase 25."""
+    t0 = time.perf_counter()
+    before = flash_ops.LAUNCHES
+    phase_quality()
+    torch.cuda.empty_cache()
+    phase_markov()
+    torch.cuda.empty_cache()
+    phase_categorical_nb()
+    if flash_ops.LAUNCHES != before:
+        fail("the e2 phase launched the flash kernel")
+    log(f"[e2] phase 25 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -4418,6 +4881,17 @@ def run_phases(wall: float) -> None:
             engine_json, instance_id, storage, _ = pio_recommendation_instance(pio)
             storage.close()
             phase_online(pio, (engine_json, instance_id))
+        return
+    if sys.argv[1:] == ["--grid-only"]:   # phase 24 alone, over 16a's import
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            import_sessions(pio)
+            phase_grid(pio, None)
+        return
+    if sys.argv[1:] == ["--e2-only"]:   # phase 25 alone
+        log_card()
+        phase_e2()
         return
     if sys.argv[1:] == ["--templates-only"]:   # phases 19-21 alone; no result line
         log_card()
@@ -4454,7 +4928,8 @@ def run_phases(wall: float) -> None:
         fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches += phase_eval_sessionrec()
+    eval_launches, phase14 = phase_eval_sessionrec()
+    launches += eval_launches
     torch.cuda.empty_cache()
     flash_ops.LAUNCHES = 0
     phase_eval_recommendation()
@@ -4481,6 +4956,14 @@ def run_phases(wall: float) -> None:
         phase_ann(als_model)
         torch.cuda.empty_cache()
         phase_online(pio, rec_instance)
+        # the grid's launches happen in `pio eval` processes and their
+        # forked workers, which log them per fold
+        grid_launches = phase_grid(pio, phase14)
+        if grid_launches == 0:
+            fail("the grid's workers never launched the flash_attention kernel")
+        launches += grid_launches
+    torch.cuda.empty_cache()
+    phase_e2()
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

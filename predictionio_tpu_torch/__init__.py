@@ -31,3 +31,14 @@ layer: the micro-batcher (``serving/batcher.py``, one
 """
 
 __version__ = "0.1.0"
+
+from predictionio_tpu_torch.core.datamap import DataMap, PropertyMap
+from predictionio_tpu_torch.core.event import Event, EventValidation
+
+__all__ = [
+    "DataMap",
+    "PropertyMap",
+    "Event",
+    "EventValidation",
+    "__version__",
+]

@@ -16,6 +16,12 @@ port serves).
   ``wal status|replay|dead-letter``: operate that journal;
 - ``train``: ``workflow/train.run_train`` of an engine.json variant,
   recording an engine instance;
+- ``eval <evaluation> [<generator>] [--batch] [--parallel N]``:
+  ``workflow/evaluation.run_evaluation`` of an Evaluation over an
+  EngineParamsGenerator (given as "pkg.module.Obj" specs; without a
+  generator, the first one in the evaluation's module), recording an
+  evaluation instance; ``--parallel N`` (else ``PIO_EVAL_PARALLEL``)
+  forks N eval workers over the grid (``experiment/grid.py``);
 - ``deploy``: the engine server over a stored instance (by
   ``--engine-instance-id``, else the latest COMPLETED one), one process,
   with the serving flags ``--server-key``, ``--batching/--no-batching``,
@@ -30,14 +36,13 @@ port serves).
   --event-server-ip --event-server-port --accesskey``; ``undeploy``:
   POST /stop to a running one.
 
-``train`` and ``deploy`` run on the card unless ``--device cpu`` is
-given; the other commands, ``eventserver`` among them, do not import
-torch. Storage is configured as the JAX package configures it (the
+``train``, ``eval`` and ``deploy`` run on the card unless ``--device
+cpu`` is given; the other commands, ``eventserver`` among them, do not
+import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
-messages and exit codes are the JAX package's. Not ported yet: ``eval``
-(ROADMAP.md queue 1 item 18), ``deploy --workers/--shm-cache`` (item
-23), ``--tracing`` and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
+messages and exit codes are the JAX package's. Not ported yet:
+``deploy --workers/--shm-cache`` (item 23), ``--tracing`` and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
 tools (item 23), and Parquet import and export (item 25).
 """
 
@@ -383,6 +388,56 @@ def _cmd_train(args, storage: Storage) -> int:
     return 0 if outcome.status in ("COMPLETED", "INTERRUPTED") else 1
 
 
+def _cmd_eval(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
+    from predictionio_tpu_torch.workflow.evaluation import run_evaluation
+
+    generator = args.params_generator or _default_generator(args.evaluation)
+    wp = WorkflowParams(batch=args.batch)
+    try:
+        outcome = run_evaluation(
+            args.evaluation,
+            generator,
+            workflow_params=wp,
+            storage=storage,
+            ctx=EngineContext(wp, storage, device=args.device),
+            parallel=args.parallel,
+        )
+    except Exception as exc:
+        # the instance row already says FAILED (workflow/evaluation.py)
+        print(f"[ERROR] Evaluation failed: {exc}")
+        return 1
+    print(f"[INFO] Evaluation finished: instance {outcome.instance_id}")
+    print(f"[INFO] {outcome.result.to_one_liner()}")
+    return 0
+
+
+def _default_generator(evaluation_spec: str):
+    """When no generator spec is given, the first EngineParamsGenerator
+    subclass or instance in the evaluation's module (the reference
+    required both classes; this is a convenience on top)."""
+    import importlib
+
+    from predictionio_tpu_torch.controller.evaluation import EngineParamsGenerator
+    from predictionio_tpu_torch.utils.reflection import resolve_attr
+
+    evaluation = resolve_attr(evaluation_spec)
+    module = importlib.import_module(type(evaluation).__module__
+                                     if not isinstance(evaluation, type)
+                                     else evaluation.__module__)
+    for name in dir(module):
+        obj = getattr(module, name)
+        if isinstance(obj, EngineParamsGenerator):
+            return obj
+        if (isinstance(obj, type) and issubclass(obj, EngineParamsGenerator)
+                and obj is not EngineParamsGenerator):
+            return obj()
+    raise ValueError(
+        f"no EngineParamsGenerator found in {module.__name__}; "
+        "pass one explicitly: pio eval <evaluation> <generator>"
+    )
+
+
 def _cmd_deploy(args, storage: Storage) -> int:
     from predictionio_tpu_torch.api.engine_server import create_engine_server
     from predictionio_tpu_torch.api.http_base import serve_until_stopped
@@ -540,6 +595,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-save-model", action="store_true", dest="no_save_model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
+    p = sub.add_parser("eval", help="evaluate an engine over a params grid")
+    p.add_argument("evaluation", help="Evaluation class spec, e.g. pkg.mod.MyEval")
+    p.add_argument("params_generator", nargs="?", default="",
+                   help="EngineParamsGenerator class spec (defaults to the "
+                        "evaluation module's own generator if omitted)")
+    p.add_argument("--batch", default="")
+    p.add_argument("--parallel", type=int, default=None, metavar="N",
+                   help="fan grid points over N eval worker processes "
+                        "(default: PIO_EVAL_PARALLEL or 1 = sequential)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
     p = sub.add_parser("deploy", help="deploy the latest trained engine instance")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -604,6 +670,7 @@ _COMMANDS = {
     "export": _cmd_export,
     "import": _cmd_import,
     "train": _cmd_train,
+    "eval": _cmd_eval,
     "deploy": _cmd_deploy,
     "undeploy": _cmd_undeploy,
 }

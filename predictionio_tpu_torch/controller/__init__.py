@@ -5,9 +5,11 @@ from predictionio_tpu_torch.controller.algorithm import (
 )
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
+    AverageServing,
     BaseComponent,
     DataSource,
     Doer,
+    Evaluator,
     FirstServing,
     IdentityPreparator,
     PersistentModelManifest,
@@ -52,7 +54,8 @@ from predictionio_tpu_torch.controller.params import (
 )
 
 __all__ = [
-    "Algorithm", "BaseComponent", "DataSource", "Doer", "EmptyParams", "Engine",
+    "Algorithm", "AverageServing", "BaseComponent", "DataSource", "Doer", "EmptyParams",
+    "Engine", "Evaluator",
     "EngineFactory", "EngineParams", "FirstServing", "HostModelAlgorithm",
     "IdentityPreparator", "LocalAlgorithm", "Params", "PersistentModelManifest",
     "Preparator", "SanityCheck", "Serving", "ShardedAlgorithm",

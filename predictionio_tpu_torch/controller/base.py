@@ -1,11 +1,11 @@
-"""DASE component contracts: DataSource, Preparator, Algorithm and
-Serving, SanityCheck, and Doer construction (port of the JAX package's
-``controller/base.py``, cut to what training, persistence, serving and
-evaluation need).
+"""DASE component contracts: DataSource, Preparator, Algorithm, Serving
+(first and average), Evaluator, SanityCheck, and Doer construction
+(port of the JAX package's ``controller/base.py``).
 
-Type vocabulary: TD training data, PD prepared data, Q query, P
-predicted result, M model. ``ctx`` is the workflow context
-(``workflow/context.EngineContext``); serving never passes one.
+Type vocabulary: TD training data, EI evaluation info, PD prepared data,
+Q query, P predicted result, A actual result, M model. ``ctx`` is the
+workflow context (``workflow/context.EngineContext``); serving never
+passes one.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ from typing import Any, Generic, Sequence, TypeVar
 from predictionio_tpu_torch.controller.params import EmptyParams
 
 TD = TypeVar("TD")
+EI = TypeVar("EI")
 PD = TypeVar("PD")
 Q = TypeVar("Q")
 P = TypeVar("P")
+A = TypeVar("A")
 M = TypeVar("M")
 
 
@@ -142,6 +144,13 @@ class FirstServing(Serving[Q, P]):
         return predictions[0]
 
 
+class AverageServing(Serving[Q, float]):
+    """Averages numeric predictions (the reference's LAverageServing)."""
+
+    def serve(self, query: Q, predictions: Sequence[float]) -> float:
+        return sum(predictions) / len(predictions)
+
+
 class SanityCheck(abc.ABC):
     """Data classes may implement this to be checked between pipeline
     stages."""
@@ -149,3 +158,20 @@ class SanityCheck(abc.ABC):
     @abc.abstractmethod
     def sanity_check(self) -> None:
         """Raise on inconsistent data."""
+
+
+class Evaluator(BaseComponent, Generic[EI, Q, P, A], abc.ABC):
+    """Folds evaluation results into a final score (the reference's
+    BaseEvaluator)."""
+
+    @abc.abstractmethod
+    def evaluate(
+        self,
+        ctx: Any,
+        engine_eval_data_set: Sequence[
+            tuple[Any, Sequence[tuple[EI, Sequence[tuple[Q, P, A]]]]]
+        ],
+        params: Any,
+    ) -> Any:
+        """``engine_eval_data_set``: per EngineParams, the per-fold
+        (EI, [(Q, P, A)]) results. Returns a result to persist."""

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import json
 import logging
 import time
@@ -28,6 +27,7 @@ from predictionio_tpu_torch.controller.base import (
     Serving,
 )
 from predictionio_tpu_torch.controller.params import EngineParams, params_from_json
+from predictionio_tpu_torch.utils.reflection import resolve_attr
 
 logger = logging.getLogger(__name__)
 
@@ -300,24 +300,10 @@ class EngineFactory:
         raise NotImplementedError
 
 
-def _resolve_attr(spec: str) -> Any:
-    """"pkg.module:attr.path" or "pkg.module.attr" → the object."""
-    if ":" in spec:
-        module_name, attr = spec.split(":", 1)
-    else:
-        module_name, _, attr = spec.rpartition(".")
-        if not module_name:
-            raise ValueError(f"invalid object spec {spec!r}")
-    obj: Any = importlib.import_module(module_name)
-    for part in attr.split("."):
-        obj = getattr(obj, part)
-    return obj
-
-
 def resolve_engine_factory(spec: str) -> Callable[[], Engine]:
     """Resolve an engineFactory string "pkg.module.obj" /
     "pkg.module:obj" to a zero-arg callable returning an Engine."""
-    obj = _resolve_attr(spec)
+    obj = resolve_attr(spec)
     if isinstance(obj, Engine):
         return lambda: obj
     if isinstance(obj, type) and issubclass(obj, EngineFactory):

@@ -179,3 +179,33 @@ class EventOp:
             fields[k] = pt.value
         assert self.first_updated is not None and self.last_updated is not None
         return PropertyMap(fields, self.first_updated, self.last_updated)
+
+
+def aggregate_properties_parallel(
+    event_shards: Iterable[Iterable[Event]],
+) -> dict[str, PropertyMap]:
+    """Aggregate per-entity properties from arbitrarily partitioned shards
+    via the EventOp monoid — the host-parallel analogue of
+    PEventAggregator.aggregateProperties (:198-211)."""
+    acc: dict[str, EventOp] = {}
+    for shard in event_shards:
+        for e in shard:
+            op = EventOp.from_event(e)
+            cur = acc.get(e.entity_id)
+            acc[e.entity_id] = op if cur is None else cur + op
+    out: dict[str, PropertyMap] = {}
+    for entity_id, op in acc.items():
+        pm = op.to_property_map()
+        if pm is not None:
+            out[entity_id] = pm
+    return out
+
+
+def aggregate_properties_by_type(
+    events: Iterable[Event],
+) -> dict[str, dict[str, PropertyMap]]:
+    """entityType -> entityId -> PropertyMap, for multi-type aggregation."""
+    by_type: dict[str, list[Event]] = defaultdict(list)
+    for e in events:
+        by_type[e.entity_type].append(e)
+    return {t: aggregate_properties(evs) for t, evs in by_type.items()}

@@ -7,8 +7,7 @@ Behavioral parity with the reference's DataMap / PropertyMap
 PropertyMap.scala:36-99): a JSON object with typed getters, merge (``++``)
 and key-removal (``--``) operators, and dataclass extraction. PropertyMap
 additionally carries first/last updated times — the result of folding
-$set/$unset/$delete event streams (the JAX package's core/aggregation.py,
-not ported yet).
+$set/$unset/$delete event streams (``core/aggregation.py``).
 """
 
 from __future__ import annotations

@@ -21,8 +21,8 @@ class AppNotFoundError(KeyError):
 
 
 class EventStore:
-    def __init__(self, storage: Storage):
-        self.storage = storage
+    def __init__(self, storage: Storage | None = None):
+        self.storage = storage or Storage.default()
 
     def app_name_to_id(self, app_name: str,
                        channel_name: str | None = None) -> tuple[int, int | None]:

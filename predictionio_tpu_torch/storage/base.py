@@ -96,8 +96,8 @@ class EvaluationInstance:
     """One row per evaluation run. Parity: EvaluationInstances.scala:42-60."""
     id: str
     #: INIT | EVALUATING | EVALCOMPLETED | FAILED. FAILED rows carry the
-    #: error; EVALUATING is written only by the parallel grid (ROADMAP.md
-    #: queue 1 item 17), which the port does not run yet
+    #: error; EVALUATING rows, written by the parallel grid
+    #: (experiment/grid.py), hold the points landed so far
     status: str
     start_time: datetime
     completion_time: datetime

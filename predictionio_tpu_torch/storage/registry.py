@@ -16,7 +16,7 @@ Backend TYPEs: ``memory``, ``sqlite`` (alias ``jdbc``), ``localfs``, and
 the event-only ``binevents`` (alias ``hbase``) and ``fileevents``. The
 JAX package's other TYPEs raise :class:`StorageError` naming the
 ROADMAP.md item that ports them; there is no fall back to another
-backend.
+backend. ``register_backend`` adds a TYPE (a plugin) beside them.
 """
 
 from __future__ import annotations
@@ -37,12 +37,6 @@ from predictionio_tpu_torch.storage.base import (
     Models,
     StorageClientConfig,
 )
-from predictionio_tpu_torch.storage.binevents import BinEventsStorageClient
-from predictionio_tpu_torch.storage.fileevents import FileEventsStorageClient
-from predictionio_tpu_torch.storage.localfs import LocalFSStorageClient
-from predictionio_tpu_torch.storage.memory import MemoryStorageClient
-from predictionio_tpu_torch.storage.sqlite import SQLiteStorageClient
-
 logger = logging.getLogger(__name__)
 
 EVENT_DATA = "EVENTDATA"
@@ -52,17 +46,9 @@ MODEL_DATA = "MODELDATA"
 _SOURCES_PREFIX = "PIO_STORAGE_SOURCES"
 _REPOSITORIES_PREFIX = "PIO_STORAGE_REPOSITORIES"
 
-BACKENDS: dict[str, Callable[[StorageClientConfig], BaseStorageClient]] = {
-    "memory": MemoryStorageClient,
-    "sqlite": SQLiteStorageClient,
-    # reference pio-env.sh files say TYPE=jdbc for the SQL store
-    "jdbc": SQLiteStorageClient,
-    "localfs": LocalFSStorageClient,
-    "binevents": BinEventsStorageClient,
-    # the reference's HBase role: event data only
-    "hbase": BinEventsStorageClient,
-    "fileevents": FileEventsStorageClient,
-}
+BackendFactory = Callable[[StorageClientConfig], BaseStorageClient]
+_BACKENDS: dict[str, BackendFactory] = {}
+_builtins_loaded = False
 
 #: the JAX package's backend TYPEs the port does not serve yet, with the
 #: ROADMAP.md queue 1 item that ports each
@@ -74,9 +60,41 @@ class StorageError(RuntimeError):
     """Misconfigured or not yet ported storage."""
 
 
+def register_backend(type_name: str, factory: BackendFactory) -> None:
+    """Register a backend TYPE (the plugin registry that replaces the
+    reference's class-name reflection); the built-in TYPEs stay."""
+    _BACKENDS[type_name] = factory
+
+
+def _builtin_backends() -> None:
+    global _builtins_loaded
+    if _builtins_loaded:
+        return
+    _builtins_loaded = True
+    from predictionio_tpu_torch.storage.binevents import BinEventsStorageClient
+    from predictionio_tpu_torch.storage.fileevents import FileEventsStorageClient
+    from predictionio_tpu_torch.storage.localfs import LocalFSStorageClient
+    from predictionio_tpu_torch.storage.memory import MemoryStorageClient
+    from predictionio_tpu_torch.storage.sqlite import SQLiteStorageClient
+
+    _BACKENDS.setdefault("memory", MemoryStorageClient)
+    _BACKENDS.setdefault("sqlite", SQLiteStorageClient)
+    # reference pio-env.sh files say TYPE=jdbc for the SQL store
+    _BACKENDS.setdefault("jdbc", SQLiteStorageClient)
+    _BACKENDS.setdefault("localfs", LocalFSStorageClient)
+    # the event-only binary log; "hbase" names the reference's role for it
+    _BACKENDS.setdefault("binevents", BinEventsStorageClient)
+    _BACKENDS.setdefault("hbase", BinEventsStorageClient)
+    _BACKENDS.setdefault("fileevents", FileEventsStorageClient)
+
+
 class Storage:
     """The repositories' DAOs, from an env mapping (default
-    ``os.environ``); one client per source, made at first use."""
+    ``os.environ``); one client per source, made at first use.
+    ``Storage.default()`` is the process-wide one."""
+
+    _default: "Storage | None" = None
+    _default_lock = threading.Lock()
 
     def __init__(self, env: Mapping[str, str] | None = None):
         self._env = dict(os.environ if env is None else env)
@@ -84,6 +102,20 @@ class Storage:
         self._lock = threading.RLock()
         self._sources = self._parse_sources()
         self._repositories = self._parse_repositories()
+
+    @classmethod
+    def default(cls) -> "Storage":
+        with cls._default_lock:
+            if cls._default is None:
+                cls._default = Storage()
+            return cls._default
+
+    @classmethod
+    def reset_default(cls) -> None:
+        with cls._default_lock:
+            if cls._default is not None:
+                cls._default.close()
+            cls._default = None
 
     def _parse_sources(self) -> dict[str, tuple[str, StorageClientConfig]]:
         # a source's name is everything between the prefix and the _TYPE
@@ -98,7 +130,8 @@ class Storage:
         # property "FOO_TYPE" of source "X": when the shorter source X
         # exists, a known backend TYPE value declares a source, anything
         # else stays X's property (warned, so a typo is visible)
-        known = set(BACKENDS) | set(NOT_PORTED)
+        _builtin_backends()
+        known = set(_BACKENDS) | set(NOT_PORTED)
         for name in sorted(names):
             shorter = [o for o in names if o != name and name.startswith(o + "_")]
             if not shorter:
@@ -159,15 +192,16 @@ class Storage:
             if source_name not in self._sources:
                 raise StorageError(f"Undefined storage source: {source_name}")
             type_name, config = self._sources[source_name]
-            if type_name in NOT_PORTED:
+            _builtin_backends()
+            if type_name in NOT_PORTED and type_name not in _BACKENDS:
                 raise StorageError(
                     f"storage source {source_name} has TYPE {type_name!r}, which the "
                     f"port does not serve yet: ROADMAP.md queue 1 {NOT_PORTED[type_name]}; "
-                    f"ported TYPEs: {sorted(BACKENDS)}")
-            if type_name not in BACKENDS:
+                    f"ported TYPEs: {sorted(_BACKENDS)}")
+            if type_name not in _BACKENDS:
                 raise StorageError(f"Storage type {type_name!r} is not registered "
-                                   f"(available: {sorted(BACKENDS)})")
-            client = self._clients[source_name] = BACKENDS[type_name](config)
+                                   f"(available: {sorted(_BACKENDS)})")
+            client = self._clients[source_name] = _BACKENDS[type_name](config)
             return client
 
     def _repo_client(self, repo: str) -> BaseStorageClient:

@@ -66,6 +66,12 @@ class _Connection:
     is bounded regardless of thread churn. ``:memory:`` databases use a
     single shared connection (a second connection would see a different,
     empty database).
+
+    The pool belongs to the process that made it. A forked child (the
+    parallel evaluation grid's eval workers) starts a pool of its own at
+    its first borrow, because sqlite forbids using a connection across
+    ``fork``; the parent's connections are kept, unused and open, so
+    that closing them cannot touch the parent's locks.
     """
 
     POOL_SIZE = 8
@@ -79,6 +85,8 @@ class _Connection:
         self._created = 0
         self._created_lock = threading.Lock()
         self._max = 1 if path == ":memory:" else self.POOL_SIZE
+        self._pid = os.getpid()
+        self._inherited: list = []
 
     def _new_conn(self) -> sqlite3.Connection:
         # check_same_thread=False: connections move between borrowing
@@ -89,10 +97,23 @@ class _Connection:
             conn.execute("PRAGMA synchronous=NORMAL")
         return conn
 
+    def _after_fork(self) -> None:
+        with self._created_lock:
+            if self._pid == os.getpid():
+                return
+            self._pid = os.getpid()
+            if self.path == ":memory:":
+                return  # the child's copy of the in-process database
+            self._inherited.append(self._pool)
+            self._pool = queue.Queue()
+            self._created = 0
+
     @contextmanager
     def _borrow(self):
         if self._closed:
             raise sqlite3.ProgrammingError("storage connection is closed")
+        if self._pid != os.getpid():
+            self._after_fork()
         conn: sqlite3.Connection | None = None
         try:
             conn = self._pool.get_nowait()

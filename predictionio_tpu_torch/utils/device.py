@@ -3,6 +3,11 @@
 The default is the card: ``resolve_device()`` gives ``cuda``, and the
 CPU is used only when the caller asks for it (the tests do). A missing
 card raises instead of quietly running on the CPU.
+
+Whether a card is present is asked of NVML (``torch.cuda.device_count``),
+not of the CUDA runtime, so resolving the device does not initialize
+CUDA in this process: a process that forks eval workers onto the card
+(``experiment/grid.py``) must not have initialized CUDA itself.
 """
 
 from __future__ import annotations
@@ -16,11 +21,11 @@ import torch
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` → ``cuda``. Raises RuntimeError when CUDA is asked for
-    and no card is present."""
+    and no card is present; initializes no CUDA context."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and torch.cuda.device_count() == 0:
         raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
+            "CUDA was requested but torch.cuda.device_count() is 0; "
             "pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")

@@ -7,36 +7,42 @@ instance as EVALCOMPLETED. A raising ``batch_eval`` or evaluator leaves
 the instance FAILED, with the error, and re-raises; a result marked
 ``no_save`` leaves it at INIT.
 
-Not ported: the parallel grid (``parallel > 1`` or ``PIO_EVAL_PARALLEL``
-raises, naming ROADMAP.md queue 1 item 17; there is no quiet fall back
-to the sequential path), and the JAX package's counter of sequentially
-evaluated grid points, an observability metric that comes with the
-support layers of ROADMAP.md queue 1 item 12.
+``parallel > 1`` (``pio eval --parallel N`` / ``PIO_EVAL_PARALLEL``)
+fans the grid points of a ``MetricEvaluator`` over forked eval worker
+processes (``experiment/grid.py``) with per-point fault isolation,
+streaming each point into the instance row as it lands: the row reads
+``EVALUATING`` with the partial grid in ``evaluator_results_json``
+mid-run. Another evaluator takes the sequential path with a warning, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 from datetime import datetime, timezone
 from typing import Any
 
-from predictionio_tpu_torch.controller.engine import _resolve_attr
 from predictionio_tpu_torch.controller.evaluation import (
     BaseEvaluatorResult,
     EngineParamsGenerator,
     Evaluation,
+    MetricEvaluator,
+)
+from predictionio_tpu_torch.experiment.grid import (
+    count_sequential_points,
+    partial_grid_doc,
+    result_from_points,
+    run_parallel_grid,
 )
 from predictionio_tpu_torch.storage.base import EvaluationInstance, EvaluationInstances
 from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.utils.reflection import resolve_attr
 from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
 
 logger = logging.getLogger(__name__)
-
-#: the ROADMAP.md item that ports the parallel grid (the JAX package's
-#: ``experiment/grid.py``)
-PARALLEL_ITEM = "ROADMAP.md queue 1 item 17"
 
 
 def _now() -> datetime:
@@ -46,7 +52,7 @@ def _now() -> datetime:
 def resolve_object(spec: str) -> Any:
     """"pkg.module.Obj" or "pkg.module:Obj" → the object; a class is
     instantiated with no arguments."""
-    obj = _resolve_attr(spec)
+    obj = resolve_attr(spec)
     if isinstance(obj, type):
         obj = obj()
     return obj
@@ -86,11 +92,9 @@ def run_evaluation(
     ``ctx`` (default: one on the card with ``workflow_params`` over that
     storage) carries the device the grid trains and predicts on and the
     workflow params, whose ``batch`` the instance records. ``parallel``
-    above 1 raises before anything is recorded."""
-    if resolve_parallel(parallel) > 1:
-        raise NotImplementedError(
-            "the parallel evaluation grid is not ported yet (the JAX package's "
-            f"experiment/grid.py): {PARALLEL_ITEM}; run with parallel=1")
+    above 1 fans the grid points over that many forked eval worker
+    processes (``None`` reads ``PIO_EVAL_PARALLEL``); on the card, this
+    process must not have initialized CUDA (``experiment/grid.py``)."""
     if isinstance(evaluation, str):
         evaluation = resolve_object(evaluation)
     if isinstance(engine_params_generator, str):
@@ -114,10 +118,22 @@ def run_evaluation(
     ))
     logger.info("evaluation instance %s: INIT", instance_id)
 
+    parallel = resolve_parallel(parallel)
     try:
         engine, evaluator = evaluation.engine_evaluator
-        engine_eval_data_set = engine.batch_eval(ctx, engine_params_generator.engine_params_list)
-        result = evaluator.evaluate(ctx, evaluation, engine_eval_data_set)
+        params_list = engine_params_generator.engine_params_list
+        if parallel > 1 and isinstance(evaluator, MetricEvaluator):
+            result = _run_parallel(evaluation, evaluator, params_list, ctx, parallel,
+                                   instances, instance_id)
+        else:
+            if parallel > 1:
+                logger.warning(
+                    "--parallel %d ignored: %s is not a MetricEvaluator (children ship "
+                    "plain scores, not EvalDataSets): falling back to the sequential path",
+                    parallel, type(evaluator).__name__)
+            engine_eval_data_set = engine.batch_eval(ctx, params_list)
+            result = evaluator.evaluate(ctx, evaluation, engine_eval_data_set)
+            count_sequential_points(len(params_list))
     except Exception as exc:
         _persist_failed(instances, instance_id, exc)
         raise
@@ -135,6 +151,36 @@ def run_evaluation(
     ))
     logger.info("evaluation instance %s: EVALCOMPLETED: %s", instance_id, result.to_one_liner())
     return EvalOutcome(instance_id, "EVALCOMPLETED", result)
+
+
+def _run_parallel(evaluation, evaluator, params_list, ctx, parallel, instances,
+                  instance_id):
+    """The parallel grid: stream each finished point into the instance
+    row (status EVALUATING: the partial grid is visible mid-run), then
+    reassemble the full MetricEvaluatorResult, whose JSON gains the
+    per-point ledger."""
+    total = len(params_list)
+    seen = []
+
+    def _stream(point, done, _total):
+        seen.append(point)
+        instances.update(dataclasses.replace(
+            instances.get(instance_id),
+            status="EVALUATING",
+            evaluator_results_json=partial_grid_doc(seen, total)))
+
+    logger.info("evaluation instance %s: EVALUATING (%d grid points over %d eval workers)",
+                instance_id, total, parallel)
+    points = run_parallel_grid(evaluation, evaluator, params_list, ctx, parallel,
+                               on_point=_stream)
+    result = result_from_points(evaluator, params_list, points, evaluation=evaluation)
+    # the final JSON keeps the MetricEvaluatorResult contract
+    # (metricHeader/bestIdx/engineParamsScores) and adds the per-point
+    # status ledger
+    doc = json.loads(result.to_json())
+    doc["points"] = [p.to_doc() for p in points]
+    result.to_json = lambda: json.dumps(doc, indent=2)  # type: ignore[method-assign]
+    return result
 
 
 def _persist_failed(instances: EvaluationInstances, instance_id: str, exc: Exception) -> None:

@@ -321,7 +321,7 @@ class TestAlsTrain:
 
     def test_default_device_is_cuda(self, monkeypatch):
         _, pc = _coo()
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         with pytest.raises(RuntimeError, match="CUDA"):
             pals.als_train(pc, 4, iterations=1)
 

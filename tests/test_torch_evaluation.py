@@ -46,7 +46,6 @@ from predictionio_tpu_torch.controller.evaluation import best_json_variant
 from predictionio_tpu_torch.storage.registry import memory_storage
 from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
 from predictionio_tpu_torch.workflow.evaluation import (
-    PARALLEL_ITEM,
     resolve_parallel,
     run_evaluation,
 )
@@ -467,16 +466,29 @@ class TestRunEvaluation:
         assert inst.status == "INIT" and inst.evaluator_results == ""
 
     @pytest.mark.parametrize("parallel, env", [(2, None), (None, "2"), (8, "1")])
-    def test_parallel_raises_naming_its_item(self, parallel, env, monkeypatch):
+    def test_parallel_runs_the_grid_in_workers(self, parallel, env, monkeypatch):
+        """``parallel`` (else ``PIO_EVAL_PARALLEL``) above 1 forks the
+        grid's points into eval workers: one instance, the scores and best
+        point of the sequential run, and the per-point ledger in grid
+        order."""
         if env is None:
             monkeypatch.delenv("PIO_EVAL_PARALLEL", raising=False)
         else:
             monkeypatch.setenv("PIO_EVAL_PARALLEL", env)
         ctx = _ctx()
-        with pytest.raises(NotImplementedError, match=PARALLEL_ITEM):
-            run_evaluation(SampleEvaluation(), EngineParamsGenerator(_grid([1])), ctx=ctx,
-                           parallel=parallel)
-        assert ctx.storage.get_meta_data_evaluation_instances().get_all() == []
+        outcome = run_evaluation(SampleEvaluation(), EngineParamsGenerator(_grid([2, 3, 1])),
+                                 ctx=ctx, parallel=parallel)
+        sequential = run_evaluation(SampleEvaluation(), EngineParamsGenerator(_grid([2, 3, 1])),
+                                    ctx=_ctx(), parallel=1)
+        assert outcome.status == "EVALCOMPLETED" and outcome.result.best_idx == 1
+        assert ([ms.score for _, ms in outcome.result.engine_params_scores]
+                == [ms.score for _, ms in sequential.result.engine_params_scores]
+                == pytest.approx([2.0, 3.0, 1.0]))
+        (inst,) = ctx.storage.get_meta_data_evaluation_instances().get_all()
+        doc = json.loads(inst.evaluator_results_json)
+        assert inst.status == "EVALCOMPLETED" and doc["bestIdx"] == 1
+        assert [(p["idx"], p["status"]) for p in doc["points"]] == [
+            (0, "COMPLETED"), (1, "COMPLETED"), (2, "COMPLETED")]
 
     @pytest.mark.parametrize("parallel, env, want", [
         (None, None, 1), (3, "9", 3), (0, None, 1), (None, "4", 4), (None, "x", 1),

@@ -263,7 +263,7 @@ class TestWrapperContract:
             flash_ops.flash_attention(q, q, q, kv_mask=torch.ones((1, 8), device="meta"))
 
     def test_cuda_request_without_card_raises(self, monkeypatch):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device()
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -167,10 +167,12 @@ class TestALSModel:
         if got is not None:
             np.testing.assert_array_equal(got, want)
 
-    def test_later_slices_raise_and_brute_is_the_retrieval(self):
-        """Brute force is the default retrieval; ANN (ROADMAP.md queue 1
-        item 10) and the online overlay (item 11) are ported now and
-        covered by tests/test_torch_ann.py and tests/test_torch_online.py."""
+    def test_retrieval_modes_and_an_empty_online_overlay(self):
+        """Brute force is the retrieval until ``configure_retrieval("ann")``
+        builds the same IVF index as JAX's model, whose rankings then
+        equal JAX's; with no online overlay no user takes the online path
+        (tests/test_torch_ann.py and tests/test_torch_online.py cover
+        both planes)."""
         port, jax_model = _models()
         port.configure_retrieval("brute")
         assert port.retrieval == "brute" and not port.ann_enabled
@@ -260,7 +262,7 @@ class TestPersistence:
     def test_load_defaults_to_cuda(self, tmp_path, monkeypatch):
         port, _ = _models()
         port.save(str(tmp_path))
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         with pytest.raises(RuntimeError, match="CUDA"):
             pmodels.ALSModel.load(str(tmp_path))
 

@@ -196,7 +196,7 @@ class TestParams:
             dataclasses.replace(tcfg, remat=True)
 
     def test_module_defaults_to_cuda(self, monkeypatch):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         _, tcfg = _configs(jnp.float32, torch.float32)
         with pytest.raises(RuntimeError, match="CUDA"):
             seqrec.SeqRec(tcfg)

@@ -227,7 +227,7 @@ class TestTrainVsJax:
         assert len(run.losses) == 3
 
     def test_train_defaults_to_cuda(self, monkeypatch):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         _, tcfg = _configs("f32")
         with pytest.raises(RuntimeError, match="CUDA"):
             seqrec.train(_sequences(), tcfg, epochs=1)

@@ -236,7 +236,7 @@ class TestRunTrainEndToEnd:
         assert deployed.models[0].train_run.losses and not any(tmp_path.iterdir())
 
     def test_context_defaults_to_cuda(self, monkeypatch):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
         with pytest.raises(RuntimeError, match="CUDA"):
             EngineContext(storage=memory_storage())
         assert EngineContext(device="cpu").device == torch.device("cpu")
