@@ -228,17 +228,37 @@ Phases, in order; any failure exits non-zero:
    Covertype-shape rows as categorical strings, the counts exactly
    against NumPy bincount; each device program's CUDA-event ms, device
    ms and launches;
-26. a `kernels` JSON line, then the result line
+26. the observability layers over 16a's store: (a) `pio train --profile
+   --profile-dir --profile-out`: the `pio.train_report.v1` report with
+   the four stages, FLOPs within 10 % of `seqrec_train_flops` (the
+   model's matrix products, counted from its shapes), 0 < MFU <= 1
+   against the table's 989e12, peak device bytes below the card's
+   memory and a Chrome trace; (b) that instance behind `pio deploy
+   --tracing --batching --batch-max 64`: 64 queries over 8 closed-loop
+   clients, each answer with `X-PIO-Trace-Id`, every trace on
+   `/traces.json` with the JAX package's spans in its order, each
+   inside its root, and the launches 4 × popcount of the batches; the
+   same in an in-process server, where each flash launch's host time
+   falls inside a `batcher.device_dispatch` span and its CUDA event has
+   completed when `query_batch` returns; (c) `/metrics` parsed as
+   Prometheus text: the device gauges (in use > 0, peak >= it, limit =
+   total memory), `pio_serving_recompile_total` 0, the `compile` block
+   of `/stats.json`; (d) the tracing overhead at C = 8 against the same
+   deploy with `--no-tracing`: p50, p99 and queries/s over three paired
+   rounds, order alternated; (e) `pio eventserver --tracing`: one batch
+   of 50 events, its `parse → validate → insert_batch` trace behind the
+   key, the ingest families on `/metrics`;
+27. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
-`--grid-only` and `--e2-only` run phases 9-13, 14-15, 16, 17, 18, 19-21,
-22, 23, 24 and 25 alone (17 over 16a's instance and a random
-ML-20M-shape ALS model, 18 and 24 over 16a's import, 22 over a random
-ML-20M-shape model, 23 over 16b's import and train) and print no result
-line. Phases 22, 23 and 25 launch no flash kernel. Exits non-zero,
-printing no result, when there is no card.
+`--grid-only`, `--e2-only` and `--obs-only` run phases 9-13, 14-15, 16,
+17, 18, 19-21, 22, 23, 24, 25 and 26 alone (17 over 16a's instance and
+a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's import, 22 over
+a random ML-20M-shape model, 23 over 16b's import and train) and print
+no result line. Phases 22, 23 and 25 launch no flash kernel. Exits
+non-zero, printing no result, when there is no card.
 """
 
 from __future__ import annotations
@@ -279,6 +299,7 @@ from predictionio_tpu_torch.e2 import engine as e2
 from predictionio_tpu_torch.e2 import quality
 from predictionio_tpu_torch.models import logreg, naive_bayes, random_forest, seqrec
 from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
+from predictionio_tpu_torch.obs.device import TrainProfiler
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import ann as ann_ops
@@ -442,6 +463,37 @@ def attention_pairs(B, S, causal, kv_mask=None) -> int:
                if causal else torch.full((S,), float(S), device=real.device,
                                          dtype=torch.float64))
     return int((real @ per_key).sum().item())
+
+
+def seqrec_train_flops(cfg: seqrec.SeqRecConfig, n_sequences: int, batch_size: int,
+                       epochs: int) -> int:
+    """The matrix-product FLOPs that ``seqrec.train`` executes, from the
+    model's shapes: per step of B rows × S positions (T = B·S tokens),
+    each layer's QKV, output and MLP projections (8·T·d² + 4·T·d·h),
+    its attention products over the full (S, S) logits on either route
+    (QK^T and PV, 4·B·S²·d), and the tied logits (2·T·d·V); the backward
+    pass runs two products per forward product. Inside the backward pass
+    ``torch.utils.checkpoint`` re-runs a region only up to the last input
+    its backward needs (its early stop): remat re-runs each block but its
+    MLP output product, the blockwise route (S ≥ 4096) each tile's QK^T,
+    and a sequence-tiled loss the logits."""
+    S, d, V = cfg.max_len, cfg.d_model, cfg.vocab
+    h = cfg.mlp_mult * d
+    B = min(batch_size, n_sequences)
+    steps = epochs * -(-n_sequences // B)
+    T = B * S
+    attention = 4 * B * S * S * d
+    layer = 8 * T * d * d + 4 * T * d * h + attention
+    logits = 2 * T * d * V
+    forward = cfg.n_layers * layer + logits
+    step = 3 * forward
+    if cfg.remat:
+        step += cfg.n_layers * (layer - 2 * T * h * d)
+    if seqrec.train_attention(S) is not seqrec.full_attention:
+        step += cfg.n_layers * attention // 2
+    if seqrec._pick_loss_tile(B, S, V) is not None:
+        step += logits
+    return steps * step
 
 
 def attention_bound_ms(B, H, S, D, dtype, causal, kv_mask=None) -> tuple[float, str]:
@@ -2107,13 +2159,19 @@ def pio_sessionrec_instance(pio: _Pio) -> tuple[str, str, float]:
     new`, `pio import`, `pio train`. Returns (instance id, engine.json
     path, import seconds)."""
     import_s = import_sessions(pio)
+    engine_json = sessionrec_engine_json(pio)
+    return pio.train("pio-sess", engine_json), engine_json, import_s
+
+
+def sessionrec_engine_json(pio: _Pio) -> str:
+    """Phase 16a's engine.json (SessApp, PIO_SESSION_TRAIN); its path."""
     engine_json = os.path.join(pio.base, "sessionrec.json")
     with open(engine_json, "w") as f:
         json.dump({"id": "sessionrec", "engineFactory":
                    "predictionio_tpu_torch.templates.sessionrec.engine_factory",
                    "datasource": {"params": {"app_name": "SessApp"}},
                    "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}]}, f)
-    return pio.train("pio-sess", engine_json), engine_json, import_s
+    return engine_json
 
 
 def phase_pio_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
@@ -2398,7 +2456,8 @@ def _closed_loop(port: int, bodies: list[dict], clients: int,
                  headers: dict | None = None) -> tuple[list[tuple], float]:
     """``clients`` threads, each on its own keep-alive connection, send
     the next unsent body as soon as their last answer is in. Returns
-    ((status, doc, ms, Retry-After) per body, wall seconds)."""
+    ((status, doc, ms, Retry-After, X-PIO-Trace-Id) per body, wall
+    seconds)."""
     import http.client
     import itertools
     import threading
@@ -2417,10 +2476,11 @@ def _closed_loop(port: int, bodies: list[dict], clients: int,
                     resp = conn.getresponse()
                     doc = json.loads(resp.read() or b"{}")
                     results[i] = (resp.status, doc, (time.perf_counter() - t0) * 1e3,
-                                  resp.getheader("Retry-After"))
+                                  resp.getheader("Retry-After"),
+                                  resp.getheader("X-PIO-Trace-Id"))
                 except (OSError, http.client.HTTPException) as e:
                     results[i] = (0, {"message": repr(e)}, (time.perf_counter() - t0) * 1e3,
-                                  None)
+                                  None, None)
                     conn.close()
                     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         finally:
@@ -4847,6 +4907,375 @@ def phase_e2() -> None:
     log(f"[e2] phase 25 took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the observability layers
+# ---------------------------------------------------------------------------
+
+#: phase 26: 64 distinct queries of 16a's stored users over 8 closed-loop
+#: clients; three paired rounds traced / untraced (order alternated); one
+#: batch of 50 events through the event server
+OBS_QUERIES, OBS_CLIENTS, OBS_ROUNDS, OBS_EVENTS = 64, 8, 3, 50
+#: FLOPs counted by the profiler against seqrec_train_flops
+OBS_FLOPS_RTOL = 0.10
+#: queries of the in-process launch check (CUDA events around each launch)
+OBS_LAUNCH_QUERIES = 16
+#: the JAX package's span order of a batched /queries.json
+OBS_ENGINE_SPANS = ["parse", "bind", "codec_key", "batcher.queue_wait",
+                    "batcher.device_dispatch", "encode"]
+OBS_EVENT_SPANS = ["parse", "validate", "insert_batch"]
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})?'
+    r' (\S+)$')
+
+
+def _request(port: int, method: str, path: str, body=None) -> tuple[int, bytes, dict]:
+    """One request on a fresh connection: (status, raw body, headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, data, {"Content-Type": "application/json"} if data else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def parse_prometheus(text: str) -> dict[str, tuple[str, list[tuple[str, float]]]]:
+    """``{family: (type, [(sample name + labels, value)])}`` of a text
+    exposition; fails on a line that is not a comment or a sample, or a
+    sample of a family with no ``# TYPE``."""
+    families: dict[str, tuple[str, list]] = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            families[name] = (kind, [])
+            continue
+        if not line or line.startswith("# HELP "):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            fail(f"[obs-metrics] not a Prometheus sample line: {line!r}")
+        name = m.group(1)
+        family = next((f for f in (name, re.sub(r"_(bucket|sum|count)$", "", name))
+                       if f in families), None)
+        if family is None:
+            fail(f"[obs-metrics] sample {name} of a family with no # TYPE")
+        families[family][1].append((name + (m.group(2) or ""), float(m.group(3))))
+    return families
+
+
+def _obs_traces(port: int, trace_ids: set[str], path: str = "/traces.json") -> list[dict]:
+    """The traces of ``trace_ids`` from the server's ring (a handler
+    records its trace after writing the response, so this polls)."""
+    deadline = time.monotonic() + 10
+    while True:
+        status, raw, _ = _request(port, "GET", path)
+        if status != 200:
+            fail(f"[obs] GET {path} answered {status}: {raw[:300]}")
+        traces = [t for t in json.loads(raw)["traces"] if t["traceId"] in trace_ids]
+        if len(traces) == len(trace_ids) or time.monotonic() > deadline:
+            return traces
+        time.sleep(0.02)
+
+
+def _check_spans(tag: str, traces: list[dict], want: list[str]) -> None:
+    """Every trace's spans in the JAX package's order, each inside its root."""
+    for t in traces:
+        names = [s["name"] for s in t["spans"]]
+        outside = [s["name"] for s in t["spans"]
+                   if s["startMs"] < 0 or s["startMs"] + s["durationMs"] > t["durationMs"] + 2e-3]
+        if names != want or outside:
+            fail(f"[{tag}] trace {t['traceId']}: spans {names} (want {want}); outside the "
+                 f"root: {outside}")
+
+
+def _dispatch_batches(traces: list[dict]) -> int:
+    """Distinct batches behind the traces' batcher.device_dispatch spans:
+    one batch's entries share the span's duration and (to within the
+    clocks' sub-ms skew) its start."""
+    batches: list[tuple[float, float]] = []
+    for t in traces:
+        for s in t["spans"]:
+            if s["name"] == "batcher.device_dispatch":
+                start = t["startTime"] * 1e3 + s["startMs"]
+                if not any(d == s["durationMs"] and abs(b - start) < 1.0 for b, d in batches):
+                    batches.append((start, s["durationMs"]))
+    return len(batches)
+
+
+def _obs_train(pio: _Pio, engine_json: str) -> tuple[str, dict]:
+    """26a: `pio train --profile` on 16a's store; (instance id, report)."""
+    prof_dir = os.path.join(pio.base, "obs-profile")
+    report_path = os.path.join(pio.base, "obs-train-report.json")
+    out, seconds = pio.run("obs-train", "train", "--engine-json", engine_json, "--device",
+                           DEVICE, "--profile", "--profile-dir", prof_dir,
+                           "--profile-out", report_path)
+    found = re.search(r"Training finished: engine instance (\w+) \(COMPLETED\)", out)
+    profile = re.search(r"\[INFO\] Train profile: (.*)", out)
+    if found is None or profile is None or "[INFO] Stage times: " not in out:
+        fail(f"[obs-train] pio train --profile printed no profile: {out[-2000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    log(f"[obs-train] pio train --profile: {seconds:.3f}s; {profile.group(1)}")
+    log(f"[obs-train] {re.search(r'Stage times: .*', out).group(0)}")
+    trace_file = os.path.join(prof_dir, TrainProfiler.TRACE_FILE)
+    trace_mb = os.path.getsize(trace_file) / 2**20 if os.path.exists(trace_file) else 0.0
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=found.group(1),
+                                                          device=DEVICE))
+    cfg = deployed.models[0].cfg
+    del deployed
+    want = seqrec_train_flops(cfg, PIO_SESSION[0], PIO_SESSION_TRAIN["batch_size"],
+                              PIO_SESSION_TRAIN["epochs"])
+    flops, mfu = report["flops"]["executed"], report["mfu"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = (report["hbm"] or {}).get("peakBytes")
+    train = report["stages"].get("train", {})
+    train_mfu = (flops / train["wallSeconds"] / PEAK_FLOPS[torch.bfloat16]
+                 if flops and train else None)
+    log(f"[obs-train] report {report['schema']}: device {report['deviceKind']!r}, stages "
+        f"{ {k: v['wallSeconds'] for k, v in report['stages'].items()} }; FLOPs counted "
+        f"{flops:.6g} against the analytic {want:.6g} (vocab {cfg.vocab}, "
+        f"{PIO_SESSION[0]} sequences of {cfg.max_len}, batch "
+        f"{PIO_SESSION_TRAIN['batch_size']}): ratio {(flops or 0) / want:.6f}; MFU {mfu} "
+        f"({report['mfuReason']}) against {report['flops']['peakPerChip']} "
+        f"({report['flops']['peakSource']}) over the run's {report['wallSeconds']}s; over the "
+        f"train stage's {train.get('wallSeconds')}s alone {train_mfu}; peak device bytes "
+        f"{peak} of {total}; compiles {report['compile']['totalCompiles']}; Chrome trace "
+        f"{trace_mb:.1f} MiB")
+    if (report["schema"] != "pio.train_report.v1"
+            or not {"read", "prepare", "train", "persist"} <= set(report["stages"])
+            or not flops or abs(flops / want - 1) > OBS_FLOPS_RTOL
+            or not isinstance(mfu, float) or not 0 < mfu <= 1
+            or report["flops"]["peakSource"] != "table"
+            or report["flops"]["peakPerChip"] != PEAK_FLOPS[torch.bfloat16]
+            or peak is None or not 0 < peak < total or trace_mb <= 0):
+        fail(f"[obs-train] the train report fails its checks: {json.dumps(report)[:3000]}")
+    return found.group(1), report
+
+
+def _obs_launches_in_dispatch(pio: _Pio, instance_id: str, bodies: list[dict]) -> int:
+    """26b': the instance behind an in-process traced, batched server:
+    each flash launch's host time falls inside a batcher.device_dispatch
+    span, and the CUDA event recorded after it has completed when
+    query_batch returns (before the span ends). Returns the launches."""
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    srv = create_engine_server(storage, ServerConfig(
+        ip="127.0.0.1", port=0, engine_instance_id=instance_id, device=DEVICE,
+        batching=True, batch_max=LOAD_BATCH_MAX, tracing=True)).start()
+    launches: list[tuple[float, torch.cuda.Event]] = []
+    windows: list[tuple[int, int, bool]] = []
+    traces = []
+    real_flash, real_batch = seqrec.flash_attention, srv.service.deployed.query_batch
+    real_record = srv.service.trace_log.record
+
+    def flash(q, k, v, **kw):
+        t = time.perf_counter()
+        out = real_flash(q, k, v, **kw)
+        ev = torch.cuda.Event()
+        ev.record()
+        launches.append((t, ev))
+        return out
+
+    def query_batch(queries):
+        n0 = len(launches)
+        out = real_batch(queries)
+        windows.append((n0, len(launches), all(ev.query() for _, ev in launches[n0:])))
+        return out
+
+    def record(trace):
+        traces.append(trace)
+        real_record(trace)
+
+    seqrec.flash_attention = flash
+    srv.service.deployed.query_batch = query_batch
+    srv.service.trace_log.record = record
+    try:
+        _closed_loop(srv.port, bodies, OBS_CLIENTS)          # warm
+        for kept in (traces, launches, windows):
+            kept.clear()
+        flash_ops.LAUNCHES = 0
+        results, _ = _closed_loop(srv.port, bodies, OBS_CLIENTS)
+        counted = flash_ops.LAUNCHES
+    finally:
+        seqrec.flash_attention = real_flash
+        srv.stop()
+    deadline = time.monotonic() + 10
+    while len(traces) < len(bodies) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    dispatch = [(tr.start_perf + off, tr.start_perf + off + dur)
+                for tr in traces for name, _, _, off, dur in tr.spans()
+                if name == "batcher.device_dispatch"]
+    inside = sum(any(a <= t <= b for a, b in dispatch) for t, _ in launches)
+    done = all(ok for _, _, ok in windows)
+    log(f"[obs-launch] in-process traced batched server, {len(bodies)} queries at "
+        f"C={OBS_CLIENTS}: {len(launches)} flash launches in {len(windows)} dispatches "
+        f"(LAUNCHES counted {counted}); {inside} of {len(launches)} launched inside a "
+        f"batcher.device_dispatch span; every launch's CUDA event complete when query_batch "
+        f"returned (inside the span): {done}")
+    if (any(r[0] != 200 for r in results) or not launches or inside != len(launches)
+            or not done or counted != len(launches)):
+        fail("[obs-launch] a flash launch fell outside batcher.device_dispatch, or ran past it")
+    return counted
+
+
+def _obs_overhead(ports: dict[str, int], bodies: list[dict]) -> dict:
+    """26d: the same deploy traced and untraced at C = OBS_CLIENTS:
+    OBS_ROUNDS paired rounds, the order alternated."""
+    rows: dict[str, list] = {"tracing": [], "no-tracing": []}
+    for mode in rows:                                        # warm both
+        _closed_loop(ports[mode], bodies[:OBS_CLIENTS], OBS_CLIENTS)
+    for r in range(OBS_ROUNDS):
+        order = ("tracing", "no-tracing") if r % 2 == 0 else ("no-tracing", "tracing")
+        for mode in order:
+            before = _get(ports[mode], "/stats.json")[1]
+            results, wall = _closed_loop(ports[mode], bodies, OBS_CLIENTS)
+            after = _get(ports[mode], "/stats.json")[1]
+            if any(x[0] != 200 for x in results):
+                fail(f"[obs-overhead] {mode}: a query failed")
+            ms = [x[2] for x in results]
+            rows[mode].append((_quantile(ms, 0.5), _quantile(ms, 0.99), len(bodies) / wall))
+            # a batch of n runs popcount(n) forwards: the batch sizes the
+            # adaptive policy formed move queries/s as much as any span
+            hist = _hist_delta(after, before)
+            (n0, d0), (n1, d1) = (_sum_ms(before, "deviceDispatch"),
+                                  _sum_ms(after, "deviceDispatch"))
+            log(f"[obs-overhead] round {r} {mode}: p50_ms={rows[mode][-1][0]:.3f} "
+                f"p99_ms={rows[mode][-1][1]:.3f} qps={rows[mode][-1][2]:.2f} batch_hist={hist} "
+                f"forwards={sum(c * bin(n).count('1') for n, c in hist.items())} "
+                f"dispatch_ms_per_batch={(d1 - d0) / max(1, n1 - n0):.3f}")
+    med = {mode: [statistics.median(x[i] for x in v) for i in range(3)]
+           for mode, v in rows.items()}
+    (tp50, tp99, tqps), (up50, up99, uqps) = med["tracing"], med["no-tracing"]
+    out = dict(p50_pct=(tp50 / up50 - 1) * 100, p99_pct=(tp99 / up99 - 1) * 100,
+               qps_pct=(1 - tqps / uqps) * 100)
+    log(f"[obs-overhead] tracing overhead at C={OBS_CLIENTS}, medians of {OBS_ROUNDS} paired "
+        f"rounds: p50 {up50:.3f} -> {tp50:.3f} ms ({out['p50_pct']:+.2f}%), p99 {up99:.3f} -> "
+        f"{tp99:.3f} ms ({out['p99_pct']:+.2f}%), qps {uqps:.2f} -> {tqps:.2f} "
+        f"({out['qps_pct']:+.2f}% fewer)")
+    return out
+
+
+def _obs_metrics(port: int, before: dict) -> int:
+    """26c: /metrics of the traced deploy; /stats.json's compile block.
+    Returns the kernel launches since ``before`` (its GET /)."""
+    status, raw, headers = _request(port, "GET", "/metrics")
+    if status != 200 or not headers.get("Content-Type", "").startswith("text/plain"):
+        fail(f"[obs-metrics] GET /metrics answered {status} {headers}")
+    families = parse_prometheus(raw.decode())
+
+    def value(name: str) -> float:
+        samples = families.get(name, ("", []))[1]
+        if len(samples) != 1:
+            fail(f"[obs-metrics] {name}: expected one sample, got {samples}")
+        return samples[0][1]
+
+    in_use, peak = value("pio_device_bytes_in_use"), value("pio_device_peak_bytes_in_use")
+    limit, recompiles = value("pio_device_bytes_limit"), value("pio_serving_recompile_total")
+    total = torch.cuda.get_device_properties(0).total_memory
+    stats = _get(port, "/stats.json")[1]
+    after = _status(port)
+    log(f"[obs-metrics] GET /metrics: {len(families)} families, "
+        f"{sum(len(v[1]) for v in families.values())} samples, parsed as Prometheus text; "
+        f"pio_device_bytes_in_use={in_use:.0f} pio_device_peak_bytes_in_use={peak:.0f} "
+        f"pio_device_bytes_limit={limit:.0f} (total_memory {total}); "
+        f"pio_serving_recompile_total={recompiles:.0f}; /stats.json compile {stats['compile']}")
+    if (not 0 < in_use <= peak or limit != total or recompiles != 0
+            or stats["compile"]["servingRecompiles"] != 0
+            or not stats["compile"]["warmupComplete"]):
+        fail("[obs-metrics] device gauges, the recompile counter or the compile block wrong")
+    return (after["kernelLaunches"]["flash_attention"]
+            - before["kernelLaunches"]["flash_attention"])
+
+
+def _obs_eventserver(pio: _Pio) -> None:
+    """26e: `pio eventserver --tracing`, one batch of OBS_EVENTS events:
+    its trace behind the key, the ingest families on /metrics."""
+    out, _ = pio.run("obs-events", "app", "new", "obs")
+    key = re.search(r"Access Key: (\S+)", out).group(1)
+    proc, port, start_s = pio.eventserver("obs-events", "--tracing")
+    try:
+        docs = [doc for doc, _ in zip(_session_docs(range(PIO_SESSION[0])), range(OBS_EVENTS))]
+        status, raw, headers = _request(port, "POST", f"/batch/events.json?accessKey={key}",
+                                        docs)
+        statuses = {r["status"] for r in json.loads(raw)} if status == 200 else set()
+        trace_id = headers.get("X-PIO-Trace-Id")
+        if statuses != {201} or not trace_id:
+            fail(f"[obs-events] the batch answered {status} {raw[:300]} {headers}")
+        if _request(port, "GET", "/traces.json")[0] != 401:
+            fail("[obs-events] /traces.json answered without the access key")
+        traces = _obs_traces(port, {trace_id}, f"/traces.json?accessKey={key}")
+        _check_spans("obs-events", traces, OBS_EVENT_SPANS)
+        families = parse_prometheus(_request(port, "GET", "/metrics")[1].decode())
+    finally:
+        _stop(proc)
+    ingest = {k: v for k, v in families.items() if k.startswith("pio_ingest_")}
+    events = ingest.get("pio_ingest_events_total", ("", [("", 0.0)]))[1][0][1]
+    log(f"[obs-events] pio eventserver --tracing: listening after {start_s:.3f}s; "
+        f"{OBS_EVENTS} events in one batch, trace spans "
+        f"{[s['name'] for s in traces[0]['spans']]}; ingest families "
+        f"{sorted((k, v[0]) for k, v in ingest.items())}; pio_ingest_events_total={events:.0f}")
+    for name in ("pio_ingest_batches_total", "pio_ingest_events_total",
+                 "pio_ingest_batch_size", "pio_ingest_insert_seconds"):
+        if name not in ingest:
+            fail(f"[obs-events] /metrics lacks {name}")
+    if events < OBS_EVENTS:
+        fail(f"[obs-events] pio_ingest_events_total {events} < {OBS_EVENTS}")
+
+
+def phase_obs(pio: _Pio, engine_json: str) -> int:
+    """Phase 26 over 16a's store (SessApp imported); returns the flash
+    launches of its deploy processes and of its in-process server."""
+    t0 = time.perf_counter()
+    log_card()
+    instance_id, _ = _obs_train(pio, engine_json)
+    bodies = [{"user": f"u{u}", "num": 10 + u % 3} for u in range(OBS_QUERIES)]
+    procs, ports = {}, {}
+    try:
+        started = {mode: pio.start_deploy(f"obs-{mode}", engine_json, "--engine-instance-id",
+                                          instance_id, f"--{mode}", "--batching",
+                                          "--batch-max", str(LOAD_BATCH_MAX))
+                   for mode in ("tracing", "no-tracing")}
+        for mode, (proc, out_path, t_start) in started.items():
+            procs[mode], ports[mode], _ = pio.wait_listening(f"obs-{mode}", proc, out_path,
+                                                             t_start)
+        port = ports["tracing"]
+        before = _status(port)
+        results, wall = _closed_loop(port, bodies, OBS_CLIENTS)
+        ids = {r[4] for r in results}
+        if any(r[0] != 200 for r in results) or None in ids or len(ids) != len(bodies):
+            fail(f"[obs-serve] expected {len(bodies)} answers, each with its own "
+                 f"X-PIO-Trace-Id: {[r[:2] for r in results if r[0] != 200][:3]}")
+        traces = _obs_traces(port, ids)
+        if len(traces) != len(bodies):
+            fail(f"[obs-serve] /traces.json holds {len(traces)} of the {len(bodies)} traces")
+        _check_spans("obs-serve", traces, OBS_ENGINE_SPANS)
+        # the deploy answered these queries and no others
+        hist = _hist(_get(port, "/stats.json")[1])
+        layers = PIO_SESSION_TRAIN["n_layers"]
+        launches = _obs_metrics(port, before)
+        batches = _dispatch_batches(traces)
+        log(f"[obs-serve] pio deploy --tracing --batching: {len(bodies)} queries at "
+            f"C={OBS_CLIENTS} in {wall:.3f}s, every answer with X-PIO-Trace-Id; spans "
+            f"{OBS_ENGINE_SPANS} in every trace, each inside its root; batch histogram "
+            f"{hist} ({sum(hist.values())} dispatches, {batches} distinct "
+            f"batcher.device_dispatch spans); flash launches {launches} (4 x popcount: "
+            f"{_launches_for(hist, layers)})")
+        if launches != _launches_for(hist, layers) or batches != sum(hist.values()):
+            fail("[obs-serve] the deploy's launches or dispatch spans do not match its batches")
+        _obs_overhead(ports, bodies)
+    finally:
+        for proc in procs.values():
+            _stop(proc)
+    launches += _obs_launches_in_dispatch(pio, instance_id, bodies[:OBS_LAUNCH_QUERIES])
+    torch.cuda.empty_cache()
+    _obs_eventserver(pio)
+    log(f"[obs] phase 26 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -4892,6 +5321,13 @@ def run_phases(wall: float) -> None:
     if sys.argv[1:] == ["--e2-only"]:   # phase 25 alone
         log_card()
         phase_e2()
+        return
+    if sys.argv[1:] == ["--obs-only"]:   # phase 26 alone, over 16a's import
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            import_sessions(pio)
+            phase_obs(pio, sessionrec_engine_json(pio))
         return
     if sys.argv[1:] == ["--templates-only"]:   # phases 19-21 alone; no result line
         log_card()
@@ -4962,6 +5398,12 @@ def run_phases(wall: float) -> None:
         if grid_launches == 0:
             fail("the grid's workers never launched the flash_attention kernel")
         launches += grid_launches
+        # the launches of phase 26 happen in its `pio deploy` processes
+        # (their GET /) and in its in-process server (LAUNCHES)
+        obs_launches = phase_obs(pio, instance[1])
+        if obs_launches == 0:
+            fail("the traced deploys never launched the flash_attention kernel")
+        launches += obs_launches
     torch.cuda.empty_cache()
     phase_e2()
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")

@@ -16,7 +16,18 @@ Routes:
 - ``GET /healthz``; ``GET /readyz`` (a deployed model and reachable
   storage; 503 "reloading" during a ``/reload``);
 - ``GET /stats.json``: the batch-size histogram, the queue-wait and
-  device-dispatch histograms, the cache counters, resilience counters;
+  device-dispatch histograms, the cache counters, resilience counters,
+  and the build sentinel's ``compile`` block (``obs/compile.py``);
+- ``GET /metrics``: Prometheus text of the server's registry (serving,
+  resilience, server info, SLO burn rates and pressure, ANN mode, builds,
+  device memory, the last profiled train; the online plane's families
+  with ``--online``);
+- ``GET /traces.json``: the recent query traces (``obs/trace.py``) when
+  tracing is on (``ServerConfig.tracing``, else ``PIO_TRACE``): spans
+  ``parse → bind → codec_key → cache_lookup → (batcher.queue_wait,
+  batcher.device_dispatch | predict) → encode`` (and ``feedback``);
+  traced responses carry ``X-PIO-Trace-Id``, and an inbound
+  ``X-PIO-Trace-Id``/``X-PIO-Parent-Span`` pair is adopted;
 - ``GET /plugins.json``;
 - ``GET|POST /reload``: swap to the latest COMPLETED instance, then
   invalidate the cache and advance the model generation that fences the
@@ -52,13 +63,17 @@ Port-specific decisions:
 With ``ServerConfig.feedback`` every answer carries a ``prId`` (the
 query's own, else a new one) and the (query, prediction) pair is posted
 to the event server as a ``predict`` event of entity ``pio_pr``, on a
-daemon thread; a failed post is logged and never reaches the query.
+daemon thread, with the query's trace headers; a failed post is logged
+and never reaches the query.
 
-Left to later slices (ROADMAP.md queue 1): ``--workers``, the
-shared-memory cache, ``/drain`` and the online plane across workers
-(item 23); ``/metrics`` (the ANN and online collectors among them),
-``/traces.json``, the feedback post's trace headers and compile
-accounting (item 12).
+The first answered query marks serving warmup on the build sentinel: a
+kernel or native library built after it counts in
+``pio_serving_recompile_total``.
+
+Left to later slices (ROADMAP.md queue 1 item 23): ``--workers``, the
+shared-memory cache, ``/drain``, the online plane across workers, and
+the folding of ``/metrics`` and ``/traces.json`` across worker
+processes.
 
 The server deploys a stored engine instance (``pio deploy``,
 ``workflow/deploy.load_deployed_engine``) or a model directory: ``python
@@ -89,6 +104,7 @@ from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.api.http_base import (
     REQUEST_ID_HEADER,
+    PlainTextPayload,
     RestServer,
     access_log_enabled,
     bounded_probe,
@@ -105,6 +121,31 @@ from predictionio_tpu_torch.core.json_codec import (
     canonical_json,
     compile_wire_decoder,
     encode_wire,
+)
+from predictionio_tpu_torch.obs import compile as build_obs
+from predictionio_tpu_torch.obs.device import device_memory_collector, train_report_collector
+from predictionio_tpu_torch.obs.exporter import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
+from predictionio_tpu_torch.obs.exporter import render_metrics
+from predictionio_tpu_torch.obs.registry import (
+    HistogramFamily,
+    Metric,
+    MetricRegistry,
+    online_collector,
+    resilience_collector,
+    server_info_collector,
+    serving_collector,
+)
+from predictionio_tpu_torch.obs.slo import SLOEngine, serving_pressure_collector
+from predictionio_tpu_torch.obs.trace import (
+    PARENT_SPAN_HEADER,
+    TRACE_ID_HEADER,
+    TraceLog,
+    active_trace,
+    parse_trace_context,
+    span,
+    start_trace,
+    tracing_default,
+    use_trace,
 )
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.serving.batch_policy import make_batch_policy
@@ -261,6 +302,31 @@ class EngineService:
         self.access_log = access_log_enabled()
         if self.access_log:
             ensure_access_log_handler()
+        #: per-request tracing (config wins, else PIO_TRACE) and the
+        #: per-server registry GET /metrics renders
+        self.tracing = config.tracing if config.tracing is not None else tracing_default()
+        self.trace_log = TraceLog()
+        self.request_latency = HistogramFamily(
+            "pio_http_request_seconds",
+            "HTTP request walltime by route (handler-measured)",
+            "route", ("queries", "stats", "metrics", "status"))
+        self.registry = MetricRegistry()
+        self.registry.register(self.request_latency.collect)
+        self.registry.register(serving_collector(self.serving_stats))
+        self.registry.register(resilience_collector())
+        self.registry.register(server_info_collector("engine"))
+        #: SLO burn rates (outcomes recorded per query by the handler)
+        #: and the queue-pressure signal, evaluated at scrape time only
+        self.slo = SLOEngine()
+        self.registry.register(self.slo.collector())
+        self.registry.register(serving_pressure_collector(self.serving_stats))
+        self.registry.register(self._ann_mode_collector)
+        #: builds (obs/compile.py), device memory (read only once this
+        #: process has initialized CUDA) and the last profiled train
+        self.registry.register(build_obs.compile_metrics_collector())
+        self.registry.register(device_memory_collector())
+        self.registry.register(train_report_collector())
+        self._compile_warmup_marked = False
         #: unbatched mode: one query on the device at a time
         self._predict_lock = threading.Lock()
         #: unbatched mode under a deadline: the query waits for the lock
@@ -288,7 +354,10 @@ class EngineService:
                 interval_s=config.online_interval_s,
                 overlay_max=config.online_overlay_max,
                 state_dir=config.online_state_dir or None,
-                invalidate_user=self._invalidate_user_results)
+                invalidate_user=self._invalidate_user_results,
+                trace_log=self.trace_log,
+                tracing=self.tracing)
+            self.registry.register(online_collector(self.online))
             self.online.start()
 
     def _invalidate_user_results(self, user_id: str) -> None:
@@ -357,6 +426,14 @@ class EngineService:
         return any(getattr(t, "ann_enabled", False)
                    for t in retrieval_targets(getattr(self.deployed, "models", ())))
 
+    def _ann_mode_collector(self) -> list:
+        return [Metric(
+            name="pio_serving_ann_enabled", kind="gauge",
+            help="1 when queries are served through the ANN MIPS index, "
+                 "0 for brute-force retrieval",
+            samples=[({}, 1.0 if self.ann_enabled() else 0.0)],
+        )]
+
     @staticmethod
     def _decoder_for(deployed: DeployedEngine):
         qc = deployed.query_class
@@ -388,6 +465,10 @@ class EngineService:
                 return (200, self.plugins.describe())
             if method == "GET" and path == "/stats.json":
                 return (200, self.stats_doc())
+            if method == "GET" and path == "/metrics":
+                return (200, PlainTextPayload(self.metrics_text(), PROMETHEUS_CONTENT_TYPE))
+            if method == "GET" and path == "/traces.json":
+                return (200, {"tracing": self.tracing, "traces": self.trace_log.snapshot()})
             if method == "GET" and path == "/healthz":
                 return (200, {"status": "ok"})
             if method == "GET" and path == "/readyz":
@@ -425,6 +506,31 @@ class EngineService:
         except Exception as e:
             logger.exception("unhandled error in %s %s", method, path)
             return (500, {"message": f"internal error: {e}"})
+
+    def metrics_text(self) -> str:
+        """The registry's exposition plus the JAX server's
+        ``pio_serving_workers`` gauge, 1 here: one process answers (the
+        worker pool is ROADMAP.md queue 1 item 23)."""
+        return render_metrics(self.registry.collect() + [Metric(
+            name="pio_serving_workers", kind="gauge",
+            help="Live engine-server worker processes folded into this "
+                 "scrape (1 outside a worker pool)",
+            samples=[({}, 1.0)])])
+
+    _ROUTE_LABELS = {
+        "/queries.json": "queries",
+        "/stats.json": "stats",
+        "/metrics": "metrics",
+        "/": "status",
+    }
+
+    def observe_request(self, path: str, dt: float, status: int | None = None) -> None:
+        """Handler-measured request walltime into the per-route latency
+        family (unknown paths fold into ``other``); query outcomes also
+        feed the SLO ring (a 5xx, a shed 503 included, spends budget)."""
+        self.request_latency.observe(self._ROUTE_LABELS.get(path, "other"), dt)
+        if status is not None and path == "/queries.json":
+            self.slo.record(ok=status < 500, latency_s=dt)
 
     def readyz(self) -> tuple:
         """A deployed model and reachable storage; 503 with
@@ -495,6 +601,9 @@ class EngineService:
             "clientDisconnects": self.client_disconnects(),
             "annEnabled": self.ann_enabled(),
             "retrieval": self.config.retrieval,
+            # the build sentinel's view: builds, their seconds and the
+            # post-warmup ones, per process like the libraries it counts
+            "compile": build_obs.stats_doc(),
             "serving": self.serving_stats.snapshot(),
             "batching": ({"enabled": True, **self.batcher.policy.snapshot()}
                          if self.batcher is not None else {"enabled": False}),
@@ -522,7 +631,9 @@ class EngineService:
         pr_id_in = body.pop("prId", None)
         decoder = self._query_decoder
         try:
-            query = decoder(body) if decoder is not None else body
+            # span() is a shared no-op when the handler started no trace
+            with span("bind"):
+                query = decoder(body) if decoder is not None else body
         except (ValueError, TypeError) as e:
             raise _Reject(400, f"invalid query: {e}")
 
@@ -530,12 +641,14 @@ class EngineService:
         # one key serves the cache and the batcher's dedup pass: the
         # bound query's wire form, so camelCase and snake_case spellings
         # of one query share it
-        key = (canonical_json(encode_wire(query))
-               if (self.cache is not None or self.batcher is not None) else None)
+        with span("codec_key"):
+            key = (canonical_json(encode_wire(query))
+                   if (self.cache is not None or self.batcher is not None) else None)
         hit, generation = False, None
         if self.cache is not None:
             t0 = time.perf_counter()
-            hit, cached, generation = self.cache.lookup(key)
+            with span("cache_lookup"):
+                hit, cached, generation = self.cache.lookup(key)
         if hit:
             prediction = cached
             # a hit is an answered query
@@ -545,12 +658,16 @@ class EngineService:
                 with (deadline_scope(budget) if budget is not None
                       else contextlib.nullcontext()):
                     if self.batcher is not None:
+                        # the trace rides the queue entry: the dispatcher
+                        # records the queue-wait and device spans onto it
                         prediction = self.batcher.submit(
-                            query, timeout=budget if budget is not None else 300.0, key=key)
+                            query, timeout=budget if budget is not None else 300.0, key=key,
+                            trace=active_trace())
                     elif budget is not None:
-                        prediction = self._query_with_deadline(query, budget)
+                        with span("predict"):
+                            prediction = self._query_with_deadline(query, budget)
                     else:
-                        with self._predict_lock:
+                        with span("predict"), self._predict_lock:
                             prediction = self.deployed.query(query)
             except QueryDeadlineExceeded as e:
                 raise _Reject(503, str(e), {"Retry-After": retry_after_header(1.0)})
@@ -575,7 +692,8 @@ class EngineService:
             raise _Reject(403, f"prediction rejected: {e}")
         self.plugins.notify_sniffers(info)
 
-        response = encode_wire(prediction)
+        with span("encode"):
+            response = encode_wire(prediction)
         if not isinstance(response, dict):
             response = {"result": response}
         # experiment attribution: the router stamps the assigned variant
@@ -592,6 +710,12 @@ class EngineService:
             pr_id = pr_id_in or uuid.uuid4().hex
             response["prId"] = pr_id
             self._post_feedback(pr_id, body, response, attribution)
+        if not self._compile_warmup_marked:
+            # the first answered query ends serving warmup: a library
+            # built after it is a live request paying a build (a benign
+            # double mark is fine: the mark is idempotent)
+            self._compile_warmup_marked = True
+            build_obs.mark_warmup_complete()
         return (200, response)
 
     def _post_feedback(self, pr_id: str, query_json: dict, response: dict,
@@ -599,8 +723,13 @@ class EngineService:
         """Fire-and-forget ``POST /events.json`` of a ``predict`` event
         to the event server, on a daemon thread bounded by
         ``feedback_timeout_s``; a failure is logged and never reaches
-        the query."""
+        the query. The trace context is captured here, on the handler
+        thread (the posting thread has no contextvars): the post carries
+        the trace id and a reserved ``feedback`` span id, so the event
+        server's segment nests under it."""
         cfg = self.config
+        trace = active_trace()
+        feedback_span_id = trace.reserve_span_id() if trace is not None else None
         event = {
             "event": "predict",
             "entityType": "pio_pr",
@@ -614,15 +743,25 @@ class EngineService:
             scheme, ssl_ctx = client_transport()
             url = (f"{scheme}://{cfg.event_server_ip}:{cfg.event_server_port}"
                    f"/events.json?accessKey={cfg.access_key}")
+            headers = {"Content-Type": "application/json"}
+            if trace is not None:
+                headers[TRACE_ID_HEADER] = trace.trace_id
+                headers[PARENT_SPAN_HEADER] = feedback_span_id
+            t0 = time.perf_counter()
             try:
-                req = urllib.request.Request(
-                    url, data=data, headers={"Content-Type": "application/json"},
-                    method="POST")
+                req = urllib.request.Request(url, data=data, headers=headers, method="POST")
                 with urllib.request.urlopen(req, timeout=cfg.feedback_timeout_s,
                                             context=ssl_ctx):
                     pass
             except Exception as e:
                 logger.warning("feedback event POST failed: %s", e)
+            finally:
+                if trace is not None:
+                    # the handler has usually finished the trace by now;
+                    # the ring serializes at read time, so the span still
+                    # shows in later reads of /traces.json
+                    trace.add_span("feedback", t0, time.perf_counter(),
+                                   span_id=feedback_span_id)
 
         threading.Thread(target=post, name="pio-feedback", daemon=True).start()
 
@@ -697,17 +836,32 @@ class _Handler(BaseHTTPRequestHandler):
         return {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
 
     def _dispatch(self, method: str) -> None:
+        """Request id, the query's trace when tracing is on, route
+        latency and the SLO ring, and the access log around the real
+        dispatch."""
         t_start = time.perf_counter()
         path = urlparse(self.path).path
         self._request_id = resolve_request_id(self.headers)
         self._last_status = 0
+        self._trace = None
+        if method == "POST" and path == "/queries.json" and self.service.tracing:
+            # a well-formed inbound trace context is adopted; a malformed
+            # one starts a fresh trace, never a rejected request
+            inbound_id, inbound_parent = parse_trace_context(self.headers)
+            self._trace = start_trace("queries.json", request_id=self._request_id,
+                                      trace_id=inbound_id, parent_span_id=inbound_parent,
+                                      service="engine")
         try:
             self._dispatch_inner(method, path)
         finally:
+            dt = time.perf_counter() - t_start
+            self.service.observe_request(path, dt, self._last_status)
+            if self._trace is not None:
+                self._trace.finish(status=self._last_status)
+                self.service.trace_log.record(self._trace)
             if self.service.access_log:
-                emit_access_log("engine", method, path, self._last_status,
-                                time.perf_counter() - t_start, self._request_id,
-                                client=self.address_string())
+                emit_access_log("engine", method, path, self._last_status, dt,
+                                self._request_id, client=self.address_string())
 
     def _dispatch_inner(self, method: str, path: str) -> None:
         if self.headers.get("Transfer-Encoding"):
@@ -733,21 +887,33 @@ class _Handler(BaseHTTPRequestHandler):
         body: Any = None
         if method == "POST" and raw:
             try:
-                body = json.loads(raw)
+                if self._trace is not None:
+                    with self._trace.span("parse"):
+                        body = json.loads(raw)
+                else:
+                    body = json.loads(raw)
             except json.JSONDecodeError:
                 self._respond(400, {"message": "the request body is not valid JSON"})
                 return
         headers = {k.lower(): v for k, v in self.headers.items()}
-        self._respond(*self.service.handle(method, path, self._params(), headers, body))
+        # the trace bound as ambient: spans opened under handle() land on it
+        with use_trace(self._trace):
+            result = self.service.handle(method, path, self._params(), headers, body)
+        self._respond(*result)
 
     def _respond(self, status: int, payload: Any,
                  extra_headers: Mapping[str, str] | None = None) -> None:
         self._last_status = status
-        data = json.dumps(payload).encode()
+        if isinstance(payload, PlainTextPayload):
+            data, ctype = str(payload).encode(), payload.content_type
+        else:
+            data, ctype = json.dumps(payload).encode(), "application/json; charset=UTF-8"
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.send_header(REQUEST_ID_HEADER, self._request_id)
+        if self._trace is not None:
+            self.send_header(TRACE_ID_HEADER, self._trace.trace_id)
         for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()

@@ -16,6 +16,12 @@ Routes, with the reference's statuses:
   statuses in position, one ``insert_batch`` for the batch
 - ``GET /stats.json``            hourly stats and ingest counters (``--stats``)
 - ``POST|GET /webhooks/{site}.json|.form``  connectors
+- ``GET /metrics``               Prometheus text: ingest, WAL, resilience,
+  server-info and SLO families (no key: aggregate counters only)
+- ``GET /traces.json``           recent ingest traces (behind the key: they
+  carry per-request data), when tracing is on (``tracing``, else
+  ``PIO_TRACE``): ``parse → validate → insert | insert_batch`` (or
+  ``journal``), and one ``wal.replay`` trace per WAL replay pass
 
 Auth: ``accessKey`` query parameter, else the HTTP Basic user part;
 ``channel`` selects a named channel; event-name whitelists on access
@@ -29,10 +35,10 @@ Port-specific decisions:
 - **No torch in the ingest process.** The server carries no device
   work, and a process that imports torch takes seconds to start, so
   neither this module nor ``pio eventserver`` imports it.
-- **Left out, each with its ROADMAP.md queue 1 item:** ``/metrics``,
-  ``/traces.json``, request spans and the SLO engine (item 12); the
-  conversion attribution counters of the experimentation platform
-  (item 23, with ``experiment/``); the chaos storage backend (item 23).
+- **Left out, with its ROADMAP.md queue 1 item:** the conversion
+  attribution counters of the experimentation platform
+  (``pio_experiment_conversions_ingested_total``) and the chaos storage
+  backend (item 23, with ``experiment/``).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.api.http_base import (
     REQUEST_ID_HEADER,
+    PlainTextPayload,
     RestServer,
     access_log_enabled,
     bounded_probe,
@@ -76,6 +83,26 @@ from predictionio_tpu_torch.data.wal import (
     WriteAheadLog,
     encode_record,
     make_storage_unavailable,
+)
+from predictionio_tpu_torch.obs.exporter import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
+from predictionio_tpu_torch.obs.exporter import render_prometheus
+from predictionio_tpu_torch.obs.registry import (
+    HistogramFamily,
+    MetricRegistry,
+    ingest_collector,
+    resilience_collector,
+    server_info_collector,
+    wal_collector,
+)
+from predictionio_tpu_torch.obs.slo import SLOEngine
+from predictionio_tpu_torch.obs.trace import (
+    TRACE_ID_HEADER,
+    TraceLog,
+    parse_trace_context,
+    span,
+    start_trace,
+    tracing_default,
+    use_trace,
 )
 from predictionio_tpu_torch.storage.base import EventFilter
 from predictionio_tpu_torch.storage.registry import Storage
@@ -158,6 +185,9 @@ class EventServerConfig:
     #: application-level replay failures before a record is quarantined
     wal_replay_attempts: int = dataclasses.field(
         default_factory=_env_int("PIO_EVENTSERVER_WAL_REPLAY_ATTEMPTS", 5))
+    #: per-request spans for the ingest paths (GET /traces.json); None
+    #: defers to the PIO_TRACE env var at server construction
+    tracing: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +228,21 @@ class EventService:
         self.access_log = access_log_enabled()
         if self.access_log:
             ensure_access_log_handler()
+        self.tracing = config.tracing if config.tracing is not None else tracing_default()
+        self.trace_log = TraceLog()
+        self.request_latency = HistogramFamily(
+            "pio_http_request_seconds",
+            "HTTP request walltime by route (handler-measured)",
+            "route", ("events_post", "events_get", "batch", "webhooks",
+                      "stats", "metrics"))
+        self.registry = MetricRegistry()
+        self.registry.register(self.request_latency.collect)
+        self.registry.register(ingest_collector(self.ingest_stats))
+        self.registry.register(resilience_collector())
+        self.registry.register(server_info_collector("event"))
+        #: SLO burn rates over the ingest write paths
+        self.slo = SLOEngine()
+        self.registry.register(self.slo.collector())
         #: auth answers given while the metadata store was reachable,
         #: served stale during an outage so the WAL ride-through can
         #: authenticate; storage stays authoritative while healthy
@@ -208,8 +253,12 @@ class EventService:
         if config.wal_dir:
             self.wal = WriteAheadLog(config.wal_dir, fsync=config.wal_fsync,
                                      max_bytes=config.wal_max_bytes)
-            self.wal_drainer = WalDrainer(self.wal, self._drain_insert_batch,
-                                          max_replay_attempts=config.wal_replay_attempts)
+            self.wal_drainer = WalDrainer(
+                self.wal, self._drain_insert_batch,
+                max_replay_attempts=config.wal_replay_attempts,
+                trace_factory=self._wal_trace if self.tracing else None,
+                trace_sink=self.trace_log.record if self.tracing else None)
+            self.registry.register(wal_collector(self.wal, self.wal_drainer))
             self.wal_drainer.start()
             logger.info("durable ingest: WAL at %s (fsync=%s, budget=%d bytes, "
                         "policy=%s, %d pending record(s) recovered)",
@@ -224,6 +273,11 @@ class EventService:
         self.ingest_stats.insert_latency.observe(time.perf_counter() - t0)
         self.ingest_stats.record_batch(len(events))
         return ids
+
+    def _wal_trace(self):
+        """One trace per replay pass: its decode → insert_batch → commit
+        spans land in the same /traces.json ring as the request paths."""
+        return start_trace("wal.replay", service="event")
 
     # -- auth ----------------------------------------------------------------
     def authenticate(self, params: Mapping[str, str],
@@ -305,7 +359,9 @@ class EventService:
         if not isinstance(body, Mapping):
             return 400, {"message": "request body must be a JSON object"}
         try:
-            event = event_from_json(body)
+            # span() is a shared no-op when tracing is off
+            with span("validate"):
+                event = event_from_json(body)
         except EventValidationError as exc:
             return 400, {"message": str(exc)}
         if auth.events and event.event not in auth.events:
@@ -333,7 +389,8 @@ class EventService:
         else:
             try:
                 t0 = time.perf_counter()
-                event_id = self.events.insert(event, auth.app_id, auth.channel_id)
+                with span("insert"):
+                    event_id = self.events.insert(event, auth.app_id, auth.channel_id)
                 self.ingest_stats.insert_latency.observe(time.perf_counter() - t0)
                 self.ingest_stats.record_batch(1)
                 status, body = 201, {"eventId": event_id}
@@ -353,7 +410,8 @@ class EventService:
             # upserts under
             event = event.with_event_id(uuid.uuid4().hex)
         try:
-            self.wal.append(encode_record(event, auth.app_id, auth.channel_id))
+            with span("journal"):
+                self.wal.append(encode_record(event, auth.app_id, auth.channel_id))
         except WalFullError as exc:
             hint = self.wal_drainer.backpressure_hint()
             if hint is None and cause is not None:
@@ -444,24 +502,26 @@ class EventService:
                                     f"{max_batch} events"}
         results: list[dict[str, Any] | None] = [None] * len(body)
         pending: list[tuple[int, Any]] = []   # (position, Event)
-        for pos, item in enumerate(body):
-            try:
-                if not isinstance(item, Mapping):
-                    raise EventValidationError("event must be a JSON object")
-                event = event_from_json(item)
-            except EventValidationError as exc:
-                results[pos] = {"status": 400, "message": str(exc)}
-                continue
-            if auth.events and event.event not in auth.events:
-                results[pos] = {"status": 403,
-                                "message": f"{event.event} events are not allowed"}
-                continue
-            try:
-                self.plugin_context.run_blockers(EventInfo(auth.app_id, auth.channel_id, event))
-            except Exception as exc:
-                results[pos] = {"status": 403, "message": str(exc)}
-                continue
-            pending.append((pos, event))
+        with span("validate"):
+            for pos, item in enumerate(body):
+                try:
+                    if not isinstance(item, Mapping):
+                        raise EventValidationError("event must be a JSON object")
+                    event = event_from_json(item)
+                except EventValidationError as exc:
+                    results[pos] = {"status": 400, "message": str(exc)}
+                    continue
+                if auth.events and event.event not in auth.events:
+                    results[pos] = {"status": 403,
+                                    "message": f"{event.event} events are not allowed"}
+                    continue
+                try:
+                    self.plugin_context.run_blockers(
+                        EventInfo(auth.app_id, auth.channel_id, event))
+                except Exception as exc:
+                    results[pos] = {"status": 403, "message": str(exc)}
+                    continue
+                pending.append((pos, event))
         if not pending:
             return 200, results
         pending = [(pos, e if e.event_id else e.with_event_id(uuid.uuid4().hex))
@@ -473,8 +533,9 @@ class EventService:
         ids: list[str] | None
         try:
             t0 = time.perf_counter()
-            ids = self.events.insert_batch([e for _, e in pending], auth.app_id,
-                                           auth.channel_id)
+            with span("insert_batch"):
+                ids = self.events.insert_batch([e for _, e in pending], auth.app_id,
+                                               auth.channel_id)
             self.ingest_stats.insert_latency.observe(time.perf_counter() - t0)
             if len(ids) != len(pending):
                 ids = None     # a short id list is a partial failure
@@ -546,6 +607,30 @@ class EventService:
         return 200, {"message": f"Webhooks connection for {site} is supported."}
 
     # -- dispatch ------------------------------------------------------------
+    @staticmethod
+    def route_label(method: str, path: str) -> str:
+        """Low-cardinality route label for the request-latency family."""
+        if path == "/events.json":
+            return "events_post" if method == "POST" else "events_get"
+        if path == "/batch/events.json":
+            return "batch"
+        if path.startswith("/webhooks/"):
+            return "webhooks"
+        if path == "/stats.json":
+            return "stats"
+        if path == "/metrics":
+            return "metrics"
+        return "other"
+
+    def observe_request(self, method: str, path: str, dt: float,
+                        status: int | None = None) -> None:
+        route = self.route_label(method, path)
+        self.request_latency.observe(route, dt)
+        if status is not None and route in ("events_post", "batch"):
+            # ingest availability SLO: 5xx spends error budget; client
+            # errors (bad JSON, bad key) do not
+            self.slo.record(ok=status < 500, latency_s=dt)
+
     _EVENT_PATH = re.compile(r"^/events/(?P<id>[^/]+)\.json$")
     _WEBHOOK = re.compile(r"^/webhooks/(?P<site>[^/.]+)\.(?P<kind>json|form)$")
 
@@ -556,6 +641,15 @@ class EventService:
             if method == "GET" and path in ("/", "/healthz", "/readyz", "/plugins.json"):
                 return {"/": self.alive, "/healthz": self.healthz,
                         "/readyz": self.readyz, "/plugins.json": self.plugins_json}[path]()
+            if method == "GET" and path == "/metrics":
+                # aggregate counters only, no per-app data: no accessKey
+                return 200, PlainTextPayload(render_prometheus(self.registry),
+                                             PROMETHEUS_CONTENT_TYPE)
+            if method == "GET" and path == "/traces.json":
+                # unlike /metrics this carries per-request data: behind
+                # the accessKey, as every event route
+                self.authenticate(params, headers)
+                return 200, {"tracing": self.tracing, "traces": self.trace_log.snapshot()}
             if path == "/events.json":
                 if method == "POST":
                     return self.post_event(params, headers, body)
@@ -624,33 +718,65 @@ class _Handler(BaseHTTPRequestHandler):
     def _respond(self, status: int, payload: Any,
                  extra_headers: Mapping[str, str] | None = None) -> None:
         self._last_status = status
-        data = json.dumps(payload).encode()
+        if isinstance(payload, PlainTextPayload):
+            data, ctype = str(payload).encode(), payload.content_type
+        else:
+            data, ctype = json.dumps(payload).encode(), "application/json; charset=UTF-8"
         self.send_response(status)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.send_header(REQUEST_ID_HEADER, self._request_id)
+        if self._trace is not None:
+            self.send_header(TRACE_ID_HEADER, self._trace.trace_id)
         for k, v in (extra_headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
 
+    #: ingest hot paths that get a trace when tracing is on
+    _TRACED_PATHS = ("/events.json", "/batch/events.json")
+
     def _dispatch(self, method: str) -> None:
+        """Request id, an ingest trace when tracing is on, route latency
+        and the SLO ring, and the access log around the real dispatch."""
         t_start = time.perf_counter()
         path = urlparse(self.path).path
         self._request_id = resolve_request_id(self.headers)
         self._last_status = 0
+        self._trace = None
+        if method == "POST" and path in self._TRACED_PATHS and self.service.tracing:
+            # a well-formed inbound context (the feedback loop's engine →
+            # event POSTs) is adopted; a malformed one starts a fresh trace
+            inbound_id, inbound_parent = parse_trace_context(self.headers)
+            self._trace = start_trace(path.lstrip("/"), request_id=self._request_id,
+                                      trace_id=inbound_id, parent_span_id=inbound_parent,
+                                      service="event")
         try:
-            body = self._body() if method in ("POST", "PUT") else None
+            if method in ("POST", "PUT"):
+                if self._trace is not None:
+                    with self._trace.span("parse"):
+                        body = self._body()
+                else:
+                    body = self._body()
+            else:
+                body = None
             if body is _MALFORMED:
                 self._respond(400, {"message": "the request body is not valid JSON"})
                 return
-            self._respond(*self.service.handle(method, path, self._params(),
-                                               dict(self.headers.items()), body))
+            # the trace bound as ambient: the service's spans land on it
+            with use_trace(self._trace):
+                result = self.service.handle(method, path, self._params(),
+                                             dict(self.headers.items()), body)
+            self._respond(*result)
         finally:
+            dt = time.perf_counter() - t_start
+            self.service.observe_request(method, path, dt, self._last_status)
+            if self._trace is not None:
+                self._trace.finish(status=self._last_status)
+                self.service.trace_log.record(self._trace)
             if self.service.access_log:
-                emit_access_log("event", method, path, self._last_status,
-                                time.perf_counter() - t_start, self._request_id,
-                                client=self.address_string())
+                emit_access_log("event", method, path, self._last_status, dt,
+                                self._request_id, client=self.address_string())
 
     def do_GET(self) -> None:  # noqa: N802
         self._dispatch("GET")

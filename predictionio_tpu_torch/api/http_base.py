@@ -15,10 +15,13 @@ Plumbing shared by every handler:
   the ``pio.access`` logger, gated by :func:`access_log_enabled`
   (the ``PIO_ACCESS_LOG`` env var);
 - **deadlines** — :func:`parse_deadline_budget` and
-  :func:`retry_after_header` (a jittered ``Retry-After`` on every 503).
+  :func:`retry_after_header` (a jittered ``Retry-After`` on every 503);
+- **plain-text payloads** — :class:`PlainTextPayload` marks a response
+  body (the Prometheus ``/metrics`` text) that must not be
+  JSON-encoded.
 
-The JAX package's ``SO_REUSEPORT`` worker pool and ``/metrics`` text
-payloads stay with ROADMAP.md queue 1 items 23 and 12.
+The JAX package's ``SO_REUSEPORT`` worker pool stays with ROADMAP.md
+queue 1 item 23.
 """
 
 from __future__ import annotations
@@ -59,6 +62,19 @@ _REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._:-]{1,128}$")
 #: under the GIL
 _REQUEST_ID_PREFIX = uuid.uuid4().hex[:8]
 _REQUEST_ID_SEQ = itertools.count(1)
+
+
+class PlainTextPayload(str):
+    """Marker: respond with this body as ``text/plain`` (optionally a
+    specific content type), not JSON — the ``GET /metrics`` path."""
+
+    content_type = "text/plain; charset=utf-8"
+
+    def __new__(cls, body: str, content_type: str | None = None):
+        self = super().__new__(cls, body)
+        if content_type is not None:
+            self.content_type = content_type
+        return self
 
 
 def resolve_request_id(headers: Mapping[str, str]) -> str:

@@ -102,6 +102,12 @@ class ServingStats:
         with self._lock:
             return self._counts[field]
 
+    def raw_counts(self) -> dict[str, int]:
+        """Every counter under one lock acquisition (snake_case keys):
+        the metric registry's read (obs/registry.serving_collector)."""
+        with self._lock:
+            return dict(self._counts)
+
     def batch_histogram(self) -> dict[int, int]:
         """Dispatched batch size -> count."""
         with self._lock:
@@ -218,6 +224,21 @@ class IngestStats:
             if lo <= sec < now_sec
         )
         return total / window, window
+
+    def totals(self) -> tuple[int, int]:
+        """(batches, events) under one lock (obs/registry.ingest_collector)."""
+        with self._lock:
+            return self._batches, self._events
+
+    def batch_histogram(self) -> dict[int, int]:
+        with self._lock:
+            return dict(self._batch_hist)
+
+    def rates(self) -> tuple[float | None, float | None, int]:
+        """(ewma, windowed, window_seconds) under one lock."""
+        with self._lock:
+            windowed, window = self._windowed_rate_locked()
+            return self._ewma_rate, windowed, window
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -10,12 +10,16 @@ port serves).
   (``new --event E`` whitelists event names);
 - ``import`` / ``export``: events as JSON lines;
 - ``eventserver``: the event server (``api/event_server.py``) in this
-  process, with ``--stats`` and the write-ahead journal flags
+  process, with ``--stats``, ``--tracing/--no-tracing`` (absent:
+  ``PIO_TRACE``) and the write-ahead journal flags
   ``--wal-dir``, ``--wal-fsync``, ``--wal-max-bytes``, ``--wal-policy``
   (an absent flag leaves the ``PIO_EVENTSERVER_WAL_*`` default);
   ``wal status|replay|dead-letter``: operate that journal;
 - ``train``: ``workflow/train.run_train`` of an engine.json variant,
-  recording an engine instance;
+  recording an engine instance; ``--profile`` writes the train report
+  (``obs/device.TrainProfiler``: stage split, builds, FLOPs, MFU, device
+  memory) to ``--profile-out`` (default ./TRAIN_REPORT.json), and
+  ``--profile-dir`` also a ``torch.profiler`` Chrome trace;
 - ``eval <evaluation> [<generator>] [--batch] [--parallel N]``:
   ``workflow/evaluation.run_evaluation`` of an Evaluation over an
   EngineParamsGenerator (given as "pkg.module.Obj" specs; without a
@@ -32,7 +36,8 @@ port serves).
   the freshness plane's ``--online/--no-online``,
   ``--online-interval-s``, ``--online-overlay-max``,
   ``--online-state-dir`` (an absent flag leaves the ``PIO_SERVING_*`` or
-  ``PIO_ONLINE_*`` default), and the feedback loop ``--feedback
+  ``PIO_ONLINE_*`` default), ``--tracing/--no-tracing`` (absent:
+  ``PIO_TRACE``), and the feedback loop ``--feedback
   --event-server-ip --event-server-port --accesskey``; ``undeploy``:
   POST /stop to a running one.
 
@@ -42,8 +47,9 @@ import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet:
-``deploy --workers/--shm-cache`` (item 23), ``--tracing`` and ``train --profile`` (item 12), ``build``/``run``, the router, ``experiment`` and the admin
-tools (item 23), and Parquet import and export (item 25).
+``deploy --workers/--shm-cache``, ``build``/``run``, the router, ``pio
+trace``, ``experiment`` and the admin tools (item 23), and Parquet import
+and export (item 25).
 """
 
 from __future__ import annotations
@@ -259,7 +265,8 @@ def _cmd_eventserver(args, storage: Storage) -> int:
         "wal_policy": args.wal_policy,
     }.items() if v is not None}
     server = EventServer(storage, EventServerConfig(
-        ip=args.ip, port=args.port, stats=args.stats, **wal_overrides)).start()
+        ip=args.ip, port=args.port, stats=args.stats, tracing=args.tracing,
+        **wal_overrides)).start()
     print(f"[INFO] Event Server listening on {args.ip}:{server.port}", flush=True)
     if server.service.wal is not None:
         cfg = server.service.config
@@ -379,12 +386,32 @@ def _cmd_train(args, storage: Storage) -> int:
         stop_after_read=args.stop_after_read,
         stop_after_prepare=args.stop_after_prepare,
     )
+    profiler = None
+    if args.profile or args.profile_dir:
+        from predictionio_tpu_torch.obs.device import TrainProfiler
+
+        profiler = TrainProfiler(profile_dir=args.profile_dir or None)
     outcome = run_train(variant=variant, workflow_params=wp, storage=storage,
-                        ctx=EngineContext(wp, storage, device=args.device))
+                        ctx=EngineContext(wp, storage, device=args.device), profiler=profiler)
     print(f"[INFO] Training finished: engine instance {outcome.instance_id} "
           f"({outcome.status})")
     if outcome.stage_seconds:
         print(f"[INFO] Stage times: {format_stage_times(outcome.stage_seconds)}")
+    if outcome.report is not None:
+        from predictionio_tpu_torch.obs.device import summarize_train_report
+
+        print(f"[INFO] Train profile: {summarize_train_report(outcome.report)}")
+        try:
+            with open(args.profile_out, "w") as f:
+                json.dump(outcome.report, f, indent=2)
+        except OSError as e:
+            # the run completed and persisted: an unwritable report path
+            # must not turn it into a failing exit code
+            print(f"[WARN] could not write {args.profile_out}: {e}")
+        else:
+            print(f"[INFO] Train report written to {args.profile_out}")
+        if args.profile_dir:
+            print(f"[INFO] torch.profiler trace in {args.profile_dir}")
     return 0 if outcome.status in ("COMPLETED", "INTERRUPTED") else 1
 
 
@@ -462,6 +489,7 @@ def _cmd_deploy(args, storage: Storage) -> int:
         event_server_port=args.event_server_port,
         access_key=args.accesskey,
         server_key=args.server_key,
+        tracing=args.tracing,
         # an absent flag leaves ServerConfig's PIO_SERVING_* default
         **{k: v for k, v in {
             "batching": args.batching,
@@ -536,6 +564,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7070)
     p.add_argument("--stats", action="store_true")
+    p.add_argument("--tracing", action=argparse.BooleanOptionalAction, default=None,
+                   help="per-request spans for the ingest paths, served on "
+                        "GET /traces.json (absent: PIO_TRACE)")
     p.add_argument("--wal-dir", default=None, dest="wal_dir",
                    help="write-ahead journal directory: storage outages ride "
                         "through as 202-journaled events replayed by a background "
@@ -594,6 +625,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop-after-prepare", action="store_true")
     p.add_argument("--no-save-model", action="store_true", dest="no_save_model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--profile", action="store_true",
+                   help="profile the run: per-stage wall/compile/execute split, "
+                        "FLOPs, MFU and device memory, written to --profile-out")
+    p.add_argument("--profile-dir", default="",
+                   help="also write a torch.profiler Chrome trace into this "
+                        "directory; implies --profile")
+    p.add_argument("--profile-out", default="TRAIN_REPORT.json",
+                   help="where --profile writes the report (default: "
+                        "./TRAIN_REPORT.json)")
 
     p = sub.add_parser("eval", help="evaluate an engine over a params grid")
     p.add_argument("evaluation", help="Evaluation class spec, e.g. pkg.mod.MyEval")
@@ -652,6 +692,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max folded users held in the serving overlay (LRU)")
     p.add_argument("--online-state-dir", default=None, dest="online_state_dir",
                    help="directory of the durable tail cursor (default: in memory)")
+    p.add_argument("--tracing", action=argparse.BooleanOptionalAction, default=None,
+                   help="per-request spans for /queries.json, served on "
+                        "GET /traces.json (absent: PIO_TRACE)")
 
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="0.0.0.0")

@@ -10,12 +10,10 @@ pipeline: ``eval`` trains on each fold of the data source's
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
-import time
-from typing import Any, Callable, Iterator, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
@@ -27,6 +25,8 @@ from predictionio_tpu_torch.controller.base import (
     Serving,
 )
 from predictionio_tpu_torch.controller.params import EngineParams, params_from_json
+from predictionio_tpu_torch.obs.device import count_flops
+from predictionio_tpu_torch.obs.trace import span
 from predictionio_tpu_torch.utils.reflection import resolve_attr
 
 logger = logging.getLogger(__name__)
@@ -45,16 +45,6 @@ def _sanity_check(obj: Any, name: str, enabled: bool) -> None:
     if enabled and isinstance(obj, SanityCheck):
         logger.info("%s: running sanity check", name)
         obj.sanity_check()
-
-
-@contextlib.contextmanager
-def _stage(stage_seconds: dict[str, float] | None, name: str) -> Iterator[None]:
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if stage_seconds is not None:
-            stage_seconds[name] = stage_seconds.get(name, 0.0) + time.perf_counter() - t0
 
 
 def serve_fold(algorithms: Sequence[Algorithm], models: Sequence[Any], serving: Serving,
@@ -134,26 +124,27 @@ class Engine:
         return data_source, preparator, algorithms, serving
 
     def train(self, ctx: Any, engine_params: EngineParams,
-              stage_seconds: dict[str, float] | None = None,
               algorithms: Sequence[Algorithm] | None = None) -> TrainResult:
         """read → sanity → prepare → sanity → train each algorithm →
         sanity → ``make_persistent_model`` of each (when the workflow
         saves), honouring the workflow's stop-after-read/prepare flags.
         ``algorithms`` (default: fresh ones from the params) are the
-        instances that train. ``stage_seconds``, when given, receives
-        the read, prepare, train and persist seconds (the training stage
-        ends when every model is back, which for the sessionrec template
-        means on the host)."""
+        instances that train. The read, prepare, train and persist stages
+        are spans on the ambient trace (``obs/trace.span``: a shared
+        no-op when none is bound; ``workflow/train.run_train`` binds
+        one). The train stage ends when every model is back, which for
+        the sessionrec template means on the host; under a train
+        profiler its FLOPs are counted (``obs/device.count_flops``)."""
         params = ctx.workflow_params
         data_source, preparator, made, _ = self.make_components(engine_params)
         algorithms = made if algorithms is None else list(algorithms)
-        with _stage(stage_seconds, "read"):
+        with span("read"):
             td = data_source.read_training(ctx)
         _sanity_check(td, "training data", not params.skip_sanity_check)
         if params.stop_after_read:
             raise StopAfterReadInterruption("stopping after read per workflow params")
 
-        with _stage(stage_seconds, "prepare"):
+        with span("prepare"):
             pd = preparator.prepare(ctx, td)
         _sanity_check(pd, "prepared data", not params.skip_sanity_check)
         if params.stop_after_prepare:
@@ -162,11 +153,11 @@ class Engine:
         models: list[Any] = []
         for i, algo in enumerate(algorithms):
             logger.info("training algorithm %d: %s", i, type(algo).__name__)
-            with _stage(stage_seconds, "train"):
+            with span("train"), count_flops():
                 model = algo.train(ctx, pd)
             _sanity_check(model, f"model[{i}]", not params.skip_sanity_check)
             models.append(model)
-        with _stage(stage_seconds, "persist"):
+        with span("persist"):
             persisted = [
                 algo.make_persistent_model(ctx.with_workflow_params(algorithm_slot=i), model)
                 if params.save_model else None

@@ -47,12 +47,14 @@ The journal is bounded honestly: past ``max_bytes`` of pending frames
 ``503`` backpressure, with a Retry-After hint derived from observed
 drain progress (:meth:`WalDrainer.backpressure_hint`).
 
-The port leaves out the JAX package's replay traces (``trace_factory``
-/ ``trace_sink``): request tracing is ROADMAP.md queue 1 item 12.
+With a ``trace_factory`` and a ``trace_sink`` (the event server's, when
+tracing is on), each replay pass records one trace with ``decode``,
+``insert_batch``, ``commit`` (and per-record ``insert``) spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -669,6 +671,8 @@ class WalDrainer:
         max_replay_attempts: int = 5,
         batch_max: int = 256,
         idle_wait_s: float = 0.25,
+        trace_factory: Callable[[], Any] | None = None,
+        trace_sink: Callable[[Any], None] | None = None,
     ):
         self.wal = wal
         self._insert_batch = insert_batch
@@ -678,6 +682,8 @@ class WalDrainer:
         self.max_replay_attempts = max(1, max_replay_attempts)
         self.batch_max = batch_max
         self.idle_wait_s = idle_wait_s
+        self._trace_factory = trace_factory
+        self._trace_sink = trace_sink
         self._lock = threading.Lock()
         #: per-position application-failure counts (in-memory: a
         #: restart resets the attempt clock, documented in the runbook)
@@ -736,19 +742,30 @@ class WalDrainer:
         entries = self.wal.read_pending(self.batch_max)
         if not entries:
             return EMPTY
-        return self._drain_entries(entries)
+        trace = self._trace_factory() if self._trace_factory else None
+        try:
+            return self._drain_entries(entries, trace)
+        finally:
+            if trace is not None:
+                trace.finish()
+                if self._trace_sink is not None:
+                    self._trace_sink(trace)
 
-    def _drain_entries(self, entries: list[WalEntry]) -> str:
+    def _drain_entries(self, entries: list[WalEntry], trace=None) -> str:
+        def tspan(name: str):
+            return trace.span(name) if trace is not None else contextlib.nullcontext()
+
         # decode up front but quarantine ONLY in journal order below:
         # committing past an undecodable record before the records
         # AHEAD of it replayed would advance the cursor over them
         decoded: list[tuple[WalEntry, Event | None, Any, Any]] = []
-        for entry in entries:
-            try:
-                event, app_id, channel_id = decode_record(entry.payload)
-                decoded.append((entry, event, app_id, channel_id))
-            except Exception as exc:  # noqa: BLE001 — poison record
-                decoded.append((entry, None, None, repr(exc)))
+        with tspan("decode"):
+            for entry in entries:
+                try:
+                    event, app_id, channel_id = decode_record(entry.payload)
+                    decoded.append((entry, event, app_id, channel_id))
+                except Exception as exc:  # noqa: BLE001 — poison record
+                    decoded.append((entry, None, None, repr(exc)))
         progressed = False
         i = 0
         while i < len(decoded):
@@ -769,17 +786,19 @@ class WalDrainer:
             run = decoded[i:j]
             events = [e for _, e, _, _ in run]
             try:
-                self._insert_batch(events, key[0], key[1])
+                with tspan("insert_batch"):
+                    self._insert_batch(events, key[0], key[1])
             except STORAGE_UNAVAILABLE_ERRORS:
                 return PROGRESS if progressed else UNAVAILABLE
             except Exception:
-                verdict = self._drain_run_per_record(run)
+                verdict = self._drain_run_per_record(run, tspan)
                 if verdict is not None:
                     return PROGRESS if progressed else verdict
                 progressed = True
                 i = j
                 continue
-            self.wal.commit(run[-1][0].next_position, records=len(run))
+            with tspan("commit"):
+                self.wal.commit(run[-1][0].next_position, records=len(run))
             for entry, _, _, _ in run:
                 self._attempts.pop(entry.position, None)
             self._record_rate(len(run))
@@ -787,14 +806,15 @@ class WalDrainer:
             i = j
         return PROGRESS
 
-    def _drain_run_per_record(self, run) -> str | None:
+    def _drain_run_per_record(self, run, tspan) -> str | None:
         """Per-record isolation after a failed batch: replay each
         record alone so ONE poison record cannot hold the run hostage.
         Returns None when the whole run was consumed (replayed or
         quarantined), else the verdict to surface."""
         for entry, event, app_id, channel_id in run:
             try:
-                self._insert_batch([event], app_id, channel_id)
+                with tspan("insert"):
+                    self._insert_batch([event], app_id, channel_id)
             except STORAGE_UNAVAILABLE_ERRORS:
                 return UNAVAILABLE
             except Exception as exc:  # noqa: BLE001 — application error

@@ -45,9 +45,11 @@ sequential path is also what keeps
 prefix sharing ACROSS points.
 
 The points finished in this process are counted by outcome
-(:func:`eval_point_counts`); the JAX package exports the same counts as
-``pio_eval_points_total`` on ``/metrics``, which is ROADMAP.md queue 1
-item 12.
+(:func:`eval_point_counts`) and exported as ``pio_eval_points_total``
+by :func:`eval_points_collector`. The JAX package registers that
+collector on its router's ``/metrics`` (ROADMAP.md queue 1 item 23); the
+port exports it and registers it nowhere yet. It reads a Python counter
+and touches no CUDA, so a scrape cannot stop this process from forking.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from predictionio_tpu_torch.controller.evaluation import (
 )
 from predictionio_tpu_torch.controller.params import EngineParams
 from predictionio_tpu_torch.fleet.supervisor import ProcessHandle
+from predictionio_tpu_torch.obs.registry import Metric
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +99,17 @@ def eval_point_counts() -> dict[str, int]:
     package's ``eval_points_collector`` exports)."""
     with _counts_lock:
         return dict(_point_counts)
+
+
+def eval_points_collector() -> list[Metric]:
+    """``pio_eval_points_total{status}``: grid points evaluated in this
+    process, by outcome (the JAX package's family)."""
+    with _counts_lock:
+        samples = [({"status": s.lower()}, float(n))
+                   for s, n in sorted(_point_counts.items())]
+    return [Metric("pio_eval_points_total", "counter",
+                   "Evaluation grid points finished, by status.",
+                   samples=samples)]
 
 
 @dataclasses.dataclass

@@ -17,7 +17,9 @@ beside the package (git-ignored), never next to the source. The file
 name carries the library's name and a hash of the source and the flags,
 so an edited source builds anew; a build goes to a per-process
 temporary file and is renamed into place, so two processes racing on
-first use never load a partly written library.
+first use never load a partly written library. Each build is one
+compile event of the build sentinel (``obs/compile.record_build``); a
+load of a built library is not.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from predictionio_tpu_torch.obs.compile import record_build
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent.parent / "build" / "native"
@@ -50,10 +55,13 @@ def _build(name: str) -> Path | None:
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
+    src = _DIR / f"{name}.cc"
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(_DIR / f"{name}.cc")],
+        t0 = time.perf_counter()
+        subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(src)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
+        record_build(name, src, t0, time.perf_counter())
         return so
     except (OSError, subprocess.SubprocessError):
         try:

@@ -19,9 +19,13 @@ configured interval:
    discarded once ``/reload`` lands G+1), invalidate exactly the touched
    users' result-cache entries, and commit the cursor.
 
+With tracing on (the engine server's ``tracing``), each cycle that
+folds records an ``online.foldin`` trace with ``tail``, ``solve`` and
+``publish`` spans into the server's trace ring.
+
 Not in this port yet: the worker-pool half (the tail lease, the pool
 snapshot document and its sync: ROADMAP.md queue 1 item 23, so a
-``worker_hub`` raises) and the fold cycle's trace span (item 12).
+``worker_hub`` raises).
 """
 
 from __future__ import annotations
@@ -177,6 +181,8 @@ class OnlineFoldIn:
         invalidate_user: Callable[[str], None] | None = None,
         worker_hub: Any = None,
         initial_cursor: TailCursor | None = None,
+        trace_log: Any = None,
+        tracing: bool = False,
     ):
         if worker_hub is not None:
             raise NotImplementedError(
@@ -187,6 +193,10 @@ class OnlineFoldIn:
         self._generation_fn = generation_fn
         self.interval_s = max(0.05, float(interval_s))
         self._invalidate_user = invalidate_user
+        #: the engine server's trace ring (obs/trace.TraceLog); one
+        #: online.foldin trace per folding cycle when tracing is on
+        self._trace_log = trace_log
+        self._tracing = tracing
         self._state_dir = state_dir
         self._initial_cursor = initial_cursor
         self.overlay = OnlineOverlay(
@@ -295,13 +305,21 @@ class OnlineFoldIn:
         # fence rejects at publish
         generation = self._generation_fn()
         binding = self._binding
+        trace = None
+        if self._tracing and self._trace_log is not None:
+            from predictionio_tpu_torch.obs.trace import start_trace
+
+            trace = start_trace("online.foldin", service="engine")
+        t0 = time.perf_counter()
         rows, new_cursor = self._follower.poll_once()
+        t_tail = time.perf_counter()
         with self._lock:
             refold, self._pending_refold = self._pending_refold, set()
         if not rows and not refold:
             return 0
         try:
-            return self._solve_and_publish(binding, generation, rows, new_cursor, refold)
+            return self._solve_and_publish(binding, generation, rows, new_cursor, refold,
+                                           trace, t0, t_tail)
         except Exception:
             # the cursor was not committed, so the rows replay; the refold
             # queue was swapped out and its users' events are behind the
@@ -312,7 +330,8 @@ class OnlineFoldIn:
 
     def _solve_and_publish(self, binding: OnlineBinding, generation: int,
                            rows: list[TailRow], new_cursor: TailCursor | None,
-                           refold: set[str]) -> int:
+                           refold: set[str], trace: Any = None, t0: float = 0.0,
+                           t_tail: float = 0.0) -> int:
         by_user: dict[str, list[TailRow]] = {}
         by_item: dict[str, list[TailRow]] = {}
         for row in rows:
@@ -332,6 +351,7 @@ class OnlineFoldIn:
                                     generation)
             if delta is not None:
                 deltas[uid] = delta
+        t_solve = time.perf_counter()
         applied = 0
         fenced = False
         for iid, delta in new_items.items():
@@ -361,6 +381,13 @@ class OnlineFoldIn:
                 self._stats["itemsAdded"] += len(new_items)
                 if lag is not None:
                     self._stats["lagSeconds"] = lag
+        if trace is not None:
+            trace.add_span("tail", t0, t_tail)
+            trace.add_span("solve", t_tail, t_solve)
+            trace.add_span("publish", t_solve, time.perf_counter())
+            trace.finish(events=len(rows), users=applied, items=len(new_items),
+                         generation=generation)
+            self._trace_log.record(trace)
         return len(rows)
 
     # -- solves ------------------------------------------------------------

@@ -6,6 +6,8 @@ to the package (git-ignored). The file name carries a hash of the source
 and the flags, so an edited source builds anew and an unchanged one is
 loaded as it is. ``build_all`` starts one ``nvcc`` per source, all at
 once, for scripts that want every kernel ready before they time anything.
+Each build is one compile event of the build sentinel
+(``obs/compile.record_build``); a load of a built library is not.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from predictionio_tpu_torch.obs.compile import record_build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -55,19 +60,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen, float] | None:
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
+    return out, tmp, proc, t0
 
 
-def _finish(name: str, out: Path, tmp: Path, proc: subprocess.Popen) -> str:
+def _finish(name: str, out: Path, tmp: Path, proc: subprocess.Popen, t0: float) -> str:
     try:
         log, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -79,6 +85,7 @@ def _finish(name: str, out: Path, tmp: Path, proc: subprocess.Popen) -> str:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    record_build(name, CSRC / f"{name}.cu", t0, time.perf_counter())
     return log
 
 
@@ -92,10 +99,10 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
         started = {n: s for n in names if (s := _start(n)) is not None}
         logs = {}
         try:
-            for n, (out, tmp, proc) in started.items():
-                logs[n] = _finish(n, out, tmp, proc)
+            for n, (out, tmp, proc, t0) in started.items():
+                logs[n] = _finish(n, out, tmp, proc, t0)
         finally:
-            for out, tmp, proc in started.values():
+            for out, tmp, proc, _ in started.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.communicate()

@@ -27,12 +27,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from contextvars import ContextVar
+from typing import Callable
 
 import torch
 
 #: kernel launches since import (or the last reset by the caller):
 #: incremented once per launch of the CUDA kernel, and nowhere else
 LAUNCHES = 0
+
+#: set by ``obs/device.count_flops`` (in its own context) while a train
+#: run is profiled: called with each launch's FLOPs, which
+#: FlopCounterMode does not see in a ctypes launch
+flop_hook: ContextVar[Callable[[int], None] | None] = ContextVar(
+    "pio_flash_flop_hook", default=None)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -152,4 +160,19 @@ def flash_attention(
     out = torch.empty_like(q)
     _launch(q, k, v, mask, out, causal)
     LAUNCHES += 1
+    hook = flop_hook.get()
+    if hook is not None:
+        hook(launch_flops(q, mask, causal))
     return out
+
+
+def launch_flops(q: torch.Tensor, mask: torch.Tensor, causal: bool) -> int:
+    """The FLOPs of one launch: QK^T and PV, 4·D per (query, key) pair
+    whose key is real under ``mask`` (B, S) and, causal, at or before its
+    query — a key at position j meets the S - j queries from j on. Reads
+    the mask's count back to the host."""
+    B, H, S, D = q.shape
+    per_key = (S - torch.arange(S, device=mask.device, dtype=torch.float64) if causal
+               else torch.full((S,), float(S), device=mask.device, dtype=torch.float64))
+    pairs = int(((mask > 0).double() * per_key).sum().item())
+    return 4 * D * H * pairs

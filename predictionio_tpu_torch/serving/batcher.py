@@ -28,6 +28,14 @@ Hot-path guarantees, each carried by a counter in
 The dispatcher thread is the only caller of the deployed engine, so the
 device sees one batch at a time.
 
+Tracing: a query's trace (``obs/trace.py``) rides its queue entry, and
+the dispatcher records ``batcher.queue_wait`` (enqueue → dispatch),
+``batcher.device_dispatch`` (the batch's ``query_batch``) and, after a
+failed batch, ``batcher.fallback_predict`` onto it. ``query_batch``
+returns host values (the template's results come back through a
+device-to-host copy), so the batch's kernel launches finish inside its
+``batcher.device_dispatch`` span, with no synchronize added here.
+
 ``get_deployed`` is read fresh per batch, so /reload hot-swaps apply
 from the next batch on.
 """
@@ -77,6 +85,9 @@ class _Pending(NamedTuple):
     #: perf_counter at enqueue: the queue wait runs from here to the
     #: dispatch
     t_enq: float
+    #: the caller's trace, carried explicitly across the thread handoff
+    #: (contextvars do not follow queue entries); None when tracing is off
+    trace: Any = None
 
 
 class QueryBatcher:
@@ -113,14 +124,17 @@ class QueryBatcher:
         return self.stats.count("batched_queries")
 
     def submit(self, query: Any, timeout: float = 300.0,
-               key: str | None = None) -> Any:
+               key: str | None = None, trace: Any = None) -> Any:
         """Enqueue and wait; raises whatever the predict path raised.
 
         The caller's ambient resilience deadline (deadline_scope) rides
         along into the dispatcher thread — contextvars do not cross
         threads, so the remaining budget is captured here and re-entered
         around the batch dispatch and any per-query fallbacks. A budget
-        that is already exhausted fails here, before the queue."""
+        that is already exhausted fails here, before the queue. The
+        caller's ``trace`` rides the queue entry the same way: the
+        dispatcher records this query's queue-wait and device-dispatch
+        spans onto it."""
         if self._stopped:
             raise RuntimeError("query batcher is stopped")
         rem = remaining_deadline()
@@ -134,7 +148,7 @@ class QueryBatcher:
             deadline = time.monotonic() + rem if rem is not None else None
             fut: Future = Future()
             self._queue.put(_Pending(query, fut, deadline, rem, key,
-                                     time.perf_counter()))
+                                     time.perf_counter(), trace))
             if self._stopped and not fut.done():
                 # close() raced the enqueue: the dispatcher (or close's
                 # drain) may never see this entry — fail fast instead of
@@ -276,10 +290,16 @@ class QueryBatcher:
             # queue wait (enqueue -> dispatch start), one lock
             # acquisition for the whole batch
             self.stats.observe_queue_waits([t0 - e.t_enq for e in live])
+            for e in live:
+                if e.trace is not None:
+                    e.trace.add_span("batcher.queue_wait", e.t_enq, t0)
             with self._scope(min(deadlines) if deadlines else None):
                 results = deployed.query_batch([g[0].query for g in groups])
             dt = time.perf_counter() - t0
             self.stats.observe_device_time(dt)
+            for e in live:
+                if e.trace is not None:
+                    e.trace.add_span("batcher.device_dispatch", t0, t0 + dt)
             # query_batch records request bookkeeping only for the
             # group leaders it saw; the deduped waiters were answered
             # by the same dispatch and must count as served requests
@@ -317,6 +337,7 @@ class QueryBatcher:
                 self._expire(entry)
                 continue
             if outcome is self._UNSET and err is None:
+                t0 = time.perf_counter()
                 try:
                     # re-resolve per query: a /reload mid-batch must not
                     # pin the whole fallback pass to the dead instance
@@ -325,6 +346,9 @@ class QueryBatcher:
                         outcome = self._get_deployed().query(entry.query)
                 except Exception as e:          # noqa: BLE001
                     err = e
+                if entry.trace is not None:
+                    entry.trace.add_span("batcher.fallback_predict", t0,
+                                         time.perf_counter())
             try:
                 if err is not None:
                     entry.fut.set_exception(err)

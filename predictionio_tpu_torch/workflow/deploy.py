@@ -98,8 +98,8 @@ def _cast_retrieval(raw: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """The JAX package's ``ServerConfig`` fields that this port serves,
-    plus the device. ``--workers``, the shared-memory cache and tracing
-    stay with ROADMAP.md queue 1 items 23 and 12."""
+    plus the device. ``--workers`` and the shared-memory cache stay with
+    ROADMAP.md queue 1 item 23."""
 
     ip: str = "0.0.0.0"
     port: int = 8000              # 0 binds a free port (``EngineServer.port``)
@@ -166,6 +166,10 @@ class ServerConfig:
     #: directory of the durable tail cursor; empty: in memory, re-tailed
     #: from deploy time after a restart
     online_state_dir: str = _online_field("STATE_DIR", "", str)
+    #: per-request spans for /queries.json, served on GET /traces.json;
+    #: None defers to the PIO_TRACE env var at server construction. Off
+    #: by default: the disabled path is one flag check per request
+    tracing: bool | None = None
 
 
 class DeployedEngine:

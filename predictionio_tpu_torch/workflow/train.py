@@ -6,6 +6,13 @@ mark the instance COMPLETED. A stop-after-read/prepare run ends
 INTERRUPTED; a run that raises ends FAILED and re-raises.
 ``workflow/deploy.load_deployed_engine`` finds the instance by id or as
 the latest COMPLETED one.
+
+Every run is traced: ``Engine.train`` records the read, prepare, train
+and persist stages as spans on a ``Trace`` bound here, the final
+persist (``save_models``) is one more persist span, and
+``TrainOutcome.stage_seconds`` is read from those spans. A
+``profiler`` (``obs/device.TrainProfiler``, ``pio train --profile``)
+binds to that trace and its report lands on ``TrainOutcome.report``.
 """
 
 from __future__ import annotations
@@ -21,10 +28,10 @@ from predictionio_tpu_torch.controller.engine import (
     Engine,
     StopAfterPrepareInterruption,
     StopAfterReadInterruption,
-    _stage,
     resolve_engine_factory,
 )
 from predictionio_tpu_torch.controller.params import EngineParams, params_to_json
+from predictionio_tpu_torch.obs.trace import Trace, span, use_trace
 from predictionio_tpu_torch.storage.base import EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
@@ -58,8 +65,12 @@ class TrainOutcome:
     instance_id: str
     status: str                  # COMPLETED | INTERRUPTED
     models: list[Any]
-    #: read / prepare / train / persist seconds, in that order
+    #: read / prepare / train / persist seconds, in that order, from the
+    #: training trace's spans
     stage_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
+    #: the TRAIN_REPORT document when the run was profiled (``pio train
+    #: --profile``; obs/device.TrainProfiler)
+    report: dict[str, Any] | None = None
 
 
 def run_train(
@@ -70,6 +81,7 @@ def run_train(
     workflow_params: WorkflowParams = WorkflowParams(),
     storage: Storage | None = None,
     ctx: EngineContext | None = None,
+    profiler: Any | None = None,
 ) -> TrainOutcome:
     """Train one engine variant and persist the results.
 
@@ -79,7 +91,9 @@ def run_train(
     and the models go to ``storage`` (default: the context's, else
     ``Storage()`` from the environment); ``ctx`` (default: one on the
     card with ``workflow_params`` over that storage) carries the device
-    and the workflow params."""
+    and the workflow params. ``profiler`` (an
+    ``obs/device.TrainProfiler``) is always finished, so a failed run
+    leaves no profiler running."""
     storage = storage or (ctx.storage if ctx is not None else Storage())
     variant = dict(variant or {})
     if engine is None:
@@ -115,22 +129,37 @@ def run_train(
         instances.update(dataclasses.replace(instances.get(instance_id), status=status,
                                              completion_time=_now()))
 
-    stage_seconds: dict[str, float] = {}
+    trace = Trace("train", request_id=instance_id)
+    if profiler is not None:
+        profiler.begin(trace, device=ctx.device)
     try:
         try:
-            result = engine.train(ctx, engine_params, stage_seconds)
+            with use_trace(trace):
+                result = engine.train(ctx, engine_params)
         except (StopAfterReadInterruption, StopAfterPrepareInterruption) as stop:
             finish("INTERRUPTED")
             logger.info("engine instance %s: INTERRUPTED (%s)", instance_id, stop)
-            return TrainOutcome(instance_id, "INTERRUPTED", [], stage_seconds)
-        with _stage(stage_seconds, "persist"):
+            report = (profiler.finish(trace, instance_id, "INTERRUPTED")
+                      if profiler is not None else None)
+            return TrainOutcome(instance_id, "INTERRUPTED", [], trace.stage_seconds(),
+                                report=report)
+        with use_trace(trace), span("persist"):
             save_models(storage, instance_id, result.persisted)
         finish("COMPLETED")
+        stage_seconds = trace.stage_seconds()
+        logger.info("engine instance %s: COMPLETED (%s)", instance_id,
+                    format_stage_times(stage_seconds))
+        report = (profiler.finish(trace, instance_id, "COMPLETED")
+                  if profiler is not None else None)
+        return TrainOutcome(instance_id, "COMPLETED", result.models, stage_seconds,
+                            report=report)
     except Exception:
         # a failed run never reads as COMPLETED
         finish("FAILED")
         logger.error("engine instance %s: FAILED\n%s", instance_id, traceback.format_exc())
         raise
-    logger.info("engine instance %s: COMPLETED (%s)", instance_id,
-                format_stage_times(stage_seconds))
-    return TrainOutcome(instance_id, "COMPLETED", result.models, stage_seconds)
+    finally:
+        if profiler is not None:
+            # idempotent: stops the profiler on the failure path (the
+            # returns above finished it with their own status)
+            profiler.finish(trace, instance_id, "FAILED")

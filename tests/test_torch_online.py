@@ -31,6 +31,8 @@ import torch
 from predictionio_tpu.api import engine_server as jserver_mod
 from predictionio_tpu.controller import FirstServing as JaxFirstServing
 from predictionio_tpu.models import als as jmodels
+from predictionio_tpu.obs import registry as jregistry
+from predictionio_tpu.obs import trace as jtrace
 from predictionio_tpu.online import foldin as jfoldin
 from predictionio_tpu.online import follower as jfollower
 from predictionio_tpu.online import overlay as joverlay
@@ -47,6 +49,8 @@ from predictionio_tpu_torch.controller import FirstServing, PersistentModelManif
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
 from predictionio_tpu_torch.models import als as pmodels
+from predictionio_tpu_torch.obs import registry as pregistry
+from predictionio_tpu_torch.obs import trace as ptrace
 from predictionio_tpu_torch.online import foldin, follower, overlay, service
 from predictionio_tpu_torch.serving.result_cache import ResultCache
 from predictionio_tpu_torch.storage.base import App, EngineInstance
@@ -382,6 +386,42 @@ def _fold_events(pair):
               ("rate", "u5", "fresh", {"rating": 3.0}),
               ("view", "u6", "i8", None),                # not a rating event
               ("rate", "u7", "i9", {"rating": "bad"}))   # malformed: dropped
+
+
+class TestObservability:
+    def test_fold_trace_equals_jax(self, pair):
+        """With tracing on, a folding cycle records one online.foldin
+        trace of tail → solve → publish with JAX's tags; a cycle with
+        nothing to fold records none."""
+        logs = {}
+        for name, svc, trace_mod in (("port", pair.psvc, ptrace), ("jax", pair.jsvc, jtrace)):
+            logs[name] = trace_mod.TraceLog()
+            svc._trace_log, svc._tracing = logs[name], True
+        assert pair.tick() == 0
+        _fold_events(pair)
+        assert pair.tick() == 8
+        docs = {name: log.snapshot() for name, log in logs.items()}
+        assert len(docs["port"]) == len(docs["jax"]) == 1
+        got, want = docs["port"][0], docs["jax"][0]
+        assert [s["name"] for s in got["spans"]] == [s["name"] for s in want["spans"]] == [
+            "tail", "solve", "publish"]
+        assert (got["name"], got["service"], got["tags"]) == (
+            want["name"], want["service"], want["tags"])
+        assert got["tags"] == {"events": 8, "users": 5, "items": 1, "generation": 0}
+
+    def test_online_collector_equals_jax(self, pair):
+        _fold_events(pair)
+        pair.tick()
+        families = []
+        for registry_mod, svc in ((pregistry, pair.psvc), (jregistry, pair.jsvc)):
+            metrics = registry_mod.online_collector(svc)()
+            families.append({m.name: (m.kind, [labels for labels, _ in m.samples])
+                             for m in metrics})
+            values = {m.name: m.samples[0][1] for m in metrics
+                      if m.name != "pio_online_freshness_lag_seconds"}
+            families.append(values)
+        assert families[0] == families[2] and families[1] == families[3]
+        assert families[1]["pio_online_folded_events_total"] == 8
 
 
 class TestServingAfterFold:

@@ -334,7 +334,8 @@ class TestIndependence:
             "        'models.naive_bayes', 'models.logreg', 'models.random_forest',\n"
             "        'utils.reflection', 'fleet.supervisor', 'experiment.grid',\n"
             "        'workflow.fake', 'data.movielens', 'e2.engine', 'e2.evaluation',\n"
-            "        'e2.quality']\n"
+            "        'e2.quality', 'obs', 'obs.trace', 'obs.registry', 'obs.exporter',\n"
+            "        'obs.slo', 'obs.compile', 'obs.device']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")
