@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero:
    the plain version, the library call (scaled_dot_product_attention
    with the same mask, and with is_causal alone, yardsticks the port
    never calls) and the bound: CUDA events around 100 back-to-back
-   launches on preallocated tensors, divided by 100 (inputs stay in
-   L2, as after the layer that wrote them), the kernel's device time
+   launches on preallocated tensors, divided by 100 (20 calls of the
+   plain version; inputs stay in L2, as after the layer that wrote
+   them), the kernel's device time
    from torch.profiler, and the kernel against the library call at B=1
    for S in {512, 8192};
 4. the sessionrec serving path end to end at the long-context serving
@@ -48,9 +49,9 @@ Phases, in order; any failure exits non-zero:
    as in phase 4;
 9. ALS at the ML-20M shape (bench.py:95-99, 119-125: 138,493 users ×
    26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
-   of `ladder_rows` through the native packer beside the NumPy path's on
-   the same COO (the layouts equal array for array; `NATIVE_LADDERS` must
-   move) and of staging; 10 bf16 iterations after a one-iteration
+   of `ladder_rows` through the native packer (`NATIVE_LADDERS` must
+   move), and on the first 4M ratings beside the NumPy path's (the
+   layouts equal array for array), and of staging; 10 bf16 iterations after a one-iteration
    warm-up, timed by CUDA events (ms per iteration, ratings/s, useful and
    executed TFLOP/s, peak memory), one iteration under torch.profiler
    (launches, device time, busy share against the unprofiled iteration);
@@ -161,8 +162,9 @@ Phases, in order; any failure exits non-zero:
    rule; train seconds, ms per iteration, device ms and launches per
    query, peak memory;
 20. the ALS-family templates through a store: an ML-100k-shape shop
-   (100,000 views, 2,000 buys, categories, a constraint) through `pio
-   import` → `pio train` → `pio deploy` of e-commerce, HTTP queries,
+   (50,000 views, cut from 100,000; 2,000 buys, categories, a
+   constraint) through `pio import` → `pio train` → `pio deploy` of
+   e-commerce, HTTP queries,
    then a new `unavailableItems` and a newcomer's views POSTed to `pio
    eventserver`: the next answers must exclude those items and serve
    the newcomer; similar product through `run_train` → the engine
@@ -178,10 +180,11 @@ Phases, in order; any failure exits non-zero:
    the Accuracy grid through `run_evaluation` on the card equal to the
    same folds on the CPU;
 22. ANN retrieval (`ops/ann.py`) at the JAX package's own ANN point
-   (bench_serving.py:1563-1623): 1,000,000 items at rank 32 from its
-   factor mixture (256 clusters, noise 0.5, seeds 7/8), 2,048 users with
-   8 seen items; `ALSModel.save` builds the IVF index at persist time
-   (auto nlist 4,096; the build seconds logged), `ALSModel.load` on the
+   (bench_serving.py:1563-1623), its catalog cut from 1,000,000 to
+   262,144 items at rank 32 from its factor mixture (256 clusters, noise
+   0.5, seeds 7/8), 2,048 users with 8 seen items; `ALSModel.save` builds
+   the IVF index at persist time (auto nlist 2,048; the build seconds
+   logged), `ALSModel.load` on the
    card and `configure_retrieval("ann")`; at nprobe = nlist 64 answers
    equal brute force, ids and order; at the auto nprobe each answer
    equals a float64 rescore of its shortlist; recall and MAP@10 at
@@ -222,8 +225,9 @@ Phases, in order; any failure exits non-zero:
    ALS on the card, held-out RMSE within 0.05 of the NumPy ALS-WR's and
    MAP@10 inside its seed band; the implicit path against popularity on
    examples/data/sample_movielens.txt; `MarkovChain.train` over 26,744
-   states (a 2.86 GB dense f32 table) from phase 9's ratings as per-user
-   consecutive transitions against float64 on the host, ids exact with
+   states (a 2.86 GB dense f32 table) from the first 10M of phase 9's
+   ratings as per-user consecutive transitions (cut from all 20M) against
+   float64 on the host, ids exact with
    ties lowest index first; `CategoricalNaiveBayes.train` on phase 21's
    Covertype-shape rows as categorical strings, the counts exactly
    against NumPy bincount; each device program's CUDA-event ms, device
@@ -248,17 +252,43 @@ Phases, in order; any failure exits non-zero:
    rounds, order alternated; (e) `pio eventserver --tracing`: one batch
    of 50 events, its `parse → validate → insert_batch` trace behind the
    key, the ingest families on `/metrics`;
-27. a `kernels` JSON line, then the result line
+27. the prefork serving pool: 16a's instance behind `pio deploy --workers
+   N --batching --batch-max 64 --cache --shm-cache --tracing --supervise
+   --server-key` for N in {1, 2, 4} (4 only where the host allows 4 CPU
+   stripes), each started alone (seconds until every worker is in the
+   spool), warmed, then phase 17's C=64 level (the same 256 distinct
+   queries at every N): p50, p99, queries/s beside phase 17's batched
+   row, every answer equal to the in-process one within BATCH_SCORE_TOL,
+   every worker launching, each worker's launches = 4 x popcount of its
+   batches (read worker by worker over the pool's loopback peer
+   endpoints), no build and no batch retry in any worker, and each
+   worker's device bytes from the folded /metrics; on N=2 a `/reload`
+   and a `/drain` landing on one worker reach every worker (the
+   /stats.json per-worker admin section), /metrics counters equal the
+   sum of the workers' own and /traces.json holds several workers'
+   traces; on the largest N one worker's answer is a shared-cache hit for
+   its siblings that launches nothing, the kernel is timed on a served
+   query's q/k/v while the pool serves at C=64, and a sibling SIGKILLed
+   under load is respawned from the spawn context and answers on the
+   card with no 5xx, the segment surviving; then 16b's ML-100k instance
+   behind `--workers 2 --model-mmap --online` and `pio eventserver`:
+   answers equal a one-process deploy's, one tail lease, both workers map
+   the same checkpoint payloads (bytes unchanged), and after 8 users'
+   ratings every answer on fresh connections equals the same fold in
+   this process;
+28. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
+Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
-`--grid-only`, `--e2-only` and `--obs-only` run phases 9-13, 14-15, 16,
-17, 18, 19-21, 22, 23, 24, 25 and 26 alone (17 over 16a's instance and
-a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's import, 22 over
-a random ML-20M-shape model, 23 over 16b's import and train) and print
-no result line. Phases 22, 23 and 25 launch no flash kernel. Exits
-non-zero, printing no result, when there is no card.
+`--grid-only`, `--e2-only`, `--obs-only` and `--pool-only` run phases
+9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26 and 27 alone (17 over
+16a's instance and a random ML-20M-shape ALS model, 18, 24 and 26 over
+16a's import, 22 over a random ML-20M-shape model, 23 over 16b's import
+and train, 27 over 16a's and 16b's) and print no result line. Phases
+22, 23 and 25 launch no flash kernel. Exits non-zero, printing no result,
+when there is no card.
 """
 
 from __future__ import annotations
@@ -418,6 +448,8 @@ def fail(msg: str) -> None:
 
 
 LAUNCHES_TIMED = 100
+#: calls of a kernel's plain version in phase 3's timings
+PLAIN_TIMED = 20
 #: keys per K/V tile of the bf16 kernel (kKvTile in csrc/flash_attention.cu)
 KV_TILE = 64
 
@@ -654,8 +686,10 @@ def phase_times() -> dict:
             fail(f"the timed launches disagree with the plain version at ({B},{H},{S},{D})")
         device_ms = profiled_ms(lambda: flash_ops._launch(q, k, v, mask, res, True),
                                 "flash_fwd_bf16_wgmma")
+        # the plain version runs 0.6-31 ms a call: 20 calls time it well
+        # (100 of them took ~6 s of the script at B >= 16)
         plain_ms = time_ms(lambda: flash_ops.flash_attention_reference(
-            q, k, v, causal=True, kv_mask=mask))
+            q, k, v, causal=True, kv_mask=mask), warmup=2, n=PLAIN_TIMED)
         library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=bool_mask))
         library_causal_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True))
         bound_ms, bound_by = attention_bound_ms(B, H, S, D, dtype, True, mask)
@@ -1105,22 +1139,35 @@ def _events_ms(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
+#: the NumPy path's check of the native packer runs on this prefix of
+#: phase 9's COO (cut from all 20M ratings, whose NumPy packing took
+#: 11.4-14.5 s of the script, to make room for phase 27)
+LADDER_CHECK_RATINGS = 4_000_000
+
+
 def ladder_native_vs_numpy(tag: str, coo: als.RatingsCOO):
     """Both orientations of ``coo`` packed by ``ladder_rows`` through the
-    native packer (it must serve both: ``als.NATIVE_LADDERS`` moves by 2),
-    then by the NumPy path on the same COO; the two layouts must be equal
-    array for array. Returns (by user, by item, native seconds)."""
+    native packer (it must serve both: ``als.NATIVE_LADDERS`` moves by 2);
+    then both orientations of the COO's first LADDER_CHECK_RATINGS
+    ratings through the native packer and the NumPy path, whose layouts
+    must be equal array for array. Returns (by user, by item, native
+    seconds)."""
     before = als.NATIVE_LADDERS
     t0 = time.perf_counter()
     native = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
     t_native = time.perf_counter() - t0
     if als.NATIVE_LADDERS != before + 2:
         fail(f"[{tag}] the native packer served {als.NATIVE_LADDERS - before} of 2 layouts")
+    n = min(LADDER_CHECK_RATINGS, coo.nnz)
+    sub = als.RatingsCOO(coo.rows[:n], coo.cols[:n], coo.vals[:n], coo.num_rows, coo.num_cols)
     t0 = time.perf_counter()
-    numpy_path = (als.ladder_rows(coo, use_native=False),
-                  als.ladder_rows(coo.transpose(), use_native=False))
+    sub_native = als.ladder_rows(sub), als.ladder_rows(sub.transpose())
+    t_sub = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_path = (als.ladder_rows(sub, use_native=False),
+                  als.ladder_rows(sub.transpose(), use_native=False))
     t_numpy = time.perf_counter() - t0
-    for side, got, want in zip(("user", "item"), native, numpy_path):
+    for side, got, want in zip(("user", "item"), sub_native, numpy_path):
         if len(got.buckets) != len(want.buckets) or any(
                 not np.array_equal(getattr(g, f), getattr(w, f)) or
                 getattr(g, f).dtype != getattr(w, f).dtype
@@ -1128,9 +1175,9 @@ def ladder_native_vs_numpy(tag: str, coo: als.RatingsCOO):
                 for f in ("row_ids", "cols", "vals", "deg")):
             fail(f"[{tag}] the native {side} layout differs from the NumPy path's")
     log(f"[{tag}] ladder_rows of {coo.nnz} ratings, both orientations: native "
-        f"{t_native:.3f}s, NumPy {t_numpy:.3f}s on the same COO "
-        f"({t_numpy / t_native:.1f}x); layouts equal array for array "
-        f"({len(native[0].buckets)} + {len(native[1].buckets)} buckets)")
+        f"{t_native:.3f}s; of the first {n}: native {t_sub:.3f}s, NumPy {t_numpy:.3f}s "
+        f"({t_numpy / t_sub:.1f}x), layouts equal array for array "
+        f"({len(sub_native[0].buckets)} + {len(sub_native[1].buckets)} buckets)")
     return native[0], native[1], t_native
 
 
@@ -2012,7 +2059,7 @@ class _Pio:
         log(f"[{tag}] {out.strip().splitlines()[-1]}")
         return found.group(1)
 
-    def start_deploy(self, tag: str, engine_json: str, *flags: str):
+    def start_deploy(self, tag: str, engine_json: str, *flags: str, env: dict | None = None):
         """Start `pio deploy` on a free port; (the process, its log path,
         its start time)."""
         out_path = os.path.join(self.base, f"deploy-{tag}.log")
@@ -2020,7 +2067,7 @@ class _Pio:
             proc = subprocess.Popen(
                 self.cmd + ["deploy", "--engine-json", engine_json, "--ip", "127.0.0.1",
                             "--port", "0", "--device", DEVICE, *flags],
-                cwd=self.base, env=self.env, stdout=out, stderr=subprocess.STDOUT)
+                cwd=self.base, env=env or self.env, stdout=out, stderr=subprocess.STDOUT)
         return proc, out_path, time.perf_counter()
 
     def wait_listening(self, tag: str, proc, out_path: str, t0: float):
@@ -2072,12 +2119,21 @@ def _write_json_lines(path: str, docs) -> int:
 
 
 def _stop(proc) -> None:
-    proc.terminate()
-    try:
-        proc.wait(timeout=30)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait(timeout=30)
+    _stop_all([proc])
+
+
+def _stop_all(procs) -> None:
+    """SIGTERM every process at once (once: a second SIGTERM would cut a
+    pool's teardown short), then wait for each, SIGKILL after 30 s."""
+    live = [proc for proc in procs if proc.poll() is None]
+    for proc in live:
+        proc.terminate()
+    for proc in live:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
 
 
 def _serve_http(tag: str, port: int, queries: list[dict]) -> tuple[list[dict], list[float]]:
@@ -2616,6 +2672,10 @@ def _deadline_level(port: int, bodies: list[dict], budget_ms: int, fresh: dict) 
     return expired - at_submit
 
 
+#: phase 17a's rows of this run (phase 27 logs its pools beside them)
+PHASE17_ROWS: list[dict] = []
+
+
 def phase_serve_sessionrec(pio: _Pio, instance: tuple[str, str, float]) -> int:
     """Phase 17a, c, d, e: phase 16a's instance behind two `pio deploy`
     processes, batched and unbatched, each with the result cache and the
@@ -2665,6 +2725,7 @@ def phase_serve_sessionrec(pio: _Pio, instance: tuple[str, str, float]) -> int:
             for size in on["hist"]:
                 sizes.setdefault(size, bodies[:size])
         _load_table("serve-sess", rows)
+        PHASE17_ROWS[:] = [{k: v for k, v in r.items() if k != "answers"} for r in rows]
         log(f"[serve-sess] every batched answer agrees with the unbatched one "
             f"(max score diff {worst:.3e}, tol {BATCH_SCORE_TOL:g})")
         # the last answer of a batch of each dispatched size, in this
@@ -3300,8 +3361,10 @@ def phase_ingest(pio: _Pio) -> int:
 #: item categories at the ML-20M shape: ML-20M has 20 genre labels; each
 #: item gets 1-3 of them, seeded
 N_CATEGORIES = 20
-#: phase 20's ML-100k-shape shop: users, items, view events, buy events
-SHOP = (943, 1_682, 100_000, 2_000)
+#: phase 20's ML-100k-shape shop: users, items, view events, buy events;
+#: its views cut from 100,000 to 50,000 to make room for phase 27 (the
+#: `pio import` of the shop took ~17 s of the script)
+SHOP = (943, 1_682, 50_000, 2_000)
 SIM_FACTORY = "predictionio_tpu_torch.templates.similarproduct.engine_factory"
 ECOMM_FACTORY = "predictionio_tpu_torch.templates.ecommerce.engine_factory"
 CLASS_FACTORY = "predictionio_tpu_torch.templates.classification.engine_factory"
@@ -3987,11 +4050,13 @@ def phase_templates(pio: _Pio) -> None:
 # phase 22: ANN retrieval
 # ---------------------------------------------------------------------------
 
-#: the JAX package's own ANN point (bench_serving.py:1563-1623): 1,000,000
-#: items at rank 32 from its factor mixture (256 taste clusters, noise 0.5,
-#: seeds 7 and 8), 2,048 users with 8 seen items each
+#: the JAX package's own ANN point (bench_serving.py:1563-1623), its
+#: 1,000,000 items cut to 262,144 (the host k-means of the index build
+#: took 42-56 s of the script at the full catalog): items at rank 32 from
+#: its factor mixture (256 taste clusters, noise 0.5, seeds 7 and 8),
+#: 2,048 users with 8 seen items each
 ANN_ITEMS, ANN_RANK, ANN_CLUSTERS, ANN_USERS, ANN_SEEN, ANN_SEED = (
-    1_000_000, 32, 256, 2_048, 8, 7)
+    262_144, 32, 256, 2_048, 8, 7)
 #: queries held against brute force at full probe and against a float64
 #: rescore of their shortlist at the auto probe; the quality sample (the
 #: JAX bench's quality_queries)
@@ -4757,6 +4822,10 @@ SAMPLE_RATINGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examp
 #: the Markov build: ML-20M's item count and the template's top 10;
 #: probabilities against float64 (an f32 quotient of integer counts)
 MARKOV_TOP, MARKOV_PROB_TOL = 10, 1e-6
+#: the ratings the Markov transitions come from: the first half of phase
+#: 9's (cut from all 20M, whose host list and float64 reference took
+#: ~18 s of the script, to make room for phase 27); the states stay 26,744
+MARKOV_RATINGS = 10_000_000
 
 
 def phase_quality() -> None:
@@ -4809,11 +4878,13 @@ def _markov_reference(rows: np.ndarray, cols: np.ndarray, n: int, k: int):
 
 def phase_markov() -> None:
     """Phase 25c: MarkovChain.train over ML-20M's 26,744 items (a 2.86 GB
-    dense f32 table on the card) from phase 9's power-law ratings as
+    dense f32 table on the card) from the first MARKOV_RATINGS of phase
+    9's power-law ratings as
     per-user consecutive transitions, against float64 on the host."""
     n_users, n_items, nnz = ML20M
     t0 = time.perf_counter()
     u, i, _ = make_ratings(n_users, n_items, nnz, SEED)
+    u, i = u[:MARKOV_RATINGS], i[:MARKOV_RATINGS]
     order = np.argsort(u, kind="stable")
     u, i = u[order], i[order]
     same = u[1:] == u[:-1]
@@ -5276,6 +5347,595 @@ def phase_obs(pio: _Pio, engine_json: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the prefork serving pool (`pio deploy --workers N`)
+# ---------------------------------------------------------------------------
+
+#: the pool sizes held against N = 1; 4 only where the host allows 4
+#: CPU stripes (serving/placement.py carves one per worker)
+POOL_SIZES = (2, 4)
+#: phase 17's C=64 level: 256 distinct queries, closed loop
+POOL_CLIENTS, POOL_QUERIES = 64, 256
+#: warm-up queries a pool takes before its level (every worker then has
+#: answered at 64 connections), kept out of the level
+POOL_WARM = 64
+#: the flags every sessionrec deploy of phase 27 takes, at each N
+POOL_FLAGS = ("--batching", "--batch-max", str(LOAD_BATCH_MAX), "--cache", "--shm-cache",
+              "--tracing", "--supervise", "--server-key", SERVER_KEY)
+#: sync intervals (0.5 s each) an admin change may take to reach every worker
+POOL_SYNC_WAIT_S = 10.0
+#: seconds a SIGKILLed sibling may take to be respawned and answer
+POOL_RESPAWN_WAIT_S = 90.0
+#: users of the online pool check (none folded by phase 23)
+POOL_ONLINE_USERS = tuple(f"u{u}" for u in range(40, 48))
+
+
+class _PoolDeploy:
+    """A `pio deploy` process over its own TMPDIR, so that the pool's
+    spool directory (and so each worker's loopback peer port) is found."""
+
+    def __init__(self, pio: _Pio, tag: str, engine_json: str, n: int, *flags: str):
+        self.tag, self.n = tag, n
+        self.tmp = tempfile.mkdtemp(prefix=f"{tag}-", dir=pio.base)
+        self.proc, self.out_path, self.t0 = pio.start_deploy(
+            tag, engine_json, "--workers", str(n), *flags, env={**pio.env, "TMPDIR": self.tmp})
+        self.port = None
+        self.listening_s = None
+
+    def wait(self) -> "_PoolDeploy":
+        """Until the deploy process listens and all n workers are in the
+        spool: the pool's seconds to listening."""
+        deadline = time.monotonic() + PIO_STEP_TIMEOUT
+        while True:
+            with open(self.out_path) as f:
+                text = f.read()
+            found = re.search(r"listening on 127\.0\.0\.1:(\d+)", text)
+            if found and len(self.workers()) >= self.n:
+                break
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.proc.kill()
+                fail(f"[{self.tag}] the pool did not come up:\n{text[-3000:]}")
+            time.sleep(0.02)
+        self.port = int(found.group(1))
+        self.listening_s = time.perf_counter() - self.t0
+        log(f"[{self.tag}] pio deploy --workers {self.n}: {self.n} worker(s) listening on "
+            f":{self.port} after {self.listening_s:.3f}s")
+        return self
+
+    def workers(self) -> dict[str, dict]:
+        """Live workers: id -> spool entry ({"worker", "pid", "port"});
+        outside a pool the deploy process itself, on the public port."""
+        if self.n == 1:
+            return {"single": {"worker": "single", "pid": self.proc.pid, "port": self.port}}
+        spools = [d for d in os.listdir(self.tmp) if d.startswith("pio-deploy-workers-")]
+        out = {}
+        for d in spools:
+            for name in os.listdir(os.path.join(self.tmp, d)):
+                if not name.endswith(".json"):
+                    continue
+                try:
+                    with open(os.path.join(self.tmp, d, name)) as f:
+                        doc = json.load(f)
+                    os.kill(doc["pid"], 0)
+                except (OSError, ValueError, KeyError):
+                    continue                   # torn, or a dead worker's entry
+                out[doc["worker"]] = doc
+        return out
+
+    def each(self, path: str) -> dict[str, dict]:
+        """Every worker's own ``path`` (its status "/" or local
+        "/stats.json"), read over its loopback peer endpoint: no
+        connection lottery."""
+        return {w: _get(e["port"], path)[1] for w, e in self.workers().items()}
+
+    def stop(self) -> None:
+        _stop(self.proc)
+
+
+def _pool_counts(pool: _PoolDeploy) -> dict:
+    """Per worker: launches, batch histogram, cache hits and misses."""
+    stats, status = pool.each("/stats.json"), pool.each("/")
+    return {w: dict(launches=status[w]["kernelLaunches"]["flash_attention"],
+                    device=status[w]["device"], hist=_hist(stats[w]),
+                    hits=stats[w]["serving"]["cacheHits"],
+                    misses=stats[w]["serving"]["cacheMisses"],
+                    compiles=stats[w]["compile"]["compiles"],
+                    retries=_retries(stats[w]), requests=status[w]["requestCount"])
+            for w in stats if w in status}
+
+
+def _pool_launch_identity(tag: str, pool: _PoolDeploy, layers: int) -> int:
+    """Each worker's launches = n_layers x Σ popcount of its dispatched
+    batch sizes, no worker built a kernel or retried a batch; returns
+    the pool's launches."""
+    counts = _pool_counts(pool)
+    for w, c in counts.items():
+        want = _launches_for(c["hist"], layers)
+        if c["launches"] != want or c["compiles"] or c["retries"] or \
+                not c["device"].startswith("cuda"):
+            fail(f"[{tag}] worker {w}: launches {c['launches']} (expected {want}), builds "
+                 f"{c['compiles']}, batch retries {c['retries']}, device {c['device']}")
+    total = sum(c["launches"] for c in counts.values())
+    log(f"[{tag}] per-worker flash launches "
+        f"{ {w: c['launches'] for w, c in counts.items()} } = {layers} x popcount of each "
+        f"worker's batches; sum {total}; no build and no batch retry in any worker")
+    return total
+
+
+def _pool_level(tag: str, pool: _PoolDeploy, bodies: list[dict], want: list) -> dict:
+    """Phase 17's C=64 level against a pool: no query may hit a cache,
+    every answer equals the in-process one within BATCH_SCORE_TOL, every
+    worker launches; (p50, p99, queries/s, the merged histogram)."""
+    before = _pool_counts(pool)
+    results, wall = _closed_loop(pool.port, bodies, POOL_CLIENTS)
+    after = _pool_counts(pool)
+    bad = [(b, r[:2]) for b, r in zip(bodies, results) if r[0] != 200]
+    if bad:
+        fail(f"[{tag}] {len(bad)} queries failed, first {bad[0]}")
+    hits = sum(after[w]["hits"] - before[w]["hits"] for w in after)
+    if hits:
+        fail(f"[{tag}] {hits} of the level's distinct queries hit a cache")
+    for body, r, w in zip(bodies, results, want):
+        if len(r[1]["itemScores"]) != body["num"] or not _same_answer(
+                _as_result(r[1]), w, BATCH_SCORE_TOL):
+            fail(f"[{tag}] an answer differs from the in-process one: {json.dumps(body)[:200]}")
+    quiet = [w for w in after if after[w]["launches"] == before[w]["launches"]]
+    if quiet:
+        fail(f"[{tag}] workers {quiet} launched no flash kernel in the level")
+    hist: dict[int, int] = {}
+    for w in after:
+        for n, c in after[w]["hist"].items():
+            d = c - before[w]["hist"].get(n, 0)
+            if d:
+                hist[n] = hist.get(n, 0) + d
+    ms = [r[2] for r in results]
+    row = dict(workers=pool.n, clients=POOL_CLIENTS, n=len(bodies), p50_ms=_quantile(ms, 0.5),
+               p99_ms=_quantile(ms, 0.99), qps=len(bodies) / wall,
+               listening_s=pool.listening_s, hist=dict(sorted(hist.items())),
+               per_worker_queries={w: after[w]["requests"] - before[w]["requests"]
+                                   for w in after})
+    log(f"[{tag}] N={pool.n} C={POOL_CLIENTS}: n={len(bodies)} p50_ms={row['p50_ms']:.3f} "
+        f"p99_ms={row['p99_ms']:.3f} qps={row['qps']:.2f} batch_hist={row['hist']} "
+        f"per_worker_queries={row['per_worker_queries']}; every answer equals the "
+        f"in-process one (tol {BATCH_SCORE_TOL:g})")
+    return row
+
+
+def _pool_device_bytes(tag: str, pool: _PoolDeploy) -> dict[str, float]:
+    """The folded /metrics: pio_serving_workers = N, and the device
+    gauges once per worker (labelled, never summed)."""
+    status, raw, _ = _request(pool.port, "GET", "/metrics")
+    if status != 200:
+        fail(f"[{tag}] /metrics answered {status}")
+    fams = parse_prometheus(raw.decode())
+    workers = [v for _, v in fams.get("pio_serving_workers", ("", []))[1]]
+    in_use = {(m.group(1) if (m := re.search(r'worker="([^"]+)"', name)) else "single"): v
+              for name, v in fams.get("pio_device_bytes_in_use", ("", []))[1]}
+    if workers != [float(pool.n)] or len(in_use) != pool.n or min(in_use.values()) <= 0:
+        fail(f"[{tag}] folded /metrics: pio_serving_workers {workers}, device bytes in use "
+             f"{in_use}")
+    return in_use
+
+
+def _pool_coherence(pool: _PoolDeploy) -> None:
+    """/reload and /drain landing on one worker reach every worker (the
+    /stats.json per-worker admin section); /metrics counters equal the
+    sum of the workers' own; /traces.json holds more than one worker's
+    spans."""
+    tag = "pool-coherence"
+    # the folded counters against each worker's own exposition
+    status, raw, _ = _request(pool.port, "GET", "/metrics")
+    folded = parse_prometheus(raw.decode())
+    own = [parse_prometheus(_request(e["port"], "GET", "/metrics")[1].decode())
+           for e in pool.workers().values()]
+    checked = []
+    for name in ("pio_serving_dispatches_total", "pio_serving_batched_queries_total",
+                 "pio_serving_cache_misses_total"):
+        total = sum(v for fams in own for _, v in fams.get(name, ("", []))[1])
+        got = sum(v for _, v in folded.get(name, ("", []))[1])
+        if got != total or got <= 0:
+            fail(f"[{tag}] folded {name} {got} != the workers' sum {total}")
+        checked.append(f"{name}={got:g}")
+    log(f"[{tag}] /metrics is the folded view: {', '.join(checked)}, each the sum of "
+        f"{len(own)} workers' own expositions")
+    status, doc = _get(pool.port, "/traces.json")
+    sources = {t.get("source", "answering worker") for t in doc["traces"]}
+    if status != 200 or len(sources) < 2:
+        fail(f"[{tag}] /traces.json holds spans of {sources} only")
+    log(f"[{tag}] /traces.json: {len(doc['traces'])} traces from {len(sources)} workers")
+
+    def settle(what: str, done) -> float:
+        t0 = time.perf_counter()
+        while True:
+            section = _get(pool.port, "/stats.json")[1]["workers"]
+            if len(section["admin"]) == pool.n and all(done(a) for a in section["admin"].values()):
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > POOL_SYNC_WAIT_S:
+                fail(f"[{tag}] {what} did not reach every worker: {section['admin']}")
+            time.sleep(0.05)
+
+    gen = max(a["modelGeneration"] for a in _get(pool.port, "/stats.json")[1]["workers"]
+              ["admin"].values())
+    status, doc = _get(pool.port, f"/reload?accessKey={SERVER_KEY}")
+    if status != 200:
+        fail(f"[{tag}] /reload answered {status}: {doc}")
+    reload_s = settle("/reload", lambda a: a["modelGeneration"] == gen + 1)
+    status, doc, _ = _http(pool.port, "POST", f"/drain?accessKey={SERVER_KEY}", {})
+    drain_s = settle("/drain", lambda a: a["draining"])
+    ready = {_get(pool.port, "/readyz")[0] for _ in range(8)}
+    _http(pool.port, "POST", f"/drain?accessKey={SERVER_KEY}", {"action": "undrain"})
+    undrain_s = settle("the undrain", lambda a: not a["draining"])
+    if ready != {503}:
+        fail(f"[{tag}] a drained pool's /readyz answered {ready}")
+    log(f"[{tag}] POST /reload on one worker: every worker at model generation {gen + 1} "
+        f"within {reload_s:.3f}s; POST /drain: every worker draining within {drain_s:.3f}s "
+        f"(/readyz {sorted(ready)} over 8 fresh connections), undrained within "
+        f"{undrain_s:.3f}s (sync interval 0.5 s)")
+
+
+def _pool_shm(pool: _PoolDeploy, body: dict, layers: int) -> None:
+    """One worker answers a query; its siblings hit it in the shared
+    segment, and a hit launches nothing."""
+    tag = "pool-shm"
+    before = _pool_counts(pool)
+    if _post(pool.port, body)[0] != 200:
+        fail(f"[{tag}] the first query failed")
+    first = _pool_counts(pool)
+    origin = [w for w in first if first[w]["misses"] > before[w]["misses"]]
+    for _ in range(8 * pool.n):
+        status, doc, _ = _post(pool.port, body)      # a fresh connection each
+        if status != 200:
+            fail(f"[{tag}] a repeat answered {status}: {doc}")
+    after = _pool_counts(pool)
+    hits = {w: after[w]["hits"] - first[w]["hits"] for w in after}
+    launched = {w: after[w]["launches"] - first[w]["launches"] for w in after}
+    sibling_hits = sum(h for w, h in hits.items() if w not in origin)
+    log(f"[{tag}] one query answered by worker {origin}, then {8 * pool.n} repeats: hits per "
+        f"worker {hits}, launches per worker {launched}")
+    if len(origin) != 1 or sum(hits.values()) != 8 * pool.n or sibling_hits == 0 \
+            or any(launched.values()):
+        fail(f"[{tag}] the shared segment did not serve the siblings, or a hit launched")
+
+
+def _kill_and_respawn(pool: _PoolDeploy, seed: int) -> int:
+    """SIGKILL one sibling while the pool serves: the supervisor respawns
+    it (spawn context), the new worker answers on the card with launches
+    of its own, no query gets a 5xx, the shared segment survives.
+    Returns the killed worker's launches, read just before the kill."""
+    import http.client
+    import signal
+    import threading
+
+    tag = "pool-supervise"
+    segment = f"/dev/shm/pio-shm-{pool.proc.pid}"
+    workers = pool.workers()
+    victim = next(e for e in workers.values() if e["pid"] != pool.proc.pid)
+    codes: list[int] = []
+    resets = [0]
+    stop = threading.Event()
+
+    def client(k: int) -> None:
+        # distinct session queries, each retried on a fresh connection
+        # after a reset (a query is an idempotent read)
+        gen = np.random.default_rng(seed + k)
+        while not stop.is_set():
+            body = {"items": [f"i{i}" for i in gen.integers(1, N_ITEMS + 1, 64)], "num": 10}
+            for _ in range(3):
+                try:
+                    codes.append(_http(pool.port, "POST", "/queries.json", body)[0])
+                    break
+                except (OSError, http.client.HTTPException):
+                    resets[0] += 1
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        victim_launches = _get(victim["port"], "/")[1]["kernelLaunches"]["flash_attention"]
+        t_kill = time.perf_counter()
+        os.kill(victim["pid"], signal.SIGKILL)
+        old = {e["pid"] for e in workers.values()}
+        while True:
+            fresh = [e for e in pool.workers().values() if e["pid"] not in old]
+            if fresh:
+                new = fresh[0]
+                status = _get(new["port"], "/")[1]
+                if status["kernelLaunches"]["flash_attention"] > 0:
+                    break
+            if time.perf_counter() - t_kill > POOL_RESPAWN_WAIT_S:
+                fail(f"[{tag}] no respawned worker answered within {POOL_RESPAWN_WAIT_S}s")
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t_kill
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    with open(f"/proc/{new['pid']}/cmdline") as f:
+        cmdline = f.read().replace("\0", " ")
+    if "spawn_main" not in cmdline:
+        fail(f"[{tag}] the respawned worker was not started from the spawn context: {cmdline}")
+    if not status["device"].startswith("cuda") or any(c >= 500 for c in codes) \
+            or set(codes) - {200} or not os.path.exists(segment):
+        fail(f"[{tag}] device {status['device']}; statuses {sorted(set(codes))}; segment "
+             f"{segment} exists: {os.path.exists(segment)}")
+    log(f"[{tag}] SIGKILL of worker pid {victim['pid']} under load at C=8: respawned as pid "
+        f"{new['pid']} (spawn context) answering on {status['device']} with "
+        f"{status['kernelLaunches']['flash_attention']} launches of its own "
+        f"{respawn_s:.3f}s after the kill; {len(codes)} queries, statuses "
+        f"{sorted(set(codes))}, {resets[0]} connection resets retried; {segment} survived")
+    return victim_launches
+
+
+#: a closed loop of distinct session queries at C clients for a number of
+#: seconds, run as its own process so that its threads do not compete
+#: with this process's launch loop for the GIL
+_POOL_LOAD = r"""
+import http.client, json, random, sys, threading, time
+port, seconds, clients, n_items = int(sys.argv[1]), float(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+end = time.monotonic() + seconds
+def client(seed):
+    rng = random.Random(seed)
+    while time.monotonic() < end:
+        body = {"items": ["i%d" % rng.randint(1, n_items) for _ in range(2048)], "num": 10}
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", "/queries.json", json.dumps(body).encode())
+            conn.getresponse().read()
+            conn.close()
+        except Exception:
+            pass
+threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+[t.start() for t in threads]
+[t.join() for t in threads]
+"""
+
+
+def _pool_kernel_under_load(pool: _PoolDeploy, deployed, body: dict) -> dict:
+    """The flash kernel on the q/k/v of a served query (as phase 16a
+    times it), timed in this process while the pool's workers serve
+    full-length session queries at C=64 from their own CUDA contexts:
+    the card time-slices between contexts, so this is the kernel as
+    launched beside a busy pool."""
+    load = subprocess.Popen([sys.executable, "-c", _POOL_LOAD, str(pool.port), "4",
+                             str(POOL_CLIENTS), str(N_ITEMS)])
+    try:
+        time.sleep(1.5)
+        row = _kernel_at_deploy(deployed, body)
+    finally:
+        load.wait(timeout=60)
+    log(f"[pool-kernel] flash kernel at {row['shape']} {row['dtype']} (real keys "
+        f"{row['real_keys']}) beside the {pool.n}-worker pool under load: ms={row['ms']:.4f} "
+        f"device_ms={_fmt(row['device_ms'], 4)} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={row['library_ms']:.4f} library_causal_ms={row['library_causal_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+    return row
+
+
+def _mapped_payloads(pid: int) -> set[str]:
+    """The npz checkpoint payloads process ``pid`` maps."""
+    with open(f"/proc/{pid}/maps") as f:
+        return {line.split()[-1] for line in f if line.rstrip().endswith(".npz")}
+
+
+def _sha256(paths: list[str]) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()
+
+
+def _pool_online_start(pio: _Pio, rec_instance: tuple[str, str]) -> dict:
+    """Start the processes of the online pool check (`_pool_online`): a
+    key, `pio eventserver`, the 2-worker pool and the one-process deploy
+    (which then come up while the sessionrec pools are checked)."""
+    tag = "pool-online"
+    engine_json, instance_id = rec_instance
+    out, _ = pio.run(tag, "accesskey", "new", "ML100k")
+    es_proc, es_port, _ = pio.eventserver(tag)
+    return dict(
+        key=re.search(r"Created new access key: (\S+)", out).group(1), es_proc=es_proc,
+        es_port=es_port, instance_id=instance_id,
+        pool=_PoolDeploy(pio, tag, engine_json, 2, "--engine-instance-id", instance_id,
+                         "--model-mmap", "--online", "--online-interval-s",
+                         str(ONLINE_INTERVAL_S), "--cache", "--cache-ttl-s", "600"),
+        single=pio.start_deploy(f"{tag}-single", engine_json, "--engine-instance-id",
+                                instance_id))
+
+
+def _pool_online(pio: _Pio, started: dict) -> None:
+    """16b's ML-100k instance behind `--workers 2 --model-mmap --online`
+    and `pio eventserver` on one sqlite store, beside a one-process
+    deploy of the same instance: equal answers; one tail lease; both
+    workers map the checkpoint payloads and leave their bytes unchanged;
+    after 8 users' new ratings are folded, answers on fresh connections
+    (so both workers are reached) carry the changed answers, equal to the
+    same fold in this process."""
+    from predictionio_tpu_torch.online.follower import TailCursor
+    from predictionio_tpu_torch.online.service import OnlineFoldIn
+
+    tag = "pool-online"
+    key, es_proc, es_port = started["key"], started["es_proc"], started["es_port"]
+    pool, instance_id = started["pool"], started["instance_id"]
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    twin = None
+    try:
+        _, single_port, _ = pio.wait_listening(f"{tag}-single", *started["single"])
+        pool.wait()
+        deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                              device=DEVICE))
+        model = deployed.models[0]
+        twin = OnlineFoldIn(storage=storage, deployed_fn=lambda: deployed,
+                            generation_fn=lambda: 0, interval_s=3600,
+                            initial_cursor=TailCursor(int(time.time() * 1_000_000), ""))
+        twin.start()
+        maps = {w: _mapped_payloads(e["pid"]) for w, e in pool.workers().items()}
+        mapped = sorted(set.union(*maps.values()))
+        if len(maps) != 2 or not mapped or any(m != set(mapped) for m in maps.values()):
+            with open(pool.out_path) as f:
+                fail(f"[{tag}] the workers do not map the same checkpoint payloads: {maps}\n"
+                     f"{f.read()[-3000:]}")
+        digest = _sha256(mapped)
+        users = list(POOL_ONLINE_USERS)
+        before = {}
+        for u in users:
+            want = [s["item"] for s in _post(single_port, {"user": u, "num": 10})[1]["itemScores"]]
+            for _ in range(4):
+                if _query_items(pool.port, u) != want:
+                    fail(f"[{tag}] {u}: the pool's answer differs from the one-process deploy's")
+            before[u] = want
+        served = {w: d["requestCount"] for w, d in pool.each("/stats.json").items()}
+        leaders = {w: d["online"]["leader"] for w, d in pool.each("/stats.json").items()}
+        (spool,) = [d for d in os.listdir(pool.tmp) if d.startswith("pio-deploy-workers-")]
+        with open(os.path.join(pool.tmp, spool, "online.lease")) as f:
+            lease = json.load(f)
+        if sum(leaders.values()) != 1 or not leaders.get(lease["worker"]) \
+                or min(served.values()) == 0:
+            fail(f"[{tag}] leaders {leaders}, lease {lease}, queries per worker {served}")
+        log(f"[{tag}] pio deploy --workers 2 --model-mmap --online: {pool.listening_s:.3f}s to "
+            f"listening; both workers map {[os.path.basename(p) for p in mapped]}; "
+            f"{4 * len(users)} "
+            f"answers over fresh connections (per worker {served}) equal the one-process "
+            f"deploy's; the tail lease is held by {lease['worker']} alone")
+        for u in users:
+            status, doc, _ = _http(es_port, "POST", f"/events.json?accessKey={key}", {
+                "event": "rate", "entityType": "user", "entityId": u,
+                "targetEntityType": "item", "targetEntityId": before[u][0],
+                "properties": {"rating": 5.0}})
+            if status != 201:
+                fail(f"[{tag}] POST /events.json answered {status}: {doc}")
+        posted = time.perf_counter()
+        twin.tick()
+        changed = {}
+        for u in users:
+            mine = [i for i, _ in model.recommend(u, 10)]
+            while True:
+                got = [_query_items(pool.port, u) for _ in range(6)]
+                if all(g == mine for g in got):
+                    break
+                if time.perf_counter() - posted > ONLINE_WAIT_S:
+                    fail(f"[{tag}] {u}: fresh connections answer {got}, the fold in this "
+                         f"process {mine}")
+                time.sleep(0.05)
+            if mine == before[u] or before[u][0] in mine:
+                fail(f"[{tag}] {u}'s answer did not change with the rating")
+            changed[u] = mine
+        lag = time.perf_counter() - posted
+        stats = pool.each("/stats.json")
+        applied = {w: (d["online"]["overlayUsers"], d["online"]["appliedSeq"])
+                   for w, d in stats.items()}
+        served = {w: d["requestCount"] for w, d in stats.items()}
+        if any(n < len(users) for n, _ in applied.values()):
+            fail(f"[{tag}] a worker's overlay lacks the folded users: {applied}")
+        if _sha256(mapped) != digest:
+            fail(f"[{tag}] the mapped checkpoint's bytes changed")
+        in_use = _pool_device_bytes(tag, pool)
+        log(f"[{tag}] {len(users)} users rated their first answer: within {lag:.3f}s every "
+            f"answer on 6 fresh connections a user equals the same fold in this process "
+            f"(overlay users, applied snapshot seq per worker {applied}; queries per worker "
+            f"{served}); the mapped payload's sha256 unchanged; device bytes in use per "
+            f"worker {in_use} (each its own copy on the card)")
+    finally:
+        if twin is not None:
+            twin.close()
+        storage.close()
+        _stop_online(started)
+
+
+def _stop_online(started: dict) -> None:
+    _stop_all([started["pool"].proc, started["single"][0], started["es_proc"]])
+
+
+def phase_pool(pio: _Pio, instance_id: str, engine_json: str,
+               rec_instance: tuple[str, str]) -> int:
+    """Phase 27: 16a's instance behind `pio deploy --workers N` for N in
+    {1, 2, 4} with POOL_FLAGS, phase 17's C=64 level on each (the same
+    256 distinct queries); coherence on N=2; the shared cache, the
+    kernel beside a busy pool and a SIGKILLed sibling's respawn on the
+    largest N; then the ML-100k pool with --model-mmap --online.
+    Returns the flash launches of the sessionrec pools."""
+    t0 = time.perf_counter()
+    cpus = len(os.sched_getaffinity(0))
+    sizes = tuple(n for n in POOL_SIZES if n <= cpus)
+    if sizes != POOL_SIZES:
+        log(f"[pool] this host allows {cpus} CPU(s): no affinity stripe for N in "
+            f"{sorted(set(POOL_SIZES) - set(sizes))}, so those pools are not run")
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    pools: dict[int, _PoolDeploy] = {}
+    online: list[dict] = []     # the online check's processes, once started
+    try:
+        try:
+            launches = _pool_sessionrec(pio, instance_id, engine_json, rec_instance, sizes,
+                                        deployed, pools, online)
+        finally:
+            _stop_all([pool.proc for pool in pools.values()])
+            del deployed
+            storage.close()
+            torch.cuda.empty_cache()
+        pids = {pool.proc.pid for pool in pools.values()}
+        leaks = [p for p in os.listdir("/dev/shm")
+                 if p.startswith("pio-shm-") and int(p.rsplit("-", 1)[1]) in pids]
+        if leaks:
+            fail(f"[pool] the deploy processes left shared-memory segments behind: {leaks}")
+    except BaseException:
+        if online:
+            _stop_online(online[0])
+        raise
+    _pool_online(pio, online[0])
+    log(f"[pool] phase 27 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _pool_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
+                     rec_instance: tuple[str, str], sizes: tuple, deployed,
+                     pools: dict, online: list) -> int:
+    """Phase 27's sessionrec pools: the level at each N, coherence, the
+    shared cache, the kernel beside a busy pool and the respawn. Each
+    pool goes into ``pools``, and the online check's processes (started
+    during the respawn) into ``online``, for the caller to stop. Returns
+    the pools' flash launches."""
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    rng = np.random.default_rng(SEED + 27)
+    combos = [(u, num) for u in range(PIO_SESSION[0]) for num in (5, 10, 20)]
+    rng.shuffle(combos)
+    bodies = _sess_mix(rng, POOL_QUERIES, combos)
+    warm = _sess_mix(rng, POOL_WARM, combos)
+    shm_body = {"user": "u%d" % combos[-1][0], "num": 7}
+    want = []
+    for lo in range(0, len(bodies), LOAD_BATCH_MAX):
+        want += deployed.query_batch([from_wire(sessionrec.Query, b)
+                                      for b in bodies[lo:lo + LOAD_BATCH_MAX]])
+    rows, launches = [], 0
+    for n in (1,) + sizes:
+        pool = _PoolDeploy(pio, f"pool-{n}", engine_json, n, "--engine-instance-id",
+                           instance_id, *POOL_FLAGS).wait()
+        pools[n] = pool
+        _closed_loop(pool.port, warm, POOL_CLIENTS)
+        row = _pool_level(f"pool-{n}", pool, bodies, want)
+        row["device_bytes_in_use"] = _pool_device_bytes(f"pool-{n}", pool)
+        rows.append(row)
+        if n == 1:
+            launches += _pool_launch_identity("pool-1", pool, layers)
+            pool.stop()
+    _load_table("pool", rows + [r for r in PHASE17_ROWS if r["clients"] == POOL_CLIENTS
+                                and r["batching"]])
+    _pool_coherence(pools[sizes[0]])
+    big = pools[sizes[-1]]
+    _pool_shm(big, shm_body, layers)
+    _pool_kernel_under_load(big, deployed, bodies[0])
+    # the online pool's processes come up while a sibling respawns (the
+    # respawn's seconds are taken beside their start)
+    online.append(_pool_online_start(pio, rec_instance))
+    launches += _kill_and_respawn(big, SEED + 28)
+    for n in sizes:
+        launches += _pool_launch_identity(f"pool-{n}", pools[n], layers)
+    return launches
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -5290,7 +5950,24 @@ def main() -> None:
         shutil.rmtree(os.environ.pop("PIO_MODEL_DIR"), ignore_errors=True)
 
 
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, logging the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phases] phase {phase} took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def run_phases(wall: float) -> None:
+    if sys.argv[1:] == ["--pool-only"]:   # phase 27 alone, over fresh 16a and 16b instances
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            instance_id, engine_json, _ = pio_sessionrec_instance(pio)
+            rec_json, rec_id, storage, _ = pio_recommendation_instance(pio)
+            storage.close()
+            phase_pool(pio, instance_id, engine_json, (rec_json, rec_id))
+        return
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
         return
@@ -5348,64 +6025,66 @@ def run_phases(wall: float) -> None:
                 import_sessions(pio)
                 phase_ingest(pio)
         return
-    phase_build()
-    max_abs_err = phase_kernel_vs_plain()
-    times = phase_times()
-    launches = phase_serving()
+    max_abs_err = timed("1-2", lambda: (phase_build(), phase_kernel_vs_plain())[1])
+    times = timed("3", phase_times)
+    launches = timed("4", phase_serving)
     if launches == 0:
         fail("the serving path never launched the flash_attention kernel")
-    trained_launches = phase_training()
+    trained_launches = timed("5-8", phase_training)
     if trained_launches == 0:
         fail("serving the trained model never launched the flash_attention kernel")
     launches += trained_launches
     flash_ops.LAUNCHES = 0
-    als_model = phase_als()
+    als_model = timed("9-13", phase_als)
     if flash_ops.LAUNCHES:
         fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    eval_launches, phase14 = phase_eval_sessionrec()
+    eval_launches, phase14 = timed("14", phase_eval_sessionrec)
     launches += eval_launches
     torch.cuda.empty_cache()
     flash_ops.LAUNCHES = 0
-    phase_eval_recommendation()
+    timed("15", phase_eval_recommendation)
     if flash_ops.LAUNCHES:
         fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
-    log(f"[eval] phases 14-15 took {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
-    # the launches of phases 16 and 17 happen in `pio deploy` processes,
-    # which report them on their GET /
+    # the launches of phases 16-18 and 26-27 happen in `pio deploy`
+    # processes, which report them on their GET /
     with tempfile.TemporaryDirectory(prefix="pio-") as base:
         pio = _Pio(base)
-        pio_launches, instance, rec_instance = phase_pio(pio)
+        pio_launches, instance, rec_instance = timed("16", phase_pio, pio)
         launches += pio_launches
-        serve_launches = phase_serve(pio, instance, als_model)
+        serve_launches = timed("17", phase_serve, pio, instance, als_model)
         if serve_launches == 0:
             fail("batched serving never launched the flash_attention kernel")
         launches += serve_launches
-        ingest_launches = phase_ingest(pio)
+        ingest_launches = timed("18", phase_ingest, pio)
         if ingest_launches == 0:
             fail("the feedback loop's deploy never launched the flash_attention kernel")
         launches += ingest_launches
-        phase_templates(pio)
+        timed("19-21", phase_templates, pio)
         torch.cuda.empty_cache()
-        phase_ann(als_model)
+        timed("22", phase_ann, als_model)
         torch.cuda.empty_cache()
-        phase_online(pio, rec_instance)
+        timed("23", phase_online, pio, rec_instance)
         # the grid's launches happen in `pio eval` processes and their
         # forked workers, which log them per fold
-        grid_launches = phase_grid(pio, phase14)
+        grid_launches = timed("24", phase_grid, pio, phase14)
         if grid_launches == 0:
             fail("the grid's workers never launched the flash_attention kernel")
         launches += grid_launches
         # the launches of phase 26 happen in its `pio deploy` processes
         # (their GET /) and in its in-process server (LAUNCHES)
-        obs_launches = phase_obs(pio, instance[1])
+        obs_launches = timed("26", phase_obs, pio, instance[1])
         if obs_launches == 0:
             fail("the traced deploys never launched the flash_attention kernel")
         launches += obs_launches
+        # phase 27's in its pools' workers, read worker by worker
+        pool_launches = timed("27", phase_pool, pio, instance[0], instance[1], rec_instance)
+        if pool_launches == 0:
+            fail("the worker pools never launched the flash_attention kernel")
+        launches += pool_launches
     torch.cuda.empty_cache()
-    phase_e2()
+    timed("25", phase_e2)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

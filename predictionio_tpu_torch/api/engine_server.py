@@ -36,8 +36,28 @@ Routes:
 - ``POST /retrieval``: ``{"retrieval": "ann"|"brute"[, "annNprobe",
   "annRescore", "annNlist"]}`` switches retrieval at run time (409 when
   a model has no index to switch to) and invalidates the cache;
-- ``POST /stop``. It, ``/reload`` and ``/retrieval`` need
+- ``POST /drain``: latch ``/readyz`` to 503 "draining" (``{"action":
+  "undrain"}`` clears it); queries in flight, and new ones, still answer;
+- ``POST /stop``. It, ``/reload``, ``/retrieval`` and ``/drain`` need
   ``?accessKey=<server_key>`` when ``ServerConfig.server_key`` is set.
+
+The prefork pool (``pio deploy --workers N``): N processes of this server
+share one ``SO_REUSEPORT`` port, each with its own CUDA context, model
+replica, batcher, cache and registry. With ``ServerConfig.
+worker_spool_dir`` set, a worker joins the pool's spool
+(``fleet/workers.WorkerHub``): a ``/metrics``, ``/stats.json`` or
+``/traces.json`` landing on any worker folds every live sibling in
+(``obs/aggregate.merge_sources``: counters summed, histograms merged,
+gauges such as ``pio_device_bytes_in_use`` labelled ``worker="<id>"``;
+``pio_serving_workers`` = the workers folded), and ``/reload``,
+``/drain`` and ``POST /retrieval`` publish a sequenced admin state that
+every sibling applies (``serving/workers.WorkerCoherence``), so a reload
+moves every worker's cache to the same generation. With
+``ServerConfig.shm_cache`` the pool's result cache is one shared-memory
+segment (``serving/shm_cache.py``): a query answered by one worker is a
+hit for its siblings. The online plane folds in one worker (the tail
+lease) and the siblings apply its published overlay. The access log
+carries a ``worker`` field.
 
 With ``ServerConfig.online`` an ``online/service.OnlineFoldIn`` folds new
 events into the deployed ALS model between retrains; each folded user's
@@ -69,11 +89,6 @@ and never reaches the query.
 The first answered query marks serving warmup on the build sentinel: a
 kernel or native library built after it counts in
 ``pio_serving_recompile_total``.
-
-Left to later slices (ROADMAP.md queue 1 item 23): ``--workers``, the
-shared-memory cache, ``/drain``, the online plane across workers, and
-the folding of ``/metrics`` and ``/traces.json`` across worker
-processes.
 
 The server deploys a stored engine instance (``pio deploy``,
 ``workflow/deploy.load_deployed_engine``) or a model directory: ``python
@@ -123,6 +138,12 @@ from predictionio_tpu_torch.core.json_codec import (
     encode_wire,
 )
 from predictionio_tpu_torch.obs import compile as build_obs
+from predictionio_tpu_torch.obs.aggregate import (
+    ExpositionParseError,
+    merge_sources,
+    parse_exposition,
+    source_count_metric,
+)
 from predictionio_tpu_torch.obs.device import device_memory_collector, train_report_collector
 from predictionio_tpu_torch.obs.exporter import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
 from predictionio_tpu_torch.obs.exporter import render_metrics
@@ -151,6 +172,7 @@ from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.serving.batch_policy import make_batch_policy
 from predictionio_tpu_torch.serving.batcher import QueryBatcher, QueryDeadlineExceeded
 from predictionio_tpu_torch.serving.result_cache import ResultCache
+from predictionio_tpu_torch.serving.workers import WorkerCoherence
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.resilience import (
     STORAGE_UNAVAILABLE_ERRORS,
@@ -289,9 +311,23 @@ class EngineService:
         self.client_disconnects = lambda: 0
         #: one counter set shared by the batcher and the cache
         self.serving_stats = ServingStats()
-        self.cache = (ResultCache(max_entries=config.cache_max_entries,
-                                  ttl_s=config.cache_ttl_s, stats=self.serving_stats)
-                      if config.cache_enabled else None)
+        #: the result cache: with ``shm_cache`` one segment the pool
+        #: shares (where shared memory fails: a warning and a private one)
+        self.cache = None
+        if config.cache_enabled:
+            if config.shm_cache:
+                from predictionio_tpu_torch.serving.shm_cache import open_shm_cache
+
+                self.cache = open_shm_cache(config, stats=self.serving_stats)
+                if self.cache is not None:
+                    # the pool-reload put fence: between a sibling's
+                    # /reload bump and this worker's own model swap, a
+                    # local result is an old-model one and must not land
+                    # in the new generation
+                    self.cache.model_generation_fn = lambda: self.model_generation
+            if self.cache is None:
+                self.cache = ResultCache(max_entries=config.cache_max_entries,
+                                         ttl_s=config.cache_ttl_s, stats=self.serving_stats)
         self.batcher = (QueryBatcher(lambda: self.deployed,
                                      policy=make_batch_policy(config.batch_policy,
                                                               config.batch_max,
@@ -336,13 +372,58 @@ class EngineService:
         #: /reload in flight: /readyz answers 503 "reloading" meanwhile
         self._reload_lock = threading.Lock()
         self._reloads_in_flight = 0
+        #: the drain latch (POST /drain): /readyz answers 503 "draining"
+        #: while it holds; guarded by _reload_lock
+        self._draining = False
         #: ANN-capable models count their queries into serving_stats;
         #: re-wired on every /reload, which brings new model objects
         self._wire_ann_observers()
         #: the base model's generation, advanced by every successful
-        #: /reload: a fold computed against generation G is discarded
-        #: once G+1 serves (online/overlay.py)
+        #: /reload (to the pool's shared reload sequence in a pool): a
+        #: fold computed against generation G is discarded once G+1
+        #: serves (online/overlay.py)
         self.model_generation = 0
+        #: the pool's peering and shared admin state (module docstring)
+        self.worker_hub = None
+        self.coherence: WorkerCoherence | None = None
+        if config.worker_spool_dir:
+            from predictionio_tpu_torch.fleet.workers import WorkerHub
+
+            self.worker_hub = WorkerHub(
+                config.worker_spool_dir,
+                metrics_text=lambda: render_metrics(self.registry.collect()),
+                traces_snapshot=self.trace_log.snapshot,
+                timeout_s=config.worker_peer_timeout_s,
+                # this worker's LOCAL documents for the siblings' fan-out
+                # (a callback that fanned out itself would recurse), and
+                # its status, whose kernel launch count a card check
+                # reads worker by worker
+                extra_paths={"/stats.json": lambda: self.stats_doc(include_workers=False),
+                             "/": self.status_doc})
+            self.coherence = WorkerCoherence(self.worker_hub, on_state=self._on_admin_state,
+                                             interval_s=config.admin_sync_interval_s)
+            adopted = self.coherence.adopt()
+            # a (re)spawned worker loaded the latest completed instance
+            # already, so reloadSeq is history (the empty cache aligns
+            # its generation with the pool's); the drain latch and the
+            # retrieval config apply for real
+            if self.cache is not None and adopted["reloadSeq"] > 0:
+                self.cache.invalidate(generation=adopted["reloadSeq"])
+            self.model_generation = adopted["reloadSeq"]
+            if adopted["draining"]:
+                with self._reload_lock:
+                    self._draining = True
+            if adopted["retrieval"]:
+                # an unappliable adopted document must not abort the
+                # start: under --supervise that would respawn into the
+                # same document until the crash-loop latch shrank the pool
+                try:
+                    self._apply_retrieval_doc(adopted["retrieval"])
+                except Exception:
+                    logger.exception("adopted retrieval config %s failed to apply; "
+                                     "serving %s retrieval", adopted["retrieval"],
+                                     self.config.retrieval)
+            self.coherence.start()
         self.online = None
         if config.online:
             from predictionio_tpu_torch.online.service import OnlineFoldIn
@@ -356,7 +437,8 @@ class EngineService:
                 state_dir=config.online_state_dir or None,
                 invalidate_user=self._invalidate_user_results,
                 trace_log=self.trace_log,
-                tracing=self.tracing)
+                tracing=self.tracing,
+                worker_hub=self.worker_hub)
             self.registry.register(online_collector(self.online))
             self.online.start()
 
@@ -367,6 +449,62 @@ class EngineService:
             from predictionio_tpu_torch.online.service import user_key_fragment
 
             self.cache.invalidate_matching(user_key_fragment(user_id))
+
+    # -- the worker pool -----------------------------------------------------
+    @property
+    def worker_id(self) -> str | None:
+        """This worker's spool identity (None outside a pool), stamped
+        into access-log lines."""
+        return self.worker_hub.worker_id if self.worker_hub else None
+
+    def _publish_admin(self, applied_note: str, **changes) -> None:
+        """Publish admin ``changes`` to the pool and check that they
+        committed: ``WorkerCoherence.publish`` swallows spool I/O errors,
+        and a 200 while the siblings stay on the old state would break
+        the coherence contract. The local change stands either way; the
+        500 says the pool is split, and a retry (every admin change is
+        idempotent) heals it."""
+        if self.coherence is None:
+            return
+        published = self.coherence.publish(**changes)
+        for key, value in changes.items():
+            if published.get(key) != value:
+                raise _Reject(500, f"{applied_note}, but publishing to the worker pool "
+                                   "failed; sibling workers are unchanged — check the "
+                                   "spool directory and retry")
+
+    def _on_admin_state(self, new: dict, prev: dict) -> None:
+        """The coherence callback: perform what changed between two
+        cumulative admin states. A sibling's /reload becomes a local
+        reload that adopts the shared sequence as the cache generation; a
+        failed local reload keeps the last-known-good model, as a direct
+        /reload would."""
+        if new["draining"] != prev["draining"]:
+            with self._reload_lock:
+                self._draining = new["draining"]
+            logger.info("adopted sibling drain latch: %s",
+                        "set" if new["draining"] else "cleared")
+        # reload BEFORE retrieval: one document can carry both, and the
+        # retrieval mode may need the new model's index
+        if new["reloadSeq"] > prev["reloadSeq"]:
+            try:
+                self.reload(generation=new["reloadSeq"])
+                logger.info("adopted sibling reload (seq %d): now serving %s",
+                            new["reloadSeq"], self.deployed.instance_id)
+            except Exception:
+                record_fallback("serving/reload")
+                logger.exception("sibling-triggered reload failed; still serving "
+                                 "instance %s", self.deployed.instance_id)
+        if new["retrieval"] != prev["retrieval"] and new["retrieval"]:
+            # a failed apply must not abort the rest of this document:
+            # its sequence has already advanced
+            try:
+                self._apply_retrieval_doc(new["retrieval"])
+                logger.info("adopted sibling retrieval config: %s", new["retrieval"])
+            except Exception:
+                logger.exception("sibling retrieval config %s failed to apply; still "
+                                 "serving %s retrieval", new["retrieval"],
+                                 self.config.retrieval)
 
     # -- retrieval (ops/ann) -------------------------------------------------
     def _wire_ann_observers(self) -> None:
@@ -417,6 +555,12 @@ class EngineService:
             self._apply_retrieval_doc(body)
         except ValueError as exc:
             raise _Reject(400, str(exc))
+        self._publish_admin("retrieval applied on this worker", retrieval={
+            "retrieval": self.config.retrieval,
+            "annNprobe": self.config.ann_nprobe,
+            "annRescore": self.config.ann_rescore,
+            "annNlist": self.config.ann_nlist,
+        })
         logger.info("retrieval reconfigured: %s (nprobe=%d rescore=%d)",
                     self.config.retrieval, self.config.ann_nprobe, self.config.ann_rescore)
         return (200, {"retrieval": self.config.retrieval, "annEnabled": self.ann_enabled()})
@@ -440,9 +584,19 @@ class EngineService:
         return compile_wire_decoder(qc) if qc is not None else None
 
     def close(self) -> None:
-        # the fold thread first: it calls into the cache
+        # the fold thread and the admin sync first: both call into the
+        # cache, whose shared segment must not be released under them
         if self.online is not None:
             self.online.close()
+        if self.coherence is not None:
+            self.coherence.close()
+        if self.worker_hub is not None:
+            self.worker_hub.close()
+        # a shm cache detaches (and unlinks only a segment it created: a
+        # pool's segment belongs to the deploy command)
+        cache_close = getattr(self.cache, "close", None)
+        if cache_close is not None:
+            cache_close()
         if self.batcher is not None:
             self.batcher.close()
         self._query_pool.shutdown(wait=False)
@@ -468,15 +622,20 @@ class EngineService:
             if method == "GET" and path == "/metrics":
                 return (200, PlainTextPayload(self.metrics_text(), PROMETHEUS_CONTENT_TYPE))
             if method == "GET" and path == "/traces.json":
-                return (200, {"tracing": self.tracing, "traces": self.trace_log.snapshot()})
+                return (200, {"tracing": self.tracing, "traces": self.traces_merged()})
             if method == "GET" and path == "/healthz":
                 return (200, {"status": "ok"})
             if method == "GET" and path == "/readyz":
                 return self.readyz()
             if path == "/reload" and method in ("GET", "POST"):
                 self._check_server_key(params)
+                # in a pool the shared reload sequence is the new cache
+                # generation of every worker; reload FIRST and publish
+                # only on success
+                reload_seq = (self.coherence.next_reload_seq()
+                              if self.coherence is not None else None)
                 try:
-                    self.reload()
+                    self.reload(generation=reload_seq)
                 except LookupError as e:
                     raise _Reject(404, str(e))
                 except Exception as e:
@@ -486,10 +645,16 @@ class EngineService:
                     record_fallback("serving/reload")
                     raise _Reject(503, f"reload failed ({e}); still serving instance {keep}",
                                   {"Retry-After": retry_after_header(retry_after_hint(e))})
+                self._publish_admin("reloaded on this worker",
+                                    **({"reloadSeq": reload_seq}
+                                       if reload_seq is not None else {}))
                 return (200, {"message": "Reloading"})
             if method == "POST" and path == "/retrieval":
                 self._check_server_key(params)
                 return self.retrieval_admin(body)
+            if method == "POST" and path == "/drain":
+                self._check_server_key(params)
+                return self.drain(body)
             if method == "POST" and path == "/stop":
                 self._check_server_key(params)
                 threading.Thread(target=self.on_stop, daemon=True).start()
@@ -508,14 +673,74 @@ class EngineService:
             return (500, {"message": f"internal error: {e}"})
 
     def metrics_text(self) -> str:
-        """The registry's exposition plus the JAX server's
-        ``pio_serving_workers`` gauge, 1 here: one process answers (the
-        worker pool is ROADMAP.md queue 1 item 23)."""
-        return render_metrics(self.registry.collect() + [Metric(
-            name="pio_serving_workers", kind="gauge",
-            help="Live engine-server worker processes folded into this "
-                 "scrape (1 outside a worker pool)",
-            samples=[({}, 1.0)])])
+        """This worker's exposition, folded with every live sibling's in
+        a pool (counters summed, histograms merged bucket-wise, gauges
+        labelled ``worker=<id>``), plus ``pio_serving_workers``: the
+        workers folded into this scrape."""
+        own = self.registry.collect()
+        hub = self.worker_hub
+        if hub is None:
+            return render_metrics(own + [_workers_gauge(1)])
+        sources: list[tuple[str, list]] = [(hub.worker_id, own)]
+        for worker_id, body in hub.fetch_peer_bodies("/metrics"):
+            try:
+                sources.append((worker_id, parse_exposition(body.decode())))
+            except (ExpositionParseError, UnicodeDecodeError) as exc:
+                logger.warning("worker %s exposition unparseable: %s", worker_id, exc)
+        merged = merge_sources(sources, source_label="worker")
+        merged.append(_workers_gauge(len(sources)))
+        return render_metrics(merged)
+
+    def traces_merged(self) -> list:
+        """The local trace ring, with every live sibling's folded in
+        (tagged ``source: worker:<id>``) in a pool."""
+        traces = self.trace_log.snapshot()
+        hub = self.worker_hub
+        if hub is None:
+            return traces
+        for worker_id, body in hub.fetch_peer_bodies("/traces.json"):
+            try:
+                docs = json.loads(body).get("traces", [])
+            except (json.JSONDecodeError, UnicodeDecodeError):
+                continue
+            for doc in docs:
+                doc.setdefault("source", f"worker:{worker_id}")
+                traces.append(doc)
+        return traces
+
+    def _admin_doc(self) -> dict:
+        """This worker's applied admin state: its model generation (the
+        pool's reload sequence), the drain latch and the instance it
+        serves."""
+        with self._reload_lock:
+            draining = self._draining
+        return {"modelGeneration": self.model_generation, "draining": draining,
+                "engineInstanceId": self.deployed.instance_id}
+
+    def _workers_doc(self) -> dict:
+        """The /stats.json ``workers`` section: per-worker request counts
+        (this worker's live, the siblings' fetched) and the pool's total,
+        as in the JAX package, plus (the port's addition) each worker's
+        applied admin state under ``admin``, which shows a /reload or
+        /drain reaching every worker."""
+        hub = self.worker_hub
+        per_worker = {hub.worker_id: self.deployed.request_count}
+        admin = {hub.worker_id: self._admin_doc()}
+        for worker_id, body in hub.fetch_peer_bodies("/stats.json"):
+            try:
+                doc = json.loads(body)
+                per_worker[worker_id] = int(doc.get("requestCount", 0))
+            except (json.JSONDecodeError, UnicodeDecodeError, TypeError, ValueError):
+                continue
+            if isinstance(doc.get("admin"), dict):
+                admin[worker_id] = doc["admin"]
+        return {
+            "worker": hub.worker_id,
+            "count": len(per_worker),
+            "requestCount": sum(per_worker.values()),
+            "perWorker": per_worker,
+            "admin": admin,
+        }
 
     _ROUTE_LABELS = {
         "/queries.json": "queries",
@@ -532,11 +757,30 @@ class EngineService:
         if status is not None and path == "/queries.json":
             self.slo.record(ok=status < 500, latency_s=dt)
 
+    def drain(self, body: Any = None) -> tuple:
+        """POST /drain: latch /readyz to 503 "draining" so that load
+        balancers stop sending this server new work before a planned
+        stop; ``{"action": "undrain"}`` clears the latch. In a pool the
+        latch reaches every sibling (the workers share one port, so an
+        operator cannot address one of them)."""
+        undrain = isinstance(body, dict) and body.get("action") == "undrain"
+        with self._reload_lock:
+            self._draining = not undrain
+        self._publish_admin(f"drain latch {'cleared' if undrain else 'set'} on this worker",
+                            draining=not undrain)
+        logger.info("drain latch %s", "cleared" if undrain else "set")
+        return (200, {"status": "ready" if undrain else "draining"})
+
     def readyz(self) -> tuple:
         """A deployed model and reachable storage; 503 with
-        ``Retry-After`` otherwise, and while a /reload swaps models."""
+        ``Retry-After`` otherwise, while a /reload swaps models, and
+        while drained."""
         with self._reload_lock:
             reloading = self._reloads_in_flight > 0
+            draining = self._draining
+        if draining:
+            return (503, {"status": "draining", "model": self.deployed.instance_id},
+                    {"Retry-After": retry_after_header(1.0)})
         if reloading:
             return (503, {"status": "reloading", "model": self.deployed.instance_id},
                     {"Retry-After": retry_after_header(1.0)})
@@ -589,11 +833,16 @@ class EngineService:
             **({"resilience": snap} if (snap := resilience_snapshot()) else {}),
         }
 
-    def stats_doc(self) -> dict:
+    def stats_doc(self, include_workers: bool = True) -> dict:
         """GET /stats.json: the serving hot path's counters, each read
-        under its own lock."""
+        under its own lock. In a pool a ``workers`` section reports the
+        pool; ``include_workers=False`` is the local view the siblings
+        fetch, which carries this worker's ``admin`` state instead."""
         d = self.deployed
+        pool = self.worker_hub is not None
         return {
+            **({"workers": self._workers_doc()} if pool and include_workers else {}),
+            **({"admin": self._admin_doc()} if pool and not include_workers else {}),
             "engineInstanceId": d.instance_id,
             "requestCount": d.request_count,
             "avgServingSec": d.avg_serving_sec,
@@ -788,12 +1037,14 @@ class EngineService:
                 raise QueryDeadlineExceeded(budget) from None
             raise  # the work itself raised a TimeoutError
 
-    def reload(self) -> None:
+    def reload(self, generation: int | None = None) -> None:
         """Swap to the latest COMPLETED instance, then invalidate the
         cache and advance the model generation (before the online plane
         hears of the swap, so a fold racing it is discarded). /readyz
         answers 503 "reloading" meanwhile; on failure the old instance
-        keeps serving and the caller answers 503."""
+        keeps serving and the caller answers 503. ``generation`` pins the
+        new generation: the pool's shared reload sequence, so the
+        workers' caches stay comparable."""
         with self._reload_lock:
             self._reloads_in_flight += 1
         try:
@@ -808,14 +1059,22 @@ class EngineService:
             if self.cache is not None:
                 # after the swap: entries of the old model die with its
                 # generation; a failed reload never gets here
-                self.cache.invalidate()
-            self.model_generation += 1
+                self.cache.invalidate(generation=generation)
+            self.model_generation = (generation if generation is not None
+                                     else self.model_generation + 1)
             if self.online is not None:
                 self.online.on_model_swapped(self.model_generation)
             logger.info("reloaded: instance %s -> %s", old_id, new.instance_id)
         finally:
             with self._reload_lock:
                 self._reloads_in_flight -= 1
+
+
+def _workers_gauge(count: int) -> Metric:
+    return source_count_metric(
+        "pio_serving_workers",
+        "Live engine-server worker processes folded into this scrape "
+        "(1 outside a worker pool)", count)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -860,8 +1119,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self._trace.finish(status=self._last_status)
                 self.service.trace_log.record(self._trace)
             if self.service.access_log:
+                # with N workers behind one port, a line must say which
+                wid = self.service.worker_id
                 emit_access_log("engine", method, path, self._last_status, dt,
-                                self._request_id, client=self.address_string())
+                                self._request_id, client=self.address_string(),
+                                **({"worker": wid} if wid else {}))
 
     def _dispatch_inner(self, method: str, path: str) -> None:
         if self.headers.get("Transfer-Encoding"):
@@ -947,8 +1209,10 @@ class EngineServer(RestServer):
     ):
         config = config if config is not None else ServerConfig()
         self.config = config
+        # reuse_port is set by the deploy command for a pool, never
+        # derived from ``workers`` (which the environment can set)
         super().__init__(_Handler, EngineService(deployed, config, storage, ctx, plugin_context),
-                         config.ip, config.port)
+                         config.ip, config.port, reuse_port=config.reuse_port)
         self.service.on_stop = self.stop
         self.service.client_disconnects = lambda: self.client_disconnects
 

@@ -18,10 +18,10 @@ Plumbing shared by every handler:
   :func:`retry_after_header` (a jittered ``Retry-After`` on every 503);
 - **plain-text payloads** — :class:`PlainTextPayload` marks a response
   body (the Prometheus ``/metrics`` text) that must not be
-  JSON-encoded.
-
-The JAX package's ``SO_REUSEPORT`` worker pool stays with ROADMAP.md
-queue 1 item 23.
+  JSON-encoded;
+- **a shared port** — ``reuse_port`` binds with ``SO_REUSEPORT``, so the
+  N workers of ``pio deploy --workers N`` listen on one port and the
+  kernel spreads connections across them.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import os
 import random
 import re
 import signal
+import socket
 import sys
 import threading
 import time
@@ -189,10 +190,18 @@ class _PioHTTPServer(ThreadingHTTPServer):
     # connections; match a production accept queue
     request_queue_size = 128
 
-    def __init__(self, addr, handler):
+    def __init__(self, addr, handler, reuse_port: bool = False):
+        # before super().__init__, which binds (server_bind reads it)
+        self.reuse_port = reuse_port
         super().__init__(addr, handler)
         self.client_disconnects = 0
         self._disconnect_lock = threading.Lock()
+
+    def server_bind(self):
+        if self.reuse_port:
+            # N worker processes share one listen port
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
 
     def handle_error(self, request, client_address):
         # a client that goes away mid-request is a non-event: count it
@@ -268,14 +277,15 @@ class RestServer:
     bind_backoff = RetryPolicy(base_delay=1.0, max_delay=2.0,
                                jitter_floor=0.5)
 
-    def __init__(self, handler_cls: type, service, ip: str, port: int):
+    def __init__(self, handler_cls: type, service, ip: str, port: int,
+                 reuse_port: bool = False):
         self.ip = ip
         self.service = service
         handler = type("BoundHandler", (handler_cls,), {"service": service})
         rng = random.Random()
         for attempt in range(self.bind_retries):
             try:
-                self._httpd = _PioHTTPServer((ip, port), handler)
+                self._httpd = _PioHTTPServer((ip, port), handler, reuse_port=reuse_port)
                 break
             except OSError:
                 if attempt == self.bind_retries - 1:

@@ -38,8 +38,15 @@ port serves).
   ``--online-state-dir`` (an absent flag leaves the ``PIO_SERVING_*`` or
   ``PIO_ONLINE_*`` default), ``--tracing/--no-tracing`` (absent:
   ``PIO_TRACE``), and the feedback loop ``--feedback
-  --event-server-ip --event-server-port --accesskey``; ``undeploy``:
-  POST /stop to a running one.
+  --event-server-ip --event-server-port --accesskey``; the prefork pool
+  ``--workers N`` (N engine-server processes on one ``SO_REUSEPORT``
+  port; every sibling starts from the ``spawn`` context, after this
+  process has built the kernels) with ``--supervise`` (respawn dead
+  siblings), ``--shm-cache``/``--shm-slots``/``--shm-slot-bytes`` (one
+  shared result cache) and ``--model-mmap`` (the npz checkpoints mapped:
+  the workers share their host pages); ``undeploy``: POST /stop to a
+  running one (in a pool, to whichever worker the connection reaches:
+  stop a pool with SIGTERM to the deploy process).
 
 ``train``, ``eval`` and ``deploy`` run on the card unless ``--device
 cpu`` is given; the other commands, ``eventserver`` among them, do not
@@ -47,9 +54,8 @@ import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet:
-``deploy --workers/--shm-cache``, ``build``/``run``, the router, ``pio
-trace``, ``experiment`` and the admin tools (item 23), and Parquet import
-and export (item 25).
+``build``/``run``, the router, ``pio trace``, ``experiment`` and the
+admin tools (item 23), and Parquet import and export (item 25).
 """
 
 from __future__ import annotations
@@ -465,7 +471,61 @@ def _default_generator(evaluation_spec: str):
     )
 
 
+#: the start method of every pool sibling, first start and respawn
+#: alike: a respawn comes from a parent whose CUDA is up, which a forked
+#: child cannot use, and a parent that ran torch CPU ops leaves a dead
+#: OpenMP pool to a forked child
+POOL_START_METHOD = "spawn"
+
+
+def resolve_concrete_port(ip: str, port: int) -> int:
+    """A concrete listen port for a worker pool: every ``SO_REUSEPORT``
+    sibling must bind the SAME number, so an ephemeral request (port 0)
+    is resolved by a throwaway bind before any worker starts."""
+    import socket
+
+    if port:
+        return port
+    probe = socket.socket()
+    probe.bind((ip, 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def _load_kernels(device: str | None) -> None:
+    """On the card, load every kernel library: a worker that cannot
+    fails at start, before it serves anything. The deploy process built
+    them before the pool started, so a worker builds none."""
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    if resolve_device(device).type == "cuda":
+        for name in _build.kernel_names():
+            _build.load_kernel_library(name)
+
+
+def _deploy_worker(config) -> None:
+    """One sibling of `pio deploy --workers N`: a whole engine server on
+    the shared port, with its own storage connection, CUDA context and
+    model replica. Started from the ``spawn`` context; an error exits it
+    non-zero (it never serves on another device than its config's)."""
+    from predictionio_tpu_torch.api.engine_server import create_engine_server
+    from predictionio_tpu_torch.api.http_base import serve_until_stopped
+    from predictionio_tpu_torch.serving.placement import apply_worker_affinity
+
+    # before the model loads, so its pages fault in on the pinned cores;
+    # the stripe is carved from the deploy process's snapshot of the
+    # allowed CPUs (a respawn inherits the parent's already-pinned mask)
+    apply_worker_affinity(config.worker_index, max(1, config.workers),
+                          cpus=config.cpu_allowlist)
+    _load_kernels(config.device)
+    serve_until_stopped(create_engine_server(storage=Storage(), config=config).start())
+
+
 def _cmd_deploy(args, storage: Storage) -> int:
+    import dataclasses
+
     from predictionio_tpu_torch.api.engine_server import create_engine_server
     from predictionio_tpu_torch.api.http_base import serve_until_stopped
     from predictionio_tpu_torch.workflow.deploy import ServerConfig
@@ -476,6 +536,10 @@ def _cmd_deploy(args, storage: Storage) -> int:
     except json.JSONDecodeError as exc:
         print(f"[ERROR] {args.engine_json} is not valid JSON: {exc}")
         return 1
+    if args.model_mmap:
+        # before any model load, and inherited by every sibling: the
+        # workers map one checkpoint's pages instead of holding N copies
+        os.environ["PIO_CHECKPOINT_MMAP"] = "r"
     config = ServerConfig(
         ip=args.ip,
         port=args.port,
@@ -496,24 +560,147 @@ def _cmd_deploy(args, storage: Storage) -> int:
             "batch_policy": args.batch_policy,
             "batch_max": args.batch_max,
             "batch_wait_ms": args.batch_wait_ms,
-            "cache_enabled": args.cache,
+            # --shm-cache without --cache means a cache, shared
+            "cache_enabled": True if args.cache is None and args.shm_cache else args.cache,
             "cache_max_entries": args.cache_max_entries,
             "cache_ttl_s": args.cache_ttl_s,
+            "shm_cache": args.shm_cache,
+            "shm_slots": args.shm_slots,
+            "shm_slot_bytes": args.shm_slot_bytes,
             "request_deadline_ms": args.request_deadline_ms,
             "retrieval": args.retrieval,
             "ann_nlist": args.ann_nlist,
             "ann_nprobe": args.ann_nprobe,
             "ann_rescore": args.ann_rescore,
+            "workers": args.workers,
             "online": args.online,
             "online_interval_s": args.online_interval_s,
             "online_overlay_max": args.online_overlay_max,
             "online_state_dir": args.online_state_dir,
         }.items() if v is not None},
     )
-    server = create_engine_server(storage=storage, config=config).start()
-    print(f"[INFO] Engine instance {server.deployed.instance_id} listening on "
-          f"{args.ip}:{server.port}", flush=True)
-    serve_until_stopped(server)
+    workers = max(1, config.workers)
+    if workers == 1:
+        if args.supervise:
+            print("[WARN] --supervise has no effect with --workers 1 (it respawns "
+                  "worker siblings); use an external supervisor for a single process.")
+        server = create_engine_server(storage=storage, config=config).start()
+        print(f"[INFO] Engine instance {server.deployed.instance_id} listening on "
+              f"{args.ip}:{server.port}", flush=True)
+        serve_until_stopped(server)
+        return 0
+    return _deploy_pool(args, storage, dataclasses.replace(
+        config, port=resolve_concrete_port(config.ip, config.port), reuse_port=True),
+        workers)
+
+
+def _deploy_pool(args, storage: Storage, config, workers: int) -> int:
+    """The prefork pool: this process is worker 0, and N-1 siblings from
+    the ``spawn`` context share its ``SO_REUSEPORT`` port; the spool
+    directory carries their peering and shared admin state, and the
+    shared cache segment belongs to this process. Both are removed here
+    when the pool stops."""
+    import dataclasses
+    import multiprocessing
+    import shutil
+    import signal
+    import tempfile
+
+    from predictionio_tpu_torch.api.engine_server import create_engine_server
+    from predictionio_tpu_torch.ops import _build
+    from predictionio_tpu_torch.serving.placement import apply_worker_affinity
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    if resolve_device(config.device).type == "cuda":
+        # one nvcc per kernel HERE, before any worker exists (nvcc is a
+        # subprocess: no CUDA is initialized), so no worker builds
+        _build.build_all()
+    config = dataclasses.replace(
+        config, worker_spool_dir=tempfile.mkdtemp(prefix="pio-deploy-workers-"))
+    # ONE shared-cache segment for the pool, created and owned here;
+    # where that fails the workers keep private caches
+    shm_owner = None
+    if config.shm_cache and config.cache_enabled and not config.shm_segment:
+        from predictionio_tpu_torch.serving.shm_cache import ShmResultCache
+
+        segment = f"pio-shm-{os.getpid()}"
+        try:
+            shm_owner = ShmResultCache(segment, nslots=config.shm_slots,
+                                       slot_bytes=config.shm_slot_bytes,
+                                       ttl_s=config.cache_ttl_s, create="create")
+            config = dataclasses.replace(config, shm_segment=segment)
+        except Exception as exc:
+            print(f"[WARN] shared-memory cache unavailable ({type(exc).__name__}: {exc}); "
+                  "workers fall back to private result caches")
+            config = dataclasses.replace(config, shm_cache=False)
+    # the pool's allowed CPUs, captured BEFORE this process pins itself
+    # to stripe 0: a respawn must carve its stripe from the whole set
+    getaffinity = getattr(os, "sched_getaffinity", None)
+    try:
+        allowed = tuple(sorted(getaffinity(0))) if getaffinity is not None else None
+    except OSError:
+        allowed = None
+    config = dataclasses.replace(config, cpu_allowlist=allowed)
+    spawn = multiprocessing.get_context(POOL_START_METHOD)
+
+    def sibling(index: int):
+        return spawn.Process(target=_deploy_worker,
+                             args=(dataclasses.replace(config, worker_index=index),),
+                             name=f"pio-deploy-worker-{index}", daemon=True)
+
+    # a SIGTERM must tear the pool down even during the model load
+    def _on_sigterm(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    supervisor = None
+    procs: list = []
+    server = None
+    try:
+        if args.supervise:
+            from predictionio_tpu_torch.fleet.supervisor import (
+                WORKER,
+                FleetSupervisor,
+                ProcessHandle,
+                SpawnSpec,
+            )
+
+            supervisor = FleetSupervisor([
+                SpawnSpec(id=f"worker:{i}", spawn=lambda i=i: ProcessHandle(sibling(i)),
+                          role=WORKER)
+                for i in range(1, workers)])
+            supervisor.start()
+        else:
+            for i in range(1, workers):
+                proc = sibling(i)
+                proc.start()
+                procs.append(proc)
+        apply_worker_affinity(0, workers, cpus=config.cpu_allowlist)
+        _load_kernels(config.device)
+        server = create_engine_server(storage=storage, config=config).start()
+        print(f"[INFO] Engine instance {server.deployed.instance_id} listening on "
+              f"{args.ip}:{server.port} ({workers} worker(s)"
+              + (", supervised" if supervisor is not None else "") + ")", flush=True)
+        server.stopped.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        # a second SIGTERM must not cut the teardown short: the spool and
+        # the segment would outlive the pool
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        if supervisor is not None:
+            supervisor.shutdown()
+        if server is not None:
+            server.stop()
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.join(timeout=5)
+        # the siblings' spool entries outlive a kill; the directory and
+        # the segment are this process's
+        shutil.rmtree(config.worker_spool_dir, ignore_errors=True)
+        if shm_owner is not None:
+            shm_owner.close(unlink=True)
     return 0
 
 
@@ -649,6 +836,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("deploy", help="deploy the latest trained engine instance")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--workers", type=int, default=None,
+                   help="engine-server processes sharing the listen port via "
+                        "SO_REUSEPORT (absent: PIO_SERVING_WORKERS, else 1); /metrics, "
+                        "/stats.json and /traces.json report the whole pool from any "
+                        "worker, and /reload, /drain and /retrieval reach every sibling")
+    p.add_argument("--supervise", action="store_true",
+                   help="own the worker siblings: respawn on death with damped "
+                        "backoff, latch crash loops, stop the pool on SIGTERM")
+    p.add_argument("--model-mmap", action="store_true", dest="model_mmap",
+                   help="map npz model checkpoints, so the workers share their host "
+                        "pages (sets PIO_CHECKPOINT_MMAP=r; each worker's copy on the "
+                        "card is its own)")
     p.add_argument("--engine-instance-id", default=None)
     p.add_argument("--engine-json", default="engine.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -670,6 +869,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "invalidated on /reload")
     p.add_argument("--cache-max-entries", type=int, default=None)
     p.add_argument("--cache-ttl-s", type=float, default=None)
+    p.add_argument("--shm-cache", action=argparse.BooleanOptionalAction, default=None,
+                   dest="shm_cache",
+                   help="back the result cache with ONE shared-memory segment every "
+                        "--workers sibling attaches (implies --cache; a platform "
+                        "without shared memory keeps private caches)")
+    p.add_argument("--shm-slots", type=int, default=None, dest="shm_slots",
+                   help="slots of the shared cache table (PIO_SERVING_SHM_SLOTS)")
+    p.add_argument("--shm-slot-bytes", type=int, default=None, dest="shm_slot_bytes",
+                   help="bytes a shared-cache slot (PIO_SERVING_SHM_SLOT_BYTES)")
     p.add_argument("--request-deadline-ms", type=float, default=None,
                    help="per-query time budget (0: none); a blown budget answers 503")
     p.add_argument("--retrieval", choices=("brute", "ann"), default=None,

@@ -27,7 +27,12 @@ import torch
 from predictionio_tpu_torch.ops import ann as ann_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
-from predictionio_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+from predictionio_tpu_torch.utils.checkpoint import (
+    default_mmap_mode,
+    host_tensor,
+    load_sharded,
+    save_sharded,
+)
 from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -374,20 +379,29 @@ class ALSModel:
         backend, on ``device`` (default ``cuda``). When ``model.json``
         names an ANN index, ``ann/`` is read and verified: a missing or
         torn payload raises ``CheckpointCorruptError``. The model serves
-        brute force until ``configure_retrieval("ann")``."""
+        brute force until ``configure_retrieval("ann")``.
+
+        Under ``PIO_CHECKPOINT_MMAP=r`` (``pio deploy --model-mmap``) the
+        factor tables and the index's arrays are mapped, so the workers
+        of a pool share one host copy (``utils/checkpoint.host_tensor``:
+        on the CPU the tables are the read-only mapping itself)."""
         dev = resolve_device(device)
         with open(os.path.join(directory, "model.json")) as f:
             meta = json.load(f)
         data = load_sharded(directory)
         ann_index = None
         if "ann" in meta:
+            # the index rides the same knob as the factors: flat_vecs is
+            # a full f32 copy of the item table, and from_arrays keeps a
+            # dtype-matching mapping as a view
             ann_index = ann_ops.AnnIndex.from_arrays(
-                load_sharded(os.path.join(directory, _ANN_SUBDIR)),
+                load_sharded(os.path.join(directory, _ANN_SUBDIR),
+                             mmap_mode=default_mmap_mode()),
                 n_items=int(meta["ann"]["n_items"]))
         return ALSModel(
             rank=int(meta["rank"]),
-            user_factors=torch.from_numpy(data["user"]).to(dev),
-            item_factors=torch.from_numpy(data["item"]).to(dev),
+            user_factors=host_tensor(data["user"], dev),
+            item_factors=host_tensor(data["item"], dev),
             user_ids=EntityIdIxMap(BiMap({k: int(v) for k, v in meta["user_ids"].items()})),
             item_ids=EntityIdIxMap(BiMap({k: int(v) for k, v in meta["item_ids"].items()})),
             seen_by_user={int(k): np.asarray(v, dtype=np.int32)

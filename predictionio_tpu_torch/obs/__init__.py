@@ -21,8 +21,11 @@ train profiler. Seven modules:
 - :mod:`~predictionio_tpu_torch.obs.device` — device memory gauges from
   ``torch.cuda``, the peak-FLOPs table and ``pio train --profile``.
 
-The JAX package's cross-process ``stitch`` and ``aggregate`` (worker
-pools, fleet scrapes) are not ported: ROADMAP.md queue 1 item 23.
+- :mod:`~predictionio_tpu_torch.obs.aggregate` — Prometheus text parsed
+  back into families and merged across the workers of a pool.
+
+The JAX package's cross-process ``stitch`` (the router's trace trees) is
+ROADMAP.md queue 1 item 23.
 
 The disabled path is near-free: one flag check and no allocation per
 request. None of these modules imports torch at import time, so the

@@ -114,6 +114,19 @@ class OnlineOverlay:
             self._matrix = None
             self._generation = max(self._generation + 1, int(generation))
 
+    def load_snapshot(self, users: dict, items: dict, generation: int) -> bool:
+        """Replace the whole table from a published pool snapshot (a
+        sibling worker's sync): refused (False) when ``generation`` is not
+        this overlay's, the sibling half of the fencing."""
+        with self._lock:
+            if generation != self._generation:
+                self._fenced += 1
+                return False
+            self._users = OrderedDict(users)
+            self._items = OrderedDict(items)
+            self._matrix = None
+            return True
+
     # -- reads (the serving path) -----------------------------------------
     def user(self, user_id: str) -> UserDelta | None:
         with self._lock:
@@ -143,6 +156,11 @@ class OnlineOverlay:
     def touched_users(self) -> list[str]:
         with self._lock:
             return list(self._users)
+
+    def snapshot_entries(self) -> tuple[dict, dict]:
+        """Shallow copies of both tables (the leader's pool snapshot)."""
+        with self._lock:
+            return dict(self._users), dict(self._items)
 
     # -- introspection -----------------------------------------------------
     def __len__(self) -> int:

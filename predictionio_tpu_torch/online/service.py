@@ -1,5 +1,5 @@
 """The online fold-in service: tail → solve → publish, on a loop (port of
-the JAX package's ``online/service.py`` for one server process).
+the JAX package's ``online/service.py``).
 
 One :class:`OnlineFoldIn` runs inside an engine server deployed with
 ``pio deploy --online``. Per cycle, paced by ``Event.wait`` on the
@@ -23,14 +23,24 @@ With tracing on (the engine server's ``tracing``), each cycle that
 folds records an ``online.foldin`` trace with ``tail``, ``solve`` and
 ``publish`` spans into the server's trace ring.
 
-Not in this port yet: the worker-pool half (the tail lease, the pool
-snapshot document and its sync: ROADMAP.md queue 1 item 23, so a
-``worker_hub`` raises).
+Across a worker pool (``pio deploy --workers N --online``): ONE worker
+holds the tail lease (an ``O_EXCL`` claim file in the pool's spool,
+reaped when its pid is gone, like the worker entries) and folds; after
+each cycle that changed the overlay it publishes the whole overlay as a
+sequenced ``online.state`` document (the ``serving/workers.py``
+discipline: cumulative, committed with an atomic ``os.replace``). The
+siblings load that snapshot into their own overlay, fenced by the model
+generation like a local fold, and invalidate the result-cache entries of
+the users whose vectors changed. Each worker scores the overlay against
+its OWN device copy of the factor tables. A dead leader's lease is taken
+by whichever sibling's next cycle notices, and the new leader resumes
+from the published cursor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import threading
@@ -56,6 +66,11 @@ from predictionio_tpu_torch.online.overlay import ItemDelta, OnlineOverlay, User
 from predictionio_tpu_torch.storage.base import EventFilter
 
 logger = logging.getLogger(__name__)
+
+#: the leader's published overlay snapshot in the pool's spool
+ONLINE_STATE_FILE = "online.state"
+#: the tail-lease claim file (one folding leader per pool)
+ONLINE_LEASE_FILE = "online.lease"
 
 
 def user_key_fragment(user_id: str) -> str:
@@ -161,6 +176,57 @@ def resolve_online_binding(deployed: Any, storage: Any) -> OnlineBinding | None:
     )
 
 
+class TailLease:
+    """One folding leader per worker pool: an ``O_EXCL`` claim file in
+    the spool directory, naming the worker and its pid; a dead holder's
+    claim is reaped."""
+
+    def __init__(self, spool_dir: str, owner: str):
+        self.path = os.path.join(spool_dir, ONLINE_LEASE_FILE)
+        self.owner = owner
+
+    def _holder(self) -> dict | None:
+        try:
+            with open(self.path) as f:
+                doc = json.load(f)
+            return doc if isinstance(doc, dict) else None
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+            return None
+
+    def try_hold(self) -> bool:
+        """True when this worker holds (or just claimed) the lease."""
+        holder = self._holder()
+        if holder is not None:
+            if holder.get("worker") == self.owner:
+                return True
+            try:
+                os.kill(int(holder.get("pid", -1)), 0)
+                return False            # a live leader elsewhere
+            except (ProcessLookupError, ValueError):
+                try:
+                    os.unlink(self.path)   # a dead leader: reap
+                except OSError:
+                    return False
+            except PermissionError:
+                return False            # alive, another uid
+        try:
+            fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_EXCL)
+        except OSError:                 # lost the claim race, or worse
+            return False
+        with os.fdopen(fd, "w") as f:
+            json.dump({"worker": self.owner, "pid": os.getpid()}, f)
+        logger.info("online tail lease claimed by %s", self.owner)
+        return True
+
+    def release(self) -> None:
+        holder = self._holder()
+        if holder is not None and holder.get("worker") == self.owner:
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass
+
+
 def _host_table(factors: torch.Tensor) -> np.ndarray:
     """A whole factor table on the host in f32 (once per generation)."""
     return factors.detach().to(torch.float32).cpu().numpy()
@@ -184,10 +250,6 @@ class OnlineFoldIn:
         trace_log: Any = None,
         tracing: bool = False,
     ):
-        if worker_hub is not None:
-            raise NotImplementedError(
-                "online fold-in across a worker pool (the tail lease and the pool "
-                "snapshot) is not ported: ROADMAP.md queue 1 item 23")
         self.storage = storage
         self._deployed_fn = deployed_fn
         self._generation_fn = generation_fn
@@ -197,6 +259,7 @@ class OnlineFoldIn:
         #: online.foldin trace per folding cycle when tracing is on
         self._trace_log = trace_log
         self._tracing = tracing
+        self._hub = worker_hub
         self._state_dir = state_dir
         self._initial_cursor = initial_cursor
         self.overlay = OnlineOverlay(
@@ -206,6 +269,15 @@ class OnlineFoldIn:
         self.enabled = False
         self._binding: OnlineBinding | None = None
         self._follower: EventTailFollower | None = None
+        #: the pool half (module docstring): the lease, whether this
+        #: worker leads, the last snapshot sequence it applied or
+        #: published, and the (mtime_ns, size) of the last snapshot it
+        #: processed (an unchanged stat skips the parse)
+        self._lease: TailLease | None = None
+        self._is_leader = False
+        self._adopted_leader_state = False
+        self._applied_seq = 0
+        self._doc_stamp: tuple | None = None
         #: users to re-solve against a freshly reloaded model (the
         #: overlay cleared at the generation fence)
         self._pending_refold: set[str] = set()
@@ -241,6 +313,8 @@ class OnlineFoldIn:
             # model's; back-dated events wait for the next retrain
             self._follower.cursor = (self._initial_cursor
                                      or TailCursor(int(time.time() * 1_000_000), ""))
+        if self._hub is not None:
+            self._lease = TailLease(self._hub.spool_dir, self._hub.worker_id)
         self.enabled = True
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, name="pio-online-foldin",
@@ -252,6 +326,10 @@ class OnlineFoldIn:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        with self._lock:
+            was_leader = self._is_leader
+        if self._lease is not None and was_leader:
+            self._lease.release()
 
     def _run(self) -> None:
         # Event.wait paces the loop and stops it promptly
@@ -294,10 +372,33 @@ class OnlineFoldIn:
 
     # -- one cycle ---------------------------------------------------------
     def tick(self) -> int:
-        """One loop pass; the number of events folded."""
+        """One loop pass: fold when this process is the only or the
+        lease-holding tailer, else apply the leader's published
+        snapshot. Returns the events folded, or the users applied."""
         if not self.enabled:
             return 0
-        return self._fold_once()
+        if self._lease is None or self._lease.try_hold():
+            if self._lease is not None and not self._adopted_leader_state:
+                self._adopt_leader_state()
+            with self._lock:
+                self._is_leader = True
+            return self._fold_once()
+        with self._lock:
+            self._is_leader = False
+        self._adopted_leader_state = False
+        return self._sync_once()
+
+    def _adopt_leader_state(self) -> None:
+        """A newly promoted leader resumes from the PUBLISHED cursor (the
+        previous leader's progress), not its own stale one."""
+        doc = self._read_pool_doc()
+        if doc is not None:
+            cursor = TailCursor.from_doc(doc.get("cursor"))
+            if cursor is not None:
+                self._follower.commit(cursor)
+            with self._lock:
+                self._applied_seq = int(doc.get("seq", 0))
+        self._adopted_leader_state = True
 
     def _fold_once(self) -> int:
         # generation first, then the binding: a /reload completing during
@@ -372,6 +473,7 @@ class OnlineFoldIn:
         else:
             self._follower.commit(new_cursor)
         lag = (time.time() - min(r.time_us for r in rows) / 1e6) if rows else None
+        publish = self._hub is not None and not fenced and bool(applied or new_items)
         with self._lock:
             self._stats["foldCycles"] += 1
             if not fenced:
@@ -381,6 +483,8 @@ class OnlineFoldIn:
                 self._stats["itemsAdded"] += len(new_items)
                 if lag is not None:
                     self._stats["lagSeconds"] = lag
+        if publish:
+            self._publish_pool_doc(generation, new_cursor, sorted(deltas))
         if trace is not None:
             trace.add_span("tail", t0, t_tail)
             trace.add_span("solve", t_tail, t_solve)
@@ -495,16 +599,132 @@ class OnlineFoldIn:
             event_time_us=max(times) if times else 0,
         )
 
+    # -- the pool snapshot (module docstring) --------------------------------
+    def _pool_doc_path(self) -> str:
+        return os.path.join(self._hub.spool_dir, ONLINE_STATE_FILE)
+
+    def _read_pool_doc(self) -> dict | None:
+        try:
+            with open(self._pool_doc_path()) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+            return None
+        if not isinstance(doc, dict) or not isinstance(doc.get("seq"), int):
+            return None
+        return doc
+
+    def _publish_pool_doc(self, generation: int, cursor: TailCursor | None,
+                          touched: list[str]) -> None:
+        """The leader's cumulative overlay snapshot, sequenced and
+        committed with an atomic ``os.replace``: a respawned or lagging
+        sibling adopts the whole state from one read. The leader is the
+        only writer and counts its own sequence (seeded from the
+        document when it was promoted)."""
+        users, items = self.overlay.snapshot_entries()
+        with self._lock:
+            seq = self._applied_seq + 1
+            folded = self._stats["foldedEvents"]
+            lag = self._stats["lagSeconds"]
+        doc = {
+            "seq": seq,
+            "generation": generation,
+            "cursor": cursor.to_doc() if cursor is not None else None,
+            "touched": touched,
+            "users": {
+                uid: {"v": d.vector.tolist(),
+                      "seen": [int(x) for x in d.extra_seen],
+                      "deltaSeen": list(d.delta_seen),
+                      "n": d.folded_events, "t": d.event_time_us}
+                for uid, d in users.items()
+            },
+            "items": {iid: d.vector.tolist() for iid, d in items.items()},
+            "foldedTotal": folded,
+            "lagSeconds": lag,
+            "publishedBy": self._hub.worker_id,
+        }
+        path = self._pool_doc_path()
+        tmp = f"{path}.{self._hub.worker_id}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, path)
+            with self._lock:
+                self._applied_seq = seq
+        except OSError:
+            logger.exception("publishing online overlay snapshot failed")
+
+    def _sync_once(self) -> int:
+        """A sibling applies the leader's latest snapshot, fenced by the
+        generation like a local fold (a snapshot computed against a
+        model this worker has not reloaded onto yet waits, retried every
+        cycle). Returns the users whose vectors changed."""
+        # stat before parse: os.replace always moves mtime or size, so an
+        # unchanged stat means an unchanged document
+        try:
+            st = os.stat(self._pool_doc_path())
+            stamp = (st.st_mtime_ns, st.st_size)
+        except OSError:
+            return 0
+        if stamp == self._doc_stamp:
+            return 0
+        doc = self._read_pool_doc()
+        with self._lock:
+            applied_seq = self._applied_seq
+        if doc is None or doc["seq"] <= applied_seq:
+            self._doc_stamp = stamp
+            return 0
+        generation = self._generation_fn()
+        if doc.get("generation") != generation:
+            return 0                    # retried until this worker catches up
+        try:
+            users = {
+                uid: UserDelta(
+                    vector=np.asarray(u["v"], dtype=np.float32),
+                    extra_seen=tuple(int(x) for x in u.get("seen", ())),
+                    delta_seen=tuple(u.get("deltaSeen", ())),
+                    folded_events=int(u.get("n", 0)),
+                    event_time_us=int(u.get("t", 0)))
+                for uid, u in doc.get("users", {}).items()
+            }
+            items = {iid: ItemDelta(vector=np.asarray(v, dtype=np.float32))
+                     for iid, v in doc.get("items", {}).items()}
+        except (TypeError, ValueError):
+            logger.warning("malformed online snapshot seq=%s skipped", doc.get("seq"))
+            with self._lock:
+                self._applied_seq = doc["seq"]
+            self._doc_stamp = stamp
+            return 0
+        # invalidate by DIFF against this worker's overlay, not by the
+        # document's `touched`: the snapshot is cumulative and this
+        # sibling may have skipped publishes in between
+        prior_users, _ = self.overlay.snapshot_entries()
+        changed = [uid for uid, delta in users.items()
+                   if (prev := prior_users.get(uid)) is None
+                   or not np.array_equal(prev.vector, delta.vector)]
+        if not self.overlay.load_snapshot(users, items, generation=generation):
+            return 0
+        self._doc_stamp = stamp
+        with self._lock:
+            self._applied_seq = doc["seq"]
+            if doc.get("lagSeconds") is not None:
+                self._stats["lagSeconds"] = doc["lagSeconds"]
+        if self._invalidate_user is not None:
+            for uid in changed:
+                self._invalidate_user(uid)
+        return len(changed)
+
     # -- observability ------------------------------------------------------
     def metrics(self) -> dict:
         """The fold counters and the overlay's occupancy (the JAX
-        package's keys; one process is always its own leader)."""
+        package's keys; a process outside a pool is its own leader)."""
         counters = self.overlay.counters()
         with self._lock:
             stats = dict(self._stats)
+            leader = self._is_leader
+            applied_seq = self._applied_seq
         return {
             "enabled": self.enabled,
-            "leader": True,
+            "leader": leader or self._lease is None,
             "generation": counters["generation"],
             "overlayUsers": counters["users"],
             "overlayItems": counters["items"],
@@ -517,7 +737,7 @@ class OnlineFoldIn:
             "itemsAddedTotal": stats["itemsAdded"],
             "errorsTotal": stats["errors"],
             "lagSeconds": stats["lagSeconds"],
-            "appliedSeq": 0,
+            "appliedSeq": applied_seq,
         }
 
     def stats_doc(self) -> dict:

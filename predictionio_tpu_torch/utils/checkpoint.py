@@ -13,16 +13,34 @@ package). The two packages read each other's npz checkpoints.
 
 A checkpoint the JAX package wrote with orbax needs JAX to read:
 :func:`load_sharded` raises for it.
+
+Memory-mapped loading (``pio deploy --workers N --model-mmap``):
+``load_sharded(..., mmap_mode="r")`` maps each npz member's raw ``.npy``
+bytes out of the page cache instead of copying them onto the heap, so
+the N workers of a pool that load one checkpoint share one physical
+HOST copy of the factor tables. ``PIO_CHECKPOINT_MMAP=r`` turns it on
+for every load (read per call). The card does not share: each worker
+still copies the tables into its own CUDA context
+(:func:`host_tensor`). A mapped load verifies the manifest's shapes and
+dtypes but skips the content hash, which would read every byte: the
+save path's fsync and atomic rename already keep a torn payload from
+being named. Any mapping failure (a compressed member, a legacy layout)
+logs a warning and falls back to the eager, verified load.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
+import warnings
 from typing import Any, Mapping
 
 import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
 
 _META_FILE = "checkpoint_meta.json"
 _NPZ_FILE = "arrays.npz"
@@ -72,17 +90,91 @@ def save_sharded(directory: str, arrays: Mapping[str, np.ndarray]) -> str:
     return "npz"
 
 
-def load_sharded(directory: str) -> dict[str, np.ndarray]:
+def default_mmap_mode() -> str | None:
+    """``"r"`` when ``PIO_CHECKPOINT_MMAP`` is ``r``/``1``/``true``/
+    ``yes``/``on``, else None (the eager, verified load). Read at call
+    time, never at import."""
+    raw = os.environ.get("PIO_CHECKPOINT_MMAP", "").strip().lower()
+    if raw in ("r", "1", "true", "yes", "on"):
+        return "r"
+    return None
+
+
+def _mmap_npz(path: str) -> dict[str, np.ndarray]:
+    """Every member of an uncompressed npz as a read-only ``np.memmap``
+    view into the archive file. Raises on anything unexpected (a
+    compressed member, an object array, a short file): the caller falls
+    back to the eager load."""
+    import zipfile
+
+    from numpy.lib import format as npy_format
+
+    out: dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"member {info.filename!r} is compressed; "
+                                 "mmap needs raw stored bytes")
+            name = info.filename
+            if name.endswith(".npy"):
+                name = name[:-4]
+            # the zip local file header is variable length: read its
+            # name and extra lengths to land on the .npy data
+            f.seek(info.header_offset)
+            local = f.read(30)
+            if len(local) != 30 or local[:4] != b"PK\x03\x04":
+                raise ValueError("torn local header")
+            name_len = int.from_bytes(local[26:28], "little")
+            extra_len = int.from_bytes(local[28:30], "little")
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            # the public header readers (the JAX package calls numpy's
+            # private _read_array_header, which newer numpy no longer
+            # exports from numpy.lib.format)
+            version = npy_format.read_magic(f)
+            reader = {(1, 0): npy_format.read_array_header_1_0,
+                      (2, 0): npy_format.read_array_header_2_0}.get(version)
+            if reader is None:
+                raise ValueError(f"member {name!r} has .npy format {version}")
+            shape, fortran, dtype = reader(f)
+            if dtype.hasobject:
+                raise ValueError(f"member {name!r} holds objects; not mappable")
+            out[name] = np.memmap(path, dtype=dtype, mode="r", shape=shape,
+                                  offset=f.tell(), order="F" if fortran else "C")
+    return out
+
+
+def load_sharded(directory: str, mmap_mode: str | None = None) -> dict[str, np.ndarray]:
     """Host arrays saved by :func:`save_sharded` (either package's npz
-    backend), verified against the manifest when there is one."""
+    backend), verified against the manifest when there is one.
+
+    ``mmap_mode="r"`` maps the arrays instead of copying them (read-only
+    ``np.memmap`` views; shapes and dtypes verified, content hashes
+    skipped: module docstring). None defers to
+    :func:`default_mmap_mode`."""
     meta = _read_meta(directory)
     if meta.get("backend", "npz") == "orbax":
         raise RuntimeError(
             f"checkpoint at {directory} was written by orbax, and reading orbax needs "
             "JAX; save it with the npz backend to load it here")
     payload_name = meta.get("payload", _NPZ_FILE)
+    path = os.path.join(directory, payload_name)
+    if mmap_mode is None:
+        mmap_mode = default_mmap_mode()
+    if mmap_mode is not None:
+        try:
+            out = _mmap_npz(path)
+        except FileNotFoundError:
+            raise CheckpointCorruptError(
+                f"checkpoint at {directory} is missing {payload_name} — "
+                "incomplete or deleted save") from None
+        except Exception as exc:  # degrade to the eager verified load
+            logger.warning("mmap load of %s failed (%s); falling back to the eager "
+                           "copy-and-verify load", path, exc)
+        else:
+            _verify(directory, out, meta.get("arrays"), check_sums=False)
+            return out
     try:
-        with np.load(os.path.join(directory, payload_name)) as data:
+        with np.load(path) as data:
             out = {k: data[k] for k in data.files}
     except FileNotFoundError:
         raise CheckpointCorruptError(
@@ -96,10 +188,23 @@ def load_sharded(directory: str) -> dict[str, np.ndarray]:
     return out
 
 
+def host_tensor(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A loaded checkpoint array as a tensor on ``device``. A mapped
+    (read-only) array is aliased, not copied: on the card the transfer
+    reads the shared pages once into this process's own device copy;
+    on the CPU the tensor IS the mapping, so nothing may ever write into
+    it in place (a write to a read-only mapping kills the process).
+    ``torch.from_numpy`` warns about non-writable arrays; the aliasing is
+    the point here, so that warning is silenced."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(array).to(device)
+
+
 def _verify(directory: str, arrays: Mapping[str, np.ndarray],
-            manifest: Mapping[str, Any] | None) -> None:
-    """Arrays against the manifest; a checkpoint without one (version 1)
-    loads unverified."""
+            manifest: Mapping[str, Any] | None, check_sums: bool = True) -> None:
+    """Arrays against the manifest (content hashes when ``check_sums``);
+    a checkpoint without one (version 1) loads unverified."""
     if manifest is None:
         return
     have, want = set(arrays), set(manifest)
@@ -118,7 +223,7 @@ def _verify(directory: str, arrays: Mapping[str, np.ndarray],
                 f"checkpoint array {name!r} at {directory} has dtype "
                 f"{value.dtype}, manifest says {meta.get('dtype')}")
         expected = meta.get("sha256")
-        if expected and hashlib.sha256(
+        if check_sums and expected and hashlib.sha256(
                 np.ascontiguousarray(value).tobytes()).hexdigest() != expected:
             raise CheckpointCorruptError(
                 f"checkpoint array {name!r} at {directory} fails its content "

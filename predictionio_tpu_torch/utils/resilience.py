@@ -3,7 +3,11 @@ server's serving layer uses (a copy; the port imports nothing of that
 package):
 
 - :class:`Clock` / :class:`ManualClock`: an injectable time source, so
-  the batch policy and the result cache run on virtual time in tests;
+  the batch policy, the result caches and the worker supervisor run on
+  virtual time in tests;
+- :class:`TransientError`: the base of failures worth retrying, which
+  the loopback transport of the worker pool raises
+  (``fleet/transport.UpstreamProtocolError``);
 - :class:`StorageUnavailableError` and :data:`STORAGE_UNAVAILABLE_ERRORS`:
   what the serving plane answers with ``503`` + ``Retry-After``;
 - :func:`deadline_scope` / :func:`remaining_deadline`: the per-request
@@ -16,7 +20,8 @@ package):
   ``resilience``.
 
 The circuit breaker, the ``resilient`` call wrapper and the storage
-backends wrapped in them stay with ROADMAP.md queue 1 item 23.
+backends wrapped in them stay with the router tier (ROADMAP.md queue 1
+item 23).
 """
 
 from __future__ import annotations
@@ -36,24 +41,41 @@ class Clock:
     def monotonic(self) -> float:
         return time.monotonic()
 
+    def sleep(self, seconds: float) -> None:
+        if seconds > 0:
+            time.sleep(seconds)
+
 
 SYSTEM_CLOCK = Clock()
 
 
 class ManualClock(Clock):
-    """Deterministic clock for tests: ``advance`` moves virtual time."""
+    """Deterministic clock for tests: ``sleep`` advances virtual time at
+    once (each call recorded in ``slept``), ``advance`` moves it."""
 
     def __init__(self, start: float = 0.0):
         self._now = start
         self._lock = threading.Lock()
+        self.slept: list[float] = []
 
     def monotonic(self) -> float:
         with self._lock:
             return self._now
 
+    def sleep(self, seconds: float) -> None:
+        with self._lock:
+            self._now += max(0.0, seconds)
+            self.slept.append(seconds)
+
     def advance(self, seconds: float) -> None:
         with self._lock:
             self._now += seconds
+
+
+class TransientError(Exception):
+    """Marker for failures worth retrying (connection refused, a
+    malformed upstream answer): raised at a network boundary, so the
+    caller's policy never guesses from library-specific types."""
 
 
 class StorageUnavailableError(ConnectionError):

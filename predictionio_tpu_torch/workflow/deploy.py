@@ -15,10 +15,11 @@ A model directory, as the templates' ``save_engine_model`` /
 ``--model-dir`` entry.
 
 ``ServerConfig`` also carries the serving layer's knobs (micro-batching,
-the result cache, the request deadline, the server key, the retrieval
-mode and its ANN knobs) and the online freshness plane's; each default
-reads its ``PIO_SERVING_<KEY>`` or ``PIO_ONLINE_<KEY>`` variable when the
-config is built, as in the JAX package. The retrieval knobs are applied
+the result cache and its shared-memory segment, the request deadline,
+the server key, the retrieval mode and its ANN knobs), the worker
+pool's and the online freshness plane's; each default reads its
+``PIO_SERVING_<KEY>`` or ``PIO_ONLINE_<KEY>`` variable when the config is
+built (``utils/envcfg.py``), as in the JAX package. The retrieval knobs are applied
 to every ALS-family model on each load (:func:`apply_retrieval_config`).
 """
 
@@ -39,6 +40,7 @@ from predictionio_tpu_torch.controller.engine import Engine, resolve_engine_fact
 from predictionio_tpu_torch.controller.params import EngineParams
 from predictionio_tpu_torch.storage.base import EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.utils.envcfg import env_field
 from predictionio_tpu_torch.workflow.context import EngineContext
 from predictionio_tpu_torch.workflow.persistence import load_models
 
@@ -47,32 +49,14 @@ logger = logging.getLogger(__name__)
 DEFAULT_ENGINE_FACTORY = "predictionio_tpu_torch.templates.sessionrec.engine_factory"
 
 
-def _prefixed_field(prefix: str, key: str, default: Any, cast: Callable[[str], Any]):
-    """A frozen-dataclass field whose default reads ``<prefix><KEY>`` when
-    the config is built (never at import); a malformed value falls back
-    to ``default`` with a warning."""
-    def read() -> Any:
-        raw = os.environ.get(f"{prefix}{key}")
-        if raw is None:
-            return default
-        try:
-            return cast(raw)
-        except (TypeError, ValueError):
-            logger.warning("ignoring malformed %s%s=%r (using %r)",
-                           prefix, key, raw, default)
-            return default
-
-    return dataclasses.field(default_factory=read)
-
-
 def _env_field(key: str, default: Any, cast: Callable[[str], Any]):
     """A ``PIO_SERVING_<KEY>``-overridable default."""
-    return _prefixed_field("PIO_SERVING_", key, default, cast)
+    return env_field("PIO_SERVING_", key, default, cast)
 
 
 def _online_field(key: str, default: Any, cast: Callable[[str], Any]):
     """A ``PIO_ONLINE_<KEY>``-overridable default of the freshness plane."""
-    return _prefixed_field("PIO_ONLINE_", key, default, cast)
+    return env_field("PIO_ONLINE_", key, default, cast)
 
 
 def _cast_bool(raw: str) -> bool:
@@ -98,8 +82,10 @@ def _cast_retrieval(raw: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
     """The JAX package's ``ServerConfig`` fields that this port serves,
-    plus the device. ``--workers`` and the shared-memory cache stay with
-    ROADMAP.md queue 1 item 23."""
+    plus the device. Under ``--workers N`` every worker of the pool gets
+    the same config (and so the same device), with its own
+    ``worker_index``; the config pickles, since a sibling is started
+    from the ``spawn`` context."""
 
     ip: str = "0.0.0.0"
     port: int = 8000              # 0 binds a free port (``EngineServer.port``)
@@ -139,6 +125,20 @@ class ServerConfig:
     cache_enabled: bool = _env_field("CACHE_ENABLED", False, _cast_bool)
     cache_max_entries: int = _env_field("CACHE_MAX_ENTRIES", 4096, int)
     cache_ttl_s: float = _env_field("CACHE_TTL_S", 30.0, float)
+    #: back the result cache with ONE shared-memory segment that every
+    #: worker of the pool attaches (serving/shm_cache.py): a key warmed
+    #: by any worker is a hit for its siblings, and a /reload re-warms
+    #: once. Needs ``cache_enabled``; where POSIX shared memory fails
+    #: the worker warns and keeps a private cache
+    shm_cache: bool = _env_field("SHM", False, _cast_bool)
+    #: slots of the direct-mapped table (colliding keys overwrite)
+    shm_slots: int = _env_field("SHM_SLOTS", 4096, int)
+    #: bytes a slot: header, canonical key and pickled prediction; a
+    #: larger entry stays uncached
+    shm_slot_bytes: int = _env_field("SHM_SLOT_BYTES", 4096, int)
+    #: the pool's segment name (the deploy command creates and owns
+    #: one); empty: a private per-process segment
+    shm_segment: str = _env_field("SHM_SEGMENT", "", str)
     #: per-request time budget for /queries.json (0: none); a client may
     #: lower it with an X-PIO-Deadline-Ms header; a blown budget answers
     #: 503 + Retry-After
@@ -170,6 +170,32 @@ class ServerConfig:
     #: None defers to the PIO_TRACE env var at server construction. Off
     #: by default: the disabled path is one flag check per request
     tracing: bool | None = None
+    #: the prefork pool (``pio deploy --workers N``): N engine-server
+    #: processes on ONE ``SO_REUSEPORT`` port, each with its own CUDA
+    #: context, model replica, batcher, cache and registry (one CPython
+    #: process is bound by its GIL long before the card is busy)
+    workers: int = _env_field("WORKERS", 1, int)
+    #: the spool directory of worker peering and shared admin state
+    #: (fleet/workers.WorkerHub, serving/workers.WorkerCoherence); the
+    #: deploy command creates it. None: no pool
+    worker_spool_dir: str | None = None
+    #: this worker's ordinal (0: the deploy process itself): its
+    #: CPU-affinity stripe (serving/placement.py)
+    worker_index: int = 0
+    #: the pool's allowed CPUs, captured before the parent pins itself
+    #: to stripe 0, so that a respawned worker carves its stripe from
+    #: the whole set. None: the process's own mask
+    cpu_allowlist: tuple[int, ...] | None = None
+    #: bind with SO_REUSEPORT (set by the deploy command for a pool;
+    #: never derived from ``workers``, which the environment can set)
+    reuse_port: bool = False
+    #: socket bound of each sibling fetch when /metrics, /stats.json or
+    #: /traces.json fold the pool: a wedged worker costs its timeout
+    worker_peer_timeout_s: float = _env_field("WORKER_PEER_TIMEOUT_S", 2.0, float)
+    #: cadence of the shared admin-state sync: a /reload, /drain or
+    #: retrieval change landing on any worker reaches every sibling
+    #: within about this many seconds
+    admin_sync_interval_s: float = _env_field("ADMIN_SYNC_INTERVAL_S", 0.5, float)
 
 
 class DeployedEngine:

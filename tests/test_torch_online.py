@@ -639,10 +639,69 @@ class TestCache:
             services["jax"].online.close()
 
 
-def test_a_worker_pool_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        service.OnlineFoldIn(storage=None, deployed_fn=lambda: None,
-                             generation_fn=lambda: 0, worker_hub=object())
+class _Hub:
+    """What the fold-in service reads of a worker hub."""
+
+    def __init__(self, spool_dir: str, worker_id: str):
+        self.spool_dir, self.worker_id = spool_dir, worker_id
+
+
+def test_a_worker_pool_raises_naming_its_roadmap_item(store, tmp_path):
+    """(Named when a worker hub raised, before the pool half was ported.)
+    Two workers' fold-in services over one spool and store, in each
+    package: the first to tick takes the tail lease and folds, the other
+    applies the leader's published snapshot to its own model; leaders,
+    sequences, returns, invalidations and overlays equal JAX's, and the
+    sibling serves the folded answers."""
+    jstorage, pstorage, app_id = store
+    runs = {}
+    for name, mod, fol, deployed, storage in (
+            ("port", service, follower, _port_deployed, pstorage),
+            ("jax", jservice, jfollower, _jax_deployed, jstorage)):
+        spool = tmp_path / name
+        spool.mkdir()
+        invalidated: list = []
+        deps = [deployed(), deployed()]
+        svcs = [mod.OnlineFoldIn(
+            storage=storage, deployed_fn=lambda d=d: d, generation_fn=lambda: 0,
+            interval_s=3600, initial_cursor=fol.TailCursor(_us(START), ""),
+            invalidate_user=lambda u, i=i, out=invalidated: out.append((i, u)),
+            worker_hub=_Hub(str(spool), f"w{i}")) for i, d in enumerate(deps)]
+        for svc in svcs:
+            svc.start()
+        runs[name] = dict(deps=deps, svcs=svcs, invalidated=invalidated, trace=[])
+    try:
+        def step():
+            for run in runs.values():
+                run["trace"].append([svc.tick() for svc in run["svcs"]] + [
+                    (m["leader"], m["appliedSeq"], m["overlayUsers"], m["overlayItems"])
+                    for m in (svc.metrics() for svc in run["svcs"])])
+
+        step()
+        n = 0
+        for ev, user, item, props in (("rate", "u1", "i5", {"rating": 5.0}),
+                                      ("rate", "u2", "i7", {"rating": 2.0}),
+                                      ("rate", "newbie", "i3", {"rating": 4.0}),
+                                      ("rate", "u3", "fresh", {"rating": 5.0})):
+            n += 1
+            pstorage.get_events().insert_batch(
+                [_event(ev, user, item, props, at=START + timedelta(seconds=n))], app_id)
+        step()
+        step()
+        assert runs["port"]["trace"] == runs["jax"]["trace"]
+        assert runs["port"]["invalidated"] == runs["jax"]["invalidated"]
+        assert sorted(u for i, u in runs["port"]["invalidated"] if i == 1) == \
+            ["newbie", "u1", "u2", "u3"]
+        leader, sibling = runs["port"]["svcs"]
+        _same_overlays(sibling, runs["jax"]["svcs"][1])
+        _same_overlays(sibling, leader)
+        for user in ("u1", "newbie", "u3"):
+            _same_answers(runs["port"]["deps"][1].models[0].recommend(user, 10),
+                          runs["port"]["deps"][0].models[0].recommend(user, 10))
+    finally:
+        for run in runs.values():
+            for svc in run["svcs"]:
+                svc.close()
 
 
 def test_online_without_an_als_model_stays_inert(store):

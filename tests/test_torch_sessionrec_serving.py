@@ -335,7 +335,10 @@ class TestIndependence:
             "        'utils.reflection', 'fleet.supervisor', 'experiment.grid',\n"
             "        'workflow.fake', 'data.movielens', 'e2.engine', 'e2.evaluation',\n"
             "        'e2.quality', 'obs', 'obs.trace', 'obs.registry', 'obs.exporter',\n"
-            "        'obs.slo', 'obs.compile', 'obs.device']\n"
+            "        'obs.slo', 'obs.compile', 'obs.device', 'obs.aggregate',\n"
+            "        'fleet.transport', 'fleet.workers', 'serving.workers',\n"
+            "        'serving.placement', 'serving.shm_cache', 'utils.envcfg',\n"
+            "        'online.service', 'online.overlay']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")
