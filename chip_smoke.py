@@ -51,14 +51,15 @@ Phases, in order; any failure exits non-zero:
    26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
    of `ladder_rows` through the native packer (`NATIVE_LADDERS` must
    move), and on the first 4M ratings beside the NumPy path's (the
-   layouts equal array for array), and of staging; 10 bf16 iterations after a one-iteration
+   layouts equal array for array), and of staging; 5 bf16 iterations (cut
+   from bench.py's 10) after a one-iteration
    warm-up, timed by CUDA events (ms per iteration, ratings/s, useful and
    executed TFLOP/s, peak memory), one iteration under torch.profiler
    (launches, device time, busy share against the unprofiled iteration);
-   the f32 route's 10 iterations; RMSE finite and below the first
+   the f32 route's 5 iterations; RMSE finite and below the first
    iteration's, bf16 within 0.02 of f32; one f32 user half-step against
    float64 Cholesky on the host on 4,096 sampled rows;
-10. rank 200 (bench.py:396-441): 2 iterations with the "auto" bf16 CG
+10. rank 200 (bench.py:396-441): 1 iteration (cut from 2) with the "auto" bf16 CG
    matvec, and its half-step against float64 on 1,024 sampled rows;
 11. serving the phase-9 model: `ALSModel.save`, then the engine server
    with the recommendation template on that directory; ~30 HTTP queries (num 10/100/1000,
@@ -146,7 +147,7 @@ Phases, in order; any failure exits non-zero:
    one `predict` event per query (its query and prediction, entityId =
    the answer's prId) readable within 10 s, `pio undeploy`; (e) the
    event server again over a binevents event store with `--wal-dir
-   --wal-policy write-through --wal-fsync interval`: the first 20,000 of
+   --wal-policy write-through --wal-fsync interval`: the first 10,000 of
    16b's events all 202, drained (`pio wal status`: 0 pending) and read
    back equal through the native scanner, events/s and drain seconds;
    then SIGKILL during a second burst, a restart, and every
@@ -154,7 +155,8 @@ Phases, in order; any failure exits non-zero:
 19. similar product and e-commerce at the ML-20M shape: phase 9's
    138,493 × 26,744 × 20M power-law pairs as implicit views, each item
    in 1-3 of 20 categories; each template's algorithm trained at the JAX
-   package's defaults (rank 10, 20 iterations, λ 0.01, α 1.0, seed 3)
+   package's defaults (rank 10, λ 0.01, α 1.0, seed 3) but for 10
+   iterations (cut from 20)
    from prepared data built from the COO (both layouts by the native
    packer); 64 queries a template (categories, white and black lists,
    a live `unavailableItems` constraint and newcomers' recent views read
@@ -173,7 +175,7 @@ Phases, in order; any failure exits non-zero:
    seeded): multinomial naive Bayes trained and scored on every row,
    300 logreg Adam steps (lr 0.1, l2 1e-4; ms and launches a step
    against the bytes bound), a 10-tree depth-5 forest grown on the host
-   on 58,101 sampled rows and its votes walked on the card over every
+   on 29,050 sampled rows and its votes walked on the card over every
    row, each against float64 on the host (the votes exactly); then the
    template: 20,000 entities' `$set` properties in sqlite, `run_train`
    with naive Bayes and logreg under BlendedServing, HTTP queries, and
@@ -181,9 +183,9 @@ Phases, in order; any failure exits non-zero:
    same folds on the CPU;
 22. ANN retrieval (`ops/ann.py`) at the JAX package's own ANN point
    (bench_serving.py:1563-1623), its catalog cut from 1,000,000 to
-   262,144 items at rank 32 from its factor mixture (256 clusters, noise
+   131,072 items at rank 32 from its factor mixture (256 clusters, noise
    0.5, seeds 7/8), 2,048 users with 8 seen items; `ALSModel.save` builds
-   the IVF index at persist time (auto nlist 2,048; the build seconds
+   the IVF index at persist time (the auto nlist; the build seconds
    logged), `ALSModel.load` on the
    card and `configure_retrieval("ann")`; at nprobe = nlist 64 answers
    equal brute force, ids and order; at the auto nprobe each answer
@@ -197,7 +199,7 @@ Phases, in order; any failure exits non-zero:
    answers equal brute force;
 23. online freshness (`online/`): phase 16b's ML-100k instance behind
    `pio deploy --online --online-interval-s 0.2 --cache` and `pio
-   eventserver` over the same sqlite store: 32 known users each rate
+   eventserver` over the same sqlite store: 16 known users each rate
    their first answer over `POST /events.json`, and each answer changes
    with no retrain (the seconds from the 201, p50 and max); a new user
    and a new item are served; 32 other users' cache entries survive
@@ -225,11 +227,12 @@ Phases, in order; any failure exits non-zero:
    ALS on the card, held-out RMSE within 0.05 of the NumPy ALS-WR's and
    MAP@10 inside its seed band; the implicit path against popularity on
    examples/data/sample_movielens.txt; `MarkovChain.train` over 26,744
-   states (a 2.86 GB dense f32 table) from the first 10M of phase 9's
+   states (a 2.86 GB dense f32 table) from the first 2.5M of phase 9's
    ratings as per-user consecutive transitions (cut from all 20M) against
    float64 on the host, ids exact with
-   ties lowest index first; `CategoricalNaiveBayes.train` on phase 21's
-   Covertype-shape rows as categorical strings, the counts exactly
+   ties lowest index first; `CategoricalNaiveBayes.train` on the first
+   quarter of phase 21's Covertype-shape rows as categorical strings, the
+   counts exactly
    against NumPy bincount; each device program's CUDA-event ms, device
    ms and launches;
 26. the observability layers over 16a's store: (a) `pio train --profile
@@ -276,17 +279,43 @@ Phases, in order; any failure exits non-zero:
    the same checkpoint payloads (bytes unchanged), and after 8 users'
    ratings every answer on fresh connections equals the same fold in
    this process;
-28. a `kernels` JSON line, then the result line
+28. the router tier: `pio router --supervise --tracing` with two
+   `--replica-cmd` replicas (`pio deploy` of 16a's instance, `--batching
+   --batch-max 64 --tracing`, on the card), a third such deploy as the
+   canary, and 16b's ML-100k instance as a second engine (`--engine`),
+   the scale controller in dry run: phase 17's C=64 level (256 distinct
+   queries) through the router, every answer equal to the in-process one
+   within BATCH_SCORE_TOL, p50, p99, queries/s beside phase 27's N=2 pool
+   and the router's own hop from its spans; the kernel timed on a served
+   query's q/k/v while the replicas serve through the router; the ML-100k
+   engine at /engines/<name>/queries.json equal to its deploy queried
+   directly; the canary at weight 10 over 1,000 queries within 5
+   binomial sigmas, then promoted (weight 100) over `/fleet/canary`; a
+   replica SIGKILLed under load at C=8: no 5xx, retries counted, the
+   supervisor respawns it, membership marks it up, seconds to its first
+   routed 200; `pio experiment start` over phase 24's forked grid (both
+   variants on the two replicas): answers stamped with experimentId and
+   variantId, attributed buys into `pio eventserver` counted by
+   `pio_experiment_conversions_ingested_total`, then `pio experiment
+   conversions` and `status`; `pio trace` of a routed query, a stitched
+   tree from the router's root span to the replica's
+   batcher.device_dispatch; `/fleet/metrics` folding both replicas and
+   `pio_fleet_desired_replicas` on `/metrics`; each replica's launches = 4
+   x popcount of its batches with no build; a SIGTERM of the router stops
+   it and its replicas;
+29. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
-`--grid-only`, `--e2-only`, `--obs-only` and `--pool-only` run phases
-9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26 and 27 alone (17 over
-16a's instance and a random ML-20M-shape ALS model, 18, 24 and 26 over
-16a's import, 22 over a random ML-20M-shape model, 23 over 16b's import
-and train, 27 over 16a's and 16b's) and print no result line. Phases
+`--grid-only`, `--e2-only`, `--obs-only`, `--pool-only` and
+`--router-only` run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24,
+25, 26, 27 and 28 alone (17 over 16a's instance and a random
+ML-20M-shape ALS model, 18, 24 and 26 over 16a's import, 22 over a
+random ML-20M-shape model, 23 over 16b's import and train, 27 over 16a's
+and 16b's, 28 over 16a's and 16b's and a serial `pio eval` of phase 24's
+two grid points) and print no result line. Phases
 22, 23 and 25 launch no flash kernel. Exits non-zero, printing no result,
 when there is no card.
 """
@@ -297,6 +326,7 @@ import json
 import math
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -392,8 +422,12 @@ TRAIN_GRAD_RTOL = 3e-2
 #: (bench.py:95-99, make_ratings :119-125): users, items, power-law ratings
 ML20M = (138_493, 26_744, 20_000_000)
 ALS_RANK, ALS_LAM, ALS_ITERS = 32, 0.08, 10
-#: bench.py:396-441: rank 200, short runs
-RANK200, RANK200_ITERS = 200, 2
+#: the iterations phase 9 times on each route (cut from bench.py's 10 to
+#: make room for phase 28; ms per iteration is what it reports)
+ALS_TIMED_ITERS = 5
+#: bench.py:396-441: rank 200, short runs (one timed iteration, cut from
+#: two to make room for phase 28)
+RANK200, RANK200_ITERS = 200, 1
 #: rows whose f32 CG solutions are held against float64 Cholesky on the host
 CG_CHECK_ROWS = (4096, 1024)           # rank 32, rank 200
 #: relative error per row against float64: the f32 CG at rank 32; the bf16
@@ -1364,11 +1398,11 @@ def phase_als_train() -> dict:
     rmse_1 = als.rmse(als.ALSFactors(*train(1, True)), coo)      # warm-up
     results = {}
     for route, bf16 in (("bf16", True), ("f32", False)):
-        ms, (user, item) = _events_ms(lambda: train(ALS_ITERS, bf16))
-        per_iter = ms / ALS_ITERS
+        ms, (user, item) = _events_ms(lambda: train(ALS_TIMED_ITERS, bf16))
+        per_iter = ms / ALS_TIMED_ITERS
         err = als.rmse(als.ALSFactors(user, item), coo)
         results[route] = (per_iter, user, item, err)
-        log(f"[als] {route} route, {ALS_ITERS} iterations: ms_per_iteration={per_iter:.3f} "
+        log(f"[als] {route} route, {ALS_TIMED_ITERS} iterations: ms_per_iteration={per_iter:.3f} "
             f"ratings_per_s={nnz / (per_iter / 1e3):.0f} "
             f"useful_tflops={useful / (per_iter / 1e3) / 1e12:.4f} "
             f"executed_tflops={executed / (per_iter / 1e3) / 1e12:.4f} rmse={err:.5f}")
@@ -2917,11 +2951,12 @@ def phase_serve(pio: _Pio, instance: tuple[str, str, float], als_model: ALSModel
 #: 8 keep-alive clients: every 4th user, whose walks still cover every
 #: item, so the model trained from them keeps vocab 50,000 (the user count
 #: is the depth cut; the widths stay). 32 users at batch 8 are 4 Adam steps
-#: at S = 2048. 18e sends the first 20,000 of phase 16b's ML-100k events
+#: at S = 2048. 18e sends the first 10,000 of phase 16b's ML-100k events
 INGEST_USERS = tuple(range(0, PIO_SESSION[0], 4))
 INGEST_BATCH, INGEST_CLIENTS, INGEST_SINGLES = 50, 8, 200
 INGEST_QUERIES = 30
-INGEST_WAL_EVENTS = 20_000
+#: 18e's first burst (cut from 20,000 to make room for phase 28)
+INGEST_WAL_EVENTS = 10_000
 #: seconds within which the deploy's feedback events must be readable
 FEEDBACK_WAIT_S = 10.0
 #: events acknowledged in 18e's second burst before the server is killed
@@ -3256,7 +3291,7 @@ def _drain(pio: _Pio, wal_dir: str, t0: float) -> float:
 
 def phase_durable_ingest(pio: _Pio, app_id: int, key: str) -> None:
     """18e: the event server over binevents with the write-through WAL:
-    20,000 events all 202, drained into the store and read back through
+    10,000 events all 202, drained into the store and read back through
     the native scanner; then SIGKILL during a second burst, a restart,
     and every acknowledged event read back."""
     from predictionio_tpu_torch.storage import binevents
@@ -3372,9 +3407,10 @@ CLASS_FACTORY = "predictionio_tpu_torch.templates.classification.engine_factory"
 #: classes; its class shares (covtype.info), which the data keeps
 COVTYPE = (581_012, 54, 7)
 COVTYPE_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0354)
-#: rows the host grows the forest on (a depth cut: CART over all rows is
-#: minutes of NumPy) and the forest: 10 trees, depth 5, sqrt features
-FOREST_SAMPLE, FOREST_TREES, FOREST_DEPTH = 58_101, 10, 5
+#: rows the host grows the forest on and runs float64 Adam on (a depth
+#: cut: CART over all rows is minutes of NumPy; halved from 58,101 to make
+#: room for phase 28) and the forest: 10 trees, depth 5, sqrt features
+FOREST_SAMPLE, FOREST_TREES, FOREST_DEPTH = 29_050, 10, 5
 #: logreg at the JAX template's defaults
 LOGREG_STEPS, LOGREG_LR, LOGREG_L2 = 300, 0.1, 1e-4
 #: entities of the classification template in sqlite (a depth cut of
@@ -3572,6 +3608,11 @@ def _serve_checked(tag: str, algo, model, queries: list[dict], query_cls, refere
     return out
 
 
+#: phase 19's ALS iterations a template (cut from the JAX package's default
+#: 20 to make room for phase 28; rank, λ and α stay the defaults)
+TEMPLATE_ITERS = 10
+
+
 def phase_als_templates() -> None:
     """Phase 19: similar product and e-commerce at the ML-20M shape."""
     n_users, n_items, nnz = ML20M
@@ -3603,7 +3644,8 @@ def phase_als_templates() -> None:
                  event_time=t_ev + timedelta(seconds=100))], app_id)
     ctx = EngineContext(storage=store, device=DEVICE)
 
-    sim_algo = similarproduct.SimilarALSAlgorithm(similarproduct.ALSAlgorithmParams())
+    sim_algo = similarproduct.SimilarALSAlgorithm(
+        similarproduct.ALSAlgorithmParams(num_iterations=TEMPLATE_ITERS))
     sim_model, sim_stats = _train_timed("similarproduct", sim_algo, ctx,
                                         similarproduct.SimilarPreparedData(**base))
     item_f64 = sim_model.als.item_factors.double().cpu().numpy()
@@ -3619,7 +3661,8 @@ def phase_als_templates() -> None:
     del sim_model
     torch.cuda.empty_cache()
 
-    ecomm_algo = ecommerce.ECommAlgorithm(ecommerce.ECommAlgorithmParams(app_name="ML20M"))
+    ecomm_algo = ecommerce.ECommAlgorithm(
+        ecommerce.ECommAlgorithmParams(app_name="ML20M", num_iterations=TEMPLATE_ITERS))
     ecomm_model, ecomm_stats = _train_timed("ecommerce", ecomm_algo, ctx,
                                             ecommerce.ECommPreparedData(**base))
     als_model = ecomm_model.als
@@ -4052,11 +4095,12 @@ def phase_templates(pio: _Pio) -> None:
 
 #: the JAX package's own ANN point (bench_serving.py:1563-1623), its
 #: 1,000,000 items cut to 262,144 (the host k-means of the index build
-#: took 42-56 s of the script at the full catalog): items at rank 32 from
+#: took 42-56 s of the script at the full catalog), then to 131,072 to
+#: make room for phase 28 (~10 s of build at 262,144): items at rank 32 from
 #: its factor mixture (256 taste clusters, noise 0.5, seeds 7 and 8),
 #: 2,048 users with 8 seen items each
 ANN_ITEMS, ANN_RANK, ANN_CLUSTERS, ANN_USERS, ANN_SEEN, ANN_SEED = (
-    262_144, 32, 256, 2_048, 8, 7)
+    131_072, 32, 256, 2_048, 8, 7)
 #: queries held against brute force at full probe and against a float64
 #: rescore of their shortlist at the auto probe; the quality sample (the
 #: JAX bench's quality_queries)
@@ -4349,10 +4393,11 @@ def phase_ann(als_model: ALSModel) -> None:
 # phase 23: the online freshness plane
 # ---------------------------------------------------------------------------
 
-#: known users whose rating is folded, users whose cache entries must
-#: survive, the tail interval, the longest a fold may take to reach an
-#: answer
-ONLINE_USERS, ONLINE_BYSTANDERS, ONLINE_INTERVAL_S, ONLINE_WAIT_S = 32, 32, 0.2, 15.0
+#: known users whose rating is folded (16, cut from 32 to make room for
+#: phase 28: each waits for its changed answer in turn), users whose cache
+#: entries must survive, the tail interval, the longest a fold may take
+#: to reach an answer
+ONLINE_USERS, ONLINE_BYSTANDERS, ONLINE_INTERVAL_S, ONLINE_WAIT_S = 16, 32, 0.2, 15.0
 #: a folded vector against the float64 solve of the same normal
 #: equations: max |diff| / max(1, max |ref|)
 ONLINE_VEC_TOL = 1e-4
@@ -4737,6 +4782,7 @@ def phase_grid(pio: _Pio, phase14: tuple[int, list, list] | None) -> int:
     gen = "chip_smoke.GridParams"
     forked = _pio_eval(pio, "grid-par", GRID_SPEC, gen, "--parallel", "2")
     best_par, par_scores, par_tops = _grid_scores("grid-par", forked)
+    GRID_INSTANCE[:] = [forked["row"].id]
     children = {r["pid"] for r in forked["grid_rows"]}
     if len(children) != 2 or forked["pid"] in children or len(forked["grid_rows"]) != 2 * EVAL_K:
         fail(f"[grid-par] expected {2 * EVAL_K} folds in 2 forked workers, got "
@@ -4822,10 +4868,11 @@ SAMPLE_RATINGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examp
 #: the Markov build: ML-20M's item count and the template's top 10;
 #: probabilities against float64 (an f32 quotient of integer counts)
 MARKOV_TOP, MARKOV_PROB_TOL = 10, 1e-6
-#: the ratings the Markov transitions come from: the first half of phase
-#: 9's (cut from all 20M, whose host list and float64 reference took
-#: ~18 s of the script, to make room for phase 27); the states stay 26,744
-MARKOV_RATINGS = 10_000_000
+#: the ratings the Markov transitions come from: the first 2.5M of phase
+#: 9's (cut from all 20M to 10M to make room for phase 27, whose host
+#: list and float64 reference took ~18 s of the script, then to 2.5M for
+#: phase 28); the states stay 26,744
+MARKOV_RATINGS = 2_500_000
 
 
 def phase_quality() -> None:
@@ -4919,12 +4966,20 @@ def phase_markov() -> None:
         fail(f"[markov] {bad} ids differ from the float64 reference, or max error {err}")
 
 
+#: the Covertype-shape rows the categorical naive Bayes counts: the first
+#: quarter of phase 21's (cut from all 581,012 to make room for phase 28:
+#: the host's strings and training took ~22 s); the 54 features stay
+NB_ROWS = COVTYPE[0] // 4
+
+
 def phase_categorical_nb() -> None:
     """Phase 25d: CategoricalNaiveBayes.train on phase 21's Covertype-shape
     rows as categorical strings on the card; the counts exactly against
     NumPy bincount."""
-    rows, n_feat, n_cls = COVTYPE
-    X, y = covtype_data(rows, SEED + 21)
+    _, n_feat, n_cls = COVTYPE
+    X, y = covtype_data(COVTYPE[0], SEED + 21)
+    X, y = X[:NB_ROWS], y[:NB_ROWS]
+    rows = NB_ROWS
     t0 = time.perf_counter()
     values = X.astype(np.int32).astype(str).tolist()
     points = [e2.LabeledPoint(f"c{c}", tuple(r)) for c, r in zip(y.tolist(), values)]
@@ -5432,16 +5487,21 @@ class _PoolDeploy:
         _stop(self.proc)
 
 
+def _server_counts(port: int) -> dict:
+    """One engine server's own counts over its own port: flash launches,
+    device, batch histogram, cache hits and misses, builds, batch
+    retries, queries."""
+    status, stats = _get(port, "/")[1], _get(port, "/stats.json")[1]
+    return dict(launches=status["kernelLaunches"]["flash_attention"],
+                device=status["device"], hist=_hist(stats),
+                hits=stats["serving"]["cacheHits"], misses=stats["serving"]["cacheMisses"],
+                compiles=stats["compile"]["compiles"], retries=_retries(stats),
+                requests=status["requestCount"])
+
+
 def _pool_counts(pool: _PoolDeploy) -> dict:
-    """Per worker: launches, batch histogram, cache hits and misses."""
-    stats, status = pool.each("/stats.json"), pool.each("/")
-    return {w: dict(launches=status[w]["kernelLaunches"]["flash_attention"],
-                    device=status[w]["device"], hist=_hist(stats[w]),
-                    hits=stats[w]["serving"]["cacheHits"],
-                    misses=stats[w]["serving"]["cacheMisses"],
-                    compiles=stats[w]["compile"]["compiles"],
-                    retries=_retries(stats[w]), requests=status[w]["requestCount"])
-            for w in stats if w in status}
+    """Per worker, over its loopback peer endpoint: `_server_counts`."""
+    return {w: _server_counts(e["port"]) for w, e in pool.workers().items()}
 
 
 def _pool_launch_identity(tag: str, pool: _PoolDeploy, layers: int) -> int:
@@ -5891,6 +5951,16 @@ def phase_pool(pio: _Pio, instance_id: str, engine_json: str,
     return launches
 
 
+def _level_bodies() -> tuple[list[dict], list[dict], list]:
+    """Phase 27's and 28's C=64 level: (its 256 distinct queries, the
+    warm-up's 64, the (user, num) pairs left over)."""
+    rng = np.random.default_rng(SEED + 27)
+    combos = [(u, num) for u in range(PIO_SESSION[0]) for num in (5, 10, 20)]
+    rng.shuffle(combos)
+    bodies = _sess_mix(rng, POOL_QUERIES, combos)
+    return bodies, _sess_mix(rng, POOL_WARM, combos), combos
+
+
 def _pool_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
                      rec_instance: tuple[str, str], sizes: tuple, deployed,
                      pools: dict, online: list) -> int:
@@ -5900,11 +5970,7 @@ def _pool_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
     during the respawn) into ``online``, for the caller to stop. Returns
     the pools' flash launches."""
     layers = PIO_SESSION_TRAIN["n_layers"]
-    rng = np.random.default_rng(SEED + 27)
-    combos = [(u, num) for u in range(PIO_SESSION[0]) for num in (5, 10, 20)]
-    rng.shuffle(combos)
-    bodies = _sess_mix(rng, POOL_QUERIES, combos)
-    warm = _sess_mix(rng, POOL_WARM, combos)
+    bodies, warm, combos = _level_bodies()
     shm_body = {"user": "u%d" % combos[-1][0], "num": 7}
     want = []
     for lo in range(0, len(bodies), LOAD_BATCH_MAX):
@@ -5922,6 +5988,7 @@ def _pool_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
         if n == 1:
             launches += _pool_launch_identity("pool-1", pool, layers)
             pool.stop()
+    PHASE27_ROWS[:] = rows
     _load_table("pool", rows + [r for r in PHASE17_ROWS if r["clients"] == POOL_CLIENTS
                                 and r["batching"]])
     _pool_coherence(pools[sizes[0]])
@@ -5935,6 +6002,553 @@ def _pool_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
     for n in sizes:
         launches += _pool_launch_identity(f"pool-{n}", pools[n], layers)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the router tier in front of `pio deploy` replicas
+# ---------------------------------------------------------------------------
+
+#: the router's admin key (canary and experiment mutations, /stop)
+ROUTER_KEY = "chip-smoke-router"
+#: the closed-loop clients of the level (phase 27's 256 queries) and of
+#: the canary's share
+ROUTER_CLIENTS = 64
+#: the canary's weight (percent) and the queries its share is read over
+ROUTER_CANARY_WEIGHT, ROUTER_CANARY_QUERIES = 10.0, 1_000
+#: the share's bound: 5 standard deviations of a binomial share
+ROUTER_CANARY_SIGMAS = 5.0
+#: clients of the failover's load; seconds a SIGKILLed replica may take
+#: to be respawned, marked up and routed to again
+ROUTER_FAILOVER_CLIENTS, ROUTER_RESPAWN_WAIT_S = 8, 120.0
+#: seconds the replicas, the canary and the ALS deploy may take to be up
+ROUTER_UP_WAIT_S = 180.0
+#: the experiment's name and the queries it is driven with
+ROUTER_EXPERIMENT, ROUTER_EXPERIMENT_QUERIES = "ab", 64
+#: the ML-100k engine's name behind the router
+ROUTER_ALS_ENGINE = "ml100k"
+#: the supervisor's failed /healthz probes (0.5 s apart) before it
+#: recycles a live replica as wedged: JAX's default, 10, is 5 s, less than
+#: a `pio deploy` replica takes to import torch and listen on the card
+#: (~8-11 s), so every replica would be killed while it boots
+ROUTER_UNHEALTHY_AFTER = 60
+#: the replicas' serving flags (phase 17's batched deploy, traced)
+ROUTER_REPLICA_FLAGS = ("--batching", "--batch-max", str(LOAD_BATCH_MAX), "--tracing")
+#: the evaluation instance phase 24's forked grid recorded (its two
+#: scored points become the experiment's variants)
+GRID_INSTANCE: list[str] = []
+#: phase 27's C=64 rows, set beside the router's
+PHASE27_ROWS: list[dict] = []
+
+
+def _free_ports(n: int) -> int:
+    """The first of ``n`` consecutive free loopback ports (the router's
+    --replica-port-base allocates upward from it)."""
+    import socket
+
+    for _ in range(200):
+        held: list = []
+        try:
+            probe = socket.socket()
+            held.append(probe)
+            probe.bind(("127.0.0.1", 0))
+            base = probe.getsockname()[1]
+            for port in range(base + 1, base + n):
+                s = socket.socket()
+                held.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in held:
+                s.close()
+    fail("no run of free ports for the router's replicas")
+
+
+class _Router:
+    """`pio router --supervise` as a process: its port, its /fleet doc,
+    the replicas' addresses and pids from the supervisor's document."""
+
+    def __init__(self, pio: _Pio, *flags: str):
+        self.log_path = os.path.join(pio.base, "router.log")
+        self.t0 = time.perf_counter()
+        env = dict(pio.env, PIO_FLEET_UNHEALTHY_AFTER=str(ROUTER_UNHEALTHY_AFTER))
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                pio.cmd + ["router", "--ip", "127.0.0.1", "--port", "0",
+                           "--router-key", ROUTER_KEY, *flags],
+                cwd=pio.base, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 60
+        while True:
+            with open(self.log_path) as f:
+                found = re.search(r"Fleet Router listening on 127\.0\.0\.1:(\d+)", f.read())
+            if found:
+                break
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.proc.kill()
+                fail(f"[router] pio router did not come up:\n{self.text()[-3000:]}")
+            time.sleep(0.02)
+        self.port = int(found.group(1))
+        self.listening_s = time.perf_counter() - self.t0
+
+    def text(self) -> str:
+        """The router's log and its replicas' output, without the scale
+        sweep's scrape warnings (a replica that is not up yet)."""
+        with open(self.log_path) as f:
+            return "".join(line for line in f if "fleet scrape of" not in line)
+
+    def fleet(self) -> dict:
+        return _get(self.port, "/fleet")[1]
+
+    def states(self) -> dict[str, str]:
+        return {b["id"]: b["state"] for b in self.fleet()["backends"]}
+
+    def children(self) -> dict[str, dict]:
+        """Supervised replicas by address: {"pid", "state", "respawns"}."""
+        return {c["address"]: c for c in self.fleet()["supervisor"]["children"]}
+
+    def wait_up(self, addresses: list[str], tag: str) -> float:
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                fail(f"[{tag}] pio router exited {self.proc.returncode}:\n"
+                     f"{self.text()[-6000:]}")
+            states = self.states()
+            if all(states.get(a) == "up" for a in addresses):
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > ROUTER_UP_WAIT_S:
+                fail(f"[{tag}] backends not up within {ROUTER_UP_WAIT_S}s: {states}; "
+                     f"supervisor {self.fleet().get('supervisor')}\n{self.text()[-6000:]}")
+            time.sleep(0.1)
+
+
+def _replica_counts(address: str) -> dict:
+    """A replica's `_server_counts`, by its host:port."""
+    return _server_counts(int(address.rsplit(":", 1)[1]))
+
+
+def _replica_identity(tag: str, address: str, layers: int) -> int:
+    """A replica's launches = n_layers x the popcounts of its batches, no
+    build and no batch retry, on the card; returns its launches."""
+    c = _replica_counts(address)
+    want = _launches_for(c["hist"], layers)
+    if c["launches"] != want or c["compiles"] or c["retries"] or \
+            not c["device"].startswith("cuda"):
+        fail(f"[{tag}] replica {address}: launches {c['launches']} (expected {want}), builds "
+             f"{c['compiles']}, batch retries {c['retries']}, device {c['device']}")
+    return c["launches"]
+
+
+def _router_hops(port: int, trace_ids: set[str]) -> list[float]:
+    """The router's own ms of each traced query in its ring: the root
+    span's duration less its one attempt's (the forward to a replica)."""
+    hops = []
+    for doc in _get(port, "/traces.json")[1]["traces"]:
+        attempts = [s for s in doc["spans"] if s["name"].startswith("attempt[")]
+        if doc["traceId"] in trace_ids and len(attempts) == 1:
+            hops.append(doc["durationMs"] - attempts[0]["durationMs"])
+    return hops
+
+
+def _router_level(tag: str, router: _Router, bodies: list[dict], want: list) -> dict:
+    """Phase 17's C=64 level through the router: every answer 200 and
+    equal to the in-process one within BATCH_SCORE_TOL; p50, p99,
+    queries/s, and the router's own hop from its spans."""
+    results, wall = _closed_loop(router.port, bodies, ROUTER_CLIENTS)
+    bad = [(b, r[:2]) for b, r in zip(bodies, results) if r[0] != 200]
+    if bad:
+        fail(f"[{tag}] {len(bad)} routed queries failed, first {bad[0]}")
+    for body, r, w in zip(bodies, results, want):
+        if len(r[1]["itemScores"]) != body["num"] or not _same_answer(
+                _as_result(r[1]), w, BATCH_SCORE_TOL):
+            fail(f"[{tag}] a routed answer differs from the in-process one: "
+                 f"{json.dumps(body)[:200]}")
+    hops = _router_hops(router.port, {r[4] for r in results if r[4]})
+    if not hops:
+        fail(f"[{tag}] no traced query of the level in the router's ring")
+    ms = [r[2] for r in results]
+    row = dict(route="router", replicas=2, clients=ROUTER_CLIENTS, n=len(bodies),
+               p50_ms=_quantile(ms, 0.5), p99_ms=_quantile(ms, 0.99), qps=len(bodies) / wall,
+               hop_p50_ms=_quantile(hops, 0.5), hop_p99_ms=_quantile(hops, 0.99),
+               hop_n=len(hops))
+    log(f"[{tag}] 2 replicas behind the router, C={ROUTER_CLIENTS}: n={len(bodies)} "
+        f"p50_ms={row['p50_ms']:.3f} p99_ms={row['p99_ms']:.3f} qps={row['qps']:.2f}; the "
+        f"router's own hop over the last {len(hops)} traced queries: p50_ms="
+        f"{row['hop_p50_ms']:.3f} p99_ms={row['hop_p99_ms']:.3f}; every answer equals the "
+        f"in-process one (tol {BATCH_SCORE_TOL:g})")
+    return row
+
+
+def _router_als(router: _Router, als_port: int, rng) -> None:
+    """The ML-100k engine behind the router answers as the deploy does
+    when queried directly."""
+    tag = "router-als"
+    for body in _ml100k_queries(rng):
+        got = _http(router.port, "POST", f"/engines/{ROUTER_ALS_ENGINE}/queries.json", body)
+        direct = _http(als_port, "POST", "/queries.json", body)
+        if got[0] != 200 or got[:2] != direct[:2]:
+            fail(f"[{tag}] {body}: routed {got[:2]} against direct {direct[:2]}")
+    log(f"[{tag}] 16 ML-100k queries at /engines/{ROUTER_ALS_ENGINE}/queries.json equal the "
+        "direct deploy's answers")
+
+
+def _router_canary(router: _Router, canary: str, rng) -> None:
+    """Weight 10 over 1,000 queries, the observed share within its
+    binomial bound; then promotion (weight 100): every query to the
+    canary; then weight 0 again."""
+    tag = "router-canary"
+
+    def admin(doc: dict) -> dict:
+        status, body, _ = _http(router.port, "POST", f"/fleet/canary?accessKey={ROUTER_KEY}",
+                                doc)
+        if status != 200:
+            fail(f"[{tag}] POST /fleet/canary {doc}: {status} {body}")
+        return body
+
+    def share(n: int) -> float:
+        bodies = [{"items": [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, 64)], "num": 10}
+                  for _ in range(n)]
+        before = _replica_counts(canary)["requests"]
+        results, _ = _closed_loop(router.port, bodies, ROUTER_CLIENTS)
+        if any(r[0] != 200 for r in results):
+            fail(f"[{tag}] statuses {sorted({r[0] for r in results})}")
+        return (_replica_counts(canary)["requests"] - before) / n
+
+    if _http(router.port, "POST", "/fleet/canary", {"weight": 10})[0] != 401:
+        fail(f"[{tag}] the canary admin took a request without the router key")
+    admin({"weight": ROUTER_CANARY_WEIGHT})
+    p = ROUTER_CANARY_WEIGHT / 100
+    bound = ROUTER_CANARY_SIGMAS * math.sqrt(p * (1 - p) / ROUTER_CANARY_QUERIES)
+    got = share(ROUTER_CANARY_QUERIES)
+    if abs(got - p) > bound:
+        fail(f"[{tag}] canary share {got:.4f} outside {p} ± {bound:.4f}")
+    snap = admin({"weight": 100})
+    promoted = share(ROUTER_EXPERIMENT_QUERIES)
+    if promoted != 1.0 or snap["weightPct"] != 100.0:
+        fail(f"[{tag}] after promotion {promoted:.4f} of the queries reached the canary")
+    admin({"weight": 0})
+    log(f"[{tag}] weight {ROUTER_CANARY_WEIGHT:g}%: {got:.4f} of {ROUTER_CANARY_QUERIES} "
+        f"queries reached the canary (bound {p} ± {bound:.4f}, {ROUTER_CANARY_SIGMAS:g} "
+        f"binomial sigmas); promoted (weight 100): {promoted:.4f} of "
+        f"{ROUTER_EXPERIMENT_QUERIES}; a request without the key refused (401)")
+
+
+def _router_failover(router: _Router, victim: str, seed: int, layers: int) -> tuple[int, dict]:
+    """SIGKILL one sessionrec replica while C=8 clients query through the
+    router: no 5xx, retries counted, the supervisor respawns it and
+    membership marks it up; the seconds from the kill to its first routed
+    200. Returns the victim's launches (its launch identity held before
+    the load, its count read just before the kill) and
+    the numbers."""
+    import http.client
+    import signal
+    import threading
+
+    tag = "router-failover"
+    codes: list[int] = []
+    stop = threading.Event()
+
+    def client(k: int) -> None:
+        gen = np.random.default_rng(seed + k)
+        conn = http.client.HTTPConnection("127.0.0.1", router.port, timeout=120)
+        while not stop.is_set():
+            body = {"items": [f"i{i}" for i in gen.integers(1, N_ITEMS + 1, 64)], "num": 10}
+            try:
+                conn.request("POST", "/queries.json", json.dumps(body).encode(),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                codes.append(resp.status)
+            except (OSError, http.client.HTTPException):
+                codes.append(0)
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", router.port, timeout=120)
+        conn.close()
+
+    retries0 = router.fleet()["router"]["retries"]
+    old = router.children()[victim]
+    # the victim's batches so far, held while it is quiet: under load a
+    # read of its launches and one of its batches can straddle a dispatch
+    _replica_identity(tag, victim, layers)
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ROUTER_FAILOVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        victim_launches = _replica_counts(victim)["launches"]
+        t_kill = time.perf_counter()
+        os.kill(old["pid"], signal.SIGKILL)
+        respawned = marked_up = None
+        while True:
+            child = router.children()[victim]
+            if respawned is None and child.get("pid") not in (None, old["pid"]) \
+                    and child["state"] == "running":
+                respawned = time.perf_counter() - t_kill
+            if respawned is not None and marked_up is None \
+                    and router.states().get(victim) == "up":
+                marked_up = time.perf_counter() - t_kill
+            if marked_up is not None:
+                try:
+                    if _replica_counts(victim)["requests"] > 0:
+                        first_200 = time.perf_counter() - t_kill
+                        break
+                except OSError:
+                    pass
+            if time.perf_counter() - t_kill > ROUTER_RESPAWN_WAIT_S:
+                fail(f"[{tag}] the killed replica was not routed to again within "
+                     f"{ROUTER_RESPAWN_WAIT_S}s: {router.children()[victim]}, "
+                     f"{router.states()}")
+            time.sleep(0.05)
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    child = router.children()[victim]
+    retries = router.fleet()["router"]["retries"] - retries0
+    if set(codes) != {200} or retries < 1 or child["respawns"] < 1:
+        fail(f"[{tag}] statuses {sorted(set(codes))} (a 0 is a client-side reset), retries "
+             f"{retries}, respawns {child['respawns']}")
+    row = dict(queries=len(codes), retries=retries, respawned_s=respawned,
+               marked_up_s=marked_up, first_routed_200_s=first_200)
+    log(f"[{tag}] SIGKILL of replica {victim} (pid {old['pid']}) under load at "
+        f"C={ROUTER_FAILOVER_CLIENTS}: {len(codes)} queries, all 200, {retries} retries "
+        f"on the other replica; respawned as pid {child['pid']} after {respawned:.3f}s, marked "
+        f"up after {marked_up:.3f}s, first routed 200 {first_200:.3f}s after the kill")
+    return victim_launches, row
+
+
+def _router_experiment(pio: _Pio, router: _Router, replicas: list[str],
+                       instance_id: str) -> None:
+    """`pio experiment start` over an evaluation instance's two scored
+    points, both variants on replicas of 16a's instance; stamped answers;
+    attributed events into `pio eventserver` counted as conversions;
+    `pio experiment conversions`, then `status`."""
+    tag = "router-experiment"
+    name = ROUTER_EXPERIMENT
+    common = ["--router", f"127.0.0.1:{router.port}", "--router-key", ROUTER_KEY]
+    out, _ = pio.run(tag, "experiment", "start", name, "--instance", instance_id,
+                     "--top-k", "2", "--backends", replicas[0], "--backends", replicas[1],
+                     "--ramp-s", "0", "--measure-s", "600", "--min-requests", "20", *common)
+    if f"experiment {name} defined" not in out:
+        fail(f"[{tag}] pio experiment start: {out[-2000:]}")
+    rng = np.random.default_rng(SEED + 281)
+    bodies = [{"items": [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, 64)], "num": 5}
+              for _ in range(ROUTER_EXPERIMENT_QUERIES)]
+    results, _ = _closed_loop(router.port, bodies, ROUTER_FAILOVER_CLIENTS)
+    stamps = [(r[1].get("experimentId"), r[1].get("variantId")) for r in results]
+    variants = sorted({v for _, v in stamps})
+    if any(r[0] != 200 for r in results) or {e for e, _ in stamps} != {name} \
+            or len(variants) != 2:
+        fail(f"[{tag}] statuses {sorted({r[0] for r in results})}, stamps {set(stamps)}")
+    # attributed conversions: one buy per answer of the first variant,
+    # one per second answer of the other
+    app_out, _ = pio.run(tag, "app", "new", "ConvApp")
+    app_id = int(re.search(r"ID: (\d+)", app_out).group(1))
+    key = re.search(r"Access Key: (\S+)", app_out).group(1)
+    es_proc, es_port, _ = pio.eventserver(tag, "--stats")
+    try:
+        sent: dict[str, int] = {}
+        docs = []
+        for j, (experiment, variant) in enumerate(stamps):
+            if variant == variants[1] and j % 2:
+                continue
+            sent[variant] = sent.get(variant, 0) + 1
+            docs.append({"event": "buy", "entityType": "user", "entityId": f"c{j}",
+                         "targetEntityType": "item", "targetEntityId": f"i{j + 1}",
+                         "properties": {"experimentId": experiment, "variantId": variant}})
+        for lo in range(0, len(docs), 50):       # the server's batch cap
+            status, body, _ = _http(es_port, "POST", f"/batch/events.json?accessKey={key}",
+                                    docs[lo:lo + 50])
+            if status != 200 or any(r["status"] != 201 for r in body):
+                fail(f"[{tag}] the attributed events: {status} {str(body)[:300]}")
+        families = parse_prometheus(_request(es_port, "GET", "/metrics")[1].decode())
+        ingested = {re.search(r'variant="([^"]+)"', labels).group(1): value for labels, value
+                    in families["pio_experiment_conversions_ingested_total"][1]}
+        if ingested != {v: float(n) for v, n in sent.items()}:
+            fail(f"[{tag}] conversions ingested {ingested}, sent {sent}")
+    finally:
+        _stop(es_proc)
+    conv_out, _ = pio.run(tag, "experiment", "conversions", name, "--appid", str(app_id),
+                          *common)
+    status_out, _ = pio.run(tag, "experiment", "status", *common)
+    snap = _get(router.port, "/fleet/experiments")[1]["experiment"]
+    got = {v["name"]: v["conversions"] for v in snap["variants"]}
+    if got != sent or f"folded {sum(sent.values())} conversion(s)" not in conv_out \
+            or any(f"{n} conv" not in status_out for n in sent.values()):
+        fail(f"[{tag}] router conversions {got}, sent {sent}:\n{conv_out}\n{status_out}")
+    log(f"[{tag}] pio experiment start over evaluation instance {instance_id}: variants "
+        f"{variants}; {len(results)} bare queries all stamped with experimentId/variantId "
+        f"(per variant {({v: [s for _, s in stamps].count(v) for v in variants})}); "
+        f"attributed buys {sent} counted by pio_experiment_conversions_ingested_total and "
+        f"folded by pio experiment conversions; status:")
+    for line in status_out.strip().splitlines():
+        log(f"[{tag}]   {line}")
+
+
+def _router_trace(pio: _Pio, router: _Router) -> None:
+    """`pio trace <id>` of one routed query: a stitched tree from the
+    router's root span down to a replica's batcher.device_dispatch."""
+    tag = "router-trace"
+    status, _, headers = _request(router.port, "POST", "/queries.json",
+                                  {"user": "u3", "num": 10})
+    trace_id = headers.get("X-PIO-Trace-Id")
+    if status != 200 or not trace_id:
+        fail(f"[{tag}] the routed query: {status}, trace id {trace_id}")
+    deadline = time.monotonic() + 10
+    while True:
+        p = subprocess.run(pio.cmd + ["trace", trace_id, "--router",
+                                      f"127.0.0.1:{router.port}"],
+                           cwd=pio.base, env=pio.env, capture_output=True, text=True,
+                           timeout=60)
+        if p.returncode == 0 and "batcher.device_dispatch" in p.stdout:
+            break
+        if time.monotonic() > deadline:
+            fail(f"[{tag}] pio trace {trace_id}: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                 f"{p.stderr[-2000:]}")
+        time.sleep(0.2)
+    lines = p.stdout.rstrip().splitlines()
+    root, dispatch = lines[1], next(line for line in lines if "batcher.device_dispatch" in line)
+    if "[router]" not in root or "attempt[" not in p.stdout:
+        fail(f"[{tag}] the tree does not start at the router's root span:\n{p.stdout}")
+    log(f"[{tag}] pio trace {trace_id}: {len(lines)} lines from the router's root "
+        f"({root.strip()[:120]}) to the replica's ({dispatch.strip()[:120]})")
+    for line in lines:
+        log(f"[{tag}]   {line}")
+
+
+def _router_scrapes(router: _Router, replicas: list[str]) -> None:
+    """/fleet/metrics folds both replicas' families, labelled per
+    replica; the dry-run controller exports pio_fleet_desired_replicas."""
+    tag = "router-scrapes"
+    fleet = parse_prometheus(_request(router.port, "GET", "/fleet/metrics")[1].decode())
+    own = parse_prometheus(_request(router.port, "GET", "/metrics")[1].decode())
+    for address in replicas:
+        label = f'replica="{address}"'
+        if not any(label in labels
+                   for labels, _ in fleet["pio_serving_device_dispatch_seconds"][1]):
+            fail(f"[{tag}] /fleet/metrics has no pio_serving_device_dispatch_seconds of "
+                 f"{address}")
+        if not any(label in labels and value == 1.0
+                   for labels, value in fleet["pio_fleet_scrape_ok"][1]):
+            fail(f"[{tag}] /fleet/metrics: scrape of {address} not ok")
+    if "pio_fleet_desired_replicas" not in own or "pio_fleet_pressure" not in fleet:
+        fail(f"[{tag}] /metrics lacks pio_fleet_desired_replicas or /fleet/metrics "
+             "pio_fleet_pressure")
+    serving = sorted(n for n in fleet if n.startswith("pio_serving_"))
+    log(f"[{tag}] /fleet/metrics folds {len(fleet)} families ({len(serving)} pio_serving_*) "
+        f"of both replicas, labelled replica=; pio_fleet_pressure "
+        f"{fleet['pio_fleet_pressure'][1]}; /metrics pio_fleet_desired_replicas "
+        f"{own['pio_fleet_desired_replicas'][1]} (dry run)")
+
+
+def _router_kernel_under_load(router: _Router, deployed, body: dict) -> dict:
+    """The flash kernel on a served query's q/k/v, timed in this process
+    while the router's replicas serve full-length sessions at C=64."""
+    load = subprocess.Popen([sys.executable, "-c", _POOL_LOAD, str(router.port), "3",
+                             str(ROUTER_CLIENTS), str(N_ITEMS)])
+    try:
+        time.sleep(1.5)
+        row = _kernel_at_deploy(deployed, body)
+    finally:
+        load.wait(timeout=60)
+    log(f"[router-kernel] flash kernel at {row['shape']} {row['dtype']} (real keys "
+        f"{row['real_keys']}) beside 2 replicas behind the router under load: "
+        f"ms={row['ms']:.4f} device_ms={_fmt(row['device_ms'], 4)} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"library_causal_ms={row['library_causal_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_router(pio: _Pio, instance_id: str, engine_json: str,
+                 rec_instance: tuple[str, str], eval_instance: str) -> int:
+    """Phase 28: `pio router --supervise --tracing` over two `pio deploy`
+    replicas of 16a's instance (the --replica-cmd template, batched and
+    traced), a third one as the canary, and 16b's ML-100k instance as a
+    second engine. Returns the replicas' flash launches."""
+    t0 = time.perf_counter()
+    tag = "router"
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    rec_json, rec_id = rec_instance
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                          device=DEVICE))
+    bodies, warm, _ = _level_bodies()
+    want = []
+    for lo in range(0, len(bodies), LOAD_BATCH_MAX):
+        want += deployed.query_batch([from_wire(sessionrec.Query, b)
+                                      for b in bodies[lo:lo + LOAD_BATCH_MAX]])
+    procs = []
+    router = None
+    try:
+        # the canary, the ML-100k deploy and the router's replicas start
+        # together, on ports chosen here
+        base = _free_ports(4)
+        replicas = [f"127.0.0.1:{base}", f"127.0.0.1:{base + 1}"]
+        canary, als_port = f"127.0.0.1:{base + 2}", base + 3
+        started = [pio.start_deploy(f"{tag}-canary", engine_json, "--engine-instance-id",
+                                    instance_id, "--port", str(base + 2),
+                                    *ROUTER_REPLICA_FLAGS),
+                   pio.start_deploy(f"{tag}-als", rec_json, "--engine-instance-id", rec_id,
+                                    "--port", str(als_port))]
+        procs += [proc for proc, _, _ in started]
+        replica_cmd = shlex.join(pio.cmd + [
+            "deploy", "--engine-json", engine_json, "--engine-instance-id", instance_id,
+            "--ip", "127.0.0.1", "--port", "{port}", "--device", DEVICE,
+            *ROUTER_REPLICA_FLAGS])
+        router = _Router(pio, "--supervise", "--tracing", "--replica-cmd", replica_cmd,
+                         "--replicas", "2", "--replica-port-base", str(base),
+                         "--canary-backend", canary,
+                         "--engine", f"name={ROUTER_ALS_ENGINE},backend=127.0.0.1:{als_port}")
+        for name, (proc, out_path, t_start) in zip(("canary", "als"), started):
+            pio.wait_listening(f"{tag}-{name}", proc, out_path, t_start)
+        up_s = router.wait_up(replicas + [canary, f"127.0.0.1:{als_port}"], tag)
+        text = router.text()
+        if "DRY-RUN" not in text or "supervised" not in text:
+            fail(f"[{tag}] the router's banner: {text[-2000:]}")
+        log(f"[{tag}] pio router --supervise: listening after {router.listening_s:.3f}s; both "
+            f"--replica-cmd replicas, the canary and the ML-100k deploy marked up "
+            f"{up_s:.3f}s after the deploys listened")
+        _closed_loop(router.port, warm, ROUTER_CLIENTS)
+        row = _router_level(tag, router, bodies, want)
+        pool2 = [r for r in PHASE27_ROWS if r["workers"] == 2]
+        _load_table(tag, [row] + pool2)
+        if pool2:
+            log(f"[{tag}] queries/s of 2 routed replicas against phase 27's 2-worker pool: "
+                f"{row['qps'] / pool2[0]['qps']:.3f}x")
+        _router_kernel_under_load(router, deployed, bodies[0])
+        _router_als(router, als_port, np.random.default_rng(SEED + 282))
+        _router_canary(router, canary, np.random.default_rng(SEED + 283))
+        victim_launches, failover = _router_failover(router, replicas[0], SEED + 284, layers)
+        _router_trace(pio, router)
+        _router_experiment(pio, router, replicas, eval_instance)
+        _router_scrapes(router, replicas)
+        probes: dict[str, tuple] = {}
+        for b in router.fleet()["backends"]:     # the default engine's groups first
+            probes.setdefault(b["id"], (b["transitions"], b["probeStarved"]))
+        launches = victim_launches + sum(_replica_identity(tag, a, layers)
+                                         for a in replicas + [canary])
+        log(f"[{tag}] probes: (state transitions, starved probe timeouts) per backend "
+            f"{probes}; flash launches of the sessionrec replicas (the killed one read before "
+            f"the kill) {launches}, each = {layers} x popcount of its batches, no build")
+        pids = [c["pid"] for c in router.children().values()]
+    finally:
+        # the router drains and stops its replicas; the rest stop beside it
+        _stop_all(([router.proc] if router is not None else []) + procs)
+        del deployed
+        storage.close()
+        torch.cuda.empty_cache()
+    alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+    if router.proc.returncode != 0 or alive:
+        fail(f"[{tag}] pio router exited {router.proc.returncode}; replicas left alive "
+             f"{alive}")
+    log(f"[{tag}] SIGTERM of pio router stopped it (exit 0) and its supervised replicas "
+        f"{pids}; failover {json.dumps(failover)}")
+    log(f"[{tag}] phase 28 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -5967,6 +6581,19 @@ def run_phases(wall: float) -> None:
             rec_json, rec_id, storage, _ = pio_recommendation_instance(pio)
             storage.close()
             phase_pool(pio, instance_id, engine_json, (rec_json, rec_id))
+        return
+    if sys.argv[1:] == ["--router-only"]:   # phase 28 alone, over fresh 16a and 16b instances
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            instance_id, engine_json, _ = pio_sessionrec_instance(pio)
+            rec_json, rec_id, storage, _ = pio_recommendation_instance(pio)
+            storage.close()
+            # phase 24's two grid points, serially: the experiment's variants
+            run = _pio_eval(pio, "router-eval", GRID_SPEC, "chip_smoke.GridParams",
+                            "--parallel", "1")
+            _grid_scores("router-eval", run)
+            phase_router(pio, instance_id, engine_json, (rec_json, rec_id), run["row"].id)
         return
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
@@ -6047,7 +6674,7 @@ def run_phases(wall: float) -> None:
     if flash_ops.LAUNCHES:
         fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
     torch.cuda.empty_cache()
-    # the launches of phases 16-18 and 26-27 happen in `pio deploy`
+    # the launches of phases 16-18 and 26-28 happen in `pio deploy`
     # processes, which report them on their GET /
     with tempfile.TemporaryDirectory(prefix="pio-") as base:
         pio = _Pio(base)
@@ -6083,6 +6710,12 @@ def run_phases(wall: float) -> None:
         if pool_launches == 0:
             fail("the worker pools never launched the flash_attention kernel")
         launches += pool_launches
+        # phase 28's in the router's replicas, read replica by replica
+        router_launches = timed("28", phase_router, pio, instance[0], instance[1],
+                                rec_instance, GRID_INSTANCE[0])
+        if router_launches == 0:
+            fail("the router's replicas never launched the flash_attention kernel")
+        launches += router_launches
     torch.cuda.empty_cache()
     timed("25", phase_e2)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")

@@ -35,10 +35,12 @@ Port-specific decisions:
 - **No torch in the ingest process.** The server carries no device
   work, and a process that imports torch takes seconds to start, so
   neither this module nor ``pio eventserver`` imports it.
-- **Left out, with its ROADMAP.md queue 1 item:** the conversion
-  attribution counters of the experimentation platform
-  (``pio_experiment_conversions_ingested_total``) and the chaos storage
-  backend (item 23, with ``experiment/``).
+- **Conversion attribution.** Accepted events that carry an
+  experiment's served stamp (``experimentId``/``variantId``
+  properties) are counted per variant
+  (``pio_experiment_conversions_ingested_total``,
+  :meth:`EventService.conversion_counts`). The chaos storage backend
+  stays with ROADMAP.md queue 1 item 23.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ from predictionio_tpu_torch.obs.exporter import CONTENT_TYPE as PROMETHEUS_CONTE
 from predictionio_tpu_torch.obs.exporter import render_prometheus
 from predictionio_tpu_torch.obs.registry import (
     HistogramFamily,
+    Metric,
     MetricRegistry,
     ingest_collector,
     resilience_collector,
@@ -243,6 +246,15 @@ class EventService:
         #: SLO burn rates over the ingest write paths
         self.slo = SLOEngine()
         self.registry.register(self.slo.collector())
+        #: conversion attribution (``experiment/controller.py``): accepted
+        #: client events carrying the served experimentId/variantId
+        #: stamp, counted per variant, which ``pio experiment
+        #: conversions`` sweeps into the router's online score. The
+        #: server's own "predict" feedback events are excluded: serving
+        #: a rec is not the user acting on it.
+        self._conversion_lock = threading.Lock()
+        self._conversions: dict[tuple[str, str], int] = {}
+        self.registry.register(self._conversions_collector)
         #: auth answers given while the metadata store was reachable,
         #: served stale during an outage so the WAL ride-through can
         #: authenticate; storage stays authoritative while healthy
@@ -378,6 +390,41 @@ class EventService:
         self.plugin_context.notify_sniffers(EventInfo(auth.app_id, auth.channel_id, event))
         if self.stats:
             self.stats.update(auth.app_id, status, event)
+        self._count_conversion(event)
+
+    def _count_conversion(self, event) -> None:
+        """Fold one accepted event into the per-variant conversion
+        counters when it carries the served attribution stamp
+        (experimentId/variantId properties)."""
+        if event.event == "predict":
+            return
+        try:
+            experiment = event.properties.get("experimentId")
+            variant = event.properties.get("variantId")
+        except Exception:  # noqa: BLE001 — properties are client data
+            return
+        if not experiment or not variant:
+            return
+        key = (str(experiment), str(variant))
+        with self._conversion_lock:
+            self._conversions[key] = self._conversions.get(key, 0) + 1
+
+    def _conversions_collector(self) -> list[Metric]:
+        with self._conversion_lock:
+            samples = [({"experiment": e, "variant": v}, float(n))
+                       for (e, v), n in sorted(self._conversions.items())]
+        return [Metric(
+            "pio_experiment_conversions_ingested_total", "counter",
+            "Accepted events carrying experiment attribution "
+            "(conversion candidates), per variant.", samples=samples)]
+
+    def conversion_counts(self, experiment: str) -> dict[str, int]:
+        """Per-variant conversion totals for one experiment: what
+        ``pio experiment conversions`` sweeps into the router's online
+        score."""
+        with self._conversion_lock:
+            return {v: n for (e, v), n in self._conversions.items()
+                    if e == experiment}
 
     # -- durable ingest ------------------------------------------------------
     def _insert_or_journal(self, event, auth: AuthData) -> Response:

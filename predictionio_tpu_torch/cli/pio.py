@@ -46,7 +46,17 @@ port serves).
   shared result cache) and ``--model-mmap`` (the npz checkpoints mapped:
   the workers share their host pages); ``undeploy``: POST /stop to a
   running one (in a pool, to whichever worker the connection reaches:
-  stop a pool with SIGTERM to the deploy process).
+  stop a pool with SIGTERM to the deploy process);
+- ``router``: the fleet router (``api/router_server.py``) in front of
+  ``--backend`` replicas, with canaries (``--canary-backend``,
+  ``--canary-weight``), ``--engine`` groups, ``--workers N`` siblings
+  (from the ``spawn`` context) and, with ``--supervise``, the replicas
+  that ``--replica-cmd`` starts and the scale controller; the router
+  process imports no torch; ``trace <id>``: one routed request's
+  stitched trace tree, as text or ``--chrome`` JSON;
+- ``experiment start|status|conversions`` (``experiment/cli.py``,
+  registered through :func:`register_command`): the online A/B loop over
+  an evaluation's ranked grid points behind a running router.
 
 ``train``, ``eval`` and ``deploy`` run on the card unless ``--device
 cpu`` is given; the other commands, ``eventserver`` among them, do not
@@ -54,8 +64,8 @@ import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
 messages and exit codes are the JAX package's. Not ported yet:
-``build``/``run``, the router, ``pio trace``, ``experiment`` and the
-admin tools (item 23), and Parquet import and export (item 25).
+``build``/``run``/``upgrade``/``template`` and the admin tools
+(ROADMAP.md queue 1 item 23), and Parquet import and export (item 25).
 """
 
 from __future__ import annotations
@@ -704,6 +714,545 @@ def _deploy_pool(args, storage: Storage, config, workers: int) -> int:
     return 0
 
 
+def _router_worker(config) -> None:
+    """One extra `pio router --workers N` worker process: a full
+    RouterServer on the shared SO_REUSEPORT listen port. Started from the
+    ``spawn`` context (``POOL_START_METHOD``), so the target is
+    module-level and ``config`` pickles."""
+    from predictionio_tpu_torch.api.http_base import serve_until_stopped
+    from predictionio_tpu_torch.api.router_server import RouterServer
+
+    serve_until_stopped(RouterServer(config).start())
+
+
+def _scaling_requested(args) -> bool:
+    return any(v is not None for v in (
+        args.min_replicas, args.max_replicas, args.scale_interval_s,
+        args.scale_pressure_up, args.scale_burn_up,
+        args.scale_up_sustain_s, args.scale_down_sustain_s,
+        args.scale_cooldown_s)) or args.scale_dry_run
+
+
+def _cmd_router(args, storage: Storage) -> int:
+    """`pio router` — the fleet tier (docs/fleet.md): a thin router
+    fronting N engine-server replicas with health-driven membership,
+    weighted canary rollout, hedged retries, and bounded admission.
+    With ``--supervise`` the router also OWNS its children: worker
+    siblings and ``--replica-cmd`` replicas are respawned on death with
+    damped backoff (crash loops latch instead of spinning), SIGTERM
+    drains the whole fleet, and the scale controller
+    (``--min-replicas``/``--max-replicas``/``--scale-*``) adds/removes
+    replicas against the autoscaling signals. Storage-free: the router
+    talks HTTP to its replicas, never to the event/metadata stores."""
+    import dataclasses
+    import itertools
+    import shlex
+    import subprocess
+
+    from predictionio_tpu_torch.api.router_server import RouterServer
+    from predictionio_tpu_torch.fleet.router import RouterConfig
+
+    supervise = args.supervise
+    scaling = _scaling_requested(args)
+    replica_cmd = args.replica_cmd
+    if (replica_cmd is not None or scaling) and not supervise:
+        print("[ERROR] --replica-cmd and --min/--max-replicas/--scale-* "
+              "require --supervise (the supervisor owns the replicas "
+              "the controller scales).")
+        return 1
+
+    # template replicas (docs/fleet.md "Supervision"): {port} in the
+    # command is substituted per replica; ports allocate sequentially
+    # from --replica-port-base for initial AND scale-up spawns
+    replica_specs = []
+    next_replica_spec = None
+    if replica_cmd is not None:
+        from predictionio_tpu_torch.fleet.supervisor import REPLICA, SpawnSpec
+
+        port_counter = itertools.count(args.replica_port_base)
+
+        def next_replica_spec(_index=None):
+            port = next(port_counter)
+            argv = [a.format(port=port)
+                    for a in shlex.split(replica_cmd)]
+            return SpawnSpec(
+                id=f"replica:{port}",
+                spawn=lambda: subprocess.Popen(argv),
+                role=REPLICA,
+                address=f"127.0.0.1:{port}")
+
+        min_replicas = args.min_replicas if args.min_replicas is not None \
+            else 1
+        initial = args.replicas if args.replicas is not None \
+            else max(1, min_replicas)
+        replica_specs = [next_replica_spec() for _ in range(initial)]
+
+    # named engine groups (docs/fleet.md "Multi-engine routing"):
+    # each --engine declares an independent backend group with its own
+    # membership/breakers/canary/quota; replicas=N spawns supervised
+    # engine replicas from the --replica-cmd template on ports from
+    # that engine's port-base
+    engine_specs = []
+    engine_replica_specs: list[tuple[str, object]] = []
+    if args.engine:
+        from predictionio_tpu_torch.fleet.gateway import (
+            EngineSpec,
+            parse_engine_flag,
+        )
+
+        try:
+            flags = [parse_engine_flag(text) for text in args.engine]
+        except ValueError as exc:
+            print(f"[ERROR] {exc}")
+            return 1
+        for flag in flags:
+            spawned: list[str] = []
+            if flag["replicas"]:
+                if replica_cmd is None or not supervise:
+                    print(f"[ERROR] --engine {flag['name']}: replicas= "
+                          "requires --supervise --replica-cmd (the "
+                          "supervisor owns engine replicas).")
+                    return 1
+                if flag["port_base"] is None:
+                    print(f"[ERROR] --engine {flag['name']}: replicas= "
+                          "needs port-base= (each engine owns its own "
+                          "port range).")
+                    return 1
+                from predictionio_tpu_torch.fleet.supervisor import (
+                    REPLICA,
+                    SpawnSpec,
+                )
+
+                for i in range(flag["replicas"]):
+                    port = flag["port_base"] + i
+                    argv = [a.format(port=port)
+                            for a in shlex.split(replica_cmd)]
+                    engine_replica_specs.append((flag["name"], SpawnSpec(
+                        id=f"replica:{flag['name']}:{port}",
+                        spawn=(lambda argv=argv:
+                               subprocess.Popen(argv)),
+                        role=REPLICA,
+                        address=f"127.0.0.1:{port}")))
+                    spawned.append(f"127.0.0.1:{port}")
+            try:
+                engine_specs.append(EngineSpec(
+                    name=flag["name"],
+                    backends=flag["backends"] + tuple(spawned),
+                    canary_backends=flag["canary_backends"],
+                    canary_weight_pct=flag["weight"] or 0.0,
+                    quota_qps=flag["qps"],
+                    quota_burst=flag["burst"],
+                    max_inflight=flag["max_inflight"],
+                    burst_credits=flag["credits"],
+                    min_replicas=flag["min_replicas"],
+                    max_replicas=flag["max_replicas"]))
+            except ValueError as exc:
+                print(f"[ERROR] {exc}")
+                return 1
+        if any(f["min_replicas"] is not None
+               or f["max_replicas"] is not None for f in flags):
+            # per-engine bounds arm scaling like the global flags do
+            if not supervise:
+                print("[ERROR] --engine min-replicas=/max-replicas= "
+                      "require --supervise (the supervisor owns the "
+                      "replicas the per-engine controllers scale).")
+                return 1
+            scaling = True
+
+    backends = tuple(args.backend or ()) + tuple(
+        s.address for s in replica_specs)
+    if not backends and not engine_specs:
+        print("[ERROR] at least one --backend host:port, --engine "
+              "name=...,backend=..., or --supervise --replica-cmd is "
+              "required.")
+        return 1
+    workers = max(1, args.workers or 1)
+    config = RouterConfig(
+        ip=args.ip,
+        port=args.port,
+        backends=backends,
+        canary_backends=tuple(args.canary_backend or ()),
+        engines=tuple(engine_specs),
+        router_key=args.router_key,
+        access_log=args.access_log,
+        tracing=args.tracing,
+        reuse_port=workers > 1,
+        **{k: v for k, v in {
+            "probe_interval_s": args.probe_interval_s,
+            "probe_timeout_s": args.probe_timeout_s,
+            "down_after": args.down_after,
+            "up_after": args.up_after,
+            "max_inflight": args.max_inflight,
+            "request_deadline_ms": args.request_deadline_ms,
+            "hedge": args.hedge,
+            "canary_weight_pct": args.canary_weight,
+            "default_engine": args.default_engine,
+        }.items() if v is not None},
+    )
+    worker_procs = []
+    worker_specs = []
+    if workers > 1:
+        import multiprocessing
+        import tempfile
+
+        spawn = multiprocessing.get_context(POOL_START_METHOD)
+
+        config = dataclasses.replace(
+            config, port=resolve_concrete_port(config.ip, config.port))
+        # worker peering spool (fleet/workers.py): each worker
+        # registers its loopback peer endpoint here, so a /metrics
+        # scrape landing on ONE SO_REUSEPORT worker reports ALL of
+        # them — and the shared canary/admin state document rides the
+        # same spool (docs/fleet.md)
+        config = dataclasses.replace(
+            config,
+            worker_spool_dir=tempfile.mkdtemp(prefix="pio-router-workers-"))
+        if supervise:
+            from predictionio_tpu_torch.fleet.supervisor import (
+                WORKER,
+                ProcessHandle,
+                SpawnSpec,
+            )
+
+            def worker_spawn():
+                return ProcessHandle(spawn.Process(
+                    target=_router_worker, args=(config,), daemon=True))
+
+            worker_specs = [
+                SpawnSpec(id=f"worker:{i}", spawn=worker_spawn,
+                          role=WORKER)
+                for i in range(1, workers)
+            ]
+        else:
+            for _ in range(workers - 1):
+                proc = spawn.Process(
+                    target=_router_worker, args=(config,), daemon=True)
+                proc.start()
+                worker_procs.append(proc)
+
+    supervisor = None
+    controller = None
+    scale_set = None
+    if supervise:
+        from predictionio_tpu_torch.fleet.supervisor import (
+            FleetSupervisor,
+            SupervisorConfig,
+        )
+
+        supervisor = FleetSupervisor(
+            replica_specs + [s for _, s in engine_replica_specs]
+            + worker_specs,
+            SupervisorConfig(**({"drain_key": args.replica_key}
+                                if args.replica_key else {})))
+        supervisor.start()
+    try:
+        server = RouterServer(config)
+    except ValueError as exc:
+        # gateway-level validation (duplicate --engine name, a name
+        # colliding with the default engine built from --backend):
+        # a pointed error like every other flag check — and any
+        # already-spawned supervised children must not be orphaned
+        if supervisor is not None:
+            supervisor.shutdown()
+        print(f"[ERROR] {exc}")
+        return 1
+    if supervisor is not None:
+        server.service.attach_supervisor(supervisor)
+        for engine_name, spec in (
+                [(None, s) for s in replica_specs]
+                + engine_replica_specs):
+            # template replicas are still booting (importing jax):
+            # join them DOWN so the probe loop gates traffic onto them
+            # when they actually serve — the same invariant the
+            # scale-up actuator establishes for identical cold spawns.
+            # Engine replicas live in THEIR engine's membership
+            group = (server.gateway.get(engine_name)
+                     if engine_name else None)
+            membership = (group.router.membership if group is not None
+                          else server.router.membership)
+            backend = membership.by_id(spec.address)
+            if backend is not None:
+                backend.mark_down("starting")
+    if supervise and (scaling or replica_cmd is not None) and engine_specs:
+        # per-tenant elasticity (docs/fleet.md "Per-tenant
+        # elasticity"): one ScaleController per engine group, each with
+        # its own bounds/hysteresis/cooldown, scale-ups arbitrated
+        # against the shared --replica-budget. Engines with supervised
+        # replicas actuate; engines fronting only static backends run
+        # dry (verdicts exported, nothing to spawn).
+        import os
+
+        from predictionio_tpu_torch.fleet.controller import (
+            CapacityArbiter,
+            EngineScaleSet,
+            MembershipCountActuator,
+            ScalePolicy,
+            SupervisedFleetActuator,
+            engine_scale_policy,
+        )
+        from predictionio_tpu_torch.fleet.supervisor import REPLICA, SpawnSpec
+
+        budget = args.replica_budget
+        if budget is None:
+            raw = os.environ.get("PIO_FLEET_REPLICA_BUDGET")
+            try:
+                budget = int(raw) if raw else 0
+            except ValueError:
+                print("[WARN] ignoring unparseable "
+                      f"PIO_FLEET_REPLICA_BUDGET={raw!r}")
+                budget = 0
+        dry_run = bool(args.scale_dry_run) or not scaling
+        if dry_run and not args.scale_dry_run:
+            print("[INFO] per-engine scale controllers in DRY-RUN (no "
+                  "scale bounds given): verdicts exported only; add "
+                  "min-replicas=/max-replicas= per engine or --scale-* "
+                  "to arm actuation (docs/fleet.md rollout runbook).")
+        #: the global --scale-* flags become each tenant's base layer;
+        #: PIO_FLEET_ENGINE_<NAME>_* env and per-engine flag keys
+        #: override (engine_scale_policy precedence)
+        base_policy = {
+            "min_replicas": args.min_replicas,
+            "max_replicas": args.max_replicas,
+            "interval_s": args.scale_interval_s,
+            "pressure_up": args.scale_pressure_up,
+            "burn_up": args.scale_burn_up,
+            "up_sustain_s": args.scale_up_sustain_s,
+            "down_sustain_s": args.scale_down_sustain_s,
+            "cooldown_s": args.scale_cooldown_s,
+        }
+        arbiter = CapacityArbiter(budget)
+        interval = (args.scale_interval_s
+                    if args.scale_interval_s is not None
+                    else ScalePolicy().interval_s)
+        scale_set = EngineScaleSet(server.service, arbiter,
+                                   interval_s=interval)
+        supervised: dict[str, list] = {}
+        for engine_name, spec in engine_replica_specs:
+            supervised.setdefault(engine_name, []).append(spec)
+        for flag in flags:
+            name = flag["name"]
+            group = server.gateway.get(name)
+            if group is None:
+                continue
+            owned = supervised.get(name)
+            engine_dry = dry_run
+            if owned and replica_cmd is not None:
+                # this engine's scale-up ports continue past its
+                # initial spawns, inside its own port-base range
+                counter = itertools.count(
+                    flag["port_base"] + flag["replicas"])
+
+                def make_engine_spec(_index=None, name=name,
+                                     counter=counter):
+                    port = next(counter)
+                    argv = [a.format(port=port)
+                            for a in shlex.split(replica_cmd)]
+                    return SpawnSpec(
+                        id=f"replica:{name}:{port}",
+                        spawn=lambda: subprocess.Popen(argv),
+                        role=REPLICA,
+                        address=f"127.0.0.1:{port}")
+
+                actuator = SupervisedFleetActuator(
+                    supervisor, group.router.membership,
+                    make_spec=make_engine_spec,
+                    breaker_threshold=config.breaker_threshold,
+                    breaker_reset_s=config.breaker_reset_s)
+                for spec in owned:
+                    actuator.adopt(spec.id)
+            else:
+                actuator = MembershipCountActuator(
+                    group.router.membership)
+                engine_dry = True
+            scale_set.add_engine(
+                name,
+                engine_scale_policy(
+                    name, dry_run=engine_dry, base=base_policy,
+                    min_replicas=flag["min_replicas"],
+                    max_replicas=flag["max_replicas"]),
+                actuator)
+        # the default engine built from --backend / --replica-cmd
+        # participates too when it exists alongside the named engines
+        default_name = server.gateway.default_engine
+        if backends and scale_set.get(default_name) is None \
+                and server.gateway.get(default_name) is not None:
+            engine_dry = dry_run
+            if next_replica_spec is not None:
+                actuator = SupervisedFleetActuator(
+                    supervisor, server.router.membership,
+                    make_spec=next_replica_spec,
+                    breaker_threshold=config.breaker_threshold,
+                    breaker_reset_s=config.breaker_reset_s)
+                for spec in replica_specs:
+                    actuator.adopt(spec.id)
+            else:
+                actuator = MembershipCountActuator(
+                    server.router.membership)
+                engine_dry = True
+            scale_set.add_engine(
+                default_name,
+                engine_scale_policy(default_name, dry_run=engine_dry,
+                                    base=base_policy),
+                actuator)
+        scale_set.start()
+        server.service.attach_scale_set(scale_set)
+    elif supervise and (scaling or replica_cmd is not None):
+        from predictionio_tpu_torch.fleet.controller import (
+            MembershipCountActuator,
+            ScaleController,
+            ScalePolicy,
+            SupervisedFleetActuator,
+            fleet_signals_reader,
+        )
+
+        # actuation must be REQUESTED: --replica-cmd alone runs the
+        # controller in dry-run (verdicts exported, nothing spawned) —
+        # the documented rollout posture. Passing any --scale-* or
+        # --min/--max-replicas flag without --scale-dry-run arms it.
+        dry_run = bool(args.scale_dry_run) or not scaling
+        if dry_run and not args.scale_dry_run:
+            print("[INFO] scale controller in DRY-RUN (no --scale-* "
+                  "flags given): verdicts exported only; add "
+                  "--min/--max-replicas or --scale-* to arm actuation "
+                  "(docs/fleet.md rollout runbook).")
+        if next_replica_spec is not None:
+            actuator = SupervisedFleetActuator(
+                supervisor, server.router.membership,
+                make_spec=next_replica_spec,
+                breaker_threshold=config.breaker_threshold,
+                breaker_reset_s=config.breaker_reset_s)
+            for spec in replica_specs:
+                actuator.adopt(spec.id)
+        else:
+            print("[WARN] scale flags without --replica-cmd: the "
+                  "controller has nothing to actuate — forcing "
+                  "--scale-dry-run (decisions exported only).")
+            actuator = MembershipCountActuator(server.router.membership)
+            dry_run = True
+        policy = ScalePolicy(
+            dry_run=dry_run,
+            **{k: v for k, v in {
+                "min_replicas": args.min_replicas,
+                "max_replicas": args.max_replicas,
+                "interval_s": args.scale_interval_s,
+                "pressure_up": args.scale_pressure_up,
+                "burn_up": args.scale_burn_up,
+                "up_sustain_s": args.scale_up_sustain_s,
+                "down_sustain_s": args.scale_down_sustain_s,
+                "cooldown_s": args.scale_cooldown_s,
+            }.items() if v is not None})
+        controller = ScaleController(
+            policy, fleet_signals_reader(server.service), actuator)
+        controller.start()
+        server.service.attach_controller(controller)
+    print(f"[INFO] Fleet Router listening on {args.ip}:{server.port} "
+          f"({len(config.backends)} stable / "
+          f"{len(config.canary_backends)} canary backend(s), "
+          f"{workers} worker(s)"
+          + (f", {len(server.gateway.engine_names())} engines "
+             f"[default: {server.gateway.default_engine}]"
+             if engine_specs else "")
+          + (", supervised" if supervise else "")
+          + (", scale controller "
+             + ("dry-run" if controller is not None
+                and controller.policy.dry_run else "active")
+             if controller is not None else "")
+          + (f", per-engine elasticity x{len(scale_set.controllers())}"
+             + (f" budget={scale_set.arbiter.budget}"
+                if scale_set.arbiter.budget else "")
+             if scale_set is not None else "")
+          + ")")
+    if worker_procs or supervisor is not None:
+        # SIGTERM's default action kills the parent without running
+        # finally/atexit, orphaning the SO_REUSEPORT workers on the
+        # shared port (they keep serving with a stale spool). Route it
+        # through KeyboardInterrupt so the finally always runs — under
+        # --supervise that means a graceful FULL-FLEET drain (replicas
+        # drained via /readyz before SIGTERM, then workers), fixing
+        # the old "stop from the shell stops one worker" quirk.
+        import signal
+
+        def _on_sigterm(signum, frame):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        server.start()
+        server.stopped.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if controller is not None:
+            controller.stop()
+        if scale_set is not None:
+            scale_set.stop()
+        if supervisor is not None:
+            supervisor.shutdown()
+        server.stop()
+        for proc in worker_procs:
+            proc.terminate()
+        for proc in worker_procs:
+            proc.join(timeout=5)
+        if config.worker_spool_dir:
+            # terminate() is SIGTERM: workers die without running
+            # WorkerHub.close, leaving their spool entries behind —
+            # the parent mkdtemp'd the dir, the parent removes it
+            import shutil
+
+            shutil.rmtree(config.worker_spool_dir, ignore_errors=True)
+    return 0
+
+
+def _cmd_trace(args, storage: Storage) -> int:
+    """`pio trace <trace_id>` — fetch the stitched cross-process tree
+    of one fleet request from the router's merge endpoint
+    (GET /traces.json?trace_id=) and render it as a text tree or
+    Chrome trace-viewer JSON (docs/observability.md)."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from predictionio_tpu_torch.obs.stitch import render_tree, to_chrome_trace
+
+    url = (f"http://{args.router}/traces.json?"
+           f"trace_id={urllib.parse.quote(args.trace_id)}")
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as r:
+            doc = json.load(r)
+    except urllib.error.HTTPError as e:
+        try:
+            doc = json.load(e)
+        except json.JSONDecodeError:
+            doc = {}
+        print(f"[ERROR] trace {args.trace_id} not found "
+              f"({doc.get('message', f'HTTP {e.code}')})")
+        return 1
+    except OSError as e:
+        print(f"[ERROR] router {args.router} unreachable: {e}")
+        return 1
+    tree = doc.get("trace")
+    if not doc.get("found") or tree is None:
+        print(f"[ERROR] trace {args.trace_id} not found")
+        return 1
+    if args.chrome:
+        payload = json.dumps(to_chrome_trace(tree), indent=2)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(payload)
+            print(f"[INFO] Chrome trace written to {args.out} "
+                  f"(open chrome://tracing or ui.perfetto.dev)")
+        else:
+            print(payload)
+    else:
+        print(render_tree(tree))
+        if doc.get("scrapeErrors"):
+            print(f"[WARN] {doc['scrapeErrors']} replica trace ring(s) "
+                  "unreachable; the tree may be missing segments")
+    return 0
+
+
+
+
 def _cmd_undeploy(args, storage: Storage) -> int:
     from predictionio_tpu_torch.api.http_base import undeploy
 
@@ -904,12 +1453,179 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-request spans for /queries.json, served on "
                         "GET /traces.json (absent: PIO_TRACE)")
 
+    p = sub.add_parser(
+        "router",
+        help="launch the fleet router fronting N engine-server replicas "
+             "(docs/fleet.md)",
+    )
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8100)
+    p.add_argument("--backend", action="append", metavar="HOST:PORT",
+                   help="stable replica address (repeatable; required)")
+    p.add_argument("--canary-backend", action="append", metavar="HOST:PORT",
+                   dest="canary_backend",
+                   help="canary replica address (repeatable)")
+    p.add_argument("--canary-weight", type=float, default=None,
+                   dest="canary_weight", metavar="PCT",
+                   help="initial %% of traffic routed to the canary group")
+    # None falls through to RouterConfig's PIO_ROUTER_* env-aware
+    # defaults (the ServerConfig discipline — no re-hard-coding here)
+    p.add_argument("--probe-interval-s", type=float, default=None,
+                   dest="probe_interval_s")
+    p.add_argument("--probe-timeout-s", type=float, default=None,
+                   dest="probe_timeout_s",
+                   help="per-probe socket bound; size for the replica's "
+                        "p99 under load, NOT idle latency — a saturated "
+                        "CPython replica can sit >1s on /healthz "
+                        "(docs/fleet.md runbooks)")
+    p.add_argument("--down-after", type=int, default=None, dest="down_after",
+                   help="consecutive failed probes before mark-down")
+    p.add_argument("--up-after", type=int, default=None, dest="up_after",
+                   help="consecutive good probes before mark-up")
+    p.add_argument("--max-inflight", type=int, default=None,
+                   dest="max_inflight",
+                   help="bounded admission: concurrent in-flight requests")
+    p.add_argument("--request-deadline-ms", type=float, default=None,
+                   dest="request_deadline_ms")
+    p.add_argument("--hedge", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="tail-latency hedging: fire a second attempt on "
+                        "another replica after a p99-derived delay")
+    p.add_argument("--router-key", default=None, dest="router_key",
+                   help="when set, /fleet/canary and /stop require this key")
+    p.add_argument("--workers", type=int, default=1,
+                   help="router worker processes sharing the listen "
+                        "port via SO_REUSEPORT (one CPython process "
+                        "tops out on its GIL long before the fleet "
+                        "does); each worker probes and holds canary "
+                        "state independently — see docs/fleet.md")
+    p.add_argument("--engine", action="append", metavar="SPEC",
+                   help="a named engine group behind this router "
+                        "(repeatable; docs/fleet.md \"Multi-engine "
+                        "routing\"): comma-separated key=value pairs — "
+                        "name=rec,backend=h:p+h:p[,canary=h:p]"
+                        "[,weight=10][,qps=100][,burst=200]"
+                        "[,max-inflight=64][,replicas=2,port-base=8300]"
+                        "[,min-replicas=1,max-replicas=4][,credits=50]"
+                        " (replicas= spawns supervised engine replicas "
+                        "from --replica-cmd; min/max-replicas= bound "
+                        "that engine's OWN scale controller under the "
+                        "shared --replica-budget; credits= caps its "
+                        "burst-credit reservoir). Requests route by path "
+                        "/engines/<name>/queries.json or the "
+                        "X-PIO-Engine header; bare /queries.json keeps "
+                        "hitting the default engine")
+    p.add_argument("--default-engine", default=None, dest="default_engine",
+                   metavar="NAME",
+                   help="engine bare /queries.json routes to (default: "
+                        "the --backend group, else the first --engine; "
+                        "PIO_ROUTER_DEFAULT_ENGINE)")
+    p.add_argument("--access-log", action=argparse.BooleanOptionalAction,
+                   default=None, dest="access_log",
+                   help="structured JSON access logs")
+    p.add_argument("--tracing", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="root span per routed query (admission, pick, "
+                        "attempt/retry/hedge) with trace context "
+                        "forwarded to replicas for cross-process "
+                        "stitching; see `pio trace`")
+    # self-healing (docs/fleet.md "Supervision" / "Autoscaling"):
+    # PIO_FLEET_* env tunes the supervisor backoff/crash-loop and the
+    # scale policy defaults; None here falls through to those
+    p.add_argument("--supervise", action="store_true",
+                   help="own the worker siblings (and --replica-cmd "
+                        "replicas): respawn on death with damped "
+                        "backoff, latch crash loops, drain the whole "
+                        "fleet on SIGTERM")
+    p.add_argument("--replica-cmd", default=None, dest="replica_cmd",
+                   metavar="CMD",
+                   help="shell-style command template spawning one "
+                        "engine-server replica; {port} is substituted "
+                        "(e.g. 'pio deploy --port {port}'); requires "
+                        "--supervise")
+    p.add_argument("--replica-key", default=None, dest="replica_key",
+                   help="accessKey the supervisor sends on POST /drain "
+                        "when the --replica-cmd replicas run with a "
+                        "server key (PIO_FLEET_DRAIN_KEY)")
+    p.add_argument("--replica-port-base", type=int, default=8200,
+                   dest="replica_port_base",
+                   help="first replica port for --replica-cmd spawns "
+                        "(sequential from here, scale-ups included)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="initial --replica-cmd replica count (default: "
+                        "max(1, --min-replicas))")
+    p.add_argument("--min-replicas", type=int, default=None,
+                   dest="min_replicas",
+                   help="scale controller floor (PIO_FLEET_MIN_REPLICAS)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   dest="max_replicas",
+                   help="scale controller ceiling (PIO_FLEET_MAX_REPLICAS)")
+    p.add_argument("--scale-dry-run", action="store_true",
+                   dest="scale_dry_run",
+                   help="evaluate the scale policy but only EXPORT "
+                        "verdicts (pio_fleet_desired_replicas vs "
+                        "actual + decision counters) — the rollout "
+                        "posture; see docs/fleet.md")
+    p.add_argument("--scale-interval-s", type=float, default=None,
+                   dest="scale_interval_s")
+    p.add_argument("--scale-pressure-up", type=float, default=None,
+                   dest="scale_pressure_up",
+                   help="scale up when pio_fleet_pressure sustains "
+                        "at/above this (PIO_FLEET_PRESSURE_UP)")
+    p.add_argument("--scale-burn-up", type=float, default=None,
+                   dest="scale_burn_up",
+                   help="scale up when the fast-window SLO burn rate "
+                        "reaches this (PIO_FLEET_BURN_UP)")
+    p.add_argument("--scale-up-sustain-s", type=float, default=None,
+                   dest="scale_up_sustain_s")
+    p.add_argument("--scale-down-sustain-s", type=float, default=None,
+                   dest="scale_down_sustain_s",
+                   help="quiet cooldown before a scale-in "
+                        "(PIO_FLEET_DOWN_SUSTAIN_S)")
+    p.add_argument("--scale-cooldown-s", type=float, default=None,
+                   dest="scale_cooldown_s",
+                   help="minimum gap between scale actions "
+                        "(PIO_FLEET_COOLDOWN_S)")
+    p.add_argument("--replica-budget", type=int, default=None,
+                   dest="replica_budget",
+                   help="fleet-wide replica budget across ALL engines "
+                        "(device/HBM slots; 0 = unlimited, "
+                        "PIO_FLEET_REPLICA_BUDGET). Contention is "
+                        "burn-weighted; a hot tenant may preempt an "
+                        "idle tenant's above-min replica "
+                        "(docs/fleet.md \"Per-tenant elasticity\")")
+
+    p = sub.add_parser(
+        "trace",
+        help="fetch and render one stitched fleet trace from the "
+             "router (docs/observability.md)",
+    )
+    p.add_argument("trace_id", help="the X-PIO-Trace-Id of the request")
+    p.add_argument("--router", default="127.0.0.1:8100",
+                   metavar="HOST:PORT",
+                   help="router address serving /traces.json (default "
+                        "127.0.0.1:8100)")
+    p.add_argument("--chrome", action="store_true",
+                   help="emit Chrome trace-viewer JSON instead of the "
+                        "text tree (open in chrome://tracing or "
+                        "ui.perfetto.dev)")
+    p.add_argument("--out", default=None,
+                   help="write --chrome JSON to this file")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="HTTP timeout for the router fetch")
+
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--server-key", default=None)
+    parser.subparsers = sub  # handle for late-bound subcommand registration
     return parser
 
+
+#: commands that build no Storage: the router and `pio trace` talk HTTP
+#: only, and `wal` works on the journal directory (its replay builds the
+#: storage itself)
+STORAGE_FREE_COMMANDS = frozenset({"version", "wal", "router", "trace"})
 
 _COMMANDS = {
     "version": _cmd_version,
@@ -924,20 +1640,39 @@ _COMMANDS = {
     "eval": _cmd_eval,
     "deploy": _cmd_deploy,
     "undeploy": _cmd_undeploy,
+    "router": _cmd_router,
+    "trace": _cmd_trace,
 }
+
+_EXTRA_PARSERS: list = []
+
+
+def register_command(name: str, configure_parser, run) -> None:
+    """Extension point: a module adds a subcommand (``pio experiment``
+    registers itself from ``experiment/cli.py`` on import)."""
+    _COMMANDS[name] = run
+    _EXTRA_PARSERS.append((name, configure_parser))
 
 
 def main(argv: list[str] | None = None) -> int:
+    # late-bound subcommands register on import
+    import predictionio_tpu_torch.experiment.cli  # noqa: F401
+
     parser = build_parser()
+    for name, configure in _EXTRA_PARSERS:
+        configure(parser.subparsers)
     args = parser.parse_args(argv)
     if not args.command:
         parser.print_help()
         return 1
-    # `wal` works on the journal directory alone; its replay builds the
-    # storage itself
-    storage = None if args.command in ("version", "wal") else Storage()
+    storage = None if args.command in STORAGE_FREE_COMMANDS else Storage()
     return _COMMANDS[args.command](args, storage)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # under ``python -m`` this file runs as ``__main__``, while
+    # ``experiment/cli.py`` registers into the ``predictionio_tpu_torch.cli.pio``
+    # instance: go through that one, or the late-bound commands are lost
+    from predictionio_tpu_torch.cli.pio import main as _canonical_main
+
+    sys.exit(_canonical_main())

@@ -46,10 +46,11 @@ prefix sharing ACROSS points.
 
 The points finished in this process are counted by outcome
 (:func:`eval_point_counts`) and exported as ``pio_eval_points_total``
-by :func:`eval_points_collector`. The JAX package registers that
-collector on its router's ``/metrics`` (ROADMAP.md queue 1 item 23); the
-port exports it and registers it nowhere yet. It reads a Python counter
-and touches no CUDA, so a scrape cannot stop this process from forking.
+by :func:`eval_points_collector`, which the router registers on its
+``/metrics`` (``api/router_server.py``). It reads a Python counter and
+touches no CUDA, so a scrape cannot stop this process from forking, and
+this module imports torch only inside the functions that run a point:
+the router imports it and loads no torch.
 """
 
 from __future__ import annotations
@@ -63,8 +64,6 @@ import tempfile
 import threading
 import time
 from typing import Any, Callable, Sequence
-
-import torch
 
 from predictionio_tpu_torch.controller.evaluation import (
     Evaluation,
@@ -158,6 +157,8 @@ def _eval_point_child(evaluation: Evaluation, evaluator: MetricEvaluator,
     Raising spools the error and propagates to a nonzero exitcode, which
     the parent folds into a FAILED point result — fault isolation is the
     parent's job, the child just dies honestly."""
+    import torch
+
     started = time.monotonic()
     # the OpenMP pool of a parent that ran CPU ops does not survive the
     # fork (a parallel region would wait on its threads forever); one
@@ -209,6 +210,8 @@ def _collect_point(idx: int, exitcode: int | None, out_path: str,
 def check_fork_safe(ctx: Any) -> None:
     """Raise when grid children on ``ctx``'s device could not use it: the
     device is ``cuda`` and this process has initialized CUDA already."""
+    import torch
+
     device = getattr(ctx, "device", None)
     if (device is not None and torch.device(device).type == "cuda"
             and torch.cuda.is_initialized()):

@@ -22,10 +22,11 @@ train profiler. Seven modules:
   ``torch.cuda``, the peak-FLOPs table and ``pio train --profile``.
 
 - :mod:`~predictionio_tpu_torch.obs.aggregate` — Prometheus text parsed
-  back into families and merged across the workers of a pool.
-
-The JAX package's cross-process ``stitch`` (the router's trace trees) is
-ROADMAP.md queue 1 item 23.
+  back into families and merged across the workers of a pool, and
+  ``relabel`` for the router's ``/fleet/metrics``;
+- :mod:`~predictionio_tpu_torch.obs.stitch` — one request's trace
+  segments from the router and its replicas joined into one tree
+  (``pio trace``).
 
 The disabled path is near-free: one flag check and no allocation per
 request. None of these modules imports torch at import time, so the

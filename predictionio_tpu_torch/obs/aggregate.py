@@ -6,8 +6,9 @@ the families of several sources into one exposition.
 Under ``pio deploy --workers N`` the N ``SO_REUSEPORT`` processes each
 hold a private registry, and a scrape lands on ONE of them. The scraped
 worker pulls its siblings' expositions (``fleet/workers.py``) and merges,
-so ``/metrics`` reports the whole pool instead of a 1/N sample. This
-module does no I/O.
+so ``/metrics`` reports the whole pool instead of a 1/N sample; the
+router's ``/fleet/metrics`` re-exports each replica's families under
+:func:`relabel`'s ``replica``/``group`` labels. This module does no I/O.
 
 Merge rules by family kind:
 
@@ -25,7 +26,7 @@ Merge rules by family kind:
 from __future__ import annotations
 
 import re
-from typing import Sequence
+from typing import Iterable, Mapping, Sequence
 
 from predictionio_tpu_torch.obs.histogram import HistogramSnapshot
 from predictionio_tpu_torch.obs.registry import Metric
@@ -264,3 +265,24 @@ def merge_sources(sources: Sequence[tuple[str, list[Metric]]],
             (dict(key), merge_snapshots(snaps))
             for key, snaps in sorted(acc.items())]
     return list(merged.values())
+
+
+def relabel(metrics: Iterable[Metric], extra: Mapping[str, str]) -> list[Metric]:
+    """Copies with ``extra`` merged into every sample's label set (the
+    ``replica=...``/``group=...`` annotation on the router's
+    ``/fleet/metrics``, plus ``engine=...`` behind a multi-engine
+    gateway). Existing keys are not overwritten: a replica that already
+    labels per worker (or exports its own ``engine`` label) keeps its
+    labels. Label values pass through untouched: escaping happens at
+    render time and unescaping at parse time, so a hostile engine name
+    (quotes, backslashes, newlines) round-trips exactly."""
+    out = []
+    for m in metrics:
+        out.append(Metric(
+            name=m.name, kind=m.kind, help=m.help,
+            samples=[({**extra, **labels}, value)
+                     for labels, value in m.samples],
+            histograms=[({**extra, **labels}, snap)
+                        for labels, snap in m.histograms],
+        ))
+    return out

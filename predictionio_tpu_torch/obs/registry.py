@@ -354,10 +354,10 @@ _BREAKER_STATES = {"closed": 0.0, "half-open": 1.0, "half_open": 1.0,
 def resilience_collector() -> Collector:
     """Adopt the process-global resilience registry
     (``utils/resilience.registry_snapshot``): per-policy counters as
-    ``pio_resilience_<field>_total{policy}``. The breaker families
-    (``pio_resilience_breaker_state``, ``..._breaker_opens_total``) stay
-    empty until the circuit breaker is ported (ROADMAP.md queue 1 item
-    23): the port's registry counts fallbacks only."""
+    ``pio_resilience_<field>_total{policy}``, and for each policy with a
+    circuit breaker (the router's per-replica ``Resilience``) its state
+    (``pio_resilience_breaker_state``: 0 closed, 1 half-open, 2 open) and
+    open transitions (``pio_resilience_breaker_opens_total``)."""
 
     def collect() -> list[Metric]:
         # deferred import: obs/ stays importable below the utils layer

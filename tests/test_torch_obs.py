@@ -77,9 +77,9 @@ pytestmark = pytest.mark.obs
 T0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
 KEY = "obs-key"
 BURN_TOL = 1e-12
-#: families of the JAX event server that the port leaves out: the
-#: experiment conversion counters (ROADMAP.md queue 1 item 23)
-EVENT_FAMILIES_LEFT_OUT = {("pio_experiment_conversions_ingested_total", "counter")}
+#: families of the JAX event server that the port leaves out: none, since
+#: the experiment conversion counters came with the router tier
+EVENT_FAMILIES_LEFT_OUT: set[tuple[str, str]] = set()
 
 BOTH = {"jax": (jregistry, jexporter, jhistogram),
         "port": (pregistry, pexporter, phistogram)}
@@ -698,7 +698,8 @@ def test_event_server_metrics_families_equal_jax(tmp_path):
         assert EVENT_FAMILIES_LEFT_OUT <= want
         assert got == want - EVENT_FAMILIES_LEFT_OUT
         for family in ("pio_ingest_events_total", "pio_ingest_wal_depth",
-                       "pio_slo_burn_rate", "pio_server_info"):
+                       "pio_slo_burn_rate", "pio_server_info",
+                       "pio_experiment_conversions_ingested_total"):
             assert any(name == family for name, _ in got), family
         assert "pio_ingest_events_total 5" in texts[1]
     finally:

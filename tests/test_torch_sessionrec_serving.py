@@ -338,7 +338,10 @@ class TestIndependence:
             "        'obs.slo', 'obs.compile', 'obs.device', 'obs.aggregate',\n"
             "        'fleet.transport', 'fleet.workers', 'serving.workers',\n"
             "        'serving.placement', 'serving.shm_cache', 'utils.envcfg',\n"
-            "        'online.service', 'online.overlay']\n"
+            "        'online.service', 'online.overlay', 'obs.stitch',\n"
+            "        'fleet.canary', 'fleet.stats', 'fleet.membership', 'fleet.router',\n"
+            "        'fleet.gateway', 'fleet.controller', 'experiment.controller',\n"
+            "        'experiment.cli', 'api.router_server']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")
