@@ -27,8 +27,9 @@ Phases, in order; any failure exits non-zero:
    the same model run with the plain attention;
 5. sessionrec training at the JAX package's dense training config
    (bench.py:1199-1200: vocab 50,000, max_len 256, d_model 256, 4 heads,
-   4 layers, batch 64, bf16): 1,024 users × 257 view events into the
-   port's memory event store, then `run_train` for one epoch (16 Adam
+   4 layers, batch 64, bf16): 512 users × 257 view events (cut from
+   bench.py's 1,024) into the
+   port's memory event store, then `run_train` for one epoch (8 Adam
    steps) into an engine instance: stage seconds, step times, tokens/s,
    peak memory, and the losses, which must be finite and fall;
 6. the long-context training config (bench.py:1261-1263: max_len 4096,
@@ -51,16 +52,17 @@ Phases, in order; any failure exits non-zero:
    26,744 items × 20M power-law ratings, rank 32, λ 0.08): the seconds
    of `ladder_rows` through the native packer (`NATIVE_LADDERS` must
    move), and on the first 4M ratings beside the NumPy path's (the
-   layouts equal array for array), and of staging; 5 bf16 iterations (cut
+   layouts equal array for array), and of staging; 3 bf16 iterations (cut
    from bench.py's 10) after a one-iteration
    warm-up, timed by CUDA events (ms per iteration, ratings/s, useful and
    executed TFLOP/s, peak memory), one iteration under torch.profiler
    (launches, device time, busy share against the unprofiled iteration);
-   the f32 route's 5 iterations; RMSE finite and below the first
+   the f32 route's 3 iterations; RMSE finite and below the first
    iteration's, bf16 within 0.02 of f32; one f32 user half-step against
    float64 Cholesky on the host on 4,096 sampled rows;
 10. rank 200 (bench.py:396-441): 1 iteration (cut from 2) with the "auto" bf16 CG
-   matvec, and its half-step against float64 on 1,024 sampled rows;
+   matvec after a profiled one, and a user half-step with each matvec
+   (bf16, f32) timed and held against float64 on 1,024 sampled rows;
 11. serving the phase-9 model: `ALSModel.save`, then the engine server
    with the recommendation template on that directory; ~30 HTTP queries (num 10/100/1000,
    white and black lists, an unknown user, a user with more than 512
@@ -147,13 +149,14 @@ Phases, in order; any failure exits non-zero:
    one `predict` event per query (its query and prediction, entityId =
    the answer's prId) readable within 10 s, `pio undeploy`; (e) the
    event server again over a binevents event store with `--wal-dir
-   --wal-policy write-through --wal-fsync interval`: the first 10,000 of
+   --wal-policy write-through --wal-fsync interval`: the first 5,000 of
    16b's events all 202, drained (`pio wal status`: 0 pending) and read
    back equal through the native scanner, events/s and drain seconds;
    then SIGKILL during a second burst, a restart, and every
    acknowledged event read back;
-19. similar product and e-commerce at the ML-20M shape: phase 9's
-   138,493 × 26,744 × 20M power-law pairs as implicit views, each item
+19. similar product and e-commerce at the ML-20M shape: 10M of
+   bench.py's power-law pairs over 138,493 × 26,744 as implicit views
+   (cut from phase 9's 20M), each item
    in 1-3 of 20 categories; each template's algorithm trained at the JAX
    package's defaults (rank 10, λ 0.01, α 1.0, seed 3) but for 10
    iterations (cut from 20)
@@ -164,7 +167,7 @@ Phases, in order; any failure exits non-zero:
    rule; train seconds, ms per iteration, device ms and launches per
    query, peak memory;
 20. the ALS-family templates through a store: an ML-100k-shape shop
-   (50,000 views, cut from 100,000; 2,000 buys, categories, a
+   (25,000 views, cut from 100,000; 2,000 buys, categories, a
    constraint) through `pio import` → `pio train` → `pio deploy` of
    e-commerce, HTTP queries,
    then a new `unavailableItems` and a newcomer's views POSTed to `pio
@@ -183,7 +186,7 @@ Phases, in order; any failure exits non-zero:
    same folds on the CPU;
 22. ANN retrieval (`ops/ann.py`) at the JAX package's own ANN point
    (bench_serving.py:1563-1623), its catalog cut from 1,000,000 to
-   131,072 items at rank 32 from its factor mixture (256 clusters, noise
+   65,536 items at rank 32 from its factor mixture (256 clusters, noise
    0.5, seeds 7/8), 2,048 users with 8 seen items; `ALSModel.save` builds
    the IVF index at persist time (the auto nlist; the build seconds
    logged), `ALSModel.load` on the
@@ -199,7 +202,7 @@ Phases, in order; any failure exits non-zero:
    answers equal brute force;
 23. online freshness (`online/`): phase 16b's ML-100k instance behind
    `pio deploy --online --online-interval-s 0.2 --cache` and `pio
-   eventserver` over the same sqlite store: 16 known users each rate
+   eventserver` over the same sqlite store: 8 known users each rate
    their first answer over `POST /events.json`, and each answer changes
    with no retrain (the seconds from the 201, p50 and max); a new user
    and a new item are served; 32 other users' cache entries survive
@@ -289,7 +292,8 @@ Phases, in order; any failure exits non-zero:
    and the router's own hop from its spans; the kernel timed on a served
    query's q/k/v while the replicas serve through the router; the ML-100k
    engine at /engines/<name>/queries.json equal to its deploy queried
-   directly; the canary at weight 10 over 1,000 queries within 5
+   directly; `pio status --router` (no storage, no torch) listing both
+   engines with their replicas up; the canary at weight 10 over 1,000 queries within 5
    binomial sigmas, then promoted (weight 100) over `/fleet/canary`; a
    replica SIGKILLed under load at C=8: no 5xx, retries counted, the
    supervisor respawns it, membership marks it up, seconds to its first
@@ -303,25 +307,55 @@ Phases, in order; any failure exits non-zero:
    `pio_fleet_desired_replicas` on `/metrics`; each replica's launches = 4
    x popcount of its batches with no build; a SIGTERM of the router stops
    it and its replicas;
-29. a `kernels` JSON line, then the result line
+29. remote storage and the admin tools: an in-process PostgreSQL wire
+   emulator (tests/pg_emulator.py, md5 authentication) and a fake S3
+   in this script (path-style objects, SigV4 headers required); `pio`
+   with METADATA in PostgreSQL, EVENTDATA through the `chaos` injector
+   (20 % seeded faults) over the same database, MODELDATA in S3: `pio
+   app new`, `pio import` of 12 of 16a's users (24,588 views; cut from
+   128, every event crosses the wire twice), 1,000 exact copies and 400
+   `$set` events (events/s beside 16a's sqlite import), `pio build`
+   beside it; `pio run` of a main that calls
+   `SelfCleaningDataSource.clean_persisted_events` (duplicates removed,
+   `$set` runs compressed) and reads back through the injector: the
+   count exact, every view once, one folded `$set` an item, faults
+   fired, no torch loaded; `pio train` of 16a's engine at full width on
+   the card, its weights in the blob (`storage_engine_factory`), the
+   blob in S3 under the instance id the PostgreSQL row names, its
+   envelope SHA-256 right; `pio deploy --batching` from S3: phase 17's
+   C=8 level of 128 distinct queries, each answer within BATCH_SCORE_TOL
+   of the blob fetched back and deployed here, launches = 4 x popcount
+   of the batches with no build, the kernel timed on a served query's
+   q/k/v beside its plain version; while the deploy boots, `pio
+   adminserver` over the PostgreSQL metadata (alive, an app made, listed
+   (and by `pio app list`), its data and then itself deleted), `pio
+   dashboard` over phase 24's store (the index lists the forked grid's
+   instance, its evaluator_results.json equals the stored row's,
+   `/metrics` and a CORS preflight answer), `pio upgrade` and `pio
+   template` exiting 1 with the JAX package's messages;
+30. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
-`--grid-only`, `--e2-only`, `--obs-only`, `--pool-only` and
-`--router-only` run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24,
-25, 26, 27 and 28 alone (17 over 16a's instance and a random
-ML-20M-shape ALS model, 18, 24 and 26 over 16a's import, 22 over a
-random ML-20M-shape model, 23 over 16b's import and train, 27 over 16a's
-and 16b's, 28 over 16a's and 16b's and a serial `pio eval` of phase 24's
-two grid points) and print no result line. Phases
+`--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
+`--router-only` and `--storage-only` run phases 9-13, 14-15, 16, 17,
+18, 19-21, 22, 23, 24, 25, 26, 27, 28 and 29 alone (17 over 16a's
+instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
+import, 22 over a random ML-20M-shape model, 23 over 16b's import and
+train, 27 over 16a's and 16b's, 28 over 16a's and 16b's and a serial
+`pio eval` of phase 24's two grid points, 29 with its dashboard over a
+serial `pio eval` of those points on 16 of 16a's users) and print no
+result line. Phases
 22, 23 and 25 launch no flash kernel. Exits non-zero, printing no result,
 when there is no card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -332,10 +366,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
 from datetime import datetime, timedelta, timezone
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -405,11 +441,12 @@ TRAIN_LONG = dict(TRAIN_DENSE, max_len=4096, batch_size=4)
 #: items i1 .. i49999, so that with PAD the template derives vocab 50,000
 N_ITEMS = 49_999
 #: (users, events per user, start stride) of the event walks: user u views
-#: i{(stride·u + t) mod N_ITEMS + 1}, t < events. Starts 49 apart with
-#: walks of 257 (1,024 × 257 = 263,168 events: 16 steps of 64 rows of 256)
+#: i{(stride·u + t) mod N_ITEMS + 1}, t < events. Starts 98 apart with
+#: walks of 257 (512 × 257 = 131,584 events: 8 steps of 64 rows of 256;
+#: bench.py's 1,024 users cut to 512 to make room for phase 29)
 #: and starts 3,847 apart with walks of 4,097 (13 users: 4 steps of 4 rows
 #: of 4,096, 3 of them all-PAD) both cover every item.
-DENSE_WALK = (1024, 257, 49)
+DENSE_WALK = (512, 257, 98)
 LONG_WALK = (13, 4097, 3847)
 #: bf16 training computed two ways (blockwise vs full attention, tiled vs
 #: flat loss): the same sums in another order, with every cast rounded to
@@ -423,10 +460,12 @@ TRAIN_GRAD_RTOL = 3e-2
 ML20M = (138_493, 26_744, 20_000_000)
 ALS_RANK, ALS_LAM, ALS_ITERS = 32, 0.08, 10
 #: the iterations phase 9 times on each route (cut from bench.py's 10 to
-#: make room for phase 28; ms per iteration is what it reports)
-ALS_TIMED_ITERS = 5
+#: 5 for phase 28 and to 3 for phase 29; ms per iteration is what it reports)
+ALS_TIMED_ITERS = 3
 #: bench.py:396-441: rank 200, short runs (one timed iteration, cut from
-#: two to make room for phase 28)
+#: two to make room for phase 28; the f32 matvec timed on the user
+#: half-step its float64 check solves, no longer over a whole iteration,
+#: and the profiled iteration is the warm-up, to make room for phase 29)
 RANK200, RANK200_ITERS = 200, 1
 #: rows whose f32 CG solutions are held against float64 Cholesky on the host
 CG_CHECK_ROWS = (4096, 1024)           # rank 32, rank 200
@@ -1443,16 +1482,13 @@ def phase_als_train() -> dict:
                                       cg_bf16=als._resolve_cg_matvec(cg_matvec, RANK200))
 
     torch.cuda.reset_peak_memory_stats()
-    train200(1)
+    dev200_ms, launches200 = _profile(lambda: train200(1))     # and the warm-up
     ms, (_, item200) = _events_ms(lambda: train200(RANK200_ITERS))
-    ms_f32, _ = _events_ms(lambda: train200(1, "float32"))
-    dev200_ms, launches200 = _profile(lambda: train200(1))
     log(f"[als200] {RANK200_ITERS} iterations (bf16 CG matvec, the auto policy): "
         f"ms_per_iteration={ms / RANK200_ITERS:.3f} "
         f"ratings_per_s={nnz / (ms / RANK200_ITERS / 1e3):.0f} "
-        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}; "
-        f"1 iteration with the f32 CG matvec: {ms_f32:.3f} ms; one profiled iteration "
-        f"(bf16 matvec): launches={launches200} device_ms={_fmt(dev200_ms)} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f}; one profiled iteration "
+        f"(bf16 matvec, run first): launches={launches200} device_ms={_fmt(dev200_ms)} "
         f"device_busy_share={_fmt(dev200_ms and dev200_ms / (ms / RANK200_ITERS), 4)}")
     # the bf16 matvec on the system families the JAX package measured it
     # on (tests/test_als.py _normal_systems; ops/als.py:800-806)
@@ -1470,10 +1506,12 @@ def phase_als_train() -> dict:
     rows = rng.choice(active, CG_CHECK_ROWS[1], replace=False)
     heavy = np.asarray([len(rated(int(r))[0]) >= 100 for r in rows])
     for matvec in ("bfloat16", "float32"):
-        X = als.solve_half(item200, dev_user, RANK200, ALS_LAM, matmul_dtype="float32",
-                           cg_matvec_dtype=matvec)
+        half_ms, X = _events_ms(lambda: als.solve_half(
+            item200, dev_user, RANK200, ALS_LAM, matmul_dtype="float32",
+            cg_matvec_dtype=matvec))
         errs = _f64_half_step_err(item200, X, rated, rows, ALS_LAM)
-        log(f"[als200] {matvec} CG matvec, ML-20M user half-step vs float64 on {len(rows)} "
+        log(f"[als200] {matvec} CG matvec, ML-20M user half-step (f32 build) in "
+            f"{half_ms:.3f} ms; vs float64 on {len(rows)} "
             f"rows: max_rel_err={errs.max():.3e} median={np.median(errs):.3e}; max over the "
             f"{heavy.sum()} rows of degree >= 100: "
             f"{errs[heavy].max() if heavy.any() else float('nan'):.3e}")
@@ -2070,12 +2108,13 @@ class _Pio:
             [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p])
         self.cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli.pio"]
 
-    def run(self, tag: str, *args: str) -> tuple[str, float]:
+    def run(self, tag: str, *args: str, expect: int = 0) -> tuple[str, float]:
+        """`pio <args>`, which must exit ``expect``: (its output, seconds)."""
         t0 = time.perf_counter()
         p = subprocess.run(self.cmd + list(args), cwd=self.base, env=self.env,
                            capture_output=True, text=True, timeout=PIO_STEP_TIMEOUT)
         seconds = time.perf_counter() - t0
-        if p.returncode != 0:
+        if p.returncode != expect:
             fail(f"[pio] `pio {' '.join(args)}` exited {p.returncode}:\n"
                  f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
         log(f"[{tag}] pio {args[0]}: {seconds:.3f}s")
@@ -2125,11 +2164,16 @@ class _Pio:
     def eventserver(self, tag: str, *flags: str, env: dict | None = None):
         """`pio eventserver` on a free port: (the process, its port,
         seconds to listening)."""
-        out_path = os.path.join(self.base, f"eventserver-{tag}.log")
+        return self.server(tag, "eventserver", *flags, env=env)
+
+    def server(self, tag: str, command: str, *flags: str, env: dict | None = None):
+        """`pio <command>` (a server: eventserver, adminserver, dashboard)
+        on a free port: (the process, its port, seconds to listening)."""
+        out_path = os.path.join(self.base, f"{command}-{tag}.log")
         t0 = time.perf_counter()
         with open(out_path, "w") as out:
             proc = subprocess.Popen(
-                self.cmd + ["eventserver", "--ip", "127.0.0.1", "--port", "0", *flags],
+                self.cmd + [command, "--ip", "127.0.0.1", "--port", "0", *flags],
                 cwd=self.base, env=env or self.env, stdout=out, stderr=subprocess.STDOUT)
         return self.wait_listening(tag, proc, out_path, t0)
 
@@ -2231,11 +2275,11 @@ def _session_docs(users):
             for u in users for t in range(length))
 
 
-def import_sessions(pio: _Pio) -> float:
-    """Phase 16a's events, as JSON lines, into app SessApp through `pio
-    import`; returns the import's seconds."""
+def import_sessions(pio: _Pio, users: int = PIO_SESSION[0]) -> float:
+    """Phase 16a's events of the first ``users`` users, as JSON lines,
+    into app SessApp through `pio import`; returns the import's seconds."""
     events_path = os.path.join(pio.base, "sessions.jsonl")
-    n = _write_json_lines(events_path, _session_docs(range(PIO_SESSION[0])))
+    n = _write_json_lines(events_path, _session_docs(range(users)))
     app_id = pio.new_app("pio-sess", "SessApp")
     out, import_s = pio.run("pio-sess", "import", "--appid", str(app_id),
                             "--input", events_path)
@@ -2651,10 +2695,10 @@ def _drive_level(tag: str, port: int, bodies: list[dict], clients: int,
     return row
 
 
-def _sess_mix(rng, n: int, combos: list) -> list[dict]:
+def _sess_mix(rng, n: int, combos: list, n_items: int = N_ITEMS) -> list[dict]:
     """n distinct sessionrec queries: stored users and `items` sessions
-    in turn, sessions of 1-2,048 real items (log-uniform), every fifth
-    query with a black list."""
+    in turn, sessions of 1-2,048 real items (log-uniform) of the first
+    ``n_items``, every fifth query with a black list."""
     out = []
     for j in range(n):
         if j % 2 == 0:
@@ -2662,10 +2706,10 @@ def _sess_mix(rng, n: int, combos: list) -> list[dict]:
             body = {"user": f"u{u}", "num": num}
         else:
             length = int(np.clip(round(math.exp(rng.uniform(0, math.log(2048)))), 1, 2048))
-            body = {"items": [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, length)],
+            body = {"items": [f"i{i}" for i in rng.integers(1, n_items + 1, length)],
                     "num": (5, 10, 20)[j % 3]}
         if j % 5 == 0:
-            body["blackList"] = [f"i{i}" for i in rng.integers(1, N_ITEMS + 1, 20)]
+            body["blackList"] = [f"i{i}" for i in rng.integers(1, n_items + 1, 20)]
         out.append(body)
     return out
 
@@ -2951,12 +2995,13 @@ def phase_serve(pio: _Pio, instance: tuple[str, str, float], als_model: ALSModel
 #: 8 keep-alive clients: every 4th user, whose walks still cover every
 #: item, so the model trained from them keeps vocab 50,000 (the user count
 #: is the depth cut; the widths stay). 32 users at batch 8 are 4 Adam steps
-#: at S = 2048. 18e sends the first 10,000 of phase 16b's ML-100k events
+#: at S = 2048. 18e sends the first 5,000 of phase 16b's ML-100k events
 INGEST_USERS = tuple(range(0, PIO_SESSION[0], 4))
 INGEST_BATCH, INGEST_CLIENTS, INGEST_SINGLES = 50, 8, 200
 INGEST_QUERIES = 30
-#: 18e's first burst (cut from 20,000 to make room for phase 28)
-INGEST_WAL_EVENTS = 10_000
+#: 18e's first burst (cut from 20,000 to 10,000 for phase 28 and to 5,000
+#: for phase 29)
+INGEST_WAL_EVENTS = 5_000
 #: seconds within which the deploy's feedback events must be readable
 FEEDBACK_WAIT_S = 10.0
 #: events acknowledged in 18e's second burst before the server is killed
@@ -3291,7 +3336,7 @@ def _drain(pio: _Pio, wal_dir: str, t0: float) -> float:
 
 def phase_durable_ingest(pio: _Pio, app_id: int, key: str) -> None:
     """18e: the event server over binevents with the write-through WAL:
-    10,000 events all 202, drained into the store and read back through
+    INGEST_WAL_EVENTS events all 202, drained into the store and read back through
     the native scanner; then SIGKILL during a second burst, a restart,
     and every acknowledged event read back."""
     from predictionio_tpu_torch.storage import binevents
@@ -3398,8 +3443,9 @@ def phase_ingest(pio: _Pio) -> int:
 N_CATEGORIES = 20
 #: phase 20's ML-100k-shape shop: users, items, view events, buy events;
 #: its views cut from 100,000 to 50,000 to make room for phase 27 (the
-#: `pio import` of the shop took ~17 s of the script)
-SHOP = (943, 1_682, 50_000, 2_000)
+#: `pio import` of the shop took ~17 s of the script) and to 25,000 for
+#: phase 29 (every user still views 20 items)
+SHOP = (943, 1_682, 25_000, 2_000)
 SIM_FACTORY = "predictionio_tpu_torch.templates.similarproduct.engine_factory"
 ECOMM_FACTORY = "predictionio_tpu_torch.templates.ecommerce.engine_factory"
 CLASS_FACTORY = "predictionio_tpu_torch.templates.classification.engine_factory"
@@ -3611,11 +3657,15 @@ def _serve_checked(tag: str, algo, model, queries: list[dict], query_cls, refere
 #: phase 19's ALS iterations a template (cut from the JAX package's default
 #: 20 to make room for phase 28; rank, λ and α stay the defaults)
 TEMPLATE_ITERS = 10
+#: phase 19's power-law views over the ML-20M users x items (cut from 20M
+#: to make room for phase 29; the widths stay)
+TEMPLATE_VIEWS = 10_000_000
 
 
 def phase_als_templates() -> None:
     """Phase 19: similar product and e-commerce at the ML-20M shape."""
-    n_users, n_items, nnz = ML20M
+    n_users, n_items, _ = ML20M
+    nnz = TEMPLATE_VIEWS
     t0 = time.perf_counter()
     u, i, _ = make_ratings(n_users, n_items, nnz, SEED)
     coo = als.RatingsCOO(u, i, np.ones(nnz, dtype=np.float32), n_users, n_items)
@@ -4096,11 +4146,12 @@ def phase_templates(pio: _Pio) -> None:
 #: the JAX package's own ANN point (bench_serving.py:1563-1623), its
 #: 1,000,000 items cut to 262,144 (the host k-means of the index build
 #: took 42-56 s of the script at the full catalog), then to 131,072 to
-#: make room for phase 28 (~10 s of build at 262,144): items at rank 32 from
+#: make room for phase 28 (~10 s of build at 262,144) and to 65,536 for
+#: phase 29 (3.1-3.9 s of build at 131,072): items at rank 32 from
 #: its factor mixture (256 taste clusters, noise 0.5, seeds 7 and 8),
 #: 2,048 users with 8 seen items each
 ANN_ITEMS, ANN_RANK, ANN_CLUSTERS, ANN_USERS, ANN_SEEN, ANN_SEED = (
-    131_072, 32, 256, 2_048, 8, 7)
+    65_536, 32, 256, 2_048, 8, 7)
 #: queries held against brute force at full probe and against a float64
 #: rescore of their shortlist at the auto probe; the quality sample (the
 #: JAX bench's quality_queries)
@@ -4393,11 +4444,12 @@ def phase_ann(als_model: ALSModel) -> None:
 # phase 23: the online freshness plane
 # ---------------------------------------------------------------------------
 
-#: known users whose rating is folded (16, cut from 32 to make room for
-#: phase 28: each waits for its changed answer in turn), users whose cache
+#: known users whose rating is folded (8, cut from 32 to 16 to make room
+#: for phase 28 and to 8 for phase 29: each waits for its changed answer
+#: in turn), users whose cache
 #: entries must survive, the tail interval, the longest a fold may take
 #: to reach an answer
-ONLINE_USERS, ONLINE_BYSTANDERS, ONLINE_INTERVAL_S, ONLINE_WAIT_S = 16, 32, 0.2, 15.0
+ONLINE_USERS, ONLINE_BYSTANDERS, ONLINE_INTERVAL_S, ONLINE_WAIT_S = 8, 32, 0.2, 15.0
 #: a folded vector against the float64 solve of the same normal
 #: equations: max |diff| / max(1, max |ref|)
 ONLINE_VEC_TOL = 1e-4
@@ -6192,6 +6244,19 @@ def _router_als(router: _Router, als_port: int, rng) -> None:
         "direct deploy's answers")
 
 
+def _router_status(pio: _Pio, router: _Router) -> None:
+    """`pio status --router` (no storage, no torch) lists the default
+    engine with its two replicas and the canary up, and the ML-100k
+    engine with its one."""
+    out, seconds = pio.run("router-status", "status", "--router", f"127.0.0.1:{router.port}")
+    engines = dict(re.findall(r"\[INFO\]  [* ] (\S+): (.*)", out))
+    log(f"[router-status] pio status --router ({seconds:.3f}s): {engines}")
+    if "stable 2/2 up" not in engines.get("default", "") \
+            or "canary 1/1 up" not in engines.get("default", "") \
+            or "stable 1/1 up" not in engines.get(ROUTER_ALS_ENGINE, ""):
+        fail(f"[router-status] the engine table: {out}")
+
+
 def _router_canary(router: _Router, canary: str, rng) -> None:
     """Weight 10 over 1,000 queries, the observed share within its
     binomial bound; then promotion (weight 100): every query to the
@@ -6520,6 +6585,7 @@ def phase_router(pio: _Pio, instance_id: str, engine_json: str,
                 f"{row['qps'] / pool2[0]['qps']:.3f}x")
         _router_kernel_under_load(router, deployed, bodies[0])
         _router_als(router, als_port, np.random.default_rng(SEED + 282))
+        _router_status(pio, router)
         _router_canary(router, canary, np.random.default_rng(SEED + 283))
         victim_launches, failover = _router_failover(router, replicas[0], SEED + 284, layers)
         _router_trace(pio, router)
@@ -6547,6 +6613,485 @@ def phase_router(pio: _Pio, instance_id: str, engine_json: str,
     log(f"[{tag}] SIGTERM of pio router stopped it (exit 0) and its supervised replicas "
         f"{pids}; failover {json.dumps(failover)}")
     log(f"[{tag}] phase 28 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 29: remote storage and the admin tools
+# ---------------------------------------------------------------------------
+
+#: phase 29's users of 16a's walk, cut from 128: every event crosses the
+#: PostgreSQL wire twice (the import, the cleaning's rewrite) to an
+#: emulator in this process (2.6 k events/s on the card's host); the
+#: widths and the engine stay (two Adam steps at batch 8)
+STORAGE_USERS = 12
+#: the nums of the level's (user, num) queries: 12 users x 6 nums give
+#: the 68 distinct pairs the warm-up and the C=8 level draw
+STORAGE_NUMS = (5, 10, 15, 20, 25, 30)
+#: exact copies of random view events; (items, $set events an item)
+STORAGE_DUPLICATES = 1_000
+STORAGE_SET_RUNS = (50, 8)
+STORAGE_FAULT_RATE = 0.2
+STORAGE_SEED = SEED + 29
+#: phase 17's C=8 level: 128 distinct queries
+STORAGE_CLIENTS = 8
+STORAGE_QUERIES = LOAD_CLIENTS[STORAGE_CLIENTS]
+PG_PASSWORD = "chip-smoke-pg"
+S3_BUCKET, S3_BASE_PATH = "pio-models", "models"
+S3_KEYS = ("AKIDCHIPSMOKE", "chip-smoke-secret")
+#: the users of `--storage-only`'s own `pio eval` (phase 24's grid points)
+STORAGE_EVAL_USERS = 16
+#: the items 16a's walk gives the phase's users
+STORAGE_ITEMS = PIO_SESSION[2] * (STORAGE_USERS - 1) + PIO_SESSION[1]
+
+#: the `pio run` main of phase 29's cleaning, written beside the store
+STORAGE_CLEAN_MAIN = '''\
+"""pio run storage_clean APP_ID: the self-cleaning data source over the
+configured event store (duplicates removed, $set runs compressed), then
+each user's events read back; prints one JSON line."""
+import json
+import sys
+import time
+
+
+def main(app_id, n_users):
+    from predictionio_tpu_torch.data.self_cleaning import EventWindow, SelfCleaningDataSource
+    from predictionio_tpu_torch.storage.base import EventFilter
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    class Cleaner(SelfCleaningDataSource):
+        event_window = EventWindow(remove_duplicates=True, compress_properties=True)
+
+    app_id = int(app_id)
+    storage = Storage.default()
+    t0 = time.perf_counter()
+    kept = Cleaner().clean_persisted_events(storage, app_id)
+    seconds = time.perf_counter() - t0
+    events = storage.get_events()
+    users = [f"u{u}" for u in range(int(n_users))]
+    by_user = sum(len(list(events.find(app_id, None, EventFilter(
+        entity_type="user", entity_id=u)))) for u in users)
+    injector = storage.client_for_source("CHAOS").injector
+    print(json.dumps({"kept": kept, "seconds": seconds, "by_user": by_user,
+                      "calls": injector.calls,
+                      "faults": injector.faults_injected, "torch": "torch" in sys.modules}),
+          flush=True)
+    return 0
+'''
+
+
+class _BlobSeqRec(sessionrec.SeqRecAlgorithm):
+    """The template's algorithm, persisting the trained model itself into
+    the MODELDATA repository (its tensors as host arrays, put back on the
+    deploy's device at load) instead of a local checkpoint behind a
+    manifest: phase 29's S3 blob carries the weights trained on the card."""
+
+    def make_persistent_model(self, ctx, model):
+        return dataclasses.replace(model, module=None, train_run=None)
+
+
+def storage_engine_factory():
+    """Phase 29's engine: the sessionrec template with ``_BlobSeqRec``."""
+    engine = sessionrec.engine_factory()
+    engine.algorithm_class_map = {"seqrec": _BlobSeqRec}
+    return engine
+
+
+def storage_engine_json(pio: _Pio) -> str:
+    """Phase 29's engine.json: 16a's (SessApp, PIO_SESSION_TRAIN) through
+    ``storage_engine_factory``; its path."""
+    engine_json = os.path.join(pio.base, "storage-engine.json")
+    with open(engine_json, "w") as f:
+        json.dump({"id": "sessionrec-s3", "engineFactory": "chip_smoke.storage_engine_factory",
+                   "datasource": {"params": {"app_name": "SessApp"}},
+                   "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}]}, f)
+    return engine_json
+
+
+class _FakeS3Handler(BaseHTTPRequestHandler):
+    """Path-style objects in memory. A request without an
+    ``AWS4-HMAC-SHA256`` Authorization header is refused (403), and a
+    PUT whose body does not hash to its ``x-amz-content-sha256`` (400)."""
+
+    objects: dict = None       # path -> bytes, set per server by _fake_s3
+    requests: list = None      # (method, path) of every request, likewise
+
+    def log_message(self, *args) -> None:
+        pass
+
+    def _reply(self, code: int, body: bytes = b"", length: int | None = None) -> None:
+        self.send_response(code)
+        self.send_header("Content-Length", str(len(body) if length is None else length))
+        self.end_headers()
+        if body:
+            self.wfile.write(body)
+
+    def _signed(self) -> bool:
+        self.requests.append((self.command, self.path))
+        if self.headers.get("Authorization", "").startswith("AWS4-HMAC-SHA256 Credential="):
+            return True
+        self._reply(403)
+        return False
+
+    def do_PUT(self) -> None:
+        if self._signed():
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            if hashlib.sha256(body).hexdigest() != self.headers.get("x-amz-content-sha256"):
+                return self._reply(400)
+            self.objects[self.path] = body
+            self._reply(200)
+
+    def do_GET(self) -> None:
+        if self._signed():
+            blob = self.objects.get(self.path)
+            self._reply(404) if blob is None else self._reply(200, blob)
+
+    def do_HEAD(self) -> None:
+        if self._signed():
+            blob = self.objects.get(self.path)
+            self._reply(404) if blob is None else self._reply(200, length=len(blob))
+
+    def do_DELETE(self) -> None:
+        if self._signed():
+            self._reply(204 if self.objects.pop(self.path, None) is not None else 404)
+
+
+def _fake_s3() -> ThreadingHTTPServer:
+    server = ThreadingHTTPServer(("127.0.0.1", 0), type(
+        "S3Handler", (_FakeS3Handler,), {"objects": {}, "requests": []}))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def _pg_emulator(password: str):
+    """tests/pg_emulator.PGEmulator (stdlib only), loaded by its path and
+    started; md5 authentication."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "pg_emulator.py")
+    spec = importlib.util.spec_from_file_location("pg_emulator", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.PGEmulator(password=password, auth="md5").start()
+
+
+def _storage_env(pg_port: int, s3_port: int) -> dict:
+    """METADATA in PostgreSQL, EVENTDATA through the fault injector over
+    the same database, MODELDATA in S3."""
+    pg = {"HOST": "127.0.0.1", "PORT": str(pg_port), "USERNAME": "pio",
+          "PASSWORD": PG_PASSWORD, "DATABASE": "pio"}
+    return {"PIO_STORAGE_SOURCES_PG_TYPE": "postgres",
+            **{f"PIO_STORAGE_SOURCES_PG_{k}": v for k, v in pg.items()},
+            "PIO_STORAGE_SOURCES_CHAOS_TYPE": "chaos",
+            "PIO_STORAGE_SOURCES_CHAOS_TARGET": "postgres",
+            **{f"PIO_STORAGE_SOURCES_CHAOS_TARGET_{k}": v for k, v in pg.items()},
+            "PIO_STORAGE_SOURCES_CHAOS_FAULT_RATE": str(STORAGE_FAULT_RATE),
+            "PIO_STORAGE_SOURCES_CHAOS_SEED": str(STORAGE_SEED),
+            "PIO_STORAGE_SOURCES_S3_TYPE": "s3",
+            "PIO_STORAGE_SOURCES_S3_BUCKET_NAME": S3_BUCKET,
+            "PIO_STORAGE_SOURCES_S3_BASE_PATH": S3_BASE_PATH,
+            "PIO_STORAGE_SOURCES_S3_ENDPOINT": f"http://127.0.0.1:{s3_port}",
+            "PIO_STORAGE_SOURCES_S3_ACCESS_KEY_ID": S3_KEYS[0],
+            "PIO_STORAGE_SOURCES_S3_SECRET_ACCESS_KEY": S3_KEYS[1],
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "PG",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "CHAOS",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "S3"}
+
+
+def _storage_docs(rng) -> tuple[list[dict], list[dict], list[dict]]:
+    """Phase 29's events: (16a's views of STORAGE_USERS users, exact
+    copies of STORAGE_DUPLICATES of them, runs of $set on items)."""
+    views = list(_session_docs(range(STORAGE_USERS)))
+    dups = [views[int(i)] for i in rng.integers(0, len(views), STORAGE_DUPLICATES)]
+    items, run = STORAGE_SET_RUNS
+    t0 = datetime(2026, 2, 1, tzinfo=timezone.utc)
+    sets = [{"event": "$set", "entityType": "item", "entityId": f"i{i + 1}",
+             "properties": {"price": float(k * 10 + i), "category": f"c{(i + k) % 5}"},
+             "eventTime": (t0 + timedelta(minutes=k, seconds=i)).strftime(
+                 "%Y-%m-%dT%H:%M:%S.000Z")}
+            for k in range(run) for i in range(items)]
+    return views, dups, sets
+
+
+def _storage_import(tag: str, pio: _Pio, docs: list[dict]) -> tuple[int, float]:
+    """`pio app new` + `pio import` over the remote stores: (app id,
+    import seconds)."""
+    app_id = pio.new_app(tag, "SessApp")
+    path = os.path.join(pio.base, "storage-events.jsonl")
+    n = _write_json_lines(path, docs)
+    out, seconds = pio.run(tag, "import", "--appid", str(app_id), "--input", path)
+    if f"Imported {n} events" not in out:
+        fail(f"[{tag}] import: {out}")
+    return app_id, seconds
+
+
+def _storage_clean(tag: str, pio: _Pio, app_id: int, views: list, sets: list) -> dict:
+    """`pio run` of the cleaning main, then the events read back through
+    the fault injector: the exact count, every view once, one folded
+    $set an item."""
+    with open(os.path.join(pio.base, "storage_clean.py"), "w") as f:
+        f.write(STORAGE_CLEAN_MAIN)
+    out, seconds = pio.run(tag, "run", "storage_clean", str(app_id), str(STORAGE_USERS))
+    report = json.loads(out.strip().splitlines()[-1])
+    items, run = STORAGE_SET_RUNS
+    expected = len(views) + items
+    storage = Storage(pio.env)
+    try:
+        events = list(storage.get_events().find(app_id))
+        injector = storage.client_for_source("CHAOS").injector
+        reader = (injector.calls, injector.faults_injected)
+    finally:
+        storage.close()
+    got_views = sorted(repr(_event_fields(e)) for e in events if e.event == "view")
+    want_views = sorted(repr(_doc_fields(d)) for d in views)
+    folded = {e.entity_id: dict(e.properties.fields) for e in events if e.event == "$set"}
+    want_folded = {d["entityId"]: d["properties"] for d in sets[-items:]}
+    log(f"[{tag}] pio run storage_clean: {seconds:.3f}s ({report['seconds']:.3f}s cleaning); "
+        f"kept {report['kept']} of {STORAGE_DUPLICATES + len(views) + items * run} imported; "
+        f"read back {report['by_user']} user by user in that process, {len(events)} whole "
+        f"in this one (expected {expected}, {len(views)} views); faults injected "
+        f"{report['faults']} of "
+        f"{report['calls']} calls in the cleaning process, {reader[1]} of {reader[0]} in "
+        f"this reader; torch loaded: {report['torch']}")
+    if {report["kept"], len(events)} != {expected} or report["by_user"] != len(views) \
+            or got_views != want_views or folded != want_folded or report["faults"] == 0 \
+            or report["torch"]:
+        fail(f"[{tag}] cleaning: kept {report['kept']}, read {len(events)} (expected "
+             f"{expected}), by user {report['by_user']}, views equal "
+             f"{got_views == want_views}, $set folded {folded == want_folded}, faults "
+             f"{report['faults']}, torch {report['torch']}")
+    return dict(report, seconds=seconds, read_back=len(events))
+
+
+def _storage_blob(tag: str, s3: ThreadingHTTPServer, env: dict, instance_id: str) -> bytes:
+    """The instance's model blob: in the fake S3 under the instance id
+    the COMPLETED row in PostgreSQL names, its envelope's SHA-256 right,
+    and the S3 client's GET equal to the bytes the PUT delivered."""
+    storage = Storage(env)
+    try:
+        row = storage.get_meta_data_engine_instances().get(instance_id)
+        fetched = storage.get_model_data_models().get(instance_id).models
+    finally:
+        storage.close()
+    key = f"/{S3_BUCKET}/{S3_BASE_PATH}/{instance_id}"
+    stored = s3.RequestHandlerClass.objects.get(key)
+    header = len(b"PIOM\x01") + 32
+    digest_ok = stored is not None and hashlib.sha256(stored[header:]).digest() == \
+        stored[len(b"PIOM\x01"):header]
+    log(f"[{tag}] model blob {key}: {len(stored or b'')} bytes, row {row and row.status}, "
+        f"envelope SHA-256 {'right' if digest_ok else 'WRONG'}, sha256 "
+        f"{hashlib.sha256(stored or b'').hexdigest()[:16]}, fetched back equal "
+        f"{fetched == stored}")
+    if row is None or row.status != "COMPLETED" or not digest_ok or fetched != stored:
+        fail(f"[{tag}] the blob of {instance_id} is not in S3 as the row records it")
+    return fetched
+
+
+def _storage_serve(tag: str, pio: _Pio, s3: ThreadingHTTPServer, engine_json: str,
+                   instance_id: str, while_booting) -> tuple[int, float]:
+    """`pio deploy --batching` from the S3 blob (``while_booting()`` runs
+    while it starts), phase 17's C=8 level of queries over the phase's
+    users and items, each answer against an in-process deploy of the blob
+    fetched back from S3; the server's launches = 4 x the popcounts of
+    its batches, no build. Returns (launches, seconds to listening)."""
+    layers = PIO_SESSION_TRAIN["n_layers"]
+    gets = len([r for r in s3.RequestHandlerClass.requests if r[0] == "GET"])
+    started = pio.start_deploy(tag, engine_json, "--engine-instance-id", instance_id,
+                               "--batching", "--batch-max", str(LOAD_BATCH_MAX))
+    try:
+        while_booting()
+    except BaseException:
+        _stop(started[0])
+        raise
+    proc, port, deploy_s = pio.wait_listening(tag, *started)
+    try:
+        fetched = len([r for r in s3.RequestHandlerClass.requests if r[0] == "GET"]) - gets
+        storage = Storage(pio.env)
+        deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=instance_id,
+                                                              device=DEVICE))
+        rng = np.random.default_rng(STORAGE_SEED + 1)
+        combos = [(u, num) for u in range(STORAGE_USERS) for num in STORAGE_NUMS]
+        rng.shuffle(combos)
+        warm = _sess_mix(rng, 8, combos, STORAGE_ITEMS)
+        bodies = _sess_mix(rng, STORAGE_QUERIES, combos, STORAGE_ITEMS)
+        want = []
+        for lo in range(0, len(bodies), LOAD_BATCH_MAX):
+            want += deployed.query_batch([from_wire(sessionrec.Query, b)
+                                          for b in bodies[lo:lo + LOAD_BATCH_MAX]])
+        _closed_loop(port, warm, 1)
+        row = _drive_level(tag, port, bodies, STORAGE_CLIENTS, True)
+        for body, doc, w in zip(bodies, row["answers"], want):
+            if len(doc["itemScores"]) != body["num"] or not _same_answer(
+                    _as_result(doc), w, BATCH_SCORE_TOL):
+                fail(f"[{tag}] an answer differs from the blob deployed in this process: "
+                     f"{json.dumps(body)[:200]}")
+        c = _server_counts(port)
+        expected = _launches_for(c["hist"], layers)
+        log(f"[{tag}] every answer within {BATCH_SCORE_TOL:g} of the blob fetched back from "
+            f"S3 and deployed here; the deploy's S3 GETs {fetched}; kernelLaunches."
+            f"flash_attention={c['launches']} (expected {expected} = {layers} x popcount of "
+            f"batches {c['hist']}); builds {c['compiles']}; batch retries {c['retries']}")
+        if c["launches"] != expected or c["compiles"] or c["retries"] or fetched < 1 \
+                or not c["device"].startswith("cuda"):
+            fail(f"[{tag}] launches {c['launches']} != {expected}, builds {c['compiles']}, "
+                 f"retries {c['retries']}, S3 GETs {fetched}, device {c['device']}")
+        at = _kernel_at_deploy(deployed, next(b for b in bodies if "user" in b))
+        log(f"[{tag}] flash_attention as launched behind the S3-loaded deploy {at['shape']} "
+            f"{at['dtype']} causal, {at['real_keys']} real keys, {LAUNCHES_TIMED} launches: "
+            f"kernel_ms={at['ms']:.4f} kernel_device_ms={_fmt(at['device_ms'], 4)} "
+            f"plain_ms={at['plain_ms']:.4f} library_ms={at['library_ms']:.4f} "
+            f"library_causal_ms={at['library_causal_ms']:.4f} "
+            f"bound_ms={at['bound_ms']:.5f} ({at['bound_by']})")
+        model = deployed.models[0]
+        body = bodies[0]
+        agreement = _check_against_plain(
+            model, _sess_tail(model, body),
+            [model.item_index[i] for i in body.get("blackList", [])],
+            [(model.item_index[s["item"]], s["score"]) for s in row["answers"][0]["itemScores"]],
+            min(10, body["num"]), f"{tag} {json.dumps(body)[:40]}")
+        log(f"[{tag}] the first served answer against the plain attention: {agreement}")
+        storage.close()
+        del deployed, model
+    finally:
+        _stop(proc)
+    torch.cuda.empty_cache()
+    return c["launches"], deploy_s
+
+
+def _storage_admin(tag: str, pio: _Pio) -> None:
+    """`pio adminserver` over the PostgreSQL metadata: alive, an app made
+    and listed (and by `pio app list`), its data and then itself deleted."""
+    proc, port, listen_s = pio.server(tag, "adminserver")
+    try:
+        name = "StorageAdmin"
+        call = lambda method, path, body=None: _http(port, method, path, body)[:2]  # noqa: E731
+        checks = [("GET /", call("GET", "/")),
+                  ("POST /cmd/app", call("POST", "/cmd/app", {"name": name}))]
+        listed = call("GET", "/cmd/app")
+        out, _ = pio.run(tag, "app", "list")
+        checks += [("GET /cmd/app", listed),
+                   ("DELETE data", call("DELETE", f"/cmd/app/{name}/data")),
+                   ("DELETE app", call("DELETE", f"/cmd/app/{name}"))]
+        after = call("GET", "/cmd/app")
+    finally:
+        _stop(proc)
+    names = [a["name"] for a in listed[1]["apps"]]
+    log(f"[{tag}] pio adminserver: listening after {listen_s:.3f}s; "
+        + "; ".join(f"{what} {status}" for what, (status, _) in checks)
+        + f"; apps listed {names}, then {[a['name'] for a in after[1]['apps']]}; "
+        f"pio app list names it: {name in out}")
+    if [s for _, (s, _) in checks] != [200, 201, 200, 200, 200] \
+            or checks[0][1][1] != {"status": "alive"} or name not in names \
+            or name not in out or name in [a["name"] for a in after[1]["apps"]]:
+        fail(f"[{tag}] the admin server's checks: {checks}, {after}, app list {out}")
+
+
+def _storage_dashboard(tag: str, pio: _Pio, instance_id: str) -> None:
+    """`pio dashboard` over ``pio``'s store: the index lists the
+    evaluation instance, its evaluator_results.json equals the stored
+    row's, and /metrics answers."""
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    row = storage.get_meta_data_evaluation_instances().get(instance_id)
+    storage.close()
+    proc, port, listen_s = pio.server(tag, "dashboard")
+    try:
+        index = _request(port, "GET", "/")
+        results = _request(port, "GET",
+                           f"/engine_instances/{instance_id}/evaluator_results.json")
+        metrics = _request(port, "GET", "/metrics")
+        preflight = _request(port, "OPTIONS", "/")
+    finally:
+        _stop(proc)
+    same = results[0] == 200 and json.loads(results[1]) == json.loads(
+        row.evaluator_results_json)
+    log(f"[{tag}] pio dashboard: listening after {listen_s:.3f}s; GET / {index[0]} lists "
+        f"{instance_id}: {instance_id in index[1].decode()}; evaluator_results.json "
+        f"{results[0]}, equal to the row's: {same}; /metrics {metrics[0]} "
+        f"({len(metrics[1])} bytes); OPTIONS / {preflight[0]} "
+        f"Access-Control-Max-Age {preflight[2].get('Access-Control-Max-Age')}")
+    if index[0] != 200 or instance_id not in index[1].decode() or not same \
+            or metrics[0] != 200 or b"pio_server_info" not in metrics[1] \
+            or preflight[0] != 200:
+        fail(f"[{tag}] the dashboard's checks failed")
+
+
+def _retired_commands(tag: str, pio: _Pio) -> None:
+    """`pio upgrade` and `pio template` exit 1 with JAX's messages."""
+    upgrade, _ = pio.run(tag, "upgrade", expect=1)
+    template, _ = pio.run(tag, "template", "list", expect=1)
+    log(f"[{tag}] pio upgrade: exit 1, {upgrade.strip()!r}; pio template list: exit 1, "
+        f"{template.strip().splitlines()[0]!r}")
+    if upgrade.strip() != "[ERROR] Upgrade is no longer supported" or \
+            not template.startswith("[ERROR] template commands are no longer supported."):
+        fail(f"[{tag}] the retired commands' messages: {upgrade!r} {template!r}")
+
+
+def phase_storage(pio_main: _Pio, base: str, eval_instance: str,
+                  sqlite_import: tuple[int, float] | None) -> int:
+    """Phase 29: 16a's sessions in PostgreSQL (over the wire, under 20 %
+    seeded faults) with duplicates and $set runs, cleaned by a `pio run`
+    main, trained on the card, the blob in S3, served through the flash
+    kernel; the admin server over the same metadata, the dashboard over
+    ``pio_main``'s store and ``eval_instance``, the retired commands.
+    Returns the deploy's flash launches."""
+    t0 = time.perf_counter()
+    tag = "storage"
+    emulator, s3 = _pg_emulator(PG_PASSWORD), _fake_s3()
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{s3.server_address[1]}/{S3_BUCKET}/x",
+                               timeout=10)
+        fail(f"[{tag}] the fake S3 answered an unsigned GET")
+    except urllib.error.HTTPError as e:
+        if e.code != 403:
+            fail(f"[{tag}] the fake S3 answered an unsigned GET with {e.code}")
+    pio = _Pio(os.path.join(base, "storage"))
+    os.makedirs(pio.base, exist_ok=True)
+    pio.env.update(_storage_env(emulator.port, s3.server_address[1]))
+    try:
+        views, dups, sets = _storage_docs(np.random.default_rng(STORAGE_SEED))
+        docs = views + dups + sets
+        # `pio build` reads no storage: it runs beside the import
+        engine_json = storage_engine_json(pio)
+        build = subprocess.Popen(pio.cmd + ["build", "--engine-json", engine_json],
+                                 cwd=pio.base, env=pio.env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+        app_id, import_s = _storage_import(tag, pio, docs)
+        built = build.communicate(timeout=PIO_STEP_TIMEOUT)[0]
+        log(f"[{tag}] pio build (beside the import): exit {build.returncode}, "
+            f"{built.strip().splitlines()[-1] if built.strip() else ''}")
+        if build.returncode != 0 or "[INFO] Build successful" not in built:
+            fail(f"[{tag}] pio build: {built[-3000:]}")
+        versus = ("" if sqlite_import is None else
+                  f"; phase 16a's sqlite import {sqlite_import[0] / sqlite_import[1]:.1f} "
+                  f"events/s")
+        log(f"[{tag}] pio import of {len(docs)} events ({len(views)} views of "
+            f"{STORAGE_USERS} users, {len(dups)} exact copies, {len(sets)} $set) into "
+            f"PostgreSQL through the fault injector: {import_s:.3f}s = "
+            f"{len(docs) / import_s:.1f} events/s{versus}")
+        clean = _storage_clean(tag, pio, app_id, views, sets)
+        out, train_s = pio.run(tag, "train", "--engine-json", engine_json, "--device", DEVICE)
+        found = re.search(r"Training finished: engine instance (\w+) \(COMPLETED\)", out)
+        stages = re.search(r"Stage times: read ([\d.]+)s.*", out)
+        if found is None or stages is None:
+            fail(f"[{tag}] pio train did not complete: {out[-2000:]}")
+        instance_id, read_s = found.group(1), float(stages.group(1))
+        log(f"[{tag}] pio train on the card from PostgreSQL through the fault injector: "
+            f"instance {instance_id} in {train_s:.3f}s; {stages.group(0)}")
+        _storage_blob(tag, s3, pio.env, instance_id)
+        # the admin tools and the retired commands run while the deploy boots
+        launches, deploy_s = _storage_serve(
+            tag, pio, s3, engine_json, instance_id,
+            lambda: (_storage_admin(tag, pio), _storage_dashboard(tag, pio_main, eval_instance),
+                     _retired_commands(tag, pio)))
+        methods = [m for m, _ in s3.RequestHandlerClass.requests]
+        log(f"[{tag}] summary: import {len(docs) / import_s:.1f} events/s; cleaning "
+            f"{clean['seconds']:.3f}s; pio train {train_s:.3f}s (read {read_s:.2f}s under "
+            f"{STORAGE_FAULT_RATE:g} faults); deploy to listening {deploy_s:.3f}s; S3 "
+            f"requests { {m: methods.count(m) for m in sorted(set(methods))} }")
+    finally:
+        s3.shutdown()
+        emulator.stop()
+    log(f"[{tag}] phase 29 took {time.perf_counter() - t0:.1f}s")
     return launches
 
 
@@ -6594,6 +7139,16 @@ def run_phases(wall: float) -> None:
                             "--parallel", "1")
             _grid_scores("router-eval", run)
             phase_router(pio, instance_id, engine_json, (rec_json, rec_id), run["row"].id)
+        return
+    if sys.argv[1:] == ["--storage-only"]:   # phase 29 alone, with a small pio eval of its own
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            import_sessions(pio, STORAGE_EVAL_USERS)
+            run = _pio_eval(pio, "storage-eval", GRID_SPEC, "chip_smoke.GridParams",
+                            "--parallel", "1")
+            _grid_scores("storage-eval", run)
+            phase_storage(pio, base, run["row"].id, None)
         return
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
@@ -6716,6 +7271,12 @@ def run_phases(wall: float) -> None:
         if router_launches == 0:
             fail("the router's replicas never launched the flash_attention kernel")
         launches += router_launches
+        # phase 29's in its `pio deploy` process, read on its GET /
+        storage_launches = timed("29", phase_storage, pio, base, GRID_INSTANCE[0],
+                                 (PIO_SESSION[0] * PIO_SESSION[1], instance[2]))
+        if storage_launches == 0:
+            fail("the S3-loaded deploy never launched the flash_attention kernel")
+        launches += storage_launches
     torch.cuda.empty_cache()
     timed("25", phase_e2)
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")

@@ -39,8 +39,9 @@ Port-specific decisions:
   experiment's served stamp (``experimentId``/``variantId``
   properties) are counted per variant
   (``pio_experiment_conversions_ingested_total``,
-  :meth:`EventService.conversion_counts`). The chaos storage backend
-  stays with ROADMAP.md queue 1 item 23.
+  :meth:`EventService.conversion_counts`). Over the ``chaos`` storage
+  backend an injected fault reaches a client only as a retried success
+  or a 503 with ``Retry-After``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ port serves).
 
     python -m predictionio_tpu_torch.cli.pio <command> ...
 
-- ``version``; ``status`` (verifies every storage repository);
+- ``version``; ``status`` (verifies every storage repository; with
+  ``--router HOST:PORT``, a running router's engine table instead);
 - ``app new|list|show|delete|data-delete|channel-new|channel-delete``
   (a new app gets an access key) and ``accesskey new|list|delete``
   (``new --event E`` whitelists event names);
@@ -57,15 +58,23 @@ port serves).
 - ``experiment start|status|conversions`` (``experiment/cli.py``,
   registered through :func:`register_command`): the online A/B loop over
   an evaluation's ranked grid points behind a running router.
+- ``dashboard`` (``tools/dashboard.py``: completed evaluations, CORS,
+  ``/metrics``) and ``adminserver`` (``tools/admin.py``: app
+  administration over REST); ``build`` (the engine.json's factory
+  imports, instantiates and binds its params), ``run <module[:fn]>``
+  (a user main in this process, over the configured storage), and the
+  retired ``upgrade`` and ``template``, which exit 1 as in the JAX
+  package. These six register through :func:`register_command`.
 
 ``train``, ``eval`` and ``deploy`` run on the card unless ``--device
-cpu`` is given; the other commands, ``eventserver`` among them, do not
+cpu`` is given; ``status`` without ``--router`` imports torch to name
+the card; ``build`` and ``run`` import it only through the engine or
+main they load; the other commands, ``eventserver`` among them, do not
 import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
-messages and exit codes are the JAX package's. Not ported yet:
-``build``/``run``/``upgrade``/``template`` and the admin tools
-(ROADMAP.md queue 1 item 23), and Parquet import and export (item 25).
+messages and exit codes are the JAX package's. Not ported yet: Parquet
+import and export (ROADMAP.md queue 1 item 25).
 """
 
 from __future__ import annotations
@@ -91,7 +100,11 @@ def _cmd_version(args, storage: Storage | None) -> int:
     return 0
 
 
-def _cmd_status(args, storage: Storage) -> int:
+def _cmd_status(args, storage: Storage | None) -> int:
+    """``pio status``; with ``--router HOST:PORT``, the registered engine
+    table of a running fleet router instead (storage-free, no torch)."""
+    if args.router:
+        return _status_router(args)
     import torch
 
     print("[INFO] Inspecting predictionio_tpu_torch...")
@@ -108,6 +121,68 @@ def _cmd_status(args, storage: Storage) -> int:
         print(f"[WARN] PyTorch {torch.__version__}: no CUDA device; "
               "train and deploy need --device cpu")
     print("[INFO] Your system is all ready to go.")
+    return 0
+
+
+def _status_router(args) -> int:
+    """`pio status --router host:port`: the router's registered engines
+    from ``GET /fleet/engines`` (name, group sizes, up counts, canary
+    weight, quota, scale set) and its experiment, if one runs."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://{args.router}/fleet/engines"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout or 10.0) as r:
+            doc = json.loads(r.read())
+    except (urllib.error.URLError, OSError, ValueError) as exc:
+        print(f"[ERROR] router {args.router} unreachable: {exc}")
+        return 1
+    engines = doc.get("engines", [])
+    default = doc.get("defaultEngine")
+    print(f"[INFO] Fleet router {args.router}: {len(engines)} engine(s)"
+          f" (default: {default})")
+    for eng in engines:
+        name = eng.get("name")
+        marker = "*" if name == default else " "
+        parts = []
+        for group, counts in sorted((eng.get("groups") or {}).items()):
+            parts.append(f"{group} {counts.get('up', 0)}/"
+                         f"{counts.get('size', 0)} up")
+        canary = eng.get("canary") or {}
+        weight = canary.get("weightPct", 0.0)
+        state = (f"canary {weight:g}%"
+                 + (" ABORTED" if canary.get("aborted") else ""))
+        quota = eng.get("quota") or {}
+        if quota.get("limited"):
+            state += (f" | quota qps={quota.get('qps') or 'inf'}"
+                      f" inflight<={quota.get('maxInflight') or 'inf'}")
+        scale = eng.get("scale")
+        if scale:
+            last = scale.get("lastDecision")
+            reason = scale.get("lastReason")
+            state += (f" | replicas {scale.get('actualReplicas')}"
+                      f" (desired {scale.get('desiredReplicas')},"
+                      f" bounds {scale.get('minReplicas')}-"
+                      f"{scale.get('maxReplicas')}"
+                      + (", dry-run" if scale.get("dryRun") else "")
+                      + ")"
+                      + (f" | last {last}:{reason}" if last else ""))
+        print(f"[INFO]  {marker} {name}: "
+              f"{'; '.join(parts) or 'no backends'} | {state}")
+    experiment = doc.get("experiment")
+    if experiment:
+        decision = experiment.get("decision") or {}
+        verdict = (f" — winner {decision.get('winner')}"
+                   if decision.get("winner") else "")
+        print(f"[INFO] Experiment {experiment.get('name')}: "
+              f"{experiment.get('state')}{verdict}")
+        for v in experiment.get("variants", []):
+            flag = "ABORTED" if v.get("aborted") else \
+                f"score {v.get('onlineScore')}"
+            print(f"[INFO]    {v.get('name')} ({v.get('weightPct'):g}%): "
+                  f"{v.get('requests')} req, {v.get('errors')} err, "
+                  f"{v.get('conversions')} conv | {flag}")
     return 0
 
 
@@ -718,11 +793,21 @@ def _router_worker(config) -> None:
     """One extra `pio router --workers N` worker process: a full
     RouterServer on the shared SO_REUSEPORT listen port. Started from the
     ``spawn`` context (``POOL_START_METHOD``), so the target is
-    module-level and ``config`` pickles."""
+    module-level and ``config`` pickles. A ``POST /stop`` that the
+    kernel hands to this worker stops the whole router: it goes to the
+    parent as SIGTERM, whose drain stops every worker (under
+    ``--supervise`` the worker would otherwise be respawned and the
+    router would never stop)."""
+    import os
+    import signal
+
     from predictionio_tpu_torch.api.http_base import serve_until_stopped
     from predictionio_tpu_torch.api.router_server import RouterServer
 
-    serve_until_stopped(RouterServer(config).start())
+    parent = os.getppid()
+    server = RouterServer(config)
+    server.service.on_stop = lambda: os.kill(parent, signal.SIGTERM)
+    serve_until_stopped(server.start())
 
 
 def _scaling_requested(args) -> bool:
@@ -1251,6 +1336,175 @@ def _cmd_trace(args, storage: Storage) -> int:
     return 0
 
 
+def _serve(server, label: str, ip: str) -> int:
+    """Start ``server``, print its bound address and block until it stops
+    (SIGTERM or Ctrl-C)."""
+    from predictionio_tpu_torch.api.http_base import serve_until_stopped
+
+    server.start()
+    print(f"[INFO] {label} listening on {ip}:{server.port}", flush=True)
+    serve_until_stopped(server)
+    return 0
+
+
+def _configure_dashboard(sub) -> None:
+    p = sub.add_parser("dashboard", help="launch the evaluation dashboard")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9000)
+    p.add_argument("--access-log", action=argparse.BooleanOptionalAction,
+                   default=None, dest="access_log",
+                   help="structured JSON access logs")
+
+
+def _cmd_dashboard(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    return _serve(Dashboard(storage, ip=args.ip, port=args.port,
+                            access_log=args.access_log),
+                  "Dashboard", args.ip)
+
+
+def _configure_adminserver(sub) -> None:
+    p = sub.add_parser("adminserver", help="launch the admin REST API")
+    p.add_argument("--ip", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=7071)
+
+
+def _cmd_adminserver(args, storage: Storage) -> int:
+    from predictionio_tpu_torch.tools.admin import AdminServer
+
+    return _serve(AdminServer(storage, ip=args.ip, port=args.port),
+                  "Admin API", args.ip)
+
+
+def _check_template_min_version(template_json: str = "template.json") -> bool:
+    """The template.json ``{"pio": {"version": {"min": "X.Y.Z"}}}`` gate:
+    False (with an error printed) when this package is older than the
+    template needs."""
+    if not os.path.exists(template_json):
+        return True
+    try:
+        with open(template_json) as f:
+            spec = json.load(f)
+        min_version = spec.get("pio", {}).get("version", {}).get("min")
+    except (json.JSONDecodeError, AttributeError):
+        print(f"[WARN] {template_json} is malformed; skipping version check.")
+        return True
+    if not min_version:
+        return True
+
+    def vtuple(v):
+        return tuple(int(p) for p in str(v).split(".") if p.isdigit())
+
+    if not vtuple(min_version):
+        print(f"[WARN] {template_json} min version {min_version!r} is not "
+              "a version string; skipping version check.")
+        return True
+    if vtuple(__version__) < vtuple(min_version):
+        print(f"[ERROR] This template requires predictionio_tpu_torch >= "
+              f"{min_version} (current: {__version__}).")
+        return False
+    return True
+
+
+def _configure_build(sub) -> None:
+    p = sub.add_parser("build", help="verify an engine variant is runnable")
+    p.add_argument("--engine-json", default="engine.json",
+                   help="engine variant file (default: ./engine.json)")
+    p.add_argument("--engine-factory", default="",
+                   help="override engineFactory from engine.json")
+
+
+def _cmd_build(args, storage: Storage) -> int:
+    """Verify the engine variant: the template version gate, then the
+    engineFactory imports, instantiates and binds the variant's params
+    (what the reference's sbt build checked). Loads torch only through
+    the factory's own imports."""
+    from predictionio_tpu_torch.controller.engine import resolve_engine_factory
+
+    if not _check_template_min_version():
+        return 1
+    variant = {}
+    try:
+        if os.path.exists(args.engine_json):   # (workflow/ would load torch)
+            with open(args.engine_json) as f:
+                variant = json.load(f)
+    except json.JSONDecodeError as exc:
+        print(f"[ERROR] {args.engine_json} is not valid JSON: {exc}")
+        return 1
+    factory_path = args.engine_factory or variant.get("engineFactory", "")
+    if not factory_path:
+        if os.path.exists(args.engine_json):
+            print(f"[ERROR] {args.engine_json} has no engineFactory and "
+                  "no --engine-factory given.")
+        else:
+            print(f"[ERROR] {args.engine_json} not found and no "
+                  "--engine-factory given.")
+        return 1
+    try:
+        engine = resolve_engine_factory(factory_path)()
+    except Exception as exc:
+        print(f"[ERROR] engineFactory {factory_path!r} failed: {exc}")
+        return 1
+    try:
+        engine.params_from_variant_json(variant)
+    except Exception as exc:
+        print(f"[ERROR] engine.json params do not bind: {exc}")
+        return 1
+    print(f"[INFO] Build successful: {factory_path} "
+          f"({type(engine).__name__}) binds {args.engine_json}.")
+    return 0
+
+
+def _configure_run(sub) -> None:
+    p = sub.add_parser(
+        "run", help="run an arbitrary main function with storage wired up")
+    p.add_argument("main", help="dotted path module[:function] (default function: main)")
+    p.add_argument("args", nargs=argparse.REMAINDER,
+                   help="arguments passed through verbatim")
+
+
+def _cmd_run(args, storage: Storage) -> int:
+    """Run ``pkg.module[:function]`` (default ``main``) in this process
+    with the storage environment in place; its int result is the exit
+    code (True is 0)."""
+    import importlib
+
+    target = args.main
+    mod_name, _, fn_name = target.partition(":")
+    fn_name = fn_name or "main"
+    try:
+        module = importlib.import_module(mod_name)
+        fn = getattr(module, fn_name)
+    except (ImportError, AttributeError) as exc:
+        print(f"[ERROR] cannot resolve {target!r}: {exc}")
+        return 1
+    result = fn(*args.args)
+    # bool subclasses int; a main returning True means success, not rc=1
+    if isinstance(result, bool):
+        return 0 if result else 1
+    return int(result) if isinstance(result, int) else 0
+
+
+def _configure_upgrade(sub) -> None:
+    sub.add_parser("upgrade", help="(no longer supported)")
+
+
+def _cmd_upgrade(args, storage: Storage) -> int:
+    print("[ERROR] Upgrade is no longer supported")
+    return 1
+
+
+def _configure_template(sub) -> None:
+    p = sub.add_parser("template", help="(no longer supported; use git)")
+    p.add_argument("subcommand", nargs="*")
+
+
+def _cmd_template(args, storage: Storage) -> int:
+    print("[ERROR] template commands are no longer supported.")
+    print("[ERROR] Built-in engine templates live in predictionio_tpu_torch.templates "
+          "(recommendation, similarproduct, ecommerce, classification).")
+    return 1
 
 
 def _cmd_undeploy(args, storage: Storage) -> int:
@@ -1267,7 +1521,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="pio", description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="command")
     sub.add_parser("version", help="show version")
-    sub.add_parser("status", help="verify environment and storage")
+    p = sub.add_parser("status", help="verify environment and storage")
+    p.add_argument("--router", default=None, metavar="HOST:PORT",
+                   help="inspect a running fleet router instead: print "
+                        "its registered engine table (name, group "
+                        "sizes, up/down counts, canary weight, quota) "
+                        "from GET /fleet/engines — storage-free")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="HTTP timeout for the --router fetch")
 
     p = sub.add_parser("app", help="app administration")
     app_sub = p.add_subparsers(dest="app_command", required=True)
@@ -1622,9 +1883,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-#: commands that build no Storage: the router and `pio trace` talk HTTP
-#: only, and `wal` works on the journal directory (its replay builds the
-#: storage itself)
+#: commands that build no Storage: the router, `pio trace` and `pio
+#: status --router` talk HTTP only, and `wal` works on the journal
+#: directory (its replay builds the storage itself)
 STORAGE_FREE_COMMANDS = frozenset({"version", "wal", "router", "trace"})
 
 _COMMANDS = {
@@ -1654,6 +1915,14 @@ def register_command(name: str, configure_parser, run) -> None:
     _EXTRA_PARSERS.append((name, configure_parser))
 
 
+register_command("dashboard", _configure_dashboard, _cmd_dashboard)
+register_command("adminserver", _configure_adminserver, _cmd_adminserver)
+register_command("build", _configure_build, _cmd_build)
+register_command("run", _configure_run, _cmd_run)
+register_command("upgrade", _configure_upgrade, _cmd_upgrade)
+register_command("template", _configure_template, _cmd_template)
+
+
 def main(argv: list[str] | None = None) -> int:
     # late-bound subcommands register on import
     import predictionio_tpu_torch.experiment.cli  # noqa: F401
@@ -1665,7 +1934,9 @@ def main(argv: list[str] | None = None) -> int:
     if not args.command:
         parser.print_help()
         return 1
-    storage = None if args.command in STORAGE_FREE_COMMANDS else Storage()
+    storage_free = args.command in STORAGE_FREE_COMMANDS or (
+        args.command == "status" and args.router)
+    storage = None if storage_free else Storage()
     return _COMMANDS[args.command](args, storage)
 
 

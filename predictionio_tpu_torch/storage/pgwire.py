@@ -1,0 +1,465 @@
+"""PostgreSQL v3 wire-protocol client — pure stdlib sockets (a copy of
+the JAX package's ``storage/pgwire.py``).
+
+The networked-SQL client the reference's JDBC backend role calls for
+(reference: storage/jdbc/src/main/scala/.../jdbc/StorageClient.scala —
+scalikejdbc ConnectionPool over a postgresql:// URL). There is no JVM
+and no JDBC here, so the wire layer is implemented directly against the
+public PostgreSQL frontend/backend protocol (v3.0): StartupMessage,
+trust / cleartext / MD5 / SCRAM-SHA-256 authentication (RFC 5802/7677
+— the modern server default, with server-signature verification), the
+simple query cycle (Query -> RowDescription / DataRow* /
+CommandComplete / ReadyForQuery), and typed text-format decoding by
+column OID.
+
+Scope, stated plainly (docs/storage.md "networked-SQL story"): this
+client implements the protocol from its public specification and is
+exercised in-tree against a wire-faithful in-process emulator
+(tests/pg_emulator.py) — zero egress means no real PostgreSQL server
+exists in this environment to integration-test against. TLS
+negotiation and SCRAM channel binding (-PLUS) are not implemented
+(documented gaps).
+
+Queries use the SIMPLE protocol with client-side literal binding (the
+extended protocol's Parse/Bind adds round trips the DAO layer never
+amortizes); see :func:`quote_literal` for the escaping rules.
+"""
+
+from __future__ import annotations
+
+import base64
+import hashlib
+import hmac
+import os
+import socket
+import struct
+import threading
+
+
+def saslprep(value: str) -> str:
+    """RFC 4013 SASLprep (the stringprep profile SCRAM requires for
+    passwords). Real PostgreSQL stores SCRAM verifiers from the
+    prepared form, so an unprepared password with e.g. a non-breaking
+    space would derive the wrong proof. Implemented on the stdlib
+    ``stringprep`` tables: map (B.1 -> nothing, C.1.2 -> space),
+    NFKC-normalize, reject prohibited output, enforce the RFC 3454
+    bidi rules."""
+    import stringprep
+    import unicodedata
+
+    mapped = []
+    for ch in value:
+        if stringprep.in_table_b1(ch):
+            continue                       # map to nothing
+        if stringprep.in_table_c12(ch):
+            mapped.append(" ")             # non-ASCII space -> space
+        else:
+            mapped.append(ch)
+    out = unicodedata.normalize("NFKC", "".join(mapped))
+    if not out:
+        return out
+    for ch in out:
+        if (stringprep.in_table_c12(ch) or stringprep.in_table_c21_c22(ch)
+                or stringprep.in_table_c3(ch) or stringprep.in_table_c4(ch)
+                or stringprep.in_table_c5(ch) or stringprep.in_table_c6(ch)
+                or stringprep.in_table_c7(ch) or stringprep.in_table_c8(ch)
+                or stringprep.in_table_c9(ch)):
+            raise ValueError(
+                f"prohibited character {ch!r} in SASLprep input")
+    has_randal = any(stringprep.in_table_d1(ch) for ch in out)
+    if has_randal:
+        if any(stringprep.in_table_d2(ch) for ch in out):
+            raise ValueError("mixed bidi categories in SASLprep input")
+        if not (stringprep.in_table_d1(out[0])
+                and stringprep.in_table_d1(out[-1])):
+            raise ValueError("RandALCat string must start/end RandALCat")
+    return out
+
+
+class PGError(Exception):
+    """Server ErrorResponse: carries the SQLSTATE in ``code``."""
+
+    def __init__(self, code: str, message: str):
+        super().__init__(f"[{code}] {message}")
+        self.code = code
+        self.message = message
+
+
+class PGProtocolError(Exception):
+    """Malformed or unexpected protocol traffic."""
+
+
+def _open_socket(host: str, port: int, timeout: float) -> socket.socket:
+    """The module's single raw network call site. Connection
+    establishment is routed through ``resilient()`` by the pool layer
+    (storage/postgres.py ``_PGPool._connect``) — the retry/breaker
+    policy lives there, not here, so one policy covers socket + auth
+    (enforced by tests/test_resilience_static.py)."""
+    return socket.create_connection((host, port), timeout=timeout)
+
+
+def quote_literal(value) -> str:
+    """SQL literal for client-side binding under the simple protocol.
+
+    Strings use standard_conforming escaping (doubled single quotes;
+    backslash is literal). Bytes become a hex bytea cast. NUL bytes are
+    rejected — PostgreSQL text values cannot carry them and silently
+    truncating would corrupt data."""
+    if value is None:
+        return "NULL"
+    if isinstance(value, bool):
+        return "TRUE" if value else "FALSE"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value or value in (float("inf"), float("-inf")):
+            return f"'{value}'::float8"
+        return repr(value)
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        return "'\\x" + bytes(value).hex() + "'::bytea"
+    s = str(value)
+    if "\x00" in s:
+        raise ValueError("NUL byte in SQL string literal")
+    return "'" + s.replace("'", "''") + "'"
+
+
+def bind_placeholders(sql: str, params: tuple) -> str:
+    """Replace ``?`` placeholders with quoted literals, skipping quoted
+    regions of the SQL text itself. Placeholder/param count mismatches
+    raise (even for zero params — a bare ``?`` must never ship)."""
+    out = []
+    it = iter(params)
+    i, n = 0, len(sql)
+    used = 0
+    while i < n:
+        ch = sql[i]
+        if ch == "'":
+            j = i + 1
+            while j < n:
+                if sql[j] == "'":
+                    if j + 1 < n and sql[j + 1] == "'":
+                        j += 2
+                        continue
+                    break
+                j += 1
+            out.append(sql[i:j + 1])
+            i = j + 1
+        elif ch == "?":
+            try:
+                out.append(quote_literal(next(it)))
+            except StopIteration:
+                raise PGProtocolError(
+                    f"more placeholders than params in {sql!r}")
+            used += 1
+            i += 1
+        else:
+            out.append(ch)
+            i += 1
+    if used != len(params):
+        raise PGProtocolError(
+            f"{len(params)} params for {used} placeholders in {sql!r}")
+    return "".join(out)
+
+
+def _decode_value(oid: int, raw: bytes | None):
+    """Text-format value decode by type OID (the ones our SQL surface
+    produces; unknown OIDs come back as str)."""
+    if raw is None:
+        return None
+    text = raw.decode("utf-8")
+    if oid in (20, 21, 23, 26):      # int8/int2/int4/oid
+        return int(text)
+    if oid in (700, 701, 1700):      # float4/float8/numeric
+        return float(text)
+    if oid == 16:                    # bool
+        return text == "t"
+    if oid == 17:                    # bytea (hex form)
+        if text.startswith("\\x"):
+            return bytes.fromhex(text[2:])
+        raise PGProtocolError("bytea escape format not supported; "
+                              "set bytea_output=hex")
+    return text
+
+
+class PGConnection:
+    """One authenticated protocol-v3 session; thread-safe via a lock
+    (one in-flight query cycle at a time — the simple protocol is
+    strictly request/response)."""
+
+    def __init__(self, host: str, port: int, user: str, database: str,
+                 password: str | None = None, timeout: float = 30.0):
+        self.user = user
+        self.password = password
+        self._lock = threading.Lock()
+        self._sock = _open_socket(host, port, timeout)
+        self._buf = b""
+        self.parameters: dict[str, str] = {}   # ParameterStatus reports
+        try:
+            self._startup(user, database)
+        except BaseException:
+            # a rejected startup (bad auth, scs=off, protocol error)
+            # must not leak the socket
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            raise
+
+    def _param_status(self, payload: bytes) -> None:
+        """Track ParameterStatus ('S') reports. quote_literal assumes
+        standard_conforming_strings=on (doubled quotes, literal
+        backslash); under =off backslashes in user data become escapes
+        — data corruption AND an injection vector (ADVICE r4) — so a
+        server reporting off is rejected outright, at startup or on a
+        mid-session SET."""
+        parts = payload.split(b"\x00")
+        if len(parts) < 2 or not parts[0]:
+            return
+        key = parts[0].decode("utf-8", "replace")
+        val = parts[1].decode("utf-8", "replace")
+        self.parameters[key] = val
+        if key == "standard_conforming_strings" and val != "on":
+            raise PGProtocolError(
+                "server reports standard_conforming_strings=off; this "
+                "client's literal quoting is only safe with it on "
+                "(set standard_conforming_strings=on server-side)")
+
+    # -- framing ----------------------------------------------------------
+
+    def _send(self, data: bytes) -> None:
+        self._sock.sendall(data)
+
+    def _recv_exact(self, n: int) -> bytes:
+        while len(self._buf) < n:
+            chunk = self._sock.recv(65536)
+            if not chunk:
+                raise PGProtocolError("server closed the connection")
+            self._buf += chunk
+        out, self._buf = self._buf[:n], self._buf[n:]
+        return out
+
+    def _read_message(self) -> tuple[bytes, bytes]:
+        head = self._recv_exact(5)
+        tag = head[:1]
+        (length,) = struct.unpack("!I", head[1:5])
+        if length < 4:
+            raise PGProtocolError(f"bad message length {length}")
+        return tag, self._recv_exact(length - 4)
+
+    @staticmethod
+    def _message(tag: bytes, payload: bytes) -> bytes:
+        return tag + struct.pack("!I", len(payload) + 4) + payload
+
+    # -- session ----------------------------------------------------------
+
+    def _startup(self, user: str, database: str) -> None:
+        params = (f"user\x00{user}\x00database\x00{database}\x00\x00"
+                  ).encode("utf-8")
+        body = struct.pack("!I", 196608) + params     # protocol 3.0
+        self._send(struct.pack("!I", len(body) + 4) + body)
+        while True:
+            tag, payload = self._read_message()
+            if tag == b"R":
+                (kind,) = struct.unpack("!I", payload[:4])
+                if kind == 0:                          # AuthenticationOk
+                    continue
+                if kind == 3:                          # cleartext
+                    self._password_message(self._require_password())
+                    continue
+                if kind == 5:                          # md5
+                    salt = payload[4:8]
+                    inner = hashlib.md5(
+                        self._require_password().encode()
+                        + self.user.encode()).hexdigest()
+                    digest = hashlib.md5(
+                        inner.encode() + salt).hexdigest()
+                    self._password_message("md5" + digest)
+                    continue
+                if kind == 10:                         # SASL mechanisms
+                    self._scram_start(payload[4:])
+                    continue
+                if kind in (11, 12):
+                    raise PGProtocolError(
+                        "SASL continuation outside a SCRAM exchange")
+                raise PGProtocolError(
+                    f"unsupported authentication request {kind} "
+                    "(use scram-sha-256, md5, cleartext or trust)")
+            elif tag == b"S":                          # ParameterStatus
+                self._param_status(payload)
+            elif tag in (b"K", b"N"):                  # key/notice
+                continue
+            elif tag == b"Z":                          # ReadyForQuery
+                return
+            elif tag == b"E":
+                raise self._error(payload)
+            else:
+                raise PGProtocolError(
+                    f"unexpected startup message {tag!r}")
+
+    def _require_password(self) -> str:
+        if self.password is None:
+            raise PGError("28P01", "server requested a password but none "
+                                   "was configured (set PASSWORD)")
+        return self.password
+
+    def _scram_start(self, mech_payload: bytes) -> None:
+        """SCRAM-SHA-256 (RFC 5802/7677 via PG's SASL framing) — the
+        modern server default (password_encryption=scram-sha-256).
+        Channel binding is not offered (gs2 header "n,,"; SSL is not
+        negotiated by this client), and the client VERIFIES the server
+        signature, a mutual-authentication property MD5 lacks."""
+        mechs = [m for m in mech_payload.split(b"\x00") if m]
+        if b"SCRAM-SHA-256" not in mechs:
+            raise PGProtocolError(
+                f"no supported SASL mechanism in {mechs!r}")
+        password = saslprep(self._require_password()).encode("utf-8")
+        cnonce = base64.b64encode(os.urandom(18)).decode()
+        gs2 = "n,,"
+        client_first_bare = f"n=,r={cnonce}"
+        initial = (gs2 + client_first_bare).encode("utf-8")
+        self._send(self._message(
+            b"p", b"SCRAM-SHA-256\x00"
+            + struct.pack("!i", len(initial)) + initial))
+
+        tag, payload = self._read_message()
+        if tag == b"E":
+            raise self._error(payload)
+        if tag != b"R" or struct.unpack("!I", payload[:4])[0] != 11:
+            raise PGProtocolError("expected SASLContinue")
+        server_first = payload[4:].decode("utf-8")
+        fields = dict(f.split("=", 1) for f in server_first.split(","))
+        snonce, salt_b64, iters = fields["r"], fields["s"], int(fields["i"])
+        if not snonce.startswith(cnonce):
+            raise PGProtocolError("server nonce does not extend ours "
+                                  "(possible MITM)")
+        # bound the server-chosen PBKDF2 cost BEFORE doing the work: a
+        # hostile peer could otherwise pin the client on ~2^31 SHA-256
+        # rounds (no socket timeout covers local CPU), and an i=1
+        # downgrade would extract a cheap-to-crack proof (RFC 5802
+        # recommends >= 4096; PostgreSQL's default is 4096)
+        if not 4096 <= iters <= 10_000_000:
+            raise PGProtocolError(
+                f"unreasonable SCRAM iteration count {iters} "
+                "(accepting 4096..10000000)")
+
+        salted = hashlib.pbkdf2_hmac(
+            "sha256", password, base64.b64decode(salt_b64), iters)
+        client_key = hmac.new(salted, b"Client Key", hashlib.sha256).digest()
+        stored_key = hashlib.sha256(client_key).digest()
+        channel = base64.b64encode(gs2.encode()).decode()   # "biws"
+        client_final_bare = f"c={channel},r={snonce}"
+        auth_message = ",".join(
+            (client_first_bare, server_first, client_final_bare)).encode()
+        client_sig = hmac.new(stored_key, auth_message,
+                              hashlib.sha256).digest()
+        proof = bytes(a ^ b for a, b in zip(client_key, client_sig))
+        final = (client_final_bare
+                 + ",p=" + base64.b64encode(proof).decode()).encode()
+        self._send(self._message(b"p", final))
+
+        tag, payload = self._read_message()
+        if tag == b"E":
+            raise self._error(payload)
+        if tag != b"R" or struct.unpack("!I", payload[:4])[0] != 12:
+            raise PGProtocolError("expected SASLFinal")
+        sasl_final = payload[4:].decode("utf-8")
+        server_key = hmac.new(salted, b"Server Key", hashlib.sha256).digest()
+        server_sig = hmac.new(server_key, auth_message,
+                              hashlib.sha256).digest()
+        expect = "v=" + base64.b64encode(server_sig).decode()
+        if not hmac.compare_digest(sasl_final, expect):
+            raise PGProtocolError(
+                "server signature verification failed (the server does "
+                "not know the password — possible MITM)")
+
+    def _password_message(self, secret: str) -> None:
+        self._send(self._message(b"p", secret.encode("utf-8") + b"\x00"))
+
+    @staticmethod
+    def _error(payload: bytes) -> PGError:
+        code, msg = "XX000", "unknown error"
+        for field in payload.split(b"\x00"):
+            if not field:
+                continue
+            k, v = field[:1], field[1:].decode("utf-8", "replace")
+            if k == b"C":
+                code = v
+            elif k == b"M":
+                msg = v
+        return PGError(code, msg)
+
+    # -- queries ----------------------------------------------------------
+
+    def execute(self, sql: str, params: tuple = ()) -> list[tuple]:
+        """One simple-query cycle; returns the LAST statement's rows."""
+        return self.execute_raw(bind_placeholders(sql, tuple(params)))
+
+    def execute_raw(self, bound: str) -> list[tuple]:
+        """Run SQL whose literals are ALREADY bound — no placeholder
+        scan (batch callers bind row-by-row and join)."""
+        with self._lock:
+            self._send(self._message(b"Q", bound.encode("utf-8") + b"\x00"))
+            rows: list[tuple] = []      # current statement's result set
+            last: list[tuple] = []      # last COMPLETED statement's rows
+            saw_rowdesc = False
+            oids: list[int] = []
+            error: PGError | None = None
+            while True:
+                tag, payload = self._read_message()
+                if tag == b"T":                        # RowDescription
+                    (ncols,) = struct.unpack("!H", payload[:2])
+                    oids, off = [], 2
+                    for _ in range(ncols):
+                        end = payload.index(b"\x00", off)
+                        # name, table oid(4), attnum(2), TYPE OID(4),
+                        # typlen(2), atttypmod(4), format(2)
+                        (oid,) = struct.unpack(
+                            "!I", payload[end + 7:end + 11])
+                        oids.append(oid)
+                        off = end + 19
+                    rows, saw_rowdesc = [], True
+                elif tag == b"D":                      # DataRow
+                    (ncols,) = struct.unpack("!H", payload[:2])
+                    vals, off = [], 2
+                    for c in range(ncols):
+                        (ln,) = struct.unpack(
+                            "!i", payload[off:off + 4])
+                        off += 4
+                        if ln < 0:
+                            vals.append(None)
+                        else:
+                            vals.append(_decode_value(
+                                oids[c] if c < len(oids) else 25,
+                                payload[off:off + ln]))
+                            off += ln
+                    rows.append(tuple(vals))
+                elif tag in (b"C", b"I"):     # CommandComplete/EmptyQuery
+                    # per-statement result boundary: only a statement
+                    # that produced a RowDescription contributes rows,
+                    # so a trailing row-less statement yields [] rather
+                    # than an earlier SELECT's leftovers (ADVICE r4)
+                    last = rows if saw_rowdesc else []
+                    rows, saw_rowdesc = [], False
+                elif tag == b"S":                      # ParameterStatus
+                    self._param_status(payload)
+                elif tag == b"N":                      # NoticeResponse
+                    continue
+                elif tag == b"E":
+                    error = self._error(payload)       # Z still follows
+                elif tag == b"Z":                      # ReadyForQuery
+                    if error is not None:
+                        raise error
+                    return last
+                else:
+                    raise PGProtocolError(
+                        f"unexpected message {tag!r} in query cycle")
+
+    def close(self) -> None:
+        try:
+            self._send(self._message(b"X", b""))
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass

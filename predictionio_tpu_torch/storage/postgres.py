@@ -1,0 +1,289 @@
+"""PostgreSQL storage backend: the networked-SQL client (a copy of the
+JAX package's ``storage/postgres.py``).
+
+Role parity: storage/jdbc/src/main/scala/.../jdbc/StorageClient.scala —
+the reference's production SQL deployment is PostgreSQL-over-JDBC; this
+backend is PostgreSQL over the in-tree wire client
+(:mod:`predictionio_tpu_torch.storage.pgwire`).
+
+Design: the embedded sqlite backend's DAO classes are the single
+source of truth for the SQL data model (tables, indexes, WHERE
+assembly — themselves mirroring JDBCLEvents/JDBCApps/…); this module
+reuses them UNCHANGED over a connection adapter that (a) rewrites the
+three sqlite-isms into PostgreSQL (AUTOINCREMENT -> SERIAL,
+BLOB -> BYTEA, INSERT OR REPLACE -> INSERT … ON CONFLICT DO UPDATE on
+the first/primary-key column), (b) binds ``?`` placeholders as quoted
+literals for the simple query protocol, and (c) maps server SQLSTATEs
+onto the sqlite exception surface the DAO layer's control flow already
+handles (42P01 "relation does not exist" -> OperationalError carrying
+"no such table" for the auto-init path; 23xxx -> IntegrityError).
+
+Config (PIO_STORAGE_SOURCES_<NAME>_*): HOST (localhost), PORT (5432),
+USERNAME (pio), PASSWORD, DATABASE (pio), plus RETRY_*/BREAKER_*
+resilience knobs (docs/operations-resilience.md) — connection
+establishment retries with jittered backoff and feeds a circuit
+breaker; query cycles are never auto-retried (no idempotency guarantee
+under the simple protocol). Conformance-tested over the
+real wire protocol against the in-process emulator
+(tests/pg_emulator.py) — see docs/storage.md for what that does and
+does not prove in a zero-egress environment.
+"""
+
+from __future__ import annotations
+
+import queue
+import re
+import sqlite3
+import threading
+
+from predictionio_tpu_torch.storage import base, sqlite as sq
+from predictionio_tpu_torch.storage.base import StorageClientConfig
+from predictionio_tpu_torch.storage.pgwire import PGConnection, PGError
+from predictionio_tpu_torch.utils.resilience import Resilience, resilient
+
+_AUTOINC = re.compile(r"INTEGER PRIMARY KEY AUTOINCREMENT", re.IGNORECASE)
+_BLOB = re.compile(r"\bBLOB\b", re.IGNORECASE)
+_OR_REPLACE = re.compile(
+    r"^\s*INSERT\s+OR\s+REPLACE\s+INTO\s+(\S+)\s*\(([^)]*)\)\s*(.*)$",
+    re.IGNORECASE | re.DOTALL,
+)
+# explicit-id inserts into the SERIAL tables desync the sequence on
+# real PostgreSQL (a later auto-id insert then collides — ADVICE r4);
+# detect them so execute() can re-sync with setval on the same session
+_EXPLICIT_SERIAL_ID = re.compile(
+    r"^\s*INSERT\s+INTO\s+(pio_meta_apps|pio_meta_channels)\s*\(\s*id\b",
+    re.IGNORECASE,
+)
+
+
+def translate_sql(sql: str) -> str:
+    """sqlite dialect -> PostgreSQL for the closed DAO statement set."""
+    sql = _AUTOINC.sub("SERIAL PRIMARY KEY", sql)
+    sql = _BLOB.sub("BYTEA", sql)
+    m = _OR_REPLACE.match(sql)
+    if m:
+        table, cols_raw, rest = m.groups()
+        cols = [c.strip() for c in cols_raw.split(",")]
+        pk, others = cols[0], cols[1:]
+        if others:
+            sets = ", ".join(f"{c} = EXCLUDED.{c}" for c in others)
+            conflict = f" ON CONFLICT ({pk}) DO UPDATE SET {sets}"
+        else:
+            conflict = f" ON CONFLICT ({pk}) DO NOTHING"
+        sql = (f"INSERT INTO {table} ({cols_raw}) {rest.rstrip()}"
+               f"{conflict}")
+    return sql
+
+
+def _map_error(err: PGError) -> Exception:
+    if err.code == "42P01":
+        # phrase chosen so sqlite._is_no_table recognizes it and the
+        # DAO layer's auto-init-on-first-insert path engages
+        return sqlite3.OperationalError(f"no such table: {err.message}")
+    if err.code.startswith("23"):
+        return sqlite3.IntegrityError(err.message)
+    return sqlite3.OperationalError(f"[{err.code}] {err.message}")
+
+
+class _PGPool:
+    """Bounded PGConnection pool presenting the sqlite ``_Connection``
+    interface (execute/executemany/close) the DAO classes consume."""
+
+    POOL_SIZE = 4
+    BORROW_TIMEOUT = 60.0
+    #: the columnar scan's streaming read is sqlite's cursor; over the
+    #: simple protocol a query's rows arrive whole, so scans take the
+    #: DAO's buffered path
+    can_stream = False
+
+    def __init__(self, host: str, port: int, user: str,
+                 password: str | None, database: str,
+                 resilience: Resilience | None = None):
+        self._args = (host, port, user, database, password)
+        self._pool: "queue.Queue[PGConnection]" = queue.Queue()
+        self._created = 0
+        self._lock = threading.Lock()
+        self._closed = False
+        # connection ESTABLISHMENT is the resilient boundary: a down
+        # server manifests here, and a fresh connect is always safe to
+        # retry. Query cycles are NOT retried — the simple protocol
+        # gives no idempotency guarantee for a re-sent INSERT — so
+        # retryable covers OSError (refused/reset/timeout), while
+        # PGError (bad auth, SQL errors) passes through untouched.
+        self._resilience = resilience or Resilience(
+            "postgres", retryable=(OSError,))
+
+    def _connect(self) -> PGConnection:
+        return resilient(self._resilience, self._open_connection)
+
+    def _open_connection(self) -> PGConnection:
+        host, port, user, database, password = self._args
+        return PGConnection(host, port, user=user, database=database,
+                            password=password)
+
+    def _borrow(self) -> PGConnection:
+        if self._closed:
+            raise sqlite3.ProgrammingError("storage connection is closed")
+        try:
+            return self._pool.get_nowait()
+        except queue.Empty:
+            pass
+        with self._lock:
+            below = self._created < self.POOL_SIZE
+            if below:
+                self._created += 1
+        if below:
+            try:
+                return self._connect()
+            except Exception:
+                with self._lock:
+                    self._created -= 1
+                raise
+        try:
+            return self._pool.get(timeout=self.BORROW_TIMEOUT)
+        except queue.Empty:
+            # surface exhaustion through the backend's documented
+            # exception contract, not a bare queue.Empty
+            raise sqlite3.OperationalError(
+                f"connection pool exhausted ({self.POOL_SIZE} connections "
+                f"busy for {self.BORROW_TIMEOUT}s)") from None
+
+    def _drop(self, conn) -> None:
+        with self._lock:
+            self._created -= 1
+        try:
+            conn.close()
+        except Exception:
+            pass
+
+    def _give_back(self, conn) -> None:
+        # a close() racing an in-flight query must not re-enqueue an
+        # orphaned socket (nothing would ever borrow or close it)
+        if self._closed:
+            self._drop(conn)
+        else:
+            self._pool.put(conn)
+
+    def _run(self, fn):
+        conn = self._borrow()
+        try:
+            out = fn(conn)
+        except PGError as err:
+            # server-side error: the session completed its query cycle
+            # (ReadyForQuery followed) and is reusable
+            self._give_back(conn)
+            raise _map_error(err) from err
+        except BaseException:
+            # protocol-level failure OR an interrupt mid-cycle: the
+            # session state is unknown — drop the connection and free
+            # its slot (BaseException so KeyboardInterrupt cannot leak
+            # the slot and wedge the pool)
+            self._drop(conn)
+            raise
+        self._give_back(conn)
+        return out
+
+    def execute(self, sql: str, params: tuple = ()) -> list[tuple]:
+        sql_t = translate_sql(sql)
+        m = _EXPLICIT_SERIAL_ID.match(sql_t)
+
+        def run(c):
+            out = c.execute(sql_t, tuple(params))
+            if m:
+                # re-sync the sequence past the explicitly inserted id
+                # so the next auto-id insert cannot collide (skipped on
+                # failure: an exception above bypasses this). GREATEST
+                # against nextval keeps the re-sync MONOTONIC: a plain
+                # setval(MAX(id)) could move the sequence backward past
+                # ids a concurrent uncommitted auto-insert already drew
+                # (its row is not visible to MAX), recreating the
+                # collision; nextval always reads >= the current value
+                # (one burned id, harmless)
+                t = m.group(1)
+                c.execute(
+                    f"SELECT setval(pg_get_serial_sequence('{t}', 'id'), "
+                    f"GREATEST((SELECT COALESCE(MAX(id), 1) FROM {t}), "
+                    f"nextval(pg_get_serial_sequence('{t}', 'id'))))")
+            return out
+
+        return self._run(run)
+
+    def executemany(self, sql: str, seq) -> None:
+        sql_t = translate_sql(sql)
+
+        def run(c):
+            # one implicit transaction per Query message: bind every
+            # row client-side and ship the batch as a single
+            # multi-statement simple query (matches sqlite
+            # executemany's all-or-nothing commit); execute_raw skips
+            # a second placeholder scan over the joined batch string
+            from predictionio_tpu_torch.storage.pgwire import bind_placeholders
+
+            stmts = [bind_placeholders(sql_t, tuple(p)) for p in seq]
+            if stmts:
+                c.execute_raw("; ".join(stmts))
+        self._run(run)
+
+    def close(self) -> None:
+        self._closed = True
+        while True:
+            try:
+                self._pool.get_nowait().close()
+            except queue.Empty:
+                break
+
+
+class PGStorageClient(base.BaseStorageClient):
+    """All repositories over the PostgreSQL wire client, DAO logic
+    shared with the embedded backend (single SQL data model)."""
+
+    prefix = "PG"
+
+    def __init__(self, config: StorageClientConfig = StorageClientConfig()):
+        super().__init__(config)
+        p = config.properties
+        host = p.get("HOST", "localhost")
+        port = int(p.get("PORT", "5432"))
+        source = p.get("SOURCE_NAME", f"{host}:{port}")
+        self._conn = _PGPool(
+            host=host,
+            port=port,
+            user=p.get("USERNAME", "pio"),
+            password=p.get("PASSWORD"),
+            database=p.get("DATABASE", "pio"),
+            resilience=Resilience.from_properties(
+                f"postgres/{source}", p, retryable=(OSError,)),
+        )
+        self._lock = threading.RLock()
+        self._cache: dict[str, object] = {}
+
+    def _cached(self, key: str, factory):
+        with self._lock:
+            if key not in self._cache:
+                self._cache[key] = factory(self._conn)
+            return self._cache[key]
+
+    def events(self):
+        return self._cached("events", sq.SQLiteEvents)
+
+    def apps(self):
+        return self._cached("apps", sq.SQLiteApps)
+
+    def access_keys(self):
+        return self._cached("access_keys", sq.SQLiteAccessKeys)
+
+    def channels(self):
+        return self._cached("channels", sq.SQLiteChannels)
+
+    def engine_instances(self):
+        return self._cached("engine_instances", sq.SQLiteEngineInstances)
+
+    def evaluation_instances(self):
+        return self._cached("evaluation_instances",
+                            sq.SQLiteEvaluationInstances)
+
+    def models(self):
+        return self._cached("models", sq.SQLiteModels)
+
+    def close(self) -> None:
+        self._conn.close()

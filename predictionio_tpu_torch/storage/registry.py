@@ -12,11 +12,12 @@ applies: sqlite metadata + events (``pio.sqlite``) and a localfs model
 repository (``models/``) under ``$PIO_FS_BASEDIR``, else
 ``~/.pio_store``. Both packages read and write the same files.
 
-Backend TYPEs: ``memory``, ``sqlite`` (alias ``jdbc``), ``localfs``, and
-the event-only ``binevents`` (alias ``hbase``) and ``fileevents``. The
-JAX package's other TYPEs raise :class:`StorageError` naming the
-ROADMAP.md item that ports them; there is no fall back to another
-backend. ``register_backend`` adds a TYPE (a plugin) beside them.
+Backend TYPEs, the JAX package's: ``memory``, ``sqlite`` (alias
+``jdbc``), ``postgres`` (alias ``pg``), ``localfs``, the event-only
+``binevents`` (alias ``hbase``) and ``fileevents``, the model-only
+``hdfs`` and ``s3``, ``elasticsearch`` (alias ``elasticsearch1``) and
+the fault injector ``chaos`` over any of them. ``register_backend`` adds
+a TYPE (a plugin) beside them.
 """
 
 from __future__ import annotations
@@ -50,14 +51,9 @@ BackendFactory = Callable[[StorageClientConfig], BaseStorageClient]
 _BACKENDS: dict[str, BackendFactory] = {}
 _builtins_loaded = False
 
-#: the JAX package's backend TYPEs the port does not serve yet, with the
-#: ROADMAP.md queue 1 item that ports each
-NOT_PORTED = dict.fromkeys(
-    ("postgres", "pg", "elasticsearch", "elasticsearch1", "s3", "hdfs", "chaos"), "item 23")
-
 
 class StorageError(RuntimeError):
-    """Misconfigured or not yet ported storage."""
+    """Misconfigured storage."""
 
 
 def register_backend(type_name: str, factory: BackendFactory) -> None:
@@ -72,20 +68,38 @@ def _builtin_backends() -> None:
         return
     _builtins_loaded = True
     from predictionio_tpu_torch.storage.binevents import BinEventsStorageClient
+    from predictionio_tpu_torch.storage.chaos import ChaosStorageClient
+    from predictionio_tpu_torch.storage.elasticsearch import ESStorageClient
     from predictionio_tpu_torch.storage.fileevents import FileEventsStorageClient
+    from predictionio_tpu_torch.storage.hdfs import HDFSStorageClient
     from predictionio_tpu_torch.storage.localfs import LocalFSStorageClient
     from predictionio_tpu_torch.storage.memory import MemoryStorageClient
+    from predictionio_tpu_torch.storage.postgres import PGStorageClient
+    from predictionio_tpu_torch.storage.s3 import S3StorageClient
     from predictionio_tpu_torch.storage.sqlite import SQLiteStorageClient
 
     _BACKENDS.setdefault("memory", MemoryStorageClient)
     _BACKENDS.setdefault("sqlite", SQLiteStorageClient)
     # reference pio-env.sh files say TYPE=jdbc for the SQL store
     _BACKENDS.setdefault("jdbc", SQLiteStorageClient)
+    # networked SQL over the in-tree PostgreSQL wire client, on the
+    # sqlite DAOs (the reference's production JDBC deployment)
+    _BACKENDS.setdefault("postgres", PGStorageClient)
+    _BACKENDS.setdefault("pg", PGStorageClient)
     _BACKENDS.setdefault("localfs", LocalFSStorageClient)
     # the event-only binary log; "hbase" names the reference's role for it
     _BACKENDS.setdefault("binevents", BinEventsStorageClient)
     _BACKENDS.setdefault("hbase", BinEventsStorageClient)
     _BACKENDS.setdefault("fileevents", FileEventsStorageClient)
+    # model repositories on a network filesystem and an object store
+    _BACKENDS.setdefault("hdfs", HDFSStorageClient)
+    _BACKENDS.setdefault("s3", S3StorageClient)
+    # the REST document store; "elasticsearch1" keeps pio-env.sh files
+    # written for the reference's 1.x transport backend working
+    _BACKENDS.setdefault("elasticsearch", ESStorageClient)
+    _BACKENDS.setdefault("elasticsearch1", ESStorageClient)
+    # seeded fault injection around any registered TYPE (TARGET=...)
+    _BACKENDS.setdefault("chaos", ChaosStorageClient)
 
 
 class Storage:
@@ -131,13 +145,12 @@ class Storage:
         # exists, a known backend TYPE value declares a source, anything
         # else stays X's property (warned, so a typo is visible)
         _builtin_backends()
-        known = set(_BACKENDS) | set(NOT_PORTED)
         for name in sorted(names):
             shorter = [o for o in names if o != name and name.startswith(o + "_")]
             if not shorter:
                 continue
             type_val = self._env[f"{_SOURCES_PREFIX}_{name}_TYPE"]
-            if type_val not in known:
+            if type_val not in _BACKENDS:
                 logger.warning(
                     "PIO_STORAGE_SOURCES_%s_TYPE=%r is not a backend type; treating it "
                     "as property %s_TYPE of source %s", name, type_val,
@@ -193,11 +206,6 @@ class Storage:
                 raise StorageError(f"Undefined storage source: {source_name}")
             type_name, config = self._sources[source_name]
             _builtin_backends()
-            if type_name in NOT_PORTED and type_name not in _BACKENDS:
-                raise StorageError(
-                    f"storage source {source_name} has TYPE {type_name!r}, which the "
-                    f"port does not serve yet: ROADMAP.md queue 1 {NOT_PORTED[type_name]}; "
-                    f"ported TYPEs: {sorted(_BACKENDS)}")
             if type_name not in _BACKENDS:
                 raise StorageError(f"Storage type {type_name!r} is not registered "
                                    f"(available: {sorted(_BACKENDS)})")

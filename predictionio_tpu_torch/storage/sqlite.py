@@ -11,8 +11,8 @@ serves as the embedded default store.
 
 A copy of the JAX package's ``storage/sqlite.py`` with the same schema
 and table names, so one database file is read and written by either
-package. The PostgreSQL adapter that reuses these DAOs in the JAX
-package is ROADMAP.md queue 1 item 23.
+package. ``storage/postgres.py`` runs these DAOs unchanged over the
+PostgreSQL wire client, as the JAX package's does over its own.
 """
 
 from __future__ import annotations

@@ -251,11 +251,20 @@ class TestRegistry:
         storage.verify_all_data_objects()
         assert CountingClient.made == before + 1  # one client per source
 
-    @pytest.mark.parametrize("type_name", ["postgres", "s3", "elasticsearch"])
-    def test_not_ported_types_still_raise(self, type_name):
-        storage = Storage({**_MEM_ENV, "PIO_STORAGE_SOURCES_M_TYPE": type_name})
-        with pytest.raises(StorageError, match="item 23"):
-            storage.get_events()
+    @pytest.mark.parametrize("type_name", ["pg", "elasticsearch1", "chaos"])
+    def test_alias_types_serve_a_source_beside_the_builtins(self, type_name):
+        """The JAX registry's aliases and the chaos wrapper resolve in the
+        port after ``register_backend`` has added a TYPE of its own."""
+        registry.register_backend("custom-alias-test", MemoryStorageClient)
+        env = {**_MEM_ENV, "PIO_STORAGE_SOURCES_M_TYPE": type_name,
+               "PIO_STORAGE_SOURCES_M_TARGET": "custom-alias-test"}
+        client = Storage(env).client_for_source("M")
+        want = {"pg": "PGStorageClient", "elasticsearch1": "ESStorageClient",
+                "chaos": "ChaosStorageClient"}[type_name]
+        assert type(client).__name__ == want
+        if type_name == "chaos":
+            assert isinstance(client.inner, MemoryStorageClient)
+            client.apps()                      # the wrapped DAO serves
 
     def test_unknown_type_raises(self):
         with pytest.raises(StorageError, match="not registered"):

@@ -341,7 +341,10 @@ class TestIndependence:
             "        'online.service', 'online.overlay', 'obs.stitch',\n"
             "        'fleet.canary', 'fleet.stats', 'fleet.membership', 'fleet.router',\n"
             "        'fleet.gateway', 'fleet.controller', 'experiment.controller',\n"
-            "        'experiment.cli', 'api.router_server']\n"
+            "        'experiment.cli', 'api.router_server', 'storage.pgwire',\n"
+            "        'storage.postgres', 'storage.chaos', 'storage.elasticsearch',\n"
+            "        'storage.s3', 'storage.hdfs', 'data.self_cleaning', 'data.view',\n"
+            "        'tools.admin', 'tools.dashboard']\n"
             "missing = [m for m in want if 'predictionio_tpu_torch.' + m not in sys.modules]\n"
             "print('BAD', bad, 'NOT IMPORTED', missing)\n"
             "sys.exit(1 if bad or missing else 0)\n")

@@ -7,8 +7,9 @@ binevents (native and pure-Python codecs) and fileevents; one sqlite
 file written by either package and read by the other; an export file of
 either package imported by the other; ``aggregate_properties`` equal to
 JAX's on the cases of tests/test_aggregation.py; and the registry: the
-JAX default of sqlite + localfs, and the TYPEs not ported raising with
-their ROADMAP item.
+JAX default of sqlite + localfs, and every remote TYPE of the JAX
+registry resolving to a client class of the same name (the remote
+backends themselves are held in tests/test_torch_remote_storage.py).
 """
 
 from __future__ import annotations
@@ -430,16 +431,23 @@ class TestRegistry:
         storage.get_model_data_models().insert(Model("x", b"1"))
         assert (tmp_path / "pio.sqlite").exists() and (tmp_path / "models" / "x").exists()
 
-    @pytest.mark.parametrize("type_name, item", [
-        ("postgres", "item 23"), ("elasticsearch", "item 23"), ("s3", "item 23"),
-        ("hdfs", "item 23"), ("chaos", "item 23"),
-    ])
-    def test_not_ported_types_name_their_item(self, type_name, item):
-        storage = Storage({"PIO_STORAGE_SOURCES_X_TYPE": type_name,
-                           **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "X"
-                              for r in ("METADATA", "EVENTDATA", "MODELDATA")}})
-        with pytest.raises(StorageError, match=f"ROADMAP.md queue 1 {item}"):
-            storage.get_events()
+    @pytest.mark.parametrize("type_name", [
+        "postgres", "pg", "elasticsearch", "elasticsearch1", "s3", "hdfs", "chaos"])
+    def test_remote_types_resolve_to_jax_client_classes(self, type_name, tmp_path):
+        """Every TYPE the JAX registry registers resolves in the port, to
+        a client class of the same name (building one opens no socket)."""
+        props = {"postgres": {}, "pg": {}, "elasticsearch": {}, "elasticsearch1": {},
+                 "s3": {"BUCKET_NAME": "b"}, "hdfs": {"PATH": str(tmp_path / "hdfs")},
+                 "chaos": {"TARGET": "memory"}}[type_name]
+        env = {"PIO_STORAGE_SOURCES_X_TYPE": type_name,
+               **{f"PIO_STORAGE_SOURCES_X_{k}": v for k, v in props.items()},
+               **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "X"
+                  for r in ("METADATA", "EVENTDATA", "MODELDATA")}}
+        port_client = Storage(env).client_for_source("X")
+        jax_client = JaxStorage(env).client_for_source("X")
+        assert type(port_client).__name__ == type(jax_client).__name__
+        assert type(port_client).__module__ == \
+            type(jax_client).__module__.replace("predictionio_tpu.", "predictionio_tpu_torch.")
 
     def test_jdbc_alias_partial_config_and_source_names(self, tmp_path):
         with pytest.raises(StorageError, match="MODELDATA"):
