@@ -94,7 +94,8 @@ Phases, in order; any failure exits non-zero:
    sessionrec at the serving width: 128 users × 2,049 view events as
    JSON lines, `app new`, `import`, `train` (one epoch at batch 8: 16
    Adam steps at S=2048), `deploy`, 30 queries over HTTP; the deploy
-   process's `GET /` must count 4 × 30 kernel launches, every answer's
+   process's `GET /` must count 4 × 30 kernel launches (and answer
+   `text/html` to a browser's `Accept: text/html`), every answer's
    items must equal those of the same instance deployed in this process
    from the same store, and the scores must hold against the plain
    attention; the kernel timed on the q/k/v of a served query; (b) the
@@ -333,15 +334,25 @@ Phases, in order; any failure exits non-zero:
    instance, its evaluator_results.json equals the stored row's,
    `/metrics` and a CORS preflight answer), `pio upgrade` and `pio
    template` exiting 1 with the JAX package's messages;
-30. a `kernels` JSON line, then the result line
+30. `pio lint` of the port's own tree on this machine, which has no
+   JAX, in child processes started with phase 1 and joined before
+   phase 3 (nothing is timed meanwhile): `pio lint --format json
+   --no-cache` must exit 0 with no finding, all three project passes in
+   its stats and more than 100 files, and load no torch; the lint of a
+   copy of tests/analysis_fixtures/host_sync_bad.py and of its torch
+   twin (tests/analysis_fixtures_torch/) must give exactly the five
+   findings the tests pin; the lint's seconds (parse, module rules,
+   project rules) are logged;
+31. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
-`--router-only` and `--storage-only` run phases 9-13, 14-15, 16, 17,
-18, 19-21, 22, 23, 24, 25, 26, 27, 28 and 29 alone (17 over 16a's
+`--router-only`, `--storage-only` and `--lint-only` run phases 9-13,
+14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 alone
+(17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
 train, 27 over 16a's and 16b's, 28 over 16a's and 16b's and a serial
@@ -2187,6 +2198,17 @@ def _status(port: int) -> dict:
         return json.loads(resp.read())
 
 
+def _status_page(tag: str, port: int, instance_id: str) -> None:
+    """``GET /`` as a browser asks for it must answer the HTML page."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/",
+                                 headers={"Accept": "text/html,application/xhtml+xml"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        ctype, page = resp.headers.get("Content-Type", ""), resp.read().decode()
+    if not ctype.startswith("text/html") or f"Engine instance {instance_id}" not in page:
+        fail(f"[{tag}] GET / with Accept: text/html answered {ctype!r}: {page[:200]!r}")
+    log(f"[{tag}] GET / with Accept: text/html: {ctype}, {len(page)} bytes")
+
+
 def _write_json_lines(path: str, docs) -> int:
     with open(path, "w") as f:
         n = 0
@@ -2323,6 +2345,7 @@ def phase_pio_sessionrec(pio: _Pio, instance_id: str, engine_json: str,
         before = _status(port)
         docs, rtts = _serve_http("pio-sess", port, queries)
         after = _status(port)
+        _status_page("pio-sess", port, instance_id)
     finally:
         _stop(proc)
     launches = (after["kernelLaunches"]["flash_attention"]
@@ -7095,6 +7118,123 @@ def phase_storage(pio_main: _Pio, base: str, eval_instance: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 30: `pio lint` of the port's tree, in the shadow of phases 1-2
+# ---------------------------------------------------------------------------
+
+#: a `pio lint` process that reports its exit code, the top-level
+#: packages of torch, JAX or the JAX package it loaded, and its seconds
+LINT_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+from predictionio_tpu_torch.cli.pio import main
+rc = main(sys.argv[1:])
+mods = sorted({n.split(".")[0] for n in sys.modules} & {"torch", "jax", "predictionio_tpu"})
+print(json.dumps({"rc": rc, "modules": mods, "seconds": time.perf_counter() - t0}))
+"""
+
+#: the findings tests/test_torch_analysis_rules.py pins on
+#: host_sync_bad.py and on its torch twin: (line, col, words of the message)
+LINT_PINNED = {
+    "analysis_fixtures": [
+        (11, 11, ".item() on the serving path"),
+        (12, 17, "float(jnp.max(scores)) converts"),
+        (13, 18, "np.asarray(jnp.sort(scores)) converts"),
+        (14, 4, ".block_until_ready() on the serving path"),
+        (15, 10, "jax.device_get() on the serving path"),
+    ],
+    "analysis_fixtures_torch": [
+        (11, 11, ".item() on the serving path"),
+        (12, 17, "float(torch.max(scores)) converts"),
+        (13, 18, "np.asarray(torch.sort(scores).values) converts"),
+        (14, 4, "torch.cuda.synchronize() on the serving path"),
+        (15, 10, "float(torch.sum(scores[:10])) converts"),
+    ],
+}
+LINT_TIMEOUT = 300
+
+
+def start_lint() -> dict:
+    """Phase 30's child processes, started and left running: the lint of
+    the port's tree, and of copies of the two pinned fixtures."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="pio-lint-")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    runs = {"tree": ["lint", "--format", "json", "--no-cache"]}
+    for fixtures in LINT_PINNED:
+        os.makedirs(os.path.join(work, fixtures))
+        copy = shutil.copy(os.path.join(repo, "tests", fixtures, "host_sync_bad.py"),
+                           os.path.join(work, fixtures))
+        runs[fixtures] = ["lint", copy, "--rule", "host-sync-in-hot-path",
+                          "--format", "json", "--no-cache"]
+    procs = {name: subprocess.Popen([sys.executable, "-c", LINT_CHILD, *argv], cwd=work,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name, argv in runs.items()}
+    return {"work": work, "procs": procs, "t0": time.perf_counter()}
+
+
+def join_lint(started: dict) -> None:
+    """Waits for phase 30's processes and checks what they printed."""
+    t_wait = time.perf_counter()
+    out = {}
+    try:
+        for name, proc in started["procs"].items():
+            try:
+                stdout, stderr = proc.communicate(timeout=LINT_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail(f"[lint] `pio lint` ({name}) ran past {LINT_TIMEOUT}s")
+            *report, last = stdout.strip().splitlines() or [""]
+            try:
+                tail = json.loads(last)
+                doc = json.loads("\n".join(report))
+            except ValueError:
+                fail(f"[lint] `pio lint` ({name}) exited {proc.returncode}:\n"
+                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            out[name] = (tail, doc, stderr)
+    finally:
+        for proc in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(started["work"], ignore_errors=True)
+    waited = time.perf_counter() - t_wait
+
+    tail, doc, stderr = out["tree"]
+    stats = doc["stats"]
+    log(f"[lint] pio lint of predictionio_tpu_torch/: exit {tail['rc']}, "
+        f"{len(doc['findings'])} findings, {stats['files']} files; stats seconds: "
+        f"parse_s={stats['parse_s']} module_rules_s={stats['module_rules_s']} "
+        f"project_rules_s={stats['project_rules_s']} total_s={stats['total_s']}; "
+        f"process {tail['seconds']:.3f}s after its imports began; "
+        f"torch/JAX loaded: {tail['modules'] or 'none'}")
+    if tail["rc"] != 0 or doc["findings"]:
+        fail(f"[lint] the port's tree does not lint clean:\n"
+             + "\n".join(json.dumps(f) for f in doc["findings"][:40]) + stderr[-2000:])
+    if set(stats["project_rules"]) != {"shared-state-race", "lock-order",
+                                       "jit-recompile-risk"}:
+        fail(f"[lint] the project passes did not all run: {stats['project_rules']}")
+    if len(stats["module_rules"]) != 6 or stats["files"] <= 100:
+        fail(f"[lint] a partial run: {stats['module_rules']}, {stats['files']} files")
+    for name, pinned in LINT_PINNED.items():
+        tail, doc, stderr = out[name]
+        got = [(f["line"], f["col"], f["rule"], f["message"]) for f in doc["findings"]]
+        ok = (tail["rc"] == 1 and len(got) == len(pinned)
+              and all((line, col) == (g[0], g[1]) and g[2] == "host-sync-in-hot-path"
+                      and words in g[3] for (line, col, words), g in zip(pinned, got)))
+        if not ok:
+            fail(f"[lint] {name}/host_sync_bad.py: exit {tail['rc']}, findings {got}")
+        if tail["modules"]:
+            fail(f"[lint] `pio lint` ({name}) loaded {tail['modules']}")
+        log(f"[lint] {name}/host_sync_bad.py: the {len(got)} pinned findings, exit 1, "
+            f"{tail['seconds']:.3f}s")
+    if out["tree"][0]["modules"]:
+        fail(f"[lint] the `pio lint` process loaded {out['tree'][0]['modules']}")
+    log(f"[phases] phase 30 took {time.perf_counter() - started['t0']:.1f}s, "
+        f"beside phases 1-2 (waited {waited:.1f}s at the join)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -7118,6 +7258,10 @@ def timed(phase: str, fn, *args):
 
 
 def run_phases(wall: float) -> None:
+    if sys.argv[1:] == ["--lint-only"]:   # phase 30 alone
+        log_card()
+        join_lint(start_lint())
+        return
     if sys.argv[1:] == ["--pool-only"]:   # phase 27 alone, over fresh 16a and 16b instances
         phase_build()
         with tempfile.TemporaryDirectory(prefix="pio-") as base:
@@ -7207,7 +7351,9 @@ def run_phases(wall: float) -> None:
                 import_sessions(pio)
                 phase_ingest(pio)
         return
+    lint = start_lint()   # phase 30 runs on the host while 1-2 build and check
     max_abs_err = timed("1-2", lambda: (phase_build(), phase_kernel_vs_plain())[1])
+    join_lint(lint)
     times = timed("3", phase_times)
     launches = timed("4", phase_serving)
     if launches == 0:

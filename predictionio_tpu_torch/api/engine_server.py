@@ -12,7 +12,8 @@ Routes:
   unavailable storage answers 503 with ``Retry-After``;
 - ``GET /``: status: the engine instance, request bookkeeping, the
   batcher's counters and policy, and the flash-attention kernel's launch
-  count in this process (``kernelLaunches``);
+  count in this process (``kernelLaunches``); as an HTML page
+  (``status_html``) when the ``Accept`` header holds ``text/html``;
 - ``GET /healthz``; ``GET /readyz`` (a deployed model and reachable
   storage; 503 "reloading" during a ``/reload``);
 - ``GET /stats.json``: the batch-size histogram, the queue-wait and
@@ -277,6 +278,10 @@ class EngineServerPluginContext:
 _NO_INDEX = ("no persisted ANN index on the deployed model: build it at train/persist "
              "time (PIO_SERVING_ANN_BUILD) or deploy with --retrieval ann; the runtime "
              "switch only flips between ready modes")
+
+
+class _HtmlPage(str):
+    """Marker: payload is a rendered HTML page, not JSON."""
 
 
 class _Reject(Exception):
@@ -612,6 +617,8 @@ class EngineService:
                headers: Mapping[str, str], body: Any) -> tuple:
         try:
             if method == "GET" and path == "/":
+                if "text/html" in headers.get("accept", ""):
+                    return (200, _HtmlPage(self.status_html()))
                 return (200, self.status_doc())
             if method == "POST" and path == "/queries.json":
                 return self.handle_query(body, headers)
@@ -832,6 +839,24 @@ class EngineService:
             }} if self.batcher is not None else {}),
             **({"resilience": snap} if (snap := resilience_snapshot()) else {}),
         }
+
+    def status_html(self) -> str:
+        """The browser's status page: ``status_doc`` as an HTML table,
+        the JAX server's page (the reference's Twirl index)."""
+        import html
+
+        doc = self.status_doc()
+        rows = "".join(
+            f"<tr><th>{html.escape(str(k))}</th>"
+            f"<td>{html.escape(str(v))}</td></tr>"
+            for k, v in doc.items()
+        )
+        return (
+            "<!DOCTYPE html><html><head><title>predictionio_tpu_torch engine "
+            f"server</title></head><body><h1>Engine instance "
+            f"{html.escape(str(doc['engineInstanceId']))}</h1>"
+            f"<table>{rows}</table></body></html>"
+        )
 
     def stats_doc(self, include_workers: bool = True) -> dict:
         """GET /stats.json: the serving hot path's counters, each read
@@ -1166,7 +1191,9 @@ class _Handler(BaseHTTPRequestHandler):
     def _respond(self, status: int, payload: Any,
                  extra_headers: Mapping[str, str] | None = None) -> None:
         self._last_status = status
-        if isinstance(payload, PlainTextPayload):
+        if isinstance(payload, _HtmlPage):
+            data, ctype = str(payload).encode(), "text/html; charset=UTF-8"
+        elif isinstance(payload, PlainTextPayload):
             data, ctype = str(payload).encode(), payload.content_type
         else:
             data, ctype = json.dumps(payload).encode(), "application/json; charset=UTF-8"

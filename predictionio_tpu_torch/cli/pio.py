@@ -55,6 +55,11 @@ port serves).
   that ``--replica-cmd`` starts and the scale controller; the router
   process imports no torch; ``trace <id>``: one routed request's
   stitched trace tree, as text or ``--chrome`` JSON;
+- ``lint [paths] [--rule R] [--list-rules] [--format text|json|sarif]
+  [--baseline F] [--write-baseline F] [--changed] [--no-project]
+  [--no-cache]``: the AST invariant checker (``analysis/``) over this
+  package, with the JAX package's nine rules, flags, output formats and
+  exit codes; it imports no torch;
 - ``experiment start|status|conversions`` (``experiment/cli.py``,
   registered through :func:`register_command`): the online A/B loop over
   an evaluation's ranked grid points behind a running router.
@@ -1336,6 +1341,163 @@ def _cmd_trace(args, storage: Storage) -> int:
     return 0
 
 
+def _git_changed_relpaths(pkg: str) -> set[str]:
+    """Package-relative paths of .py files git sees as modified, staged
+    or untracked — the `pio lint --changed` reporting scope. Raises
+    RuntimeError when git is unavailable (the caller exits 2: a CI hook
+    must fail loudly, not silently lint nothing)."""
+    import subprocess
+
+    try:
+        top = subprocess.run(
+            ["git", "rev-parse", "--show-toplevel"],
+            cwd=pkg, capture_output=True, text=True, timeout=10)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        raise RuntimeError(f"--changed needs git: {exc}")
+    if top.returncode != 0:
+        raise RuntimeError("--changed: package is not inside a git work tree")
+    root = top.stdout.strip()
+    out = subprocess.run(
+        ["git", "status", "--porcelain", "--untracked-files=all"],
+        cwd=root, capture_output=True, text=True, timeout=10)
+    if out.returncode != 0:
+        raise RuntimeError(
+            f"--changed: git status failed: {out.stderr.strip()}")
+    changed: set[str] = set()
+    for line in out.stdout.splitlines():
+        if len(line) < 4:
+            continue
+        path = line[3:]
+        if " -> " in path:  # rename: the new side is what gets linted
+            path = path.split(" -> ", 1)[1]
+        path = path.strip().strip('"')
+        if not path.endswith(".py"):
+            continue
+        abspath = os.path.abspath(os.path.join(root, path))
+        if abspath.startswith(pkg + os.sep):
+            changed.add(os.path.relpath(abspath, pkg).replace(os.sep, "/"))
+    return changed
+
+
+def _cmd_lint(args, storage: Storage | None) -> int:
+    """`pio lint` — AST invariant checker for the serving/compute paths
+    (``analysis/``), over this package unless paths are given. Exit 0
+    clean, 1 on findings, 2 on a bad invocation. Imports no torch."""
+    import predictionio_tpu_torch
+    from predictionio_tpu_torch.analysis import (
+        all_rules,
+        default_config,
+        format_findings,
+        lint_paths_report,
+    )
+
+    if args.list_rules:
+        policy = default_config()
+        for rule_id, rule in sorted(all_rules().items()):
+            # the EFFECTIVE repo-policy scope, not the rule's built-in
+            # default — the listing must match what a run checks
+            paths = ", ".join(p or "<all>" for p in policy.rule_paths(rule))
+            print(f"{rule_id:24s} {rule.description} [{paths}]")
+        return 0
+
+    pkg = os.path.dirname(os.path.abspath(predictionio_tpu_torch.__file__))
+    changed = None
+    if args.changed:
+        try:
+            changed = _git_changed_relpaths(pkg)
+        except RuntimeError as exc:
+            print(f"[ERROR] {exc}", file=sys.stderr)
+            return 2
+    cache = None
+    if not args.no_cache:
+        from predictionio_tpu_torch.analysis.cache import (
+            LintCache,
+            default_cache_path,
+            rules_fingerprint,
+        )
+
+        cache = LintCache(default_cache_path(pkg),
+                          rules_fingerprint(default_config(), args.rules))
+    project = not args.no_project
+
+    try:
+        if not args.paths:
+            findings, stats = lint_paths_report(
+                [pkg], rel_root=pkg, rule_ids=args.rules, cache=cache,
+                project=project, changed=changed)
+        else:
+            # paths inside the package keep the policy's package-relative
+            # scoping; ad-hoc files outside it (fixtures, snippets) run
+            # every requested rule unscoped — `pio lint some_file.py
+            # --rule X` must never silently skip X for scope reasons
+            in_pkg = [
+                p for p in args.paths
+                if os.path.abspath(p) == pkg
+                or os.path.abspath(p).startswith(pkg + os.sep)
+            ]
+            external = [p for p in args.paths if p not in in_pkg]
+            findings, stats = [], None
+            if in_pkg:
+                findings, stats = lint_paths_report(
+                    in_pkg, rel_root=pkg, rule_ids=args.rules, cache=cache,
+                    project=project, changed=changed)
+            if external:
+                ext_findings, ext_stats = lint_paths_report(
+                    external, config=default_config().unscoped(),
+                    rule_ids=args.rules, project=project)
+                findings += ext_findings
+                stats = _merge_lint_stats(stats, ext_stats)
+            findings.sort(key=lambda f: (f.path, f.line, f.rule_id))
+    except (KeyError, OSError) as exc:
+        # stderr: stdout must stay machine-parseable under --format json
+        print(f"[ERROR] {exc.args[0] if isinstance(exc, KeyError) else exc}",
+              file=sys.stderr)
+        return 2
+
+    from predictionio_tpu_torch.analysis.report import (
+        apply_baseline,
+        load_baseline,
+        write_baseline,
+    )
+
+    if args.write_baseline:
+        n = write_baseline(args.write_baseline, findings)
+        print(f"[INFO] wrote {n} finding(s) to {args.write_baseline}",
+              file=sys.stderr)
+        return 0
+    if args.baseline:
+        try:
+            accepted = load_baseline(args.baseline)
+        except (OSError, ValueError) as exc:
+            print(f"[ERROR] {exc}", file=sys.stderr)
+            return 2
+        findings, suppressed = apply_baseline(findings, accepted)
+        if suppressed:
+            print(f"[INFO] baseline suppressed {suppressed} finding(s)",
+                  file=sys.stderr)
+    print(format_findings(
+        findings, fmt=args.format,
+        stats=stats if args.format == "json" else None))
+    return 1 if findings else 0
+
+
+def _merge_lint_stats(a, b):
+    """Fold two LintStats (in-package + external path runs) into one
+    JSON report; rule lists union, counters and timings add."""
+    if a is None:
+        return b
+    a.files += b.files
+    a.cache_hits += b.cache_hits
+    a.cache_misses += b.cache_misses
+    a.parse_s += b.parse_s
+    a.module_rules_s += b.module_rules_s
+    a.project_rules_s += b.project_rules_s
+    a.total_s += b.total_s
+    a.module_rules = sorted(set(a.module_rules) | set(b.module_rules))
+    a.project_rules = sorted(set(a.project_rules) | set(b.project_rules))
+    return a
+
+
 def _serve(server, label: str, ip: str) -> int:
     """Start ``server``, print its bound address and block until it stops
     (SIGTERM or Ctrl-C)."""
@@ -1875,6 +2037,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", type=float, default=10.0,
                    help="HTTP timeout for the router fetch")
 
+    p = sub.add_parser(
+        "lint",
+        help="AST invariant checker for the serving/compute paths "
+             "(docs/static-analysis.md)",
+    )
+    p.add_argument(
+        "paths", nargs="*",
+        help="files or directories (default: the installed predictionio_tpu_torch package)",
+    )
+    p.add_argument(
+        "--rule", action="append", dest="rules", metavar="RULE_ID",
+        help="run only this rule (repeatable; see --list-rules)",
+    )
+    p.add_argument("--list-rules", action="store_true",
+                   help="list registered rules and exit")
+    p.add_argument("--format", choices=("text", "json", "sarif"),
+                   default="text",
+                   help="json includes run stats (files, cache hits, "
+                        "phase timings); sarif emits SARIF 2.1.0")
+    p.add_argument("--baseline", metavar="FILE",
+                   help="report (and fail on) only findings NOT in this "
+                        "baseline snapshot — lets a stricter rule land "
+                        "before the tree is fully clean")
+    p.add_argument("--write-baseline", metavar="FILE",
+                   dest="write_baseline",
+                   help="snapshot the current findings to FILE and exit 0")
+    p.add_argument("--changed", action="store_true",
+                   help="report only findings in files git sees as "
+                        "modified/untracked (the whole tree is still "
+                        "analyzed, so cross-module passes stay sound)")
+    p.add_argument("--no-project", action="store_true", dest="no_project",
+                   help="skip whole-program passes (shared-state-race, "
+                        "lock-order, jit-recompile-risk)")
+    p.add_argument("--no-cache", action="store_true", dest="no_cache",
+                   help="neither read nor write the per-file result cache")
+
     p = sub.add_parser("undeploy", help="stop a deployed engine server")
     p.add_argument("--ip", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
@@ -1884,9 +2082,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 #: commands that build no Storage: the router, `pio trace` and `pio
-#: status --router` talk HTTP only, and `wal` works on the journal
-#: directory (its replay builds the storage itself)
-STORAGE_FREE_COMMANDS = frozenset({"version", "wal", "router", "trace"})
+#: status --router` talk HTTP only, `wal` works on the journal
+#: directory (its replay builds the storage itself), and `lint` reads
+#: source files
+STORAGE_FREE_COMMANDS = frozenset({"version", "lint", "wal", "router", "trace"})
 
 _COMMANDS = {
     "version": _cmd_version,
@@ -1903,6 +2102,7 @@ _COMMANDS = {
     "undeploy": _cmd_undeploy,
     "router": _cmd_router,
     "trace": _cmd_trace,
+    "lint": _cmd_lint,
 }
 
 _EXTRA_PARSERS: list = []

@@ -230,6 +230,10 @@ class EventColumns:
         return len(self.event_time_us)
 
     # -- vectorized accessors ------------------------------------------------
+    def event_times(self) -> np.ndarray:
+        """int64 epoch-micros (the canonical time column)."""
+        return self.event_time_us
+
     def properties(self, i: int) -> DataMap:
         """Row ``i``'s properties, decoded on demand."""
         return self._rows.properties(i)

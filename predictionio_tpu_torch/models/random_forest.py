@@ -50,8 +50,7 @@ def _gini_best_split(X, y, num_classes, feat_ids, min_leaf):
     candidates. Returns (gain, feature, threshold) with gain <= 0 when
     no split helps."""
     n = len(y)
-    # float64: exact host Gini (f32 cumulative sums flip ties)
-    counts = np.bincount(y, minlength=num_classes).astype(np.float64)
+    counts = np.bincount(y, minlength=num_classes).astype(np.float64)  # pio: lint-ignore[dtype-discipline]: exact Gini split search on host — f32 cumsums flip ties; jitted predict stays f32
     gini_parent = 1.0 - np.sum((counts / n) ** 2)
     best = (0.0, -1, 0.0)
     for f in feat_ids:
@@ -59,7 +58,7 @@ def _gini_best_split(X, y, num_classes, feat_ids, min_leaf):
         xs = X[order, f]
         ys = y[order]
         # cumulative class counts left of each boundary
-        onehot = np.zeros((n, num_classes), dtype=np.float64)
+        onehot = np.zeros((n, num_classes), dtype=np.float64)  # pio: lint-ignore[dtype-discipline]: same exact host-side Gini arithmetic as above
         onehot[np.arange(n), ys] = 1.0
         cum = np.cumsum(onehot, axis=0)
         # boundaries between distinct adjacent values that leave at
@@ -68,7 +67,7 @@ def _gini_best_split(X, y, num_classes, feat_ids, min_leaf):
         valid = valid[(valid + 1 >= min_leaf) & (n - valid - 1 >= min_leaf)]
         if len(valid) == 0:
             continue
-        nl = (valid + 1).astype(np.float64)
+        nl = (valid + 1).astype(np.float64)  # pio: lint-ignore[dtype-discipline]: same exact host-side Gini arithmetic as above
         nr = n - nl
         cl = cum[valid]
         cr = counts[None, :] - cl

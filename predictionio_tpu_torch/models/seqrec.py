@@ -504,7 +504,7 @@ def _train_fingerprint(cfg: SeqRecConfig, inputs: np.ndarray, targets: np.ndarra
     h.update(json.dumps(cfg.to_json(), sort_keys=True).encode())
     h.update(np.ascontiguousarray(inputs).tobytes())
     h.update(np.ascontiguousarray(targets).tobytes())
-    h.update(np.float64(lr).tobytes())
+    h.update(np.float64(lr).tobytes())  # pio: lint-ignore[dtype-discipline]: checkpoint-identity serialization — 8 stable bytes, never a compute dtype
     h.update(np.int64(seed).tobytes())
     return h.hexdigest()
 

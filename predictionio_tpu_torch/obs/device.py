@@ -149,6 +149,7 @@ def device_memory_snapshot() -> dict[str, dict[str, Any]]:
         out[f"cuda:{idx}"] = {
             "bytes_in_use": float(stats.get("allocated_bytes.all.current", 0)),
             "peak_bytes_in_use": float(stats.get("allocated_bytes.all.peak", 0)),
+            # pio: lint-ignore[host-sync-in-hot-path]: total_memory is a host-side property of the card, read from the driver with no device work and no sync
             "bytes_limit": float(torch.cuda.get_device_properties(idx).total_memory),
             "device_kind": torch.cuda.get_device_name(idx),
         }

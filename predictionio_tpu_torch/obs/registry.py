@@ -107,6 +107,10 @@ class HistogramFamily:
             hist = self._hists[self.FALLBACK]
         hist.observe(seconds)
 
+    def get(self, value: str) -> LatencyHistogram:
+        """The label's histogram, or the fallback label's."""
+        return self._hists.get(value) or self._hists[self.FALLBACK]
+
     def collect(self) -> list[Metric]:
         return [Metric(
             name=self.name, kind="histogram", help=self.help,

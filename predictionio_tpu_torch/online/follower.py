@@ -225,7 +225,6 @@ class EventTailFollower:
         applied (at-least-once contract in the class docstring)."""
         if cursor is None:
             return
-        # an immutable TailCursor swapped by reference on the fold
-        # thread; the stats read tolerates staleness
+        # pio: lint-ignore[shared-state-race]: cursor is an immutable TailCursor swapped by reference on the fold thread; the status-doc read tolerates staleness
         self.cursor = cursor
         self.store.save(cursor)

@@ -499,11 +499,13 @@ class OnlineFoldIn:
         # keyed on the generation captured at cycle start: a /reload
         # mid-cycle must not cache the old model's centroid as the new's
         if self._prior is None or self._prior[0] != gen:
+            # pio: lint-ignore[shared-state-race]: gen-keyed cache — a racy clear from on_model_swapped is healed by the gen check above; the tuple swap is atomic under the GIL
             self._prior = (gen, popularity_prior(_host_table(model.item_factors)))
         return self._prior[1]
 
     def _gramian(self, factors: torch.Tensor, gen: int) -> np.ndarray:
         if self._gram is None or self._gram[0] != gen:
+            # pio: lint-ignore[shared-state-race]: gen-keyed cache — a racy clear from on_model_swapped is healed by the gen check above; the tuple swap is atomic under the GIL
             self._gram = (gen, item_gramian(_host_table(factors)))
         return self._gram[1]
 

@@ -634,13 +634,15 @@ def predict_ratings(user_f: torch.Tensor, item_f: torch.Tensor, users, items) ->
 
 
 def rmse(factors: ALSFactors, ratings: RatingsCOO, chunk: int = 1 << 20) -> float:
-    """Root-mean-square error over the rating set, in chunks, summed on
-    the device and read once."""
-    total = torch.zeros((), dtype=torch.float64, device=factors.user.device)
+    """Root-mean-square error over the rating set, in chunks: each
+    chunk's f32 sum of squares on the device, the sums read once and
+    added on the host in a Python float, as the JAX package adds them."""
+    parts = []
     for s in range(0, ratings.nnz, chunk):
         e = min(s + chunk, ratings.nnz)
         pred = predict_ratings(factors.user, factors.item, ratings.rows[s:e],
                                ratings.cols[s:e])
         err = pred - torch.from_numpy(ratings.vals[s:e]).to(pred.device)
-        total += (err.double() ** 2).sum()
-    return math.sqrt(float(total) / max(ratings.nnz, 1))
+        parts.append((err * err).sum())
+    total = sum(torch.stack(parts).tolist()) if parts else 0.0
+    return math.sqrt(total / max(ratings.nnz, 1))

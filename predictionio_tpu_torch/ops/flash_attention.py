@@ -172,7 +172,7 @@ def launch_flops(q: torch.Tensor, mask: torch.Tensor, causal: bool) -> int:
     query — a key at position j meets the S - j queries from j on. Reads
     the mask's count back to the host."""
     B, H, S, D = q.shape
-    per_key = (S - torch.arange(S, device=mask.device, dtype=torch.float64) if causal
-               else torch.full((S,), float(S), device=mask.device, dtype=torch.float64))
-    pairs = int(((mask > 0).double() * per_key).sum().item())
+    per_key = (S - torch.arange(S, device=mask.device, dtype=torch.int64) if causal
+               else torch.full((S,), S, device=mask.device, dtype=torch.int64))
+    pairs = int(((mask > 0).long() * per_key).sum().item())
     return 4 * D * H * pairs

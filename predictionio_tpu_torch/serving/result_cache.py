@@ -76,6 +76,11 @@ class ResultCache:
         with self._lock:
             return self._generation
 
+    def get(self, key: str) -> Any:
+        """The cached value, or the module sentinel ``_MISS``. Use
+        :meth:`lookup` for a (hit, value, generation) triple."""
+        return self.lookup(key)[1]
+
     def lookup(self, key: str) -> tuple[bool, Any, int]:
         """(hit, value_or_MISS, generation_observed) — callers thread the
         generation into :meth:`put` so a result computed before a reload
