@@ -2,7 +2,16 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, numbered as they were added; any failure exits non-zero. Phases
+1-4 and 30 run first, alone. Then two lanes run side by side: a child
+process of this script (``--host-lane``, its log printed when it is
+joined, its processes stopped with it) runs the `pio` chain 16, 17a,
+18, 24, 26, 28 and 29 over one store, while this process runs 5-13,
+17b, 14, 15, 16c, 19-22, 25 and 31, and then 23 and 27 over the
+child's phase-16 instances. Phase 14 hands its grid scores to 24 through
+a file, 16 its instances to 23 and 27. Phase 3's timings, which make
+the `kernels` line, are taken before the lanes start; the seconds and
+rates logged after it are taken with the other lane running.
 
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
@@ -343,15 +352,37 @@ Phases, in order; any failure exits non-zero:
    twin (tests/analysis_fixtures_torch/) must give exactly the five
    findings the tests pin; the lint's seconds (parse, module rules,
    project rules) are logged;
-31. a `kernels` JSON line, then the result line
+31. the 15 example engines of examples_torch/, after phase 25, in the
+   main process: each trained from its own seed_events.py (or, where it has
+   none, its JAX test's events) through `run_train` on the card and on
+   the CPU, loaded through `load_models` and `prepare_deploy`, and
+   asked its README's and its JAX test's queries; the card's instance
+   served on the card and on the CPU agree (ALS scores within 1e-5, the
+   z-score blend 1e-4; the forest's votes exactly, the Markov chain and
+   hello-similarity within 1e-6, the ridge 1e-12), an engine with no ALS
+   also against the one trained on the CPU; an ALS engine trained on
+   the CPU is not held to the card's (its scores move with the last bits
+   of its start on these small data) but shows the same pinned
+   behaviours: a disabled item absent, only the query's categories or
+   years, an excluded item untrained, the forest's labels, a live weight
+   lifting its item, the dislikes demoting i0; per engine the train
+   seconds, predict p50, ms a query between CUDA events, device ms and
+   launches a query; meanwhile, in a thread,
+   recommendation-custom-serving's README through `pio` processes on
+   the card: `app new`, `python seed_events.py`, `pio build`, `pio
+   train`, `pio deploy` (whose GET / names the card), a query over
+   HTTP, a live edit of disabled.txt and the same query without the
+   disabled item, no redeploy; no flash kernel is launched;
+32. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
-`--router-only`, `--storage-only` and `--lint-only` run phases 9-13,
-14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29 and 30 alone
+`--router-only`, `--storage-only`, `--lint-only` and `--examples-only`
+run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28,
+29, 30 and 31 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
@@ -359,12 +390,13 @@ train, 27 over 16a's and 16b's, 28 over 16a's and 16b's and a serial
 `pio eval` of phase 24's two grid points, 29 with its dashboard over a
 serial `pio eval` of those points on 16 of 16a's users) and print no
 result line. Phases
-22, 23 and 25 launch no flash kernel. Exits non-zero, printing no result,
+22, 23, 25 and 31 launch no flash kernel. Exits non-zero, printing no result,
 when there is no card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -373,6 +405,7 @@ import os
 import re
 import shlex
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -387,6 +420,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import native as native_libs
 from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.controller import (
     AverageMetric,
@@ -652,6 +686,10 @@ def phase_build() -> None:
     logs = _build.build_all()
     log(f"[build] {len(logs)} kernel(s) compiled in {time.perf_counter() - t0:.1f}s "
         f"into {_build.BUILD_DIR}")
+    # the host libraries too, before any server marks its warm-up complete
+    for load in (native_libs.load_bucketize, native_libs.load_eventlog):
+        if load() is None:
+            fail(f"[build] {load.__name__}: the C++ library did not build")
     for name, text in logs.items():
         entry = ""
         for line in text.splitlines():
@@ -2573,7 +2611,6 @@ def phase_pio(pio: _Pio) -> tuple[int, tuple[str, str, float], tuple[str, str]]:
     instance = pio_sessionrec_instance(pio)
     launches = phase_pio_sessionrec(pio, *instance)
     rec_instance = phase_pio_recommendation(pio)
-    phase_tie_order()
     log(f"[pio] phase 16 took {time.perf_counter() - t0:.1f}s")
     return launches, instance, rec_instance
 
@@ -7235,6 +7272,762 @@ def join_lint(started: dict) -> None:
         f"beside phases 1-2 (waited {waited:.1f}s at the join)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the example engines of examples_torch/
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+#: card against CPU: an ALS engine's scores from one trained model (f32
+#: products in another summation order); the Markov chain's and
+#: hello-similarity's f32 scores and the host float64 ridge, each engine
+#: trained on its own device from the same events
+EXAMPLE_SERVE_TOL, EXAMPLE_F32_TOL, EXAMPLE_RIDGE_TOL = 1e-5, 1e-6, 1e-12
+#: similarproduct-multi-events-multi-algos' blend: its z-scores divide
+#: the two algorithms' f32 score differences by each list's spread
+EXAMPLE_BLEND_TOL = 1e-4
+#: each engine's queries answered this many times for its predict p50
+EXAMPLE_REPEATS = 5
+#: the example whose README phase 31 runs through `pio` processes
+EXAMPLE_README = "recommendation-custom-serving"
+
+
+@contextlib.contextmanager
+def _example_module(name: str):
+    """``examples_torch/<name>/engine.py`` as the module ``engine`` (the
+    name its engine.json and its pickled models record) for the
+    block's duration."""
+    path = os.path.join(EXAMPLES_DIR, name)
+    sys.path.insert(0, path)
+    sys.modules.pop("engine", None)
+    try:
+        import engine
+        yield engine
+    finally:
+        sys.path.remove(path)
+        sys.modules.pop("engine", None)
+
+
+def _seed_script_events(name: str) -> list:
+    """The events of the example's own seed_events.py."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "seed_" + name.replace("-", "_"), os.path.join(EXAMPLES_DIR, name, "seed_events.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.events()
+
+
+def _category_events() -> list:
+    """recommendation-filter-by-category has no seed script: its JAX
+    test's store (items in "even"/"odd", i0 and i1 in both; every user
+    rates the items of its own parity)."""
+    out = [Event(event="$set", entity_type="item", entity_id=f"i{i}",
+                 properties=DataMap({"categories": ["even", "odd"] if i < 2 else
+                                     ["even" if i % 2 == 0 else "odd"]}))
+           for i in range(12)]
+    out += [Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item", target_entity_id=f"i{i}",
+                  properties=DataMap({"rating": 5.0}))
+            for u in range(16) for i in range(12) if i % 2 == u % 2]
+    return out
+
+
+def _page_events() -> list:
+    """markov-nextpage has no seed script: its JAX test's view streams
+    (p1 -> p2 three times, p1 -> p3 once)."""
+    t0 = datetime(2024, 5, 1, tzinfo=timezone.utc)
+    streams = {"u0": ["p1", "p2", "p1", "p3"], "u1": ["p1", "p2", "p4"],
+               "u2": ["p2", "p4", "p1", "p2"]}
+    return [Event(event="view", entity_type="user", entity_id=u, target_entity_type="page",
+                  target_entity_id=page, properties=DataMap({}),
+                  event_time=t0 + timedelta(minutes=k))
+            for u, pages in streams.items() for k, page in enumerate(pages)]
+
+
+def _point_events() -> list:
+    """local-regression has no seed script: its JAX test's 40 points on
+    the plane y = 2*x0 - 3*x1 + 5."""
+    rng = np.random.default_rng(11)
+    out = []
+    for k in range(40):
+        x0, x1 = float(rng.uniform(-5, 5)), float(rng.uniform(-5, 5))
+        out.append(Event(event="$set", entity_type="point", entity_id=f"pt{k}",
+                         properties=DataMap({"x0": x0, "x1": x1, "y": 2 * x0 - 3 * x1 + 5})))
+    return out
+
+
+def _example_store(app_name: str, events: list):
+    storage = memory_storage()
+    app_id = storage.get_meta_data_apps().insert(App(0, app_name))
+    storage.get_events().init(app_id)
+    storage.get_events().insert_batch(events, app_id)
+    return storage
+
+
+def _insert_both(pair: dict, app_name: str, event: Event) -> None:
+    """One more event, under one id, into every store of the pair."""
+    for storage in {id(pair[side]["storage"]): pair[side]["storage"]
+                    for side in _EXAMPLE_SIDES if side in pair}.values():
+        storage.get_events().insert(event, storage.get_meta_data_apps().get_by_name(app_name).id)
+
+
+def _ranked(result) -> list[tuple[str, float]] | None:
+    """A ranked answer's (id, score) pairs; None for a scalar answer."""
+    for field, key, score in (("item_scores", "item", "score"), ("pages", "page", "prob"),
+                              ("neighbors", "entity", "score")):
+        if hasattr(result, field):
+            return [(getattr(s, key), getattr(s, score)) for s in getattr(result, field)]
+    return None
+
+
+def _hold_example(tag: str, body: dict, got, want, tol: float, tie_tol: float) -> float:
+    """The card's answer against the CPU's: as many entries; the scores
+    position by position within ``tol`` (relative above 1); each id the
+    CPU's at that position, or, within a near-tie (CPU scores closer than
+    ``tie_tol``), one the CPU ranks within the tie or one past its cut
+    whose score ties the CPU's last. Forest and ridge answers compare
+    whole. Returns the largest score error."""
+    g, w = _ranked(got), _ranked(want)
+    if g is None:
+        if hasattr(want, "label"):
+            if (got.label, got.scores) != (want.label, want.scores):
+                fail(f"[{tag}] {json.dumps(body)}: {got} on the card, {want} on the CPU")
+            return 0.0
+        err = abs(got.prediction - want.prediction)
+        if err > tol:
+            fail(f"[{tag}] {json.dumps(body)}: {got.prediction} vs {want.prediction}")
+        return err
+    if len(g) != len(w):
+        fail(f"[{tag}] {json.dumps(body)}: {len(g)} entries on the card, {len(w)} on the CPU: "
+             f"{g} vs {w}")
+    err = 0.0
+    cpu_score = dict(w)
+    for j, ((gi, gs), (wi, ws)) in enumerate(zip(g, w)):
+        err = max(err, abs(gs - ws) / max(1.0, abs(ws)))
+        if gi == wi:
+            continue
+        tied = (gi in cpu_score and abs(cpu_score[gi] - ws) <= tie_tol * max(1.0, abs(ws))) \
+            or (gi not in cpu_score and abs(gs - w[-1][1]) <= tie_tol * max(1.0, abs(ws)))
+        if not tied:
+            fail(f"[{tag}] {json.dumps(body)}: {gi} at {j} on the card, {wi} on the CPU: "
+                 f"{g} vs {w}")
+    if err > tol:
+        fail(f"[{tag}] {json.dumps(body)}: score error {err:.3e} > {tol:g}: {g} vs {w}")
+    return err
+
+
+def _train_example(tag: str, name: str, variant: dict, storage, device: str) -> tuple:
+    """run_train on ``device``, then the instance loaded as a deploy loads
+    it (load_models, prepare_deploy): (deployed engine, train seconds)."""
+    t0 = time.perf_counter()
+    outcome = run_train(variant=variant, ctx=EngineContext(storage=storage, device=device))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if outcome.status != "COMPLETED":
+        fail(f"[{tag}] run_train on {device}: {outcome.status}")
+    deployed = load_deployed_engine(storage, ServerConfig(engine_instance_id=outcome.instance_id,
+                                                          device=device))
+    if deployed.device.type != device:
+        fail(f"[{tag}] the instance deployed on {deployed.device}, not {device}")
+    return deployed, seconds
+
+
+def _answer(deployed, bodies: list[dict]) -> list:
+    qc = deployed.query_class
+    return [deployed.query(from_wire(qc, body)) for body in bodies]
+
+
+def _answer_both(tag: str, pair: dict, bodies: list[dict], tol: float, tie_tol: float) -> list:
+    """Each body answered by the pair's three deploys. The card's instance
+    served on the card and on the CPU must agree within ``tol`` (near-ties
+    within ``tie_tol``); an engine whose training the data determine (no
+    ALS) must also agree with the one trained on the CPU, within the same
+    tolerances. An ALS engine trained on the CPU is not held to the card's
+    one: on the examples' small two-cluster data, a 1e-6 change of the
+    initial item table moves the trained scores past 1e-3 on one device
+    alone (tests/test_torch_custom_serving_example.py,
+    ``test_shipped_training_is_not_determined_to_1e_3``); both must show
+    the example's pinned behaviours, and their distance is logged. Returns the card's and the CPU-trained engine's answers, for
+    those checks."""
+    card = _answer(pair["card"]["deployed"], bodies)
+    same = _answer(pair["same"]["deployed"], bodies)
+    cpu = _answer(pair["cpu"]["deployed"], bodies)
+    worst = max(_hold_example(tag, b, g, w, tol, tie_tol)
+                for b, g, w in zip(bodies, card, same))
+    if not pair["als"]:
+        worst = max([worst] + [_hold_example(tag, b, g, w, tol, tie_tol)
+                               for b, g, w in zip(bodies, card, cpu)])
+    else:
+        for g, w in zip(card, cpu):
+            g, w = _ranked(g), _ranked(w)
+            pair["drift"] = max([pair.get("drift", 0.0)] + [
+                abs(gs - ws) / max(1.0, abs(ws)) for (_, gs), (_, ws) in zip(g, w)])
+            pair["drift_order"] = pair.get("drift_order", 0) + (
+                [i for i, _ in g] != [i for i, _ in w])
+    pair["worst"] = max(pair.get("worst", 0.0), worst)
+    pair["held"] = pair.get("held", 0) + len(bodies)
+    return [card, cpu]
+
+
+#: the deploys of one example in phase 31: "card", the engine trained
+#: and served on the card (timed, and checked for its pinned
+#: behaviours); "same", the card's trained instance deployed on the CPU;
+#: "cpu", the engine trained and served on the CPU from the same events
+#: (checked for the same behaviours)
+_EXAMPLE_SIDES = ("card", "same", "cpu")
+
+
+def _example_pair(tag: str, name: str, events: list, variant: dict | None = None) -> dict:
+    """The example trained from ``events`` on the card and on the CPU,
+    each over a memory store of its own (the same events, numbered
+    alike), and the card's instance deployed on the CPU too: the
+    _EXAMPLE_SIDES."""
+    if variant is None:
+        with open(os.path.join(EXAMPLES_DIR, name, "engine.json")) as f:
+            variant = json.load(f)
+    events = [e if e.event_id else dataclasses.replace(e, event_id=f"e{k:06d}")
+              for k, e in enumerate(events)]
+    app_name = variant["datasource"]["params"]["app_name"]
+    pair = {"app": app_name}
+    for side, device in (("card", DEVICE), ("cpu", "cpu")):
+        storage = _example_store(app_name, events)
+        deployed, seconds = _train_example(tag, name, variant, storage, device)
+        pair[side] = {"storage": storage, "deployed": deployed, "train_s": seconds}
+    card = pair["card"]
+    pair["same"] = {"storage": card["storage"], "deployed": load_deployed_engine(
+        card["storage"], ServerConfig(engine_instance_id=card["deployed"].instance_id,
+                                      device="cpu"))}
+    pair["als"] = any(isinstance(getattr(m, "als", m), ALSModel)
+                      for m in card["deployed"].models)
+    return pair
+
+
+def _example_times(tag: str, pair: dict, bodies: list[dict]) -> dict:
+    """The card deploy's numbers over ``bodies``: predict p50 (ms, host
+    clock, EXAMPLE_REPEATS rounds), ms a query between CUDA events,
+    device ms and launches a query (torch.profiler, one round)."""
+    deployed = pair["card"]["deployed"]
+    qc = deployed.query_class
+    bound = [from_wire(qc, body) for body in bodies]
+    wall = []
+    for _ in range(EXAMPLE_REPEATS):
+        for q in bound:
+            t0 = time.perf_counter()
+            deployed.query(q)
+            wall.append((time.perf_counter() - t0) * 1e3)
+    events_ms, _ = _events_ms(lambda: [deployed.query(q) for q in bound])
+    device_ms, launches = _profile(lambda: [deployed.query(q) for q in bound])
+    n = len(bound)
+    out = dict(train_s=pair["card"]["train_s"],
+               cpu_train_s=pair["cpu"]["train_s"],
+               queries=n, p50_ms=statistics.median(wall), events_ms_per_query=events_ms / n,
+               device_ms_per_query=None if device_ms is None else device_ms / n,
+               launches_per_query=launches / n, held=pair.get("held", 0),
+               max_err=pair.get("worst", 0.0), als_drift=pair.get("drift"),
+               als_drift_order=pair.get("drift_order"))
+    log(f"[{tag}] train_s={out['train_s']:.3f} (cpu {out['cpu_train_s']:.3f}) "
+        f"p50_ms={out['p50_ms']:.3f} events_ms_per_query={out['events_ms_per_query']:.4f} "
+        f"device_ms_per_query={_fmt(out['device_ms_per_query'], 4)} "
+        f"launches_per_query={out['launches_per_query']:.1f}; {out['held']} answers held "
+        f"against the CPU's, max score err {out['max_err']:.3e}"
+        + ("" if out["als_drift"] is None else
+           f"; trained on the CPU, the ALS answers {out['als_drift']:.3e} away (ids or order "
+           f"differ in {out['als_drift_order']})"))
+    return out
+
+
+def _items(result) -> list[str]:
+    return [i for i, _ in _ranked(result)]
+
+
+def _example_custom_serving(tag: str, work: str) -> tuple:
+    name = "recommendation-custom-serving"
+    disabled = os.path.join(work, "disabled.txt")
+    with open(os.path.join(EXAMPLES_DIR, name, "engine.json")) as f:
+        variant = json.load(f)
+    variant["serving"]["params"]["filepath"] = disabled
+    pair = _example_pair(tag, name, _seed_script_events(name), variant)
+    bodies = [{"user": "u1", "num": 4}, {"user": "u0", "num": 5}, {"user": "u7", "num": 8}]
+    card, _ = _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL)
+    target = _items(card[1])[0]
+    with open(disabled, "w") as f:                  # live: no retrain, no redeploy
+        f.write(f"{target}\n")
+    for answers in _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL):
+        if any(target in _items(r) for r in answers) or not all(_items(r) for r in answers):
+            fail(f"[{tag}] disabled {target} is still served: {[_items(r) for r in answers]}")
+    os.remove(disabled)
+    log(f"[{tag}] {target} (u0's first) disabled live: absent from every answer")
+    return pair, bodies
+
+
+def _example_custom_preparator(tag: str, work: str) -> tuple:
+    name = "recommendation-custom-preparator"
+    no_train = os.path.join(work, "no_train_items.txt")
+    with open(no_train, "w") as f:
+        f.write("i3\n")
+    with open(os.path.join(EXAMPLES_DIR, name, "engine.json")) as f:
+        variant = json.load(f)
+    variant["preparator"]["params"]["filepath"] = no_train
+    pair = _example_pair(tag, name, _seed_script_events(name), variant)
+    bodies = [{"user": "u1", "num": 4}] + [{"user": u, "num": 8} for u in ("u0", "u2", "u5")]
+    for side, answers in zip(("card", "cpu"), _answer_both(tag, pair, bodies,
+                                                           EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL)):
+        if "i3" in pair[side]["deployed"].models[0].item_ids or any(
+                "i3" in _items(r) for r in answers):
+            fail(f"[{tag}] the excluded i3 was trained or served ({side})")
+    log(f"[{tag}] i3 excluded from training: no factors, never served")
+    return pair, bodies
+
+
+def _example_filter_by_category(tag: str, work: str) -> tuple:
+    name = "recommendation-filter-by-category"
+    pair = _example_pair(tag, name, _category_events())
+    model = pair["card"]["deployed"].models[0]
+    if model.als.item_factors.device.type != DEVICE:
+        fail(f"[{tag}] the pickled model's factors came back on {model.als.device}")
+    bodies = [{"user": "u1", "num": 4, "categories": ["action"]}, {"user": "u0", "num": 6},
+              {"user": "u0", "num": 6, "categories": ["odd"]},
+              {"user": "u3", "num": 6, "categories": ["even"]},
+              {"user": "u0", "num": 6, "categories": ["nope"]}]
+    cats = model.categories
+    for answers in _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL):
+        for body, result in zip(bodies, answers):
+            wanted = set(body.get("categories") or ())
+            if "categories" in body and not all(wanted & set(cats.get(i, ()))
+                                                for i in _items(result)):
+                fail(f"[{tag}] {json.dumps(body)} answered outside its categories: "
+                     f"{_items(result)}")
+        if not _items(answers[2]) or _items(answers[0]) or _items(answers[4]):
+            fail(f"[{tag}] category answers {[_items(r) for r in answers]}")
+    log(f"[{tag}] the pickled model loaded on the card; only the queries' categories served")
+    return pair, bodies
+
+
+def _example_similar(name: str, bodies: list[dict]):
+    """An example whose answers must be non-empty and never hold a query's
+    own items (or users)."""
+    def run(tag: str, work: str) -> tuple:
+        pair = _example_pair(tag, name, _seed_script_events(name))
+        for answers in _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL):
+            for body, result in zip(bodies, answers):
+                asked = set(body.get("items", body.get("users", ())))
+                if not _items(result) or asked & set(_items(result)):
+                    fail(f"[{tag}] {json.dumps(body)}: {_items(result)}")
+                for s in result.item_scores:
+                    if hasattr(s, "imdb_url") and (s.title, s.imdb_url) != (
+                            f"title for {s.item}", f"http://imdb.com/{s.item}"):
+                        fail(f"[{tag}] {s} is not enriched with its properties")
+        return pair, bodies
+    return run
+
+
+def _example_filterbyyear(tag: str, work: str) -> tuple:
+    name = "similarproduct-filterbyyear"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    bodies = [{"items": ["i1"], "num": 4, "recommendFromYear": 1997},
+              {"items": ["i2"], "num": 5}, {"items": ["i2"], "num": 5, "recommendFromYear": 2001}]
+    for answers in _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL):
+        for body, result in zip(bodies, answers):
+            floor = body.get("recommendFromYear", 1)
+            if not result.item_scores or any(s.year <= floor or s.year != 1990 + int(s.item[1:])
+                                             for s in result.item_scores):
+                fail(f"[{tag}] {json.dumps(body)}: {result.item_scores}")
+    log(f"[{tag}] only years after recommendFromYear served, each with its year")
+    return pair, bodies
+
+
+def _example_multi(tag: str, work: str) -> tuple:
+    name = "similarproduct-multi-events-multi-algos"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    bodies = [{"items": ["i1"], "num": 4}, {"items": ["i2"], "num": 6}]
+    for side, answers in zip(("card", "cpu"), _answer_both(tag, pair, bodies,
+                                                           EXAMPLE_BLEND_TOL, EXAMPLE_BLEND_TOL)):
+        deployed = pair[side]["deployed"]
+        if len(deployed.models) != 2 or not all(_items(r) for r in answers):
+            fail(f"[{tag}] {len(deployed.models)} models, answers "
+                 f"{[_items(r) for r in answers]} ({side})")
+        q = from_wire(deployed.query_class, bodies[1])
+        view_only = _items(deployed.algorithms[0].predict(deployed.models[0], q))
+        blend = _items(answers[1])
+        if "i0" in view_only and "i0" in blend and blend.index("i0") <= view_only.index("i0"):
+            fail(f"[{tag}] the dislikes did not demote i0 ({side}): views {view_only}, "
+                 f"blend {blend}")
+        log(f"[{tag}] {side}: two models; the blend {blend} against the views' {view_only}")
+    return pair, bodies
+
+
+def _example_rate_event(tag: str, work: str) -> tuple:
+    name = "ecommerce-train-with-rate-event"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    _insert_both(pair, pair["app"], Event(
+        event="rate", entity_type="user", entity_id="ghost", target_entity_type="item",
+        target_entity_id="i2", properties=DataMap({"rating": 5.0}), event_id="ghost-1"))
+    bodies = [{"user": "u1", "num": 4}, {"user": "u2", "num": 4}, {"user": "ghost", "num": 4}]
+    for answers in _answer_both(tag, pair, bodies, EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL):
+        if not all(_items(r) for r in answers):
+            fail(f"[{tag}] {[_items(r) for r in answers]}")
+    log(f"[{tag}] the newcomer answered from the live store through the fallback")
+    return pair, bodies
+
+
+def _example_weighted(tag: str, work: str) -> tuple:
+    """Each engine's own third item for u1 weighted 5.0 live in its own
+    store must rise to first."""
+    name = "ecommerce-weighted-items"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    bodies = [{"user": "u1", "num": 4}, {"user": "u1", "num": 6}]
+    targets = {}
+    for side, answers in zip(("card", "cpu"), _answer_both(tag, pair, bodies,
+                                                           EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL)):
+        targets[side] = _items(answers[1])[2]
+        storage = pair[side]["storage"]
+        storage.get_events().insert(Event(
+            event="$set", entity_type="constraint", entity_id="weightedItems",
+            event_id="w-live", event_time=datetime.now(timezone.utc) + timedelta(minutes=1),
+            properties=DataMap({"weights": [{"items": [targets[side]], "weight": 5.0}]})),
+            storage.get_meta_data_apps().get_by_name(pair["app"]).id)
+    for side, answers in zip(("card", "cpu"), _answer_both(tag, pair, bodies,
+                                                           EXAMPLE_SERVE_TOL, EXAMPLE_SERVE_TOL)):
+        if _items(answers[1])[0] != targets[side]:
+            fail(f"[{tag}] weight 5.0 on {targets[side]} did not lift it ({side}): "
+                 f"{_items(answers[1])}")
+    factors = pair["card"]["deployed"].algorithms[0]._weighted_model(
+        pair["card"]["deployed"].models[0]).als.item_factors
+    if factors.device.type != DEVICE:
+        fail(f"[{tag}] the weighted factors are on {factors.device}")
+    log(f"[{tag}] the third item weighted 5.0 live rose to first: {targets}")
+    return pair, bodies
+
+
+def _example_forest(tag: str, work: str) -> tuple:
+    name = "classification-custom-attributes"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    bodies = [{"gender": "Female", "age": 22, "education": "College"},
+              {"gender": "Female", "age": 25, "education": "College"},
+              {"gender": "Male", "age": 55, "education": "No School"}]
+    card, _ = _answer_both(tag, pair, bodies, 0.0, 0.0)
+    labels = [r.label for r in card]
+    if labels != ["premium", "premium", "basic"]:
+        fail(f"[{tag}] labels {labels}")
+    tables = pair["card"]["deployed"].models[0].tables
+    if {t.device.type for t in tables} != {DEVICE}:
+        fail(f"[{tag}] the node tables are not on the card")
+    log(f"[{tag}] labels {labels}; the vote walk over node tables on the card")
+    return pair, bodies
+
+
+def _example_markov(tag: str, work: str) -> tuple:
+    pair = _example_pair(tag, "markov-nextpage", _page_events())
+    bodies = [{"page": "p1", "num": 3}, {"page": "p2", "num": 3}, {"page": "nope", "num": 3}]
+    card, _ = _answer_both(tag, pair, bodies, EXAMPLE_F32_TOL, 0.0)
+    probs = dict(_ranked(card[0]))
+    if set(probs) != {"p2", "p3"} or abs(probs["p2"] - 0.75) > EXAMPLE_F32_TOL:
+        fail(f"[{tag}] from p1: {probs}")
+    return pair, bodies
+
+
+def _example_ridge(tag: str, work: str) -> tuple:
+    pair = _example_pair(tag, "local-regression", _point_events())
+    bodies = [{"features": [2.0, 3.0]}, {"features": [-1.5, 4.0]}]
+    card, _ = _answer_both(tag, pair, bodies, EXAMPLE_RIDGE_TOL, 0.0)
+    if abs(card[0].prediction - (2 * 2.0 - 3 * 3.0 + 5)) > 1e-3:   # λ 0.001 shrinks it
+        fail(f"[{tag}] the plane's prediction at (2, 3): {card[0].prediction}")
+    return pair, bodies
+
+
+def _example_hello(tag: str, work: str) -> tuple:
+    name = "hello-similarity"
+    pair = _example_pair(tag, name, _seed_script_events(name))
+    if pair["card"]["deployed"].models[0].vectors.device.type != DEVICE:
+        fail(f"[{tag}] the vectors did not come back on the card")
+    bodies = [{"entity": "doc1", "num": 2}, {"entity": "doc3", "num": 3},
+              {"entity": "doc4", "num": 5}]
+    card, _ = _answer_both(tag, pair, bodies, EXAMPLE_F32_TOL, 0.0)
+    if _items(card[0]) != ["doc4", "doc2"]:
+        fail(f"[{tag}] doc1's neighbours {_items(card[0])}")
+    return pair, bodies
+
+
+#: phase 31's engines, in ROADMAP order: (directory, the function that
+#: trains it on both devices, answers and checks it)
+EXAMPLES = [
+    ("recommendation-custom-serving", _example_custom_serving),
+    ("recommendation-custom-preparator", _example_custom_preparator),
+    ("recommendation-filter-by-category", _example_filter_by_category),
+    ("similarproduct-no-set-user", _example_similar(
+        "similarproduct-no-set-user", [{"items": ["i1"], "num": 4}, {"items": ["i2"], "num": 4}])),
+    ("similarproduct-recommended-user", _example_similar(
+        "similarproduct-recommended-user",
+        [{"users": ["u1"], "num": 4}, {"users": ["u2", "u4"], "num": 4},
+         {"users": ["u2"], "num": 4, "whiteList": ["u6", "u8", "u3"]}])),
+    ("similarproduct-add-and-return-item-properties", _example_similar(
+        "similarproduct-add-and-return-item-properties",
+        [{"items": ["i1"], "num": 4}, {"items": ["i2"], "num": 4}])),
+    ("similarproduct-filterbyyear", _example_filterbyyear),
+    ("similarproduct-add-rateevent", _example_similar(
+        "similarproduct-add-rateevent", [{"items": ["i1"], "num": 4}, {"items": ["i2"], "num": 4}])),
+    ("similarproduct-multi-events-multi-algos", _example_multi),
+    ("ecommerce-train-with-rate-event", _example_rate_event),
+    ("ecommerce-weighted-items", _example_weighted),
+    ("classification-custom-attributes", _example_forest),
+    ("markov-nextpage", _example_markov),
+    ("local-regression", _example_ridge),
+    ("hello-similarity", _example_hello),
+]
+
+
+def _readme_chain(work: str, out: dict) -> None:
+    """recommendation-custom-serving's README as `pio` processes on the
+    card from a copy of its directory: app new, seed_events.py, build,
+    train, deploy, queries over HTTP, a live edit of disabled.txt and
+    the changed answer with no redeploy."""
+    tag = "examples-readme"
+    copy = os.path.join(work, EXAMPLE_README)
+    shutil.copytree(os.path.join(EXAMPLES_DIR, EXAMPLE_README), copy,
+                    ignore=shutil.ignore_patterns("__pycache__", "disabled.txt"))
+    pio = _Pio(copy)
+    t0 = time.perf_counter()
+    pio.new_app(tag, "CustomServingApp")
+    seeded = subprocess.run([sys.executable, "seed_events.py"], cwd=copy, env=pio.env,
+                            capture_output=True, text=True, timeout=PIO_STEP_TIMEOUT)
+    if seeded.returncode != 0 or "seeded" not in seeded.stdout:
+        raise RuntimeError(f"seed_events.py exited {seeded.returncode}: "
+                           f"{seeded.stdout[-2000:]}{seeded.stderr[-2000:]}")
+    log(f"[{tag}] {seeded.stdout.strip()}")
+    built, _ = pio.run(tag, "build")
+    if "Build successful" not in built:
+        raise RuntimeError(f"pio build: {built[-2000:]}")
+    instance_id = pio.train(tag, "engine.json")
+    proc, port, listen_s = pio.deploy(tag, "engine.json")
+    try:
+        status = _status(port)
+        if status.get("engineInstanceId") != instance_id or \
+                not str(status.get("device", "")).startswith(DEVICE):
+            raise RuntimeError(f"GET / of the deploy: {status}")
+        body = {"user": "u1", "num": 4}
+        code, first, _ = _post(port, body)
+        items = [s["item"] for s in first.get("itemScores", [])]
+        if code != 200 or len(items) != 4:
+            raise RuntimeError(f"{json.dumps(body)} answered {code} {first}")
+        with open(os.path.join(copy, "disabled.txt"), "w") as f:
+            f.write(f"{items[0]}\n")
+        code, after, _ = _post(port, body)
+        again = [s["item"] for s in after.get("itemScores", [])]
+        if code != 200 or again != items[1:]:
+            raise RuntimeError(f"after disabling {items[0]}: {again}, expected {items[1:]}")
+        launches = _status(port).get("kernelLaunches", {})
+        if any(launches.values()):
+            raise RuntimeError(f"the deploy launched the flash kernel {launches} times")
+        log(f"[{tag}] GET / device {status['device']}, instance {instance_id}; {items} → "
+            f"{items[0]} written to disabled.txt → {again}, no redeploy")
+    finally:
+        _stop(proc)
+    out["seconds"] = time.perf_counter() - t0
+    out["listen_s"] = listen_s
+
+
+def phase_examples() -> dict:
+    """Phase 31: the 15 engines of examples_torch/ trained (run_train) and
+    served (load_models, prepare_deploy) on the card in this process,
+    each held against the same engine trained and answered on the CPU
+    from the same events, with its pinned behaviours; meanwhile, in a
+    thread, recommendation-custom-serving's README through `pio`
+    processes on the card."""
+    t0 = time.perf_counter()
+    before = flash_ops.LAUNCHES
+    work = tempfile.mkdtemp(prefix="pio-examples-")
+    chain: dict = {}
+
+    def run_chain():
+        try:
+            _readme_chain(work, chain)
+        except (Exception, SystemExit) as exc:   # fail() exits: reported at the join
+            chain["error"] = exc
+
+    thread = threading.Thread(target=run_chain, name="examples-readme", daemon=True)
+    thread.start()
+    rows = {}
+    try:
+        for name, run in EXAMPLES:
+            tag = f"examples/{name}"
+            with _example_module(name):
+                pair, bodies = run(tag, work)
+                rows[name] = _example_times(tag, pair, bodies)
+            torch.cuda.empty_cache()
+        thread.join(timeout=PIO_STEP_TIMEOUT * 2)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if thread.is_alive() or "error" in chain or "seconds" not in chain:
+        fail(f"[examples-readme] the README through `pio` processes: "
+             f"{chain.get('error', 'did not finish')}")
+    if flash_ops.LAUNCHES != before:
+        fail(f"the example engines launched the flash kernel {flash_ops.LAUNCHES - before} times")
+    log(f"[examples] {len(rows)} engines trained and served on the card, each held against "
+        f"its CPU run; the README's `pio` chain {chain['seconds']:.1f}s (deploy listening "
+        f"after {chain['listen_s']:.1f}s), beside them")
+    log("[examples] " + json.dumps({"engines": rows}))
+    log(f"[examples] phase 31 took {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the host lane: phases 16, 17a, 18, 24, 26, 28 and 29 in a child process
+# ---------------------------------------------------------------------------
+
+#: seconds either lane waits for the other's hand-over file
+LANE_WAIT_S = 2 * PIO_STEP_TIMEOUT
+#: seconds the child has to stop its processes after a SIGTERM
+LANE_STOP_S = 30
+
+
+def _lane_put(lane_dir: str, name: str, doc) -> None:
+    tmp = os.path.join(lane_dir, f".{name}.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, os.path.join(lane_dir, f"{name}.json"))
+
+
+def _lane_get(lane_dir: str, name: str, alive) -> object:
+    """The other lane's ``name`` hand-over, waiting while ``alive()``."""
+    path = os.path.join(lane_dir, f"{name}.json")
+    deadline = time.monotonic() + LANE_WAIT_S
+    while not os.path.exists(path):
+        if not alive():
+            fail(f"[lanes] the other lane ended before it handed over {name}")
+        if time.monotonic() > deadline:
+            fail(f"[lanes] no {name} hand-over within {LANE_WAIT_S}s")
+        time.sleep(0.2)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _stop_with_parent() -> None:
+    """Ends this process's session when the process that started it is
+    gone (killed at its time limit, say): a SIGTERM to the group, which
+    the lane's handler turns into an exit through its `finally` blocks."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(os.getpgrp(), signal.SIGTERM)
+
+    threading.Thread(target=watch, name="lane-parent-watch", daemon=True).start()
+
+
+def host_lane(lane_dir: str) -> None:
+    """The `pio` chain over one store, run by ``--host-lane DIR`` beside
+    the main lane: phase 16 (its instances handed over as phase16.json),
+    17a, 18, 24 (on phase 14's grid scores, taken from phase14.json), 26,
+    28 and 29. Its flash launches, read from its deploy processes and
+    this process's counter, go into result.json."""
+    # a SIGTERM unwinds the phases, whose `finally` blocks stop their servers
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    _stop_with_parent()
+    pio = _Pio(os.path.join(lane_dir, "pio"))
+    launches, instance, rec_instance = timed("16", phase_pio, pio)
+    _lane_put(lane_dir, "phase16", {"instance": instance, "rec_instance": rec_instance})
+    serve_launches = timed("17a", phase_serve_sessionrec, pio, instance)
+    if serve_launches == 0:
+        fail("batched serving never launched the flash_attention kernel")
+    launches += serve_launches
+    ingest_launches = timed("18", phase_ingest, pio)
+    if ingest_launches == 0:
+        fail("the feedback loop's deploy never launched the flash_attention kernel")
+    launches += ingest_launches
+    phase14 = _lane_get(lane_dir, "phase14", lambda: True)   # the watcher ends a lone lane
+    # the grid's launches happen in `pio eval` processes and their
+    # forked workers, which log them per fold
+    grid_launches = timed("24", phase_grid, pio, phase14)
+    if grid_launches == 0:
+        fail("the grid's workers never launched the flash_attention kernel")
+    launches += grid_launches
+    # the launches of phase 26 happen in its `pio deploy` processes
+    # (their GET /) and in its in-process server (LAUNCHES)
+    obs_launches = timed("26", phase_obs, pio, instance[1])
+    if obs_launches == 0:
+        fail("the traced deploys never launched the flash_attention kernel")
+    launches += obs_launches
+    # phase 28's in the router's replicas, read replica by replica
+    router_launches = timed("28", phase_router, pio, instance[0], instance[1],
+                            tuple(rec_instance), GRID_INSTANCE[0])
+    if router_launches == 0:
+        fail("the router's replicas never launched the flash_attention kernel")
+    launches += router_launches
+    # phase 29's in its `pio deploy` process, read on its GET /
+    storage_launches = timed("29", phase_storage, pio, pio.base, GRID_INSTANCE[0],
+                             (PIO_SESSION[0] * PIO_SESSION[1], instance[2]))
+    if storage_launches == 0:
+        fail("the S3-loaded deploy never launched the flash_attention kernel")
+    launches += storage_launches
+    _lane_put(lane_dir, "result", {"launches": launches})
+
+
+class _HostLane:
+    """``host_lane`` as a child process in a session of its own (so that
+    every process it starts is stopped with it), its output in a file
+    that the main lane prints when it joins it."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="pio-lane-")
+        self.base = os.path.join(self.dir, "pio")
+        os.makedirs(self.base)
+        self.log_path = os.path.join(self.dir, "lane.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--host-lane", self.dir],
+                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def put(self, name: str, doc) -> None:
+        _lane_put(self.dir, name, doc)
+
+    def get(self, name: str):
+        return _lane_get(self.dir, name, self.alive)
+
+    def _print_log(self) -> None:
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+
+    def join(self) -> int:
+        """Waits for the lane, prints its log; its flash launches."""
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=LANE_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self._print_log()
+        log(f"[lanes] the host lane took {time.perf_counter() - self.t0:.1f}s (waited "
+            f"{time.perf_counter() - t0:.1f}s at the join)")
+        if rc != 0:
+            fail(f"[lanes] the host lane exited {rc}; its log is above")
+        with open(os.path.join(self.dir, "result.json")) as f:
+            return json.load(f)["launches"]
+
+    def stop(self) -> None:
+        """Stops the lane's session (SIGTERM, then SIGKILL) and removes its
+        directory; after a failure, its log goes to stderr."""
+        if self.alive():
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=LANE_STOP_S)
+            except subprocess.TimeoutExpired:
+                pass
+            with open(self.log_path) as f:
+                sys.stderr.write(f.read()[-20_000:])
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -7258,6 +8051,9 @@ def timed(phase: str, fn, *args):
 
 
 def run_phases(wall: float) -> None:
+    if sys.argv[1:2] == ["--host-lane"]:   # the main path's child process
+        host_lane(sys.argv[2])
+        return
     if sys.argv[1:] == ["--lint-only"]:   # phase 30 alone
         log_card()
         join_lint(start_lint())
@@ -7321,6 +8117,10 @@ def run_phases(wall: float) -> None:
             import_sessions(pio)
             phase_grid(pio, None)
         return
+    if sys.argv[1:] == ["--examples-only"]:   # phase 31 alone
+        log_card()
+        phase_examples()
+        return
     if sys.argv[1:] == ["--e2-only"]:   # phase 25 alone
         log_card()
         phase_e2()
@@ -7345,6 +8145,7 @@ def run_phases(wall: float) -> None:
             pio = _Pio(base)
             if sys.argv[1] == "--pio-only":
                 phase_pio(pio)
+                phase_tie_order()
             elif sys.argv[1] == "--serve-only":
                 phase_serve(pio, pio_sessionrec_instance(pio), random_als_model())
             else:
@@ -7358,73 +8159,54 @@ def run_phases(wall: float) -> None:
     launches = timed("4", phase_serving)
     if launches == 0:
         fail("the serving path never launched the flash_attention kernel")
-    trained_launches = timed("5-8", phase_training)
-    if trained_launches == 0:
-        fail("serving the trained model never launched the flash_attention kernel")
-    launches += trained_launches
-    flash_ops.LAUNCHES = 0
-    als_model = timed("9-13", phase_als)
-    if flash_ops.LAUNCHES:
-        fail(f"the ALS path launched the flash kernel {flash_ops.LAUNCHES} times")
-    torch.cuda.empty_cache()
-    eval_launches, phase14 = timed("14", phase_eval_sessionrec)
-    launches += eval_launches
-    torch.cuda.empty_cache()
-    flash_ops.LAUNCHES = 0
-    timed("15", phase_eval_recommendation)
-    if flash_ops.LAUNCHES:
-        fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
-    torch.cuda.empty_cache()
-    # the launches of phases 16-18 and 26-28 happen in `pio deploy`
-    # processes, which report them on their GET /
-    with tempfile.TemporaryDirectory(prefix="pio-") as base:
-        pio = _Pio(base)
-        pio_launches, instance, rec_instance = timed("16", phase_pio, pio)
-        launches += pio_launches
-        serve_launches = timed("17", phase_serve, pio, instance, als_model)
-        if serve_launches == 0:
-            fail("batched serving never launched the flash_attention kernel")
-        launches += serve_launches
-        ingest_launches = timed("18", phase_ingest, pio)
-        if ingest_launches == 0:
-            fail("the feedback loop's deploy never launched the flash_attention kernel")
-        launches += ingest_launches
-        timed("19-21", phase_templates, pio)
+    # from here on two lanes: the `pio` chain in a child process, the
+    # in-process phases here; the launches of 16-18, 24, 26 and 28-29
+    # happen in the child's `pio deploy` and `pio eval` processes and in
+    # the child itself, which reports their sum
+    lane = _HostLane()
+    try:
+        trained_launches = timed("5-8", phase_training)
+        if trained_launches == 0:
+            fail("serving the trained model never launched the flash_attention kernel")
+        launches += trained_launches
+        flash_ops.LAUNCHES = 0
+        als_model = timed("9-13", phase_als)
+        timed("17b", phase_serve_als, als_model)
+        if flash_ops.LAUNCHES:
+            fail(f"the ALS path and its serving launched the flash kernel "
+                 f"{flash_ops.LAUNCHES} times")
+        torch.cuda.empty_cache()
+        eval_launches, phase14 = timed("14", phase_eval_sessionrec)
+        lane.put("phase14", phase14)   # phase 24's first serial run
+        launches += eval_launches
+        torch.cuda.empty_cache()
+        flash_ops.LAUNCHES = 0
+        timed("15", phase_eval_recommendation)
+        if flash_ops.LAUNCHES:
+            fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
+        timed("16c", phase_tie_order)   # its seqrec check runs a small model through flash
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            timed("19-21", phase_templates, _Pio(base))
         torch.cuda.empty_cache()
         timed("22", phase_ann, als_model)
         torch.cuda.empty_cache()
+        timed("25", phase_e2)
+        torch.cuda.empty_cache()
+        timed("31", phase_examples)
+        # 23 and 27 over phase 16's store, beside the child's later phases
+        handed = lane.get("phase16")
+        instance, rec_instance = handed["instance"], tuple(handed["rec_instance"])
+        pio = _Pio(lane.base)
         timed("23", phase_online, pio, rec_instance)
-        # the grid's launches happen in `pio eval` processes and their
-        # forked workers, which log them per fold
-        grid_launches = timed("24", phase_grid, pio, phase14)
-        if grid_launches == 0:
-            fail("the grid's workers never launched the flash_attention kernel")
-        launches += grid_launches
-        # the launches of phase 26 happen in its `pio deploy` processes
-        # (their GET /) and in its in-process server (LAUNCHES)
-        obs_launches = timed("26", phase_obs, pio, instance[1])
-        if obs_launches == 0:
-            fail("the traced deploys never launched the flash_attention kernel")
-        launches += obs_launches
-        # phase 27's in its pools' workers, read worker by worker
+        # phase 27's launches in its pools' workers, read worker by worker
         pool_launches = timed("27", phase_pool, pio, instance[0], instance[1], rec_instance)
         if pool_launches == 0:
             fail("the worker pools never launched the flash_attention kernel")
         launches += pool_launches
-        # phase 28's in the router's replicas, read replica by replica
-        router_launches = timed("28", phase_router, pio, instance[0], instance[1],
-                                rec_instance, GRID_INSTANCE[0])
-        if router_launches == 0:
-            fail("the router's replicas never launched the flash_attention kernel")
-        launches += router_launches
-        # phase 29's in its `pio deploy` process, read on its GET /
-        storage_launches = timed("29", phase_storage, pio, base, GRID_INSTANCE[0],
-                                 (PIO_SESSION[0] * PIO_SESSION[1], instance[2]))
-        if storage_launches == 0:
-            fail("the S3-loaded deploy never launched the flash_attention kernel")
-        launches += storage_launches
-    torch.cuda.empty_cache()
-    timed("25", phase_e2)
+        launches += lane.join()
+    finally:
+        lane.stop()
     log(f"[wall] chip_smoke.py took {time.perf_counter() - wall:.1f}s")
     kernels = [{
         "name": "flash_attention",

@@ -199,13 +199,19 @@ def device_tables(model: ForestModel, device=None) -> tuple[torch.Tensor, ...]:
             as_t(model.leaf_class, torch.int64))
 
 
-def predict_forest(model: ForestModel, features, device=None) -> np.ndarray:
+def predict_forest(model: ForestModel, features, device=None, tables=None) -> np.ndarray:
     """(B, C) vote counts for a batch of query feature vectors, walked on
-    ``device`` (a tensor's own device when None, else the card)."""
+    ``device`` (a tensor's own device when None, else the card). With
+    ``tables``, the model's node tables already on a device (what
+    :func:`device_tables` returns), the walk runs there on them and
+    uploads nothing but the features."""
+    if tables is not None:
+        device = tables[0].device
     X = as_device_tensor(features, torch.float32, device)
     X = X.reshape(1, -1) if X.dim() == 1 else X
-    return _forest_votes(*device_tables(model, X.device), X, model.max_depth,
-                         model.num_classes).cpu().numpy()
+    if tables is None:
+        tables = device_tables(model, X.device)
+    return _forest_votes(*tables, X, model.max_depth, model.num_classes).cpu().numpy()
 
 
 def params_from_jax(feature: np.ndarray, threshold: np.ndarray, left: np.ndarray,
