@@ -7,9 +7,9 @@ Phases, numbered as they were added; any failure exits non-zero. Phases
 process of this script (``--host-lane``, its log printed when it is
 joined, its processes stopped with it) runs the `pio` chain 16, 17a,
 18, 24, 26, 28 and 29 over one store, while this process runs 5-13,
-17b, 14, 15, 16c, 19-22, 25 and 31, and then 23 and 27 over the
-child's phase-16 instances. Phase 14 hands its grid scores to 24 through
-a file, 16 its instances to 23 and 27. Phase 3's timings, which make
+17b, 14, 15, 16c, 19-22, 25, 31 and 32, and then 33, 23 and 27 over the
+child's phase-16 store. Phase 14 hands its grid scores to 24 through
+a file, 16 its instances to 33, 23 and 27. Phase 3's timings, which make
 the `kernels` line, are taken before the lanes start; the seconds and
 rates logged after it are taken with the other lane running.
 
@@ -373,24 +373,44 @@ rates logged after it are taken with the other lane running.
    train`, `pio deploy` (whose GET / names the card), a query over
    HTTP, a live edit of disabled.txt and the same query without the
    disabled item, no redeploy; no flash kernel is launched;
-32. a `kernels` JSON line, then the result line
+32. the chunked and bucketed ALS layouts on phase 9's ML-20M-shape
+   ratings at rank 32, λ 0.08: both sides packed by the native chunker
+   (chunks of 512 then 128), bucketizer (from 8, growth 2) and capped
+   bucketizer (4,096 ratings a row), `als.NATIVE_CHUNKS` and
+   `NATIVE_BUCKETS` showing that they served, and each equal to the
+   NumPy path on the first 4M ratings; the bf16 route through
+   `solve_half` over 3 iterations for the fused ladder (the reference),
+   the bucketed layout streamed from the host, resident, and the
+   chunked layout: ms an iteration by CUDA events, ratings/s, RMSE
+   (within 0.02 of fused's), peak device memory (streamed below
+   resident), launches and device ms of one iteration by torch.profiler;
+   each layout's f32 user half-step against float64 Cholesky on 4,096
+   rows (1e-4; the capped one on its own columns) and, uncapped, against
+   the fused f32 half-step; `als_train(max_row_len=4096,
+   hbm_resident=False)` for one iteration; beside phase 9's numbers;
+33. `pio export --format parquet` of 16b's ML-100k app (102,000 events)
+   from the child's store, read only; `pio import` of the file (Parquet
+   by its suffix) into a fresh store; JSON-lines exports of both apps,
+   equal line for line (without pyarrow: both commands exit 1 with the
+   JAX package's message);
+34. a `kernels` JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
-`--router-only`, `--storage-only`, `--lint-only` and `--examples-only`
-run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28,
-29, 30 and 31 alone
+`--router-only`, `--storage-only`, `--lint-only`, `--examples-only`,
+`--als-layouts-only` and `--parquet-only` run phases 9-13, 14-15, 16,
+17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32 and 33 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
 train, 27 over 16a's and 16b's, 28 over 16a's and 16b's and a serial
 `pio eval` of phase 24's two grid points, 29 with its dashboard over a
-serial `pio eval` of those points on 16 of 16a's users) and print no
-result line. Phases
-22, 23, 25 and 31 launch no flash kernel. Exits non-zero, printing no result,
+serial `pio eval` of those points on 16 of 16a's users, 33 over a 16b
+import and train) and print no result line. Phases
+22, 23, 25, 31 and 32 launch no flash kernel. Exits non-zero, printing no result,
 when there is no card.
 """
 
@@ -399,6 +419,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -414,6 +435,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime, timedelta, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -1399,13 +1421,14 @@ def _bound_ms(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0) ->
 
 
 def _profile_programs(tag: str, iteration, V_item, V_user, dev_user, dev_item,
-                      iter_ms: float) -> None:
+                      iter_ms: float) -> tuple[float | None, int]:
     """Device time, launches and bound of the torch code that replaced each
     XLA program of the fused ALS path, for one bf16 iteration at rank
     ALS_RANK: the normal-equation build of every slab, the batched CG on
     the systems it built, and the whole iteration (the fused loop, whose
     remainder is the write-back and the masks); the busy share is the
-    iteration's device time over ``iter_ms``, timed without the profiler."""
+    iteration's device time over ``iter_ms``, timed without the profiler.
+    Returns the iteration's (device ms, launches)."""
     K = ALS_RANK
     halves = ((V_item, dev_user), (V_user, dev_item))
 
@@ -1434,7 +1457,7 @@ def _profile_programs(tag: str, iteration, V_item, V_user, dev_user, dev_item,
     it_ms, it_n = _profile(iteration, top=tag)
     if None in (build_ms, cg_ms, it_ms):
         log(f"[{tag}] device time by program: not recorded")
-        return
+        return it_ms, it_n
     log(f"[{tag}] normal-equation build (_normal_eq_build, every slab): device_ms={build_ms:.3f} "
         f"launches={build_n} bound_ms="
         f"{_bound_ms(entries * 8 + rows * (K * K + K) * 4, bf16_flops=entries * (2 * K * K + 2 * K))}")
@@ -1446,11 +1469,13 @@ def _profile_programs(tag: str, iteration, V_item, V_user, dev_user, dev_item,
         f"{it_n - build_n - cg_n} launches) device_busy_share={it_ms / iter_ms:.4f} "
         f"(of the unprofiled {iter_ms:.3f} ms) bound_ms="
         f"{_bound_ms(entries * 8 + 2 * tables, bf16_flops=entries * (2 * K * K + 2 * K), f32_flops=rows * steps * (2 * K * K + 8 * K))}")
+    return it_ms, it_n
 
 
 def phase_als_train() -> dict:
-    """Phases 9-10. Returns what serving needs: the ratings, the bf16
-    factors and the host user buckets."""
+    """Phases 9-10. Returns what serving needs: the ratings and the bf16
+    factors; and, under "fused", the bf16 route's ms an iteration, the
+    device ms and launches of one profiled iteration and its RMSE."""
     n_users, n_items, nnz = ML20M
     t0 = time.perf_counter()
     coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
@@ -1503,8 +1528,9 @@ def phase_als_train() -> dict:
     if abs(rmse_bf16 - rmse_f32) > RMSE_BF16_TOL:
         fail(f"bf16 RMSE {rmse_bf16} vs f32 {rmse_f32}: more than {RMSE_BF16_TOL} apart")
     log(f"[als] |rmse bf16 - f32| = {abs(rmse_bf16 - rmse_f32):.3e} (tol {RMSE_BF16_TOL})")
-    _profile_programs("als/profile", lambda: train(1, True), item, user, dev_user, dev_item,
-                      bf16_ms)
+    it_ms, it_n = _profile_programs("als/profile", lambda: train(1, True), item, user,
+                                    dev_user, dev_item, bf16_ms)
+    fused = {"ms": bf16_ms, "launches": it_n, "device_ms": it_ms, "rmse": rmse_bf16}
 
     rated, active = _row_locator(by_user)
     rng = np.random.default_rng(SEED + 4)
@@ -1568,7 +1594,7 @@ def phase_als_train() -> dict:
             fail(f"the rank-{RANK200} half-step is more than {RANK200_ROWS_RTOL} from float64")
     del dev_user, dev_item, X
     torch.cuda.empty_cache()
-    return {"coo": coo, "user": user, "item": item}
+    return {"coo": coo, "user": user, "item": item, "fused": fused}
 
 
 def _seen_lists(coo: als.RatingsCOO, rows) -> dict[int, np.ndarray]:
@@ -1860,18 +1886,19 @@ def _ml100k_queries(rng) -> list[dict]:
                {"user": "stranger", "num": 10}])
 
 
-def phase_als() -> ALSModel:
-    """Phases 9-13; returns the ML-20M-shape model phase 11 served."""
+def phase_als() -> tuple[ALSModel, dict]:
+    """Phases 9-13; returns the ML-20M-shape model phase 11 served and
+    phase 9's fused bf16 numbers (phase 32 logs them)."""
     t0 = time.perf_counter()
     trained = phase_als_train()
-    model = phase_als_serving(trained)
+    model, fused = phase_als_serving(trained), trained["fused"]
     del trained
     torch.cuda.empty_cache()
     phase_topk_envelope()
     torch.cuda.empty_cache()
     phase_recommendation_template()
     log(f"[als] phases 9-13 took {time.perf_counter() - t0:.1f}s")
-    return model
+    return model, fused
 
 
 def _timed_engine(engine: Engine, stages: list, engine_cls: type = Engine) -> Engine:
@@ -7873,6 +7900,341 @@ def phase_examples() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 32: the chunked and bucketed ALS layouts at the ML-20M shape
+# ---------------------------------------------------------------------------
+
+#: the JAX package's layout defaults (ops/als.py:1321-1343): chunks of
+#: 512 then 128 ratings, buckets from 8 ratings growing by 2; the row cap
+#: of phase 32's capped layout (the heaviest user rates 27,906 items, the
+#: heaviest item is rated 69,408 times)
+LAYOUT_CHUNKS = (512, 128)
+LAYOUT_MIN_BUCKET, LAYOUT_GROWTH, LAYOUT_ROW_CAP = 8, 2, 4096
+
+
+def _layout_iterations(by_user, by_item, item0: torch.Tensor, iters: int):
+    """``iters`` bf16 iterations through ``als.solve_half`` from ``item0``,
+    users first: als_train's loop over layouts packed (and staged) once."""
+    item = item0
+    for _ in range(iters):
+        user = als.solve_half(item, by_user, ALS_RANK, ALS_LAM, matmul_dtype="bfloat16",
+                              cg_matvec_dtype="auto")
+        item = als.solve_half(user, by_item, ALS_RANK, ALS_LAM, matmul_dtype="bfloat16",
+                              cg_matvec_dtype="auto")
+    return user, item
+
+
+def _packed(tag: str, counter: str, pack, coo: als.RatingsCOO) -> tuple[tuple, float]:
+    """Both orientations of ``coo`` through ``pack``, whose native packer
+    must serve both (``als.<counter>`` moves by 2); (layouts, seconds)."""
+    before = getattr(als, counter)
+    t0 = time.perf_counter()
+    out = pack(coo), pack(coo.transpose())
+    seconds = time.perf_counter() - t0
+    if getattr(als, counter) != before + 2:
+        fail(f"[{tag}] the native packer served {getattr(als, counter) - before} of 2 layouts")
+    return out, seconds
+
+
+def _layout_shape(layout) -> str:
+    """Slabs, slab steps at rank ALS_RANK and padded entries of a host layout."""
+    parts = [s.cols.shape for s in (layout.slabs if isinstance(layout, als.ChunkedRatings)
+                                    else layout.buckets)]
+    steps = sum(als._slab_shape(n, L, ALS_RANK, 1, als._MAX_SLAB_ELEMS)[0] for n, L in parts)
+    padded = sum(n * L for n, L in parts)
+    if isinstance(layout, als.ChunkedRatings):
+        return (f"{' + '.join(f'{n} x {L}' for n, L in parts)} chunks, {steps} slab steps, "
+                f"{padded} padded entries")
+    return (f"{len(parts)} buckets, {steps} slabs, longest pad {max(L for _, L in parts)}, "
+            f"{padded} padded entries")
+
+
+def _same_slabs(got, want) -> bool:
+    return len(got) == len(want) and all(
+        np.array_equal(getattr(g, f), getattr(w, f)) and getattr(g, f).dtype == getattr(w, f).dtype
+        for g, w in zip(got, want) for f in ("row_ids", "cols", "vals", "deg"))
+
+
+def _same_capped(got, want, counts: np.ndarray, cap: int) -> bool:
+    """Capped buckets: the same rows and degrees; a row of at most ``cap``
+    ratings equal, a capped row the same values (the two paths may keep
+    other columns at tied values, tests/test_als.py:467-494)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if not (np.array_equal(g.row_ids, w.row_ids) and np.array_equal(g.deg, w.deg)):
+            return False
+        cut = counts[g.row_ids] > cap
+        if not (np.array_equal(g.cols[~cut], w.cols[~cut]) and
+                np.array_equal(g.vals[~cut], w.vals[~cut]) and
+                np.array_equal(np.sort(g.vals[cut], axis=1), np.sort(w.vals[cut], axis=1))):
+            return False
+    return True
+
+
+def layouts_native_vs_numpy(tag: str, coo: als.RatingsCOO) -> None:
+    """Both orientations of the COO's first LADDER_CHECK_RATINGS ratings
+    through the native packers and the NumPy paths: chunked and bucketed
+    equal array for array, capped as :func:`_same_capped` says."""
+    n = min(LADDER_CHECK_RATINGS, coo.nnz)
+    sub = als.RatingsCOO(coo.rows[:n], coo.cols[:n], coo.vals[:n], coo.num_rows, coo.num_cols)
+    seconds: dict[str, list[float]] = {}
+    for side, c in (("user", sub), ("item", sub.transpose())):
+        counts = np.bincount(c.rows, minlength=c.num_rows)
+        for name, pack, same in (
+                ("chunked", lambda c, nat: als.chunk_rows(c, LAYOUT_CHUNKS, nat).slabs,
+                 _same_slabs),
+                ("bucketed", lambda c, nat: als.bucket_rows(
+                    c, LAYOUT_MIN_BUCKET, LAYOUT_GROWTH, use_native=nat).buckets, _same_slabs),
+                (f"capped at {LAYOUT_ROW_CAP}", lambda c, nat: als.bucket_rows(
+                    c, LAYOUT_MIN_BUCKET, LAYOUT_GROWTH, LAYOUT_ROW_CAP, nat).buckets,
+                 lambda g, w: _same_capped(g, w, counts, LAYOUT_ROW_CAP))):
+            t0 = time.perf_counter()
+            got = pack(c, True)
+            t1 = time.perf_counter()
+            want = pack(c, False)
+            t2 = time.perf_counter()
+            if not same(got, want):
+                fail(f"[{tag}] the native {name} {side} layout differs from the NumPy path's")
+            acc = seconds.setdefault(name, [0.0, 0.0])
+            acc[0] += t1 - t0
+            acc[1] += t2 - t1
+    log(f"[{tag}] of the first {n} ratings, both orientations, native against NumPy: "
+        + "; ".join(f"{name} {a:.3f}s / {b:.3f}s ({b / a:.1f}x)" for name, (a, b) in
+                    seconds.items()) + " — equal (capped rows: the same values)")
+
+
+def _time_route(tag: str, layouts, item0: torch.Tensor, coo: als.RatingsCOO,
+                executed: float, stage=None) -> dict:
+    """A bf16 route: ``layouts`` (by user, by item) staged by ``stage``
+    (None: streamed from the host), one warm-up iteration, then
+    ALS_TIMED_ITERS iterations between CUDA events; ms an iteration, RMSE
+    and the peak device memory above what was allocated before staging.
+    The staged layouts are returned for the profile and the f32 check."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    by = layouts if stage is None else tuple(stage(x) for x in layouts)
+    _layout_iterations(*by, item0, 1)
+    ms, (user, item) = _events_ms(lambda: _layout_iterations(*by, item0, ALS_TIMED_ITERS))
+    peak = torch.cuda.max_memory_allocated() - base
+    per_iter = ms / ALS_TIMED_ITERS
+    err = als.rmse(als.ALSFactors(user, item), coo)
+    log(f"[{tag}] bf16, {ALS_TIMED_ITERS} iterations: ms_per_iteration={per_iter:.3f} "
+        f"ratings_per_s={coo.nnz / (per_iter / 1e3):.0f} "
+        f"executed_tflops={executed / (per_iter / 1e3) / 1e12:.4f} rmse={err:.5f} "
+        f"peak_mem_gb={peak / 1e9:.3f} (above the phase's allocations)")
+    return {"ms": per_iter, "rmse": err, "peak": peak, "item": item, "layouts": by}
+
+
+def _profile_route(tag: str, route: dict, item0: torch.Tensor) -> None:
+    """Device ms and launches of one iteration of a timed route, by
+    torch.profiler, and the busy share against its unprofiled ms."""
+    dev_ms, launches = _profile(lambda: _layout_iterations(*route["layouts"], item0, 1),
+                                top=tag)
+    route.update(device_ms=dev_ms, launches=launches)
+    log(f"[{tag}] one profiled iteration: launches={launches} device_ms={_fmt(dev_ms)} "
+        f"device_busy_share={_fmt(dev_ms and dev_ms / route['ms'], 4)}")
+
+
+def _f32_half_step(tag: str, V: torch.Tensor, layout, rated, rows: np.ndarray,
+                   fused: torch.Tensor | None = None) -> torch.Tensor:
+    """The f32 user half-step over ``layout`` (build and CG matvec in f32)
+    against float64 Cholesky on ``rows``, and, given one, against the
+    fused layout's f32 half-step (relative Frobenius error)."""
+    ms, X = _events_ms(lambda: als.solve_half(V, layout, ALS_RANK, ALS_LAM,
+                                              matmul_dtype="float32",
+                                              cg_matvec_dtype="float32"))
+    errs = _f64_half_step_err(V, X, rated, rows, ALS_LAM)
+    msg = (f"[{tag}] f32 user half-step in {ms:.3f} ms; vs float64 Cholesky on {len(rows)} "
+           f"rows: max_rel_err={errs.max():.3e} median={np.median(errs):.3e} "
+           f"(tol {CG_F32_RTOL:g})")
+    if fused is not None:
+        off = (torch.linalg.vector_norm(X - fused) / torch.linalg.vector_norm(fused)).item()
+        msg += f"; vs the fused f32 half-step: rel_err={off:.3e} (tol {CG_F32_RTOL:g})"
+        if not off <= CG_F32_RTOL:
+            fail(f"[{tag}] the f32 half-step is {off:.3e} from the fused layout's")
+    log(msg)
+    if not errs.max() <= CG_F32_RTOL:
+        fail(f"[{tag}] the f32 half-step disagrees with float64")
+    return X
+
+
+def phase_als_layouts(fused9: dict | None) -> None:
+    """Phase 32: the chunked and bucketed layouts on phase 9's ML-20M-shape
+    COO at rank ALS_RANK, λ ALS_LAM: native packing of both sides
+    (checked against the NumPy paths on a prefix); the bf16 route of the
+    bucketed layout streamed from the host, the fused ladder (the
+    reference), the bucketed layout resident and the chunked layout,
+    all timed before any is profiled; each one's f32 half-step against
+    float64 and the fused f32 half-step (the capped layout against
+    float64 on its own columns); the streamed peak below the resident
+    one; then ``als_train``'s "auto" route with the row cap and
+    streaming, one iteration. Phase 9's fused numbers, ``fused9``, are
+    logged beside them where that phase ran."""
+    tag = "layouts"
+    t_phase = time.perf_counter()
+    flash_before = flash_ops.LAUNCHES
+    n_users, n_items, nnz = ML20M
+    coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
+    chunks, t_chunks = _packed(tag, "NATIVE_CHUNKS",
+                               lambda c: als.chunk_rows(c, LAYOUT_CHUNKS), coo)
+    buckets, t_buckets = _packed(tag, "NATIVE_BUCKETS", lambda c: als.bucket_rows(
+        c, LAYOUT_MIN_BUCKET, LAYOUT_GROWTH), coo)
+    capped, t_capped = _packed(tag, "NATIVE_BUCKETS", lambda c: als.bucket_rows(
+        c, LAYOUT_MIN_BUCKET, LAYOUT_GROWTH, LAYOUT_ROW_CAP), coo)
+    for side, i in (("user", 0), ("item", 1)):
+        log(f"[{tag}] {side} side: chunked {_layout_shape(chunks[i])}; bucketed "
+            f"{_layout_shape(buckets[i])}; capped at {LAYOUT_ROW_CAP}: "
+            f"{_layout_shape(capped[i])}, {sum(int(b.deg.sum()) for b in capped[i].buckets)} "
+            f"ratings kept of {nnz}")
+    log(f"[{tag}] native packing of both sides of {nnz} ratings: chunk_rows {t_chunks:.3f}s, "
+        f"bucket_rows {t_buckets:.3f}s, capped {t_capped:.3f}s")
+    layouts_native_vs_numpy(tag, coo)
+
+    t_packed = time.perf_counter()
+
+    # every route timed before the first profiler session, which leaves
+    # host cost on the launches after it (the fused route is timed again
+    # after the profiles to show it)
+    item0 = als.init_item_factors(n_items, ALS_RANK, SEED).to(DEVICE)
+    ladder = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    flops = {name: sum(als.half_step_flops(x, ALS_RANK)["executed_flops"] for x in side)
+             for name, side in (("fused", ladder), ("bucketed", buckets), ("chunked", chunks))}
+    h2d = sum(b.row_ids.size * 8 + np.prod(als._slab_shape(len(b.row_ids), b.pad_len, ALS_RANK,
+                                                           1, als._MAX_SLAB_ELEMS)) * 4
+              * (2 * b.pad_len + 1) for side in buckets for b in side.buckets)
+    log(f"[{tag}/streamed] host to device per iteration: {h2d / 1e9:.3f} GB of padded slabs")
+    stage_b = lambda b: als.stage_buckets(b, ALS_RANK, device=DEVICE)  # noqa: E731
+    routes = {"streamed": _time_route(f"{tag}/streamed", buckets, item0, coo,
+                                      flops["bucketed"])}
+    routes["fused"] = _time_route(f"{tag}/fused", ladder, item0, coo, flops["fused"], stage_b)
+    routes["resident"] = _time_route(f"{tag}/resident", buckets, item0, coo,
+                                     flops["bucketed"], stage_b)
+    routes["chunked"] = _time_route(f"{tag}/chunked", chunks, item0, coo, flops["chunked"],
+                                    lambda c: als.stage_chunks(c, ALS_RANK, device=DEVICE))
+    del ladder
+    t_timed = time.perf_counter()
+    for name, route in routes.items():
+        _profile_route(f"{tag}/{name}", route, item0)
+    ms, _ = _events_ms(lambda: _layout_iterations(*routes["fused"]["layouts"], item0,
+                                                  ALS_TIMED_ITERS))
+    log(f"[{tag}/fused] timed again after the profiler sessions: ms_per_iteration="
+        f"{ms / ALS_TIMED_ITERS:.3f} (before them {routes['fused']['ms']:.3f})")
+    t_profiled = time.perf_counter()
+
+    # f32 user half-steps from the fused route's items, against float64
+    # and, uncapped, against the fused layout's
+    rated, active = _row_locator(buckets[0])
+    rows = np.random.default_rng(SEED + 32).choice(active, CG_CHECK_ROWS[0], replace=False)
+    V = routes["fused"]["item"]
+    X_fused = _f32_half_step(f"{tag}/fused", V, routes["fused"]["layouts"][0], rated, rows)
+    for name in ("streamed", "resident", "chunked"):
+        _f32_half_step(f"{tag}/{name}", V, routes[name]["layouts"][0], rated, rows, X_fused)
+    for route in routes.values():
+        del route["layouts"]
+    # the capped layout on the sampled rows and on every row it cut
+    cut = np.concatenate([b.row_ids[b.deg > LAYOUT_ROW_CAP] for b in buckets[0].buckets])
+    _f32_half_step(f"{tag}/capped", V, stage_b(capped[0]), _row_locator(capped[0])[0],
+                   np.union1d(rows, cut))
+    log(f"[{tag}/capped] {len(cut)} users cut to {LAYOUT_ROW_CAP} ratings among those rows")
+    del X_fused
+    torch.cuda.empty_cache()
+
+    if not routes["streamed"]["peak"] < routes["resident"]["peak"]:
+        fail(f"[{tag}] streamed peak {routes['streamed']['peak']} is not below the resident "
+             f"{routes['resident']['peak']}")
+    for name in ("streamed", "resident", "chunked"):
+        off = abs(routes[name]["rmse"] - routes["fused"]["rmse"])
+        if not off <= RMSE_BF16_TOL:
+            fail(f"[{tag}] {name} bf16 RMSE {routes[name]['rmse']} is {off} from fused's")
+    before = als.NATIVE_BUCKETS
+    t0 = time.perf_counter()
+    f = als.als_train(coo, ALS_RANK, iterations=1, lam=ALS_LAM, max_row_len=LAYOUT_ROW_CAP,
+                      hbm_resident=False, item0=item0, device=DEVICE)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    if als.NATIVE_BUCKETS != before + 2 or not (torch.isfinite(f.user).all()
+                                                and torch.isfinite(f.item).all()):
+        fail(f"[{tag}] als_train(max_row_len, hbm_resident=False): native packs "
+             f"{als.NATIVE_BUCKETS - before}, finite {torch.isfinite(f.item).all().item()}")
+    log(f"[{tag}] als_train(max_row_len={LAYOUT_ROW_CAP}, hbm_resident=False): \"auto\" "
+        f"took the bucketed layout, packed natively, streamed one iteration: {t_train:.3f}s "
+        f"with the packing, finite factors")
+    log(f"[{tag}] seconds: packing and the NumPy check {t_packed - t_phase:.1f}, timed routes "
+        f"{t_timed - t_packed:.1f}, profiles {t_profiled - t_timed:.1f}, f32 checks and "
+        f"als_train {time.perf_counter() - t_profiled:.1f}")
+    if flash_ops.LAUNCHES != flash_before:
+        fail(f"[{tag}] the ALS layouts launched the flash kernel")
+    table = {name: {k: r[k] for k in ("ms", "launches", "device_ms", "rmse")} |
+             {"peak_gb": r["peak"] / 1e9} for name, r in routes.items()}
+    if fused9:
+        table["fused (phase 9)"] = fused9
+    log(f"[{tag}] per iteration, bf16, rank {ALS_RANK}: " + json.dumps(table))
+
+
+# ---------------------------------------------------------------------------
+# phase 33: Parquet `pio export` / `pio import`
+# ---------------------------------------------------------------------------
+
+NO_PYARROW = ("[ERROR] Parquet support requires pyarrow "
+              "(pip install 'predictionio-tpu[parquet]').")
+
+
+def phase_parquet(pio: _Pio) -> None:
+    """Phase 33: `pio export --format parquet` of 16b's ML-100k app from
+    ``pio``'s store (read only), `pio import` of the file (Parquet by its
+    suffix) into a fresh store, and JSON-lines exports of both apps,
+    equal line for line. Without pyarrow, both commands must exit 1 with
+    the JAX package's message."""
+    tag = "parquet"
+    storage = Storage({"PIO_FS_BASEDIR": pio.env["PIO_FS_BASEDIR"]})
+    try:
+        app_id = storage.get_meta_data_apps().get_by_name("ML100k").id
+    finally:
+        storage.close()
+    want = ML100K[2] + ML100K[3]
+    with tempfile.TemporaryDirectory(prefix="pio-parquet-") as work:
+        path = os.path.join(work, "ml100k.parquet")
+        copy = _Pio(work)
+        copy_app = copy.new_app(tag, "ML100kCopy")
+        export = ("export", "--appid", str(app_id), "--output", path, "--format", "parquet")
+        if importlib.util.find_spec("pyarrow") is None:
+            out, _ = pio.run(tag, *export, expect=1)
+            with open(path, "wb") as f:
+                f.write(b"PAR1")
+            out_import, _ = copy.run(tag, "import", "--appid", str(copy_app), "--input", path,
+                                     expect=1)
+            if NO_PYARROW not in out or NO_PYARROW not in out_import:
+                fail(f"[{tag}] without pyarrow: {out!r} / {out_import!r}")
+            log(f"[{tag}] pyarrow is not installed: `pio export --format parquet` and `pio "
+                f"import` of a .parquet file exit 1 with the JAX package's message")
+            return
+        src, dst = os.path.join(work, "src.jsonl"), os.path.join(work, "copy.jsonl")
+        with ThreadPoolExecutor(1) as side:   # the source's JSON export beside the round trip
+            src_export = side.submit(pio.run, tag, "export", "--appid", str(app_id),
+                                     "--output", src)
+            out, t_export = pio.run(tag, *export)
+            if f"Exported {want} events to {path}" not in out:
+                fail(f"[{tag}] export: {out}")
+            out, t_import = copy.run(tag, "import", "--appid", str(copy_app), "--input", path)
+            if f"Imported {want} events from {path}" not in out:
+                fail(f"[{tag}] import: {out}")
+            src_export.result()
+        copy.run(tag, "export", "--appid", str(copy_app), "--output", dst)
+        lines = []
+        for p in (src, dst):
+            with open(p) as f:
+                lines.append(sorted(f.read().splitlines()))
+        if lines[0] != lines[1] or len(lines[0]) != want:
+            fail(f"[{tag}] the JSON exports differ: {len(lines[0])} against {len(lines[1])} "
+                 f"lines, {sum(a != b for a, b in zip(*lines))} unequal")
+        log(f"[{tag}] {want} events of app {app_id}: `pio export --format parquet` "
+            f"{t_export:.3f}s ({want / t_export:.0f} events/s, {os.path.getsize(path)} bytes), "
+            f"`pio import` into a fresh store {t_import:.3f}s ({want / t_import:.0f} events/s); "
+            f"the JSON exports of both apps equal line for line")
+
+
+# ---------------------------------------------------------------------------
 # the host lane: phases 16, 17a, 18, 24, 26, 28 and 29 in a child process
 # ---------------------------------------------------------------------------
 
@@ -8093,6 +8455,17 @@ def run_phases(wall: float) -> None:
     if sys.argv[1:] == ["--als-only"]:   # phases 9-13 alone; prints no result line
         phase_als()
         return
+    if sys.argv[1:] == ["--als-layouts-only"]:   # phase 32 alone; prints no result line
+        log_card()
+        phase_als_layouts(None)
+        return
+    if sys.argv[1:] == ["--parquet-only"]:   # phase 33 alone, over a fresh 16b import and train
+        log_card()
+        with tempfile.TemporaryDirectory(prefix="pio-") as base:
+            pio = _Pio(base)
+            pio_recommendation_instance(pio)[2].close()
+            phase_parquet(pio)
+        return
     if sys.argv[1:] == ["--eval-only"]:  # phases 14-15 alone; prints no result line
         log_card()
         phase_eval_sessionrec()
@@ -8170,7 +8543,7 @@ def run_phases(wall: float) -> None:
             fail("serving the trained model never launched the flash_attention kernel")
         launches += trained_launches
         flash_ops.LAUNCHES = 0
-        als_model = timed("9-13", phase_als)
+        als_model, fused9 = timed("9-13", phase_als)
         timed("17b", phase_serve_als, als_model)
         if flash_ops.LAUNCHES:
             fail(f"the ALS path and its serving launched the flash kernel "
@@ -8194,10 +8567,15 @@ def run_phases(wall: float) -> None:
         timed("25", phase_e2)
         torch.cuda.empty_cache()
         timed("31", phase_examples)
-        # 23 and 27 over phase 16's store, beside the child's later phases
+        torch.cuda.empty_cache()
+        timed("32", phase_als_layouts, fused9)
+        torch.cuda.empty_cache()
+        # 33, 23 and 27 over phase 16's store, beside the child's later
+        # phases; 33 reads 16b's app before 23 and 27 add events to it
         handed = lane.get("phase16")
         instance, rec_instance = handed["instance"], tuple(handed["rec_instance"])
         pio = _Pio(lane.base)
+        timed("33", phase_parquet, pio)
         timed("23", phase_online, pio, rec_instance)
         # phase 27's launches in its pools' workers, read worker by worker
         pool_launches = timed("27", phase_pool, pio, instance[0], instance[1], rec_instance)

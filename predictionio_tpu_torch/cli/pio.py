@@ -9,7 +9,8 @@ port serves).
 - ``app new|list|show|delete|data-delete|channel-new|channel-delete``
   (a new app gets an access key) and ``accesskey new|list|delete``
   (``new --event E`` whitelists event names);
-- ``import`` / ``export``: events as JSON lines;
+- ``import`` / ``export``: events as JSON lines or, with ``--format
+  parquet`` (import: also a ``*.parquet`` input), Parquet (pyarrow);
 - ``eventserver``: the event server (``api/event_server.py``) in this
   process, with ``--stats``, ``--tracing/--no-tracing`` (absent:
   ``PIO_TRACE``) and the write-ahead journal flags
@@ -78,8 +79,7 @@ main they load; the other commands, ``eventserver`` among them, do not
 import torch. Storage is configured as the JAX package configures it (the
 ``PIO_STORAGE_*`` variables; with none set, sqlite + localfs under
 ``$PIO_FS_BASEDIR``), so both packages can work on one store. Arguments,
-messages and exit codes are the JAX package's. Not ported yet: Parquet
-import and export (ROADMAP.md queue 1 item 25).
+messages and exit codes are the JAX package's.
 """
 
 from __future__ import annotations
@@ -318,20 +318,35 @@ def _resolve_app_channel(storage: Storage, app_id: int, channel_name: str | None
     return True, chan.id
 
 
+_NO_PYARROW = ("[ERROR] Parquet support requires pyarrow "
+               "(pip install 'predictionio-tpu[parquet]').")
+
+
 def _cmd_export(args, storage: Storage) -> int:
-    from predictionio_tpu_torch.tools.export_import import export_events
+    from predictionio_tpu_torch.tools.export_import import export_events, export_events_parquet
 
     ok, channel_id = _resolve_app_channel(storage, args.appid, args.channel)
     if not ok:
         return 1
-    with open(args.output, "w") as f:
-        n = export_events(storage, args.appid, f, channel_id)
+    if args.format == "parquet":
+        try:
+            n = export_events_parquet(storage, args.appid, args.output, channel_id)
+        except ImportError:
+            print(_NO_PYARROW)
+            return 1
+    else:
+        with open(args.output, "w") as f:
+            n = export_events(storage, args.appid, f, channel_id)
     print(f"[INFO] Exported {n} events to {args.output}")
     return 0
 
 
 def _cmd_import(args, storage: Storage) -> int:
-    from predictionio_tpu_torch.tools.export_import import ImportFormatError, import_events
+    from predictionio_tpu_torch.tools.export_import import (
+        ImportFormatError,
+        import_events,
+        import_events_parquet,
+    )
 
     ok, channel_id = _resolve_app_channel(storage, args.appid, args.channel)
     if not ok:
@@ -339,11 +354,18 @@ def _cmd_import(args, storage: Storage) -> int:
     if not os.path.exists(args.input):
         print(f"[ERROR] {args.input} not found.")
         return 1
+    fmt = args.format or ("parquet" if args.input.endswith(".parquet") else "json")
     try:
-        with open(args.input) as f:
-            n = import_events(storage, args.appid, f, channel_id)
+        if fmt == "parquet":
+            n = import_events_parquet(storage, args.appid, args.input, channel_id)
+        else:
+            with open(args.input) as f:
+                n = import_events(storage, args.appid, f, channel_id)
     except ImportFormatError as e:
         print(f"[ERROR] {args.input}: {e}")
+        return 1
+    except ImportError:
+        print(_NO_PYARROW)
         return 1
     print(f"[INFO] Imported {n} events from {args.input}")
     return 0
@@ -1764,14 +1786,17 @@ def build_parser() -> argparse.ArgumentParser:
     wd.add_argument("--requeue", action="store_true",
                     help="move every dead-letter record back into the live journal")
 
-    p = sub.add_parser("export", help="export an app's events to a JSON-lines file")
+    p = sub.add_parser("export", help="export an app's events to a JSON-lines or Parquet file")
     p.add_argument("--appid", type=int, required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--channel", default=None)
-    p = sub.add_parser("import", help="import events from a JSON-lines file")
+    p.add_argument("--format", choices=("json", "parquet"), default="json")
+    p = sub.add_parser("import", help="import events from a JSON-lines or Parquet file")
     p.add_argument("--appid", type=int, required=True)
     p.add_argument("--input", required=True)
     p.add_argument("--channel", default=None)
+    p.add_argument("--format", choices=("json", "parquet"), default=None,
+                   help="default: parquet for .parquet files, else json")
 
     p = sub.add_parser("train", help="train an engine variant")
     p.add_argument("--engine-json", default="engine.json",

@@ -6,9 +6,10 @@ package's ``native/``).
 it cannot be built — callers fall back to the pure-Python codec in
 ``storage/binevents.py``, which reads and writes the identical byte
 format. :func:`load_bucketize` returns the ratings packer
-(``bucketize.cc``: ``pio_ladder``, the whole-row ALS layout, behind the
-``pio_bucketize_*`` handle calls) or None — ``ops/als.ladder_rows`` then
-packs in NumPy, which builds the same slabs. Those quiet fallbacks keep
+(``bucketize.cc``: ``pio_ladder``, ``pio_bucketize`` and ``pio_chunk``,
+the three ALS layouts, behind the ``pio_bucketize_*`` and ``pio_chunk_*``
+handle calls) or None — ``ops/als.ladder_rows``, ``bucket_rows`` and
+``chunk_rows`` then pack in NumPy, which builds the same slabs. Those quiet fallbacks keep
 the package usable where no ``g++`` exists; ``chip_smoke.py`` checks
 that the native scanner and the native packer served.
 
@@ -121,27 +122,33 @@ def _bind_eventlog(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bucketize(lib: ctypes.CDLL) -> None:
-    """The ladder entry point and the handle calls it shares with
-    ``pio_bucketize`` (the bucketed and chunked layouts' entry points
-    wait for ROADMAP.md queue 1 item 16). A library without one of these
+    """The three layout entry points (``pio_ladder``, ``pio_bucketize``,
+    ``pio_chunk``) and their handle calls. A library without one of these
     symbols raises AttributeError: no native path."""
     i32_p = ctypes.POINTER(ctypes.c_int32)
     i64_p = ctypes.POINTER(ctypes.c_int64)
     f32_p = ctypes.POINTER(ctypes.c_float)
-    lib.pio_ladder.argtypes = [
-        ctypes.c_int64, i32_p, i32_p, f32_p, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int32, i64_p, ctypes.c_int32,
-    ]
+    coo = [ctypes.c_int64, i32_p, i32_p, f32_p, ctypes.c_int32]   # nnz, rows, cols, vals, num_rows
+    lib.pio_ladder.argtypes = coo + [ctypes.c_int32, ctypes.c_int32, i64_p, ctypes.c_int32]
     lib.pio_ladder.restype = ctypes.c_void_p
-    lib.pio_bucketize_num_buckets.argtypes = [ctypes.c_void_p]
-    lib.pio_bucketize_num_buckets.restype = ctypes.c_int32
-    lib.pio_bucketize_bucket_info.argtypes = [ctypes.c_void_p, ctypes.c_int32, i32_p, i64_p]
-    lib.pio_bucketize_bucket_info.restype = ctypes.c_int
-    lib.pio_bucketize_fill.argtypes = [ctypes.c_void_p, ctypes.c_int32, i32_p, i32_p,
-                                       f32_p, i32_p]
-    lib.pio_bucketize_fill.restype = ctypes.c_int
-    lib.pio_bucketize_free.argtypes = [ctypes.c_void_p]
-    lib.pio_bucketize_free.restype = None
+    lib.pio_bucketize.argtypes = coo + [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+    lib.pio_bucketize.restype = ctypes.c_void_p
+    lib.pio_chunk.argtypes = coo + [i32_p, ctypes.c_int32]
+    lib.pio_chunk.restype = ctypes.c_void_p
+    # one handle contract for both handle kinds: count, shape, fill, free
+    for num, info, fill, free in (
+            (lib.pio_bucketize_num_buckets, lib.pio_bucketize_bucket_info,
+             lib.pio_bucketize_fill, lib.pio_bucketize_free),
+            (lib.pio_chunk_num_slabs, lib.pio_chunk_slab_info, lib.pio_chunk_fill,
+             lib.pio_chunk_free)):
+        num.argtypes = [ctypes.c_void_p]
+        num.restype = ctypes.c_int32
+        info.argtypes = [ctypes.c_void_p, ctypes.c_int32, i32_p, i64_p]
+        info.restype = ctypes.c_int
+        fill.argtypes = [ctypes.c_void_p, ctypes.c_int32, i32_p, i32_p, f32_p, i32_p]
+        fill.restype = ctypes.c_int
+        free.argtypes = [ctypes.c_void_p]
+        free.restype = None
 
 
 def load_eventlog() -> ctypes.CDLL | None:

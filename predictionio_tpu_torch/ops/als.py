@@ -1,27 +1,39 @@
 """Alternating least squares on one card (port of the JAX package's
-``ops/als.py``, fused-ladder layout).
+``ops/als.py``).
 
 Explicit ratings train ALS-WR (``λ·n_u`` on the diagonal), implicit
 feedback trains Hu-Koren-Volinsky with MLlib ``trainImplicit``'s
 negative-rating rule, as MLlib's ``ALS.train``/``ALS.trainImplicit`` do
 in the reference templates.
 
-Layout: every row's ratings land in ONE bucket padded to the ladder
-``LADDER_COUNTS × 128`` (or ``small`` for light rows), built on the host
-by :func:`ladder_rows` and staged on the device once as ``(S, B, L)``
-slabs (:func:`stage_buckets`), with the slab shapes of the JAX package.
-A half-step gathers ``F = V[cols]`` per slab, builds the per-row normal
-equations with batched products (bf16 operands accumulate in f32),
-solves them with batched conjugate gradients (:func:`_cg_solve_batched`)
-or Cholesky, and writes the rows back with ``index_copy_``. Where XLA
-runs the whole training as one program, the port runs an eager Python
-loop over iterations, buckets and slabs on tensors already on the
-device; the loop never reads a device value on the host.
+Layouts (``als_train(layout=...)``), each packed on the host and staged
+on the device as ``(S, B, L)`` slabs of the JAX package's shapes:
 
-The host layout packs in C++ (``native/bucketize.cc`` ``pio_ladder``,
-built with g++ at first use), with the NumPy path as the fallback and
-the oracle. The JAX package's chunked and bucketed layouts and its mesh
-sharding are not ported (ROADMAP.md queue 1 items 16 and 15).
+- ``fused`` (what "auto" picks): every row's ratings in ONE bucket
+  padded to the ladder ``LADDER_COUNTS × 128`` (or ``small`` for light
+  rows) by :func:`ladder_rows`, staged once by :func:`stage_buckets`;
+- ``bucketed``: whole rows in power-of-``growth`` buckets
+  (:func:`bucket_rows`), the only layout with ``max_row_len`` (a heavy
+  row keeps its top-valued ratings) and ``hbm_resident=False``
+  (:func:`solve_half` stages one bucket at a time and frees it after its
+  solve);
+- ``chunked``: rows cut into fixed-size chunks (:func:`chunk_rows`,
+  :func:`stage_chunks`); each chunk's partial normal equations are added
+  into a per-row ``(num_rows, K, K)`` accumulator with ``index_add_``,
+  then one batched solve covers every row.
+
+A whole-row half-step gathers ``F = V[cols]`` per slab, builds the
+per-row normal equations with batched products (bf16 operands accumulate
+in f32), solves them with batched conjugate gradients
+(:func:`_cg_solve_batched`) or Cholesky, and writes the rows back with
+``index_copy_``. Where XLA runs a training as one program, the port runs
+an eager Python loop over iterations, buckets and slabs; the loop never
+reads a device value on the host.
+
+The host layouts pack in C++ (``native/bucketize.cc``: ``pio_ladder``,
+``pio_bucketize``, ``pio_chunk``; built with g++ at first use), with the
+NumPy paths as the fallback and the oracle. The JAX package's mesh
+sharding is not ported (ROADMAP.md queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import dataclasses
 import logging
 import math
 import os
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -40,14 +53,16 @@ from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
 
-#: layouts packed by the native ``pio_ladder`` in this process (the
-#: NumPy path counts none): ``chip_smoke.py`` reads it to show that the
-#: native packer served
+#: layouts packed by the native ``pio_ladder``, ``pio_bucketize`` and
+#: ``pio_chunk`` in this process (the NumPy paths count none):
+#: ``chip_smoke.py`` reads them to show that the native packers served
 NATIVE_LADDERS = 0
+NATIVE_BUCKETS = 0
+NATIVE_CHUNKS = 0
 
 
 # ---------------------------------------------------------------------------
-# Host layout: COO ratings -> whole-row ladder buckets
+# Host layouts: COO ratings -> padded slabs
 # ---------------------------------------------------------------------------
 
 
@@ -98,14 +113,226 @@ class BucketedRatings:
     nnz: int
 
 
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _native_coo_args(coo: RatingsCOO):
+    """Contiguous (rows, cols, vals) of ``coo`` and their typed pointers
+    for the native entry points. The arrays must stay referenced while
+    the native handle lives."""
+    rows = np.ascontiguousarray(coo.rows, dtype=np.int32)
+    cols = np.ascontiguousarray(coo.cols, dtype=np.int32)
+    vals = np.ascontiguousarray(coo.vals, dtype=np.float32)
+    return (rows, cols, vals, _ptr(rows, ctypes.c_int32), _ptr(cols, ctypes.c_int32),
+            _ptr(vals, ctypes.c_float))
+
+
+def _native_read_slabs(handle, num_fn, info_fn, fill_fn, free_fn, make):
+    """The readback loop of the handle-based native layouts (bucketizer
+    and chunker share one (ids, cols, vals, deg) slab contract): each
+    slab's shape, then NumPy buffers the native side fills; the handle is
+    freed. None when a call fails."""
+    i32, f32 = ctypes.c_int32, ctypes.c_float
+    try:
+        out = []
+        for b in range(num_fn(handle)):
+            length, n = ctypes.c_int32(), ctypes.c_int64()
+            if info_fn(handle, b, ctypes.byref(length), ctypes.byref(n)):
+                return None
+            pl, nn = int(length.value), int(n.value)
+            ids = np.empty((nn,), dtype=np.int32)
+            cols = np.empty((nn, pl), dtype=np.int32)
+            vals = np.empty((nn, pl), dtype=np.float32)
+            deg = np.empty((nn,), dtype=np.int32)
+            if fill_fn(handle, b, _ptr(ids, i32), _ptr(cols, i32), _ptr(vals, f32),
+                       _ptr(deg, i32)):
+                return None
+            out.append(make(ids, cols, vals, deg))
+        return tuple(out)
+    finally:
+        free_fn(handle)
+
+
+def _read_buckets(lib, handle) -> tuple[Bucket, ...] | None:
+    return _native_read_slabs(handle, lib.pio_bucketize_num_buckets,
+                              lib.pio_bucketize_bucket_info, lib.pio_bucketize_fill,
+                              lib.pio_bucketize_free, Bucket)
+
+
+def _bucket_rows_native(coo: RatingsCOO, min_len: int, growth: int,
+                        max_len: int | None) -> BucketedRatings | None:
+    """The C++ packing path (``native/bucketize.cc`` ``pio_bucketize``);
+    None when the library cannot be built or refuses the input."""
+    global NATIVE_BUCKETS
+    lib = native.load_bucketize()
+    if lib is None or coo.nnz == 0:
+        return None
+    rows, cols, vals, rp, cp, vp = _native_coo_args(coo)
+    handle = lib.pio_bucketize(coo.nnz, rp, cp, vp, coo.num_rows, min_len, growth,
+                               0 if max_len is None else max_len)
+    if not handle:
+        return None
+    buckets = _read_buckets(lib, handle)
+    if buckets is None:
+        return None
+    NATIVE_BUCKETS += 1
+    return BucketedRatings(buckets, coo.num_rows, coo.num_cols, coo.nnz)
+
+
+def bucket_rows(coo: RatingsCOO, min_len: int = 8, growth: int = 2,
+                max_len: int | None = None, use_native: bool = True) -> BucketedRatings:
+    """Whole rows in padded power-of-``growth`` buckets — the layout of
+    ``layout="bucketed"``. ``max_len`` caps a row's kept ratings, the
+    highest-valued kept. With ``use_native`` the C++ packer builds it
+    where it can be built (a capped row may keep other columns at tied
+    values than the NumPy path, the same multiset of values); the NumPy
+    path below is the JAX package's."""
+    if use_native:
+        packed = _bucket_rows_native(coo, min_len, growth, max_len)
+        if packed is not None:
+            return packed
+    order = np.argsort(coo.rows, kind="stable")
+    rows = coo.rows[order]
+    cols = coo.cols[order]
+    vals = coo.vals[order]
+    uniq, start, counts = np.unique(rows, return_index=True, return_counts=True)
+
+    capped = np.minimum(counts, max_len) if max_len is not None else counts
+    # bucket length per unique row: min_len * growth^k >= count
+    lens = np.maximum(capped, min_len)
+    exps = np.ceil(np.log(lens / min_len) / np.log(growth) - 1e-12).astype(np.int64)
+    pad_lens = (min_len * growth ** np.maximum(exps, 0)).astype(np.int64)
+
+    buckets = []
+    for pl in np.unique(pad_lens):
+        sel = np.nonzero(pad_lens == pl)[0]
+        n = len(sel)
+        b_cols = np.zeros((n, pl), dtype=np.int32)
+        b_vals = np.zeros((n, pl), dtype=np.float32)
+        for j, ui in enumerate(sel):
+            s, c = start[ui], capped[ui]
+            if c < counts[ui]:   # keep the top-valued ratings of a capped row
+                seg = np.argsort(vals[s: s + counts[ui]])[::-1][:c] + s
+            else:
+                seg = slice(s, s + c)
+            b_cols[j, :c] = cols[seg]
+            b_vals[j, :c] = vals[seg]
+        buckets.append(Bucket(uniq[sel].astype(np.int32), b_cols, b_vals,
+                              capped[sel].astype(np.int32)))
+    return BucketedRatings(tuple(buckets), coo.num_rows, coo.num_cols, coo.nnz)
+
+
+# ---------------------------------------------------------------------------
+# Chunked layout: rows cut into fixed-size chunks, accumulated per row
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkSlab:
+    """All chunks of one length ``L``: dense (n, L) slabs and the row each
+    chunk belongs to. Chunks of one row add up on the device."""
+
+    row_ids: np.ndarray  # int32 (n,) owning row per chunk
+    cols: np.ndarray     # int32 (n, L)
+    vals: np.ndarray     # float32 (n, L)
+    deg: np.ndarray      # int32 (n,) real entries in this chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedRatings:
+    slabs: tuple[ChunkSlab, ...]   # one per chunk size, descending L
+    num_rows: int
+    num_cols: int
+    nnz: int
+
+
+def _chunk_rows_native(coo: RatingsCOO, sizes: Sequence[int]) -> ChunkedRatings | None:
+    """The C++ chunking path (``native/bucketize.cc`` ``pio_chunk*``);
+    None when the library cannot be built or refuses the input."""
+    global NATIVE_CHUNKS
+    lib = native.load_bucketize()
+    if lib is None or coo.nnz == 0:
+        return None
+    rows, cols, vals, rp, cp, vp = _native_coo_args(coo)
+    sz = np.ascontiguousarray(sizes, dtype=np.int32)
+    handle = lib.pio_chunk(coo.nnz, rp, cp, vp, coo.num_rows, _ptr(sz, ctypes.c_int32),
+                           len(sz))
+    if not handle:
+        return None
+    slabs = _native_read_slabs(handle, lib.pio_chunk_num_slabs, lib.pio_chunk_slab_info,
+                               lib.pio_chunk_fill, lib.pio_chunk_free, ChunkSlab)
+    if slabs is None:
+        return None
+    NATIVE_CHUNKS += 1
+    return ChunkedRatings(slabs, coo.num_rows, coo.num_cols, coo.nnz)
+
+
+def chunk_rows(coo: RatingsCOO, sizes: Sequence[int] = (512, 128),
+               use_native: bool = True) -> ChunkedRatings:
+    """Every row cut into fixed-size chunks — the layout of
+    ``layout="chunked"``. Greedy: full chunks of the largest size first,
+    cascading down; the last remainder pads to the smallest size. No
+    rating is dropped and padding is under the smallest size per row.
+    With ``use_native`` the C++ packer builds it where it can be built;
+    the NumPy path below, the JAX package's, builds the same slabs."""
+    sizes = sorted({int(s) for s in sizes}, reverse=True)
+    if not sizes or sizes[-1] < 1:
+        raise ValueError(f"invalid chunk sizes {sizes}")
+    if use_native:
+        packed = _chunk_rows_native(coo, sizes)
+        if packed is not None:
+            return packed
+    order = np.argsort(coo.rows, kind="stable")
+    rows_s = coo.rows[order]
+    cols_s = coo.cols[order]
+    vals_s = coo.vals[order]
+    deg = np.bincount(rows_s, minlength=coo.num_rows).astype(np.int64)
+    start = np.zeros(coo.num_rows, dtype=np.int64)
+    np.cumsum(deg[:-1], out=start[1:])
+    pos = np.arange(coo.nnz, dtype=np.int64) - start[rows_s]   # within its row
+
+    slabs = []
+    # per-row entry offset where each size class begins (the cascade)
+    class_begin = np.zeros(coo.num_rows, dtype=np.int64)
+    remaining = deg.copy()
+    for i, L in enumerate(sizes):
+        if i < len(sizes) - 1:
+            n_full = remaining // L           # only full chunks of this size
+            covered = n_full * L
+        else:
+            n_full = -(-remaining // L)       # the remainder pads to the last size
+            covered = remaining
+        class_end = class_begin + covered
+        sel = (pos >= class_begin[rows_s]) & (pos < class_end[rows_s])
+        chunk_base = np.zeros(coo.num_rows, dtype=np.int64)
+        np.cumsum(n_full[:-1], out=chunk_base[1:])
+        total = int(n_full.sum())
+        if total:
+            p = pos[sel] - class_begin[rows_s[sel]]
+            chunk_of = chunk_base[rows_s[sel]] + p // L
+            within = p % L
+            b_cols = np.zeros((total, L), dtype=np.int32)
+            b_vals = np.zeros((total, L), dtype=np.float32)
+            b_cols[chunk_of, within] = cols_s[sel]
+            b_vals[chunk_of, within] = vals_s[sel]
+            b_deg = np.bincount(chunk_of, minlength=total).astype(np.int32)
+            has = n_full > 0
+            b_rows = np.repeat(np.nonzero(has)[0].astype(np.int32), n_full[has])
+            slabs.append(ChunkSlab(b_rows, b_cols, b_vals, b_deg))
+        class_begin = class_end
+        remaining = remaining - covered
+    return ChunkedRatings(tuple(slabs), coo.num_rows, coo.num_cols, coo.nnz)
+
+
+# ---------------------------------------------------------------------------
+# Ladder layout: the fused path's whole-row buckets
+# ---------------------------------------------------------------------------
+
 #: pad-length ladder for :func:`ladder_rows`, in units of 128-entry
 #: chunks; count padding is bounded by the gap ratio (<= 1.5x)
 LADDER_COUNTS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
                  192, 256, 384, 512, 768, 1024, 1536, 2048)
-
-
-def _ptr(a: np.ndarray, ctype):
-    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def _ladder_rows_native(coo: RatingsCOO, width: int, small: int) -> BucketedRatings | None:
@@ -116,35 +343,17 @@ def _ladder_rows_native(coo: RatingsCOO, width: int, small: int) -> BucketedRati
     lib = native.load_bucketize()
     if lib is None or coo.nnz == 0:
         return None
-    i32, f32 = ctypes.c_int32, ctypes.c_float
-    # the inputs stay referenced while the handle lives
-    rows = np.ascontiguousarray(coo.rows, dtype=np.int32)
-    cols = np.ascontiguousarray(coo.cols, dtype=np.int32)
-    vals = np.ascontiguousarray(coo.vals, dtype=np.float32)
+    rows, cols, vals, rp, cp, vp = _native_coo_args(coo)
     ladder = np.ascontiguousarray(LADDER_COUNTS, dtype=np.int64)
-    handle = lib.pio_ladder(coo.nnz, _ptr(rows, i32), _ptr(cols, i32), _ptr(vals, f32),
-                            coo.num_rows, width, small, _ptr(ladder, ctypes.c_int64),
-                            len(ladder))
+    handle = lib.pio_ladder(coo.nnz, rp, cp, vp, coo.num_rows, width, small,
+                            _ptr(ladder, ctypes.c_int64), len(ladder))
     if not handle:
         return None
-    try:
-        buckets = []
-        for b in range(lib.pio_bucketize_num_buckets(handle)):
-            pad_len, n = ctypes.c_int32(), ctypes.c_int64()
-            if lib.pio_bucketize_bucket_info(handle, b, ctypes.byref(pad_len), ctypes.byref(n)):
-                return None
-            pl, nn = int(pad_len.value), int(n.value)
-            bucket = Bucket(np.empty((nn,), dtype=np.int32), np.empty((nn, pl), dtype=np.int32),
-                            np.empty((nn, pl), dtype=np.float32), np.empty((nn,), dtype=np.int32))
-            if lib.pio_bucketize_fill(handle, b, _ptr(bucket.row_ids, i32),
-                                      _ptr(bucket.cols, i32), _ptr(bucket.vals, f32),
-                                      _ptr(bucket.deg, i32)):
-                return None
-            buckets.append(bucket)
-    finally:
-        lib.pio_bucketize_free(handle)
+    buckets = _read_buckets(lib, handle)
+    if buckets is None:
+        return None
     NATIVE_LADDERS += 1
-    return BucketedRatings(tuple(buckets), coo.num_rows, coo.num_cols, coo.nnz)
+    return BucketedRatings(buckets, coo.num_rows, coo.num_cols, coo.nnz)
 
 
 def ladder_rows(coo: RatingsCOO, width: int = 128, small: int = 64,
@@ -233,13 +442,14 @@ def _slab_shape(n: int, pad_len: int, rank: int, data_axis: int,
     return (n + b - 1) // b, b
 
 
-def half_step_flops(bucketed: BucketedRatings, rank: int,
+def half_step_flops(bucketed: BucketedRatings | ChunkedRatings, rank: int,
                     max_slab_elems: int = _MAX_SLAB_ELEMS, cg_steps: int | None = None,
                     solver: str = "cg") -> dict[str, float]:
     """Useful vs executed FLOPs of one half-step on this layout. Useful:
     ``2K² + 2K`` per real rating and the Cholesky minimum ``K³/3 + 2K²``
-    per row. Executed: every padded slab entry, and the solve as the
-    solver runs it (CG: ``steps × (2K² + 8K)``)."""
+    per rated row. Executed: every padded slab entry, and the solve as the
+    solver runs it (CG: ``steps × (2K² + 8K)``) — on the chunked layout
+    for every row, since unrated rows solve the identity."""
     if solver not in ("cg", "cholesky"):
         raise ValueError(f"solver must be 'cg' or 'cholesky', got {solver!r}")
     k = float(rank)
@@ -251,6 +461,17 @@ def half_step_flops(bucketed: BucketedRatings, rank: int,
         steps = cg_steps if cg_steps is not None else min(rank + 4, _CG_STEP_CAP)
         per_solve_exec = float(steps) * (2.0 * k * k + 8.0 * k)
     useful = executed = 0.0
+    if isinstance(bucketed, ChunkedRatings):
+        active = set()
+        for slab in bucketed.slabs:
+            n, L = slab.cols.shape
+            useful += float(slab.deg.sum()) * per_entry
+            active.update(np.unique(slab.row_ids).tolist())
+            s, rows = _slab_shape(n, L, rank, 1, max_slab_elems)
+            executed += float(s * rows) * L * per_entry
+        useful += len(active) * per_solve
+        executed += bucketed.num_rows * per_solve_exec
+        return {"useful_flops": useful, "executed_flops": executed}
     for b in bucketed.buckets:
         n = int(b.row_ids.shape[0])
         useful += float(b.deg.sum()) * per_entry + n * per_solve
@@ -260,7 +481,7 @@ def half_step_flops(bucketed: BucketedRatings, rank: int,
 
 
 # ---------------------------------------------------------------------------
-# Device staging: pad buckets into slabs once, keep them resident
+# Device staging: pad layouts into slabs, resident or one bucket at a time
 # ---------------------------------------------------------------------------
 
 
@@ -278,7 +499,7 @@ class DeviceBucket:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceBucketedRatings:
-    """Ladder buckets resident on the device: build once with
+    """Whole-row buckets resident on the device: build once with
     :func:`stage_buckets` and reuse across every iteration."""
 
     buckets: tuple[DeviceBucket, ...]
@@ -287,32 +508,70 @@ class DeviceBucketedRatings:
     nnz: int
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceChunkSlab:
+    row_ids: torch.Tensor  # int64 (S, B) owning row (0 for pad chunks)
+    cols: torch.Tensor     # int32 (S, B, L)
+    vals: torch.Tensor     # float32 (S, B, L)
+    deg: torch.Tensor      # int32 (S, B) real entries (0 for pad chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceChunkedRatings:
+    """Chunk slabs resident on the device: build once with
+    :func:`stage_chunks`."""
+
+    slabs: tuple[DeviceChunkSlab, ...]
+    num_rows: int
+    num_cols: int
+    nnz: int
+
+
+def _pad_rows(a: np.ndarray, s: int, b: int) -> np.ndarray:
+    """``a``'s rows zero-padded to ``s * b`` and shaped (s, b, ...)."""
+    p = np.zeros((s * b, *a.shape[1:]), dtype=a.dtype)
+    p[: a.shape[0]] = a
+    return p.reshape(s, b, *a.shape[1:])
+
+
 def pad_bucket_slabs(bucket: Bucket, rank: int,
                      max_slab_elems: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One bucket padded on the host to its (S, B, L)/(S, B) device shape:
     (cols, vals, deg). Pad rows carry zero degree."""
-    n = bucket.row_ids.shape[0]
-    s, b = _slab_shape(n, bucket.pad_len, rank, 1, max_slab_elems)
-    total = s * b
+    s, b = _slab_shape(bucket.row_ids.shape[0], bucket.pad_len, rank, 1, max_slab_elems)
+    return (_pad_rows(bucket.cols, s, b), _pad_rows(bucket.vals, s, b),
+            _pad_rows(bucket.deg, s, b))
 
-    def pad3(a):
-        p = np.zeros((total, a.shape[1]), dtype=a.dtype)
-        p[:n] = a
-        return p.reshape(s, b, a.shape[1])
 
-    deg = np.zeros((total,), dtype=np.int32)
-    deg[:n] = bucket.deg
-    return pad3(bucket.cols), pad3(bucket.vals), deg.reshape(s, b)
+def pad_chunk_slab(slab: ChunkSlab, rank: int, max_slab_elems: int
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One chunk slab padded on the host to its (S, B, ...) device shape:
+    (row_ids, cols, vals, deg). Pad chunks carry row 0 with zero degree,
+    so they add nothing."""
+    n, L = slab.cols.shape
+    s, b = _slab_shape(n, L, rank, 1, max_slab_elems)
+    return (_pad_rows(slab.row_ids, s, b), _pad_rows(slab.cols, s, b),
+            _pad_rows(slab.vals, s, b), _pad_rows(slab.deg, s, b))
+
+
+def _to_device(a: np.ndarray, device: torch.device, pinned: bool = False) -> torch.Tensor:
+    """``a`` on ``device``. ``pinned`` (streaming) copies through page-locked
+    memory without waiting for the card, so the host pads the next bucket
+    while the card solves this one; the caching host allocator holds the
+    pinned buffer until its copy is done."""
+    t = torch.from_numpy(a)
+    if pinned and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _stage_bucket(bucket: Bucket, rank: int, max_slab_elems: int,
-                  device: torch.device) -> DeviceBucket:
+                  device: torch.device, pinned: bool = False) -> DeviceBucket:
     cols, vals, deg = pad_bucket_slabs(bucket, rank, max_slab_elems)
     return DeviceBucket(
-        row_ids=torch.from_numpy(bucket.row_ids.astype(np.int64)).to(device),
-        cols=torch.from_numpy(cols).to(device),
-        vals=torch.from_numpy(vals).to(device),
-        deg=torch.from_numpy(deg).to(device),
+        row_ids=_to_device(bucket.row_ids.astype(np.int64), device, pinned),
+        cols=_to_device(cols, device, pinned), vals=_to_device(vals, device, pinned),
+        deg=_to_device(deg, device, pinned),
         n=int(bucket.row_ids.shape[0]), pad_len=bucket.pad_len)
 
 
@@ -320,11 +579,25 @@ def stage_buckets(bucketed: BucketedRatings, rank: int,
                   max_slab_elems: int = _MAX_SLAB_ELEMS,
                   device: str | torch.device | None = None) -> DeviceBucketedRatings:
     """Every bucket resident on ``device`` (default ``cuda``): about 8
-    bytes per padded rating."""
+    bytes per padded rating. For a set that does not fit, keep the host
+    :class:`BucketedRatings`: :func:`solve_half` then streams it."""
     dev = resolve_device(device)
     return DeviceBucketedRatings(
         tuple(_stage_bucket(b, rank, max_slab_elems, dev) for b in bucketed.buckets),
         bucketed.num_rows, bucketed.num_cols, bucketed.nnz)
+
+
+def stage_chunks(chunked: ChunkedRatings, rank: int, max_slab_elems: int = _MAX_SLAB_ELEMS,
+                 device: str | torch.device | None = None) -> DeviceChunkedRatings:
+    """Every chunk slab resident on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    out = []
+    for slab in chunked.slabs:
+        rids, cols, vals, deg = pad_chunk_slab(slab, rank, max_slab_elems)
+        out.append(DeviceChunkSlab(_to_device(rids.astype(np.int64), dev),
+                                   _to_device(cols, dev), _to_device(vals, dev),
+                                   _to_device(deg, dev)))
+    return DeviceChunkedRatings(tuple(out), chunked.num_rows, chunked.num_cols, chunked.nnz)
 
 
 # ---------------------------------------------------------------------------
@@ -400,38 +673,50 @@ def _cg_solve_batched(A: torch.Tensor, b: torch.Tensor, steps: int | None = None
     return x
 
 
-def _normal_eq_build(V: torch.Tensor, c: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
-                     lam: float, alpha: float, gram: torch.Tensor | None,
-                     implicit: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The normal equations (A (B, K, K), b (B, K), f32) of B complete
-    rows. ``(c, v, d)`` are (B, L) cols/vals and (B,) degrees; ``V`` is
-    the opposite factor table already in the build dtype (bf16 or f32),
-    ``gram`` its f32 VᵀV (implicit only). Rows of degree 0 get A = I."""
+def _partial_normal_eq(V: torch.Tensor, c: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
+                       alpha: float, implicit: bool
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unregularised normal-equation sums of B rows or row chunks:
+    (A (B, K, K), b (B, K), mask (B, L)), f32. ``(c, v, d)`` are (B, L)
+    cols/vals and (B,) degrees; ``V`` is the opposite factor table
+    already in the build dtype (bf16 or f32)."""
     K = V.shape[1]
     L = c.shape[-1]
     mm = V.dtype
-    eye = torch.eye(K, dtype=torch.float32, device=V.device)
     m = (torch.arange(L, dtype=torch.int32, device=c.device)[None, :]
          < d[:, None]).float()
     F = torch.index_select(V, 0, c.reshape(-1)).view(c.shape[0], L, K)  # the row gather
     if implicit:
         # Hu-Koren with MLlib trainImplicit's rule: confidence 1 + α|r|,
         # preference [r > 0], so a negative rating is a confident zero
-        # preference and r = 0 adds nothing. A = VᵀV + Σ (c-1) v vᵀ + λI,
-        # b = Σ c p v. The weight is rounded to the build dtype, the
-        # weighted rows are not (the JAX einsum multiplies w·F in f32)
+        # preference and r = 0 adds nothing: A = Σ (c-1) v vᵀ, b = Σ c p v.
+        # The weight is rounded to the build dtype, the weighted rows are
+        # not (the JAX einsum multiplies w·F in f32)
         w = (alpha * v.abs() * m).to(mm)
         Fw = w.float()[..., None] * F.float()
-        A = torch.bmm(Fw.mT, F.float()) + gram + lam * eye
+        A = torch.bmm(Fw.mT, F.float())
         bw = torch.where(v > 0, 1.0 + alpha * v, 0.0) * m
         b = _bmm_f32(bw.to(mm)[:, None, :], F)[:, 0, :]
     else:
-        # ALS-WR: A = Σ v vᵀ + λ n_u I ; b = Σ r v
+        # ALS-WR: A = Σ v vᵀ ; b = Σ r v
         Fm = F * m[..., None].to(mm)
         A = _bmm_f32(Fm.mT, F)
-        n_u = m.sum(1)
-        A = A + (lam * n_u)[:, None, None] * eye
         b = _bmm_f32((v * m).to(mm)[:, None, :], F)[:, 0, :]
+    return A, b, m
+
+
+def _normal_eq_build(V: torch.Tensor, c: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
+                     lam: float, alpha: float, gram: torch.Tensor | None,
+                     implicit: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normal equations (A (B, K, K), b (B, K), f32) of B complete
+    rows: :func:`_partial_normal_eq` plus ``VᵀV + λI`` (implicit, ``gram``
+    the f32 VᵀV) or ``λ n_u I`` (explicit). Rows of degree 0 get A = I."""
+    A, b, m = _partial_normal_eq(V, c, v, d, alpha, implicit)
+    eye = torch.eye(V.shape[1], dtype=torch.float32, device=V.device)
+    if implicit:
+        A = A + gram + lam * eye
+    else:
+        A = A + (lam * m.sum(1))[:, None, None] * eye
     return torch.where((d > 0)[:, None, None], A, eye), b   # empty rows: x = 0
 
 
@@ -449,23 +734,81 @@ def _normal_eq_solve(V: torch.Tensor, c: torch.Tensor, v: torch.Tensor, d: torch
     return torch.where((d > 0)[:, None], x, 0.0)
 
 
-def _solve_half_fused(V: torch.Tensor, buckets: DeviceBucketedRatings, lam: float,
-                      alpha: float, implicit: bool, bf16: bool, cg_steps: int | None,
-                      solver: str = "cg", cg_bf16: bool = False) -> torch.Tensor:
-    """One half-step over the ladder layout: per slab, build and solve
-    the rows' normal equations; per bucket, write the rows back."""
+def _gramian(V: torch.Tensor) -> torch.Tensor:
+    """VᵀV in true f32 (callers hold ``ieee_f32``)."""
+    return V.T @ V
+
+
+def _solve_slabs(Vm: torch.Tensor, bucket: DeviceBucket, lam: float, alpha: float,
+                 gram: torch.Tensor | None, implicit: bool, cg_steps: int | None,
+                 solver: str, cg_bf16: bool) -> torch.Tensor:
+    """One bucket's rows solved slab by slab: (S, B, K) f32, zero for pad
+    rows. ``Vm`` is the gather table in the build dtype."""
+    X = torch.empty((*bucket.deg.shape, Vm.shape[1]), dtype=torch.float32, device=Vm.device)
+    for s in range(bucket.cols.shape[0]):
+        X[s] = _normal_eq_solve(Vm, bucket.cols[s], bucket.vals[s], bucket.deg[s], lam,
+                                alpha, gram, implicit, cg_steps, solver, cg_bf16)
+    return X
+
+
+def _solve_half_buckets(V: torch.Tensor, buckets: BucketedRatings | DeviceBucketedRatings,
+                        lam: float, alpha: float, implicit: bool, bf16: bool,
+                        cg_steps: int | None, solver: str = "cg", cg_bf16: bool = False,
+                        max_slab_elems: int = _MAX_SLAB_ELEMS) -> torch.Tensor:
+    """One half-step over whole-row buckets (the ladder or the
+    power-of-growth layout): per slab, build and solve the rows' normal
+    equations; per bucket, write the rows back. Host buckets stream: each
+    is staged for its solve and freed after it."""
     K = V.shape[1]
     with ieee_f32():
-        gram = V.T @ V if implicit else None
+        gram = _gramian(V) if implicit else None
         Vm = V.to(torch.bfloat16) if bf16 else V   # the gather walks the narrow table
         out = torch.zeros((buckets.num_rows, K), dtype=torch.float32, device=V.device)
         for bucket in buckets.buckets:
-            X = torch.empty((*bucket.deg.shape, K), dtype=torch.float32, device=V.device)
-            for s in range(bucket.cols.shape[0]):
-                X[s] = _normal_eq_solve(Vm, bucket.cols[s], bucket.vals[s], bucket.deg[s],
-                                        lam, alpha, gram, implicit, cg_steps, solver, cg_bf16)
+            if isinstance(bucket, Bucket):
+                bucket = _stage_bucket(bucket, K, max_slab_elems, V.device, pinned=True)
+            X = _solve_slabs(Vm, bucket, lam, alpha, gram, implicit, cg_steps, solver, cg_bf16)
             out.index_copy_(0, bucket.row_ids, X.view(-1, K)[: bucket.n])
+            del bucket, X   # a streamed bucket's slabs go before the next is staged
     return out
+
+
+def _solve_half_chunked(V: torch.Tensor, chunked: DeviceChunkedRatings, lam: float,
+                        alpha: float, implicit: bool, bf16: bool, cg_steps: int | None,
+                        cg_bf16: bool = False) -> torch.Tensor:
+    """One half-step over the chunked layout: each chunk's partial normal
+    equations are added per row into (num_rows, K, K), (num_rows, K) and
+    (num_rows,) accumulators (``index_add_``: the order of the additions
+    may vary from run to run on the card); then the ridge (``λ·n`` or
+    ``VᵀV + λI``), the identity for unrated rows, and one batched CG over
+    every row. Unrated rows come out zero."""
+    K = V.shape[1]
+    n = chunked.num_rows
+    dev = V.device
+    with ieee_f32():
+        Vm = V.to(torch.bfloat16) if bf16 else V
+        A = torch.zeros((n, K, K), dtype=torch.float32, device=dev)
+        b = torch.zeros((n, K), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for slab in chunked.slabs:
+            for s in range(slab.cols.shape[0]):
+                A_s, b_s, m = _partial_normal_eq(Vm, slab.cols[s], slab.vals[s], slab.deg[s],
+                                                 alpha, implicit)
+                rows = slab.row_ids[s]
+                A.index_add_(0, rows, A_s)
+                b.index_add_(0, rows, b_s)
+                cnt.index_add_(0, rows, m.sum(1))
+        # the ridge, in place: off the diagonal it adds zeros
+        if implicit:
+            A += _gramian(V)
+            A.diagonal(dim1=-2, dim2=-1).add_(lam)
+        else:
+            A.diagonal(dim1=-2, dim2=-1).add_((lam * cnt)[:, None])
+        active = cnt > 0
+        eye = torch.eye(K, dtype=torch.float32, device=dev)
+        torch.where(active[:, None, None], A, eye, out=A)
+        x = _cg_solve_batched(A, b, steps=cg_steps, bf16_matvec=cg_bf16)
+    return torch.where(active[:, None], x, 0.0)
 
 
 def _als_iterate_fused(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
@@ -478,10 +821,10 @@ def _als_iterate_fused(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
                        device=item0.device)
     item = item0
     for _ in range(iterations):
-        user = _solve_half_fused(item, user_buckets, lam, alpha, implicit, bf16,
-                                 cg_steps, solver, cg_bf16)
-        item = _solve_half_fused(user, item_buckets, lam, alpha, implicit, bf16,
-                                 cg_steps, solver, cg_bf16)
+        user = _solve_half_buckets(item, user_buckets, lam, alpha, implicit, bf16,
+                                   cg_steps, solver, cg_bf16)
+        item = _solve_half_buckets(user, item_buckets, lam, alpha, implicit, bf16,
+                                   cg_steps, solver, cg_bf16)
     return user, item
 
 
@@ -515,25 +858,43 @@ _SHARDED_ITEM = ("shard_factors=True (DP×MP factor sharding) needs several card
                  "ROADMAP.md queue 1 item 15, multi-GPU")
 
 
-def solve_half(V: torch.Tensor, bucketed: BucketedRatings | DeviceBucketedRatings,
+_CHUNKED_CHOLESKY = ("solver='cholesky' is a bucketed/fused-layout option; the "
+                     "chunked path solves over the scan-carried accumulator")
+
+
+def solve_half(V: torch.Tensor,
+               bucketed: BucketedRatings | DeviceBucketedRatings | ChunkedRatings
+               | DeviceChunkedRatings,
                rank: int, lam: float, implicit: bool = False, alpha: float = 40.0,
-               matmul_dtype: str = "float32",
+               max_slab_elems: int = _MAX_SLAB_ELEMS, matmul_dtype: str = "float32",
                shard_factors: bool = False, cg_steps: int | None = None,
                solver: str = "cg", cg_matvec_dtype: str = "float32") -> torch.Tensor:
     """One half-step: all row factors of ``bucketed`` given the opposite
     factors ``V`` (on the device the rows are solved on). Returns a
-    (num_rows, K) f32 table, zero for rows with no ratings. Host buckets
-    are staged for this call; pass :func:`stage_buckets`'s result when
-    calling repeatedly."""
+    (num_rows, K) f32 table, zero for rows with no ratings.
+
+    Whole-row buckets are solved bucket by bucket; chunked layouts
+    (:func:`chunk_rows`, :func:`stage_chunks`) accumulate per row, then
+    solve once (CG only). Host :class:`BucketedRatings` stream: one
+    bucket on the device at a time, freed after its solve, so device
+    memory stays bounded by the largest bucket's slabs. A host
+    :class:`ChunkedRatings` is staged whole for this call. Pass the
+    staged layouts when calling repeatedly."""
     if shard_factors:
         raise NotImplementedError(_SHARDED_ITEM)
     bf16 = _check_matmul_dtype(matmul_dtype)
     _check_solver(solver)
     cg_bf16 = _resolve_cg_matvec(cg_matvec_dtype, rank)
-    if isinstance(bucketed, BucketedRatings):
-        bucketed = stage_buckets(bucketed, rank, device=V.device)
-    return _solve_half_fused(V.float(), bucketed, float(lam), float(alpha), implicit,
-                             bf16, cg_steps, solver, cg_bf16)
+    V = V.float()
+    if isinstance(bucketed, (ChunkedRatings, DeviceChunkedRatings)):
+        if solver != "cg":
+            raise ValueError(_CHUNKED_CHOLESKY)
+        if isinstance(bucketed, ChunkedRatings):
+            bucketed = stage_chunks(bucketed, rank, max_slab_elems, device=V.device)
+        return _solve_half_chunked(V, bucketed, float(lam), float(alpha), implicit, bf16,
+                                   cg_steps, cg_bf16)
+    return _solve_half_buckets(V, bucketed, float(lam), float(alpha), implicit, bf16,
+                               cg_steps, solver, cg_bf16, max_slab_elems)
 
 
 # ---------------------------------------------------------------------------
@@ -570,33 +931,56 @@ def init_item_factors(num_items: int, rank: int, seed: int) -> torch.Tensor:
 
 def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float = 0.01,
               implicit: bool = False, alpha: float = 40.0, seed: int = 0,
-              matmul_dtype: str = "bfloat16",
-              layout: str = "auto", cg_steps: int | None = None, solver: str = "cg",
-              shard_factors: bool = False, cg_matvec_dtype: str = "auto",
-              item0: np.ndarray | torch.Tensor | None = None,
+              min_bucket: int = 8, bucket_growth: int = 2, max_row_len: int | None = None,
+              max_slab_elems: int = _MAX_SLAB_ELEMS, hbm_resident: bool = True,
+              matmul_dtype: str = "bfloat16", layout: str = "auto",
+              chunk_sizes: Sequence[int] = (512, 128), chunked_acc_budget: int = 4 << 30,
+              cg_steps: int | None = None, solver: str = "cg", shard_factors: bool = False,
+              cg_matvec_dtype: str = "auto", item0: np.ndarray | torch.Tensor | None = None,
               device: str | torch.device | None = None) -> ALSFactors:
     """Full alternating-least-squares training on ``device`` (default
     ``cuda``), with the semantics of MLlib ``ALS.train`` /
-    ``ALS.trainImplicit``.
+    ``ALS.trainImplicit``; the JAX package's arguments and defaults but
+    its ``mesh``.
 
-    ``layout`` "auto" and "fused" both take the ladder layout (the JAX
-    default). ``matmul_dtype="bfloat16"`` (default) builds the normal
-    equations from bf16 operands with f32 accumulation; "float32" in
-    true f32. ``cg_matvec_dtype="auto"`` streams the CG matrix in bf16
-    at rank >= 64. ``solver="cholesky"`` solves exactly. ``item0`` is
-    the (num_items, rank) starting table; without it
+    ``layout="fused"`` pads whole rows to the ladder (:func:`ladder_rows`)
+    and solves each slab's rows where it builds them. ``"bucketed"`` pads
+    whole rows to powers of ``bucket_growth`` from ``min_bucket``
+    (:func:`bucket_rows`): the only layout with ``max_row_len`` (a row
+    keeps its top-valued ratings) and ``hbm_resident=False`` (the slabs
+    stay on the host and stream, one bucket at a time, every half-step).
+    ``"chunked"`` cuts rows into ``chunk_sizes`` chunks (:func:`chunk_rows`)
+    and accumulates per row before one solve. ``"auto"`` picks bucketed
+    when ``max_row_len`` is set or ``hbm_resident`` is False, else fused.
+    ``chunked_acc_budget`` is accepted and unused, as in the JAX package.
+
+    ``matmul_dtype="bfloat16"`` (default) builds the normal equations
+    from bf16 operands with f32 accumulation; "float32" in true f32.
+    ``cg_matvec_dtype="auto"`` streams the CG matrix in bf16 at rank >=
+    64. ``solver="cholesky"`` solves exactly (not on the chunked layout).
+    ``item0`` is the (num_items, rank) starting table; without it
     :func:`init_item_factors` draws one from ``seed``."""
-    if layout in ("chunked", "bucketed"):
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported: ROADMAP.md queue 1 item 16, "
-            "the chunked and bucketed ALS layouts")
-    if layout not in ("auto", "fused"):
+    if layout not in ("auto", "fused", "chunked", "bucketed"):
         raise ValueError(f"layout must be 'auto', 'fused', 'chunked' or 'bucketed', "
                          f"got {layout!r}")
+    bucketed_knobs = max_row_len is not None or not hbm_resident
+    if layout == "auto":
+        layout = "bucketed" if bucketed_knobs else "fused"
+    if layout == "fused" and bucketed_knobs:
+        raise ValueError("max_row_len / hbm_resident=False are bucketed-layout knobs; "
+                         "pass layout='bucketed' (or 'auto') to use them")
+    if layout == "chunked" and bucketed_knobs:
+        raise ValueError(
+            "max_row_len / hbm_resident=False are bucketed-layout knobs "
+            "(row capping and streaming); pass layout='bucketed' (or "
+            "'auto') to use them — the chunked layout never drops ratings "
+            "and stages slabs HBM-resident")
     if shard_factors:
         raise NotImplementedError(_SHARDED_ITEM)
     bf16 = _check_matmul_dtype(matmul_dtype)
     _check_solver(solver)
+    if layout == "chunked" and solver != "cg":
+        raise ValueError(_CHUNKED_CHOLESKY)
     cg_bf16 = _resolve_cg_matvec(cg_matvec_dtype, rank)
     dev = resolve_device(device)
     if item0 is None:
@@ -607,16 +991,44 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
     if tuple(item0.shape) != (ratings.num_cols, rank):
         raise ValueError(f"item0 has shape {tuple(item0.shape)}, expected "
                          f"({ratings.num_cols}, {rank})")
-    by_user = ladder_rows(ratings)
-    by_item = ladder_rows(ratings.transpose())
-    logger.info("ALS(fused): %d ratings, %d users (%d buckets), %d items (%d buckets), "
-                "rank %d, on %s", ratings.nnz, ratings.num_rows, len(by_user.buckets),
-                ratings.num_cols, len(by_item.buckets), rank, dev)
-    dev_user = stage_buckets(by_user, rank, device=dev)
-    dev_item = stage_buckets(by_item, rank, device=dev)
-    user, item = _als_iterate_fused(item0.to(dev), dev_user, dev_item, iterations,
-                                    float(lam), float(alpha), implicit, bf16, cg_steps,
-                                    solver, cg_bf16)
+    if layout == "fused":
+        by_user = ladder_rows(ratings)
+        by_item = ladder_rows(ratings.transpose())
+        logger.info("ALS(fused): %d ratings, %d users (%d buckets), %d items (%d buckets), "
+                    "rank %d, on %s", ratings.nnz, ratings.num_rows, len(by_user.buckets),
+                    ratings.num_cols, len(by_item.buckets), rank, dev)
+        dev_user = stage_buckets(by_user, rank, max_slab_elems, device=dev)
+        dev_item = stage_buckets(by_item, rank, max_slab_elems, device=dev)
+        user, item = _als_iterate_fused(item0.to(dev), dev_user, dev_item, iterations,
+                                        float(lam), float(alpha), implicit, bf16, cg_steps,
+                                        solver, cg_bf16)
+        return ALSFactors(user=user, item=item)
+    if layout == "chunked":
+        by_user = chunk_rows(ratings, chunk_sizes)
+        by_item = chunk_rows(ratings.transpose(), chunk_sizes)
+        logger.info("ALS(chunked): %d ratings, %d users, %d items, rank %d, chunks %s, on %s",
+                    ratings.nnz, ratings.num_rows, ratings.num_cols, rank,
+                    tuple(s.cols.shape for s in by_user.slabs), dev)
+        by_user = stage_chunks(by_user, rank, max_slab_elems, device=dev)
+        by_item = stage_chunks(by_item, rank, max_slab_elems, device=dev)
+    else:
+        by_user = bucket_rows(ratings, min_bucket, bucket_growth, max_row_len)
+        by_item = bucket_rows(ratings.transpose(), min_bucket, bucket_growth, max_row_len)
+        logger.info("ALS(bucketed): %d ratings, %d users (%d buckets), %d items (%d buckets), "
+                    "rank %d, %s, on %s", ratings.nnz, ratings.num_rows,
+                    len(by_user.buckets), ratings.num_cols, len(by_item.buckets), rank,
+                    "resident" if hbm_resident else "streamed", dev)
+        if hbm_resident:
+            by_user = stage_buckets(by_user, rank, max_slab_elems, device=dev)
+            by_item = stage_buckets(by_item, rank, max_slab_elems, device=dev)
+    kw = dict(implicit=implicit, alpha=alpha, max_slab_elems=max_slab_elems,
+              matmul_dtype=matmul_dtype, cg_steps=cg_steps, solver=solver,
+              cg_matvec_dtype=cg_matvec_dtype)
+    user = torch.zeros((ratings.num_rows, rank), dtype=torch.float32, device=dev)
+    item = item0.to(dev)
+    for _ in range(iterations):
+        user = solve_half(item, by_user, rank, lam, **kw)
+        item = solve_half(user, by_item, rank, lam, **kw)
     return ALSFactors(user=user, item=item)
 
 

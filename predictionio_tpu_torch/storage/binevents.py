@@ -15,8 +15,7 @@ byte format) takes over; ``NATIVE=false`` (the ``binevents_py`` mode of
 the tests) asks for it. :data:`NATIVE_SCANS` counts the scans the native
 library served in this process, so a caller can tell which path ran.
 Writes go one event per library call, and the columnar read replays in
-Python, as in the JAX package; batching them is ROADMAP.md queue 1
-item 25.
+Python, as in the JAX package.
 
 Config: ``PIO_STORAGE_SOURCES_<NAME>_TYPE=binevents`` (alias
 ``hbase``), ``PIO_STORAGE_SOURCES_<NAME>_PATH=/dir``. Layout: one log

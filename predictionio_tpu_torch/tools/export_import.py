@@ -1,10 +1,12 @@
-"""Event export/import: event store ↔ JSON-lines files (port of the JSON
-format of the JAX package's ``tools/export_import.py``; its Parquet
-format waits, ROADMAP.md queue 1 item 25).
+"""Event export/import: event store ↔ JSON-lines or Parquet files (port
+of the JAX package's ``tools/export_import.py``).
 
-One API JSON event per line (``core/json_codec.py``), the reference's
-json output mode: a file either package exports, the other imports.
-Imports go through ``insert_batch`` in batches of 500.
+JSON lines: one API JSON event per line (``core/json_codec.py``), the
+reference's json output mode. Parquet: one column per API JSON field,
+strings but ``tags`` (a list of strings), ``properties`` as a JSON
+string; ``pyarrow`` is imported only by the Parquet calls. A file either
+package exports, the other imports. Imports go through ``insert_batch``
+in batches of 500.
 """
 
 from __future__ import annotations
@@ -78,4 +80,92 @@ def import_events(
         events_dao.insert_batch(batch, app_id, channel_id)
         n += len(batch)
     logger.info("imported %d events (app %s)", n, app_id)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Parquet format (EventsToFile.scala:97-105 `--format parquet`)
+# ---------------------------------------------------------------------------
+
+# API JSON field name -> column; all strings except tags (list<string>)
+_PARQUET_FIELDS = (
+    "eventId", "event", "entityType", "entityId", "targetEntityType",
+    "targetEntityId", "properties", "eventTime", "tags", "prId",
+    "creationTime",
+)
+
+
+def _parquet_schema():
+    import pyarrow as pa
+
+    return pa.schema([(name, pa.list_(pa.string()) if name == "tags" else pa.string())
+                      for name in _PARQUET_FIELDS])
+
+
+def export_events_parquet(
+    storage: Storage,
+    app_id: int,
+    path: str,
+    channel_id: int | None = None,
+) -> int:
+    """Write every event of (app, channel) to one Parquet file in row
+    batches of 500; returns count. ImportError without pyarrow."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    schema = _parquet_schema()
+    n = 0
+    with pq.ParquetWriter(path, schema) as writer:
+        rows: list[dict] = []
+
+        def flush():
+            nonlocal n
+            if rows:
+                writer.write_table(pa.Table.from_pylist(rows, schema=schema))
+                n += len(rows)
+                rows.clear()
+
+        for event in storage.get_events().find(app_id, channel_id, EventFilter()):
+            obj = event_to_json(event)
+            obj["properties"] = json.dumps(obj.get("properties", {}))
+            rows.append({f: obj.get(f) for f in _PARQUET_FIELDS})
+            if len(rows) >= _BATCH:
+                flush()
+        flush()
+    logger.info("exported %d events to parquet (app %s)", n, app_id)
+    return n
+
+
+def import_events_parquet(
+    storage: Storage,
+    app_id: int,
+    path: str,
+    channel_id: int | None = None,
+) -> int:
+    """Read a Parquet event file (as :func:`export_events_parquet` writes
+    it) and batch-insert; returns count. ImportFormatError for a file
+    that is not Parquet or a row that is not an event; ImportError
+    without pyarrow."""
+    import pyarrow.parquet as pq
+
+    events_dao = storage.get_events()
+    try:
+        pf = pq.ParquetFile(path)
+    except Exception as e:   # ArrowInvalid on input that is not Parquet
+        raise ImportFormatError(0, f"not a parquet file: {e}", 0)
+    n = 0
+    for rb in pf.iter_batches(batch_size=_BATCH):
+        batch = []
+        for row in rb.to_pylist():
+            obj = {k: v for k, v in row.items() if v is not None}
+            try:
+                if "properties" in obj:
+                    obj["properties"] = json.loads(obj["properties"])
+                batch.append(event_from_json(obj))
+            except Exception as e:
+                raise ImportFormatError(n + len(batch) + 1, str(e), n)
+        if batch:
+            events_dao.insert_batch(batch, app_id, channel_id)
+            n += len(batch)
+    logger.info("imported %d events from parquet (app %s)", n, app_id)
     return n
