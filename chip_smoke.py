@@ -393,7 +393,33 @@ rates logged after it are taken with the other lane running.
    by its suffix) into a fresh store; JSON-lines exports of both apps,
    equal line for line (without pyarrow: both commands exit 1 with the
    JAX package's message);
-34. a `kernels` JSON line, then the result line
+34. the in-process device mesh (`parallel/mesh.py`), in the main lane
+   after phase 32, its meshes over 4 positions on the card (or over 4
+   cards when there are): (a) fused DP×MP ALS on phase 9's ML-20M-shape
+   ratings at rank 32, λ 0.08, bf16, `shard_factors` on 1×4 and 2×2
+   meshes, 2 iterations each, against the unsharded run (RMSE within
+   1e-3, the f32 user half-step on 4,096 rows within 1e-5, each table's
+   shards on their devices 4 or 2 ways; ms an iteration by CUDA events,
+   launches and device ms of one iteration by torch.profiler after the
+   timed runs, peak memory), and the chunked layout on 2×2 for one
+   iteration against chunked unsharded (1e-3); (b) the 1×4 model saved
+   (`"sharded"` in model.json) and loaded onto a 1×4 serving mesh, 256
+   queries through the sharded dispatch against `recommend_topk` on the
+   unsharded model (scores 1e-5, indices equal where finite off
+   near-ties), phase 12's 2M-item top-k sharded 4 ways against the flat
+   path with both times, k above a shard's rows and a batch of 5 on a
+   2-wide data axis; (c) naive Bayes (counts exactly) and logreg (W
+   within 1e-3) on phase 21's Covertype sample over a 4×1 data mesh
+   against the unsharded fits; (d) `run_train` of the ML-100k
+   recommendation engine with `"shardFactors": true` and a 2×2
+   `meshConf` on a context given the 4 positions (the instance records
+   the meshConf), `load_deployed_engine` onto a 2-way serving mesh, 32
+   `DeployedEngine.query` answers against the engine trained unsharded
+   (scores 1e-5); (e) `e2/quality.compare_quality` at ML-100k over a 2×2
+   mesh against `mesh=None` (RMSE within 1e-3); no flash kernel is
+   launched;
+35. a `kernels` JSON line;
+36. the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
@@ -401,8 +427,9 @@ Each phase of the main path logs its seconds (`[phases]`).
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
 `--router-only`, `--storage-only`, `--lint-only`, `--examples-only`,
-`--als-layouts-only` and `--parquet-only` run phases 9-13, 14-15, 16,
-17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32 and 33 alone
+`--als-layouts-only`, `--parquet-only` and `--mesh-only` run phases
+9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+32, 33 and 34 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
@@ -410,7 +437,7 @@ train, 27 over 16a's and 16b's, 28 over 16a's and 16b's and a serial
 `pio eval` of phase 24's two grid points, 29 with its dashboard over a
 serial `pio eval` of those points on 16 of 16a's users, 33 over a 16b
 import and train) and print no result line. Phases
-22, 23, 25, 31 and 32 launch no flash kernel. Exits non-zero, printing no result,
+22, 23, 25, 31, 32 and 34 launch no flash kernel. Exits non-zero, printing no result,
 when there is no card.
 """
 
@@ -469,6 +496,8 @@ from predictionio_tpu_torch.ops import ann as ann_ops
 from predictionio_tpu_torch.ops import flash_attention as flash_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
 from predictionio_tpu_torch.ops.attention import full_attention
+from predictionio_tpu_torch.parallel import mesh as pmesh
+from predictionio_tpu_torch.parallel.mesh import Mesh, ShardedArray
 from predictionio_tpu_torch.storage.base import App, EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage, memory_storage
 from predictionio_tpu_torch.templates import classification, ecommerce, similarproduct
@@ -8173,6 +8202,435 @@ def phase_als_layouts(fused9: dict | None) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 34: the in-process device mesh (parallel/mesh.py) over the card
+# ---------------------------------------------------------------------------
+
+#: iterations of each timed ALS route (bench.py's 10 cut to 2: the phase's
+#: budget is 60 s); the mesh shapes of DP×MP training
+MESH_ALS_ITERS = 2
+MESH_SHAPES = ((1, 4), (2, 2))
+#: sharded against unsharded: RMSE (absolute), the f32 user half-step
+#: (relative Frobenius on CG_CHECK_ROWS[0] rows), served scores
+#: (absolute), the chunked layout's tables after one iteration (relative
+#: Frobenius: index_add_ order)
+MESH_RMSE_TOL, MESH_HALF_STEP_RTOL, MESH_SCORE_TOL, MESH_CHUNKED_RTOL = 1e-3, 1e-5, 1e-5, 1e-3
+MESH_SERVE_BATCH, MESH_SERVE_K = 256, 100
+MESH_ENGINE_QUERIES = 32
+MESH_ML100K_AXES = {"data": 2, "model": 2}
+
+
+def _mesh_devices() -> list[torch.device]:
+    """4 mesh positions: 4 cards when there are, else 4 on the first card."""
+    if DEVICE != "cuda":
+        return [torch.device(DEVICE)] * 4
+    if torch.cuda.device_count() >= 4:
+        return [torch.device("cuda", i) for i in range(4)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def _mesh(shape, devices=None) -> Mesh:
+    devices = devices or _mesh_devices()
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid[: shape[0] * shape[1]].reshape(shape), ("data", "model"))
+
+
+def _check_row_sharded(tag: str, table: ShardedArray, mesh: Mesh, rows: int) -> None:
+    """Each shard of a row-sharded table on its position's device, with
+    its share of the (padded) rows."""
+    ways = mesh.axis_size("model")
+    per = -(-rows // ways)
+    if not (isinstance(table, ShardedArray) and table.spec[0] == "model"
+            and table.ways("model") == ways and tuple(table.shape) == (rows, ALS_RANK)):
+        fail(f"[{tag}] the table is not row-sharded {ways} ways: {table!r}")
+    for pos in mesh.positions:
+        shard = table.local(pos)
+        lo = pmesh.axis_index(mesh, pos, "model") * per
+        if shard.device != mesh.device(pos) or shard.shape[0] != max(0, min(per, rows - lo)):
+            fail(f"[{tag}] shard at {pos} is {tuple(shard.shape)} on {shard.device}")
+
+
+def _mesh_iterate(layouts, item0: torch.Tensor, iters: int, mesh: Mesh | None,
+                  coo: als.RatingsCOO):
+    """``iters`` bf16 fused iterations from ``item0``: unsharded, or over
+    ``mesh`` with both tables row-sharded (padded to the "model" axis, the
+    padding trimmed)."""
+    lam, alpha = float(ALS_LAM), 40.0
+    if mesh is None:
+        return als._als_iterate_fused(item0, *layouts, iters, lam, alpha, False, bf16=True)
+    ways = mesh.axis_size("model")
+    n_u = coo.num_rows + (-coo.num_rows) % ways
+    n_i = coo.num_cols + (-coo.num_cols) % ways
+    padded = torch.cat([item0, item0.new_zeros((n_i - coo.num_cols, item0.shape[1]))])
+    user, item = als._als_iterate_mesh(padded, *layouts, iters, lam, alpha, False, True, None,
+                                       "cg", False, mesh, True, n_u, n_i)
+    return user.head(coo.num_rows), item.head(coo.num_cols)
+
+
+def _mesh_als(coo: als.RatingsCOO, devices) -> dict:
+    """Phase 34a: fused DP×MP training at the ML-20M shape over 1×4 and
+    2×2 meshes against the unsharded run; then the chunked layout on 2×2."""
+    tag = "mesh/als"
+    t_start = time.perf_counter()
+    ladder = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    item0 = als.init_item_factors(coo.num_cols, ALS_RANK, SEED).to(DEVICE)
+    t_packed = time.perf_counter()
+    routes: dict[str, dict] = {}
+    warm = tuple(als.stage_buckets(x, ALS_RANK, device=DEVICE) for x in ladder)
+    _mesh_iterate(warm, item0, 1, None, coo)   # the first iteration of a process is slower
+    del warm
+    for name, mesh in [("unsharded", None)] + [
+            (f"{d}x{m}", _mesh((d, m), devices)) for d, m in MESH_SHAPES]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        staged = tuple(als.stage_buckets(x, ALS_RANK, device=DEVICE, mesh=mesh) for x in ladder)
+        ms, (user, item) = _events_ms(lambda: _mesh_iterate(staged, item0, MESH_ALS_ITERS,
+                                                            mesh, coo))
+        peak = torch.cuda.max_memory_allocated() - base
+        err = als.rmse(als.ALSFactors(user, item), coo)
+        routes[name] = {"mesh": mesh, "staged": staged, "user": user, "item": item,
+                        "ms": ms / MESH_ALS_ITERS, "rmse": err, "peak_gb": peak / 1e9}
+        log(f"[{tag}/{name}] bf16 fused, rank {ALS_RANK}, {MESH_ALS_ITERS} iterations: "
+            f"ms_per_iteration={ms / MESH_ALS_ITERS:.3f} rmse={err:.6f} "
+            f"peak_mem_gb={peak / 1e9:.3f}")
+        if mesh is not None:
+            _check_row_sharded(f"{tag}/{name}", user, mesh, coo.num_rows)
+            _check_row_sharded(f"{tag}/{name}", item, mesh, coo.num_cols)
+            off = abs(err - routes["unsharded"]["rmse"])
+            if not off <= MESH_RMSE_TOL:
+                fail(f"[{tag}/{name}] RMSE {err} is {off} from the unsharded run's")
+    t_timed = time.perf_counter()
+    for name, r in routes.items():   # after every timed run: the profiler slows what follows
+        r["device_ms"], r["launches"] = _profile(
+            lambda: _mesh_iterate(r["staged"], item0, 1, r["mesh"], coo), top=f"{tag}/{name}")
+        log(f"[{tag}/{name}] one profiled iteration: launches={r['launches']} "
+            f"device_ms={_fmt(r['device_ms'])}")
+    t_profiled = time.perf_counter()
+    # the f32 user half-step, from the unsharded run's items, on 4,096 rows
+    rated, active = _row_locator(ladder[0])
+    rows = np.random.default_rng(SEED + 34).choice(active, CG_CHECK_ROWS[0], replace=False)
+    V = routes["unsharded"]["item"]
+    idx = torch.from_numpy(rows).to(DEVICE)
+    X_ref = als.solve_half(V, routes["unsharded"]["staged"][0], ALS_RANK, ALS_LAM,
+                           matmul_dtype="float32", cg_matvec_dtype="float32")[idx]
+    for name, r in routes.items():
+        if r["mesh"] is None:
+            continue
+        X = als.solve_half(V, r["staged"][0], ALS_RANK, ALS_LAM, matmul_dtype="float32",
+                           cg_matvec_dtype="float32", mesh=r["mesh"], shard_factors=True)
+        off = (torch.linalg.vector_norm(X[idx].to(DEVICE) - X_ref)
+               / torch.linalg.vector_norm(X_ref)).item()
+        log(f"[{tag}/{name}] f32 user half-step on {len(rows)} rows against the unsharded one: "
+            f"rel_err={off:.3e} (tol {MESH_HALF_STEP_RTOL:g})")
+        if not off <= MESH_HALF_STEP_RTOL:
+            fail(f"[{tag}/{name}] the f32 half-step is {off:.3e} from the unsharded one")
+    table = {n: {k: r[k] for k in ("ms", "launches", "device_ms", "rmse", "peak_gb")}
+             for n, r in routes.items()}
+    log(f"[{tag}] per iteration, sharded beside unsharded: " + json.dumps(table))
+    model_1x4 = {k: routes["1x4"][k] for k in ("mesh", "user", "item")}
+    unsharded = {k: routes["unsharded"][k] for k in ("user", "item")}
+    for r in routes.values():
+        del r["staged"]
+    del routes
+    torch.cuda.empty_cache()
+    t_checked = time.perf_counter()
+
+    # the chunked layout, one iteration on 2×2, against chunked unsharded
+    mesh = _mesh((2, 2), devices)
+    chunks = als.chunk_rows(coo, LAYOUT_CHUNKS), als.chunk_rows(coo.transpose(), LAYOUT_CHUNKS)
+    out = {}
+    for name, m in (("unsharded", None), ("2x2", mesh)):
+        staged = tuple(als.stage_chunks(c, ALS_RANK, device=DEVICE, mesh=m) for c in chunks)
+        kw = dict(matmul_dtype="bfloat16", cg_matvec_dtype="auto", mesh=m, shard_factors=True)
+        ms, (user, item) = _events_ms(lambda: (
+            lambda u: (u, als.solve_half(u, staged[1], ALS_RANK, ALS_LAM, **kw)))(
+                als.solve_half(item0, staged[0], ALS_RANK, ALS_LAM, **kw)))
+        out[name] = (ms, user, item, als.rmse(als.ALSFactors(user, item), coo))
+        del staged
+    (ms_u, _, item_u, rmse_u), (ms_m, _, item_m, rmse_m) = out["unsharded"], out["2x2"]
+    off = (torch.linalg.vector_norm(item_m - item_u) / torch.linalg.vector_norm(item_u)).item()
+    log(f"[{tag}/chunked] one bf16 iteration: unsharded {ms_u:.3f} ms, 2x2 {ms_m:.3f} ms; "
+        f"items rel_err={off:.3e} (tol {MESH_CHUNKED_RTOL:g}), rmse {rmse_u:.6f} / "
+        f"{rmse_m:.6f}")
+    if not (off <= MESH_CHUNKED_RTOL and abs(rmse_m - rmse_u) <= MESH_RMSE_TOL):
+        fail(f"[{tag}/chunked] the 2x2 chunked iteration disagrees with the unsharded one")
+    del out
+    torch.cuda.empty_cache()
+    log(f"[{tag}] seconds: packing {t_packed - t_start:.1f}, staging and timed routes "
+        f"{t_timed - t_packed:.1f}, profiles {t_profiled - t_timed:.1f}, checks "
+        f"{t_checked - t_profiled:.1f}, chunked {time.perf_counter() - t_checked:.1f}")
+    return {"sharded": model_1x4, "unsharded": unsharded}
+
+
+def _same_topk(tag: str, got, want, tol: float) -> None:
+    """Values within ``tol``; indices equal where the score is finite,
+    but for near-ties (a neighbour within ``tol``), whose last bits two
+    products of other shapes may order differently; they are counted."""
+    gv, gi = (x.to(DEVICE) for x in got)
+    wv, wi = (x.to(DEVICE) for x in want)
+    finite = torch.isfinite(wv)
+    v_err = (gv[finite] - wv[finite]).abs().max().item() if finite.any() else 0.0
+    gap = (wv[:, :-1] - wv[:, 1:]).abs()
+    near = torch.zeros_like(finite)
+    near[:, :-1] |= gap <= tol
+    near[:, 1:] |= gap <= tol
+    clear = finite & ~near
+    same = bool((gi[clear] == wi[clear]).all()) and torch.equal(torch.isfinite(gv), finite)
+    log(f"[{tag}] max_value_diff={v_err:.3e} (tol {tol:g}) indices_equal_where_finite={same} "
+        f"near_ties={int((finite & near).sum())}")
+    if v_err > tol or not same:
+        fail(f"[{tag}] the sharded top-k disagrees with the flat path")
+
+
+def _mesh_serving(trained: dict, coo: als.RatingsCOO, devices) -> None:
+    """Phase 34b: the 1×4-trained model saved (``"sharded"`` in model.json),
+    loaded onto a 1×4 serving mesh, B=256 queries through the sharded
+    dispatch against ``recommend_topk`` on the unsharded model; phase 12's
+    2M-item top-k sharded 4 ways against the flat path; a catalog whose
+    shards hold fewer rows than k, and a batch that does not divide
+    "data"."""
+    tag = "mesh/serve"
+    mesh = trained["sharded"]["mesh"]
+    uix = np.random.default_rng(SEED + 341).choice(coo.num_rows, MESH_SERVE_BATCH,
+                                                   replace=False)
+    seen = _seen_lists(coo, uix)
+    width = max(len(s) for s in seen.values())
+    cols = np.zeros((MESH_SERVE_BATCH, width), dtype=np.int32)
+    mask = np.zeros((MESH_SERVE_BATCH, width), dtype=np.float32)
+    for j, u in enumerate(uix):
+        cols[j, : len(seen[int(u)])] = seen[int(u)]
+        mask[j, : len(seen[int(u)])] = 1.0
+    model = ALSModel(rank=ALS_RANK, user_factors=trained["sharded"]["user"],
+                     item_factors=trained["sharded"]["item"],
+                     user_ids=EntityIdIxMap(BiMap({f"u{u}": u for u in range(coo.num_rows)})),
+                     item_ids=EntityIdIxMap(BiMap({f"i{i}": i for i in range(coo.num_cols)})),
+                     seen_by_user=seen)
+    off = max((torch.linalg.vector_norm(trained["sharded"][s].gather() - t)
+               / torch.linalg.vector_norm(t)).item() for s, t in trained["unsharded"].items())
+    env = os.environ.get("PIO_SERVING_ANN_BUILD")
+    os.environ["PIO_SERVING_ANN_BUILD"] = "0"   # the index is phase 22's, not this one's
+    try:
+        with tempfile.TemporaryDirectory(prefix="pio-mesh-") as d:
+            t0 = time.perf_counter()
+            model.save(d)
+            with open(os.path.join(d, "model.json")) as f:
+                sharded_meta = json.load(f).get("sharded")
+            loaded = ALSModel.load(d, DEVICE, mesh=mesh)
+            io_s = time.perf_counter() - t0
+    finally:
+        if env is None:
+            os.environ.pop("PIO_SERVING_ANN_BUILD")
+        else:
+            os.environ["PIO_SERVING_ANN_BUILD"] = env
+    log(f"[{tag}] saved and loaded in {io_s:.2f}s: model.json sharded={sharded_meta}; item "
+        f"table {loaded.factor_shard_ways} ways; the 1x4 tables {off:.3e} (relative) from "
+        f"the unsharded run's")
+    if sharded_meta != {"axis": "model", "ways": 4} or loaded.factor_shard_ways != 4:
+        fail(f"[{tag}] the 1x4 model did not persist or restore sharded")
+    if not off <= MESH_HALF_STEP_RTOL:
+        fail(f"[{tag}] the 1x4 tables are {off:.3e} from the unsharded run's")
+    k = MESH_SERVE_K
+    user_u, item_u = trained["unsharded"]["user"], trained["unsharded"]["item"]
+    served = lambda: loaded.batch_topk(uix, cols, mask, None, k)  # noqa: E731
+    flat = lambda: topk_ops.recommend_topk(  # noqa: E731
+        user_u[torch.from_numpy(uix).to(DEVICE)], item_u,
+        torch.from_numpy(cols).long().to(DEVICE), torch.from_numpy(mask).to(DEVICE),
+        torch.ones(coo.num_cols, device=DEVICE), k)
+    _same_topk(f"{tag}/ml20m", served(), flat(), MESH_SCORE_TOL)
+    got_ms, want_ms = time_ms(served, warmup=2, n=10), time_ms(flat, warmup=2, n=10)
+    log(f"[{tag}] B={MESH_SERVE_BATCH} k={k} over {coo.num_cols} items ({cols.shape[1]} seen "
+        f"columns, from the host): the sharded dispatch {got_ms:.3f} ms, recommend_topk on "
+        f"the unsharded model {want_ms:.3f} ms")
+
+    # phase 12's catalog: B=256 × 2M items, k=10, sharded 4 ways
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    item_f = torch.randn((TOPK_ITEMS, ALS_RANK), generator=gen, device=DEVICE)
+    uv = torch.randn((TOPK_BATCH, ALS_RANK), generator=gen, device=DEVICE)
+    tcols = torch.randint(0, TOPK_ITEMS, (TOPK_BATCH, 32), generator=gen, device=DEVICE)
+    tmask = (torch.rand((TOPK_BATCH, 32), generator=gen, device=DEVICE) < 0.5).float()
+    allow = torch.ones((TOPK_ITEMS,), device=DEVICE)
+    table = pmesh.device_put(item_f, pmesh.model_sharding(mesh))
+    sharded = lambda: topk_ops.recommend_topk_sharded(uv, table, tcols, tmask, allow, 10,  # noqa: E731
+                                                      mesh)
+    flat = lambda: topk_ops.recommend_topk(uv, item_f, tcols, tmask, allow, 10)  # noqa: E731
+    _same_topk(f"{tag}/2m", sharded(), flat(), 1e-4)
+    s_ms, f_ms = time_ms(sharded, warmup=3, n=20), time_ms(flat, warmup=3, n=20)
+    s_dev, s_n = _profile(sharded)
+    f_dev, f_n = _profile(flat)
+    log(f"[{tag}/2m] B={TOPK_BATCH} I={TOPK_ITEMS} k=10: sharded 4 ways ms={s_ms:.4f} "
+        f"device_ms={_fmt(s_dev, 4)} launches={s_n}; flat ms={f_ms:.4f} "
+        f"device_ms={_fmt(f_dev, 4)} launches={f_n}")
+    del table, item_f
+    torch.cuda.empty_cache()
+
+    # k above a shard's rows (12 items, 3 a shard, k 10), B=5 on a 2-wide data axis
+    small = torch.randn((12, ALS_RANK), generator=gen, device=DEVICE)
+    q = torch.randn((5, ALS_RANK), generator=gen, device=DEVICE)
+    c = torch.randint(0, 12, (5, 3), generator=gen, device=DEVICE)
+    m = (torch.rand((5, 3), generator=gen, device=DEVICE) < 0.5).float()
+    ones = torch.ones(12, device=DEVICE)
+    mesh4 = _mesh((1, 4), devices)
+    got = topk_ops.recommend_topk_sharded(q, small, c, m, ones, 10, mesh4)
+    if tuple(got[0].shape) != (5, 10):
+        fail(f"[{tag}] k above the shard rows gave {tuple(got[0].shape)}")
+    _same_topk(f"{tag}/k>rows", got, topk_ops.recommend_topk(q, small, c, m, ones, 10),
+               MESH_SCORE_TOL)
+    _same_topk(f"{tag}/B=5 on 2x2", topk_ops.recommend_topk_sharded(
+        q, small, c, m, ones, 10, _mesh((2, 2), devices)),
+        topk_ops.recommend_topk(q, small, c, m, ones, 10), MESH_SCORE_TOL)
+
+
+def _mesh_classification(devices) -> None:
+    """Phase 34c: naive Bayes and logreg on phase 21's Covertype sample over
+    a 4×1 data mesh against the unsharded fits."""
+    tag = "mesh/class"
+    rows, _, n_cls = COVTYPE
+    X, y = covtype_data(rows, SEED + 21)
+    sample = np.random.default_rng(SEED + 22).choice(rows, FOREST_SAMPLE, replace=False)
+    Xs, ys = X[sample], y[sample]
+    mesh = _mesh((4, 1), devices)
+    naive_bayes.train_multinomial(Xs, ys, n_cls, mesh=mesh)   # warm: first calls are slower
+    nb_ms, nb = _events_ms(lambda: naive_bayes.train_multinomial(Xs, ys, n_cls, mesh=mesh))
+    nb1_ms, nb1 = _events_ms(lambda: naive_bayes.train_multinomial(Xs, ys, n_cls,
+                                                                    device=DEVICE))
+    exact = torch.equal(nb.log_prior, nb1.log_prior) and torch.equal(nb.log_theta,
+                                                                      nb1.log_theta)
+    lr_ms, lr = _events_ms(lambda: logreg.train_logreg(
+        Xs, ys, n_cls, l2=LOGREG_L2, iterations=LOGREG_STEPS, lr=LOGREG_LR, mesh=mesh))
+    lr1_ms, lr1 = _events_ms(lambda: logreg.train_logreg(
+        Xs, ys, n_cls, l2=LOGREG_L2, iterations=LOGREG_STEPS, lr=LOGREG_LR, device=DEVICE))
+    w_err = (torch.linalg.vector_norm(lr.weights - lr1.weights)
+             / torch.linalg.vector_norm(lr1.weights)).item()
+    log(f"[{tag}] {FOREST_SAMPLE} rows over a 4x1 data mesh: naive Bayes {nb_ms:.3f} ms "
+        f"(unsharded {nb1_ms:.3f}), counts equal: {exact}; logreg {LOGREG_STEPS} Adam steps "
+        f"{lr_ms:.3f} ms (unsharded {lr1_ms:.3f}), W rel_err={w_err:.3e} "
+        f"(tol {LOGREG_W_RTOL:g})")
+    if not exact or not w_err <= LOGREG_W_RTOL:
+        fail(f"[{tag}] the data-parallel fits disagree with the unsharded ones")
+
+
+def _mesh_engine(devices) -> None:
+    """Phase 34d: run_train of the ML-100k recommendation engine with
+    shardFactors and a 2×2 meshConf on a context given the 4 positions;
+    the instance records the meshConf; load_deployed_engine onto a 2-way
+    serving mesh; 32 answers against the same engine trained unsharded."""
+    tag = "mesh/engine"
+    n_users = ML100K[0]
+    storage, _ = _ml100k_storage()
+    algo = {"rank": 10, "numIterations": 10, "lambda": 0.01, "seed": 3}
+    base = {"engineFactory": REC_FACTORY, "datasource": {"params": {"appName": "ML100k"}}}
+    t0 = time.perf_counter()
+    sharded = run_train(variant={**base, "meshConf": {"axes": MESH_ML100K_AXES},
+                                 "algorithms": [{"name": "als",
+                                                 "params": {**algo, "shardFactors": True}}]},
+                        ctx=EngineContext(storage=storage, device=DEVICE, devices=devices))
+    t1 = time.perf_counter()
+    plain = run_train(variant={**base, "algorithms": [{"name": "als", "params": algo}]},
+                      ctx=EngineContext(storage=storage, device=DEVICE))
+    t2 = time.perf_counter()
+    row = storage.get_meta_data_engine_instances().get(sharded.instance_id)
+    trained_ways = sharded.models[0].factor_shard_ways
+    log(f"[{tag}] run_train over {MESH_ML100K_AXES} {sharded.status} in {t1 - t0:.2f}s "
+        f"(unsharded {plain.status} in {t2 - t1:.2f}s); instance mesh_conf={row.mesh_conf}; "
+        f"trained item table {trained_ways} ways; stages: "
+        f"{format_stage_times(sharded.stage_seconds)}")
+    if (sharded.status, plain.status) != ("COMPLETED", "COMPLETED") or \
+            row.mesh_conf != {"axes": MESH_ML100K_AXES} or trained_ways != 2:
+        fail(f"[{tag}] the meshConf run did not train sharded and record its meshConf")
+    served = load_deployed_engine(storage, ServerConfig(engine_instance_id=sharded.instance_id,
+                                                        device=DEVICE),
+                                  ctx=EngineContext(storage=storage, device=DEVICE,
+                                                    devices=devices[:2]))
+    one = load_deployed_engine(storage, ServerConfig(engine_instance_id=plain.instance_id,
+                                                     device=DEVICE))
+    ways = served.models[0].factor_shard_ways
+    if ways != 2 or one.models[0].factor_shard_ways != 1:
+        fail(f"[{tag}] the deploys restored {ways} / {one.models[0].factor_shard_ways} ways")
+    diffs = {}
+    for side in ("user", "item"):
+        a, b = (_whole(getattr(m, f"{side}_factors")) for m in (served.models[0], one.models[0]))
+        diffs[side] = (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+    queries = [rec.Query(user=f"u{u}", num=(10, 20)[j % 2]) for j, u in enumerate(
+        np.random.default_rng(SEED + 34).choice(n_users, MESH_ENGINE_QUERIES, replace=False))]
+    t0 = time.perf_counter()
+    got = [served.query(q) for q in queries]
+    q_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    want = [one.query(q) for q in queries]
+    worst, moved = 0.0, 0
+    for a, b in zip(got, want):
+        ia, ib = [s.item for s in a.item_scores], [s.item for s in b.item_scores]
+        sa, sb = [s.score for s in a.item_scores], [s.score for s in b.item_scores]
+        if len(ia) != len(ib):
+            fail(f"[{tag}] answers of other lengths: {len(ia)} / {len(ib)}")
+        worst = max([worst] + [abs(x - z) for x, z in zip(sa, sb)])
+        moved += sum(x != z for x, z in zip(ia, ib))
+    log(f"[{tag}] 2-way serving mesh ({ways} ways): {len(queries)} DeployedEngine.query "
+        f"answers, {q_ms:.3f} ms each; tables from the unsharded run's (relative): "
+        f"{json.dumps(diffs)}; max score diff {worst:.3e} (tol {MESH_SCORE_TOL:g}), "
+        f"{moved} items in other places")
+    if worst > MESH_SCORE_TOL or moved:
+        fail(f"[{tag}] the sharded engine's answers differ from the unsharded engine's")
+
+
+def _whole(table) -> torch.Tensor:
+    """A factor table whole on the card, sharded or not."""
+    return (table.gather() if isinstance(table, ShardedArray) else table).to(DEVICE)
+
+
+def _mesh_quality(devices) -> None:
+    """Phase 34e: compare_quality at ML-100k over a 2×2 mesh against mesh=None."""
+    tag = "mesh/quality"
+    ds = movielens.synthesize_ml100k()
+    t0 = time.perf_counter()
+    got = quality.compare_quality(ds, mesh=_mesh((2, 2), devices), device=DEVICE,
+                                  **QUALITY_POINT)
+    t1 = time.perf_counter()
+    want = quality.compare_quality(ds, device=DEVICE, **QUALITY_POINT)
+    t2 = time.perf_counter()
+    off = abs(got["rmse_tpu"] - want["rmse_tpu"])
+    log(f"[{tag}] compare_quality over 2x2 in {t1 - t0:.2f}s: {json.dumps(got)}; mesh=None "
+        f"in {t2 - t1:.2f}s: {json.dumps(want)}; rmse_tpu off by {off:.3e} "
+        f"(tol {MESH_RMSE_TOL:g})")
+    if not off <= MESH_RMSE_TOL:
+        fail(f"[{tag}] the mesh's RMSE is {off} from mesh=None's")
+
+
+def phase_mesh() -> None:
+    """Phase 34: the in-process mesh over the card (4 positions on the one
+    card, or 4 cards): (a) DP×MP ALS at the ML-20M shape, (b) sharded
+    persistence and serving, (c) the data-parallel classification fits,
+    (d) the engine path with meshConf, (e) compare_quality over a mesh.
+    Launches no flash kernel."""
+    t_phase = time.perf_counter()
+    flash_before = flash_ops.LAUNCHES
+    devices = _mesh_devices()
+    cards = len(set(devices))
+    log(f"[mesh] mesh: {len(devices)} shards on {cards} card{'s' if cards > 1 else ''} "
+        f"({', '.join(str(d) for d in devices)})")
+    n_users, n_items, nnz = ML20M
+    coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
+    seconds = {}
+    t0 = time.perf_counter()
+    trained = _mesh_als(coo, devices)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _mesh_serving(trained, coo, devices)
+    del trained
+    torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+    for part, fn in (("c", _mesh_classification), ("d", _mesh_engine), ("e", _mesh_quality)):
+        t0 = time.perf_counter()
+        fn(devices)
+        seconds[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    if flash_ops.LAUNCHES != flash_before:
+        fail("[mesh] the mesh phase launched the flash kernel")
+    log(f"[mesh] seconds by part: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"the phase {time.perf_counter() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 33: Parquet `pio export` / `pio import`
 # ---------------------------------------------------------------------------
 
@@ -8459,6 +8917,10 @@ def run_phases(wall: float) -> None:
         log_card()
         phase_als_layouts(None)
         return
+    if sys.argv[1:] == ["--mesh-only"]:   # phase 34 alone; prints no result line
+        log_card()
+        phase_mesh()
+        return
     if sys.argv[1:] == ["--parquet-only"]:   # phase 33 alone, over a fresh 16b import and train
         log_card()
         with tempfile.TemporaryDirectory(prefix="pio-") as base:
@@ -8569,6 +9031,8 @@ def run_phases(wall: float) -> None:
         timed("31", phase_examples)
         torch.cuda.empty_cache()
         timed("32", phase_als_layouts, fused9)
+        torch.cuda.empty_cache()
+        timed("34", phase_mesh)
         torch.cuda.empty_cache()
         # 33, 23 and 27 over phase 16's store, beside the child's later
         # phases; 33 reads 16b's app before 23 and 27 add events to it

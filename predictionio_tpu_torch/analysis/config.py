@@ -295,10 +295,8 @@ def default_config() -> LintConfig:
                     "snap_calls": ["serving_k", "serving_batch"],
                     # factory-backed compiled wrappers: plain functions
                     # whose named params key a cached compiled program
-                    # (the JAX package's sharded top-k). This package
-                    # has no recommend_topk_sharded until multi-GPU
-                    # serving lands (ROADMAP.md queue 1 item 15); the
-                    # entry stays so that it is policed from then on.
+                    # (the sharded top-k of ops/topk.py, whose k sizes
+                    # each position's local top-k and the merge).
                     "extra_entries": {"recommend_topk_sharded": ["k"]},
                 },
             ),

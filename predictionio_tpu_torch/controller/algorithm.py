@@ -8,12 +8,13 @@ serving.
   finished weights between requests and hands them to the device for
   each predict.
 - :class:`ShardedAlgorithm` keeps its model on the device between
-  training and serving (in the JAX package, sharded over the mesh). On
-  one card nothing is sharded, but the contract is the JAX package's:
-  ``batch_predict`` must be overridden, and models are not pickled by
-  default (``make_persistent_model`` returns None: retrain on deploy)
-  unless the algorithm saves them itself. Sharding over several cards
-  is ROADMAP.md queue 1 item 15.
+  training and serving, sharded over the context's mesh when it trains
+  with one (``parallel/mesh.py``; the ALS templates' ``shardFactors``).
+  The contract is the JAX package's (the reference's PAlgorithm):
+  ``batch_predict`` must be overridden with a device-side
+  implementation, and models are not pickled by default
+  (``make_persistent_model`` returns None: retrain on deploy) unless the
+  algorithm saves them itself, as the ALS templates do.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ class HostModelAlgorithm(Algorithm[PD, M, Q, P], abc.ABC):
 
 
 class ShardedAlgorithm(Algorithm[PD, M, Q, P], abc.ABC):
-    """Model stays on the device between training and serving."""
+    """Model stays on the device, sharded over the mesh when trained on
+    one, between training and serving."""
 
     placement = "sharded"
 

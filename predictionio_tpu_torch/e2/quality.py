@@ -6,9 +6,8 @@ the port's ``ops/als.als_train`` on the card unless the caller passes
 
 Result keys are the JAX package's, so a record of either package reads
 the same: in the port, ``_tpu`` names the device-path ALS (``map10_tpu``,
-``rmse_tpu``, ``precision10_tpu``), which runs on the card. A ``mesh``
-(the JAX package's multi-device ALS) raises here, naming ROADMAP.md
-queue 1 item 15.
+``rmse_tpu``, ``precision10_tpu``), which runs on the card, or over a
+device ``mesh`` (``parallel/mesh.py``) when one is passed.
 
 The north-star gate (BASELINE.md) is throughput *at matching MAP@10* —
 speed claims are meaningless if the device factorizer converges to worse
@@ -37,19 +36,15 @@ import numpy as np
 
 from predictionio_tpu_torch.data.movielens import RatingsDataset
 
-_MESH_ITEM = ("mesh= (multi-device ALS) needs several cards: ROADMAP.md queue 1 item 15, "
-              "multi-GPU")
-
-
 def _device_als(coo_args, mesh, device, **kw):
-    """The port's ``ops/als.als_train`` on ``device``; its factors come
-    back to the host as f32 NumPy, where the metrics run."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    """The port's ``ops/als.als_train`` on ``device``, or over ``mesh``;
+    its factors come back to the host as f32 NumPy, where the metrics
+    run."""
     from predictionio_tpu_torch.ops.als import RatingsCOO, als_train
 
-    f = als_train(RatingsCOO(*coo_args), device=device, **kw)
-    return f.user.float().cpu().numpy(), f.item.float().cpu().numpy()
+    f = als_train(RatingsCOO(*coo_args), device=device, mesh=mesh, **kw)
+    return (np.asarray(f.user.cpu(), dtype=np.float32),
+            np.asarray(f.item.cpu(), dtype=np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,15 @@ deploy --online``), folded users and brand-new items are served between
 retrains. A model saves as the JAX package saves one with its npz
 checkpoint backend (``utils/checkpoint.py`` + ``model.json``, the ANN
 index under ``ann/``), so either package loads the other's models.
-Sharded serving is ROADMAP.md queue 1 item 15.
+
+Factor tables trained with ``shardFactors`` are row-sharded over a mesh's
+"model" axis (``parallel/mesh.ShardedArray``). Such a model persists the
+fact (``"sharded"`` in ``model.json``, the tables gathered to the host
+for the checkpoint) and restores onto a serving mesh over the available
+devices; queries then go through the sharded top-k
+(``ops/topk.recommend_topk_sharded``): a local top-k per shard and a
+merge of the candidates. Paths without a sharded form (similar items,
+ANN, the online overlay) read the table gathered whole, once.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 from predictionio_tpu_torch.ops import ann as ann_ops
 from predictionio_tpu_torch.ops import topk as topk_ops
+from predictionio_tpu_torch.parallel.mesh import Mesh, NamedSharding, ShardedArray, device_put
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.utils.checkpoint import (
     default_mmap_mode,
@@ -33,7 +42,7 @@ from predictionio_tpu_torch.utils.checkpoint import (
     load_sharded,
     save_sharded,
 )
-from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
+from predictionio_tpu_torch.utils.device import available_devices, ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +54,71 @@ _SEEN_PAD = 512
 _ANN_SUBDIR = "ann"
 
 
+def _model_shard_ways(table) -> int:
+    """How many ways a factor table is row-sharded over a "model" mesh
+    axis: 1 for a tensor, a NumPy array or a table not split by rows."""
+    if isinstance(table, ShardedArray) and table.spec[0] == "model":
+        return table.ways("model")
+    return 1
+
+
+def _serving_shard_ways(n_items: int, n_devices: int) -> int:
+    """The "model" axis width a catalog of ``n_items`` rows can shard over:
+    the largest device count whose shards come out equal (1 = stay
+    replicated)."""
+    for ways in range(min(n_devices, n_items), 1, -1):
+        if n_items % ways == 0:
+            return ways
+    return 1
+
+
+def _resolve_serving_shardings(meta: Mapping, mesh: Mesh | None,
+                               devices: Sequence[torch.device]) -> dict | None:
+    """Target shardings for :meth:`ALSModel.load` (None = replicated).
+
+    Sharded serving engages when the caller passes a ``mesh``, when the
+    checkpoint meta says the model was persisted sharded, or when
+    ``PIO_SERVING_SHARD_FACTORS=1`` forces it; ``=0`` vetoes all three.
+    Without a mesh, one is laid over ``devices`` with every device on the
+    "model" axis. The item table must divide the "model" axis (the
+    sharded top-k is even); a table that does not stays replicated, with
+    a warning, rather than failing the deploy."""
+    env = os.environ.get("PIO_SERVING_SHARD_FACTORS", "").strip().lower()
+    if env in ("0", "false", "off", "no"):
+        return None
+    if not (mesh is not None or "sharded" in meta or env in ("1", "true", "on", "yes")):
+        return None
+    n_users = len(meta["user_ids"])
+    n_items = len(meta["item_ids"])
+    if mesh is None:
+        ways = _serving_shard_ways(n_items, len(devices))
+        if ways <= 1:
+            logger.warning(
+                "sharded serving requested but the catalog (%d rows) has no >=2-way even "
+                "split over %d device(s); serving replicated", n_items, len(devices))
+            return None
+        # every device on the model axis: a table shard is 1/ways of it,
+        # and a data axis of 1 admits every query batch size
+        grid = np.empty(ways, dtype=object)
+        grid[:] = list(devices)[:ways]
+        mesh = Mesh(grid.reshape(1, ways), ("data", "model"))
+    ways = mesh.axis_size("model")
+    if ways <= 1 or n_items % ways:
+        logger.warning("item table (%d rows) cannot row-shard over the mesh model axis (%d); "
+                       "serving replicated", n_items, ways)
+        return None
+    row_sharded = NamedSharding(mesh, ("model", None))
+    shardings = {"item": row_sharded}
+    if n_users % ways == 0:
+        shardings["user"] = row_sharded
+    else:
+        logger.warning("user table (%d rows) does not divide the model axis (%d); user "
+                       "factors stay replicated", n_users, ways)
+    logger.info("restoring factor tables row-sharded %d-way over the model axis (sharded "
+                "top-k serving dispatch)", ways)
+    return shardings
+
+
 def _serving_k(k: int) -> int:
     """``k`` rounded up to the shared serving top-k menu (call sites
     clamp to the catalog)."""
@@ -53,11 +127,12 @@ def _serving_k(k: int) -> int:
 
 @dataclasses.dataclass
 class ALSModel:
-    """Factors + id maps + seen lists; the factors stay on the device."""
+    """Factors + id maps + seen lists; the factors stay on the device,
+    row-sharded over a mesh when trained or restored so."""
 
     rank: int
-    user_factors: torch.Tensor          # (U, K) f32
-    item_factors: torch.Tensor          # (I, K) f32
+    user_factors: torch.Tensor | ShardedArray   # (U, K) f32
+    item_factors: torch.Tensor | ShardedArray   # (I, K) f32
     user_ids: EntityIdIxMap
     item_ids: EntityIdIxMap
     seen_by_user: Mapping[int, np.ndarray]  # user ix -> seen item ix array
@@ -78,10 +153,35 @@ class ALSModel:
     _ann_observer: object = dataclasses.field(default=None, repr=False, compare=False)
     #: the fold-in service's delta overlay (online/overlay.OnlineOverlay)
     online_overlay: object = dataclasses.field(default=None, repr=False, compare=False)
+    #: a sharded item table gathered whole, for the paths with no sharded form
+    _whole_items: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                          compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.item_factors.device
+
+    @property
+    def factor_shard_ways(self) -> int:
+        """How many ways the item table is row-sharded over the "model"
+        axis (1 = replicated): whether queries take the sharded top-k."""
+        return _model_shard_ways(self.item_factors)
+
+    def _serving_mesh(self) -> Mesh | None:
+        """The mesh of a row-sharded item table whose rows divide its
+        "model" axis, else None (the whole-table dispatch)."""
+        ways = _model_shard_ways(self.item_factors)
+        if ways <= 1 or self.item_factors.shape[0] % ways:
+            return None
+        return self.item_factors.mesh
+
+    def _items(self) -> torch.Tensor:
+        """The item table as one tensor (a sharded one gathered once)."""
+        if not isinstance(self.item_factors, ShardedArray):
+            return self.item_factors
+        if self._whole_items is None:
+            self._whole_items = self.item_factors.gather()
+        return self._whole_items
 
     @staticmethod
     def from_jax(user_factors: np.ndarray, item_factors: np.ndarray,
@@ -109,7 +209,7 @@ class ALSModel:
         without an index builds one here (deploy time); a catalog too
         small to index serves brute force, with a warning."""
         if mode == "ann" and self.ann_index is None:
-            built = ann_ops.build_index(self.item_factors, nlist=nlist)
+            built = ann_ops.build_index(self.item_factors, nlist=nlist)   # gathers a sharded one
             if built is None:
                 logger.warning(
                     "retrieval=ann requested but the catalog has only %d items (< %d): "
@@ -188,18 +288,25 @@ class ALSModel:
               brute: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """(values, indices) of the configured retrieval for (B, K) query
         vectors: ANN (counted by the observer) or, when not configured or
-        ``brute``, brute force. ANN clamps ``k`` to its shortlist width."""
+        ``brute``, brute force, through the sharded top-k when the item
+        table is sharded (recommendations only). ANN clamps ``k`` to its
+        shortlist width."""
         allow_v = self._allow_or_default(allow)
         if self._ann_active() and not brute:
             *arrays, nprobe, rescore = self._ann_args()
             fn = ann_ops.ann_similar_topk if similar else ann_ops.ann_topk
-            out = fn(query, self.item_factors, *arrays, cols, mask, allow_v, k, nprobe,
-                     rescore)
+            out = fn(query, self._items(), *arrays, cols, mask, allow_v, k, nprobe, rescore)
             self._record_ann(self.ann_index.shortlist_width(nprobe, rescore),
                              int(query.shape[0]))
             return out
+        mesh = None if similar else self._serving_mesh()
+        if mesh is not None and allow_v.ndim == 1:
+            # the distributed merge moves n_model * k candidates, never
+            # the (B, I) scores of the whole table
+            return topk_ops.recommend_topk_sharded(query, self.item_factors, cols, mask,
+                                                   allow_v, k, mesh)
         fn = topk_ops.similar_topk if similar else topk_ops.recommend_topk
-        return fn(query, self.item_factors, cols, mask, allow_v, k)
+        return fn(query, self._items(), cols, mask, allow_v, k)
 
     def _single_query(self, query: torch.Tensor, ixs: np.ndarray, allow, num: int,
                       similar: bool = False,
@@ -260,7 +367,7 @@ class ALSModel:
         if delta is not None:
             uv = np.asarray(delta.vector, dtype=np.float32)
         elif uix is not None:
-            uv = self.user_factors[uix].float().cpu().numpy()
+            uv = self.user_factors[uix].float().cpu().numpy()   # one row, sharded or not
         else:
             return []
         # before the overflow fold below: overlay items are outside the
@@ -302,7 +409,7 @@ class ALSModel:
         ixs = np.asarray([i for i in ixs if i is not None], dtype=np.int32)
         if not len(ixs):
             return []
-        qvec = self.item_factors[torch.from_numpy(ixs).to(self.device).long()].mean(
+        qvec = self._items()[torch.from_numpy(ixs).to(self.device).long()].mean(
             0, keepdim=True)
         return self._gather_results(*self._single_query(
             qvec, ixs[:_SEEN_PAD], allow, num, similar=True, brute=len(ixs) > _SEEN_PAD), num)
@@ -310,16 +417,19 @@ class ALSModel:
     def batch_topk(self, uixs: np.ndarray, seen_cols, seen_mask, allow,
                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Masked top-k over dense user indices, the templates'
-        batch_predict path: ANN when configured, else flat or chunked by
+        batch_predict path: ANN when configured, else the sharded top-k
+        for a sharded item table, else flat or chunked by
         ``recommend_topk_fused``. ``allow=None`` uses the all-ones
         vector."""
         uv = self.user_factors[torch.as_tensor(np.asarray(uixs), device=self.device).long()]
-        if self._ann_active():
+        allow_v = self._allow_or_default(allow)
+        mesh = self._serving_mesh()
+        if self._ann_active() or (mesh is not None and allow_v.ndim == 1):
             return self._topk(uv, torch.as_tensor(seen_cols, device=self.device).long(),
                               torch.as_tensor(seen_mask, device=self.device).float(),
                               allow, k)
-        return topk_ops.recommend_topk_fused(uv, self.item_factors, seen_cols, seen_mask,
-                                             self._allow_or_default(allow), k)
+        return topk_ops.recommend_topk_fused(uv, self._items(), seen_cols, seen_mask,
+                                             allow_v, k)
 
     def predict_rating(self, user_id: str, item_id: str) -> float | None:
         uix = self.user_ids.get(user_id)
@@ -327,7 +437,7 @@ class ALSModel:
         if uix is None or iix is None:
             return None
         with ieee_f32():
-            return float(self.user_factors[uix] @ self.item_factors[iix])
+            return float(self.user_factors[uix] @ self.item_factors[iix].to(self.device))
 
     def _gather_results(self, vals, idxs, num: int) -> list[tuple[str, float]]:
         inv = self.item_ids.inverse
@@ -349,7 +459,13 @@ class ALSModel:
         same checksummed envelope under ``ann/`` with an ``"ann"`` entry
         in ``model.json``, as the JAX package does:
         ``PIO_SERVING_ANN_NLIST`` overrides the auto cell count and
-        ``PIO_SERVING_ANN_BUILD=0`` skips the build."""
+        ``PIO_SERVING_ANN_BUILD=0`` skips the build.
+
+        A model with row-sharded tables writes ``"sharded": {"axis":
+        "model", "ways": N}`` into ``model.json``, as the JAX package does,
+        so that :meth:`load` restores it onto a serving mesh; its tables
+        are gathered to the host for the checkpoint, whose files are the
+        ones an unsharded model writes."""
         os.makedirs(directory, exist_ok=True)
         save_sharded(directory, {"user": self.user_factors.cpu().numpy(),
                                  "item": self.item_factors.cpu().numpy()})
@@ -362,6 +478,7 @@ class ALSModel:
             self.ann_index = ann_ops.build_index(self.item_factors, nlist=nlist)
         if self.ann_index is not None:
             save_sharded(os.path.join(directory, _ANN_SUBDIR), self.ann_index.to_arrays())
+        ways = max(_model_shard_ways(self.user_factors), _model_shard_ways(self.item_factors))
         meta = {
             "rank": self.rank,
             "user_ids": self.user_ids.id_to_ix.to_dict(),
@@ -369,17 +486,31 @@ class ALSModel:
             "seen": {str(k): np.asarray(v).tolist() for k, v in self.seen_by_user.items()},
             **({"ann": {"nlist": self.ann_index.nlist, "n_items": self.ann_index.n_items}}
                if self.ann_index is not None else {}),
+            **({"sharded": {"axis": "model", "ways": ways}} if ways > 1 else {}),
         }
         with open(os.path.join(directory, "model.json"), "w") as f:
             json.dump(meta, f)
 
     @staticmethod
-    def load(directory: str, device: str | torch.device | None = None) -> "ALSModel":
+    def load(directory: str, device: str | torch.device | None = None,
+             shardings: Mapping[str, NamedSharding] | None = None, mesh: Mesh | None = None,
+             devices: Sequence[str | torch.device] | None = None) -> "ALSModel":
         """A model saved by :meth:`save` or by the JAX package with its npz
         backend, on ``device`` (default ``cuda``). When ``model.json``
         names an ANN index, ``ann/`` is read and verified: a missing or
         torn payload raises ``CheckpointCorruptError``. The model serves
         brute force until ``configure_retrieval("ann")``.
+
+        ``shardings`` maps "user"/"item" to the shardings to restore onto.
+        ``mesh`` row-shards both tables over its "model" axis (a table
+        whose rows do not divide it stays replicated, with a warning).
+        With neither, a model persisted sharded (``"sharded"`` in
+        model.json) restores onto a serving mesh over ``devices``
+        (default: every card, or the CPU) with every device on the
+        "model" axis, so that it serves through the sharded top-k; on one
+        device it stays replicated, and says so.
+        ``PIO_SERVING_SHARD_FACTORS=1`` shards a replicated-persisted
+        model too, ``=0`` never shards.
 
         Under ``PIO_CHECKPOINT_MMAP=r`` (``pio deploy --model-mmap``) the
         factor tables and the index's arrays are mapped, so the workers
@@ -388,6 +519,10 @@ class ALSModel:
         dev = resolve_device(device)
         with open(os.path.join(directory, "model.json")) as f:
             meta = json.load(f)
+        if shardings is None:
+            shardings = _resolve_serving_shardings(
+                meta, mesh, [torch.device(d) for d in devices] if devices
+                else available_devices(dev)) or {}
         data = load_sharded(directory)
         ann_index = None
         if "ann" in meta:
@@ -400,8 +535,10 @@ class ALSModel:
                 n_items=int(meta["ann"]["n_items"]))
         return ALSModel(
             rank=int(meta["rank"]),
-            user_factors=host_tensor(data["user"], dev),
-            item_factors=host_tensor(data["item"], dev),
+            user_factors=(device_put(data["user"], shardings["user"]) if "user" in shardings
+                          else host_tensor(data["user"], dev)),
+            item_factors=(device_put(data["item"], shardings["item"]) if "item" in shardings
+                          else host_tensor(data["item"], dev)),
             user_ids=EntityIdIxMap(BiMap({k: int(v) for k, v in meta["user_ids"].items()})),
             item_ids=EntityIdIxMap(BiMap({k: int(v) for k, v in meta["item_ids"].items()})),
             seen_by_user={int(k): np.asarray(v, dtype=np.int32)

@@ -7,7 +7,13 @@ program with ``optax.adam(lr)`` (β₁ 0.9, β₂ 0.999, ε 1e-8) becomes an
 eager loop of torch steps with Adam written out. The gradient is the
 closed form, two products a step (logits X·W and Xᵀ·residual):
 ``Xᵀ(mask·(softmax − onehot))/n_real + 2·l2·W``, the bias row's L2 term
-zeroed. A ``mesh`` raises: several cards are ROADMAP.md queue 1 item 15.
+zeroed. With a ``mesh`` (``parallel/mesh.py``) the rows are padded to
+the "data" axis multiple (padding rows carry a zero mask) and split over
+it: each step every position computes its rows' loss and gradient
+partials, normalized by the GLOBAL real-row count, ``psum`` adds them,
+and the Adam update runs once, on the mesh's first device, whose weights
+go back to every position. The fit equals the unsharded one up to the
+order of the sums.
 """
 
 from __future__ import annotations
@@ -17,7 +23,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.models.naive_bayes import _MESH_ITEM
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    device_put,
+    local_map,
+    psum,
+    replicated,
+    shard_batch,
+)
 from predictionio_tpu_torch.utils.device import as_device_tensor, ieee_f32, resolve_device
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -35,18 +48,43 @@ def _add_bias(features: torch.Tensor) -> torch.Tensor:
     return torch.cat([features, ones], dim=1)
 
 
+def _data_loss_and_grad(X: torch.Tensor, one_hot: torch.Tensor, mask: torch.Tensor,
+                        n_real: torch.Tensor,
+                        W: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows' part of the loss, Σ masked cross-entropy / n_real, and
+    of its gradient in W (``n_real`` counts the real rows of the whole
+    batch, so the parts of row blocks add up to the whole's)."""
+    logp = torch.log_softmax(X @ W, dim=1)                       # (N, C)
+    ce = -(one_hot * logp).sum(1) * mask
+    residual = (torch.exp(logp) - one_hot) * (mask / n_real)[:, None]
+    return ce.sum() / n_real, X.T @ residual
+
+
+def _with_l2(loss: torch.Tensor, grad: torch.Tensor, W: torch.Tensor,
+             l2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The L2 term added to the data part: l2·‖W[:-1]‖², the bias exempt."""
+    reg_w = W.clone()
+    reg_w[-1] = 0.0
+    return loss + l2 * (reg_w * reg_w).sum(), grad + (2.0 * l2) * reg_w
+
+
 def _loss_and_grad(X: torch.Tensor, one_hot: torch.Tensor, mask: torch.Tensor,
                    n_real: torch.Tensor, W: torch.Tensor,
                    l2: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss (masked mean cross-entropy + l2·‖W[:-1]‖²) and its
     gradient in W, in closed form."""
-    logp = torch.log_softmax(X @ W, dim=1)                       # (N, C)
-    ce = -(one_hot * logp).sum(1) * mask
-    reg_w = W.clone()
-    reg_w[-1] = 0.0                                              # bias exempt
-    loss = ce.sum() / n_real + l2 * (reg_w * reg_w).sum()
-    residual = (torch.exp(logp) - one_hot) * (mask / n_real)[:, None]
-    return loss, X.T @ residual + (2.0 * l2) * reg_w
+    return _with_l2(*_data_loss_and_grad(X, one_hot, mask, n_real, W), W, l2)
+
+
+def _adam_step(W, m, v, g, t: int, lr: float):
+    """One Adam update of W (m and v in place)."""
+    m.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+    v.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+    # optax's bias corrections, 1 - β^t, are f32: so are these
+    # (in f64, 1 - 0.999^t differs by ~1e-4 relative at t = 1)
+    m_hat = m / float(1.0 - np.float32(ADAM_B1) ** np.float32(t))
+    v_hat = v / float(1.0 - np.float32(ADAM_B2) ** np.float32(t))
+    return W - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
 
 
 def _fit(features: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor,
@@ -65,23 +103,42 @@ def _fit(features: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor
             loss, g = _loss_and_grad(X, one_hot, sample_mask, n_real, W, l2)
             if losses is not None:
                 losses.append(loss)
-            m.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-            v.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-            # optax's bias corrections, 1 - β^t, are f32: so are these
-            # (in f64, 1 - 0.999^t differs by ~1e-4 relative at t = 1)
-            m_hat = m / float(1.0 - np.float32(ADAM_B1) ** np.float32(t))
-            v_hat = v / float(1.0 - np.float32(ADAM_B2) ** np.float32(t))
-            W = W - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+            W = _adam_step(W, m, v, g, t, lr)
+    return W
+
+
+def _fit_mesh(mesh: Mesh, features: np.ndarray, labels: np.ndarray, num_classes: int,
+              iterations: int, lr: float, l2: float) -> torch.Tensor:
+    """:func:`_fit` over ``mesh`` (module docstring): W on the mesh's first
+    device."""
+    (f_s, lab_s, mask_s), _ = shard_batch(
+        [features, np.asarray(labels, dtype=np.int64), np.ones(len(labels), np.float32)], mesh)
+    X_s, oh_s = local_map(mesh, lambda f, lab: (
+        _add_bias(f), torch.nn.functional.one_hot(lab, num_classes).to(f.dtype)), f_s, lab_s)
+    home = mesh.positions[0]
+    n_real = psum(local_map(mesh, lambda m: m.sum(), mask_s), "data").local(home).clamp_min(1.0)
+    n_real_s = device_put(n_real, replicated(mesh))
+    W = torch.zeros((X_s.shape[1], num_classes), dtype=torch.float32, device=n_real.device)
+    m = torch.zeros_like(W)
+    v = torch.zeros_like(W)
+    with ieee_f32():
+        for t in range(1, iterations + 1):
+            parts = local_map(mesh, _data_loss_and_grad, X_s, oh_s, mask_s, n_real_s,
+                              device_put(W, replicated(mesh)))
+            loss, g = _with_l2(*(psum(p, "data").local(home) for p in parts), W, l2)
+            W = _adam_step(W, m, v, g, t, lr)
     return W
 
 
 def train_logreg(features, labels, num_classes: int, l2: float = 1e-4,
-                 iterations: int = 300, lr: float = 0.1, mesh=None,
+                 iterations: int = 300, lr: float = 0.1, mesh: Mesh | None = None,
                  device=None) -> LogRegModel:
     """Train softmax regression on ``device`` (a tensor's own device when
-    None, else the card)."""
+    None, else the card), or over ``mesh`` (module docstring)."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+        return LogRegModel(weights=_fit_mesh(mesh, np.asarray(features, dtype=np.float32),
+                                             labels, num_classes, iterations, float(lr),
+                                             float(l2)))
     f = as_device_tensor(features, torch.float32, device)
     lab = as_device_tensor(labels, torch.int64, f.device)
     return LogRegModel(weights=_fit(f, lab, torch.ones(lab.shape, device=f.device),

@@ -3,9 +3,11 @@ e2 library's) — port of the JAX package's ``models/naive_bayes.py``.
 
 All counting is one-hot contractions (``one_hot(labels).T @ features``),
 plain torch on the context's device, in true f32 (``ieee_f32``): sums
-of integer counts stay exact in f32 below 2^24. A ``mesh``
-(the JAX package's sharded path) raises: several cards are ROADMAP.md
-queue 1 item 15.
+of integer counts stay exact in f32 below 2^24. With a ``mesh``
+(``parallel/mesh.py``) the rows are padded to the "data" axis multiple
+(padding rows carry a zero mask) and split over it, each position counts
+its rows, and ``psum`` adds the counts: integers, so the result is the
+unsharded one exactly. The model lands on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -15,9 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.parallel.mesh import Mesh, local_map, psum, shard_batch
 from predictionio_tpu_torch.utils.device import as_device_tensor, ieee_f32, resolve_device
-
-_MESH_ITEM = "a mesh (several cards) is not ported: ROADMAP.md queue 1 item 15, multi-GPU"
 
 
 @dataclasses.dataclass
@@ -51,13 +52,26 @@ def _multinomial_finalize(class_counts: torch.Tensor, feature_sums: torch.Tensor
     return log_prior, log_theta
 
 
+def _sharded_counts(mesh: Mesh, count, features: np.ndarray, labels: np.ndarray):
+    """``count(features, labels, mask)`` over ``mesh``: the rows padded
+    and split over "data" (a zero mask on padding rows), each position's
+    counts, and their ``psum``; the sums on the mesh's first device."""
+    arrays, _ = shard_batch([features, np.asarray(labels, dtype=np.int64),
+                             np.ones(len(labels), dtype=np.float32)], mesh)
+    home = mesh.positions[0]
+    return tuple(psum(c, "data").local(home) for c in local_map(mesh, count, *arrays))
+
+
 def train_multinomial(features, labels, num_classes: int, smoothing: float = 1.0,
-                      mesh=None, device=None) -> MultinomialNBModel:
+                      mesh: Mesh | None = None, device=None) -> MultinomialNBModel:
     """Multinomial NB with Laplace smoothing (MLlib ``NaiveBayes``):
     additive smoothing on term counts, class log priors from the
-    frequencies."""
+    frequencies; counted over ``mesh`` when given (module docstring)."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+        counts, sums = _sharded_counts(
+            mesh, lambda f, lab, m: _multinomial_counts(f, lab, m, num_classes),
+            np.asarray(features, dtype=np.float32), labels)
+        return MultinomialNBModel(*_multinomial_finalize(counts, sums, float(smoothing)))
     f = as_device_tensor(features, torch.float32, device)
     lab = as_device_tensor(labels, torch.int64, f.device)
     counts, sums = _multinomial_counts(f, lab, torch.ones(lab.shape, device=f.device),
@@ -108,14 +122,19 @@ def _categorical_counts(features: torch.Tensor, labels: torch.Tensor,
 
 
 def train_categorical(features, labels, num_classes: int, num_values: int,
-                      smoothing: float = 1.0, mesh=None, device=None) -> CategoricalNBModel:
-    """``features``: int category indices (N, F), -1 = missing."""
+                      smoothing: float = 1.0, mesh: Mesh | None = None,
+                      device=None) -> CategoricalNBModel:
+    """``features``: int category indices (N, F), -1 = missing; counted
+    over ``mesh`` when given (module docstring)."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
-    f = as_device_tensor(features, torch.int32, device)
-    lab = as_device_tensor(labels, torch.int64, f.device)
-    class_counts, counts = _categorical_counts(
-        f, lab, torch.ones(lab.shape, device=f.device), num_classes, num_values)
+        class_counts, counts = _sharded_counts(
+            mesh, lambda f, lab, m: _categorical_counts(f, lab, m, num_classes, num_values),
+            np.asarray(features, dtype=np.int32), labels)
+    else:
+        f = as_device_tensor(features, torch.int32, device)
+        lab = as_device_tensor(labels, torch.int64, f.device)
+        class_counts, counts = _categorical_counts(
+            f, lab, torch.ones(lab.shape, device=f.device), num_classes, num_values)
     denom = class_counts[None, :, None] + smoothing * num_values
     return CategoricalNBModel(
         log_prior=torch.log(class_counts) - torch.log(class_counts.sum()),

@@ -63,6 +63,7 @@ from predictionio_tpu_torch.online.foldin import (
     solve_user,
 )
 from predictionio_tpu_torch.online.overlay import ItemDelta, OnlineOverlay, UserDelta
+from predictionio_tpu_torch.parallel.mesh import ShardedArray
 from predictionio_tpu_torch.storage.base import EventFilter
 
 logger = logging.getLogger(__name__)
@@ -227,8 +228,11 @@ class TailLease:
                 pass
 
 
-def _host_table(factors: torch.Tensor) -> np.ndarray:
-    """A whole factor table on the host in f32 (once per generation)."""
+def _host_table(factors: torch.Tensor | ShardedArray) -> np.ndarray:
+    """A whole factor table on the host in f32 (once per generation; a
+    sharded one gathered shard by shard)."""
+    if isinstance(factors, ShardedArray):
+        return factors.numpy().astype(np.float32, copy=False)
     return factors.detach().to(torch.float32).cpu().numpy()
 
 
@@ -511,9 +515,11 @@ class OnlineFoldIn:
 
     def _gather_rows(self, factors: torch.Tensor, ixs: list[int]) -> np.ndarray:
         """The rows ``ixs`` of a factor table: an ``index_select`` on the
-        table's device and a copy of those rows alone to the host, in
-        f32."""
+        table's device (on each shard's, for a sharded one) and a copy of
+        those rows alone to the host, in f32."""
         index = torch.as_tensor(np.asarray(ixs, dtype=np.int64), device=factors.device)
+        if isinstance(factors, ShardedArray):   # each shard gives the rows it owns
+            return factors.rows(index).to(torch.float32).cpu().numpy()
         return factors.index_select(0, index).to(torch.float32).cpu().numpy()
 
     def _solve_new_item(self, binding: OnlineBinding, events: list[TailRow],

@@ -32,8 +32,20 @@ reads a device value on the host.
 
 The host layouts pack in C++ (``native/bucketize.cc``: ``pio_ladder``,
 ``pio_bucketize``, ``pio_chunk``; built with g++ at first use), with the
-NumPy paths as the fallback and the oracle. The JAX package's mesh
-sharding is not ported (ROADMAP.md queue 1 item 15).
+NumPy paths as the fallback and the oracle.
+
+Over a device mesh (``parallel/mesh.py``, ``als_train(mesh=...)``) the
+slab rows split over the "data" axis, padded to its multiple; each
+position solves its data shard's rows (replicated over "model", as in
+the JAX package's program, and solved once on a device that stands at
+several positions along "model"), and each solved row goes to the shard
+that owns it. With ``shard_factors=True`` and a "model" axis > 1
+(DP×MP, the BASELINE configuration) both factor tables stay row-sharded
+over "model" between half-steps of the fused layout, and each half-step
+all-gathers the opposite table once for its slab gathers. A whole row's
+normal equations are built at one position, so its solve is the
+unsharded one's; the chunked layout sums per-position accumulators
+(``psum``), which reorders its additions.
 """
 
 from __future__ import annotations
@@ -49,6 +61,18 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import native
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    ShardedArray,
+    all_gather,
+    axis_index,
+    device_put,
+    model_sharding,
+    per_device,
+    psum,
+    replicated,
+)
 from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -433,7 +457,7 @@ _MAX_SOLVE_ELEMS = 8 << 20
 def _slab_shape(n: int, pad_len: int, rank: int, data_axis: int,
                 max_slab_elems: int) -> tuple[int, int]:
     """(num_slabs, slab_rows): slab_rows a multiple of ``data_axis`` (the
-    JAX mesh's; 1 on one card) with slab_rows*pad_len*rank <=
+    mesh's "data" axis; 1 without a mesh) with slab_rows*pad_len*rank <=
     max_slab_elems and slab_rows*rank^2 <= _MAX_SOLVE_ELEMS."""
     b = max(1, max_slab_elems // (pad_len * rank))
     b = min(b, max(1, _MAX_SOLVE_ELEMS // (rank * rank)))
@@ -487,12 +511,14 @@ def half_step_flops(bucketed: BucketedRatings | ChunkedRatings, rank: int,
 
 @dataclasses.dataclass(frozen=True)
 class DeviceBucket:
-    """One bucket on the device as (S, B, L) slabs; pad rows have degree 0."""
+    """One bucket on the device as (S, B, L) slabs; pad rows have degree 0.
+    Staged over a mesh, every field is a :class:`ShardedArray` split over
+    "data" along B, and ``row_ids`` is (S, B) with -1 at pad rows."""
 
-    row_ids: torch.Tensor  # int64 (n,)
-    cols: torch.Tensor     # int32 (S, B, L)
-    vals: torch.Tensor     # float32 (S, B, L), zero-padded
-    deg: torch.Tensor      # int32 (S, B)
+    row_ids: torch.Tensor | ShardedArray  # int64 (n,), or (S, B) over a mesh
+    cols: torch.Tensor | ShardedArray     # int32 (S, B, L)
+    vals: torch.Tensor | ShardedArray     # float32 (S, B, L), zero-padded
+    deg: torch.Tensor | ShardedArray      # int32 (S, B)
     n: int
     pad_len: int
 
@@ -510,10 +536,13 @@ class DeviceBucketedRatings:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceChunkSlab:
-    row_ids: torch.Tensor  # int64 (S, B) owning row (0 for pad chunks)
-    cols: torch.Tensor     # int32 (S, B, L)
-    vals: torch.Tensor     # float32 (S, B, L)
-    deg: torch.Tensor      # int32 (S, B) real entries (0 for pad chunks)
+    """One chunk slab on the device (over a mesh, each field split over
+    "data" along B)."""
+
+    row_ids: torch.Tensor | ShardedArray  # int64 (S, B) owning row (0 for pad chunks)
+    cols: torch.Tensor | ShardedArray     # int32 (S, B, L)
+    vals: torch.Tensor | ShardedArray     # float32 (S, B, L)
+    deg: torch.Tensor | ShardedArray      # int32 (S, B) real entries (0 for pad chunks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -534,22 +563,24 @@ def _pad_rows(a: np.ndarray, s: int, b: int) -> np.ndarray:
     return p.reshape(s, b, *a.shape[1:])
 
 
-def pad_bucket_slabs(bucket: Bucket, rank: int,
-                     max_slab_elems: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One bucket padded on the host to its (S, B, L)/(S, B) device shape:
-    (cols, vals, deg). Pad rows carry zero degree."""
-    s, b = _slab_shape(bucket.row_ids.shape[0], bucket.pad_len, rank, 1, max_slab_elems)
+def pad_bucket_slabs(bucket: Bucket, rank: int, max_slab_elems: int,
+                     data_axis: int = 1) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One bucket padded on the host to its (S, B, L)/(S, B) device shape,
+    B a multiple of ``data_axis``: (cols, vals, deg). Pad rows carry zero
+    degree."""
+    s, b = _slab_shape(bucket.row_ids.shape[0], bucket.pad_len, rank, data_axis,
+                       max_slab_elems)
     return (_pad_rows(bucket.cols, s, b), _pad_rows(bucket.vals, s, b),
             _pad_rows(bucket.deg, s, b))
 
 
-def pad_chunk_slab(slab: ChunkSlab, rank: int, max_slab_elems: int
+def pad_chunk_slab(slab: ChunkSlab, rank: int, max_slab_elems: int, data_axis: int = 1
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """One chunk slab padded on the host to its (S, B, ...) device shape:
-    (row_ids, cols, vals, deg). Pad chunks carry row 0 with zero degree,
-    so they add nothing."""
+    """One chunk slab padded on the host to its (S, B, ...) device shape,
+    B a multiple of ``data_axis``: (row_ids, cols, vals, deg). Pad chunks
+    carry row 0 with zero degree, so they add nothing."""
     n, L = slab.cols.shape
-    s, b = _slab_shape(n, L, rank, 1, max_slab_elems)
+    s, b = _slab_shape(n, L, rank, data_axis, max_slab_elems)
     return (_pad_rows(slab.row_ids, s, b), _pad_rows(slab.cols, s, b),
             _pad_rows(slab.vals, s, b), _pad_rows(slab.deg, s, b))
 
@@ -565,8 +596,24 @@ def _to_device(a: np.ndarray, device: torch.device, pinned: bool = False) -> tor
     return t.to(device)
 
 
+def _data_split(a: np.ndarray, mesh: Mesh) -> ShardedArray:
+    """A padded (S, B, ...) host slab split over the mesh's "data" axis
+    along B."""
+    return device_put(a, NamedSharding(mesh, (None, "data")))
+
+
 def _stage_bucket(bucket: Bucket, rank: int, max_slab_elems: int,
-                  device: torch.device, pinned: bool = False) -> DeviceBucket:
+                  device: torch.device | None, pinned: bool = False,
+                  mesh: Mesh | None = None) -> DeviceBucket:
+    if mesh is not None:
+        cols, vals, deg = pad_bucket_slabs(bucket, rank, max_slab_elems,
+                                           mesh.axis_size("data"))
+        ids = np.full(deg.size, -1, dtype=np.int64)
+        ids[: bucket.row_ids.shape[0]] = bucket.row_ids
+        return DeviceBucket(row_ids=_data_split(ids.reshape(deg.shape), mesh),
+                            cols=_data_split(cols, mesh), vals=_data_split(vals, mesh),
+                            deg=_data_split(deg, mesh), n=int(bucket.row_ids.shape[0]),
+                            pad_len=bucket.pad_len)
     cols, vals, deg = pad_bucket_slabs(bucket, rank, max_slab_elems)
     return DeviceBucket(
         row_ids=_to_device(bucket.row_ids.astype(np.int64), device, pinned),
@@ -577,21 +624,34 @@ def _stage_bucket(bucket: Bucket, rank: int, max_slab_elems: int,
 
 def stage_buckets(bucketed: BucketedRatings, rank: int,
                   max_slab_elems: int = _MAX_SLAB_ELEMS,
-                  device: str | torch.device | None = None) -> DeviceBucketedRatings:
-    """Every bucket resident on ``device`` (default ``cuda``): about 8
-    bytes per padded rating. For a set that does not fit, keep the host
-    :class:`BucketedRatings`: :func:`solve_half` then streams it."""
-    dev = resolve_device(device)
+                  device: str | torch.device | None = None,
+                  mesh: Mesh | None = None) -> DeviceBucketedRatings:
+    """Every bucket resident on ``device`` (default ``cuda``), or split
+    over ``mesh``'s "data" axis: about 8 bytes per padded rating. For a
+    set that does not fit, keep the host :class:`BucketedRatings`:
+    :func:`solve_half` then streams it."""
+    dev = None if mesh is not None else resolve_device(device)
     return DeviceBucketedRatings(
-        tuple(_stage_bucket(b, rank, max_slab_elems, dev) for b in bucketed.buckets),
+        tuple(_stage_bucket(b, rank, max_slab_elems, dev, mesh=mesh)
+              for b in bucketed.buckets),
         bucketed.num_rows, bucketed.num_cols, bucketed.nnz)
 
 
 def stage_chunks(chunked: ChunkedRatings, rank: int, max_slab_elems: int = _MAX_SLAB_ELEMS,
-                 device: str | torch.device | None = None) -> DeviceChunkedRatings:
-    """Every chunk slab resident on ``device`` (default ``cuda``)."""
-    dev = resolve_device(device)
+                 device: str | torch.device | None = None,
+                 mesh: Mesh | None = None) -> DeviceChunkedRatings:
+    """Every chunk slab resident on ``device`` (default ``cuda``), or split
+    over ``mesh``'s "data" axis."""
     out = []
+    if mesh is not None:
+        for slab in chunked.slabs:
+            rids, cols, vals, deg = pad_chunk_slab(slab, rank, max_slab_elems,
+                                                   mesh.axis_size("data"))
+            out.append(DeviceChunkSlab(*(_data_split(a, mesh) for a in (
+                rids.astype(np.int64), cols, vals, deg))))
+        return DeviceChunkedRatings(tuple(out), chunked.num_rows, chunked.num_cols,
+                                    chunked.nnz)
+    dev = resolve_device(device)
     for slab in chunked.slabs:
         rids, cols, vals, deg = pad_chunk_slab(slab, rank, max_slab_elems)
         out.append(DeviceChunkSlab(_to_device(rids.astype(np.int64), dev),
@@ -773,42 +833,59 @@ def _solve_half_buckets(V: torch.Tensor, buckets: BucketedRatings | DeviceBucket
     return out
 
 
+def _chunk_accumulate(Vm: torch.Tensor, slabs, n: int, alpha: float,
+                      implicit: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each chunk's partial normal equations added per row (``index_add_``)
+    into (n, K, K), (n, K) and (n,) accumulators. ``slabs`` are (row_ids,
+    cols, vals, deg) slab tensors."""
+    K = Vm.shape[1]
+    dev = Vm.device
+    A = torch.zeros((n, K, K), dtype=torch.float32, device=dev)
+    b = torch.zeros((n, K), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for rids, cols, vals, deg in slabs:
+        for s in range(cols.shape[0]):
+            A_s, b_s, m = _partial_normal_eq(Vm, cols[s], vals[s], deg[s], alpha, implicit)
+            r = rids[s]
+            A.index_add_(0, r, A_s)
+            b.index_add_(0, r, b_s)
+            cnt.index_add_(0, r, m.sum(1))
+    return A, b, cnt
+
+
+def _chunk_solve(A: torch.Tensor, b: torch.Tensor, cnt: torch.Tensor, V: torch.Tensor,
+                 lam: float, implicit: bool, cg_steps: int | None,
+                 cg_bf16: bool) -> torch.Tensor:
+    """The ridge (``λ·n`` or ``VᵀV + λI``, in place: off the diagonal it
+    adds zeros), the identity for unrated rows, and one batched CG over
+    every row; unrated rows come out zero."""
+    if implicit:
+        A += _gramian(V)
+        A.diagonal(dim1=-2, dim2=-1).add_(lam)
+    else:
+        A.diagonal(dim1=-2, dim2=-1).add_((lam * cnt)[:, None])
+    active = cnt > 0
+    eye = torch.eye(A.shape[-1], dtype=torch.float32, device=A.device)
+    torch.where(active[:, None, None], A, eye, out=A)
+    x = _cg_solve_batched(A, b, steps=cg_steps, bf16_matvec=cg_bf16)
+    return torch.where(active[:, None], x, 0.0)
+
+
 def _solve_half_chunked(V: torch.Tensor, chunked: DeviceChunkedRatings, lam: float,
                         alpha: float, implicit: bool, bf16: bool, cg_steps: int | None,
                         cg_bf16: bool = False) -> torch.Tensor:
     """One half-step over the chunked layout: each chunk's partial normal
     equations are added per row into (num_rows, K, K), (num_rows, K) and
     (num_rows,) accumulators (``index_add_``: the order of the additions
-    may vary from run to run on the card); then the ridge (``λ·n`` or
-    ``VᵀV + λI``), the identity for unrated rows, and one batched CG over
-    every row. Unrated rows come out zero."""
-    K = V.shape[1]
-    n = chunked.num_rows
-    dev = V.device
+    may vary from run to run on the card); then the ridge, the identity
+    for unrated rows, and one batched CG over every row. Unrated rows
+    come out zero."""
     with ieee_f32():
         Vm = V.to(torch.bfloat16) if bf16 else V
-        A = torch.zeros((n, K, K), dtype=torch.float32, device=dev)
-        b = torch.zeros((n, K), dtype=torch.float32, device=dev)
-        cnt = torch.zeros((n,), dtype=torch.float32, device=dev)
-        for slab in chunked.slabs:
-            for s in range(slab.cols.shape[0]):
-                A_s, b_s, m = _partial_normal_eq(Vm, slab.cols[s], slab.vals[s], slab.deg[s],
-                                                 alpha, implicit)
-                rows = slab.row_ids[s]
-                A.index_add_(0, rows, A_s)
-                b.index_add_(0, rows, b_s)
-                cnt.index_add_(0, rows, m.sum(1))
-        # the ridge, in place: off the diagonal it adds zeros
-        if implicit:
-            A += _gramian(V)
-            A.diagonal(dim1=-2, dim2=-1).add_(lam)
-        else:
-            A.diagonal(dim1=-2, dim2=-1).add_((lam * cnt)[:, None])
-        active = cnt > 0
-        eye = torch.eye(K, dtype=torch.float32, device=dev)
-        torch.where(active[:, None, None], A, eye, out=A)
-        x = _cg_solve_batched(A, b, steps=cg_steps, bf16_matvec=cg_bf16)
-    return torch.where(active[:, None], x, 0.0)
+        A, b, cnt = _chunk_accumulate(
+            Vm, [(sl.row_ids, sl.cols, sl.vals, sl.deg) for sl in chunked.slabs],
+            chunked.num_rows, alpha, implicit)
+        return _chunk_solve(A, b, cnt, V, lam, implicit, cg_steps, cg_bf16)
 
 
 def _als_iterate_fused(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
@@ -826,6 +903,185 @@ def _als_iterate_fused(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
         item = _solve_half_buckets(user, item_buckets, lam, alpha, implicit, bf16,
                                    cg_steps, solver, cg_bf16)
     return user, item
+
+
+# ---------------------------------------------------------------------------
+# Over a device mesh: the JAX package's shard_map bodies, position by position
+# ---------------------------------------------------------------------------
+
+
+def _gather_table(V: torch.Tensor | ShardedArray, mesh: Mesh) -> ShardedArray:
+    """The opposite factor table whole at every position: the tiled
+    all-gather over "model" of a row-sharded table (once per half-step),
+    or a replicated copy of an unsharded one."""
+    if isinstance(V, ShardedArray):
+        return all_gather(V, "model") if V.spec[0] == "model" else V
+    return device_put(V, replicated(mesh))
+
+
+def _row_shard(V: torch.Tensor, mesh: Mesh) -> ShardedArray:
+    """``V`` zero-padded to the "model" axis multiple and row-sharded over
+    it (pad rows are never gathered: column ids stay below the real row
+    count; they add nothing to VᵀV)."""
+    pad = (-V.shape[0]) % mesh.axis_size("model")
+    if pad:
+        V = torch.cat([V, V.new_zeros((pad, V.shape[1]))])
+    return device_put(V, model_sharding(mesh))
+
+
+def _local_tables(V_all: ShardedArray, bf16: bool, implicit: bool):
+    """Per position, (gather table in the build dtype, f32 VᵀV or None),
+    made once for each distinct local table."""
+    made: dict[int, tuple] = {}
+
+    def at(pos):
+        V_l = V_all.local(pos)
+        if id(V_l) not in made:
+            made[id(V_l)] = (V_l.to(torch.bfloat16) if bf16 else V_l,
+                             _gramian(V_l) if implicit else None)
+        return made[id(V_l)]
+
+    return at
+
+
+def _per_data_shard(mesh: Mesh, solve) -> dict:
+    """``solve(pos)``, the local phase of a function replicated over
+    "model" (its inputs are split over "data" only), at every position;
+    computed once for each (device, data index): the positions of one
+    device along "model" share it."""
+    made: dict = {}
+    out = {}
+    for pos in mesh.positions:
+        key = (mesh.device(pos), axis_index(mesh, pos, "data"))
+        if key not in made:
+            made[key] = solve(pos)
+        out[pos] = made[key]
+    return out
+
+
+def _write_rows(parts: dict, mesh: Mesh, num_rows: int, K: int,
+                sharded: bool) -> torch.Tensor | ShardedArray:
+    """The write-back collective. ``parts`` maps each position to the rows
+    it solved, as (row ids, rows) pairs (id -1: a pad row); every data
+    shard's rows are solved at each position along "model". ``sharded``:
+    a (num_rows, K) table row-sharded over "model" (it must divide the
+    axis), where the shard of model index m takes the rows it owns from
+    the positions of that index, one per data shard (a local scatter,
+    then the combine over "data"), built once on each device that holds
+    it; else the whole table on the mesh's first device, from the
+    positions of model index 0. Each target keeps one extra row where pad
+    rows and rows it does not own land, cut off after."""
+    def build(dev, m, lo, n):
+        buf = torch.zeros((n + 1, K), dtype=torch.float32, device=dev)
+        for pos in mesh.positions:
+            if axis_index(mesh, pos, "model") != m:
+                continue
+            for ids, X in parts.get(pos, ()):
+                ids = ids.to(dev)
+                loc = ids - lo
+                buf.index_copy_(0, torch.where((ids >= 0) & (loc >= 0) & (loc < n), loc, n),
+                                X.to(dev))
+        return buf[:n]
+
+    if not sharded:
+        return build(mesh.device(mesh.positions[0]), 0, 0, num_rows)
+    n_loc = num_rows // mesh.axis_size("model")
+    return ShardedArray(mesh, ("model", None), per_device(
+        mesh, lambda pos: build(mesh.device(pos), axis_index(mesh, pos, "model"),
+                                axis_index(mesh, pos, "model") * n_loc, n_loc),
+        lambda pos: axis_index(mesh, pos, "model")))
+
+
+def _solve_half_buckets_mesh(V: torch.Tensor | ShardedArray,
+                             buckets: BucketedRatings | DeviceBucketedRatings, mesh: Mesh,
+                             lam: float, alpha: float, implicit: bool, bf16: bool,
+                             cg_steps: int | None, solver: str, cg_bf16: bool,
+                             max_slab_elems: int, num_rows: int,
+                             sharded: bool) -> torch.Tensor | ShardedArray:
+    """One whole-row half-step over ``mesh``, JAX's shard_map body: the
+    opposite table gathered whole at every position (the all-gather over
+    "model"); each position builds and solves, slab by slab, the rows of
+    its data shard, on its device (replicated over "model":
+    :func:`_per_data_shard`); then :func:`_write_rows`. Host buckets
+    stream, each staged over the mesh for its solve."""
+    K = V.shape[1]
+    parts: dict = {}
+    with ieee_f32():
+        tables = _local_tables(_gather_table(V, mesh), bf16, implicit)
+        for bucket in buckets.buckets:
+            if isinstance(bucket, Bucket):
+                bucket = _stage_bucket(bucket, K, max_slab_elems, None, pinned=True, mesh=mesh)
+
+            def solve(pos, bucket=bucket):
+                Vm, gram = tables(pos)
+                cols, vals, deg = (x.local(pos) for x in (bucket.cols, bucket.vals, bucket.deg))
+                X = torch.empty((*deg.shape, K), dtype=torch.float32, device=cols.device)
+                for s in range(cols.shape[0]):
+                    X[s] = _normal_eq_solve(Vm, cols[s], vals[s], deg[s], lam, alpha, gram,
+                                            implicit, cg_steps, solver, cg_bf16)
+                return bucket.row_ids.local(pos).reshape(-1), X.view(-1, K)
+
+            for pos, part_ in _per_data_shard(mesh, solve).items():
+                parts.setdefault(pos, []).append(part_)
+    return _write_rows(parts, mesh, num_rows, K, sharded)
+
+
+def _solve_half_chunked_mesh(V: torch.Tensor | ShardedArray, chunked: DeviceChunkedRatings,
+                             mesh: Mesh, lam: float, alpha: float, implicit: bool, bf16: bool,
+                             cg_steps: int | None, cg_bf16: bool) -> torch.Tensor:
+    """One chunked half-step over ``mesh``: each position accumulates the
+    chunks of its data shard (replicated over "model":
+    :func:`_per_data_shard`); the accumulators are summed over "data"
+    (``psum``, once per device); the solve runs on the mesh's first
+    device, where the (replicated) result is kept."""
+    V_all = _gather_table(V, mesh)
+    with ieee_f32():
+        tables = _local_tables(V_all, bf16, False)
+        acc = _per_data_shard(mesh, lambda pos: _chunk_accumulate(
+            tables(pos)[0], [tuple(x.local(pos) for x in (sl.row_ids, sl.cols, sl.vals, sl.deg))
+                             for sl in chunked.slabs], chunked.num_rows, alpha, implicit))
+        summed = [psum(ShardedArray.from_local(mesh, (), lambda pos: acc[pos][i]), "data")
+                  for i in range(3)]
+        del acc
+        home = mesh.positions[0]
+        return _chunk_solve(*(x.local(home) for x in summed), V_all.local(home), lam,
+                            implicit, cg_steps, cg_bf16)
+
+
+def _als_iterate_mesh(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
+                      item_buckets: DeviceBucketedRatings, iterations: int, lam: float,
+                      alpha: float, implicit: bool, bf16: bool, cg_steps: int | None,
+                      solver: str, cg_bf16: bool, mesh: Mesh, shard_factors: bool,
+                      num_users: int, num_items: int):
+    """``iterations`` alternating whole-row half-steps over ``mesh`` from
+    ``item0``, users first. ``shard_factors``: both tables stay row-sharded
+    over "model" between half-steps (``num_users``/``num_items``, padded
+    by the caller, divide it); else both are kept whole on the mesh's
+    first device."""
+    K = item0.shape[1]
+    item = _row_shard(item0, mesh) if shard_factors else item0.to(mesh.device(mesh.positions[0]))
+    user = _write_rows({}, mesh, num_users, K, shard_factors)
+    for _ in range(iterations):
+        user = _solve_half_buckets_mesh(item, user_buckets, mesh, lam, alpha, implicit, bf16,
+                                        cg_steps, solver, cg_bf16, _MAX_SLAB_ELEMS, num_users,
+                                        shard_factors)
+        item = _solve_half_buckets_mesh(user, item_buckets, mesh, lam, alpha, implicit, bf16,
+                                        cg_steps, solver, cg_bf16, _MAX_SLAB_ELEMS, num_items,
+                                        shard_factors)
+    return user, item
+
+
+def _staged_over(layout, mesh: Mesh | None) -> None:
+    """Device layouts must be staged over the mesh they are solved on."""
+    parts = getattr(layout, "buckets", None) or getattr(layout, "slabs", None) or ()
+    for x in parts:
+        cols = getattr(x, "cols", None)
+        if isinstance(cols, np.ndarray):
+            return   # a host layout, staged per call
+        got = cols.mesh if isinstance(cols, ShardedArray) else None
+        if got is not mesh:
+            raise ValueError("the layout was staged over another mesh than the one it is "
+                             "solved on (stage it with the same mesh=, or none)")
 
 
 #: rank at or above which the "auto" CG matvec streams A in bf16
@@ -854,21 +1110,18 @@ def _check_solver(solver: str) -> None:
         raise ValueError(f"solver must be 'cg' or 'cholesky', got {solver!r}")
 
 
-_SHARDED_ITEM = ("shard_factors=True (DP×MP factor sharding) needs several cards: "
-                 "ROADMAP.md queue 1 item 15, multi-GPU")
-
-
 _CHUNKED_CHOLESKY = ("solver='cholesky' is a bucketed/fused-layout option; the "
                      "chunked path solves over the scan-carried accumulator")
 
 
-def solve_half(V: torch.Tensor,
+def solve_half(V: torch.Tensor | ShardedArray,
                bucketed: BucketedRatings | DeviceBucketedRatings | ChunkedRatings
                | DeviceChunkedRatings,
                rank: int, lam: float, implicit: bool = False, alpha: float = 40.0,
                max_slab_elems: int = _MAX_SLAB_ELEMS, matmul_dtype: str = "float32",
                shard_factors: bool = False, cg_steps: int | None = None,
-               solver: str = "cg", cg_matvec_dtype: str = "float32") -> torch.Tensor:
+               solver: str = "cg", cg_matvec_dtype: str = "float32",
+               mesh: Mesh | None = None) -> torch.Tensor:
     """One half-step: all row factors of ``bucketed`` given the opposite
     factors ``V`` (on the device the rows are solved on). Returns a
     (num_rows, K) f32 table, zero for rows with no ratings.
@@ -879,16 +1132,38 @@ def solve_half(V: torch.Tensor,
     bucket on the device at a time, freed after its solve, so device
     memory stays bounded by the largest bucket's slabs. A host
     :class:`ChunkedRatings` is staged whole for this call. Pass the
-    staged layouts when calling repeatedly."""
-    if shard_factors:
-        raise NotImplementedError(_SHARDED_ITEM)
+    staged layouts when calling repeatedly.
+
+    With a ``mesh`` the rows are solved over its positions (layouts staged
+    over the same mesh), and the table comes back whole on its first
+    device. ``shard_factors=True`` with a "model" axis > 1 row-shards the
+    opposite table ``V`` over that axis (each position gathers it whole
+    for its slab gathers); without a mesh it has no effect."""
     bf16 = _check_matmul_dtype(matmul_dtype)
     _check_solver(solver)
     cg_bf16 = _resolve_cg_matvec(cg_matvec_dtype, rank)
-    V = V.float()
-    if isinstance(bucketed, (ChunkedRatings, DeviceChunkedRatings)):
-        if solver != "cg":
-            raise ValueError(_CHUNKED_CHOLESKY)
+    chunked = isinstance(bucketed, (ChunkedRatings, DeviceChunkedRatings))
+    if chunked and solver != "cg":
+        raise ValueError(_CHUNKED_CHOLESKY)
+    _staged_over(bucketed, mesh)
+    if mesh is not None:
+        if isinstance(V, ShardedArray) and not (shard_factors and V.spec[0] == "model"
+                                                and V.dtype == torch.float32):
+            V = V.gather()
+        if not isinstance(V, ShardedArray):
+            V = V.float()
+            if shard_factors and mesh.axis_size("model") > 1:
+                V = _row_shard(V, mesh)
+        if chunked:
+            if isinstance(bucketed, ChunkedRatings):
+                bucketed = stage_chunks(bucketed, rank, max_slab_elems, mesh=mesh)
+            return _solve_half_chunked_mesh(V, bucketed, mesh, float(lam), float(alpha),
+                                            implicit, bf16, cg_steps, cg_bf16)
+        return _solve_half_buckets_mesh(V, bucketed, mesh, float(lam), float(alpha), implicit,
+                                        bf16, cg_steps, solver, cg_bf16, max_slab_elems,
+                                        bucketed.num_rows, False)
+    V = (V.gather() if isinstance(V, ShardedArray) else V).float()
+    if chunked:
         if isinstance(bucketed, ChunkedRatings):
             bucketed = stage_chunks(bucketed, rank, max_slab_elems, device=V.device)
         return _solve_half_chunked(V, bucketed, float(lam), float(alpha), implicit, bf16,
@@ -904,8 +1179,11 @@ def solve_half(V: torch.Tensor,
 
 @dataclasses.dataclass
 class ALSFactors:
-    user: torch.Tensor  # (num_users, K)
-    item: torch.Tensor  # (num_items, K)
+    """The trained tables: tensors, or row-sharded over a mesh's "model"
+    axis when trained with ``shard_factors``."""
+
+    user: torch.Tensor | ShardedArray  # (num_users, K)
+    item: torch.Tensor | ShardedArray  # (num_items, K)
 
 
 def resolve_shard_factors(param: bool) -> bool:
@@ -937,11 +1215,12 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
               chunk_sizes: Sequence[int] = (512, 128), chunked_acc_budget: int = 4 << 30,
               cg_steps: int | None = None, solver: str = "cg", shard_factors: bool = False,
               cg_matvec_dtype: str = "auto", item0: np.ndarray | torch.Tensor | None = None,
-              device: str | torch.device | None = None) -> ALSFactors:
+              device: str | torch.device | None = None,
+              mesh: Mesh | None = None) -> ALSFactors:
     """Full alternating-least-squares training on ``device`` (default
-    ``cuda``), with the semantics of MLlib ``ALS.train`` /
-    ``ALS.trainImplicit``; the JAX package's arguments and defaults but
-    its ``mesh``.
+    ``cuda``), or over ``mesh``'s devices, with the semantics of MLlib
+    ``ALS.train`` / ``ALS.trainImplicit``; the JAX package's arguments
+    and defaults.
 
     ``layout="fused"`` pads whole rows to the ladder (:func:`ladder_rows`)
     and solves each slab's rows where it builds them. ``"bucketed"`` pads
@@ -959,7 +1238,16 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
     ``cg_matvec_dtype="auto"`` streams the CG matrix in bf16 at rank >=
     64. ``solver="cholesky"`` solves exactly (not on the chunked layout).
     ``item0`` is the (num_items, rank) starting table; without it
-    :func:`init_item_factors` draws one from ``seed``."""
+    :func:`init_item_factors` draws one from ``seed``.
+
+    With a ``mesh`` the slabs split over its "data" axis and every
+    position solves its own rows (the module docstring); the tables come
+    back whole on the mesh's first device. ``shard_factors=True`` with a
+    "model" axis > 1 keeps both tables row-sharded over it: on the fused
+    layout for the whole run (padded to the axis multiple, the padding
+    trimmed from the result, which comes back sharded: :class:`ShardedArray`),
+    on the others for the opposite table of each half-step, as in the
+    JAX package. Without a mesh ``shard_factors`` has no effect."""
     if layout not in ("auto", "fused", "chunked", "bucketed"):
         raise ValueError(f"layout must be 'auto', 'fused', 'chunked' or 'bucketed', "
                          f"got {layout!r}")
@@ -975,14 +1263,13 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
             "(row capping and streaming); pass layout='bucketed' (or "
             "'auto') to use them — the chunked layout never drops ratings "
             "and stages slabs HBM-resident")
-    if shard_factors:
-        raise NotImplementedError(_SHARDED_ITEM)
     bf16 = _check_matmul_dtype(matmul_dtype)
     _check_solver(solver)
     if layout == "chunked" and solver != "cg":
         raise ValueError(_CHUNKED_CHOLESKY)
     cg_bf16 = _resolve_cg_matvec(cg_matvec_dtype, rank)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device(mesh.positions[0])
+    tp = bool(shard_factors and mesh is not None and mesh.axis_size("model") > 1)
     if item0 is None:
         item0 = init_item_factors(ratings.num_cols, rank, seed)
     if isinstance(item0, np.ndarray):
@@ -997,6 +1284,10 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
         logger.info("ALS(fused): %d ratings, %d users (%d buckets), %d items (%d buckets), "
                     "rank %d, on %s", ratings.nnz, ratings.num_rows, len(by_user.buckets),
                     ratings.num_cols, len(by_item.buckets), rank, dev)
+        if mesh is not None:
+            return _als_train_fused_mesh(ratings, by_user, by_item, item0, iterations, lam,
+                                         alpha, implicit, bf16, cg_steps, solver, cg_bf16,
+                                         max_slab_elems, mesh, tp)
         dev_user = stage_buckets(by_user, rank, max_slab_elems, device=dev)
         dev_item = stage_buckets(by_item, rank, max_slab_elems, device=dev)
         user, item = _als_iterate_fused(item0.to(dev), dev_user, dev_item, iterations,
@@ -1009,8 +1300,8 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
         logger.info("ALS(chunked): %d ratings, %d users, %d items, rank %d, chunks %s, on %s",
                     ratings.nnz, ratings.num_rows, ratings.num_cols, rank,
                     tuple(s.cols.shape for s in by_user.slabs), dev)
-        by_user = stage_chunks(by_user, rank, max_slab_elems, device=dev)
-        by_item = stage_chunks(by_item, rank, max_slab_elems, device=dev)
+        by_user = stage_chunks(by_user, rank, max_slab_elems, device=dev, mesh=mesh)
+        by_item = stage_chunks(by_item, rank, max_slab_elems, device=dev, mesh=mesh)
     else:
         by_user = bucket_rows(ratings, min_bucket, bucket_growth, max_row_len)
         by_item = bucket_rows(ratings.transpose(), min_bucket, bucket_growth, max_row_len)
@@ -1019,11 +1310,11 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
                     len(by_user.buckets), ratings.num_cols, len(by_item.buckets), rank,
                     "resident" if hbm_resident else "streamed", dev)
         if hbm_resident:
-            by_user = stage_buckets(by_user, rank, max_slab_elems, device=dev)
-            by_item = stage_buckets(by_item, rank, max_slab_elems, device=dev)
+            by_user = stage_buckets(by_user, rank, max_slab_elems, device=dev, mesh=mesh)
+            by_item = stage_buckets(by_item, rank, max_slab_elems, device=dev, mesh=mesh)
     kw = dict(implicit=implicit, alpha=alpha, max_slab_elems=max_slab_elems,
               matmul_dtype=matmul_dtype, cg_steps=cg_steps, solver=solver,
-              cg_matvec_dtype=cg_matvec_dtype)
+              cg_matvec_dtype=cg_matvec_dtype, shard_factors=shard_factors, mesh=mesh)
     user = torch.zeros((ratings.num_rows, rank), dtype=torch.float32, device=dev)
     item = item0.to(dev)
     for _ in range(iterations):
@@ -1032,17 +1323,48 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
     return ALSFactors(user=user, item=item)
 
 
+def _als_train_fused_mesh(ratings: RatingsCOO, by_user: BucketedRatings,
+                          by_item: BucketedRatings, item0: torch.Tensor, iterations: int,
+                          lam: float, alpha: float, implicit: bool, bf16: bool,
+                          cg_steps: int | None, solver: str, cg_bf16: bool,
+                          max_slab_elems: int, mesh: Mesh, tp: bool) -> ALSFactors:
+    """The fused layout over ``mesh``: ladder slabs staged over its "data"
+    axis; with ``tp`` the tables padded to the "model" axis multiple, so
+    that every shard holds as many rows (pad rows are never gathered:
+    column ids stay below the real row count), and the padding trimmed
+    from the sharded result."""
+    rank = item0.shape[1]
+    logger.info("ALS(fused) over %s: %d ratings, %d users, %d items, rank %d, factors %s",
+                mesh, ratings.nnz, ratings.num_rows, ratings.num_cols, rank,
+                "row-sharded over 'model'" if tp else "whole")
+    dev_user = stage_buckets(by_user, rank, max_slab_elems, mesh=mesh)
+    dev_item = stage_buckets(by_item, rank, max_slab_elems, mesh=mesh)
+    ways = mesh.axis_size("model") if tp else 1
+    num_users_p = ratings.num_rows + (-ratings.num_rows) % ways
+    num_items_p = ratings.num_cols + (-ratings.num_cols) % ways
+    if num_items_p != ratings.num_cols:
+        item0 = torch.cat([item0, item0.new_zeros((num_items_p - ratings.num_cols, rank))])
+    user, item = _als_iterate_mesh(item0, dev_user, dev_item, iterations, float(lam),
+                                   float(alpha), implicit, bf16, cg_steps, solver, cg_bf16,
+                                   mesh, tp, num_users_p, num_items_p)
+    if tp:
+        user, item = user.head(ratings.num_rows), item.head(ratings.num_cols)
+    return ALSFactors(user=user, item=item)
+
+
 # ---------------------------------------------------------------------------
 # Prediction helpers
 # ---------------------------------------------------------------------------
 
 
-def predict_ratings(user_f: torch.Tensor, item_f: torch.Tensor, users, items) -> torch.Tensor:
-    """Pointwise predicted ratings for (user, item) index pairs."""
+def predict_ratings(user_f: torch.Tensor | ShardedArray, item_f: torch.Tensor | ShardedArray,
+                    users, items) -> torch.Tensor:
+    """Pointwise predicted ratings for (user, item) index pairs (the rows
+    of a sharded table gathered from the shards that own them)."""
     users = torch.as_tensor(users, device=user_f.device).long()
     items = torch.as_tensor(items, device=item_f.device).long()
     with ieee_f32():
-        return (user_f[users] * item_f[items]).sum(-1)
+        return (user_f[users] * item_f[items].to(user_f.device)).sum(-1)
 
 
 def rmse(factors: ALSFactors, ratings: RatingsCOO, chunk: int = 1 << 20) -> float:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.topk import topk_lowest_index
+from predictionio_tpu_torch.parallel.mesh import ShardedArray
 from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 _NEG_INF = float("-inf")
@@ -227,9 +228,11 @@ def _assign_balanced(x: np.ndarray, centroids: np.ndarray, cap: int,
 
 def _host_vectors(item_f: Any) -> np.ndarray:
     """The item-factor table as contiguous host float32 rows: a tensor
-    on the card or the CPU is copied to the host in f32, a NumPy array
-    passes through when it already is one. (Sharded tables are ROADMAP.md
-    queue 1 item 15.)"""
+    on the card or the CPU is copied to the host in f32, a table sharded
+    over a mesh is gathered shard by shard to the host, a NumPy array
+    passes through when it already is one."""
+    if isinstance(item_f, ShardedArray):
+        return np.ascontiguousarray(item_f.numpy(), dtype=np.float32)
     if isinstance(item_f, torch.Tensor):
         return np.ascontiguousarray(item_f.detach().to(torch.float32).cpu().numpy())
     return np.ascontiguousarray(np.asarray(item_f), dtype=np.float32)

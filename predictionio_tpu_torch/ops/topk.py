@@ -1,12 +1,14 @@
 """Masked top-k scoring, the recommendation serving path (port of the
-JAX package's ``ops/topk.py``, single card).
+JAX package's ``ops/topk.py``).
 
 One product of the query vectors with the item-factor table, the
 eligibility mask, a scatter-min that hides each query's seen items, and
 :func:`topk_lowest_index`, which orders equal scores as ``lax.top_k``
 does. Every function clamps ``k`` to the catalog and never asserts.
 Products run in true f32, whatever the process set for TF32.
-The sharded top-k of the JAX package is ROADMAP.md queue 1 item 15.
+:func:`recommend_topk_sharded` is the distributed top-k over a device
+mesh (``parallel/mesh.py``): local top-k per catalog shard, an
+all-gather of the candidates, a global merge.
 """
 
 from __future__ import annotations
@@ -14,6 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    ShardedArray,
+    all_gather,
+    axis_index,
+    data_sharding,
+    device_put,
+)
 from predictionio_tpu_torch.utils.device import ieee_f32
 
 _NEG_INF = float("-inf")
@@ -122,6 +133,74 @@ def recommend_topk_chunked(user_vecs: torch.Tensor, item_f: torch.Tensor,
         bv, sel = topk_lowest_index(torch.cat([bv, scores], dim=1), k)
         bi = torch.where(sel < k, bi.gather(1, sel.clamp(max=k - 1)), start + sel - k)
     return bv, bi
+
+
+def recommend_topk_sharded(user_vecs, item_f: torch.Tensor | ShardedArray, seen_cols,
+                           seen_mask, allow, k: int,
+                           mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distributed batch top-k over ``mesh``: queries split over
+    "data", the item table's rows over "model". Each position scores its
+    queries against its catalog shard, masks them (eligibility, and the
+    seen items that fall in its shard, in shard-local ids) and keeps a
+    local top-k of ``min(k, shard rows)``; the ``n_model * k_loc``
+    candidates are all-gathered over "model" (candidates, never the (B, I)
+    scores) and merged into the global top-k in global item ids.
+
+    Equal scores keep the lower global index first, as everywhere in the
+    port: each local top-k is :func:`topk_lowest_index`, and the gathered
+    candidates are shard-major, so a lower position is a lower index
+    among equal scores for the merge's own :func:`topk_lowest_index`.
+
+    ``k`` clamps to the catalog; a batch that does not divide "data" is
+    padded with zero queries whose results are cut off. The catalog must
+    divide "model" (``item_f`` is persistent sharded state: callers pad
+    it once, ``models/als.py`` does), or this raises. Inputs may be
+    tensors or NumPy (``item_f`` also a table row-sharded over "model");
+    values and int64 indices come back on the mesh's first device."""
+    n_model, n_data = mesh.axis_size("model"), mesh.axis_size("data")
+    I = item_f.shape[0]
+    if I % n_model:
+        raise ValueError(f"catalog rows ({I}) must divide the model axis ({n_model}); "
+                         "pad the item table")
+    if not isinstance(item_f, ShardedArray) or item_f.mesh is not mesh \
+            or item_f.spec[0] != "model":
+        item_f = device_put(item_f.gather() if isinstance(item_f, ShardedArray) else item_f,
+                            NamedSharding(mesh, ("model", None)))
+    k = min(k, I)
+    home = mesh.device(mesh.positions[0])
+    uv = torch.as_tensor(user_vecs).to(home, torch.float32)
+    sc = torch.as_tensor(seen_cols).to(home, torch.int64)
+    sm = torch.as_tensor(seen_mask).to(home, torch.float32)
+    b = uv.shape[0]
+    pad = (-b) % n_data
+    if pad:
+        uv, sc, sm = (torch.cat([x, x.new_zeros((pad, x.shape[1]))]) for x in (uv, sc, sm))
+    uv_s, sc_s, sm_s = (device_put(x, data_sharding(mesh, 2)) for x in (uv, sc, sm))
+    al_s = device_put(torch.as_tensor(allow).to(home, torch.float32),
+                      NamedSharding(mesh, ("model",)))
+    rows = I // n_model
+    k_loc = min(k, rows)   # a shard contributes at most its own rows
+    vals, idxs = {}, {}
+    for pos in mesh.positions:
+        start = axis_index(mesh, pos, "model") * rows
+        with ieee_f32():
+            scores = uv_s.local(pos) @ item_f.local(pos).T              # (b, rows)
+        scores = torch.where(al_s.local(pos) > 0, scores, _NEG_INF)
+        loc = sc_s.local(pos) - start
+        in_shard = (loc >= 0) & (loc < rows) & (sm_s.local(pos) > 0)
+        _hide(scores, loc.clamp(0, rows - 1), in_shard)
+        v, i = topk_lowest_index(scores, k_loc)
+        vals[pos], idxs[pos] = v, i + start
+    cand_v, cand_i = (all_gather(ShardedArray.from_local(mesh, ("data", "model"), x.get),
+                                 "model") for x in (vals, idxs))
+    out_v, out_i = [], []
+    for d in range(n_data):   # the merge is replicated over "model": read at index 0
+        pos = next(p for p in mesh.positions if axis_index(mesh, p, "data") == d
+                   and axis_index(mesh, p, "model") == 0)
+        v, sel = topk_lowest_index(cand_v.local(pos), k)
+        out_v.append(v.to(home))
+        out_i.append(cand_i.local(pos).gather(1, sel).to(home))
+    return torch.cat(out_v)[:b], torch.cat(out_i)[:b]
 
 
 #: seen-array widths of ``batch_predict``'s menu

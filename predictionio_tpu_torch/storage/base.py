@@ -70,9 +70,9 @@ class Channel:
 class EngineInstance:
     """One row per training run. Parity: EngineInstances.scala:26-60.
 
-    ``mesh_conf`` replaces the reference's ``sparkConf`` blob: the JAX
-    package records its device-mesh config there; the port, on one card,
-    writes it empty.
+    ``mesh_conf`` replaces the reference's ``sparkConf`` blob: the run's
+    device-mesh config (engine.json's ``meshConf``), as the JAX package
+    records it.
     """
     id: str
     status: str              # INIT | COMPLETED | INTERRUPTED | FAILED

@@ -127,7 +127,8 @@ class ClassificationDataSource(DataSource):
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmParams(Params):
-    """``use_mesh`` has no effect on one card."""
+    """``use_mesh`` counts over the context's mesh (rows split over its
+    "data" axis) when it spans several positions."""
 
     smoothing: float = 1.0
     use_mesh: bool = True
@@ -157,7 +158,7 @@ def _query_features(queries, device: torch.device) -> torch.Tensor:
 
 class NaiveBayesAlgorithm(HostModelAlgorithm):
     """MLlib ``NaiveBayes.train`` → ``models/naive_bayes.train_multinomial``
-    on the context's device."""
+    on the context's device, or over its mesh (``use_mesh``)."""
 
     params_class = AlgorithmParams
     query_class = Query
@@ -165,7 +166,9 @@ class NaiveBayesAlgorithm(HostModelAlgorithm):
     def train(self, ctx: Any, pd: TrainingData) -> NBModel:
         nb = naive_bayes.train_multinomial(pd.features, pd.labels,
                                            num_classes=len(pd.label_map),
-                                           smoothing=self.params.smoothing, device=ctx.device)
+                                           smoothing=self.params.smoothing,
+                                           mesh=ctx.mesh_if_parallel if self.params.use_mesh
+                                           else None, device=ctx.device)
         return NBModel(nb=nb, label_map=pd.label_map)
 
     def predict(self, model: NBModel, query: Query) -> PredictedResult:
@@ -210,6 +213,7 @@ class LogisticRegressionAlgorithm(HostModelAlgorithm):
         p = self.params
         model = logreg.train_logreg(pd.features, pd.labels, num_classes=len(pd.label_map),
                                     l2=p.l2, iterations=p.iterations, lr=p.lr,
+                                    mesh=ctx.mesh_if_parallel if p.use_mesh else None,
                                     device=ctx.device)
         return LRModel(lr=model, label_map=pd.label_map)
 

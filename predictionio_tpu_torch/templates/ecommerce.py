@@ -129,8 +129,9 @@ class ECommPreparator(ALSPreparator):
 
 @dataclasses.dataclass(frozen=True)
 class ECommAlgorithmParams(Params):
-    """The JAX template's fields and defaults (``use_mesh`` has no effect
-    on one card; ``shard_factors`` raises, ROADMAP.md queue 1 item 15)."""
+    """The JAX template's fields and defaults (``use_mesh`` trains over the
+    context's mesh when it spans several positions; ``shard_factors``
+    row-shards the factor tables over its "model" axis)."""
 
     app_name: str = ""
     unseen_only: bool = True

@@ -207,9 +207,11 @@ class ALSPreparator(Preparator):
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     """The JAX template's fields (engine.json ``"lambda"`` binds to
-    ``lambda_``). ``use_mesh`` has no effect on one card;
-    ``shard_factors`` (or ``PIO_TRAIN_SHARD_FACTORS=1``) raises: sharding
-    is ROADMAP.md queue 1 item 15."""
+    ``lambda_``). ``use_mesh`` trains over the context's mesh when it
+    spans several positions (``ctx.mesh_if_parallel``); ``shard_factors``
+    (engine.json ``"shardFactors"``; ``PIO_TRAIN_SHARD_FACTORS=1``/``0``
+    overrides it) row-shards both factor tables over the mesh's "model"
+    axis (DP×MP), and the model saved then restores sharded."""
 
     rank: int = 10
     num_iterations: int = 10
@@ -233,7 +235,8 @@ class ALSAlgorithm(Algorithm):
         p = self.params
         factors = als_train(pd.coo, rank=p.rank, iterations=p.num_iterations,
                             lam=p.lambda_, implicit=p.implicit_prefs, alpha=p.alpha,
-                            seed=p.seed, shard_factors=resolve_shard_factors(p.shard_factors),
+                            seed=p.seed, mesh=ctx.mesh_if_parallel if p.use_mesh else None,
+                            shard_factors=resolve_shard_factors(p.shard_factors),
                             device=ctx.device)
         return ALSModel(rank=p.rank, user_factors=factors.user, item_factors=factors.item,
                         user_ids=pd.user_ids, item_ids=pd.item_ids,
@@ -316,7 +319,7 @@ class ALSAlgorithm(Algorithm):
             class_name=f"{type(self).__module__}.{type(self).__qualname__}", location=location)
 
     def load_model(self, ctx: Any, manifest: PersistentModelManifest) -> ALSModel:
-        return ALSModel.load(manifest.location, ctx.device)
+        return ALSModel.load(manifest.location, ctx.device, devices=ctx.devices)
 
 
 def engine_factory() -> Engine:

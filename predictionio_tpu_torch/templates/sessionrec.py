@@ -97,7 +97,8 @@ class DataSourceParams(Params):
 class AlgorithmParams(Params):
     """The JAX template's parameters, so one engine.json binds to both.
     Serving reads none of them (the model carries its config);
-    ``use_mesh`` has no effect on one card."""
+    ``use_mesh`` has no effect: training over a sequence mesh (ring
+    attention) is ROADMAP.md queue 1 item 29."""
 
     d_model: int = 64
     n_heads: int = 2

@@ -146,9 +146,10 @@ class SimilarProductPreparator(ALSPreparator):
 
 @dataclasses.dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
-    """The JAX template's fields and defaults. ``use_mesh`` has no effect
-    on one card; ``shard_factors`` (or ``PIO_TRAIN_SHARD_FACTORS=1``)
-    raises: sharding is ROADMAP.md queue 1 item 15."""
+    """The JAX template's fields and defaults. ``use_mesh`` trains over the
+    context's mesh when it spans several positions; ``shard_factors`` (or
+    ``PIO_TRAIN_SHARD_FACTORS=1``) row-shards the factor tables over its
+    "model" axis."""
 
     rank: int = 10
     num_iterations: int = 20
@@ -169,9 +170,11 @@ class SimilarModel:
 
 def train_als(ctx: Any, p, pd, implicit: bool = True) -> ALSModel:
     """The ALS-family templates' training: ``als_train`` at the params'
-    rank, iterations, λ, α and seed on the context's device."""
+    rank, iterations, λ, α and seed on the context's device, or over its
+    mesh (``use_mesh``, ``shard_factors``)."""
     factors = als_train(pd.coo, rank=p.rank, iterations=p.num_iterations, lam=p.lambda_,
                         implicit=implicit, alpha=p.alpha, seed=p.seed,
+                        mesh=ctx.mesh_if_parallel if p.use_mesh else None,
                         shard_factors=resolve_shard_factors(p.shard_factors),
                         device=ctx.device)
     return ALSModel(rank=p.rank, user_factors=factors.user, item_factors=factors.item,
@@ -191,7 +194,7 @@ def save_with_categories(ctx: Any, prefix: str, algo, als: ALSModel,
 
 
 def load_with_categories(ctx: Any, manifest: PersistentModelManifest) -> tuple[ALSModel, dict]:
-    als = ALSModel.load(manifest.location, ctx.device)
+    als = ALSModel.load(manifest.location, ctx.device, devices=ctx.devices)
     with open(os.path.join(manifest.location, "categories.json")) as f:
         categories = {k: tuple(v) for k, v in json.load(f).items()}
     return als, categories

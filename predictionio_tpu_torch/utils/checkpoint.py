@@ -40,6 +40,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.parallel.mesh import device_put
+
 logger = logging.getLogger(__name__)
 
 _META_FILE = "checkpoint_meta.json"
@@ -60,8 +62,10 @@ def _array_meta(value: np.ndarray) -> dict:
 
 
 def save_sharded(directory: str, arrays: Mapping[str, np.ndarray]) -> str:
-    """Persist a flat {name: np.ndarray} mapping; returns the backend,
-    always "npz" (the module docstring has the crash-safety rules)."""
+    """Persist a flat {name: array} mapping; returns the backend, always
+    "npz" (the module docstring has the crash-safety rules). A table
+    sharded over a mesh (``parallel/mesh.ShardedArray``) is gathered to
+    the host: the files are those of the whole array."""
     os.makedirs(directory, exist_ok=True)
     arrays = {name: np.asarray(v) for name, v in arrays.items()}
     manifest = {name: _array_meta(v) for name, v in arrays.items()}
@@ -143,14 +147,25 @@ def _mmap_npz(path: str) -> dict[str, np.ndarray]:
     return out
 
 
-def load_sharded(directory: str, mmap_mode: str | None = None) -> dict[str, np.ndarray]:
+def load_sharded(directory: str, mmap_mode: str | None = None,
+                 shardings: Mapping[str, Any] | None = None) -> dict[str, Any]:
     """Host arrays saved by :func:`save_sharded` (either package's npz
     backend), verified against the manifest when there is one.
 
     ``mmap_mode="r"`` maps the arrays instead of copying them (read-only
     ``np.memmap`` views; shapes and dtypes verified, content hashes
     skipped: module docstring). None defers to
-    :func:`default_mmap_mode`."""
+    :func:`default_mmap_mode`. ``shardings`` maps names to
+    ``parallel/mesh.NamedSharding``s: those arrays come back placed on
+    their mesh (``ShardedArray``), the others as host arrays."""
+    out = _load_host(directory, mmap_mode)
+    for name, sharding in (shardings or {}).items():
+        if name in out:
+            out[name] = device_put(out[name], sharding)
+    return out
+
+
+def _load_host(directory: str, mmap_mode: str | None) -> dict[str, np.ndarray]:
     meta = _read_meta(directory)
     if meta.get("backend", "npz") == "orbax":
         raise RuntimeError(

@@ -32,6 +32,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def available_devices(device: str | torch.device | None = None) -> list[torch.device]:
+    """The devices a mesh may span: every card (``cuda:0`` ...) when
+    ``device`` resolves to the card, else ``[cpu]``. The cards are
+    counted by NVML, so no CUDA context is initialized."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def as_device_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     """``x`` (NumPy, a sequence or a tensor) as a ``dtype`` tensor on
     ``device``; ``device=None`` keeps a tensor where it is and puts

@@ -1,11 +1,15 @@
 """engine.json variant loading (port of the JAX package's
-``workflow/engine_json.py``; the port reads no ``meshConf``)."""
+``workflow/engine_json.py``), and its ``meshConf``, the device-mesh axis
+spec that training reads into ``WorkflowParams.mesh_conf``."""
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 from typing import Any
+
+logger = logging.getLogger(__name__)
 
 
 def read_variant(path: str) -> dict[str, Any]:
@@ -31,3 +35,14 @@ def load_variant(path: str = "engine.json", engine_factory: str = "") -> dict[st
     if "engineFactory" not in variant:
         raise ValueError(f"{path} is missing required key 'engineFactory'")
     return variant
+
+
+def mesh_conf_from_variant(variant: dict[str, Any]) -> dict[str, Any]:
+    """The native "meshConf" key; a legacy "sparkConf" subtree from a
+    ported reference engine.json is ignored with a logged note."""
+    if "sparkConf" in variant and "meshConf" not in variant:
+        logger.warning(
+            "engine.json has a 'sparkConf' subtree, which this framework does "
+            "not use; configure the device mesh via 'meshConf' "
+            "(e.g. {\"axes\": {\"data\": 4, \"model\": 2}})")
+    return dict(variant.get("meshConf", {}))

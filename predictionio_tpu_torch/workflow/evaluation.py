@@ -115,6 +115,7 @@ def run_evaluation(
             f"{type(engine_params_generator).__module__}."
             f"{type(engine_params_generator).__qualname__}"),
         batch=ctx.workflow_params.batch,
+        mesh_conf=dict(ctx.workflow_params.mesh_conf),
     ))
     logger.info("evaluation instance %s: INIT", instance_id)
 

@@ -35,6 +35,7 @@ from predictionio_tpu_torch.obs.trace import Trace, span, use_trace
 from predictionio_tpu_torch.storage.base import EngineInstance
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import EngineContext, WorkflowParams
+from predictionio_tpu_torch.workflow.engine_json import mesh_conf_from_variant
 from predictionio_tpu_torch.workflow.persistence import save_models
 
 logger = logging.getLogger(__name__)
@@ -90,8 +91,10 @@ def run_train(
     engine.json; ``engine_params`` overrides its binding. The instance
     and the models go to ``storage`` (default: the context's, else
     ``Storage()`` from the environment); ``ctx`` (default: one on the
-    card with ``workflow_params`` over that storage) carries the device
-    and the workflow params. ``profiler`` (an
+    card with ``workflow_params`` over that storage) carries the device,
+    the devices of its mesh and the workflow params; the variant's
+    ``meshConf`` becomes the run's ``mesh_conf`` unless the context has
+    one, and the instance records it. ``profiler`` (an
     ``obs/device.TrainProfiler``) is always finished, so a failed run
     leaves no profiler running."""
     storage = storage or (ctx.storage if ctx is not None else Storage())
@@ -104,6 +107,10 @@ def run_train(
     if engine_params is None:
         engine_params = engine.params_from_variant_json(variant)
     ctx = ctx or EngineContext(workflow_params=workflow_params, storage=storage)
+    if not ctx.workflow_params.mesh_conf:
+        mesh_conf = mesh_conf_from_variant(variant)
+        if mesh_conf:
+            ctx = ctx.with_workflow_params(mesh_conf=mesh_conf)
     wp = ctx.workflow_params
 
     instances = storage.get_meta_data_engine_instances()
@@ -117,6 +124,7 @@ def run_train(
         engine_variant=variant.get("variantId", variant.get("id", "default")),
         engine_factory=engine_factory or f"{type(engine).__module__}.{type(engine).__qualname__}",
         batch=wp.batch,
+        mesh_conf=dict(wp.mesh_conf),
         data_source_params=_params_json(engine_params.data_source_params),
         preparator_params=_params_json(engine_params.preparator_params),
         algorithms_params=_algo_params_json(engine_params.algorithm_params_list),

@@ -16,6 +16,7 @@ import torch
 
 from predictionio_tpu.ops import als as jals
 from predictionio_tpu_torch.ops import als as pals
+from predictionio_tpu_torch.parallel.mesh import Mesh
 
 
 def _coo(seed=0, users=120, items=80, nnz=3000, power=1.5, negative=False):
@@ -296,9 +297,15 @@ class TestSolveHalf:
             with pytest.raises(ValueError, match="cholesky") as got:
                 pals.solve_half(torch.from_numpy(V), layout, 4, 0.1, solver="cholesky")
             assert str(got.value) == str(want.value)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="staged over another mesh"):
+            pals.solve_half(torch.from_numpy(V), pals.stage_buckets(pals.bucket_rows(pc), 4,
+                                                                    device="cpu"), 4, 0.1,
+                            mesh=Mesh(["cpu", "cpu"], ("data",)))
+        # without a mesh shard_factors has no effect, as in the JAX package
+        torch.testing.assert_close(
             pals.solve_half(torch.from_numpy(V), pals.bucket_rows(pc), 4, 0.1,
-                            shard_factors=True)
+                            shard_factors=True),
+            pals.solve_half(torch.from_numpy(V), pals.bucket_rows(pc), 4, 0.1), rtol=0, atol=0)
 
     @pytest.mark.parametrize("layout, streamed", [
         ("chunked", False), ("chunked", True), ("bucketed", False), ("bucketed", True),

@@ -19,11 +19,13 @@ import json
 import urllib.request
 from datetime import datetime, timedelta, timezone
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax.sharding import Mesh as JaxMesh
 from predictionio_tpu.controller import EngineParams as JaxEngineParams
 from predictionio_tpu.controller import EngineParamsGenerator as JaxEngineParamsGenerator
 from predictionio_tpu.core.datamap import DataMap as JaxDataMap
@@ -37,6 +39,7 @@ from predictionio_tpu.utils.testing import memory_storage as jax_memory_storage
 from predictionio_tpu.workflow.context import EngineContext as JaxEngineContext
 from predictionio_tpu.workflow.evaluation import run_evaluation as jax_run_evaluation
 from predictionio_tpu_torch.api.engine_server import create_engine_server
+from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.controller import EngineParams, EngineParamsGenerator
 from predictionio_tpu_torch.core.datamap import DataMap
 from predictionio_tpu_torch.core.event import Event
@@ -152,10 +155,14 @@ class TestNaiveBayes:
 
     def test_mesh_and_the_card_default(self):
         X, y = counts_data()
-        with pytest.raises(NotImplementedError, match="item 15"):
-            pnb.train_multinomial(X, y, 4, mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            pnb.train_categorical(X.astype(np.int32), y, 4, 3, mesh=object(), device="cpu")
+        # a mesh counts over its "data" axis: exactly the unsharded counts
+        mesh = Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(2, 2), ("data", "model"))
+        for a, b in ((pnb.train_multinomial(X, y, 4, mesh=mesh),
+                      pnb.train_multinomial(X, y, 4, device="cpu")),
+                     (pnb.train_categorical(X.astype(np.int32) % 3, y, 4, 3, mesh=mesh),
+                      pnb.train_categorical(X.astype(np.int32) % 3, y, 4, 3, device="cpu"))):
+            for field in dataclasses.fields(a):
+                assert torch.equal(getattr(a, field.name), getattr(b, field.name))
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 pnb.train_multinomial(X, y, 4)
@@ -209,8 +216,16 @@ class TestLogReg:
             plr.predict_logreg_scores(got.weights, torch.tensor(X)).numpy(),
             np.asarray(jlr.predict_logreg_scores(want.weights, jnp.asarray(X))),
             rtol=SCORE_TOL, atol=SCORE_TOL)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            plr.train_logreg(X, y, 4, mesh=object(), device="cpu")
+        # a mesh fits over its "data" axis, as JAX's sharded fit does on the
+        # same mesh (both differ from the unsharded fit where Adam divides
+        # a near-zero gradient by its own size: the order of the sums shows)
+        shape = (4, 2)
+        jmesh = JaxMesh(np.asarray(jax.devices()[:8]).reshape(shape), ("data", "model"))
+        mesh = Mesh(np.asarray(["cpu"] * 8, dtype=object).reshape(shape), ("data", "model"))
+        np.testing.assert_allclose(
+            plr.train_logreg(X, y, 4, iterations=10, mesh=mesh).weights.numpy(),
+            np.asarray(jlr.train_logreg(X, y, 4, iterations=10, mesh=jmesh).weights),
+            rtol=0, atol=LOGREG_TOL[10])
 
 
 FOREST_CASES = [

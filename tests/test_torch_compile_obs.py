@@ -223,10 +223,13 @@ def _profiled_cli_train(main, tmp_path, monkeypatch, name, factory, *extra):
     JaxStorage.reset_default()
     events = base / "events.jsonl"
     events.write_text("".join(json.dumps(e) + "\n" for e in _rate_events()))
+    # 3 iterations, not tests/test_compile_obs.py's 2: the JAX package
+    # counts a program's compile once a process, so that file's profiled
+    # train, run after this one in one pytest process, would count none
     (base / "engine.json").write_text(json.dumps({
         "id": "prof", "engineFactory": factory,
         "datasource": {"params": {"appName": "ProfApp"}},
-        "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 2,
+        "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 3,
                                                   "lambda": 0.05, "seed": 2}}]}))
     assert main(["app", "new", "ProfApp", "--id", "1"]) == 0
     assert main(["import", "--appid", "1", "--input", str(events)]) == 0

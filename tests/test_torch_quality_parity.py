@@ -29,6 +29,7 @@ from predictionio_tpu.ops import als as jals
 from predictionio_tpu_torch.data import movielens as pml
 from predictionio_tpu_torch.e2 import quality as pq
 from predictionio_tpu_torch.ops import als as pals
+from predictionio_tpu_torch.parallel.mesh import Mesh
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "examples", "data",
                     "sample_movielens.txt")
@@ -191,12 +192,17 @@ class TestCompareQuality:
         want_rmse = jq.test_rmse(np.asarray(want.user), np.asarray(want.item), test)
         assert got_rmse == pytest.approx(want_rmse, abs=SAME_INIT_RMSE_TOL)
 
-    def test_mesh_raises_naming_its_item(self, ml100k):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            pq.compare_quality(ml100k, mesh=object(), device="cpu")
-        train, test = pq.kfold_split(ml100k)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            pq.implicit_ranking_eval(train, test, mesh=object(), device="cpu")
+    def test_mesh_raises_naming_its_item(self):
+        """A mesh trains over its positions: the fused layout solves each
+        row where the unsharded run does, so every metric is the same
+        (tests/test_torch_mesh_quality.py holds it against JAX's mesh)."""
+        small = _small(pml)
+        mesh = Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(2, 2), ("data", "model"))
+        assert pq.compare_quality(small, mesh=mesh, device="cpu", **POINT) == \
+            pq.compare_quality(small, device="cpu", **POINT)
+        train, test = pq.kfold_split(small)
+        assert pq.implicit_ranking_eval(train, test, mesh=mesh, device="cpu") == \
+            pq.implicit_ranking_eval(train, test, device="cpu")
 
     def test_the_card_is_the_default(self, monkeypatch, ml100k):
         import torch

@@ -476,9 +476,9 @@ class TestTemplate:
         with pytest.raises(ValueError):
             prec.RecommendationDataSource(prec.DataSourceParams(app_name="RecApp")).read_eval(
                 _ctx(port_storage))
+        # on one device the env knob trains as without it (no mesh), as in JAX
         monkeypatch.setenv("PIO_TRAIN_SHARD_FACTORS", "1")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_train(variant=VARIANT, ctx=_ctx(port_storage))
+        assert run_train(variant=VARIANT, ctx=_ctx(port_storage)).status == "COMPLETED"
         monkeypatch.delenv("PIO_TRAIN_SHARD_FACTORS")
         empty = memory_storage()
         empty.get_meta_data_apps().insert(App(0, "RecApp"))

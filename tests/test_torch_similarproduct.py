@@ -273,8 +273,11 @@ class TestTemplate:
 
     def test_sharding_and_sanity_are_refused(self, stores, monkeypatch):
         monkeypatch.setenv("PIO_TRAIN_SHARD_FACTORS", "1")
-        with pytest.raises(NotImplementedError, match="item 15"):
-            trained(*stores, monkeypatch, psim, jsim, "als")
+        # the env knob without a mesh (use_mesh off): both packages train
+        # unsharded, to the same factors
+        _, pmodel, _, jmodel, _ = trained(*stores, monkeypatch, psim, jsim, "als")
+        assert pmodel.als.factor_shard_ways == 1
+        assert_factors_close(pmodel, jmodel)
         with pytest.raises(ValueError, match="no view events"):
             psim.SimilarTrainingData(np.asarray([]), np.asarray([]), np.asarray([]),
                                      {}).sanity_check()
