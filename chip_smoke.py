@@ -418,8 +418,32 @@ rates logged after it are taken with the other lane running.
    (scores 1e-5); (e) `e2/quality.compare_quality` at ML-100k over a 2×2
    mesh against `mesh=None` (RMSE within 1e-3); no flash kernel is
    launched;
-35. a `kernels` JSON line;
-36. the result line
+35. the sequence mesh and the multi-process mesh, in the main lane after
+   phase 34: (a) ring attention (`ops/attention.ring_attention_sharded`)
+   at (4, 4, 4096, 64) bf16, causal, rows of mixed length, over 4 "seq"
+   positions on the card against blockwise attention (output within
+   TOL[bf16], the gradients of sum(out²) within 3e-2 relative), each
+   route's ms, launches, device ms and peak memory, forward and
+   forward+backward; (b) the long-context config (vocab 50,000, S 4096,
+   batch 4, bf16) for 4 Adam steps from one initial state, unsharded
+   (blockwise), over {"data": 1, "seq": 4}, {"data": 2, "seq": 2} and
+   {"data": 2, "model": 2} (the "model" axis idle): losses within 1e-4
+   relative step by step, the parameters' median distance within lr/10
+   of the unsharded run's (their largest distance and mean logged); step
+   ms, launches, device ms, peak memory; (c) 16 of 16a's users through
+   `run_train` with meshConf {"data": 1, "seq": 4} at the serving width
+   (the instance records it; training launches no flash kernel), served
+   by `DeployedEngine.query`: 4 flash launches a query, each top-10
+   within SCORE_TOL of the plain attention, the kernel within TOL[bf16]
+   of its plain version on a served query's q/k/v; (d) two ranks of the
+   script (`--dist-child`, fresh interpreters started at the phase's
+   start, PIO_NUM_HOSTS=2, gloo, 2 positions each on the card): the
+   cross-rank psum, and 2 fused 2×2 `shard_factors` ALS iterations at
+   the ML-20M shape (bf16, rank 32) equal to the in-process 2×2 run on
+   the same ratings and table (1e-6 relative); ms an iteration, launches,
+   device ms, collectives' seconds and host-staged bytes per rank;
+36. a `kernels` JSON line;
+37. the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
@@ -427,9 +451,9 @@ Each phase of the main path logs its seconds (`[phases]`).
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
 `--router-only`, `--storage-only`, `--lint-only`, `--examples-only`,
-`--als-layouts-only`, `--parquet-only` and `--mesh-only` run phases
-9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
-32, 33 and 34 alone
+`--als-layouts-only`, `--parquet-only`, `--mesh-only` and `--dist-only`
+run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28,
+29, 30, 31, 32, 33, 34 and 35 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
@@ -8243,7 +8267,7 @@ def _check_row_sharded(tag: str, table: ShardedArray, mesh: Mesh, rows: int) -> 
     if not (isinstance(table, ShardedArray) and table.spec[0] == "model"
             and table.ways("model") == ways and tuple(table.shape) == (rows, ALS_RANK)):
         fail(f"[{tag}] the table is not row-sharded {ways} ways: {table!r}")
-    for pos in mesh.positions:
+    for pos in mesh.local_positions:
         shard = table.local(pos)
         lo = pmesh.axis_index(mesh, pos, "model") * per
         if shard.device != mesh.device(pos) or shard.shape[0] != max(0, min(per, rows - lo)):
@@ -8631,6 +8655,429 @@ def phase_mesh() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 35: the sequence mesh and the multi-process mesh on the card
+# ---------------------------------------------------------------------------
+
+#: (a) ring attention at the long-context attention shape, over 4 "seq"
+#: positions on the card, against the single-device blockwise route
+RING_SHAPE, RING_SEQ = (4, 4, 4096, 64), 4
+#: (b) TRAIN_LONG's Adam steps on each route, from one initial state
+SEQ_MESH_STEPS = 4
+SEQ_MESH_ROUTES = (("unsharded", None), ("1x4", {"data": 1, "seq": 4}),
+                   ("2x2", {"data": 2, "seq": 2}), ("2x2-model", {"data": 2, "model": 2}))
+#: the losses of (b) against the unsharded run's, relative: 10× the
+#: largest reading of sound routes (1.07e-5, NVIDIA H100 80GB HBM3 at
+#: 700 W); one Adam step moves the loss by 1e-3 to 3e-3 relative
+SEQ_MESH_LOSS_RTOL = 1e-4
+#: (c) the first users of 16a trained through run_train over a sequence
+#: mesh at the serving width, then served
+SEQ_ENGINE_USERS, SEQ_ENGINE_QUERIES = 16, 8
+SEQ_ENGINE_AXES = {"data": 1, "seq": 4}
+#: (d) two ranks on the card: their seconds (torch import, the ML-20M
+#: ladders, the run) and the tables' relative Frobenius distance from the
+#: in-process 2×2 run (the same solves; the write-back's cross-rank sum
+#: adds each row to zeros)
+DIST_CHILD_TIMEOUT_S = 420
+DIST_TABLE_RTOL = 1e-6
+#: bf16 routes computed two ways (ring against blockwise): the forward
+#: within TOL[bf16], the gradients within TRAIN_GRAD_RTOL (relative
+#: Frobenius); after the Adam steps of (b) the parameters' median
+#: distance within lr/10 (tests/test_torch_seqrec_train.py's bf16 rule).
+#: Their largest distance is logged, not bounded: a bf16 rounding that
+#: turns a near-zero gradient's sign moves a parameter by up to lr a
+#: step the other way, so sound routes reach 2·lr·steps
+
+
+def _card() -> torch.device:
+    return torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+
+
+def _card_mesh(axes: dict) -> Mesh:
+    """``axes`` laid over the first card, one position each."""
+    sizes = tuple(axes.values())
+    grid = np.empty(math.prod(sizes), dtype=object)
+    grid[:] = [_card()] * grid.size
+    return Mesh(grid.reshape(sizes), tuple(axes))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def _dist_ring() -> None:
+    """Phase 35a: ring attention over 4 "seq" positions on the card
+    against blockwise attention on the same bf16 inputs (causal, rows of
+    mixed real length): the output and the gradients of sum(out²); ms
+    (CUDA events), launches and device ms of each, forward and
+    forward+backward; peak memory."""
+    from predictionio_tpu_torch.ops.attention import blockwise_attention, ring_attention_sharded
+
+    tag = "dist/ring"
+    B, H, S, D = RING_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 35)
+    q, k, v = (x.requires_grad_() for x in qkv(B, H, S, D, torch.bfloat16, gen))
+    mask = mixed_length_mask(B, S)
+    mesh = _card_mesh({"seq": RING_SEQ})
+    spec4 = pmesh.NamedSharding(mesh, (None, None, "seq", None))
+
+    def ring():
+        return ring_attention_sharded(*(pmesh.device_put(x, spec4) for x in (q, k, v)),
+                                      pmesh.device_put(mask, pmesh.NamedSharding(mesh, (None, "seq"))))
+
+    def block():
+        return blockwise_attention(q, k, v, causal=True, kv_mask=mask, q_block=128)
+
+    def grads(fn):
+        q.grad = k.grad = v.grad = None
+        out = fn()
+        out = out.gather() if isinstance(out, ShardedArray) else out
+        (out.float() ** 2).sum().backward()
+        return [x.grad.clone() for x in (q, k, v)]
+
+    with torch.no_grad():
+        got, want = ring().gather(), block()
+    fwd_err = (got.float() - want.float()).abs().max().item()
+    atol, rtol = TOL[torch.bfloat16]
+    fwd_ok = bool(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g_ring = grads(ring)
+    ring_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    g_block = grads(block)
+    block_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    g_err = max(_rel(a, b) for a, b in zip(g_ring, g_block))
+    times = {}
+    for name, fn in (("ring", ring), ("blockwise", block)):
+        with torch.no_grad():
+            fwd_ms = time_ms(fn, warmup=2, n=5)
+            fwd_dev, fwd_n = _profile(fn)
+        bwd_ms = time_ms(lambda: grads(fn), warmup=1, n=3)
+        bwd_dev, bwd_n = _profile(lambda: grads(fn))
+        times[name] = {"fwd_ms": round(fwd_ms, 3), "fwd_launches": fwd_n,
+                       "fwd_device_ms": fwd_dev and round(fwd_dev, 3),
+                       "fwd_bwd_ms": round(bwd_ms, 3), "fwd_bwd_launches": bwd_n,
+                       "fwd_bwd_device_ms": bwd_dev and round(bwd_dev, 3)}
+    times["ring"]["peak_gb"], times["blockwise"]["peak_gb"] = round(ring_peak, 3), round(
+        block_peak, 3)
+    log(f"[{tag}] ({B},{H},{S},{D}) bf16 causal, mixed lengths, {RING_SEQ} seq positions on "
+        f"one card against blockwise (q_block 128): output max_abs_err={fwd_err:.3e} "
+        f"(tol {atol:g} + {rtol:g}·|x|), gradients of sum(out²) worst rel_err={g_err:.3e} "
+        f"(tol {TRAIN_GRAD_RTOL:g})")
+    log(f"[{tag}] " + json.dumps(times))
+    if not fwd_ok or not g_err <= TRAIN_GRAD_RTOL:
+        fail(f"[{tag}] ring attention disagrees with blockwise attention")
+    q.grad = k.grad = v.grad = None
+
+
+def _dist_training() -> None:
+    """Phase 35b: TRAIN_LONG (vocab 50,000, S 4096, batch 4, bf16) for
+    SEQ_MESH_STEPS Adam steps from one initial state: unsharded (the
+    blockwise route), over {"data": 1, "seq": 4}, {"data": 2, "seq": 2}
+    and {"data": 2, "model": 2} on the card; losses step by step and the
+    final parameters against
+    the unsharded run; step ms, launches and device ms of one more step,
+    peak memory."""
+    tag = "dist/train"
+    cfg = _config(TRAIN_LONG)
+    lr, batch = TRAIN_LONG["lr"], TRAIN_LONG["batch_size"]
+    initial = seqrec.init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 351)
+    batches = [tuple(torch.from_numpy(rng.integers(1, cfg.vocab, (batch, cfg.max_len))).to(DEVICE)
+                     for _ in range(2)) for _ in range(SEQ_MESH_STEPS)]
+    routes = {}
+    for name, axes in SEQ_MESH_ROUTES:
+        mesh = None if axes is None else _card_mesh(axes)
+        model = seqrec.SeqRec(cfg, DEVICE)
+        model.load_state_dict(initial)
+        step = seqrec.make_train_step(model, mesh=mesh)
+        opt_m, opt_v = seqrec.adam_state(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, ms = [], []
+        for it, (seqs, tgts) in enumerate(batches, 1):
+            t, loss = _events_ms(lambda: step(opt_m, opt_v, it, seqs, tgts, lr))
+            losses.append(loss.item())
+            ms.append(t)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        dev_ms, launches = _profile(lambda: step(opt_m, opt_v, SEQ_MESH_STEPS + 1, *batches[0], lr))
+        routes[name] = {"losses": losses, "params": params}
+        log(f"[{tag}/{name}] {SEQ_MESH_STEPS} Adam steps: step_ms={[round(x, 3) for x in ms]} "
+            f"(median of steps 2-{SEQ_MESH_STEPS} {statistics.median(ms[1:]):.3f}) "
+            f"peak_mem_gb={peak:.3f} losses={losses}; one more step profiled: "
+            f"launches={launches} device_ms={_fmt(dev_ms)}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"[{tag}/{name}] a loss is not finite: {losses}")
+        del model, step, opt_m, opt_v
+        torch.cuda.empty_cache()
+    want = routes["unsharded"]
+    for name, r in routes.items():
+        if name == "unsharded":
+            continue
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], want["losses"]))
+        diff = torch.cat([(r["params"][k] - want["params"][k]).abs().reshape(-1)
+                          for k in want["params"]])
+        worst, median, mean = diff.max().item(), diff.median().item(), diff.mean().item()
+        log(f"[{tag}/{name}] against unsharded: losses worst rel_err={loss_err:.3e} (tol "
+            f"{SEQ_MESH_LOSS_RTOL:g}); parameters median abs_diff={median:.3e} (tol "
+            f"{lr / 10:g}), max={worst:.3e}, mean={mean:.3e}")
+        if not (loss_err <= SEQ_MESH_LOSS_RTOL and median <= lr / 10):
+            fail(f"[{tag}/{name}] training over the sequence mesh disagrees with unsharded")
+    del routes, want
+    torch.cuda.empty_cache()
+
+
+def _dist_engine() -> int:
+    """Phase 35c: 16a's first SEQ_ENGINE_USERS users through run_train
+    with meshConf SEQ_ENGINE_AXES at the serving width, on a context given
+    4 positions on the card; DeployedEngine.query serves it through the
+    flash kernel, checked per answer against the plain attention, and the
+    kernel held against its plain version on a served query's q/k/v.
+    Returns the kernel's launches in serving."""
+    tag = "dist/engine"
+    _, length, stride = PIO_SESSION
+    storage, n_events = _walk_storage(SEQ_ENGINE_USERS, length, stride)
+    before = flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    outcome = run_train(variant={
+        "engineFactory": "predictionio_tpu_torch.templates.sessionrec.engine_factory",
+        "datasource": {"params": {"app_name": "SmokeApp"}},
+        "meshConf": {"axes": SEQ_ENGINE_AXES},
+        "algorithms": [{"name": "seqrec", "params": PIO_SESSION_TRAIN}],
+    }, ctx=EngineContext(storage=storage, device=DEVICE, devices=[_card()] * 4))
+    train_s = time.perf_counter() - t0
+    row = storage.get_meta_data_engine_instances().get(outcome.instance_id)
+    run = outcome.models[0].train_run
+    log(f"[{tag}] {n_events} events, run_train over {SEQ_ENGINE_AXES} {outcome.status} in "
+        f"{train_s:.2f}s (instance mesh_conf={row.mesh_conf}); steps={len(run.losses)} "
+        f"step_ms={[round(s * 1e3, 3) for s in run.step_seconds]} losses={run.losses}; "
+        f"stages: {format_stage_times(outcome.stage_seconds)}")
+    if outcome.status != "COMPLETED" or row.mesh_conf != {"axes": SEQ_ENGINE_AXES}:
+        fail(f"[{tag}] the meshConf run did not complete and record its meshConf")
+    if flash_ops.LAUNCHES != before:
+        fail(f"[{tag}] training launched the forward-only flash kernel")
+    if not all(math.isfinite(x) for x in run.losses):
+        fail(f"[{tag}] a loss is not finite: {run.losses}")
+    deployed = load_deployed_engine(storage, ServerConfig(
+        engine_instance_id=outcome.instance_id, device=DEVICE))
+    model = deployed.models[0]
+    served_from = flash_ops.LAUNCHES
+    deployed.query(sessionrec.Query(user="u0", num=10))   # warm-up, outside the timed window
+    before = flash_ops.LAUNCHES
+    t0 = time.perf_counter()
+    answers = [deployed.query(sessionrec.Query(user=f"u{u}", num=10))
+               for u in range(SEQ_ENGINE_QUERIES)]
+    q_ms = (time.perf_counter() - t0) * 1e3 / SEQ_ENGINE_QUERIES
+    if flash_ops.LAUNCHES - before != SEQ_ENGINE_QUERIES * model.cfg.n_layers:
+        fail(f"[{tag}] {SEQ_ENGINE_QUERIES} queries launched the flash kernel "
+             f"{flash_ops.LAUNCHES - before} times")
+    for u, answer in enumerate(answers):
+        served = [(model.item_index[s.item], s.score) for s in answer.item_scores]
+        tail = model.histories[f"u{u}"][-model.cfg.max_len:]
+        agreement = _check_against_plain(model, tail, [], served, 10, f"{tag} u{u}")
+        log(f"[{tag}] u{u}: {agreement}")
+    # the kernel against its plain version on the first layer's q/k/v of a served query
+    captured = []
+    real = seqrec.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v, kw.get("kv_mask")))
+        return real(q, k, v, **kw)
+
+    seqrec.flash_attention = capture
+    try:
+        deployed.query(sessionrec.Query(user="u1", num=10))
+    finally:
+        seqrec.flash_attention = real
+    launches = flash_ops.LAUNCHES - served_from   # every served query's, none of the check's
+    q, k, v, kv_mask = captured[0]
+    mask = (torch.ones(q.shape[0], q.shape[2], device=DEVICE) if kv_mask is None
+            else kv_mask.float().contiguous())
+    res = torch.empty_like(q)
+    flash_ops._launch(q, k, v, mask, res, True)
+    ref = flash_ops.flash_attention_reference(q, k, v, causal=True, kv_mask=mask)
+    err = (res.float() - ref.float()).abs().max().item()
+    atol, rtol = TOL[torch.bfloat16]
+    log(f"[{tag}] {SEQ_ENGINE_QUERIES} DeployedEngine.query answers, {q_ms:.3f} ms each, "
+        f"launches={launches} in serving ({model.cfg.n_layers} a query); the kernel on a "
+        f"served query's "
+        f"{tuple(q.shape)} q/k/v against the plain version: max_abs_err={err:.3e} (tol {atol:g} "
+        f"+ {rtol:g}·|x|)")
+    if not torch.allclose(res.float(), ref.float(), atol=atol, rtol=rtol):
+        fail(f"[{tag}] the kernel disagrees with its plain version on a served query")
+    return launches
+
+
+def _dist_reference(coo: als.RatingsCOO, item0: torch.Tensor):
+    """The in-process 2×2 fused run of phase 34 (bf16, shard_factors) on
+    the children's ratings and initial table: the tables, whole on the card."""
+    ladder = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    mesh = _card_mesh({"data": 2, "model": 2})
+    staged = tuple(als.stage_buckets(x, ALS_RANK, mesh=mesh) for x in ladder)
+    ms, (user, item) = _events_ms(lambda: _mesh_iterate(staged, item0, MESH_ALS_ITERS, mesh, coo))
+    return ms / MESH_ALS_ITERS, user.gather(), item.gather()
+
+
+def _start_dist_children(work: str) -> list:
+    """The two ranks of phase 35d, each a fresh interpreter (the spawn
+    rule: this process has initialized CUDA) in a session of its own."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PIO_NUM_HOSTS="2", PIO_HOST_INDEX=str(rank),
+                   PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        with open(os.path.join(work, f"rank{rank}.log"), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-child", work],
+                env=env, stdout=out, stderr=subprocess.STDOUT, start_new_session=True))
+    return procs
+
+
+def _stop_dist_children(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+
+
+def _join_dist_children(work: str, procs: list, coo: als.RatingsCOO,
+                        item0: torch.Tensor) -> None:
+    """Phase 35d: the reference, then the children's go; their logs, their
+    numbers and their tables against the reference."""
+    tag = "dist/ranks"
+    ref_ms, user_ref, item_ref = _dist_reference(coo, item0)
+    log(f"[{tag}] the in-process 2x2 reference: {ref_ms:.3f} ms an iteration")
+    for rank in range(2):   # their host work (import, ladders) overlapped phases 35a-c
+        _lane_get(work, f"ready{rank}", lambda: all(p.poll() is None for p in procs))
+    t0 = time.perf_counter()
+    _lane_put(work, "go", {})
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=DIST_CHILD_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.log")) as f:
+            for line in f.read().splitlines():
+                log(f"[{tag}/rank{rank}] {line}")
+    if rcs != [0, 0]:
+        fail(f"[{tag}] the ranks exited {rcs}; their logs are above")
+    results = [_lane_get(work, f"result{rank}", lambda: True) for rank in range(2)]
+    for rank, r in enumerate(results):
+        user, item = (torch.load(os.path.join(work, f"{side}{rank}.pt")).to(DEVICE)
+                      for side in ("user", "item"))
+        r["user_rel"], r["item_rel"] = _rel(user, user_ref), _rel(item, item_ref)
+        r["max_abs_diff"] = max((user - user_ref).abs().max().item(),
+                                (item - item_ref).abs().max().item())
+    log(f"[{tag}] two ranks over gloo, 2 positions each on the card, after the go: "
+        f"{time.perf_counter() - t0:.1f}s; per rank: " + json.dumps(results))
+    if not all(r["user_rel"] <= DIST_TABLE_RTOL and r["item_rel"] <= DIST_TABLE_RTOL
+               for r in results):
+        fail(f"[{tag}] the two-rank tables differ from the in-process 2x2 run's")
+
+
+def dist_child(work: str) -> None:
+    """One rank of phase 35d (``--dist-child DIR``): joins the gloo group
+    over the PIO_* contract without initializing CUDA, packs the ML-20M
+    ladders, waits for the go, then runs the cross-rank psum and the
+    fused 2×2 ``shard_factors`` ALS (bf16, rank 32) on its two positions
+    of the card; writes its tables and numbers to DIR."""
+    from predictionio_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    if not distributed.maybe_initialize_distributed():
+        fail("PIO_NUM_HOSTS=2 did not join the group")
+    if torch.cuda.is_initialized():
+        fail("joining the group initialized CUDA")
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    devices, owners = distributed.global_devices([_card()] * 2)
+    devices, owners = np.array(devices, dtype=object), np.array(owners)
+    log(f"rank {rank}: backend {distributed.BACKEND}, devices {[str(d) for d in devices]} "
+        f"owned by {owners.tolist()}, joined in {time.perf_counter() - t0:.1f}s")
+    n_users, n_items, nnz = ML20M
+    coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
+    ladder = als.ladder_rows(coo), als.ladder_rows(coo.transpose())
+    item0 = als.init_item_factors(coo.num_cols, ALS_RANK, SEED)
+    _lane_put(work, f"ready{rank}", {})
+    _lane_get(work, "go", lambda: True)
+    t_go = time.perf_counter()
+    mesh4 = Mesh(devices, ("data",), ranks=owners)
+    arr = pmesh.device_put_local(pmesh.NamedSharding(mesh4, ("data",)),
+                                 torch.full((2, 4), float(rank + 1)), (4, 4))
+    total = pmesh.psum(pmesh.local_map(mesh4, lambda x: x.sum(0), arr), "data").local(mesh4.home)
+    if total.device != _card() or not torch.equal(total.cpu(), torch.full((4,), 6.0)):
+        fail(f"rank {rank}: the cross-rank psum gave {total}")
+    mesh = Mesh(devices.reshape(2, 2), ("data", "model"), ranks=owners.reshape(2, 2))
+    staged = tuple(als.stage_buckets(x, ALS_RANK, mesh=mesh) for x in ladder)
+    item0 = item0.to(DEVICE)
+    _mesh_iterate(staged, item0, 1, mesh, coo)   # the first iteration of a process is slower
+    for key in pmesh.COMM:
+        pmesh.COMM[key] = 0 if key != "seconds" else 0.0
+    ms, (user, item) = _events_ms(lambda: _mesh_iterate(staged, item0, MESH_ALS_ITERS, mesh, coo))
+    comm = dict(pmesh.COMM)
+    device_ms, launches = _profile(lambda: _mesh_iterate(staged, item0, 1, mesh, coo))
+    _check_row_sharded(f"rank{rank}", user, mesh, coo.num_rows)
+    for side, table in (("user", user), ("item", item)):
+        torch.save(table.gather().cpu(), os.path.join(work, f"{side}{rank}.pt"))
+    _lane_put(work, f"result{rank}", {
+        "ms_per_iteration": round(ms / MESH_ALS_ITERS, 3), "launches_per_iteration": launches,
+        "device_ms_per_iteration": device_ms and round(device_ms, 3),
+        "collectives": comm["calls"], "collective_s": round(comm["seconds"], 3),
+        "host_staged_mb": round(comm["host_bytes"] / 1e6, 1),
+        "seconds_after_go": round(time.perf_counter() - t_go, 1),
+        "seconds": round(time.perf_counter() - t0, 1)})
+    log(f"rank {rank}: psum 6.0 on the card; {MESH_ALS_ITERS} fused 2x2 iterations "
+        f"{ms / MESH_ALS_ITERS:.3f} ms each; collectives {comm}")
+
+
+def phase_dist() -> int:
+    """Phase 35: the sequence mesh and the multi-process mesh on the card:
+    (a) ring attention, (b) long-context training over two sequence
+    meshes, (c) the engine trained over a sequence mesh and served through
+    the flash kernel, (d) two ranks on the card (started first, so that
+    their host work overlaps a-c). Returns the flash launches of (c)."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio-dist-")
+    procs = _start_dist_children(work)
+    seconds = {}
+    try:
+        for part, fn in (("a", _dist_ring), ("b", _dist_training)):
+            t0 = time.perf_counter()
+            fn()
+            seconds[part] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches = _dist_engine()
+        seconds["c"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        n_users, n_items, nnz = ML20M
+        coo = als.RatingsCOO(*make_ratings(n_users, n_items, nnz, SEED), n_users, n_items)
+        item0 = als.init_item_factors(coo.num_cols, ALS_RANK, SEED).to(DEVICE)
+        _join_dist_children(work, procs, coo, item0)
+        seconds["d"] = time.perf_counter() - t0
+    finally:
+        _stop_dist_children(procs)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[dist] seconds by part: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"the phase {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 33: Parquet `pio export` / `pio import`
 # ---------------------------------------------------------------------------
 
@@ -8874,6 +9321,13 @@ def run_phases(wall: float) -> None:
     if sys.argv[1:2] == ["--host-lane"]:   # the main path's child process
         host_lane(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--dist-child"]:   # one rank of phase 35d
+        dist_child(sys.argv[2])
+        return
+    if sys.argv[1:] == ["--dist-only"]:   # phase 35 alone; prints no result line
+        log_card()
+        phase_dist()
+        return
     if sys.argv[1:] == ["--lint-only"]:   # phase 30 alone
         log_card()
         join_lint(start_lint())
@@ -9033,6 +9487,11 @@ def run_phases(wall: float) -> None:
         timed("32", phase_als_layouts, fused9)
         torch.cuda.empty_cache()
         timed("34", phase_mesh)
+        torch.cuda.empty_cache()
+        dist_launches = timed("35", phase_dist)
+        if dist_launches == 0:
+            fail("serving the sequence-mesh-trained model never launched the flash kernel")
+        launches += dist_launches
         torch.cuda.empty_cache()
         # 33, 23 and 27 over phase 16's store, beside the child's later
         # phases; 33 reads 16b's app before 23 and 27 add events to it

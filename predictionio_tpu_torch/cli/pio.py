@@ -2112,6 +2112,10 @@ def build_parser() -> argparse.ArgumentParser:
 #: source files
 STORAGE_FREE_COMMANDS = frozenset({"version", "lint", "wal", "router", "trace"})
 
+#: commands that run the training or serving pipeline and therefore join
+#: the multi-process group when PIO_NUM_HOSTS > 1
+COMPUTE_COMMANDS = frozenset({"train", "eval", "deploy", "run"})
+
 _COMMANDS = {
     "version": _cmd_version,
     "status": _cmd_status,
@@ -2159,6 +2163,12 @@ def main(argv: list[str] | None = None) -> int:
     if not args.command:
         parser.print_help()
         return 1
+    if args.command in COMPUTE_COMMANDS:
+        # multi-process: join the torch.distributed group when
+        # PIO_NUM_HOSTS > 1; admin commands never wait on the other ranks
+        from predictionio_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+        maybe_initialize_distributed()
     storage_free = args.command in STORAGE_FREE_COMMANDS or (
         args.command == "status" and args.router)
     storage = None if storage_free else Storage()

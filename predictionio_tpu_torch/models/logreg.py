@@ -115,7 +115,7 @@ def _fit_mesh(mesh: Mesh, features: np.ndarray, labels: np.ndarray, num_classes:
         [features, np.asarray(labels, dtype=np.int64), np.ones(len(labels), np.float32)], mesh)
     X_s, oh_s = local_map(mesh, lambda f, lab: (
         _add_bias(f), torch.nn.functional.one_hot(lab, num_classes).to(f.dtype)), f_s, lab_s)
-    home = mesh.positions[0]
+    home = mesh.home
     n_real = psum(local_map(mesh, lambda m: m.sum(), mask_s), "data").local(home).clamp_min(1.0)
     n_real_s = device_put(n_real, replicated(mesh))
     W = torch.zeros((X_s.shape[1], num_classes), dtype=torch.float32, device=n_real.device)

@@ -58,7 +58,7 @@ def _sharded_counts(mesh: Mesh, count, features: np.ndarray, labels: np.ndarray)
     counts, and their ``psum``; the sums on the mesh's first device."""
     arrays, _ = shard_batch([features, np.asarray(labels, dtype=np.int64),
                              np.ones(len(labels), dtype=np.float32)], mesh)
-    home = mesh.positions[0]
+    home = mesh.home
     return tuple(psum(c, "data").local(home) for c in local_map(mesh, count, *arrays))
 
 

@@ -1,6 +1,6 @@
 """Self-attentive sequential recommendation (SASRec-family): the port of
-the JAX package's ``models/seqrec.py``, serving and single-device
-training.
+the JAX package's ``models/seqrec.py``: serving, and training on one
+device or over a device mesh.
 
 ``SeqRec`` computes the JAX ``forward``, with the JAX package's numerics
 kept op by op (autograd differentiates through every cast, as JAX does):
@@ -23,6 +23,16 @@ kept op by op (autograd differentiates through every cast, as JAX does):
 Training is ``train``: Adam steps (``make_train_step``) over
 ``next_item_loss`` in the JAX package's data order, with the mid-training
 checkpoint (params, both moments, epoch and step in one atomic file).
+
+Over a mesh (``mesh=``, JAX's batch spec ``P("data", "seq")``) each
+position runs the model on its (data, seq) block of the batch with the
+parameters replicated, one copy per distinct device (:func:`forward_mesh`);
+where the mesh's "seq" axis is > 1 attention is ring attention over it
+(``ops/attention.ring_attention_sharded``) and the loss is not tiled. The
+loss is the global masked mean, the gradients are summed over devices
+and processes before the Adam update, so every replica takes the same
+step. Of an axis the batch is not split over ("model") only index 0
+runs (:func:`batch_mesh`); its other positions do no work.
 """
 
 from __future__ import annotations
@@ -43,9 +53,22 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from predictionio_tpu_torch.ops.attention import blockwise_attention, full_attention
+from predictionio_tpu_torch.ops.attention import (
+    blockwise_attention,
+    full_attention,
+    ring_attention_sharded,
+)
 from predictionio_tpu_torch.ops.flash_attention import flash_attention
 from predictionio_tpu_torch.ops.topk import topk_lowest_index
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    ShardedArray,
+    axis_index,
+    device_put,
+    local_map,
+    process_sum,
+)
 from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -172,23 +195,32 @@ class _Block(nn.Module):
         self.w1, self.b1 = param(d, h), param(h)
         self.w2, self.b2 = param(h, d), param(d)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                attention: Callable) -> torch.Tensor:
+    def heads(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The attention's inputs: q, k, v as (B, H, S, D/H)."""
         B, S, d = x.shape
         H = self.cfg.n_heads
-        dt = self.cfg.dtype
         hpre = self.ln1(x)
-        q, k, v = (hpre @ self.wqkv.to(dt)).split(d, dim=-1)   # (B, S, D) each
+        q, k, v = (hpre @ self.wqkv.to(self.cfg.dtype)).split(d, dim=-1)   # (B, S, D) each
 
-        def heads(t):
+        def split(t):
             return t.reshape(B, S, H, d // H).transpose(1, 2).contiguous()
 
-        att = attention(heads(q), heads(k), heads(v), causal=True, kv_mask=mask)
-        x = x + att.transpose(1, 2).reshape(B, S, d) @ self.wo.to(dt)
+        return split(q), split(k), split(v)
 
+    def finish(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+        """The rest of the block after attention: output projection,
+        residual, LayerNorm, MLP."""
+        B, S, d = x.shape
+        dt = self.cfg.dtype
+        x = x + att.transpose(1, 2).reshape(B, S, d) @ self.wo.to(dt)
         hpre = self.ln2(x)
         hmid = F.gelu(hpre @ self.w1.to(dt) + self.b1.to(dt), approximate="tanh")
         return x + hmid @ self.w2.to(dt) + self.b2.to(dt)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                attention: Callable) -> torch.Tensor:
+        q, k, v = self.heads(x)
+        return self.finish(x, attention(q, k, v, causal=True, kv_mask=mask))
 
 
 def train_attention(seq_len: int) -> Callable:
@@ -249,6 +281,99 @@ class SeqRec(nn.Module):
             else:
                 x = layer(x, mask, attention)
         return self.out_ln(x)
+
+
+def _seq_sharded(mesh: Mesh | None, seq_axis: str = "seq") -> bool:
+    return mesh is not None and mesh.axis_size(seq_axis) > 1
+
+
+def batch_spec(mesh: Mesh, seq_axis: str = "seq") -> tuple[str | None, str | None]:
+    """How a (B, S) batch lies on ``mesh``: rows over "data", positions
+    over ``seq_axis`` where the mesh has them (JAX's ``P("data", "seq")``)."""
+    return ("data" if "data" in mesh.axis_names else None,
+            seq_axis if seq_axis in mesh.axis_names else None)
+
+
+def batch_mesh(mesh: Mesh, seq_axis: str = "seq") -> Mesh | None:
+    """The positions of ``mesh`` that run seqrec: its section over "data"
+    and ``seq_axis`` (:meth:`Mesh.section`). An axis seqrec does not use,
+    such as "model", stands at index 0, and its other positions do no
+    work. ``None`` where this rank owns none of them."""
+    return mesh.section(a for a in batch_spec(mesh, seq_axis) if a is not None)
+
+
+def replicas(model: SeqRec, mesh: Mesh) -> dict[torch.device, SeqRec]:
+    """One replica for each device of the mesh's local positions:
+    ``model`` on its own device, a copy of it on each other (the
+    parameters replicated, one copy per distinct device)."""
+    out = {}
+    for pos in mesh.local_positions:
+        dev = mesh.device(pos)
+        if dev not in out:
+            if dev == model.device:
+                out[dev] = model
+                continue
+            copy = SeqRec(model.cfg, dev)
+            copy.load_state_dict(model.state_dict())
+            out[dev] = copy.requires_grad_(model.item_emb.requires_grad)
+    return out
+
+
+def forward_mesh(model: SeqRec | Mapping[torch.device, SeqRec], seqs: ShardedArray, mesh: Mesh,
+                 *, seq_axis: str = "seq", inference: bool = False,
+                 attention: Callable | None = None) -> ShardedArray:
+    """JAX's ``forward(params, seqs, cfg, mesh)``: hidden states (B, S, D)
+    laid out as ``seqs`` (:func:`batch_spec`), each position running its
+    block on its device's replica (``model``, or a mapping of them from
+    :func:`replicas`). Where ``seq_axis`` is > 1 each block's position
+    embeddings start at its offset ``idx · S/n`` and attention is ring
+    attention over the axis (before ``inference``, as in JAX); else each
+    position runs :meth:`SeqRec.forward` on its rows."""
+    at = model if isinstance(model, Mapping) else replicas(model, mesh)
+
+    def mdl(pos) -> SeqRec:
+        return at[mesh.device(pos)]
+
+    spec = tuple(seqs.spec) + (None,)
+    if not _seq_sharded(mesh, seq_axis):
+        return local_map(mesh, lambda pos, s: mdl(pos)(s, attention, inference=inference),
+                         seqs, spec=spec, with_pos=True)
+    cfg = next(iter(at.values())).cfg
+    dt = cfg.dtype
+    Sl = seqs.shards[0].shape[1]
+
+    def embed(pos, s):
+        m = mdl(pos)
+        start = axis_index(mesh, pos, seq_axis) * Sl
+        mask = (s != PAD).float()                                  # (b, Sl)
+        x = m.item_emb[s].to(dt)
+        x = x + m.pos_emb[start:start + Sl].to(dt)
+        return x * mask[..., None].to(dt), mask
+
+    x, mask = local_map(mesh, embed, seqs, spec=spec, with_pos=True)
+    spec4 = (spec[0], None, spec[1], None)
+
+    def block(i: int, x: ShardedArray, mask: ShardedArray) -> ShardedArray:
+        q, k, v = local_map(mesh, lambda pos, x_: mdl(pos).layers[i].heads(x_), x,
+                            spec=spec4, with_pos=True)
+        att = ring_attention_sharded(q, k, v, mask, seq_axis=seq_axis, causal=True)
+        return local_map(mesh, lambda pos, x_, a: mdl(pos).layers[i].finish(x_, a), x, att,
+                         spec=spec, with_pos=True)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        if remat:
+            n = len(x.shards)
+
+            def run(*shards, i=i):
+                return block(i, ShardedArray(mesh, spec, shards[:n]),
+                             ShardedArray(mesh, spec[:2], shards[n:])).shards
+
+            x = ShardedArray(mesh, spec, tuple(checkpoint(run, *x.shards, *mask.shards,
+                                                          use_reentrant=False)))
+        else:
+            x = block(i, x, mask)
+    return local_map(mesh, lambda pos, x_: mdl(pos).out_ln(x_), x, spec=spec, with_pos=True)
 
 
 def logits_from_hidden(model: SeqRec, h: torch.Tensor) -> torch.Tensor:
@@ -330,27 +455,68 @@ def _masked_nll_sum(model: SeqRec, h: torch.Tensor, targets: torch.Tensor,
     return (nll * tmask).sum()
 
 
-def next_item_loss(model: SeqRec, seqs: torch.Tensor, targets: torch.Tensor, *,
-                   attention: Callable | None = None) -> torch.Tensor:
+def next_item_loss(model: SeqRec, seqs, targets, *,
+                   attention: Callable | None = None, mesh: Mesh | None = None,
+                   at: Mapping[torch.device, SeqRec] | None = None) -> torch.Tensor:
     """Mean masked softmax cross-entropy of next-item prediction over
     (B, S) int64 ``seqs`` and ``targets`` (PAD targets are ignored).
     ``attention`` overrides the training route (the card-side check
     forces ``full_attention`` against the blockwise route). Where the
     f32 logits exceed ``_LOSS_TILE_BYTES`` the loss runs in sequence
-    tiles, each under ``torch.utils.checkpoint``."""
+    tiles, each under ``torch.utils.checkpoint``.
+
+    Over ``mesh`` (``seqs``/``targets`` whole tensors; ``at`` the
+    replicas of :func:`batch_mesh`'s positions, default
+    :func:`replicas`) the sum runs block by block on those positions,
+    untiled where "seq" is sharded, the tile picked for the global batch
+    otherwise, as in JAX. The value is the global loss; across processes
+    its gradient is this rank's part, which the train step sums over the
+    ranks."""
+    if mesh is not None:
+        return _mesh_loss(model, mesh, seqs, targets, attention, at)
     h = model(seqs, attention, inference=False)
     B, S, _ = h.shape
     tile = _pick_loss_tile(B, S, model.cfg.vocab)
     tmask = (targets != PAD).float()
     count = tmask.sum().clamp_min(1.0)
+    return _nll_sum(model, h, targets, tmask, tile) / count
+
+
+def _nll_sum(model: SeqRec, h: torch.Tensor, targets: torch.Tensor, tmask: torch.Tensor,
+             tile: int | None) -> torch.Tensor:
     if tile is None:
-        return _masked_nll_sum(model, h, targets, tmask) / count
+        return _masked_nll_sum(model, h, targets, tmask)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for s in range(0, S, tile):
+    for s in range(0, h.shape[1], tile):
         total = total + checkpoint(_masked_nll_sum, model, h[:, s:s + tile],
                                    targets[:, s:s + tile], tmask[:, s:s + tile],
                                    use_reentrant=False)
-    return total / count
+    return total
+
+
+def _mesh_loss(model: SeqRec, mesh: Mesh, seqs: torch.Tensor, targets: torch.Tensor,
+               attention: Callable | None, at: Mapping[torch.device, SeqRec] | None
+               ) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=model.device)
+    count = torch.zeros((), dtype=torch.float32, device=model.device)
+    sub = batch_mesh(mesh)
+    if sub is not None:     # each (data, seq) block once
+        at = replicas(model, sub) if at is None else at
+        spec = batch_spec(sub)
+        seqs, targets = (device_put(x, NamedSharding(sub, spec)) for x in (seqs, targets))
+        h = forward_mesh(at, seqs, sub, attention=attention)
+        B, S = seqs.shape
+        tile = None if _seq_sharded(sub) else _pick_loss_tile(B, S, model.cfg.vocab)
+        sums = local_map(sub, lambda pos, h_, t_: _nll_sum(
+            at[sub.device(pos)], h_, t_, (t_ != PAD).float(), tile), h, targets, with_pos=True)
+        counts = local_map(sub, lambda t_: (t_ != PAD).float().sum(), targets)
+        for p in sub.local_positions:
+            total = total + sums.local(p).to(model.device)
+            count = count + counts.local(p).to(model.device)
+    every_total, every_count = process_sum(mesh, [total.detach(), count])
+    count = every_count.clamp_min(1.0)
+    part = total / count
+    return part + (every_total / count - part).detach()
 
 
 def _adam_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -384,22 +550,45 @@ def adam_state(model: SeqRec) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
             [torch.zeros_like(p) for p in model.parameters()])
 
 
-def make_train_step(model: SeqRec, *, attention: Callable | None = None) -> Callable:
+def make_train_step(model: SeqRec, *, attention: Callable | None = None,
+                    mesh: Mesh | None = None) -> Callable:
     """One Adam step on ``model``'s parameters, in place, on its device:
     ``step(opt_m, opt_v, it, seqs, targets, lr) -> loss`` (a 0-d device
     tensor), with the moments of :func:`adam_state` and ``it`` the
     1-based global step that the bias correction reads. Makes the
-    model's parameters trainable."""
+    model's parameters trainable.
+
+    Over ``mesh`` the batch is laid out by :func:`batch_spec` on the
+    positions of :func:`batch_mesh`, each of their devices holds a
+    replica, the gradients are summed over the replicas and the
+    processes, and every replica takes ``model``'s Adam step. A rank
+    that holds none of those positions adds zeros and takes the step."""
     params = list(model.requires_grad_().parameters())
+    sub = batch_mesh(mesh) if mesh is not None else None
+    at = replicas(model, sub) if sub is not None else {}
+    copies = [r for r in at.values() if r is not model]
 
     def step(opt_m, opt_v, it: int, seqs: torch.Tensor, targets: torch.Tensor,
              lr: float) -> torch.Tensor:
-        for p in params:
-            p.grad = None
-        loss = next_item_loss(model, seqs, targets, attention=attention)
-        loss.backward()
+        for r in (model, *copies):
+            for p in r.parameters():
+                p.grad = None
+        loss = next_item_loss(model, seqs, targets, attention=attention, mesh=mesh, at=at)
+        if loss.requires_grad:      # not where this rank runs no block
+            loss.backward()
         with torch.no_grad():
-            _adam_update(params, [p.grad for p in params], opt_m, opt_v, it, lr)
+            if mesh is None:
+                grads = [p.grad for p in params]
+            else:
+                grads = [torch.zeros_like(p) for p in params]
+                for r in at.values():
+                    for g, q in zip(grads, r.parameters()):
+                        g += q.grad.to(g.device)
+                grads = process_sum(mesh, grads)
+            _adam_update(params, grads, opt_m, opt_v, it, lr)
+            for r in copies:
+                for q, p in zip(r.parameters(), params):
+                    q.copy_(p)
         return loss.detach()
 
     return step
@@ -429,6 +618,7 @@ def train(
     checkpoint_every: int = 0,
     initial: Mapping[str, torch.Tensor] | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> TrainRun:
     """Adam over dense-indexed item sequences (ids >= 1), on ``device``
     (default ``cuda``), in the JAX package's data order: every step takes
@@ -437,18 +627,25 @@ def train(
     ``np.random.default_rng(seed).permutation`` drawn once per epoch.
 
     ``initial`` is the starting state dict (default: :func:`init_params`
-    from ``seed``; the tests pass the JAX package's draw). With
+    from ``seed``; the tests pass the JAX package's draw). Over ``mesh``
+    (on its home device; ``device`` is then not read) the batch is rounded
+    down to a multiple of the "data" axis, at least one row a position,
+    as in JAX, and each step runs over the mesh (:func:`make_train_step`).
+    With
     ``checkpoint_dir`` and ``checkpoint_every`` N the parameters, both
     Adam moments, the epoch and the step count are written every N
     epochs by one atomic replace, and a later call with the same config,
     data, lr and seed resumes after the last one; any other call starts
     fresh, with a warning."""
-    dev = resolve_device(device)
+    dev = mesh.device(mesh.home) if mesh is not None else resolve_device(device)
     inputs, targets = pad_sequences(sequences, cfg.max_len)
     n = inputs.shape[0]
     # identity from the arrays before batch padding, as in the JAX package
     fingerprint = _train_fingerprint(cfg, inputs, targets, lr, seed) if checkpoint_dir else None
     bs = min(batch_size, n)
+    if mesh is not None:
+        mult = mesh.axis_size("data")
+        bs = max(mult, (bs // mult) * mult)
     pad_rows = (-n) % bs
     if pad_rows:
         inputs = np.concatenate([inputs, np.zeros((pad_rows, cfg.max_len), np.int32)])
@@ -469,7 +666,7 @@ def train(
                 logger.warning("seqrec: checkpoint already at epoch %d >= requested epochs "
                                "%d; returning its weights with no further training",
                                start_epoch, epochs)
-    step = make_train_step(model)
+    step = make_train_step(model, mesh=mesh)
 
     run = TrainRun(params={})
     rng = np.random.default_rng(seed)

@@ -70,6 +70,7 @@ from predictionio_tpu_torch.parallel.mesh import (
     device_put,
     model_sharding,
     per_device,
+    process_sum,
     psum,
     replicated,
 )
@@ -574,6 +575,15 @@ def pad_bucket_slabs(bucket: Bucket, rank: int, max_slab_elems: int,
             _pad_rows(bucket.deg, s, b))
 
 
+def pad_bucket_row_ids(bucket: Bucket, shape: tuple[int, ...]) -> np.ndarray:
+    """A bucket's row ids laid out as its padded (S, B) degree slab (see
+    :func:`pad_bucket_slabs`), -1 at pad rows: how a bucket's ids are
+    staged over a mesh."""
+    ids = np.full(int(np.prod(shape)), -1, dtype=np.int64)
+    ids[: bucket.row_ids.shape[0]] = bucket.row_ids
+    return ids.reshape(shape)
+
+
 def pad_chunk_slab(slab: ChunkSlab, rank: int, max_slab_elems: int, data_axis: int = 1
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk slab padded on the host to its (S, B, ...) device shape,
@@ -608,9 +618,7 @@ def _stage_bucket(bucket: Bucket, rank: int, max_slab_elems: int,
     if mesh is not None:
         cols, vals, deg = pad_bucket_slabs(bucket, rank, max_slab_elems,
                                            mesh.axis_size("data"))
-        ids = np.full(deg.size, -1, dtype=np.int64)
-        ids[: bucket.row_ids.shape[0]] = bucket.row_ids
-        return DeviceBucket(row_ids=_data_split(ids.reshape(deg.shape), mesh),
+        return DeviceBucket(row_ids=_data_split(pad_bucket_row_ids(bucket, deg.shape), mesh),
                             cols=_data_split(cols, mesh), vals=_data_split(vals, mesh),
                             deg=_data_split(deg, mesh), n=int(bucket.row_ids.shape[0]),
                             pad_len=bucket.pad_len)
@@ -946,12 +954,12 @@ def _local_tables(V_all: ShardedArray, bf16: bool, implicit: bool):
 
 def _per_data_shard(mesh: Mesh, solve) -> dict:
     """``solve(pos)``, the local phase of a function replicated over
-    "model" (its inputs are split over "data" only), at every position;
-    computed once for each (device, data index): the positions of one
-    device along "model" share it."""
+    "model" (its inputs are split over "data" only), at every local
+    position; computed once for each (device, data index): the positions
+    of one device along "model" share it."""
     made: dict = {}
     out = {}
-    for pos in mesh.positions:
+    for pos in mesh.local_positions:
         key = (mesh.device(pos), axis_index(mesh, pos, "data"))
         if key not in made:
             made[key] = solve(pos)
@@ -961,19 +969,21 @@ def _per_data_shard(mesh: Mesh, solve) -> dict:
 
 def _write_rows(parts: dict, mesh: Mesh, num_rows: int, K: int,
                 sharded: bool) -> torch.Tensor | ShardedArray:
-    """The write-back collective. ``parts`` maps each position to the rows
-    it solved, as (row ids, rows) pairs (id -1: a pad row); every data
-    shard's rows are solved at each position along "model". ``sharded``:
-    a (num_rows, K) table row-sharded over "model" (it must divide the
-    axis), where the shard of model index m takes the rows it owns from
-    the positions of that index, one per data shard (a local scatter,
-    then the combine over "data"), built once on each device that holds
-    it; else the whole table on the mesh's first device, from the
+    """The write-back collective. ``parts`` maps each local position to
+    the rows it solved, as (row ids, rows) pairs (id -1: a pad row);
+    every data shard's rows are solved at each position along "model".
+    ``sharded``: a (num_rows, K) table row-sharded over "model" (it must
+    divide the axis), where the shard of model index m takes the rows it
+    owns from the positions of that index, one per data shard (a local
+    scatter, then the combine over "data"), built once on each device
+    that holds it; else the whole table on the home device, from the
     positions of model index 0. Each target keeps one extra row where pad
-    rows and rows it does not own land, cut off after."""
+    rows and rows it does not own land, cut off after. Across processes
+    each rank scatters its own positions' rows and the ranks add their
+    tables (each row comes from one data shard: the sum is exact)."""
     def build(dev, m, lo, n):
         buf = torch.zeros((n + 1, K), dtype=torch.float32, device=dev)
-        for pos in mesh.positions:
+        for pos in mesh.local_positions:
             if axis_index(mesh, pos, "model") != m:
                 continue
             for ids, X in parts.get(pos, ()):
@@ -983,9 +993,17 @@ def _write_rows(parts: dict, mesh: Mesh, num_rows: int, K: int,
                                 X.to(dev))
         return buf[:n]
 
+    home = mesh.device(mesh.home)
     if not sharded:
-        return build(mesh.device(mesh.positions[0]), 0, 0, num_rows)
-    n_loc = num_rows // mesh.axis_size("model")
+        table = build(home, 0, 0, num_rows)
+        return process_sum(mesh, [table])[0] if parts else table
+    ways = mesh.axis_size("model")
+    n_loc = num_rows // ways
+    if mesh.multiprocess and parts:
+        shards = process_sum(mesh, [build(home, m, m * n_loc, n_loc) for m in range(ways)])
+        return ShardedArray(mesh, ("model", None), per_device(
+            mesh, lambda pos: shards[axis_index(mesh, pos, "model")].to(mesh.device(pos)),
+            lambda pos: axis_index(mesh, pos, "model")))
     return ShardedArray(mesh, ("model", None), per_device(
         mesh, lambda pos: build(mesh.device(pos), axis_index(mesh, pos, "model"),
                                 axis_index(mesh, pos, "model") * n_loc, n_loc),
@@ -1032,8 +1050,8 @@ def _solve_half_chunked_mesh(V: torch.Tensor | ShardedArray, chunked: DeviceChun
     """One chunked half-step over ``mesh``: each position accumulates the
     chunks of its data shard (replicated over "model":
     :func:`_per_data_shard`); the accumulators are summed over "data"
-    (``psum``, once per device); the solve runs on the mesh's first
-    device, where the (replicated) result is kept."""
+    (``psum``, once per device, across processes too); the solve runs on
+    the home device, where the (replicated) result is kept."""
     V_all = _gather_table(V, mesh)
     with ieee_f32():
         tables = _local_tables(V_all, bf16, False)
@@ -1043,7 +1061,7 @@ def _solve_half_chunked_mesh(V: torch.Tensor | ShardedArray, chunked: DeviceChun
         summed = [psum(ShardedArray.from_local(mesh, (), lambda pos: acc[pos][i]), "data")
                   for i in range(3)]
         del acc
-        home = mesh.positions[0]
+        home = mesh.home
         return _chunk_solve(*(x.local(home) for x in summed), V_all.local(home), lam,
                             implicit, cg_steps, cg_bf16)
 
@@ -1056,10 +1074,10 @@ def _als_iterate_mesh(item0: torch.Tensor, user_buckets: DeviceBucketedRatings,
     """``iterations`` alternating whole-row half-steps over ``mesh`` from
     ``item0``, users first. ``shard_factors``: both tables stay row-sharded
     over "model" between half-steps (``num_users``/``num_items``, padded
-    by the caller, divide it); else both are kept whole on the mesh's
-    first device."""
+    by the caller, divide it); else both are kept whole on the home
+    device."""
     K = item0.shape[1]
-    item = _row_shard(item0, mesh) if shard_factors else item0.to(mesh.device(mesh.positions[0]))
+    item = _row_shard(item0, mesh) if shard_factors else item0.to(mesh.device(mesh.home))
     user = _write_rows({}, mesh, num_users, K, shard_factors)
     for _ in range(iterations):
         user = _solve_half_buckets_mesh(item, user_buckets, mesh, lam, alpha, implicit, bf16,
@@ -1268,7 +1286,7 @@ def als_train(ratings: RatingsCOO, rank: int, iterations: int = 10, lam: float =
     if layout == "chunked" and solver != "cg":
         raise ValueError(_CHUNKED_CHOLESKY)
     cg_bf16 = _resolve_cg_matvec(cg_matvec_dtype, rank)
-    dev = resolve_device(device) if mesh is None else mesh.device(mesh.positions[0])
+    dev = resolve_device(device) if mesh is None else mesh.device(mesh.home)
     tp = bool(shard_factors and mesh is not None and mesh.axis_size("model") > 1)
     if item0 is None:
         item0 = init_item_factors(ratings.num_cols, rank, seed)

@@ -167,7 +167,7 @@ def recommend_topk_sharded(user_vecs, item_f: torch.Tensor | ShardedArray, seen_
         item_f = device_put(item_f.gather() if isinstance(item_f, ShardedArray) else item_f,
                             NamedSharding(mesh, ("model", None)))
     k = min(k, I)
-    home = mesh.device(mesh.positions[0])
+    home = mesh.device(mesh.home)
     uv = torch.as_tensor(user_vecs).to(home, torch.float32)
     sc = torch.as_tensor(seen_cols).to(home, torch.int64)
     sm = torch.as_tensor(seen_mask).to(home, torch.float32)
@@ -181,7 +181,7 @@ def recommend_topk_sharded(user_vecs, item_f: torch.Tensor | ShardedArray, seen_
     rows = I // n_model
     k_loc = min(k, rows)   # a shard contributes at most its own rows
     vals, idxs = {}, {}
-    for pos in mesh.positions:
+    for pos in mesh.local_positions:
         start = axis_index(mesh, pos, "model") * rows
         with ieee_f32():
             scores = uv_s.local(pos) @ item_f.local(pos).T              # (b, rows)
@@ -195,7 +195,7 @@ def recommend_topk_sharded(user_vecs, item_f: torch.Tensor | ShardedArray, seen_
                                  "model") for x in (vals, idxs))
     out_v, out_i = [], []
     for d in range(n_data):   # the merge is replicated over "model": read at index 0
-        pos = next(p for p in mesh.positions if axis_index(mesh, p, "data") == d
+        pos = next(p for p in mesh.local_positions if axis_index(mesh, p, "data") == d
                    and axis_index(mesh, p, "model") == 0)
         v, sel = topk_lowest_index(cand_v.local(pos), k)
         out_v.append(v.to(home))

@@ -96,9 +96,10 @@ class DataSourceParams(Params):
 @dataclasses.dataclass(frozen=True)
 class AlgorithmParams(Params):
     """The JAX template's parameters, so one engine.json binds to both.
-    Serving reads none of them (the model carries its config);
-    ``use_mesh`` has no effect: training over a sequence mesh (ring
-    attention) is ROADMAP.md queue 1 item 29."""
+    Serving reads none of them (the model carries its config).
+    ``use_mesh`` trains over the context's mesh when it spans more than
+    one position (``meshConf`` ``{"axes": {"data": 4, "seq": 2}}``: ring
+    attention over "seq", whose size must divide ``max_len``)."""
 
     d_model: int = 64
     n_heads: int = 2
@@ -274,12 +275,18 @@ class SeqRecAlgorithm(HostModelAlgorithm):
             n_layers=p.n_layers,
             remat=p.remat,
         )
+        mesh = ctx.mesh_if_parallel if p.use_mesh else None
+        if mesh is not None and "seq" in mesh.shape and p.max_len % mesh.axis_size("seq"):
+            raise ValueError(
+                f"max_len {p.max_len} must be a multiple of the seq mesh "
+                f"axis size ({mesh.axis_size('seq')})"
+            )
         run = seqrec.train(
             list(dense.values()), cfg,
             epochs=p.epochs, batch_size=p.batch_size, lr=p.lr, seed=p.seed,
             checkpoint_dir=p.checkpoint_dir or None,
             checkpoint_every=p.checkpoint_every,
-            device=ctx.device,
+            device=ctx.device, mesh=mesh,
         )
         return SeqRecEngineModel(params=run.params, cfg=cfg, item_index=item_index,
                                  histories=dense, device=ctx.device, train_run=run)

@@ -3,13 +3,15 @@ JAX package's ``workflow/context.py``).
 
 It carries the storage registry, the workflow params, one torch device
 (the card unless the caller asks for the CPU) and, built on first use,
-the device mesh over the context's devices (``parallel/mesh.py``):
-``("data", "model")`` axes from ``WorkflowParams.mesh_conf["axes"]``, or
-factored from the device count. The devices are the ones the caller
-passes (a list may repeat a device: ``["cuda:0"] * 4`` lays a 4-position
-mesh over one card), else every card, else the CPU. Training takes its
-seed from the algorithm's params. The sequence mesh (ring attention over
-a ``seq`` axis) is ROADMAP.md queue 1 item 29.
+the device mesh over the context's devices (``parallel/mesh.py``): the
+axes of ``WorkflowParams.mesh_conf["axes"]`` (``{"data": 4, "seq": 2}``
+trains sessionrec over a sequence mesh, with ring attention over "seq"),
+or ``("data", "model")`` factored from the device count. The devices are
+the ones the caller passes (a list may repeat a device: ``["cuda:0"] * 4``
+lays a 4-position mesh over one card), else every card, else the CPU.
+Under an initialized process group (``parallel/distributed.py``) they are
+every rank's devices in rank order, each owned by its rank, and the mesh
+spans the processes. Training takes its seed from the algorithm's params.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.data.store import EventStore
+from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.device import available_devices, resolve_device
@@ -62,7 +65,9 @@ def _factor_mesh(n: int) -> tuple[int, int]:
 class EngineContext:
     """One per workflow run. ``devices`` (a list of devices, repeats
     allowed) are the mesh's; without it, every card when ``device`` is the
-    card, else the CPU. Counting the cards initializes no CUDA context."""
+    card, else the CPU. Counting the cards initializes no CUDA context.
+    Under a process group those are this rank's devices, and ``devices``
+    lists every rank's (gathered on first use: a collective)."""
 
     def __init__(
         self,
@@ -78,13 +83,16 @@ class EngineContext:
         self.device = resolve_device(
             device if device is not None or not self._devices else self._devices[0])
         self._mesh = mesh
+        self._global: tuple[list[torch.device], list[int]] | None = None
 
     def with_workflow_params(self, **changes) -> "EngineContext":
         """A context on the same storage, device and devices with some
         workflow params replaced (a new ``mesh_conf`` builds a new mesh)."""
         mesh = None if "mesh_conf" in changes else self._mesh
-        return EngineContext(dataclasses.replace(self.workflow_params, **changes),
-                             self._storage, self.device, mesh, self._devices)
+        ctx = EngineContext(dataclasses.replace(self.workflow_params, **changes),
+                            self._storage, self.device, mesh, self._devices)
+        ctx._global = self._global
+        return ctx
 
     def with_axes(self, **axes: int) -> "EngineContext":
         """A context whose mesh uses an explicit axis spec."""
@@ -93,7 +101,18 @@ class EngineContext:
 
     @property
     def devices(self) -> list[torch.device]:
-        return list(self._devices) if self._devices else available_devices(self.device)
+        local = list(self._devices) if self._devices else available_devices(self.device)
+        if not distributed.is_initialized():
+            return local
+        if self._global is None:
+            self._global = distributed.global_devices(local)
+        return list(self._global[0])
+
+    @property
+    def device_ranks(self) -> list[int]:
+        """The owning rank of each of ``devices`` (all 0 in one process)."""
+        devices = self.devices
+        return list(self._global[1]) if self._global is not None else [0] * len(devices)
 
     @property
     def mesh(self) -> Mesh:
@@ -116,7 +135,9 @@ class EngineContext:
                     f"have {len(devices)}")
             grid = np.empty(total, dtype=object)
             grid[:] = devices[:total]
-            self._mesh = Mesh(grid.reshape(sizes), names)
+            ranks = (np.asarray(self.device_ranks[:total]).reshape(sizes)
+                     if distributed.is_initialized() else None)
+            self._mesh = Mesh(grid.reshape(sizes), names, ranks=ranks)
             logger.info("created mesh %s over %d %s device(s)", dict(zip(names, sizes)),
                         total, devices[0].type)
         return self._mesh
