@@ -7,8 +7,8 @@ Phases, numbered as they were added; any failure exits non-zero. Phases
 process of this script (``--host-lane``, its log printed when it is
 joined, its processes stopped with it) runs the `pio` chain 16, 17a,
 18, 24, 26, 28 and 29 over one store, while this process runs 5-13,
-17b, 14, 15, 16c, 19-22, 25, 31 and 32, and then 33, 23 and 27 over the
-child's phase-16 store. Phase 14 hands its grid scores to 24 through
+17b, 14, 15, 16c, 19-22, 25, 31, 32, 34 and 35 (with 36's shells beside
+19-35), and then 33, 23 and 27 over the child's phase-16 store. Phase 14 hands its grid scores to 24 through
 a file, 16 its instances to 33, 23 and 27. Phase 3's timings, which make
 the `kernels` line, are taken before the lanes start; the seconds and
 rates logged after it are taken with the other lane running.
@@ -16,8 +16,9 @@ rates logged after it are taken with the other lane running.
 1. the card's name and power limit (nvidia-smi), and the build of every
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, case by
-   case (among them the shapes of both serving paths and of the
-   evaluation bucket), with the max abs difference and the tolerance;
+   case (among them the shapes of both serving paths, of the evaluation
+   bucket and of the quickstart walk-through's engine, (1,2,16,16)), with
+   the max abs difference and the tolerance;
 3. the kernel's time at the serving shape, the batch bucket and the
    evaluation bucket (64,4,2048,64) beside
    the plain version, the library call (scaled_dot_product_attention
@@ -442,8 +443,26 @@ rates logged after it are taken with the other lane running.
    the ML-20M shape (bf16, rank 32) equal to the in-process 2×2 run on
    the same ratings and table (1e-6 relative); ms an iteration, launches,
    device ms, collectives' seconds and host-staged bytes per rank;
-36. a `kernels` JSON line;
-37. the result line
+36. the launchers, the distribution and the walk-throughs, in the main
+   lane beside phases 19-35 (its work runs in shells and `pio` processes,
+   a thread of this process waiting on them): (a)
+   `make-distribution-torch.sh` into a temporary directory outside the
+   checkout, the tarball unpacked there (the port's package, bin_torch/,
+   conf/, docs_torch/, pyproject.toml and README.md, no build/); (b)
+   `bin_torch/pio-start-all` from the tree, the event server's `GET /`
+   alive, `pio-shell` bound from the tree with no JAX package on its path,
+   `pio-stop-all`; (c) `docs_torch/quickstart-sessionrec.md` and
+   `docs_torch/quickstart-recommendation.md` verbatim, each in one bash
+   with the tree as its working directory and nothing of this checkout
+   on the path, so that their `pio train` and `pio deploy` run on the
+   card (`GET /` and `/stats.json` of the deploy read before each
+   document's tear-down block); (d) the flash kernel's library built by
+   the sessionrec deploy from the tree's own csrc/ into the tree's own
+   build/kernels/; (e) that deploy's kernel launches (`GET /`
+   kernelLaunches); (f) the seconds of every block, of the build and of
+   the phase;
+37. a `kernels` JSON line;
+38. the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
@@ -451,9 +470,9 @@ Each phase of the main path logs its seconds (`[phases]`).
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
 `--router-only`, `--storage-only`, `--lint-only`, `--examples-only`,
-`--als-layouts-only`, `--parquet-only`, `--mesh-only` and `--dist-only`
-run phases 9-13, 14-15, 16, 17, 18, 19-21, 22, 23, 24, 25, 26, 27, 28,
-29, 30, 31, 32, 33, 34 and 35 alone
+`--als-layouts-only`, `--parquet-only`, `--mesh-only`, `--dist-only`
+and `--quickstart-only` run phases 9-13, 14-15, 16, 17, 18, 19-21, 22,
+23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35 and 36 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
@@ -493,6 +512,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch import native as native_libs
 from predictionio_tpu_torch.api.engine_server import create_engine_server
 from predictionio_tpu_torch.controller import (
@@ -813,6 +833,13 @@ def phase_kernel_vs_plain() -> float:
         # the sessionrec evaluation's bucket: 64 held-out users, each with
         # a full 2,048-item history (phase 14)
         ("eval bucket (64,4,2048,64) bf16 causal", 64, 4, 2048, 64, torch.bfloat16, True, None),
+        # the quickstart walk-through's engine (d_model 32, 2 heads,
+        # max_len 16; phase 36): every key real, and a served history of
+        # 12 views right-padded
+        ("(1,2,16,16) bf16 causal, the quickstart's serving shape",
+         1, 2, 16, 16, torch.bfloat16, True, None),
+        ("(1,2,16,16) bf16 causal, the quickstart's serving shape, 12 real keys",
+         1, 2, 16, 16, torch.bfloat16, True, 12),
     ] + [
         # the buckets batched serving dispatches (phase 17), each row with
         # its own real length, right-padded, as served sessions of 1-2,048
@@ -9078,6 +9105,224 @@ def phase_dist() -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 36: the launchers, the port's tarball and its walk-throughs
+# ---------------------------------------------------------------------------
+
+#: the walk-throughs phase 36 runs verbatim from the unpacked tarball,
+#: sessionrec first (its deploy builds the kernel into the tree)
+QUICKSTART_DOCS = ("quickstart-sessionrec.md", "quickstart-recommendation.md")
+#: pio-start-all's ports. They and the walk-throughs' (27172-29178) lie
+#: below the loopback ephemeral range (32768-60999) from which every other
+#: server of this script takes its port (port 0, `_free_ports`)
+QUICKSTART_STACK = {"PIO_EVENTSERVER_PORT": "27070", "PIO_ADMINSERVER_PORT": "27071",
+                    "PIO_DASHBOARD_PORT": "29000"}
+QUICKSTART_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _quickstart_env(tree: str, base: str) -> dict:
+    """The environment of a user's shell in the unpacked tree: nothing of
+    this checkout on the path, no storage or device settings, logs and
+    pidfiles under ``base``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_", "PYTHON")) and k != "DEVICE"}
+    env.update(QUICKSTART_STACK, PIO_PID_DIR=base, PIO_LOG_DIR=base,
+               PIO_FS_BASEDIR=os.path.join(base, "stack-store"))
+    return env
+
+
+def _end_session(pid: int) -> None:
+    """SIGTERM, then SIGKILL, to every process left in ``pid``'s session."""
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        try:
+            os.killpg(pid, sig)
+        except ProcessLookupError:
+            return
+        time.sleep(1.0)
+
+
+def _session(cmd: list[str], cwd: str, env: dict, stdin: str | None = None,
+             keep: bool = False) -> tuple[int | None, str, str, int]:
+    """``cmd`` in a session of its own: (exit code, None on a timeout;
+    stdout; stderr; the session's id). Unless ``keep``, every process
+    left in the session is stopped when it ends."""
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, text=True, start_new_session=True,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(input=stdin, timeout=PIO_STEP_TIMEOUT)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        rc, err = None, err + f"\n(timed out after {PIO_STEP_TIMEOUT}s)"
+    finally:
+        if not keep:
+            _end_session(proc.pid)
+    return rc, out, err, proc.pid
+
+
+def _quickstart_stack(tag: str, tree: str, env: dict) -> dict:
+    """pio-start-all from the tree, the event server alive on ``/``, a
+    shell bound from the tree (and no JAX package reachable), pio-stop-all."""
+    seconds = {}
+    t0 = time.perf_counter()
+    rc, out, err, session = _session([os.path.join(tree, "bin_torch", "pio-start-all")], tree,
+                                     env, keep=True)
+    try:
+        seconds["pio-start-all"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"[{tag}] pio-start-all exited {rc}:\n{out}\n{err}")
+        port = int(env["PIO_EVENTSERVER_PORT"])
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                alive = _get(port, "/")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    fail(f"[{tag}] the event server never answered on :{port}")
+                time.sleep(0.2)
+        if alive != (200, {"status": "alive"}):
+            fail(f"[{tag}] the event server's GET / answered {alive}")
+        log(f"[{tag}] pio-start-all from the tree: {out.strip()!r}; GET / on :{port} "
+            f"answered {json.dumps(alive[1])}")
+        t0 = time.perf_counter()
+        probe = ("import importlib.util, predictionio_tpu_torch\n"
+                 "print('port at', predictionio_tpu_torch.__file__)\n"
+                 "print('jax package', importlib.util.find_spec('predictionio_tpu'))\n")
+        rc, out, err, _ = _session([os.path.join(tree, "bin_torch", "pio-shell")],
+                                   tempfile.gettempdir(), env, stdin=probe)
+        seconds["pio-shell"] = time.perf_counter() - t0
+        want = [f"predictionio_tpu_torch {__version__} shell",
+                "bound: storage (Storage.default()), EventStore",
+                f"port at {os.path.join(tree, 'predictionio_tpu_torch', '__init__.py')}",
+                "jax package None"]
+        if rc != 0 or out.splitlines() != want:
+            fail(f"[{tag}] pio-shell from the tree (rc {rc}):\n{out}\n{err[-2000:]}")
+        log(f"[{tag}] pio-shell binds storage from {tree}; the JAX package is not on its path")
+    finally:
+        t0 = time.perf_counter()
+        rc, out, err, _ = _session([os.path.join(tree, "bin_torch", "pio-stop-all")], tree, env)
+        seconds["pio-stop-all"] = time.perf_counter() - t0
+        _end_session(session)
+    if "Stopped eventserver" not in out or os.path.exists(
+            os.path.join(env["PIO_PID_DIR"], "eventserver.pid")):
+        fail(f"[{tag}] pio-stop-all (rc {rc}):\n{out}\n{err}")
+    return seconds
+
+
+def _walkthrough(tag: str, tree: str, env: dict, doc: str, base: str) -> tuple[dict, dict, dict]:
+    """``docs_torch/<doc>`` verbatim in one bash from the tree (under the
+    docs test's preamble), the time marked before each block, and ``GET
+    /`` and ``/stats.json`` of its deploy read before its tear-down block:
+    (seconds by block, the status page, the stats)."""
+    with open(os.path.join(tree, "docs_torch", doc)) as f:
+        blocks = re.findall(r"```bash\n(.*?)```", f.read(), re.S)
+    stem = doc.removesuffix(".md")
+    marks = os.path.join(base, f"{stem}.marks")
+    status_path, stats_path = (os.path.join(base, f"{stem}.{n}.json") for n in ("status", "stats"))
+    teardown = re.match(r"pio undeploy --port (\d+)", blocks[-1])
+    if teardown is None:
+        fail(f"[{tag}] {doc}: its last block is no tear-down: {blocks[-1]!r}")
+    script = "set -euo pipefail\ntrap 'kill $(jobs -p) 2>/dev/null || true' EXIT\n"
+    for i, block in enumerate(blocks):
+        if i == len(blocks) - 1:
+            port = teardown.group(1)
+            script += (f'curl -sf localhost:{port}/ > "{status_path}"\n'
+                       f'curl -sf localhost:{port}/stats.json > "{stats_path}"\n')
+        script += f'echo "{i} $(date +%s.%N)" >> "{marks}"\n{block}\n'
+    script += f'echo "end $(date +%s.%N)" >> "{marks}"\n'
+    rc, out, err, _ = _session(["bash", "-c", script], tree, env)
+    if rc != 0:
+        fail(f"[{tag}] {doc} exited {rc} from the tree:\n--- stdout:\n{out[-3000:]}\n"
+             f"--- stderr:\n{err[-3000:]}")
+    with open(marks) as f:
+        stamps = [float(line.split()[1]) for line in f]
+    firsts = [re.sub(r"\s+# .*", "", block.splitlines()[0])[:48] for block in blocks]
+    seconds = {f"{i}: {first}": stamps[i + 1] - stamps[i] for i, first in enumerate(firsts)}
+    with open(status_path) as f:
+        status = json.load(f)
+    with open(stats_path) as f:
+        stats = json.load(f)
+    return seconds, status, stats
+
+
+def phase_quickstart() -> int:
+    """Phase 36: (a) make-distribution-torch.sh into a temporary directory
+    outside the checkout, the tarball unpacked there; (b) pio-start-all,
+    the event server's GET /, pio-shell and pio-stop-all from the
+    unpacked tree; (c) docs_torch's sessionrec and recommendation
+    walk-throughs run verbatim there, each in one bash, with the tree as
+    the working directory and nothing of this checkout on the path, so
+    that `pio train` and `pio deploy` run on the card; (d) the kernel's
+    library built by the sessionrec deploy from the tree's own csrc/ into
+    the tree's own build/; (e) that deploy's kernel launches, from its
+    GET /; (f) the seconds of every step, of the build and of the phase.
+    Returns (e)'s launches."""
+    tag = "quickstart"
+    base = tempfile.mkdtemp(prefix="pio-quickstart-")
+    seconds: dict[str, float] = {}
+    try:
+        t0 = time.perf_counter()
+        made = subprocess.run([os.path.join(QUICKSTART_DIR, "make-distribution-torch.sh"),
+                               os.path.join(base, "dist")],
+                              capture_output=True, text=True, timeout=300)
+        if made.returncode != 0:
+            fail(f"[{tag}] make-distribution-torch.sh exited {made.returncode}:\n"
+                 f"{made.stdout}\n{made.stderr}")
+        tarball = made.stdout.strip().splitlines()[-1]
+        unpacked = os.path.join(base, "unpacked")
+        os.makedirs(unpacked)
+        subprocess.run(["tar", "-xzf", tarball, "-C", unpacked], check=True, timeout=300)
+        tree = os.path.join(unpacked, os.listdir(unpacked)[0])
+        seconds["(a) tarball made and unpacked"] = time.perf_counter() - t0
+        top = sorted(os.listdir(tree))
+        if top != sorted(["README.md", "bin_torch", "conf", "docs_torch",
+                          "predictionio_tpu_torch", "pyproject.toml"]):
+            fail(f"[{tag}] the tarball holds {top}")
+        log(f"[{tag}] {os.path.basename(tarball)} ({os.path.getsize(tarball)} bytes) unpacked "
+            f"into {tree}: {', '.join(top)}")
+        env = _quickstart_env(tree, base)
+        for step, s in _quickstart_stack(tag, tree, env).items():
+            seconds[f"(b) {step}"] = s
+        launches = 0
+        for doc in QUICKSTART_DOCS:
+            t0 = time.perf_counter()
+            steps, status, stats = _walkthrough(tag, tree, env, doc, base)
+            seconds[f"(c) {doc}"] = time.perf_counter() - t0
+            log(f"[{tag}] {doc} ran verbatim from the tree on the card; seconds by block: "
+                + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+            built = stats.get("compile", {})
+            log(f"[{tag}] {doc}: its deploy (instance {status['engineInstanceId']}) "
+                f"kernelLaunches={json.dumps(status['kernelLaunches'])} "
+                f"compile={json.dumps(built)}")
+            if doc != "quickstart-sessionrec.md":
+                continue
+            # (d) the kernel's library, built by this deploy from the tree's csrc/
+            src = os.path.join(tree, "predictionio_tpu_torch", "csrc", "flash_attention.cu")
+            with open(src, "rb") as f:
+                digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS).encode())
+            lib = os.path.join(tree, "build", "kernels",
+                               f"libflash_attention-{digest.hexdigest()[:16]}.so")
+            if not os.path.exists(lib) or built.get("byFunction", {}).get("flash_attention") != 1:
+                fail(f"[{tag}] the deploy did not build {lib} from {src}: "
+                     f"{os.listdir(os.path.dirname(lib)) if os.path.isdir(os.path.dirname(lib)) else 'no build/kernels'}, "
+                     f"compile {built}")
+            seconds["(d) the kernel's build in the deploy"] = built["compileSeconds"]
+            log(f"[{tag}] the deploy built {os.path.relpath(lib, tree)} from "
+                f"{os.path.relpath(src, tree)} in {built['compileSeconds']:.3f}s")
+            # (e) the deploy's launches: one a query and layer
+            launches = status["kernelLaunches"]["flash_attention"]
+            if launches < 1:
+                fail(f"[{tag}] the sessionrec deploy never launched the flash kernel")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    for step, s in seconds.items():
+        log(f"[phases] phase 36 {step} took {s:.1f}s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 33: Parquet `pio export` / `pio import`
 # ---------------------------------------------------------------------------
 
@@ -9328,6 +9573,10 @@ def run_phases(wall: float) -> None:
         log_card()
         phase_dist()
         return
+    if sys.argv[1:] == ["--quickstart-only"]:   # phase 36 alone; prints no result line
+        log_card()
+        timed("36", phase_quickstart)
+        return
     if sys.argv[1:] == ["--lint-only"]:   # phase 30 alone
         log_card()
         join_lint(start_lint())
@@ -9475,6 +9724,10 @@ def run_phases(wall: float) -> None:
             fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
         timed("16c", phase_tie_order)   # its seqrec check runs a small model through flash
         torch.cuda.empty_cache()
+        # phase 36's shells and their `pio` processes beside 19-35; its
+        # launches happen in its deploy process, which reports them
+        side = ThreadPoolExecutor(1)
+        quickstart = side.submit(timed, "36", phase_quickstart)
         with tempfile.TemporaryDirectory(prefix="pio-") as base:
             timed("19-21", phase_templates, _Pio(base))
         torch.cuda.empty_cache()
@@ -9493,6 +9746,8 @@ def run_phases(wall: float) -> None:
             fail("serving the sequence-mesh-trained model never launched the flash kernel")
         launches += dist_launches
         torch.cuda.empty_cache()
+        launches += quickstart.result()
+        side.shutdown()
         # 33, 23 and 27 over phase 16's store, beside the child's later
         # phases; 33 reads 16b's app before 23 and 27 add events to it
         handed = lane.get("phase16")

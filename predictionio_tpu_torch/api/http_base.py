@@ -343,8 +343,12 @@ class RestServer:
 
 def serve_until_stopped(server: RestServer) -> None:
     """Block a started server's process until it stops (POST /stop),
-    SIGTERM or Ctrl-C, then stop the server."""
-    signal.signal(signal.SIGTERM, lambda *_: server.stop())
+    SIGTERM or Ctrl-C, then stop the server. Called from another thread
+    than the main one (a `pio deploy` run in a thread, as JAX's may be),
+    it blocks until POST /stop and leaves SIGTERM alone, which Python
+    lets only the main thread handle."""
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda *_: server.stop())
     try:
         server.stopped.wait()
     except KeyboardInterrupt:

@@ -605,7 +605,10 @@ def test_admin_state_reaches_the_sibling_as_in_jax(pools):
     psess.save_engine_model(w1.deployed.models[0], location)
     new_iid = _store(storage, location, start=datetime(2026, 2, 1, tzinfo=timezone.utc))
     assert w1.service.handle("GET", "/reload", {}, {}, None)[0] == 200
-    _wait(lambda: w2.deployed.instance_id == new_iid, what="sibling reload")
+    # the sibling's reload swaps the instance first and moves its cache
+    # generation after it (as JAX's does): wait until it has finished
+    _wait(lambda: w2.deployed.instance_id == new_iid
+          and w2.service.readyz()[1]["status"] != "reloading", what="sibling reload")
     # one generation for both caches (the retrieval change above moved
     # each once already; a reload never moves one backwards)
     assert w1.service.cache.generation == w2.service.cache.generation == 2
