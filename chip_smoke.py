@@ -461,8 +461,28 @@ rates logged after it are taken with the other lane running.
    build/kernels/; (e) that deploy's kernel launches (`GET /`
    kernelLaunches); (f) the seconds of every block, of the build and of
    the phase;
-37. a `kernels` JSON line;
-38. the result line
+37. the operator documents of docs_torch/ against live servers on the
+   card, in phase 36's thread after its walk-throughs, from the same
+   tree, beside its `pio-start-all` stack (stopped after this phase) and
+   over the walk-throughs' stores: (a) three documented command lines
+   verbatim, their port 8000 replaced — observability.md's `pio train
+   --profile` in the recommendation walk-through's directory (its
+   TRAIN_REPORT.json must show device memory), serving-performance.md's
+   `pio deploy --workers 4 --supervise ...` of the sessionrec
+   walk-through's instance and freshness.md's `pio deploy --online` of
+   the recommendation instance; (b) queries to both deploys over fresh
+   connections, a rating written to the store and folded by the online
+   deploy, then every metric family of observability.md's catalog and
+   every /stats.json key of serving-performance.md's table that the
+   documents name for the engine server under that deploy's conditions,
+   present on its /metrics and /stats.json; pio-start-all's event
+   server after an app made through the admin server and events in two
+   distinct seconds: its documented families, and /stats.json without
+   --stats answering 404; every deploy and the train on the card; (c)
+   the seconds of every step and the pool's flash launches, read worker
+   by worker, which count toward the kernels line;
+38. a `kernels` JSON line;
+39. the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Each phase of the main path logs its seconds (`[phases]`).
@@ -470,9 +490,10 @@ Each phase of the main path logs its seconds (`[phases]`).
 `--ingest-only`, `--templates-only`, `--ann-only`, `--online-only`,
 `--grid-only`, `--e2-only`, `--obs-only`, `--pool-only`,
 `--router-only`, `--storage-only`, `--lint-only`, `--examples-only`,
-`--als-layouts-only`, `--parquet-only`, `--mesh-only`, `--dist-only`
-and `--quickstart-only` run phases 9-13, 14-15, 16, 17, 18, 19-21, 22,
-23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35 and 36 alone
+`--als-layouts-only`, `--parquet-only`, `--mesh-only`, `--dist-only`,
+`--quickstart-only` and `--docs-only` run phases 9-13, 14-15, 16, 17,
+18, 19-21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36
+and 36-37 alone
 (17 over 16a's
 instance and a random ML-20M-shape ALS model, 18, 24 and 26 over 16a's
 import, 22 over a random ML-20M-shape model, 23 over 16b's import and
@@ -506,6 +527,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable
 from datetime import datetime, timedelta, timezone
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -5644,6 +5666,26 @@ POOL_RESPAWN_WAIT_S = 90.0
 POOL_ONLINE_USERS = tuple(f"u{u}" for u in range(40, 48))
 
 
+def _spool_workers(tmp: str) -> dict[str, dict]:
+    """The live workers of the pools whose TMPDIR is ``tmp``: id -> spool
+    entry ({"worker", "pid", "port"}: the worker's loopback peer port)."""
+    out = {}
+    for d in os.listdir(tmp):
+        if not d.startswith("pio-deploy-workers-"):
+            continue
+        for name in os.listdir(os.path.join(tmp, d)):
+            if not name.endswith(".json"):
+                continue
+            try:
+                with open(os.path.join(tmp, d, name)) as f:
+                    doc = json.load(f)
+                os.kill(doc["pid"], 0)
+            except (OSError, ValueError, KeyError):
+                continue                   # torn, or a dead worker's entry
+            out[doc["worker"]] = doc
+    return out
+
+
 class _PoolDeploy:
     """A `pio deploy` process over its own TMPDIR, so that the pool's
     spool directory (and so each worker's loopback peer port) is found."""
@@ -5681,20 +5723,7 @@ class _PoolDeploy:
         outside a pool the deploy process itself, on the public port."""
         if self.n == 1:
             return {"single": {"worker": "single", "pid": self.proc.pid, "port": self.port}}
-        spools = [d for d in os.listdir(self.tmp) if d.startswith("pio-deploy-workers-")]
-        out = {}
-        for d in spools:
-            for name in os.listdir(os.path.join(self.tmp, d)):
-                if not name.endswith(".json"):
-                    continue
-                try:
-                    with open(os.path.join(self.tmp, d, name)) as f:
-                        doc = json.load(f)
-                    os.kill(doc["pid"], 0)
-                except (OSError, ValueError, KeyError):
-                    continue                   # torn, or a dead worker's entry
-                out[doc["worker"]] = doc
-        return out
+        return _spool_workers(self.tmp)
 
     def each(self, path: str) -> dict[str, dict]:
         """Every worker's own ``path`` (its status "/" or local
@@ -9161,9 +9190,12 @@ def _session(cmd: list[str], cwd: str, env: dict, stdin: str | None = None,
     return rc, out, err, proc.pid
 
 
-def _quickstart_stack(tag: str, tree: str, env: dict) -> dict:
+def _quickstart_stack(tag: str, tree: str, env: dict, during: Callable[[], object]
+                      ) -> tuple[dict, object]:
     """pio-start-all from the tree, the event server alive on ``/``, a
-    shell bound from the tree (and no JAX package reachable), pio-stop-all."""
+    shell bound from the tree (and no JAX package reachable), then
+    ``during()`` with the stack up, then pio-stop-all: (seconds by step,
+    what ``during`` returned)."""
     seconds = {}
     t0 = time.perf_counter()
     rc, out, err, session = _session([os.path.join(tree, "bin_torch", "pio-start-all")], tree,
@@ -9200,6 +9232,7 @@ def _quickstart_stack(tag: str, tree: str, env: dict) -> dict:
         if rc != 0 or out.splitlines() != want:
             fail(f"[{tag}] pio-shell from the tree (rc {rc}):\n{out}\n{err[-2000:]}")
         log(f"[{tag}] pio-shell binds storage from {tree}; the JAX package is not on its path")
+        result = during()
     finally:
         t0 = time.perf_counter()
         rc, out, err, _ = _session([os.path.join(tree, "bin_torch", "pio-stop-all")], tree, env)
@@ -9208,18 +9241,20 @@ def _quickstart_stack(tag: str, tree: str, env: dict) -> dict:
     if "Stopped eventserver" not in out or os.path.exists(
             os.path.join(env["PIO_PID_DIR"], "eventserver.pid")):
         fail(f"[{tag}] pio-stop-all (rc {rc}):\n{out}\n{err}")
-    return seconds
+    return seconds, result
 
 
-def _walkthrough(tag: str, tree: str, env: dict, doc: str, base: str) -> tuple[dict, dict, dict]:
+def _walkthrough(tag: str, tree: str, env: dict, doc: str, base: str
+                 ) -> tuple[dict, dict, dict, tuple[str, str]]:
     """``docs_torch/<doc>`` verbatim in one bash from the tree (under the
     docs test's preamble), the time marked before each block, and ``GET
     /`` and ``/stats.json`` of its deploy read before its tear-down block:
-    (seconds by block, the status page, the stats)."""
+    (seconds by block, the status page, the stats, (the document's store,
+    its working directory))."""
     with open(os.path.join(tree, "docs_torch", doc)) as f:
         blocks = re.findall(r"```bash\n(.*?)```", f.read(), re.S)
     stem = doc.removesuffix(".md")
-    marks = os.path.join(base, f"{stem}.marks")
+    marks, dirs = (os.path.join(base, f"{stem}.{n}") for n in ("marks", "dirs"))
     status_path, stats_path = (os.path.join(base, f"{stem}.{n}.json") for n in ("status", "stats"))
     teardown = re.match(r"pio undeploy --port (\d+)", blocks[-1])
     if teardown is None:
@@ -9231,7 +9266,8 @@ def _walkthrough(tag: str, tree: str, env: dict, doc: str, base: str) -> tuple[d
             script += (f'curl -sf localhost:{port}/ > "{status_path}"\n'
                        f'curl -sf localhost:{port}/stats.json > "{stats_path}"\n')
         script += f'echo "{i} $(date +%s.%N)" >> "{marks}"\n{block}\n'
-    script += f'echo "end $(date +%s.%N)" >> "{marks}"\n'
+    script += (f'echo "end $(date +%s.%N)" >> "{marks}"\n'
+               f'printf "%s\\n%s\\n" "$PIO_FS_BASEDIR" "$WORK" > "{dirs}"\n')
     rc, out, err, _ = _session(["bash", "-c", script], tree, env)
     if rc != 0:
         fail(f"[{tag}] {doc} exited {rc} from the tree:\n--- stdout:\n{out[-3000:]}\n"
@@ -9244,24 +9280,29 @@ def _walkthrough(tag: str, tree: str, env: dict, doc: str, base: str) -> tuple[d
         status = json.load(f)
     with open(stats_path) as f:
         stats = json.load(f)
-    return seconds, status, stats
+    with open(dirs) as f:
+        store, work = f.read().splitlines()
+    return seconds, status, stats, (store, work)
 
 
-def phase_quickstart() -> int:
+def phase_quickstart(docs: bool = False) -> int:
     """Phase 36: (a) make-distribution-torch.sh into a temporary directory
     outside the checkout, the tarball unpacked there; (b) pio-start-all,
-    the event server's GET /, pio-shell and pio-stop-all from the
-    unpacked tree; (c) docs_torch's sessionrec and recommendation
+    the event server's GET /, pio-shell and, at the end, pio-stop-all
+    from the unpacked tree; (c) docs_torch's sessionrec and recommendation
     walk-throughs run verbatim there, each in one bash, with the tree as
     the working directory and nothing of this checkout on the path, so
     that `pio train` and `pio deploy` run on the card; (d) the kernel's
     library built by the sessionrec deploy from the tree's own csrc/ into
     the tree's own build/; (e) that deploy's kernel launches, from its
     GET /; (f) the seconds of every step, of the build and of the phase.
-    Returns (e)'s launches."""
+    With ``docs``, phase 37 (:func:`phase_docs`) follows (e) on the same
+    tree, stack and walk-through stores. Returns the launches of (e) and
+    of phase 37."""
     tag = "quickstart"
     base = tempfile.mkdtemp(prefix="pio-quickstart-")
     seconds: dict[str, float] = {}
+    walked: list[str] = []      # the walk-throughs' own temporary directories
     try:
         t0 = time.perf_counter()
         made = subprocess.run([os.path.join(QUICKSTART_DIR, "make-distribution-torch.sh"),
@@ -9283,43 +9324,325 @@ def phase_quickstart() -> int:
         log(f"[{tag}] {os.path.basename(tarball)} ({os.path.getsize(tarball)} bytes) unpacked "
             f"into {tree}: {', '.join(top)}")
         env = _quickstart_env(tree, base)
-        for step, s in _quickstart_stack(tag, tree, env).items():
+
+        def walk_and_docs() -> int:
+            launches, dirs = 0, {}
+            for doc in QUICKSTART_DOCS:
+                t0 = time.perf_counter()
+                steps, status, stats, dirs[doc] = _walkthrough(tag, tree, env, doc, base)
+                walked.extend(dirs[doc])
+                seconds[f"(c) {doc}"] = time.perf_counter() - t0
+                log(f"[{tag}] {doc} ran verbatim from the tree on the card; seconds by block: "
+                    + json.dumps({k: round(v, 3) for k, v in steps.items()}))
+                built = stats.get("compile", {})
+                log(f"[{tag}] {doc}: its deploy (instance {status['engineInstanceId']}) "
+                    f"kernelLaunches={json.dumps(status['kernelLaunches'])} "
+                    f"compile={json.dumps(built)}")
+                if doc != "quickstart-sessionrec.md":
+                    continue
+                # (d) the kernel's library, built by this deploy from the tree's csrc/
+                src = os.path.join(tree, "predictionio_tpu_torch", "csrc", "flash_attention.cu")
+                with open(src, "rb") as f:
+                    digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS).encode())
+                lib = os.path.join(tree, "build", "kernels",
+                                   f"libflash_attention-{digest.hexdigest()[:16]}.so")
+                if not os.path.exists(lib) or \
+                        built.get("byFunction", {}).get("flash_attention") != 1:
+                    fail(f"[{tag}] the deploy did not build {lib} from {src}: "
+                         f"{os.listdir(os.path.dirname(lib)) if os.path.isdir(os.path.dirname(lib)) else 'no build/kernels'}, "
+                         f"compile {built}")
+                seconds["(d) the kernel's build in the deploy"] = built["compileSeconds"]
+                log(f"[{tag}] the deploy built {os.path.relpath(lib, tree)} from "
+                    f"{os.path.relpath(src, tree)} in {built['compileSeconds']:.3f}s")
+                # (e) the deploy's launches: one a query and layer
+                launches = status["kernelLaunches"]["flash_attention"]
+                if launches < 1:
+                    fail(f"[{tag}] the sessionrec deploy never launched the flash kernel")
+            if docs:
+                launches += phase_docs(tree, env, base, dirs)
+            return launches
+
+        stack_seconds, launches = _quickstart_stack(tag, tree, env, walk_and_docs)
+        for step, s in stack_seconds.items():
             seconds[f"(b) {step}"] = s
-        launches = 0
-        for doc in QUICKSTART_DOCS:
-            t0 = time.perf_counter()
-            steps, status, stats = _walkthrough(tag, tree, env, doc, base)
-            seconds[f"(c) {doc}"] = time.perf_counter() - t0
-            log(f"[{tag}] {doc} ran verbatim from the tree on the card; seconds by block: "
-                + json.dumps({k: round(v, 3) for k, v in steps.items()}))
-            built = stats.get("compile", {})
-            log(f"[{tag}] {doc}: its deploy (instance {status['engineInstanceId']}) "
-                f"kernelLaunches={json.dumps(status['kernelLaunches'])} "
-                f"compile={json.dumps(built)}")
-            if doc != "quickstart-sessionrec.md":
-                continue
-            # (d) the kernel's library, built by this deploy from the tree's csrc/
-            src = os.path.join(tree, "predictionio_tpu_torch", "csrc", "flash_attention.cu")
-            with open(src, "rb") as f:
-                digest = hashlib.sha256(f.read() + " ".join(_build.NVCC_FLAGS).encode())
-            lib = os.path.join(tree, "build", "kernels",
-                               f"libflash_attention-{digest.hexdigest()[:16]}.so")
-            if not os.path.exists(lib) or built.get("byFunction", {}).get("flash_attention") != 1:
-                fail(f"[{tag}] the deploy did not build {lib} from {src}: "
-                     f"{os.listdir(os.path.dirname(lib)) if os.path.isdir(os.path.dirname(lib)) else 'no build/kernels'}, "
-                     f"compile {built}")
-            seconds["(d) the kernel's build in the deploy"] = built["compileSeconds"]
-            log(f"[{tag}] the deploy built {os.path.relpath(lib, tree)} from "
-                f"{os.path.relpath(src, tree)} in {built['compileSeconds']:.3f}s")
-            # (e) the deploy's launches: one a query and layer
-            launches = status["kernelLaunches"]["flash_attention"]
-            if launches < 1:
-                fail(f"[{tag}] the sessionrec deploy never launched the flash kernel")
     finally:
-        shutil.rmtree(base, ignore_errors=True)
+        for path in [base, *walked]:
+            shutil.rmtree(path, ignore_errors=True)
     for step, s in seconds.items():
         log(f"[phases] phase 36 {step} took {s:.1f}s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the operator documents against live servers on the card
+# ---------------------------------------------------------------------------
+
+#: the deploys' ports (the documents' 8000, substituted), below the
+#: loopback ephemeral range like phase 36's
+DOCS_POOL_PORT, DOCS_ONLINE_PORT = 28400, 28410
+#: the workers of the documented pool command, and its queries (distinct,
+#: each on a fresh connection, so that the kernel spreads them)
+DOCS_POOL_WORKERS, DOCS_POOL_QUERIES = 4, 24
+#: seconds the online deploy may take to fold one new rating
+DOCS_FOLD_WAIT_S = 30.0
+#: the conditions of the documents' "present" column each live server
+#: meets in this phase
+DOCS_POOL_MEETS = frozenset({"always", "--workers", "card"})
+DOCS_ONLINE_MEETS = frozenset({"always", "--online", "card", "after a fold"})
+DOCS_EVENT_MEETS = frozenset({"always", "after ingest"})
+
+
+def _doc_text(tree: str, doc: str) -> str:
+    with open(os.path.join(tree, "docs_torch", doc)) as f:
+        return f.read()
+
+
+def _doc_command(tree: str, doc: str, pattern: str, port: int) -> str:
+    """The first command line of a code block of ``doc`` that matches
+    ``pattern`` (continuation lines joined), its port 8000 replaced by
+    ``port``, its trailing comment dropped."""
+    for block in re.findall(r"```\w*\n(.*?)```", _doc_text(tree, doc), re.S):
+        for line in re.sub(r"\\\n\s*", " ", block).splitlines():
+            line = re.sub(r"\s+#.*$", "", line).strip()
+            if re.match(pattern, line):
+                return re.sub(r"--port 8000\b", f"--port {port}", line)
+    fail(f"[docs] {doc} has no command line matching {pattern!r}")
+
+
+def _doc_table(tree: str, doc: str, header: str) -> list[list[str]]:
+    """The rows of the table of ``doc`` whose header row starts with
+    ``header``, each a list of cells with backticks stripped."""
+    lines = _doc_text(tree, doc).splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith(header):
+            rows = []
+            for row in lines[i + 2:]:
+                if not row.startswith("|"):
+                    break
+                rows.append([c.strip().strip("`") for c in row.strip().strip("|").split("|")])
+            return rows
+    fail(f"[docs] {doc} has no table headed {header!r}")
+
+
+def _doc_names(rows: list[list[str]], server: str, meets: set[str]) -> list[str]:
+    """The names (first column) of ``rows`` whose server column names
+    ``server`` and whose present column is a condition ``meets`` holds."""
+    return [row[0] for row in rows
+            if server in [s.strip() for s in row[-3].split(",")] and row[-2] in meets]
+
+
+def _families(port: int) -> set[str]:
+    """The families of a server's ``/metrics``."""
+    status, body, _ = _request(port, "GET", "/metrics")
+    if status != 200:
+        fail(f"[docs] GET /metrics on :{port} answered {status}")
+    return set(parse_prometheus(body.decode()))
+
+
+def _hold_documented(tag: str, port: int, families: list[str], keys: list[str]) -> None:
+    """``/metrics`` has every family of ``families`` and ``/stats.json``
+    every key of ``keys``."""
+    have = _families(port)
+    missing = [f for f in families if f not in have]
+    status, stats = _get(port, "/stats.json")
+    lost = [k for k in keys if k not in stats]
+    if missing or lost or status != 200:
+        fail(f"[{tag}] /metrics lacks the documented families {missing}; /stats.json "
+             f"({status}) lacks the documented keys {lost}")
+    log(f"[{tag}] /metrics has the {len(families)} documented families and /stats.json the "
+        f"{len(keys)} documented keys ({len(have)} families exported)")
+
+
+def _docs_process(line: str, tree: str, env: dict, cwd: str, out_path: str
+                  ) -> subprocess.Popen:
+    """A documented command line in a bash of its own session, the tree's
+    bin_torch first on PATH, output to ``out_path``."""
+    env = {**env, "PATH": f"{os.path.join(tree, 'bin_torch')}:{env.get('PATH', '')}"}
+    with open(out_path, "w") as out:
+        return subprocess.Popen(["bash", "-c", f"exec {line}"], cwd=cwd, env=env,
+                                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _docs_listening(tag: str, proc: subprocess.Popen, out_path: str) -> int:
+    deadline = time.monotonic() + PIO_STEP_TIMEOUT
+    while True:
+        with open(out_path) as f:
+            text = f.read()
+        found = re.search(r"listening on [\d.]+:(\d+)", text)
+        if found:
+            return int(found.group(1))
+        if proc.poll() is not None or time.monotonic() > deadline:
+            fail(f"[{tag}] the documented deploy did not come up:\n{text[-3000:]}")
+        time.sleep(0.1)
+
+
+def _docs_event_server(tag: str, env: dict, metrics: list[list[str]],
+                       keys: list[list[str]]) -> None:
+    """pio-start-all's event server: an app made through the stack's admin
+    server, events in two distinct seconds, the documented families on
+    /metrics, and /stats.json without --stats answering the documented 404."""
+    es, admin = int(env["PIO_EVENTSERVER_PORT"]), int(env["PIO_ADMINSERVER_PORT"])
+    status, made, _ = _http(admin, "POST", "/cmd/app", {"name": "DocsApp"})
+    if status != 201:
+        fail(f"[{tag}] the admin server's POST /cmd/app answered {status}: {made}")
+    key = made["accessKey"]
+    for i in range(3):
+        batch = [{"event": "view", "entityType": "user", "entityId": f"u{i}",
+                  "targetEntityType": "item", "targetEntityId": f"i{j}"} for j in range(5)]
+        status, body, _ = _http(es, "POST", f"/batch/events.json?accessKey={key}", batch)
+        if status != 200 or any(r["status"] != 201 for r in body):
+            fail(f"[{tag}] a batch to the event server answered {status}: {body}")
+        time.sleep(1.1)
+    families = _doc_names(metrics, "event", DOCS_EVENT_MEETS)
+    missing = [f for f in families if f not in _families(es)]
+    status, body = _get(es, f"/stats.json?accessKey={key}")
+    if missing or status != 404 or "--stats" not in body.get("message", ""):
+        fail(f"[{tag}] the event server's /metrics lacks the documented families {missing}; "
+             f"/stats.json without --stats answered {status} {body}")
+    documented = [k for k, servers, present, _ in keys if "event" in servers]
+    log(f"[{tag}] pio-start-all's event server: {len(families)} documented families on "
+        f"/metrics after 15 events in 3 batches; /stats.json without --stats answers 404 "
+        f"(its {len(documented)} documented keys need --stats)")
+
+
+def phase_docs(tree: str, env: dict, base: str, walks: dict[str, tuple[str, str]]) -> int:
+    """Phase 37: the operator documents of ``docs_torch/`` against live
+    servers on the card, from the unpacked ``tree`` of phase 36, beside
+    its stack (pio-start-all) and over its walk-throughs' stores: (a) the
+    documented command lines run verbatim, the deploys' port 8000
+    replaced: observability.md's `pio train --profile` in the
+    recommendation walk-through's directory, serving-performance.md's
+    pool deploy (`--workers 4 --supervise ...`) of the sessionrec
+    walk-through's instance, freshness.md's `pio deploy --online` of the
+    recommendation instance; (b) queries to each deploy, a rating folded
+    by the online deploy, then every metric family and /stats.json key
+    that observability.md's and serving-performance.md's catalogs name
+    for that server and condition, present on its /metrics and
+    /stats.json, and the same for pio-start-all's event server; no
+    deploy or train on the CPU; (c) the seconds of each step and the
+    pool's flash launches, read worker by worker. Returns those
+    launches."""
+    tag = "docs"
+    t_phase = time.perf_counter()
+    seconds: dict[str, float] = {}
+    metrics = _doc_table(tree, "observability.md", "| family | type | server | present |")
+    keys = _doc_table(tree, "serving-performance.md", "| key | server | present |")
+    seq_store, seq_work = walks["quickstart-sessionrec.md"]
+    rec_store, rec_work = walks["quickstart-recommendation.md"]
+    seq_env = {**env, "PIO_FS_BASEDIR": seq_store, "TMPDIR": os.path.join(base, "pool-tmp")}
+    rec_env = {**env, "PIO_FS_BASEDIR": rec_store}
+    os.makedirs(seq_env["TMPDIR"])
+    train_line = _doc_command(tree, "observability.md", r"pio train --profile", 0)
+    pool_line = _doc_command(tree, "serving-performance.md",
+                             rf"pio deploy .*--workers {DOCS_POOL_WORKERS}\b", DOCS_POOL_PORT)
+    online_line = _doc_command(tree, "freshness.md", r"pio deploy --port 8000 --online$",
+                               DOCS_ONLINE_PORT)
+    procs: list[subprocess.Popen] = []
+    try:
+        # (a) the pool first (its siblings take longest to start), the
+        # profiled train beside it, then the online deploy of what it trained
+        t_pool = time.perf_counter()
+        pool = _docs_process(pool_line, tree, seq_env, seq_work, os.path.join(base, "pool.out"))
+        procs.append(pool)
+        t0 = time.perf_counter()
+        train = _docs_process(train_line, tree, rec_env, rec_work, os.path.join(base, "train.out"))
+        procs.append(train)
+        train.wait(timeout=PIO_STEP_TIMEOUT)
+        seconds[f"(a) `{train_line}`"] = time.perf_counter() - t0
+        with open(os.path.join(base, "train.out")) as f:
+            train_out = f.read()
+        report_path = os.path.join(rec_work, "TRAIN_REPORT.json")
+        if train.returncode != 0 or not os.path.exists(report_path):
+            fail(f"[{tag}] `{train_line}` exited {train.returncode}:\n{train_out[-3000:]}")
+        with open(report_path) as f:
+            report = json.load(f)
+        peak = (report.get("hbm") or {}).get("peakBytes")
+        if report.get("schema") != "pio.train_report.v1" or not peak:
+            fail(f"[{tag}] TRAIN_REPORT.json is not a report of a run on the card: "
+                 f"schema {report.get('schema')}, hbm {report.get('hbm')}")
+        traces = os.listdir(os.path.join(rec_work, "traces"))
+        log(f"[{tag}] `{train_line}` on the card: {train_out.strip().splitlines()[-1]}; "
+            f"mfu {report.get('mfu')} ({report.get('mfuReason')}), peak {peak} bytes, "
+            f"Chrome trace {traces}")
+        t0 = time.perf_counter()
+        online = _docs_process(online_line, tree, rec_env, rec_work,
+                               os.path.join(base, "online.out"))
+        procs.append(online)
+        # (b) pio-start-all's event server while the deploys start
+        t_es = time.perf_counter()
+        _docs_event_server(tag, env, metrics, keys)
+        seconds["(b) pio-start-all's event server"] = time.perf_counter() - t_es
+        port = _docs_listening(tag, online, os.path.join(base, "online.out"))
+        seconds[f"(a) `{online_line}` to listening"] = time.perf_counter() - t0
+        # (b) the online deploy: queries, one rating folded, the documents
+        t0 = time.perf_counter()
+        status, doc, _ = _post(port, {"user": "u1", "num": 4})
+        if status != 200 or not doc.get("itemScores"):
+            fail(f"[{tag}] the online deploy answered {status}: {doc}")
+        home = _get(port, "/")[1]
+        if not str(home.get("device", "")).startswith("cuda"):
+            fail(f"[{tag}] the online deploy serves on {home.get('device')}, not the card")
+        storage = Storage({"PIO_FS_BASEDIR": rec_store})
+        try:
+            app = storage.get_meta_data_apps().get_by_name("RecDemoApp")
+            storage.get_events().insert(Event(
+                event="rate", entity_type="user", entity_id="u1", target_entity_type="item",
+                target_entity_id="i2", properties=DataMap({"rating": 5.0}),
+                event_time=datetime.now(timezone.utc)), app.id)
+        finally:
+            storage.close()
+        deadline = time.monotonic() + DOCS_FOLD_WAIT_S
+        while _get(port, "/stats.json")[1]["online"]["foldedEventsTotal"] < 1:
+            if time.monotonic() > deadline:
+                fail(f"[{tag}] the online deploy folded no event in {DOCS_FOLD_WAIT_S}s: "
+                     f"{_get(port, '/stats.json')[1]['online']}")
+            time.sleep(0.2)
+        online_doc = _get(port, "/stats.json")[1]["online"]
+        _hold_documented(f"{tag}-online", port,
+                         _doc_names(metrics, "engine", DOCS_ONLINE_MEETS),
+                         _doc_names(keys, "engine", DOCS_ONLINE_MEETS - {"card", "after a fold"}))
+        seconds["(b) the online deploy: a query, a fold, the documents"] = time.perf_counter() - t0
+        log(f"[{tag}] the online deploy on {home.get('device')} folded u1's rating: lag "
+            f"{online_doc['lagSeconds']} s, {online_doc['foldCycles']} fold cycles")
+        # (b) the pool: distinct queries over fresh connections, the
+        # documents, the kernel's launches worker by worker
+        port = _docs_listening(tag, pool, os.path.join(base, "pool.out"))
+        deadline = time.monotonic() + PIO_STEP_TIMEOUT
+        while len(_spool_workers(seq_env["TMPDIR"])) < DOCS_POOL_WORKERS:
+            if pool.poll() is not None or time.monotonic() > deadline:
+                fail(f"[{tag}] the documented pool never had {DOCS_POOL_WORKERS} workers")
+            time.sleep(0.1)
+        seconds[f"(a) `{pool_line}` to {DOCS_POOL_WORKERS} workers listening"] = \
+            time.perf_counter() - t_pool
+        t0 = time.perf_counter()
+        for i in range(DOCS_POOL_QUERIES):
+            # cold sessions (the walk-through's users have seen all 6 items)
+            first = i % 6
+            body = {"items": [f"i{first}", f"i{(first + 1 + i // 6) % 6}"], "num": 1 + i % 3}
+            status, doc, _ = _post(port, body)
+            if status != 200 or not 1 <= len(doc.get("itemScores", [])) <= body["num"]:
+                fail(f"[{tag}] the pool answered {json.dumps(body)} with {status}: {doc}")
+        workers = {w: _get(e["port"], "/")[1] for w, e in _spool_workers(seq_env["TMPDIR"]).items()}
+        launches = {w: doc["kernelLaunches"]["flash_attention"] for w, doc in workers.items()}
+        devices = {w: doc["device"] for w, doc in workers.items()}
+        if sum(launches.values()) < 1 or any(
+                not d.startswith("cuda") for d in devices.values()):
+            fail(f"[{tag}] the pool's workers launched the flash kernel {launches} times "
+                 f"on {devices}")
+        _hold_documented(f"{tag}-pool", port, _doc_names(metrics, "engine", DOCS_POOL_MEETS),
+                         _doc_names(keys, "engine", DOCS_POOL_MEETS - {"card"}))
+        seconds["(b) the pool: queries and the documents"] = time.perf_counter() - t0
+        log(f"[{tag}] `{pool_line}`: {len(workers)} workers on {sorted(set(devices.values()))}, "
+            f"{DOCS_POOL_QUERIES} queries, flash launches by worker {launches}")
+    finally:
+        # SIGTERM (a pool drains its siblings), then what is left of each session
+        _stop_all(procs)
+        for proc in procs:
+            _end_session(proc.pid)
+    seconds["in all"] = time.perf_counter() - t_phase
+    for step, s in seconds.items():
+        log(f"[phases] phase 37 {step} took {s:.1f}s")
+    return sum(launches.values())
 
 
 # ---------------------------------------------------------------------------
@@ -9577,6 +9900,10 @@ def run_phases(wall: float) -> None:
         log_card()
         timed("36", phase_quickstart)
         return
+    if sys.argv[1:] == ["--docs-only"]:   # phases 36-37 alone; prints no result line
+        log_card()
+        timed("36-37", phase_quickstart, True)
+        return
     if sys.argv[1:] == ["--lint-only"]:   # phase 30 alone
         log_card()
         join_lint(start_lint())
@@ -9724,10 +10051,11 @@ def run_phases(wall: float) -> None:
             fail(f"the ALS evaluation launched the flash kernel {flash_ops.LAUNCHES} times")
         timed("16c", phase_tie_order)   # its seqrec check runs a small model through flash
         torch.cuda.empty_cache()
-        # phase 36's shells and their `pio` processes beside 19-35; its
-        # launches happen in its deploy process, which reports them
+        # phases 36-37's shells and their `pio` processes beside 19-35;
+        # their launches happen in their deploy processes, which report
+        # them
         side = ThreadPoolExecutor(1)
-        quickstart = side.submit(timed, "36", phase_quickstart)
+        quickstart = side.submit(timed, "36-37", phase_quickstart, True)
         with tempfile.TemporaryDirectory(prefix="pio-") as base:
             timed("19-21", phase_templates, _Pio(base))
         torch.cuda.empty_cache()

@@ -340,7 +340,7 @@ class EngineService:
                                      stats=self.serving_stats)
                         if config.batching else None)
         self._query_decoder = self._decoder_for(deployed)
-        self.access_log = access_log_enabled()
+        self.access_log = access_log_enabled(config.access_log)
         if self.access_log:
             ensure_access_log_handler()
         #: per-request tracing (config wins, else PIO_TRACE) and the

@@ -189,9 +189,11 @@ class EventServerConfig:
     #: application-level replay failures before a record is quarantined
     wal_replay_attempts: int = dataclasses.field(
         default_factory=_env_int("PIO_EVENTSERVER_WAL_REPLAY_ATTEMPTS", 5))
-    #: per-request spans for the ingest paths (GET /traces.json); None
-    #: defers to the PIO_TRACE env var at server construction
+    #: per-request spans for the ingest paths (GET /traces.json) and
+    #: structured JSON access logs; None defers to the PIO_TRACE /
+    #: PIO_ACCESS_LOG env vars at server construction
     tracing: bool | None = None
+    access_log: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,8 +230,9 @@ class EventService:
         self.stats = StatsKeeper() if config.stats else None
         #: ingest counters, always kept; shown by GET /stats.json
         self.ingest_stats = IngestStats()
-        #: structured JSON access logs, as the engine server's: PIO_ACCESS_LOG
-        self.access_log = access_log_enabled()
+        #: structured JSON access logs, as the engine server's: the
+        #: config, else PIO_ACCESS_LOG
+        self.access_log = access_log_enabled(config.access_log)
         if self.access_log:
             ensure_access_log_handler()
         self.tracing = config.tracing if config.tracing is not None else tracing_default()

@@ -384,7 +384,7 @@ def _cmd_eventserver(args, storage: Storage) -> int:
     }.items() if v is not None}
     server = EventServer(storage, EventServerConfig(
         ip=args.ip, port=args.port, stats=args.stats, tracing=args.tracing,
-        **wal_overrides)).start()
+        access_log=args.access_log, **wal_overrides)).start()
     print(f"[INFO] Event Server listening on {args.ip}:{server.port}", flush=True)
     if server.service.wal is not None:
         cfg = server.service.config
@@ -666,6 +666,7 @@ def _cmd_deploy(args, storage: Storage) -> int:
         access_key=args.accesskey,
         server_key=args.server_key,
         tracing=args.tracing,
+        access_log=args.access_log,
         # an absent flag leaves ServerConfig's PIO_SERVING_* default
         **{k: v for k, v in {
             "batching": args.batching,
@@ -1748,6 +1749,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tracing", action=argparse.BooleanOptionalAction, default=None,
                    help="per-request spans for the ingest paths, served on "
                         "GET /traces.json (absent: PIO_TRACE)")
+    p.add_argument("--access-log", action=argparse.BooleanOptionalAction, default=None,
+                   dest="access_log",
+                   help="structured JSON access logs (absent: PIO_ACCESS_LOG)")
     p.add_argument("--wal-dir", default=None, dest="wal_dir",
                    help="write-ahead journal directory: storage outages ride "
                         "through as 202-journaled events replayed by a background "
@@ -1900,6 +1904,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tracing", action=argparse.BooleanOptionalAction, default=None,
                    help="per-request spans for /queries.json, served on "
                         "GET /traces.json (absent: PIO_TRACE)")
+    p.add_argument("--access-log", action=argparse.BooleanOptionalAction, default=None,
+                   dest="access_log",
+                   help="structured JSON access logs (absent: PIO_ACCESS_LOG)")
 
     p = sub.add_parser(
         "router",

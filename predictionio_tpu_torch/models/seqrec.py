@@ -69,7 +69,7 @@ from predictionio_tpu_torch.parallel.mesh import (
     local_map,
     process_sum,
 )
-from predictionio_tpu_torch.utils.device import resolve_device
+from predictionio_tpu_torch.utils.device import ieee_f32, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -376,12 +376,34 @@ def forward_mesh(model: SeqRec | Mapping[torch.device, SeqRec], seqs: ShardedArr
     return local_map(mesh, lambda pos, x_: mdl(pos).out_ln(x_), x, spec=spec, with_pos=True)
 
 
+class _IeeeTiedLogits(torch.autograd.Function):
+    """``h @ w.T`` whose forward and backward products both run in true
+    f32 (``ieee_f32``): TF32 would keep 10 mantissa bits, and the
+    process's own TF32 setting is left as the caller had it."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h, w)
+        with ieee_f32():
+            return h @ w.T
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        h, w = ctx.saved_tensors
+        grad_h = grad_w = None
+        with ieee_f32():
+            if ctx.needs_input_grad[0]:
+                grad_h = grad @ w
+            if ctx.needs_input_grad[1]:
+                grad_w = grad.reshape(-1, grad.shape[-1]).T @ h.reshape(-1, h.shape[-1])
+        return grad_h, grad_w
+
+
 def logits_from_hidden(model: SeqRec, h: torch.Tensor) -> torch.Tensor:
     """Tied-weight output projection (..., V) in f32: operands rounded to
-    h's dtype, products accumulated in f32."""
-    # f32 accumulation means full f32: TF32 would keep 10 mantissa bits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return h.float() @ model.item_emb.to(h.dtype).float().T
+    h's dtype, products accumulated in f32, in the forward and the
+    backward pass."""
+    return _IeeeTiedLogits.apply(h.float(), model.item_emb.to(h.dtype).float())
 
 
 @torch.inference_mode()

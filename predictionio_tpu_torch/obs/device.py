@@ -198,6 +198,15 @@ _LAST_REPORT: dict | None = None
 _ACTIVE: ContextVar["TrainProfiler | None"] = ContextVar("pio_train_profiler", default=None)
 
 
+def _bmm_flops(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
+    """torch's ``aten.bmm`` FLOP formula (2·b·m·n·k), taking the third
+    positional argument of the ``bmm.dtype`` overload (``out_dtype``,
+    which ALS's bf16 products pass on the card) that torch's own formula
+    takes for its ``out_shape`` and then raises on."""
+    batch, m, k = a_shape
+    return 2 * batch * m * b_shape[2] * k
+
+
 @contextlib.contextmanager
 def count_flops() -> Iterator[None]:
     """Count the executed FLOPs of the block into the active profiler
@@ -208,13 +217,15 @@ def count_flops() -> Iterator[None]:
     if prof is None:
         yield
         return
+    import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from predictionio_tpu_torch.ops import flash_attention
 
     kernel_flops: list[int] = []
     token = flash_attention.flop_hook.set(kernel_flops.append)
-    counter = FlopCounterMode(display=False)
+    counter = FlopCounterMode(display=False,
+                              custom_mapping={torch.ops.aten.bmm: _bmm_flops})
     try:
         with counter:
             yield

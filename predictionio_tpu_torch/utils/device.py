@@ -13,6 +13,7 @@ CUDA in this process: a process that forks eval workers onto the card
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -52,13 +53,34 @@ def as_device_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=resolve_device(device))
 
 
+#: guards the TF32 flag's save and restore across overlapping scopes
+_ieee_lock = threading.Lock()
+#: open ``ieee_f32`` scopes in the process, and the flag the first found
+_ieee_depth = 0
+_ieee_saved = False
+
+
 @contextlib.contextmanager
 def ieee_f32() -> Iterator[None]:
     """f32 matrix products in true f32 inside the block (the JAX
-    package's ``Precision.HIGHEST``), whatever the process set for TF32."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    package's ``Precision.HIGHEST``), whatever the process set for TF32.
+
+    The flag belongs to the process, and scopes overlap across threads (a
+    served query, the online fold thread, autograd's backward). The first
+    scope to open saves the flag and the last to close restores it, so
+    overlapping scopes neither leave it off nor let a product inside one
+    run in TF32. While any scope is open, every f32 product of the
+    process runs in true f32, those of threads outside a scope too."""
+    global _ieee_depth, _ieee_saved
+    with _ieee_lock:
+        if _ieee_depth == 0:
+            _ieee_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _ieee_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _ieee_lock:
+            _ieee_depth -= 1
+            if _ieee_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _ieee_saved

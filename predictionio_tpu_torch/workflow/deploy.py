@@ -170,6 +170,9 @@ class ServerConfig:
     #: None defers to the PIO_TRACE env var at server construction. Off
     #: by default: the disabled path is one flag check per request
     tracing: bool | None = None
+    #: structured JSON access logs on the ``pio.access`` logger; None
+    #: defers to the PIO_ACCESS_LOG env var (api/http_base.py)
+    access_log: bool | None = None
     #: the prefork pool (``pio deploy --workers N``): N engine-server
     #: processes on ONE ``SO_REUSEPORT`` port, each with its own CUDA
     #: context, model replica, batcher, cache and registry (one CPython
