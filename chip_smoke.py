@@ -483,7 +483,19 @@ rates logged after it are taken with the other lane running.
    by worker, which count toward the kernels line;
 38. a `kernels` JSON line;
 39. the result line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}};
+40. in the main path after phase 35, the sessionrec serve path's stage
+   spans, over a random model at the long-context serving config
+   (SPANS_USERS users, histories log-uniform 16-2,048 of power-law items)
+   through `DeployedEngine.query_batch` in SPANS_BATCH-query batches: (a)
+   `obs.trace.span` with no trace bound and no profiler recording is the
+   shared no-op, and its ns a block over SPAN_CALLS; (b) a `Trace` bound
+   around each of SPANS_TRACED batches records the seven `seqrec.*`
+   stage spans in order, and their median ms; (c) SPANS_PROFILED batches
+   under `torch.profiler` (host and card) show the seven stages as host
+   annotations in order, and each annotation the profiler mirrors onto
+   the card's timeline says it is one; its flash launches count toward
+   the kernels line.
 
 Each phase of the main path logs its seconds (`[phases]`).
 `--als-only`, `--eval-only`, `--pio-only`, `--serve-only`,
@@ -555,6 +567,7 @@ from predictionio_tpu_torch.e2 import engine as e2
 from predictionio_tpu_torch.e2 import quality
 from predictionio_tpu_torch.models import logreg, naive_bayes, random_forest, seqrec
 from predictionio_tpu_torch.models.als import ALSModel, build_allow_vector
+from predictionio_tpu_torch.obs import trace as ptrace
 from predictionio_tpu_torch.obs.device import TrainProfiler
 from predictionio_tpu_torch.ops import _build
 from predictionio_tpu_torch.ops import als
@@ -572,7 +585,11 @@ from predictionio_tpu_torch.templates import sessionrec
 from predictionio_tpu_torch.utils.bimap import BiMap, EntityIdIxMap
 from predictionio_tpu_torch.utils.device import ieee_f32
 from predictionio_tpu_torch.workflow.context import EngineContext
-from predictionio_tpu_torch.workflow.deploy import ServerConfig, load_deployed_engine
+from predictionio_tpu_torch.workflow.deploy import (
+    DeployedEngine,
+    ServerConfig,
+    load_deployed_engine,
+)
 from predictionio_tpu_torch.workflow.evaluation import run_evaluation
 from predictionio_tpu_torch.workflow.fake import FakeRun
 from predictionio_tpu_torch.workflow.persistence import save_models
@@ -9877,6 +9894,102 @@ def main() -> None:
         shutil.rmtree(os.environ.pop("PIO_MODEL_DIR"), ignore_errors=True)
 
 
+#: phase 40: users, their histories' lengths (log-uniform) and the item
+#: law's exponent (item 1+floor(49,999·u^1.8)); one batch's queries, the
+#: batches with a bound trace and under the profiler
+SPANS_USERS, SPANS_LENGTHS, SPANS_EXPONENT = 4_096, (16, 2048), 1.8
+SPANS_BATCH, SPANS_TRACED, SPANS_PROFILED = 64, 16, 4
+SPAN_NAMES = ["seqrec.prepare", "seqrec.stack", "seqrec.copy_in", "seqrec.forward",
+              "seqrec.topk", "seqrec.fetch", "seqrec.decode"]
+#: calls of phase 40a's span loop
+SPAN_CALLS = 100_000
+
+
+def _spans_engine() -> tuple[DeployedEngine, list[str]]:
+    """A deployed sessionrec engine over random weights at the serving
+    config, and its users."""
+    cfg = seqrec.SeqRecConfig(**SERVING, dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 40)
+    lo, hi = SPANS_LENGTHS
+    lengths = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), SPANS_USERS)).astype(np.int64)
+    flat = 1 + np.floor((cfg.vocab - 1) * rng.random(int(lengths.sum())) ** SPANS_EXPONENT)
+    flat = np.minimum(flat, cfg.vocab - 1).astype(np.int64)
+    users = [f"u{u}" for u in range(SPANS_USERS)]
+    histories = dict(zip(users, (h.tolist() for h in np.split(flat, np.cumsum(lengths)[:-1]))))
+    model = sessionrec.SeqRecEngineModel(
+        params=seqrec.init_params(cfg, torch.Generator().manual_seed(SEED)), cfg=cfg,
+        item_index=BiMap({str(i): i for i in range(1, cfg.vocab)}), histories=histories,
+        device=torch.device(DEVICE))
+    engine = sessionrec.engine_factory()
+    params = EngineParams.of(algorithms=[("seqrec", sessionrec.AlgorithmParams())])
+    _, _, algorithms, serving = engine.make_components(params)
+    return DeployedEngine(engine, "spans", algorithms, serving, [model], DEVICE), users
+
+
+def phase_spans() -> int:
+    """Phase 40: the serve path's stage spans; returns its flash launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "spans"
+    launches0 = flash_ops.LAUNCHES
+    # (a) the off path: no trace bound, no profiler recording
+    if torch.autograd._profiler_enabled() or ptrace.active_trace() is not None:
+        fail(f"[{tag}] a profiler or a trace is already on")
+    if ptrace.span("seqrec.prepare") is not ptrace._NULL_SPAN:
+        fail(f"[{tag}] span() with no trace and no profiler is not the shared no-op")
+    t0 = time.perf_counter()
+    for _ in range(SPAN_CALLS):
+        with ptrace.span("seqrec.prepare"):
+            pass
+    log(f"[{tag}] off path: a span() block {(time.perf_counter() - t0) / SPAN_CALLS * 1e9:.1f} "
+        f"ns over {SPAN_CALLS:,}")
+
+    deployed, users = _spans_engine()
+    rng = np.random.default_rng(SEED + 41)
+    batches = [[sessionrec.Query(user=users[u], num=10)
+                for u in rng.integers(0, len(users), SPANS_BATCH)]
+               for _ in range(1 + SPANS_TRACED + SPANS_PROFILED)]
+    deployed.query_batch(batches[0])      # warm-up: kernel, shapes, allocator
+
+    # (b) a Trace bound around each query_batch: the seven stages in order
+    stage_ms: dict[str, list[float]] = {n: [] for n in SPAN_NAMES}
+    for queries in batches[1 : 1 + SPANS_TRACED]:
+        trace = ptrace.start_trace("query_batch")
+        with ptrace.use_trace(trace):
+            deployed.query_batch(queries)
+        spans = trace.spans()
+        names = [s[0] for s in spans]
+        if names != SPAN_NAMES:
+            fail(f"[{tag}] a bound trace's spans are {names}, not {SPAN_NAMES}")
+        for name, _, _, _, dur in spans:
+            stage_ms[name].append(dur * 1e3)
+    log(f"[{tag}] a batch of {SPANS_BATCH} by its stage spans (median ms over "
+        f"{SPANS_TRACED} traced batches): " + ", ".join(
+            f"{n} {statistics.median(v):.3f}" for n, v in stage_ms.items()))
+
+    # (c) under the profiler: the stages as host annotations, and each
+    # annotation the profiler mirrors onto the card's timeline flagged as one
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for queries in batches[1 + SPANS_TRACED :]:
+            deployed.query_batch(queries)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("seqrec.")]
+    host = [e.name() for e in sorted(events, key=lambda e: e.start_ns())
+            if e.device_type() == torch.autograd.DeviceType.CPU]
+    card = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if host != SPAN_NAMES * SPANS_PROFILED:
+        fail(f"[{tag}] the profiler's host annotations are {host[:8]}")
+    flagged = sum(bool(e.is_user_annotation()) for e in card)
+    log(f"[{tag}] seqrec.* annotations over {SPANS_PROFILED} profiled batches: {len(host)} on "
+        f"the host, {len(card)} mirrored on the card, {flagged} of them flagged user "
+        f"annotations")
+    if flagged != len(card):
+        fail(f"[{tag}] a mirrored stage annotation is not flagged as an annotation")
+    del deployed
+    torch.cuda.empty_cache()
+    return flash_ops.LAUNCHES - launches0
+
+
 def timed(phase: str, fn, *args):
     """``fn(*args)``, logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -10074,6 +10187,10 @@ def run_phases(wall: float) -> None:
             fail("serving the sequence-mesh-trained model never launched the flash kernel")
         launches += dist_launches
         torch.cuda.empty_cache()
+        spans_launches = timed("40", phase_spans)
+        if spans_launches == 0:
+            fail("the stage-span phase never launched the flash_attention kernel")
+        launches += spans_launches
         launches += quickstart.result()
         side.shutdown()
         # 33, 23 and 27 over phase 16's store, beside the child's later

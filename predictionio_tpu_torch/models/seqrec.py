@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from predictionio_tpu_torch.obs.trace import span
 from predictionio_tpu_torch.ops.attention import (
     blockwise_attention,
     full_attention,
@@ -413,14 +414,22 @@ def predict_topk_batch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k next items (scores, ids) for (B, S) right-padded histories,
     with a per-query additive logit mask ``vocab_masks`` (B, V): 0 for
-    allowed ids, a large negative for pad/seen/black-listed ones."""
-    history = history.to(model.device)
-    mask = history != PAD
-    last = (mask.sum(dim=1) - 1).clamp_min(0)
-    h = model(history, attention=attention)
-    hl = h[torch.arange(h.shape[0], device=h.device), last]         # (B, D)
-    logits = logits_from_hidden(model, hl) + vocab_masks.to(model.device)
-    return topk_lowest_index(logits, k)
+    allowed ids, a large negative for pad/seen/black-listed ones.
+
+    Stage spans: ``seqrec.copy_in`` (the histories to the device; from
+    pageable host memory the host waits for the copy),
+    ``seqrec.forward`` (the model, the last real position, the logits,
+    the mask's copy to the device and its add) and ``seqrec.topk``."""
+    with span("seqrec.copy_in"):
+        history = history.to(model.device)
+    with span("seqrec.forward"):
+        mask = history != PAD
+        last = (mask.sum(dim=1) - 1).clamp_min(0)
+        h = model(history, attention=attention)
+        hl = h[torch.arange(h.shape[0], device=h.device), last]         # (B, D)
+        logits = logits_from_hidden(model, hl) + vocab_masks.to(model.device)
+    with span("seqrec.topk"):
+        return topk_lowest_index(logits, k)
 
 
 def predict_topk(

@@ -12,7 +12,8 @@ Propagation has two legs:
 
 - **ambient** — a contextvar carries the active trace on the current
   thread; ``span(name)`` opens a child span against it and is a shared
-  no-op when no trace is active (one contextvar read, no allocation).
+  no-op when no trace is active and no profiler records (one contextvar
+  read and one flag read, no allocation).
   ``contextvars.copy_context`` captures it, so the engine server's
   deadline pool threads inherit the trace;
 - **explicit** — queue handoffs (``QueryBatcher.submit``) carry the
@@ -24,6 +25,15 @@ The enabled path takes no lock: span records are tuples appended with
 prefix plus a counter, with no ``uuid4`` per request. Finished traces go
 into a bounded :class:`TraceLog` ring per server, served as JSON on
 ``GET /traces.json``.
+
+Every span is also a ``torch.profiler`` annotation while a profiler is
+recording in the process (``pio train --profile-dir``, or any caller's
+``torch.profiler.profile``): the span keeps its name on the profiler's
+timeline, so a Chrome trace shows the program's stages beside the
+device's kernels, on one clock. With no profiler recording a span costs
+one flag read more; with no trace bound either, ``span()`` is still the
+shared no-op. The module never imports torch: it reads the flag of a
+torch that something else has imported already.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import contextlib
 import itertools
 import os
 import re
+import sys
 import threading
 import time
 import uuid
@@ -88,6 +99,28 @@ def tracing_default() -> bool:
 
 
 _current: ContextVar["Trace | None"] = ContextVar("pio_trace", default=None)
+
+
+def _profiling() -> bool:
+    """True while a ``torch.profiler`` records in this process: one
+    ``sys.modules`` lookup and one flag read, and never an import of
+    torch (the event server and the router stay torch-free)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return torch.autograd._profiler_enabled()
+    except AttributeError:          # a torch still half-imported
+        return False
+
+
+def _annotation(name: str):
+    """``record_function(name)`` of the torch already imported: the span's
+    annotation on the profiler's timeline. Callers check
+    :func:`_profiling` first, since entering one costs microseconds even
+    with no profiler recording."""
+    return sys.modules["torch"].autograd.profiler.record_function(name)
+
 
 _ROOT_PARENT = ""
 
@@ -229,24 +262,31 @@ class Trace:
 
 
 class _ActiveSpan:
-    """The in-thread span context manager (``Trace.span``)."""
+    """The in-thread span context manager (``Trace.span``); also the
+    span's profiler annotation while a profiler records."""
 
-    __slots__ = ("_trace", "_name", "_parent", "_start", "span_id")
+    __slots__ = ("_trace", "_name", "_parent", "_start", "_mark", "span_id")
 
     def __init__(self, trace: Trace, name: str, parent_id: str):
         self._trace = trace
         self._name = name
         self._parent = parent_id
         self._start = 0.0
+        self._mark = None
         self.span_id = ""
 
     def __enter__(self) -> "_ActiveSpan":
+        if _profiling():
+            self._mark = _annotation(self._name)
+            self._mark.__enter__()
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
-        self.span_id = self._trace.add_span(
-            self._name, self._start, time.perf_counter(), self._parent)
+        end = time.perf_counter()
+        if self._mark is not None:
+            self._mark.__exit__(None, None, None)
+        self.span_id = self._trace.add_span(self._name, self._start, end, self._parent)
 
 
 class _NullSpan:
@@ -295,12 +335,13 @@ def use_trace(trace: Trace | None) -> Iterator[Trace | None]:
 
 
 def span(name: str):
-    """Ambient child span: records against the current trace, or is a
-    shared no-op when none is active (one contextvar read, zero
+    """Ambient child span: records against the current trace, and is the
+    span's profiler annotation while a profiler records. With neither, a
+    shared no-op (one contextvar read and one flag read, zero
     allocation)."""
     trace = _current.get()
     if trace is None:
-        return _NULL_SPAN
+        return _annotation(name) if _profiling() else _NULL_SPAN
     return trace.span(name)
 
 

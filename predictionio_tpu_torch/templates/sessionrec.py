@@ -55,6 +55,7 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.controller.persistent_model import checkpoint_location
 from predictionio_tpu_torch.models import seqrec
+from predictionio_tpu_torch.obs.trace import span
 from predictionio_tpu_torch.ops.topk import serving_k
 from predictionio_tpu_torch.utils.bimap import BiMap
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -319,26 +320,35 @@ class SeqRecAlgorithm(HostModelAlgorithm):
     def batch_predict(self, model: SeqRecEngineModel, queries):
         """Power-of-two batch buckets (up to 256 queries) through one
         forward each, with a per-query logit mask: PAD, the session's own
-        items and the black list are excluded."""
+        items and the black list are excluded.
+
+        Stage spans (``obs.trace.span``), in order: ``seqrec.prepare``
+        (every query's padded history and mask), then for each bucket
+        ``seqrec.stack``, the model step's ``seqrec.copy_in``,
+        ``seqrec.forward`` and ``seqrec.topk``, ``seqrec.fetch`` (the host
+        waits for the card's answer) and ``seqrec.decode``. A traced
+        unbatched query shows them under ``predict`` on ``/traces.json``;
+        under a ``torch.profiler`` they are annotations on its timeline."""
         S = model.cfg.max_len
-        base_mask = np.zeros((model.cfg.vocab,), np.float32)
-        base_mask[seqrec.PAD] = _NEG
         prepared, out = [], []
-        for i, q in queries:
-            history = self._history_for(model, q)
-            if not history:
-                out.append((i, PredictedResult()))
-                continue
-            tail = history[-S:]
-            hist = np.zeros((S,), np.int64)
-            hist[: len(tail)] = tail
-            mask = base_mask.copy()
-            mask[np.asarray(tail, np.int64)] = _NEG   # don't repeat the session
-            for item in q.black_list:
-                di = model.item_index.get(item)
-                if di is not None:
-                    mask[di] = _NEG
-            prepared.append((i, q, hist, mask))
+        with span("seqrec.prepare"):
+            base_mask = np.zeros((model.cfg.vocab,), np.float32)
+            base_mask[seqrec.PAD] = _NEG
+            for i, q in queries:
+                history = self._history_for(model, q)
+                if not history:
+                    out.append((i, PredictedResult()))
+                    continue
+                tail = history[-S:]
+                hist = np.zeros((S,), np.int64)
+                hist[: len(tail)] = tail
+                mask = base_mask.copy()
+                mask[np.asarray(tail, np.int64)] = _NEG   # don't repeat the session
+                for item in q.black_list:
+                    di = model.item_index.get(item)
+                    if di is not None:
+                        mask[di] = _NEG
+                prepared.append((i, q, hist, mask))
         if not prepared:
             return out
 
@@ -354,22 +364,23 @@ class SeqRecAlgorithm(HostModelAlgorithm):
                 bucket *= 2
             chunk = prepared[pos : pos + bucket]
             pos += bucket
-            scores, ids = seqrec.predict_topk_batch(
-                module,
-                torch.from_numpy(np.stack([h for _, _, h, _ in chunk])),
-                k,
-                torch.from_numpy(np.stack([m for _, _, _, m in chunk])),
-            )
-            for (i, q, _, _), svals, sids in zip(
-                    chunk, scores.cpu().numpy(), ids.cpu().numpy()):
-                items = []
-                for v, ix in zip(svals[: q.num], sids[: q.num]):
-                    if v <= _NEG / 2:
-                        continue
-                    item = inv.get(int(ix))
-                    if item is not None:
-                        items.append(ItemScore(item=item, score=float(v)))
-                out.append((i, PredictedResult(item_scores=tuple(items))))
+            with span("seqrec.stack"):
+                histories = torch.from_numpy(np.stack([h for _, _, h, _ in chunk]))
+                masks = torch.from_numpy(np.stack([m for _, _, _, m in chunk]))
+            scores, ids = seqrec.predict_topk_batch(module, histories, k, masks)
+            with span("seqrec.fetch"):
+                scores = scores.cpu().numpy()
+                ids = ids.cpu().numpy()
+            with span("seqrec.decode"):
+                for (i, q, _, _), svals, sids in zip(chunk, scores, ids):
+                    items = []
+                    for v, ix in zip(svals[: q.num], sids[: q.num]):
+                        if v <= _NEG / 2:
+                            continue
+                        item = inv.get(int(ix))
+                        if item is not None:
+                            items.append(ItemScore(item=item, score=float(v)))
+                    out.append((i, PredictedResult(item_scores=tuple(items))))
         return out
 
 
