@@ -416,10 +416,12 @@ def predict_topk_batch(
     with a per-query additive logit mask ``vocab_masks`` (B, V): 0 for
     allowed ids, a large negative for pad/seen/black-listed ones.
 
-    Stage spans: ``seqrec.copy_in`` (the histories to the device; from
-    pageable host memory the host waits for the copy),
+    Stage spans: ``seqrec.copy_in`` (the histories to the device: empty
+    when the caller built them there, as the sessionrec template does;
+    from pageable host memory the host waits for the copy),
     ``seqrec.forward`` (the model, the last real position, the logits,
-    the mask's copy to the device and its add) and ``seqrec.topk``."""
+    the mask's add, after its copy to the device when it is not there
+    yet) and ``seqrec.topk``."""
     with span("seqrec.copy_in"):
         history = history.to(model.device)
     with span("seqrec.forward"):

@@ -31,6 +31,7 @@ Usage (engine.json):
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 from typing import Any, Mapping
@@ -185,6 +186,8 @@ class SeqRecEngineModel:
     device: torch.device = dataclasses.field(default_factory=lambda: resolve_device())
     # the module on ``device``, built on first predict; never saved
     module: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # ``histories`` packed for serving, built on first predict; never saved
+    packed: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
     # per-step losses and seconds of the run that trained it; never saved
     train_run: seqrec.TrainRun | None = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -193,6 +196,19 @@ class SeqRecEngineModel:
         if self.module is None:
             self.module = seqrec.SeqRec.from_state(self.cfg, self.params, self.device)
         return self.module
+
+    def packed_histories(self) -> tuple[np.ndarray, dict]:
+        """``(ids, spans)``: every user's history end to end in one int32
+        array, and each user's ``(start, end)`` in it."""
+        if self.packed is None:
+            hists = self.histories
+            lengths = np.fromiter(map(len, hists.values()), np.int64, len(hists))
+            ends = np.cumsum(lengths)
+            ids = np.fromiter(itertools.chain.from_iterable(hists.values()), np.int32,
+                              int(ends[-1]) if len(ends) else 0)
+            self.packed = (ids, dict(zip(hists, zip((ends - lengths).tolist(),
+                                                    ends.tolist()))))
+        return self.packed
 
     @staticmethod
     def from_jax(params_tree: Mapping, cfg_fields: Mapping[str, Any],
@@ -255,6 +271,41 @@ def load_engine_model(directory: str, device: str | torch.device | None = None
     )
 
 
+def _assemble_bucket(model: SeqRecEngineModel, ids: np.ndarray, lengths: np.ndarray,
+                     black: np.ndarray, black_counts: np.ndarray
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bucket's (B, S) int64 histories, right-padded with PAD, and
+    its (B, V) f32 additive logit mask (``_NEG`` at PAD, at each row's
+    history ids and at its black-list ids, else 0), built on
+    ``model.device`` from one upload. ``ids`` holds the rows' history
+    tails end to end (``lengths`` each), ``black`` their black-list ids
+    (``black_counts`` each).
+
+    The host computes every scatter index and stages them with the ids
+    in one int64 buffer: pinned (a block of torch's caching host
+    allocator, per call) and copied asynchronously on CUDA, so nothing
+    on the device waits for the host."""
+    S, V, device = model.cfg.max_len, model.cfg.vocab, torch.device(model.device)
+    B, n, m = len(lengths), len(ids), len(black)
+    rows = np.arange(B, dtype=np.int64)
+    # [ids | their places in the flattened (B, S) | the flattened (B, V)
+    #  places of the rows' history ids, black-list ids and PAD]
+    staged = torch.empty(3 * n + m + B, dtype=torch.int64, pin_memory=device.type == "cuda")
+    buf = staged.numpy()
+    buf[:n] = ids
+    np.add(np.arange(n), np.repeat(rows * S - (np.cumsum(lengths) - lengths), lengths),
+           out=buf[n : 2 * n])
+    np.add(np.repeat(rows * V, lengths), ids, out=buf[2 * n : 3 * n])
+    np.add(np.repeat(rows * V, black_counts), black, out=buf[3 * n : 3 * n + m])
+    buf[3 * n + m :] = rows * V + seqrec.PAD
+    staged = staged.to(device, non_blocking=True)
+    history = torch.zeros(B * S, dtype=torch.int64, device=device)
+    history.index_copy_(0, staged[n : 2 * n], staged[:n])
+    mask = torch.zeros(B * V, dtype=torch.float32, device=device)
+    mask.index_fill_(0, staged[2 * n :], float(_NEG))
+    return history.view(B, S), mask.view(B, V)
+
+
 class SeqRecAlgorithm(HostModelAlgorithm):
     """Trains the causal transformer on the context's device; serves its
     top-k next items."""
@@ -304,15 +355,6 @@ class SeqRecAlgorithm(HostModelAlgorithm):
     def load_model(self, ctx: Any, manifest: PersistentModelManifest) -> SeqRecEngineModel:
         return load_engine_model(manifest.location, ctx.device)
 
-    def _history_for(self, model: SeqRecEngineModel, query: Query):
-        if query.items:
-            return [
-                model.item_index.get(i)
-                for i in query.items
-                if model.item_index.get(i) is not None
-            ]
-        return model.histories.get(query.user, [])
-
     def predict(self, model: SeqRecEngineModel, query: Query) -> PredictedResult:
         # single-query serving is the B=1 case of the batched path
         return self.batch_predict(model, [(0, query)])[0][1]
@@ -322,57 +364,75 @@ class SeqRecAlgorithm(HostModelAlgorithm):
         forward each, with a per-query logit mask: PAD, the session's own
         items and the black list are excluded.
 
+        The host gathers ids only: each query's last ``max_len`` history
+        ids (a slice of :meth:`SeqRecEngineModel.packed_histories`, or
+        its ``items`` mapped to dense ids) and its black list's. A bucket
+        crosses to the device in one copy (pinned, asynchronous, on
+        CUDA), and its padded histories and mask are built there
+        (:func:`_assemble_bucket`), so the host first waits for the
+        device when it fetches the answer.
+
         Stage spans (``obs.trace.span``), in order: ``seqrec.prepare``
-        (every query's padded history and mask), then for each bucket
-        ``seqrec.stack``, the model step's ``seqrec.copy_in``,
-        ``seqrec.forward`` and ``seqrec.topk``, ``seqrec.fetch`` (the host
-        waits for the card's answer) and ``seqrec.decode``. A traced
-        unbatched query shows them under ``predict`` on ``/traces.json``;
-        under a ``torch.profiler`` they are annotations on its timeline."""
+        (every query's ids), then for each bucket ``seqrec.stack`` (the
+        bucket's upload and assembly), the model step's
+        ``seqrec.copy_in``, ``seqrec.forward`` and ``seqrec.topk``,
+        ``seqrec.fetch`` (the host waits for the device's answer) and
+        ``seqrec.decode``. A traced unbatched query shows them under
+        ``predict`` on ``/traces.json``; under a ``torch.profiler`` they
+        are annotations on its timeline."""
         S = model.cfg.max_len
-        prepared, out = [], []
+        kept, tails, black, counts, out = [], [], [], [], []
         with span("seqrec.prepare"):
-            base_mask = np.zeros((model.cfg.vocab,), np.float32)
-            base_mask[seqrec.PAD] = _NEG
+            packed, spans = model.packed_histories()
+            index = model.item_index
             for i, q in queries:
-                history = self._history_for(model, q)
-                if not history:
+                if q.items:
+                    known = [di for di in map(index.get, q.items) if di is not None]
+                    tail = np.asarray(known[-S:], np.int32)
+                else:
+                    start, end = spans.get(q.user, (0, 0))
+                    tail = packed[max(start, end - S) : end]
+                if not len(tail):
                     out.append((i, PredictedResult()))
                     continue
-                tail = history[-S:]
-                hist = np.zeros((S,), np.int64)
-                hist[: len(tail)] = tail
-                mask = base_mask.copy()
-                mask[np.asarray(tail, np.int64)] = _NEG   # don't repeat the session
-                for item in q.black_list:
-                    di = model.item_index.get(item)
-                    if di is not None:
-                        mask[di] = _NEG
-                prepared.append((i, q, hist, mask))
-        if not prepared:
-            return out
+                kept.append((i, q))
+                tails.append(tail)
+                n = len(black)
+                black += [di for di in map(index.get, q.black_list) if di is not None]
+                counts.append(len(black) - n)
+            if not kept:
+                return out
+            ids = np.concatenate(tails)
+            lengths = np.fromiter(map(len, tails), np.int64, len(tails))
+            black = np.asarray(black, np.int32)
+            counts = np.asarray(counts, np.int64)
+            # row r's ids are ids[ends[r]:ends[r + 1]], its black list's
+            # black[black_ends[r]:black_ends[r + 1]]
+            ends = np.concatenate(([0], np.cumsum(lengths)))
+            black_ends = np.concatenate(([0], np.cumsum(counts)))
 
         # menu-ized top-k width; results trim per query below
-        k = serving_k(max(q.num for _, q, _, _ in prepared), model.cfg.vocab - 1)
+        k = serving_k(max(q.num for _, q in kept), model.cfg.vocab - 1)
         module = model.as_module()
         inv = model.item_index.inverse
         pos = 0
-        while pos < len(prepared):
-            remaining = len(prepared) - pos
+        while pos < len(kept):
+            remaining = len(kept) - pos
             bucket = 1
             while bucket * 2 <= min(remaining, _MAX_BUCKET):
                 bucket *= 2
-            chunk = prepared[pos : pos + bucket]
-            pos += bucket
+            lo, hi = pos, pos + bucket
+            pos = hi
             with span("seqrec.stack"):
-                histories = torch.from_numpy(np.stack([h for _, _, h, _ in chunk]))
-                masks = torch.from_numpy(np.stack([m for _, _, _, m in chunk]))
-            scores, ids = seqrec.predict_topk_batch(module, histories, k, masks)
+                histories, masks = _assemble_bucket(
+                    model, ids[ends[lo] : ends[hi]], lengths[lo:hi],
+                    black[black_ends[lo] : black_ends[hi]], counts[lo:hi])
+            scores, top = seqrec.predict_topk_batch(module, histories, k, masks)
             with span("seqrec.fetch"):
                 scores = scores.cpu().numpy()
-                ids = ids.cpu().numpy()
+                top = top.cpu().numpy()
             with span("seqrec.decode"):
-                for (i, q, _, _), svals, sids in zip(chunk, scores, ids):
+                for (i, q), svals, sids in zip(kept[lo:hi], scores, top):
                     items = []
                     for v, ix in zip(svals[: q.num], sids[: q.num]):
                         if v <= _NEG / 2:
