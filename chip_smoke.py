@@ -17,8 +17,12 @@ rates logged after it are taken with the other lane running.
    CUDA kernel under predictionio_tpu_torch/csrc/ with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, case by
    case (among them the shapes of both serving paths, of the evaluation
-   bucket and of the quickstart walk-through's engine, (1,2,16,16)), with
-   the max abs difference and the tolerance;
+   bucket and of the quickstart walk-through's engine, (1,2,16,16), a
+   head dim of 50 zero-padded into the D=64 kernel, and the MoE
+   sessionrec cell's GQA launches, q (16,32,8192,128) over k, v at 4
+   heads, mixed real lengths, with no window and with the 1,024-key
+   window, each one counted launch of its kind), with the max abs
+   difference and the tolerance;
 3. the kernel's time at the serving shape, the batch bucket and the
    evaluation bucket (64,4,2048,64) beside
    the plain version, the library call (scaled_dot_product_attention
@@ -879,6 +883,11 @@ def phase_kernel_vs_plain() -> float:
          1, 2, 16, 16, torch.bfloat16, True, None),
         ("(1,2,16,16) bf16 causal, the quickstart's serving shape, 12 real keys",
          1, 2, 16, 16, torch.bfloat16, True, 12),
+        # a head dim with no kernel of its own (the SASRec paper's 50):
+        # zero-padded into the D=64 kernel at its own scale 1/sqrt(50)
+        ("causal bf16 D50 padded (the D=64 kernel)", 2, 1, 300, 50, torch.bfloat16, True, "pad"),
+        ("causal f32 D50 left-masked (the D=64 kernel)",
+         2, 1, 300, 50, torch.float32, True, "left"),
     ] + [
         # the buckets batched serving dispatches (phase 17), each row with
         # its own real length, right-padded, as served sessions of 1-2,048
@@ -920,7 +929,53 @@ def phase_kernel_vs_plain() -> float:
             fail(f"causal rows that see no key not zero: {label}")
         if label.startswith("serving"):
             serving_err = err
+    gqa_window_cases(gen)
     return serving_err
+
+
+def gqa_window_cases(gen: torch.Generator) -> None:
+    """The MoE sessionrec cell's flash launches (``models/moe_seqrec``):
+    q (16, 32, 8192, 128) over k, v (16, 4, 8192, 128) bf16 causal, rows
+    right-padded to real lengths log-uniform over 64-8,192 as the cell's
+    histories are, with no window (the full layer) and with the
+    1,024-key window (the sliding layers). Each call is one counted
+    launch of its kind; the plain version is computed a row and a KV
+    head's group of query heads at a time, so its (S, S) logits fit."""
+    B, H, H_kv, S, D = 16, 32, 4, 8192, 128
+    group = H // H_kv
+    lengths = np.geomspace(64, S, B).round().astype(int)
+    np.random.default_rng(SEED + 27).shuffle(lengths)
+    mask = (torch.arange(S)[None, :] < torch.from_numpy(lengths)[:, None]).float().to(DEVICE)
+    q = torch.randn((B, H, S, D), generator=gen, device=DEVICE).bfloat16()
+    k, v = (torch.randn((B, H_kv, S, D), generator=gen, device=DEVICE).bfloat16()
+            for _ in range(2))
+    atol, rtol = TOL[torch.bfloat16]
+    for window in (None, 1024):
+        kind = "full" if window is None else "window"
+        label = (f"GQA ({B},{H}/{H_kv},{S},{D}) bf16 causal, window {window}, "
+                 f"real lengths {int(lengths.min())}-{int(lengths.max())}")
+        before, before_kind = flash_ops.LAUNCHES, dict(flash_ops.LAUNCHES_BY_KIND)
+        got = flash_ops.flash_attention(q, k, v, causal=True, kv_mask=mask, window=window)
+        torch.cuda.synchronize()
+        counted = {n: flash_ops.LAUNCHES_BY_KIND[n] - before_kind[n] for n in before_kind}
+        if flash_ops.LAUNCHES - before != 1 or counted != {n: int(n == kind) for n in counted}:
+            fail(f"[check] {label}: counted {flash_ops.LAUNCHES - before} launch(es), "
+                 f"by kind {counted}")
+        err, ok = 0.0, bool(torch.isfinite(got.float()).all())
+        for b in range(B):
+            for g in range(H_kv):
+                heads = slice(g * group, (g + 1) * group)
+                want = flash_ops.flash_attention_reference(
+                    q[b:b + 1, heads], k[b:b + 1, g:g + 1], v[b:b + 1, g:g + 1],
+                    causal=True, kv_mask=mask[b:b + 1], window=window).float()
+                part = got[b:b + 1, heads].float()
+                err = max(err, (part - want).abs().max().item())
+                ok = ok and torch.allclose(part, want, atol=atol, rtol=rtol)
+                del want
+        log(f"[check] {label}: max_abs_err={err:.3e} tol=atol {atol:g} + rtol {rtol:g}"
+            f" {'ok' if ok else 'MISMATCH'}; one '{kind}' launch counted")
+        if not ok:
+            fail(f"flash_attention kernel disagrees with its plain version: {label}")
 
 
 def phase_times() -> dict:

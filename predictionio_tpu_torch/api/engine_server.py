@@ -145,7 +145,11 @@ from predictionio_tpu_torch.obs.aggregate import (
     parse_exposition,
     source_count_metric,
 )
-from predictionio_tpu_torch.obs.device import device_memory_collector, train_report_collector
+from predictionio_tpu_torch.obs.device import (
+    device_memory_collector,
+    flash_launch_collector,
+    train_report_collector,
+)
 from predictionio_tpu_torch.obs.exporter import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
 from predictionio_tpu_torch.obs.exporter import render_metrics
 from predictionio_tpu_torch.obs.registry import (
@@ -367,6 +371,11 @@ class EngineService:
         self.registry.register(build_obs.compile_metrics_collector())
         self.registry.register(device_memory_collector())
         self.registry.register(train_report_collector())
+        #: flash launches by kind, and what the deployed models export
+        #: themselves (a ``metric_families()`` method, e.g. the sessionrec MoE
+        #: model's device-side counters)
+        self.registry.register(flash_launch_collector())
+        self.registry.register(self._model_metrics_collector)
         self._compile_warmup_marked = False
         #: unbatched mode: one query on the device at a time
         self._predict_lock = threading.Lock()
@@ -582,6 +591,11 @@ class EngineService:
                  "0 for brute-force retrieval",
             samples=[({}, 1.0 if self.ann_enabled() else 0.0)],
         )]
+
+    def _model_metrics_collector(self) -> list:
+        return [fam for model in getattr(self.deployed, "models", ())
+                if callable(getattr(model, "metric_families", None))
+                for fam in model.metric_families()]
 
     @staticmethod
     def _decoder_for(deployed: DeployedEngine):

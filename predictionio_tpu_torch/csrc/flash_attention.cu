@@ -3,10 +3,25 @@
 // Replaces: predictionio_tpu/ops/pallas_attention.py `_flash_kernel`
 // (launched by `pl.pallas_call` in `_flash_call`, dispatched by
 // `flash_attention`). Same function: attention over (B, H, S, D)
-// flattened to (B*H, S, D), scale 1/sqrt(D), a per-key mask (B, S)
+// flattened to (B*H, S, D), scale 1/sqrt(D) (given by the caller, so a
+// head dim zero-padded up to D keeps its own scale), a per-key mask (B, S)
 // shared by the heads, an optional causal mask, an online softmax whose
 // running max, denominator and numerator are f32, and zero output for a
 // row whose keys are all masked. Output in q's dtype.
+//
+// Beyond the Pallas kernel, two things a grouped-query, sliding-window
+// model needs (models/moe_seqrec.py):
+// - GQA: k and v hold H_kv heads that divide q's H; query head h of row
+//   b reads KV head h / (H / H_kv) of that row. With bh = b*H + h that is
+//   KV row bh / group of the (B*H_kv, S, D) K/V, so the K/V tensor maps
+//   and the f32 route's K/V pointers index by bh / group and no copy of
+//   K or V is made. group = 1 is the MHA path, unchanged.
+// - A sliding window W (> 0): query i sees keys j with i - W < j <= i.
+//   A query tile starting at q0 starts its key loop at the tile that
+//   holds key q0 - W + 1, so tiles wholly before the window are never
+//   loaded; a tile that crosses the window's lower edge is masked as a
+//   diagonal tile is. W = 0 is no window: the key loop starts at tile 0,
+//   as before.
 //
 // Bound at the serving shape (B=1, H=4, S=2048, D=64, bf16, causal):
 // QK^T and PV over the S(S+1)/2 causal pairs are 4*D flops a pair,
@@ -93,7 +108,8 @@ template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ kv_mask,
-                   float* __restrict__ out, int heads, int seq_len, int causal, float scale) {
+                   float* __restrict__ out, int heads, int group, int seq_len, int causal,
+                   int window, float scale) {
   static_assert(D % kThreadsPerRow == 0, "D must split over the threads of a row");
   constexpr int kLd = D + 1;
   constexpr int kCols = D / kThreadsPerRow;
@@ -109,6 +125,7 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const size_t base = size_t(bh) * seq_len * D;
+  const size_t kv_base = size_t(bh / group) * seq_len * D;  // GQA: this head's KV row
   const int q0 = qtile * kTileQ;
   const int tid = threadIdx.x;
   const int row = tid / kThreadsPerRow;
@@ -129,8 +146,10 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   int n_kv = (seq_len + kSimtTileK - 1) / kSimtTileK;
   if (causal) n_kv = min(n_kv, (q0 + kTileQ + kSimtTileK - 1) / kSimtTileK);  // stop at the diagonal
+  // a window starts at the tile of the tile's first row's first key
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / kSimtTileK : 0;
 
-  for (int t = 0; t < n_kv; ++t) {
+  for (int t = t_lo; t < n_kv; ++t) {
     const int k0 = t * kSimtTileK;
     __syncthreads();  // the previous tile's K, V and P are no longer read
     for (int i = tid; i < kSimtTileK * D; i += kSimtThreads) {
@@ -138,8 +157,8 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
       const int s = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (s < seq_len) {
-        kx = k[base + size_t(s) * D + d];
-        vx = v[base + size_t(s) * D + d];
+        kx = k[kv_base + size_t(s) * D + d];
+        vx = v[kv_base + size_t(s) * D + d];
       }
       sK[j * kLd + d] = kx;
       sV[j * D + d] = vx;
@@ -167,7 +186,8 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < kKeysPerThread; ++jj) {
       const int j = jj * kThreadsPerRow + sub;
-      const bool valid = sMask[j] > 0.f && (!causal || k0 + j <= q_pos);
+      const bool valid = sMask[j] > 0.f && (!causal || k0 + j <= q_pos) &&
+                         (window <= 0 || k0 + j > q_pos - window);
       valid_bits |= unsigned(valid) << jj;
       logit[jj] = valid ? logit[jj] * scale : kNeg;
       tile_max = fmaxf(tile_max, logit[jj]);
@@ -213,19 +233,20 @@ flash_fwd_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32_simt(const void* q, const void* k, const void* v, const void* kv_mask,
-                            void* out, int batch_heads, int heads, int seq_len, int causal,
-                            cudaStream_t stream) {
+                            void* out, int batch_heads, int heads, int group, int seq_len,
+                            int causal, int window, double softmax_scale, cudaStream_t stream) {
   constexpr size_t smem = simt_smem_bytes<D>();
   auto kernel = flash_fwd_f32_simt<D>;
   // above 48 KB a block's shared memory must be asked for explicitly
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const float scale = float(1.0 / std::sqrt(double(D)));
+  const float scale = float(softmax_scale);
   const dim3 grid((seq_len + kTileQ - 1) / kTileQ, batch_heads);
   kernel<<<grid, kSimtThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(kv_mask), static_cast<float*>(out), heads, seq_len, causal, scale);
+      static_cast<const float*>(kv_mask), static_cast<float*>(out), heads, group, seq_len, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -442,7 +463,8 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ kv_mask, __nv_bfloat16* __restrict__ out,
-                     int heads, int seq_len, int causal, float scale_log2) {
+                     int heads, int group, int seq_len, int causal, int window,
+                     float scale_log2) {
   using G = Geometry<D>;
   using L = Smem<D>;
   constexpr int BN = kKvTile;
@@ -460,10 +482,16 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_bar = empty_bar + 8 * kStages;
 
   const int bh = blockIdx.x;
+  const int kv_bh = bh / group;  // GQA: the K/V row this query head reads
   const int qtile = gridDim.y - 1 - blockIdx.y;  // longest causal rows first, all heads
   const int q0 = qtile * kTileQ;
   int n_kv = (seq_len + BN - 1) / BN;
   if (causal) n_kv = min(n_kv, (q0 + kTileQ + BN - 1) / BN);  // stop at the diagonal
+  // the block walks KV tiles t_lo .. n_kv - 1; a window skips the tiles
+  // wholly before the first row's first key. Ring stages and warpgroups
+  // go by the tile's place i = t - t_lo in the walk.
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / BN : 0;
+  const int n_walk = max(n_kv - t_lo, 0);
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -483,15 +511,16 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int x = 0; x < G::kBoxes; ++x)
       tma_load_3d(sQ + x * kTileQ * G::kRowBytes, &tm_q, q_bar, x * G::kBoxCols, q0, bh);
-    for (int t = 0; t < n_kv; ++t) {
-      const int s = t % kStages;
-      if (t >= kStages) mbar_wait(empty_bar + 8 * s, ((t / kStages) & 1) ^ 1);
+    for (int i = 0; i < n_walk; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty_bar + 8 * s, ((i / kStages) & 1) ^ 1);
       mbar_expect_tx(full_bar + 8 * s, 2 * L::kKVBytes);
+      const int k0 = (t_lo + i) * BN;
 #pragma unroll
       for (int x = 0; x < G::kBoxes; ++x) {
         const uint32_t off = s * L::kKVBytes + x * BN * G::kRowBytes;
-        tma_load_3d(sK + off, &tm_k, full_bar + 8 * s, x * G::kBoxCols, t * BN, bh);
-        tma_load_3d(sV + off, &tm_v, full_bar + 8 * s, x * G::kBoxCols, t * BN, bh);
+        tma_load_3d(sK + off, &tm_k, full_bar + 8 * s, x * G::kBoxCols, k0, kv_bh);
+        tma_load_3d(sV + off, &tm_v, full_bar + 8 * s, x * G::kBoxCols, k0, kv_bh);
       }
     }
     return;
@@ -516,16 +545,16 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
   float mk[kWords];
 #pragma unroll
   for (int c = 0; c < kWords; ++c) {
-    const int key = wg * BN + 32 * c + lane;
-    mk[c] = (wg < n_kv && key < seq_len) ? __ldg(mask_row + key) : 0.f;
+    const int key = (t_lo + wg) * BN + 32 * c + lane;
+    mk[c] = (wg < n_walk && key < seq_len) ? __ldg(mask_row + key) : 0.f;
   }
 
   mbar_wait(q_bar, 0);
   __syncwarp();
 
-  for (int t = wg; t < n_kv; t += kConsumers) {
-    const int s = t % kStages;
-    const int k0 = t * BN;
+  for (int i = wg; i < n_walk; i += kConsumers) {
+    const int s = i % kStages;
+    const int k0 = (t_lo + i) * BN;
     uint32_t words[kWords];  // bit i of word c: key 32c + i of this tile is real
     bool all_real = true;
 #pragma unroll
@@ -536,10 +565,10 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int c = 0; c < kWords; ++c) {
       const int key = k0 + kConsumers * BN + 32 * c + lane;
-      mk[c] = (t + kConsumers < n_kv && key < seq_len) ? __ldg(mask_row + key) : 0.f;
+      mk[c] = (i + kConsumers < n_walk && key < seq_len) ? __ldg(mask_row + key) : 0.f;
     }
 
-    mbar_wait(full_bar + 8 * s, (t / kStages) & 1);
+    mbar_wait(full_bar + 8 * s, (i / kStages) & 1);
     __syncwarp();
 
     // S = Q K^T, f32 in registers
@@ -563,10 +592,12 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     fence_regs<BN / 2>(sc);
 
-    // masked logits become -inf; only a tile with a padded key or one
-    // that crosses the diagonal has any
+    // masked logits become -inf; only a tile with a padded key, one that
+    // crosses the diagonal or one that crosses the window's lower edge
+    // (a key at or before the tile's last row - W) has any
     const bool diagonal = causal && k0 + BN > q0 + 1;
-    if (diagonal || !all_real) {
+    const bool edge = window > 0 && k0 <= q0 + kTileQ - 1 - window;
+    if (diagonal || edge || !all_real) {
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
@@ -574,9 +605,11 @@ flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
           const int key = 8 * n + col0 + j;  // in the tile
           const bool real = (words[n / 4] >> (key % 32)) & 1u;
 #pragma unroll
-          for (int r = 0; r < 2; ++r)
-            if (!real || (diagonal && k0 + key > q0 + row0 + 8 * r))
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0 + row0 + 8 * r;
+            if (!real || (diagonal && k0 + key > row) || (edge && k0 + key <= row - window))
               sc[4 * n + 2 * r + j] = -INFINITY;
+          }
         }
     }
 
@@ -745,57 +778,67 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch_heads, int seq_len,
 
 template <int D>
 cudaError_t launch_bf16_wgmma(const void* q, const void* k, const void* v, const void* kv_mask,
-                              void* out, int batch_heads, int heads, int seq_len, int causal,
+                              void* out, int batch_heads, int heads, int group, int seq_len,
+                              int causal, int window, double softmax_scale,
                               cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
+  // q over (D, S, B*H); k and v over (D, S, B*H_kv)
   if (!encode_map<D>(&tm_q, q, batch_heads, seq_len, kTileQ) ||
-      !encode_map<D>(&tm_k, k, batch_heads, seq_len, kKvTile) ||
-      !encode_map<D>(&tm_v, v, batch_heads, seq_len, kKvTile))
+      !encode_map<D>(&tm_k, k, batch_heads / group, seq_len, kKvTile) ||
+      !encode_map<D>(&tm_v, v, batch_heads / group, seq_len, kKvTile))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<D>::kAlloc;
   auto kernel = flash_fwd_bf16_wgmma<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const float scale_log2 = float(1.4426950408889634 / std::sqrt(double(D)));
+  const float scale_log2 = float(1.4426950408889634 * softmax_scale);
   const dim3 grid(batch_heads, (seq_len + kTileQ - 1) / kTileQ);
   kernel<<<grid, kWgThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<const float*>(kv_mask),
-                                            static_cast<__nv_bfloat16*>(out), heads, seq_len,
-                                            causal, scale_log2);
+                                            static_cast<__nv_bfloat16*>(out), heads, group,
+                                            seq_len, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_head_dim(int dtype, const void* q, const void* k, const void* v,
                             const void* kv_mask, void* out, int batch_heads, int heads,
-                            int seq_len, int causal, cudaStream_t stream) {
-  return dtype == 0 ? launch_f32_simt<D>(q, k, v, kv_mask, out, batch_heads, heads, seq_len,
-                                         causal, stream)
-                    : launch_bf16_wgmma<D>(q, k, v, kv_mask, out, batch_heads, heads, seq_len,
-                                           causal, stream);
+                            int group, int seq_len, int causal, int window,
+                            double softmax_scale, cudaStream_t stream) {
+  return dtype == 0 ? launch_f32_simt<D>(q, k, v, kv_mask, out, batch_heads, heads, group,
+                                         seq_len, causal, window, softmax_scale, stream)
+                    : launch_bf16_wgmma<D>(q, k, v, kv_mask, out, batch_heads, heads, group,
+                                           seq_len, causal, window, softmax_scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (batch_heads, seq_len, head_dim) in the type
-// `dtype` names (0 = float32, 1 = bfloat16; bf16 pointers 16-byte
-// aligned); kv_mask: contiguous float32 (batch_heads / heads, seq_len),
-// > 0 where the key is real. Launches on `stream` and does not
-// synchronise. Returns cudaGetLastError() after the launch, or
+// q, out: contiguous (batch_heads, seq_len, head_dim); k, v: contiguous
+// (batch_heads / heads * kv_heads, seq_len, head_dim), kv_heads dividing
+// heads; all in the type `dtype` names (0 = float32, 1 = bfloat16; bf16
+// pointers 16-byte aligned); kv_mask: contiguous float32 (batch_heads /
+// heads, seq_len), > 0 where the key is real; window: 0 for none, else
+// the sliding window's width in keys; softmax_scale: the factor of the
+// logits (1/sqrt(d) for a head dim d zero-padded to head_dim). Launches on
+// `stream` and does not synchronise. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int pio_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* kv_mask, void* out, int batch_heads,
-                                       int heads, int seq_len, int head_dim, int dtype,
-                                       int causal, void* stream) {
-  if (batch_heads <= 0 || heads <= 0 || batch_heads % heads != 0 || seq_len <= 0 ||
-      batch_heads > 65535 || (seq_len + kTileQ - 1) / kTileQ > 65535 || (dtype != 0 && dtype != 1))
+                                       int heads, int kv_heads, int seq_len, int head_dim,
+                                       int dtype, int causal, int window,
+                                       double softmax_scale, void* stream) {
+  if (batch_heads <= 0 || heads <= 0 || batch_heads % heads != 0 || kv_heads <= 0 ||
+      heads % kv_heads != 0 || window < 0 || seq_len <= 0 || batch_heads > 65535 ||
+      (seq_len + kTileQ - 1) / kTileQ > 65535 || (dtype != 0 && dtype != 1) ||
+      !(softmax_scale > 0.0))
     return int(cudaErrorInvalidValue);
+  const int g = heads / kv_heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return int(launch_head_dim<16>(dtype, q, k, v, kv_mask, out, batch_heads, heads, seq_len, causal, s));
-    case 32: return int(launch_head_dim<32>(dtype, q, k, v, kv_mask, out, batch_heads, heads, seq_len, causal, s));
-    case 64: return int(launch_head_dim<64>(dtype, q, k, v, kv_mask, out, batch_heads, heads, seq_len, causal, s));
-    case 128: return int(launch_head_dim<128>(dtype, q, k, v, kv_mask, out, batch_heads, heads, seq_len, causal, s));
+    case 16: return int(launch_head_dim<16>(dtype, q, k, v, kv_mask, out, batch_heads, heads, g, seq_len, causal, window, softmax_scale, s));
+    case 32: return int(launch_head_dim<32>(dtype, q, k, v, kv_mask, out, batch_heads, heads, g, seq_len, causal, window, softmax_scale, s));
+    case 64: return int(launch_head_dim<64>(dtype, q, k, v, kv_mask, out, batch_heads, heads, g, seq_len, causal, window, softmax_scale, s));
+    case 128: return int(launch_head_dim<128>(dtype, q, k, v, kv_mask, out, batch_heads, heads, g, seq_len, causal, window, softmax_scale, s));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -261,12 +261,14 @@ class SeqRec(nn.Module):
         return self.item_emb.device
 
     def forward(self, seqs: torch.Tensor, attention: Callable | None = None, *,
-                inference: bool = True) -> torch.Tensor:
+                inference: bool = True, real_tokens: int | None = None) -> torch.Tensor:
         """``seqs`` (B, S) item ids right-padded with PAD. ``attention``
         defaults to ``flash_attention`` for inference and to
         :func:`train_attention`'s route otherwise; any function with
         their signature may stand in (the card-side checks pass the plain
-        versions)."""
+        versions). ``real_tokens`` is not read: a dense model computes
+        every position (``models/moe_seqrec.py`` sizes its expert
+        dispatch by it)."""
         S = seqs.shape[1]
         if attention is None:
             attention = flash_attention if inference else train_attention(S)
@@ -282,6 +284,11 @@ class SeqRec(nn.Module):
             else:
                 x = layer(x, mask, attention)
         return self.out_ln(x)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Scores (..., V) in f32 of final hidden states ``h``
+        (:func:`logits_from_hidden`, the tied item table)."""
+        return logits_from_hidden(self, h)
 
 
 def _seq_sharded(mesh: Mesh | None, seq_axis: str = "seq") -> bool:
@@ -410,11 +417,15 @@ def logits_from_hidden(model: SeqRec, h: torch.Tensor) -> torch.Tensor:
 @torch.inference_mode()
 def predict_topk_batch(
     model: SeqRec, history: torch.Tensor, k: int, vocab_masks: torch.Tensor,
-    *, attention: Callable | None = None,
+    *, attention: Callable | None = None, real_tokens: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k next items (scores, ids) for (B, S) right-padded histories,
     with a per-query additive logit mask ``vocab_masks`` (B, V): 0 for
     allowed ids, a large negative for pad/seen/black-listed ones.
+    ``model`` is a ``SeqRec`` or a ``models/moe_seqrec.MoESeqRec``: its
+    forward gives the hidden states and its ``logits`` the scores;
+    ``real_tokens`` (at least the real positions, where the caller knows
+    it on the host) goes to the forward.
 
     Stage spans: ``seqrec.copy_in`` (the histories to the device: empty
     when the caller built them there, as the sessionrec template does;
@@ -427,9 +438,9 @@ def predict_topk_batch(
     with span("seqrec.forward"):
         mask = history != PAD
         last = (mask.sum(dim=1) - 1).clamp_min(0)
-        h = model(history, attention=attention)
+        h = model(history, attention=attention, real_tokens=real_tokens)
         hl = h[torch.arange(h.shape[0], device=h.device), last]         # (B, D)
-        logits = logits_from_hidden(model, hl) + vocab_masks.to(model.device)
+        logits = model.logits(hl) + vocab_masks.to(model.device)
     with span("seqrec.topk"):
         return topk_lowest_index(logits, k)
 

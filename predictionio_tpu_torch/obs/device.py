@@ -174,6 +174,25 @@ def device_memory_collector() -> Callable[[], Iterable[Metric]]:
     return collect
 
 
+def flash_launch_collector() -> Callable[[], Iterable[Metric]]:
+    """Scrape-time ``pio_flash_launches_total{kind}``: the flash-attention
+    kernel's launches in this process, ``full`` (no window) or
+    ``window`` (``ops/flash_attention.LAUNCHES_BY_KIND``); no family
+    before the first launch."""
+
+    def collect() -> list[Metric]:
+        from predictionio_tpu_torch.ops.flash_attention import LAUNCHES_BY_KIND
+
+        if not any(LAUNCHES_BY_KIND.values()):
+            return []
+        return [Metric(
+            name="pio_flash_launches_total", kind="counter",
+            help="Flash-attention kernel launches by kind (full, window)",
+            samples=[({"kind": k}, float(n)) for k, n in sorted(LAUNCHES_BY_KIND.items())])]
+
+    return collect
+
+
 def _device_kind(device: Any) -> str:
     """The kind string of ``device`` (None: the current card): "cpu" for
     the CPU, the card's name once this process has initialized CUDA."""

@@ -14,6 +14,14 @@ one at the run's ``checkpoint_location``, behind a
 ``PersistentModelManifest``. Besides training, a model comes from
 :func:`init_engine_model` (random weights from a seeded generator) or
 from a JAX-trained model's arrays (:meth:`SeqRecEngineModel.from_jax`).
+
+Two model kinds serve through the same path: ``"seqrec"`` (the trained
+SASRec-family ``models/seqrec.SeqRec``, a ``SeqRecConfig``) and
+``"moe_seqrec"`` (``models/moe_seqrec.MoESeqRec``, a Mellum-class MoE
+block from a ``MoESeqRecConfig``, served from given weights). The kind
+follows the config's class and is saved beside it; a saved model
+without one is a ``"seqrec"``.
+
 Evaluation holds out each user's last item (``read_eval``, leave-one-out
 over ``eval_k`` folds) and scores HitRate@K: ``run_evaluation(
 SessionRecEvaluation(), DefaultParamsList(app_name=...))``, each fold
@@ -55,7 +63,7 @@ from predictionio_tpu_torch.controller import (
     SanityCheck,
 )
 from predictionio_tpu_torch.controller.persistent_model import checkpoint_location
-from predictionio_tpu_torch.models import seqrec
+from predictionio_tpu_torch.models import moe_seqrec, seqrec
 from predictionio_tpu_torch.obs.trace import span
 from predictionio_tpu_torch.ops.topk import serving_k
 from predictionio_tpu_torch.utils.bimap import BiMap
@@ -64,6 +72,13 @@ from predictionio_tpu_torch.utils.device import resolve_device
 _NEG = np.float32(-1e30)
 #: largest power-of-two batch one forward takes
 _MAX_BUCKET = 256
+#: model kind -> (config class, module class)
+KINDS = {"seqrec": (seqrec.SeqRecConfig, seqrec.SeqRec),
+         "moe_seqrec": (moe_seqrec.MoESeqRecConfig, moe_seqrec.MoESeqRec)}
+
+
+def model_kind(cfg: Any) -> str:
+    return next(kind for kind, (cls, _) in KINDS.items() if isinstance(cfg, cls))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,8 +194,10 @@ class SessionDataSource(DataSource):
 
 @dataclasses.dataclass
 class SeqRecEngineModel:
-    params: dict            # f32 state dict on the host (models/seqrec.py keys)
-    cfg: seqrec.SeqRecConfig
+    # the module's state dict: f32 on the host for a SeqRec; in the
+    # config's dtype, on the host or the device, for a MoESeqRec
+    params: dict
+    cfg: seqrec.SeqRecConfig | moe_seqrec.MoESeqRecConfig
     item_index: BiMap       # item id string -> dense index (1-based)
     histories: dict         # user -> [dense item indices] (serving state)
     device: torch.device = dataclasses.field(default_factory=lambda: resolve_device())
@@ -192,10 +209,18 @@ class SeqRecEngineModel:
     train_run: seqrec.TrainRun | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
-    def as_module(self) -> seqrec.SeqRec:
+    def as_module(self) -> seqrec.SeqRec | moe_seqrec.MoESeqRec:
         if self.module is None:
-            self.module = seqrec.SeqRec.from_state(self.cfg, self.params, self.device)
+            module_class = KINDS[model_kind(self.cfg)][1]
+            self.module = module_class.from_state(self.cfg, self.params, self.device)
         return self.module
+
+    def metric_families(self) -> list:
+        """What the served module exports at scrape time (the MoE kind's
+        device-side counters); nothing before its first predict, or for
+        a module with none."""
+        fn = getattr(self.module, "metric_families", None)
+        return fn() if fn is not None else []
 
     def packed_histories(self) -> tuple[np.ndarray, dict]:
         """``(ids, spans)``: every user's history end to end in one int32
@@ -225,18 +250,22 @@ class SeqRecEngineModel:
         )
 
 
-def init_engine_model(cfg: seqrec.SeqRecConfig, item_ids: list[str],
-                      histories: Mapping[str, list[str]], *, seed: int = 0,
-                      device: str | torch.device | None = None) -> SeqRecEngineModel:
-    """A model with random weights from ``seed``: dense index i+1 for
+def init_engine_model(cfg: seqrec.SeqRecConfig | moe_seqrec.MoESeqRecConfig,
+                      item_ids: list[str], histories: Mapping[str, list[str]], *,
+                      seed: int = 0, device: str | torch.device | None = None,
+                      params: Mapping[str, torch.Tensor] | None = None) -> SeqRecEngineModel:
+    """A model of ``cfg``'s kind with the given ``params`` (its state
+    dict), else random weights from ``seed``: dense index i+1 for
     ``item_ids[i]``; ``histories`` are given in item ids."""
     if len(item_ids) + 1 != cfg.vocab:
         raise ValueError(f"{len(item_ids)} items need vocab {len(item_ids) + 1}, "
                          f"config has {cfg.vocab}")
     item_index = BiMap({item: i + 1 for i, item in enumerate(item_ids)})
-    gen = torch.Generator().manual_seed(seed)
+    if params is None:
+        init = moe_seqrec.init_params if model_kind(cfg) == "moe_seqrec" else seqrec.init_params
+        params = init(cfg, torch.Generator().manual_seed(seed))
     return SeqRecEngineModel(
-        params=seqrec.init_params(cfg, gen),
+        params=dict(params),
         cfg=cfg,
         item_index=item_index,
         histories={u: [item_index[i] for i in h] for u, h in histories.items()},
@@ -245,13 +274,14 @@ def init_engine_model(cfg: seqrec.SeqRecConfig, item_ids: list[str],
 
 
 def save_engine_model(model: SeqRecEngineModel, directory: str) -> None:
-    """``params.npz`` (f32 arrays by state-dict key) + ``model.json``
-    (config, item index, histories)."""
+    """``params.npz`` (f32 arrays by state-dict key; bf16 weights widen
+    exactly) + ``model.json`` (model kind, config, item index,
+    histories)."""
     os.makedirs(directory, exist_ok=True)
     np.savez(os.path.join(directory, "params.npz"),
-             **{k: v.detach().cpu().numpy() for k, v in model.params.items()})
-    doc = {"cfg": model.cfg.to_json(), "itemIndex": model.item_index.to_dict(),
-           "histories": model.histories}
+             **{k: v.detach().float().cpu().numpy() for k, v in model.params.items()})
+    doc = {"kind": model_kind(model.cfg), "cfg": model.cfg.to_json(),
+           "itemIndex": model.item_index.to_dict(), "histories": model.histories}
     with open(os.path.join(directory, "model.json"), "w") as f:
         json.dump(doc, f)
 
@@ -260,11 +290,14 @@ def load_engine_model(directory: str, device: str | torch.device | None = None
                       ) -> SeqRecEngineModel:
     with open(os.path.join(directory, "model.json")) as f:
         doc = json.load(f)
+    cfg = KINDS[doc.get("kind", "seqrec")][0].from_json(doc["cfg"])
+    # a MoESeqRec's weights are held in its dtype from load on
+    dtype = cfg.dtype if model_kind(cfg) == "moe_seqrec" else torch.float32
     with np.load(os.path.join(directory, "params.npz")) as arrays:
-        params = {k: torch.from_numpy(arrays[k]) for k in arrays.files}
+        params = {k: torch.from_numpy(arrays[k]).to(dtype) for k in arrays.files}
     return SeqRecEngineModel(
         params=params,
-        cfg=seqrec.SeqRecConfig.from_json(doc["cfg"]),
+        cfg=cfg,
         item_index=BiMap(doc["itemIndex"]),
         histories=doc["histories"],
         device=resolve_device(device),
@@ -427,7 +460,8 @@ class SeqRecAlgorithm(HostModelAlgorithm):
                 histories, masks = _assemble_bucket(
                     model, ids[ends[lo] : ends[hi]], lengths[lo:hi],
                     black[black_ends[lo] : black_ends[hi]], counts[lo:hi])
-            scores, top = seqrec.predict_topk_batch(module, histories, k, masks)
+            scores, top = seqrec.predict_topk_batch(module, histories, k, masks,
+                                                    real_tokens=int(lengths[lo:hi].sum()))
             with span("seqrec.fetch"):
                 scores = scores.cpu().numpy()
                 top = top.cpu().numpy()
